@@ -14,14 +14,33 @@ Phases (any failure raises and exits nonzero):
    with a ragged tail, plus an overflow case): outputs must be identical.
    Each is timed with CUDA events (median of repeats) beside its bound
    computed from this run's inputs;
-3. a small-input reference check: the model's logits on the card agree
+3. the full-stream decode (B3) and the slab decode (B4) on the same
+   stream with top-4 candidates: B3 on the dense chunks, also truncated by
+   3 bytes per cell; B4 straight off the packed v2 container, also on
+   three index planes poisoned after validation.  Kernel, plain version
+   and B3/B4 must agree on symbols, probe and underflow planes;
+4. the Fig. 4(b) point: B3 on 64 lanes x 2048 ``image_rows`` with the
+   static histogram table and each predictor; kernel == plain, and the
+   probe totals must be exactly 1,046,915 / 650,352 / 552,027 (no
+   predictor, ``NeighborAverage(4, 8)``, ``NeighborAverage(2, 4)``);
+5. the image path at 4 megapixels (a 2048 x 2048 ``synthetic_image`` as
+   256 lanes x 16,384): ``histogram_compress`` and the B1 static encode
+   give byte-identical v1 containers, ``unpack`` ->
+   ``histogram_decompress(predictor=NeighborAverage(4, 8))`` (B3) is
+   bit-exact, the ``coder`` backend gives equal per-lane probes, with
+   launch counters reset just before and read just after;
+6. a small-input reference check: the model's logits on the card agree
    with the same model's logits on the CPU;
-4. the slice: ``ras-pimc`` at full width, 128 lanes x 1000 tokens, chunk
+7. the slice: ``ras-pimc`` at full width, 128 lanes x 1000 tokens, chunk
    256, through ``lm_compress_chunked(backend="kernel")`` ->
    ``pack_chunked`` -> ``parse_chunked`` ->
    ``lm_decompress_chunked(backend="kernel")`` with launch counters reset
    just before and read just after; then the ``coder`` backend on the card
-   must give a byte-identical container and equal per-lane probes.
+   must give a byte-identical container and equal per-lane probes;
+8. the two-pass decode of the same container,
+   ``lm_decompress_chunked(backend="two_pass")`` from the ``ContainerSlab``:
+   bit-exact, per-lane probes equal to the fused decode's, and exactly one
+   B4 launch between counters reset and read.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
@@ -41,8 +60,23 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 LANES, T, K, CHUNK, TOPK = 128, 1000, 256, 256, 4
+FIG4B_LANES, FIG4B_T = 64, 2048                # BENCH_search.json's point
+FIG4B_TOTALS = (1046915, 650352, 552027)       # its committed probe totals
+IMAGE_SIDE, IMAGE_LANES = 2048, 256            # 4-megapixel 8-bit image
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-ALU32_OPS_PER_S = 67e12          # H100 SXM 32-bit rate outside tensor cores
+# H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
+# (the coders do integer work; the 67 TFLOP/s float32 rate counts an FMA
+# as two operations and runs on twice the lanes)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def _bound(moved: int, ops: int) -> tuple[float, str]:
+    """The least time for the work, in ms, and what bounds it: the bytes
+    moved over the memory rate or the integer operations over the INT32
+    rate, whichever is larger."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _median_ms(fn, repeats: int, warmup: int = 2) -> float:
@@ -137,17 +171,17 @@ def encode_phase(dev):
     moved = (LANES * T * (4 + 5 * 4)           # symbol + five gathered planes
              + n_chunks * LANES * (cap + 9))   # streams + start/len/overflow
     ops = LANES * T * 10                        # ~10 integer ops per step
-    bound_ms = max(moved / HBM_BYTES_PER_S, ops / ALU32_OPS_PER_S) * 1e3
+    bound_ms, bound_by = _bound(moved, ops)
     print(f"B1 encode: {ms:.4f} ms kernel on the device ({call_ms:.4f} ms "
           f"per wrapper call), {plain_ms:.2f} ms plain, bound "
-          f"{bound_ms:.6f} ms ({moved} B moved); one thread per "
-          f"(chunk, lane) walks {CHUNK} dependent steps: latency-bound",
-          flush=True)
+          f"{bound_ms:.6f} ms by {bound_by} ({moved} B moved, {ops} ops); "
+          f"one thread per (chunk, lane) walks {CHUNK} dependent steps: "
+          "latency-bound", flush=True)
     return dict(name="rans_encode_lanes", route="cuda",
                 source="src/repro_torch/csrc/rans_encode.cu",
                 replaces="src/repro/kernels/rans_encode.py:469",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 call_ms=call_ms), (syms, tables, got)
 
 
@@ -198,17 +232,290 @@ def decode_phase(dev, encoded):
     read = int((one[1] - p0).sum())
     moved = (LANES * (8 + 4 * TOPK + 4 + 20)  # s, ptr, cands, f[x], outputs
              + 8 * cand_probes + 4 * bisect_probes + read)
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops = 12 * LANES + 4 * int(one[3].sum())  # per lane ~12, per probe ~4
+    bound_ms, bound_by = _bound(moved, ops)
     print(f"B2 decode step: {ms:.4f} ms kernel on the device "
           f"({call_ms:.4f} ms per wrapper call), {plain_ms:.3f} ms plain, "
-          f"bound {bound_ms:.8f} ms ({moved} B moved); launch-bound",
-          flush=True)
+          f"bound {bound_ms:.8f} ms by {bound_by} ({moved} B moved, {ops} "
+          "ops); launch-bound", flush=True)
     return dict(name="rans_decode_step", route="cuda",
                 source="src/repro_torch/csrc/rans_decode_step.cu",
                 replaces="src/repro/kernels/rans_decode.py:560",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 call_ms=call_ms)
+
+
+def _decode_bound(sym, probes, *, stream_bytes: int, cells: int,
+                  index_bytes: int, predictor: bool,
+                  static_table_bytes: int | None = None, cands=None):
+    """The full-stream decode's bound at these inputs: ``(ms, bound_by,
+    bytes moved)``, see :func:`_bound`.  Bytes: the stream bytes read once,
+    ``index_bytes`` per cell (``start``, or ``base``/``wstart``/``wlen``)
+    and 8 B of probe and underflow planes per cell; 4 B per symbol written;
+    4 B per candidate id tried.  A static table (``static_table_bytes``) is
+    read once into shared memory and costs nothing more.  Per-position or
+    per-lane rows are read from device memory where the search touches
+    them: per symbol 4 B for ``f[x]``, per candidate tried ``cdf[c]`` and
+    ``cdf[c+1]``, 8 B per window verify, 4 B per bisection probe
+    (``cdf[x]`` is read by then).  A candidate resolves a symbol at the
+    first slot holding it, so the candidate probes follow from the symbols
+    and the planes."""
+    import torch
+    n = sym.numel()
+    total = int(probes.sum())
+    cand = resolved = 0
+    if cands is not None:
+        hits = cands.clamp(0, K - 1) == sym.T[..., None].to(cands.dtype)
+        hit = hits.any(-1)
+        first = hits.to(torch.int32).argmax(-1) + 1
+        cand = int(torch.where(hit, first, cands.shape[-1]).sum())
+        resolved = int(hit.sum())
+    window = n - resolved if predictor else 0
+    bisect = total - cand - window
+    _check(bisect >= 0, "probe breakdown is negative")
+    moved = stream_bytes + cells * (index_bytes + 8) + 4 * n + 4 * cand
+    if static_table_bytes is None:
+        moved += 4 * n + 8 * cand + 8 * window + 4 * bisect
+    else:
+        moved += static_table_bytes
+    ops = 12 * n + 4 * total              # per symbol ~12, per probe ~4
+    return *_bound(moved, ops), moved
+
+
+def chunked_decode_phase(dev, encoded):
+    """B3 on the dense chunked stream and B4 straight off its packed v2
+    container, at the slice's shapes with top-4 candidates."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.core.bitstream import ChunkedLanes
+    from repro_torch.core.spc import FreqCdf
+    from repro_torch.kernels import ops, rans_decode
+
+    syms, tables, enc_out = encoded
+    chunks = ChunkedLanes(*enc_out)
+    tbl = FreqCdf(tables.freq, tables.cdf)
+    cands = torch.topk(tables.freq, TOPK, dim=-1).indices.to(torch.int32)
+
+    def b3(buf, plain=False):
+        fn = (rans_decode.rans_decode_lanes_plain if plain
+              else rans_decode.rans_decode_lanes)
+        return fn(buf, chunks.start, tbl.freq, tbl.cdf, T, CHUNK,
+                  candidates=cands)
+
+    got, ref = b3(chunks.buf), b3(chunks.buf, plain=True)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, ref)
+    _check(torch.equal(got[0], syms), "B3 lost a symbol")
+    _check(int(got[2].sum()) == 0, "B3 flagged a valid stream")
+    short = chunks.buf[..., :-3].contiguous()     # 3 bytes cut per cell
+    got_s, ref_s = b3(short), b3(short, plain=True)
+    torch.cuda.synchronize()
+    err = max(err, _max_abs_err(got_s, ref_s))
+    _check(int(got_s[2].sum()) > 0, "truncated stream not flagged")
+    flags = ops.rans_decode_chunked(
+        ChunkedLanes(short, chunks.start, chunks.length - 3), T, tbl, CHUNK,
+        candidates=cands, exhausted_flags=True)[-1]
+    _check(torch.equal(flags, got_s[2] > 0), "ops exhausted flags differ")
+    print(f"B3 chunked: kernel == plain at ({LANES} lanes, T={T}, chunk "
+          f"{CHUNK}, per-lane tables, top-{TOPK} candidates) and truncated "
+          f"by 3 bytes per cell ({int((got_s[2] > 0).sum())} cells flagged, "
+          f"{int(got_s[2].sum())} underflowing reads)", flush=True)
+    b3_ms = _device_ms(lambda: b3(chunks.buf), n=10)
+
+    blob = bitstream.pack_chunked(*chunks, chunk_size=CHUNK, n_symbols=T)
+    cs = bitstream.parse_chunked(blob)
+    res = ops.rans_decode_chunked(tbl=tbl, from_container=cs,
+                                  candidates=cands, chunk_probes=True)
+    _check(torch.equal(res[0], got[0]) and torch.equal(res[2], got[1]),
+           "B4 from the container differs from B3 on the dense stream")
+    planes, cap = ops.slab_planes(cs, dev)
+    kw = dict(cap=cap, t_len=T, chunk_size=CHUNK, candidates=cands)
+
+    def b4(p, plain=False):
+        fn = (rans_decode.rans_decode_slab_plain if plain
+              else rans_decode.rans_decode_slab)
+        return fn(*p, tbl.freq, tbl.cdf, **kw)
+
+    got4, ref4 = b4(planes), b4(planes, plain=True)
+    torch.cuda.synchronize()
+    err = max(err, _max_abs_err(got4, ref4), _max_abs_err(got4, got))
+    s = cs.slab.shape[0]               # tests/test_bitstream_fuzz.py's three
+    poisons = {
+        "offset_past_end": cs._replace(
+            offset=np.full_like(cs.offset, s + 1000)),
+        "length_past_window": cs._replace(
+            length=np.full_like(cs.length, cs.cap + 7)),
+        "both_hostile": cs._replace(
+            offset=np.full_like(cs.offset, s - 1),
+            length=np.full_like(cs.length, cs.cap + 3)),
+    }
+    flagged = {}
+    for name, bad in poisons.items():
+        p, _ = ops.slab_planes(bad, dev)
+        g, r = b4(p), b4(p, plain=True)
+        flags = ops.rans_decode_chunked(tbl=tbl, from_container=bad,
+                                        candidates=cands,
+                                        exhausted_flags=True)[-1]
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(g, r))
+        _check(torch.equal(flags, g[2] > 0), f"{name}: ops flags differ")
+        flagged[name] = int(flags.sum())
+    _check(flagged["offset_past_end"] == cs.offset.size,
+           "offsets past the payload end not flagged in every cell")
+    print(f"B4 slab: kernel == plain == B3 off the packed v2 container "
+          f"({len(blob)} bytes), and kernel == plain on the 3 poisoned "
+          f"slabs (flagged cells {flagged})", flush=True)
+
+    ms = _device_ms(lambda: b4(planes), n=10)
+    call_ms = _median_ms(lambda: b4(planes), repeats=30)
+    plain_ms = _median_ms(lambda: b4(planes, plain=True), repeats=3,
+                          warmup=1)
+    bound_ms, bound_by, moved = _decode_bound(
+        got4[0], got4[1], stream_bytes=int(cs.length.sum()),
+        cells=cs.offset.size, index_bytes=12, predictor=False, cands=cands)
+    print(f"B4 slab: {ms:.4f} ms kernel on the device ({call_ms:.4f} ms per "
+          f"wrapper call; B3 on the dense stream {b3_ms:.4f} ms), "
+          f"{plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms by {bound_by} "
+          f"({moved} B moved); {cs.offset.size} cells each walk {CHUNK} "
+          "dependent steps: latency-bound", flush=True)
+    return dict(name="rans_decode_slab", route="cuda",
+                source="src/repro_torch/csrc/rans_decode_lanes.cu",
+                replaces="src/repro/kernels/rans_decode.py:379",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                call_ms=call_ms, b3_chunked_ms=b3_ms)
+
+
+def fig4b_phase(dev):
+    """B3 at the Fig. 4(b) point: static histogram table, each predictor;
+    the probe totals are integers the JAX package also gives."""
+    import torch
+    from repro_torch.core.predictors import (LastValue, NeighborAverage,
+                                             ZeroPredictor)
+    from repro_torch.data.pipeline import image_rows
+    from repro_torch.kernels import rans_decode
+    from repro_torch.serve import compress
+
+    rows = image_rows(FIG4B_LANES, FIG4B_T, seed=0)
+    enc, tbl = compress.histogram_compress(rows, K)
+    want = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    args = (enc.buf, enc.start, tbl.freq, tbl.cdf, FIG4B_T)
+    points = [("no predictor", None),
+              ("NeighborAverage(4, 8)", NeighborAverage(4, 8)),
+              ("NeighborAverage(2, 4)", NeighborAverage(2, 4)),
+              ("LastValue(8)", LastValue(8)),
+              ("ZeroPredictor(8)", ZeroPredictor(8))]
+    err, totals = 0, []
+    for name, pred in points:
+        got = rans_decode.rans_decode_lanes(*args, predictor=pred)
+        ref = rans_decode.rans_decode_lanes_plain(*args, predictor=pred)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, ref))
+        _check(torch.equal(got[0], want) and int(got[2].sum()) == 0,
+               f"Fig. 4(b) {name}: decode not exact")
+        totals.append(int(got[1].sum()))
+        print(f"Fig. 4(b) {name}: {totals[-1]} probes, "
+              f"{totals[-1] / want.numel():.4f} probes/symbol "
+              "(kernel == plain)", flush=True)
+    _check(tuple(totals[:3]) == FIG4B_TOTALS,
+           f"probe totals {totals[:3]} != {FIG4B_TOTALS}")
+    ms = _device_ms(lambda: rans_decode.rans_decode_lanes(
+        *args, predictor=points[1][1]), n=5)
+    print(f"Fig. 4(b): {FIG4B_LANES} lanes x {FIG4B_T} image_rows(seed=0), "
+          f"totals {totals[:3]} equal BENCH_search.json's; "
+          f"{totals[0] / want.numel():.4f} -> {totals[1] / want.numel():.4f}"
+          f" -> {totals[2] / want.numel():.4f} probes/symbol (paper: 7.00 "
+          f"-> 3.15 search steps); B3 {ms:.4f} ms on the device with "
+          "NeighborAverage(4, 8)", flush=True)
+    return err
+
+
+def image_phase(dev):
+    """The static-table image path at 4 megapixels, end to end, then B3's
+    record at its shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.core.predictors import NeighborAverage
+    from repro_torch.data.pipeline import synthetic_image
+    from repro_torch.kernels import LAUNCHES, ops, rans_decode, reset_launches
+    from repro_torch.serve import compress
+
+    img = synthetic_image(IMAGE_SIDE, IMAGE_SIDE, seed=42)
+    rows = img.reshape(IMAGE_LANES, -1).astype(np.int64)
+    lanes, n = rows.shape
+    pred = NeighborAverage(4, 8)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_launches()
+    (enc_c, tbl), t_coder = timed(lambda: compress.histogram_compress(rows,
+                                                                      K))
+    enc_k, t_enc = timed(lambda: ops.rans_encode(torch.as_tensor(
+        rows, dtype=torch.int32, device=dev), tbl))
+    blob = bitstream.pack(*enc_k, n_symbols=n)
+    _check(bitstream.pack(*enc_c, n_symbols=n) == blob,
+           "coder and B1 v1 containers differ")
+    buf, start, meta = bitstream.unpack(blob)
+    enc = bitstream.EncodedLanes(torch.as_tensor(buf, device=dev),
+                                 torch.as_tensor(start, device=dev), None)
+    (sym, avg, lp), t_dec = timed(lambda: compress.histogram_decompress(
+        enc, meta.n_symbols, tbl, predictor=pred, lane_probes=True))
+    launches = dict(LAUNCHES)
+    _check(launches == {"rans_encode_lanes": 1, "rans_decode_step": 0,
+                        "rans_decode_lanes": 1, "rans_decode_slab": 0},
+           f"image path launch counts {launches}")
+    _check(np.array_equal(sym.cpu().numpy(), rows),
+           "image round trip not exact")
+    _, avg0 = compress.histogram_decompress(enc, n, tbl)
+    csym, _, clp = compress.histogram_decompress(
+        enc, n, tbl, predictor=pred, backend="coder", lane_probes=True)
+    _check(torch.equal(csym, sym) and torch.equal(clp, lp),
+           "coder backend differs from B3 on the image")
+    print(f"image: {IMAGE_SIDE}x{IMAGE_SIDE} 8-bit synthetic_image(seed=42) "
+          f"as {lanes} lanes x {n}: B1 and coder v1 containers "
+          f"byte-identical ({len(blob)} bytes), round trip bit-exact, coder "
+          f"backend equal per-lane probes; launches {launches}", flush=True)
+    print(f"image: CR {rows.size / len(blob):.4f}, "
+          f"{8 * len(blob) / rows.size:.4f} bits/symbol; probes/symbol "
+          f"{float(avg0):.4f} baseline -> {float(avg):.4f} with "
+          f"NeighborAverage(4, 8); B1 encode {rows.size / t_enc:.1f} "
+          f"symbols/s ({t_enc:.4f} s), B3 decode {rows.size / t_dec:.1f} "
+          f"symbols/s ({t_dec:.4f} s), coder compress "
+          f"{rows.size / t_coder:.1f} symbols/s", flush=True)
+
+    args = (enc.buf, enc.start, tbl.freq, tbl.cdf, n)
+
+    def call():
+        return rans_decode.rans_decode_lanes(*args, predictor=pred)
+
+    got = call()
+    ref, plain_s = timed(lambda: rans_decode.rans_decode_lanes_plain(
+        *args, predictor=pred))
+    err = _max_abs_err(got, ref)
+    ms = _device_ms(call, n=3, repeats=3)
+    call_ms = _median_ms(call, repeats=5, warmup=1)
+    bound_ms, bound_by, moved = _decode_bound(
+        got[0], got[1], stream_bytes=int(enc_k.length.sum()), cells=lanes,
+        index_bytes=4, predictor=True, static_table_bytes=(2 * K + 1) * 4)
+    print(f"B3 image: kernel == plain; {ms:.4f} ms kernel on the device "
+          f"({call_ms:.4f} ms per wrapper call), {plain_s * 1e3:.1f} ms "
+          f"plain (one run), bound {bound_ms:.6f} ms by {bound_by} ({moved} "
+          f"B moved, {ms / bound_ms:.0f}x); {lanes} threads each walk {n} "
+          "dependent steps: latency-bound", flush=True)
+    return dict(name="rans_decode_lanes", route="cuda",
+                source="src/repro_torch/csrc/rans_decode_lanes.cu",
+                replaces="src/repro/kernels/rans_decode.py:223",
+                max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                call_ms=call_ms), launches
 
 
 def reference_check(dev):
@@ -238,14 +545,13 @@ def main_path(dev):
     from repro_torch.configs.ras_pimc import CONFIG
     from repro_torch.core import bitstream
     from repro_torch.data.pipeline import token_stream
-    from repro_torch.kernels import rans_decode, rans_encode
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_model
     from repro_torch.serve import compress
 
     model = init_model(CONFIG, seed=0, device=dev)
     tokens = token_stream(CONFIG.vocab_size, (LANES, T), seed=0)
-    rans_encode.LAUNCHES = 0
-    rans_decode.LAUNCHES = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = compress.lm_compress_chunked(model, tokens, CHUNK, backend="kernel")
@@ -259,9 +565,9 @@ def main_path(dev):
         model, cs, T, CHUNK, backend="kernel", lane_probes=True)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
-    launches = {"rans_encode_lanes": rans_encode.LAUNCHES,
-                "rans_decode_step": rans_decode.LAUNCHES}
-    _check(launches == {"rans_encode_lanes": 1, "rans_decode_step": T},
+    launches = dict(LAUNCHES)
+    _check(launches == {"rans_encode_lanes": 1, "rans_decode_step": T,
+                        "rans_decode_lanes": 0, "rans_decode_slab": 0},
            f"launch counts {launches}")
     _check(np.array_equal(sym.cpu().numpy(), tokens), "round trip not exact")
     print(f"slice: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
@@ -285,6 +591,39 @@ def main_path(dev):
     _check(torch.equal(lane_probes_c, lane_probes), "per-lane probes differ")
     print("slice: coder backend on the card: byte-identical container, "
           "equal per-lane probes", flush=True)
+    return launches, dict(model=model, tokens=tokens, cs=cs,
+                          lane_probes=lane_probes, t_dec=t_dec)
+
+
+def two_pass_phase(slice_run):
+    """The two-pass decode of the slice's container: pass 1 is the coder
+    scan collecting tables and candidates, pass 2 one B4 launch."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import compress
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sym, _, lane_probes = compress.lm_decompress_chunked(
+        slice_run["model"], slice_run["cs"], T, CHUNK, backend="two_pass",
+        lane_probes=True)
+    torch.cuda.synchronize()
+    t_two = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check(launches == {"rans_encode_lanes": 0, "rans_decode_step": 0,
+                        "rans_decode_lanes": 0, "rans_decode_slab": 1},
+           f"two-pass launch counts {launches}")
+    _check(np.array_equal(sym.cpu().numpy(), slice_run["tokens"]),
+           "two-pass round trip not exact")
+    _check(torch.equal(lane_probes, slice_run["lane_probes"]),
+           "two-pass per-lane probes differ from the fused decode's")
+    print(f"two-pass: round trip bit-exact from the ContainerSlab, per-lane "
+          f"probes equal the fused decode's; launches {launches}; "
+          f"{LANES * T / t_two:.1f} symbols/s ({t_two:.3f} s) against the "
+          f"fused decode's {LANES * T / slice_run['t_dec']:.1f} symbols/s "
+          "in this run", flush=True)
     return launches
 
 
@@ -316,13 +655,20 @@ def main() -> int:
 
     b1, encoded = encode_phase(dev)
     b2 = decode_phase(dev, encoded)
+    b4 = chunked_decode_phase(dev, encoded)
     del encoded
     torch.cuda.empty_cache()
+    b3_err = fig4b_phase(dev)
+    b3, image_launches = image_phase(dev)
+    b3["max_abs_err"] = max(b3["max_abs_err"], b3_err)
     reference_check(dev)
-    launches = main_path(dev)
-    for rec in (b1, b2):
+    slice_launches, slice_run = main_path(dev)
+    two_pass_launches = two_pass_phase(slice_run)
+    # each kernel's launches on the main path that runs it
+    for rec, launches in ((b1, slice_launches), (b2, slice_launches),
+                          (b3, image_launches), (b4, two_pass_launches)):
         rec["launches"] = launches[rec["name"]]
-    print(json.dumps({"kernels": [b1, b2]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, b3, b4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

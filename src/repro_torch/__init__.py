@@ -2,8 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``, ``data/``)
-and never imports ``jax`` or ``repro``.  The two TPU kernels on the main
-path are hand-written CUDA kernels for ``sm_90a`` under ``csrc/``; each sits
+and never imports ``jax`` or ``repro``.  Four of the reference's six TPU
+kernels are hand-written CUDA kernels for ``sm_90a`` under ``csrc/``: the
+encode (``rans_encode.cu``), the per-step decode (``rans_decode_step.cu``)
+and the full-stream and slab decodes (``rans_decode_lanes.cu``).  Each sits
 beside a plain PyTorch version of the same arithmetic, which runs for CPU
 tensors (the CPU test tier) and is the kernel's yardstick on the card.
 

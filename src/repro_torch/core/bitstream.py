@@ -1,9 +1,12 @@
-"""Multi-lane stream representations and the v2 wire container.
+"""Multi-lane stream representations and the v1 and v2 wire containers.
 
-Port of the parts of ``repro.core.bitstream`` the main path needs.  The
-container is host-side numpy and byte-identical to the reference::
+Port of ``repro.core.bitstream``.  The containers are host-side numpy and
+byte-identical to the reference::
 
-    header (24 bytes):
+    v1 ("RAS1"): magic(4) | version u8 = 1 | prob_bits u8 | reserved u16
+        | lanes u32 | n_symbols u32 | per-lane length (u32 * lanes)
+        | concatenated lane payloads (lane-major)
+    v2 ("RAS2") header (24 bytes):
         magic "RAS2"(4) | version u8 = 2 | prob_bits u8 | flags u16
         | lanes u32 | n_symbols u32 | chunk_size u32 | n_chunks u32
     chunk index table (12 bytes per cell, 16 with FLAG_CHUNK_CRC32,
@@ -15,7 +18,8 @@ container is host-side numpy and byte-identical to the reference::
 ``ValueError``\\ s in the same order as the reference (truncated header,
 index, payload span; overlapping or inflated spans; CRC mismatch naming the
 (chunk, lane)), then a :class:`ContainerSlab` that indexes the payload in
-place.  v1 blobs parse as one chunk.
+place.  v1 blobs parse as one chunk.  :func:`unpack` and
+:func:`unpack_chunked` add the dense right-align gather.
 
 The device-side forms :class:`EncodedLanes` ``(lanes, cap)`` and
 :class:`ChunkedLanes` ``(n_chunks, lanes, cap)`` hold right-aligned
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.device import resolve_device
 
 
 class EncodedLanes(NamedTuple):
@@ -63,6 +68,13 @@ _HEADER_V2 = struct.Struct("<4sBBHIIII")
 _INDEX_V2_DT = np.dtype([("offset", "<u8"), ("length", "<u4")])
 _INDEX_V2C_DT = np.dtype([("offset", "<u8"), ("length", "<u4"),
                           ("crc", "<u4")])
+
+
+class Container(NamedTuple):
+    payload: bytes
+    prob_bits: int
+    lanes: int
+    n_symbols: int
 
 
 class ChunkedContainer(NamedTuple):
@@ -151,10 +163,26 @@ def pack_chunked(buf, start, length, overflow=None, *,
     return bytes(out)
 
 
+def pack(enc_buf, start, length, overflow=None, *, n_symbols: int,
+         prob_bits: int = C.PROB_BITS) -> bytes:
+    """EncodedLanes arrays (tensors or numpy) -> container v1 bytes;
+    overflowed lanes refuse to pack."""
+    _check_no_overflow(_host(overflow))
+    enc_buf = np.asarray(_host(enc_buf), np.uint8)
+    start = np.asarray(_host(start), np.int64)
+    length = np.asarray(_host(length), np.int64)
+    lanes = enc_buf.shape[0]
+    out = bytearray()
+    out += _HEADER.pack(MAGIC, 1, prob_bits, 0, lanes, n_symbols)
+    out += np.asarray(length, np.uint32).tobytes()
+    for i in range(lanes):
+        out += enc_buf[i, start[i]:start[i] + length[i]].tobytes()
+    return bytes(out)
+
+
 def _parse_v1(blob: bytes):
-    """Validation-only v1 parse -> (payload view, offsets, length, meta)."""
-    if blob[:4] != MAGIC:
-        raise ValueError("not a RAS container")
+    """Validation-only parse of a blob with the v1 magic -> (payload view,
+    offsets, length, meta)."""
     if len(blob) < _HEADER.size:
         raise ValueError(
             f"truncated container v1: header needs {_HEADER.size} bytes, "
@@ -260,10 +288,45 @@ def parse_chunked(blob: bytes) -> ContainerSlab:
                          cap=int(length.max()) if cells else 0, meta=meta)
 
 
-def slab_to_chunked(cs: ContainerSlab,
-                    device: torch.device | str = "cpu") -> ChunkedLanes:
+def unpack(blob: bytes) -> tuple[np.ndarray, np.ndarray, Container]:
+    """Container v1 bytes -> ``((lanes, cap) uint8 right-aligned buf, start
+    int32, meta)``; v2 blobs go to :func:`unpack_chunked`."""
+    if blob[:4] == MAGIC_V2:
+        raise ValueError("chunked container v2: use bitstream.unpack_chunked")
+    buf, start, meta = unpack_chunked(blob)
+    return buf[0], start[0], Container(payload=b"", prob_bits=meta.prob_bits,
+                                       lanes=meta.lanes,
+                                       n_symbols=meta.n_symbols)
+
+
+def unpack_chunked(blob: bytes) -> tuple[np.ndarray, np.ndarray,
+                                         ChunkedContainer]:
+    """Container bytes (v2 or v1) -> ``((n_chunks, lanes, cap) buf, start,
+    meta)`` as numpy: :func:`parse_chunked` plus the right-align gather of
+    :func:`slab_to_chunked` on the host."""
+    cs = parse_chunked(blob)
+    dense = slab_to_chunked(cs, "cpu")
+    return dense.buf.numpy(), dense.start.numpy(), cs.meta
+
+
+def compressed_size(length) -> int:
+    """Total v1 container size in bytes."""
+    length = np.asarray(_host(length))
+    return _HEADER.size + 4 * len(length) + int(np.sum(length))
+
+
+def compressed_size_chunked(length, checksums: bool = True) -> int:
+    """Total v2 container size: header + index table + payload bytes."""
+    length = np.asarray(_host(length))
+    cell = (_INDEX_V2C_DT if checksums else _INDEX_V2_DT).itemsize
+    return _HEADER_V2.size + cell * length.size + int(np.sum(length))
+
+
+def slab_to_chunked(cs: ContainerSlab, device=None) -> ChunkedLanes:
     """``ContainerSlab`` -> dense right-aligned :class:`ChunkedLanes` on
-    ``device``: one gather, bytes outside a cell's span read 0."""
+    ``device`` (the card unless given): one gather, bytes outside a cell's
+    span read 0."""
+    device = resolve_device(device)
     if cs.slab.shape[0] >= 2 ** 31:
         raise ValueError(
             f"container payload of {cs.slab.shape[0]} bytes exceeds the "
@@ -289,10 +352,10 @@ def slab_to_chunked(cs: ContainerSlab,
 
 
 def chunk_encoded_from_slab(cs: ContainerSlab, c: int,
-                            device: torch.device | str = "cpu"
-                            ) -> EncodedLanes:
+                            device=None) -> EncodedLanes:
     """Right-align ONE chunk's cells straight from the slab on ``device``
-    (the serve loops consume chunks one at a time)."""
+    (the card unless given; the serve loops consume chunks one at a
+    time)."""
     one = ContainerSlab(slab=cs.slab, offset=cs.offset[c:c + 1],
                         length=cs.length[c:c + 1], cap=cs.cap,
                         meta=cs.meta._replace(n_chunks=1))

@@ -9,12 +9,14 @@ reports the true need and the lane is flagged as overflowed.
 Decoding pops one symbol per lane with the fixed 2-step masked refill; a
 refill that would read past the window injects 0 and raises the lane's
 underflow flag, which host entry points turn into
-:class:`StreamExhaustedError`.
+:class:`StreamExhaustedError`.  :func:`decode_grid` decodes every (chunk,
+lane) cell of a chunked stream at once, with the predictor-guided search,
+candidate planes and per-cell read limits.
 
 States are int64 uint32 values; tables are int32 bit patterns.  The
 kernels' plain versions in ``repro_torch.kernels`` are built on this
-module (:func:`encode_chunked` and :func:`pop`), so one implementation
-answers to the reference's tests.
+module (:func:`encode_chunked`, :func:`pop` and :func:`decode_grid`), so
+one implementation answers to the reference's tests.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import constants as C
-from repro_torch.core import search, update
+from repro_torch.core import search, spc, update
 from repro_torch.core.bitstream import ChunkedLanes, EncodedLanes
 from repro_torch.core.search import take_gather
 from repro_torch.core.spc import TableSet
@@ -112,6 +114,17 @@ def num_chunks(n_symbols: int, chunk_size: int) -> int:
     return -(-n_symbols // chunk_size)
 
 
+def check_chunk_count(n_chunks: int, n_symbols: int, chunk_size: int) -> None:
+    """Raise unless a stream of ``n_chunks`` chunks is what ``n_symbols`` at
+    ``chunk_size`` encodes to."""
+    n_total = num_chunks(n_symbols, chunk_size)
+    if n_chunks != n_total:
+        raise ValueError(
+            f"stream has {n_chunks} chunks but n_symbols={n_symbols} at "
+            f"chunk_size={chunk_size} implies {n_total}; decode with the "
+            "chunk_size the stream was encoded with")
+
+
 def chunk_lengths(n_symbols: int, chunk_size: int) -> list[int]:
     """Per-chunk symbol counts; all ``chunk_size`` except a ragged tail."""
     n = num_chunks(n_symbols, chunk_size)
@@ -182,63 +195,304 @@ class DecState(NamedTuple):
     underflow: torch.Tensor | None = None   # (lanes,) bool
 
 
-def _read_byte(buf, lane_idx, ptr, cap):
-    """Guarded forward byte read: out-of-window reads yield 0 and report."""
-    oob = (ptr < 0) | (ptr >= cap)
+def _read_byte(buf, lane_idx, ptr, cap, limit=None):
+    """Guarded forward byte read.  A read outside ``[0, cap)`` yields 0; a
+    read before 0 or at or past the lane's read limit (``cap`` unless
+    given: a container window passes its span end) is flagged."""
+    flag = (ptr < 0) | (ptr >= (cap if limit is None else limit))
+    inside = (ptr >= 0) & (ptr < cap)
     byte = buf[lane_idx, torch.clamp(ptr, 0, cap - 1)].to(_I64)
-    return torch.where(oob, torch.zeros_like(byte), byte), oob
+    return torch.where(inside, byte, torch.zeros_like(byte)), flag
+
+
+def _read_header(buf, start, limit=None):
+    """Each lane's 4-byte big-endian state header.  Returns ``(s, ptr,
+    under)`` with ``under`` the count of flagged header reads."""
+    lanes, cap = buf.shape
+    lane_idx = torch.arange(lanes, device=buf.device)
+    s = torch.zeros((lanes,), dtype=_I64, device=buf.device)
+    ptr = start.to(_I64)
+    under = torch.zeros((lanes,), dtype=_I64, device=buf.device)
+    for _ in range(4):
+        byte, flag = _read_byte(buf, lane_idx, ptr, cap, limit)
+        under = under + flag.to(_I64)
+        s = ((s << 8) | byte) & C.U32_MASK
+        ptr = ptr + 1
+    return s, ptr, under
 
 
 def decoder_init(enc: EncodedLanes) -> DecState:
     """Read each lane's 4-byte big-endian state header."""
-    lanes, cap = enc.buf.shape
-    dev = enc.buf.device
-    lane_idx = torch.arange(lanes, device=dev)
-    s = torch.zeros((lanes,), dtype=_I64, device=dev)
-    ptr = enc.start.to(_I64)
-    under = torch.zeros((lanes,), dtype=torch.bool, device=dev)
-    for _ in range(4):
-        byte, oob = _read_byte(enc.buf, lane_idx, ptr, cap)
-        under = under | oob
-        s = ((s << 8) | byte) & C.U32_MASK
-        ptr = ptr + 1
-    return DecState(s=s, ptr=ptr, underflow=under)
+    s, ptr, under = _read_header(enc.buf, enc.start)
+    return DecState(s=s, ptr=ptr, underflow=under > 0)
 
 
 def pop(buf: torch.Tensor, s: torch.Tensor, ptr: torch.Tensor,
         freq: torch.Tensor, cdf: torch.Tensor, prob_bits: int = C.PROB_BITS,
-        candidates: torch.Tensor | None = None):
-    """Pop one symbol per lane from int64 states and cursors: CDF search,
-    state update, fixed 2-step masked refill.  ``freq``/``cdf`` are ``(K,)``
-    shared or ``(lanes, K)`` rows.  Returns ``(s', ptr', symbol, probes,
-    under)``; ``under`` counts the lane's active refills that read outside
-    its window (each injects 0)."""
+        candidates: torch.Tensor | None = None, mu=None, delta=None,
+        lut: torch.Tensor | None = None, limit=None):
+    """Pop one symbol per lane from int64 states and cursors: CDF search
+    (or the static LUT), state update, fixed 2-step masked refill.
+    ``freq``/``cdf`` are ``(K,)`` shared or ``(lanes, K)`` rows; ``mu`` and
+    ``delta`` a predictor bracket; ``limit`` per-lane read limits (default
+    ``cap``).  Returns ``(s', ptr', symbol, probes, under)``; ``under``
+    counts the lane's active refills that were flagged (each injects 0)."""
     lanes, cap = buf.shape
     lane_idx = torch.arange(lanes, device=buf.device)
     slot = s & ((1 << prob_bits) - 1)
-    k = freq.shape[-1]
-    x, probes = search.find_symbol(cdf, k, slot, candidates=candidates)
+    if lut is not None:
+        x = lut[slot]
+        probes = torch.ones((lanes,), dtype=_I64, device=buf.device)
+    else:
+        x, probes = search.find_symbol(cdf, freq.shape[-1], slot,
+                                       candidates=candidates, mu=mu,
+                                       delta=delta)
     f = take_gather(freq, x).to(_I64)
     start = take_gather(cdf, x).to(_I64)
     s = (f * (s >> prob_bits) + slot - start) & C.U32_MASK
     under = torch.zeros((lanes,), dtype=_I64, device=buf.device)
     for _ in range(C.MAX_RENORM_STEPS):
         cond = s < C.RANS_L
-        byte, oob = _read_byte(buf, lane_idx, ptr, cap)
-        under = under + (cond & oob).to(_I64)
+        byte, flag = _read_byte(buf, lane_idx, ptr, cap, limit)
+        under = under + (cond & flag).to(_I64)
         s = torch.where(cond, ((s << C.RENORM_SHIFT) | byte) & C.U32_MASK, s)
         ptr = ptr + cond.to(_I64)
     return s, ptr, x, probes, under
 
 
 def decode_get(st: DecState, buf: torch.Tensor, tbl,
-               prob_bits: int = C.PROB_BITS,
-               candidates: torch.Tensor | None = None):
+               prob_bits: int = C.PROB_BITS, mu=None, delta=None,
+               candidates: torch.Tensor | None = None,
+               lut: torch.Tensor | None = None):
     """Pop one symbol per lane.  ``tbl`` needs ``freq``/``cdf`` rows
     (``(K,)`` shared or ``(lanes, K)``).  Returns (state', symbol, probes)."""
     s, ptr, x, probes, n_under = pop(buf, st.s, st.ptr, tbl.freq, tbl.cdf,
-                                     prob_bits, candidates)
+                                     prob_bits, candidates, mu, delta, lut)
     under = n_under > 0
     if st.underflow is not None:
         under = under | st.underflow
     return DecState(s, ptr, under), x, probes
+
+
+def slice_tables(tbl, t0: int, t1: int):
+    """Per-position table rows for the position range ``[t0, t1)``."""
+    return type(tbl)(*(a[t0:t1] for a in tbl))
+
+
+def chunk_tables(tbl, n_full: int, chunk_size: int):
+    """Per-position tables -> chunk-major ``(n_full, chunk_size, ...)``."""
+    return type(tbl)(*(a[:n_full * chunk_size].reshape(
+        (n_full, chunk_size) + a.shape[1:]) for a in tbl))
+
+
+def table_layout(freq: torch.Tensor, t_len: int, lanes: int) -> str:
+    """"static" ``(K,)``, "perpos" ``(T, K)`` or "lane" ``(T, lanes, K)``."""
+    if freq.ndim == 1:
+        return "static"
+    if freq.ndim == 2 and freq.shape[0] == t_len:
+        return "perpos"
+    if freq.ndim == 3 and tuple(freq.shape[:2]) == (t_len, lanes):
+        return "lane"
+    raise ValueError(
+        f"decode tables must be (K,), (T, K) or (T, lanes, K) with T="
+        f"{t_len}, lanes={lanes}; got {tuple(freq.shape)}")
+
+
+def _decode_cells(buf, start, limit, n: int, rows, prob_bits: int,
+                  predictor, lut):
+    """Decode ``n`` symbols from every one of ``cells`` standalone streams
+    in lockstep.  ``buf`` ``(cells, cap)``; ``rows(t)`` gives step ``t``'s
+    ``(freq, cdf, candidates)``.  Returns int64 ``symbols (cells, n)``,
+    ``probes (cells,)`` and ``under (cells,)`` (flagged reads)."""
+    cells = buf.shape[0]
+    s, ptr, under = _read_header(buf, start, limit)
+    ctx = None if predictor is None else predictor.init(cells, buf.device)
+    sym = torch.empty((n, cells), dtype=_I64, device=buf.device)
+    probes = torch.zeros((cells,), dtype=_I64, device=buf.device)
+    for t in range(n):
+        freq, cdf, cands = rows(t)
+        mu = delta = None
+        if predictor is not None:
+            pred = predictor.predict(ctx)
+            mu, delta = pred.mu, pred.delta
+            if cands is None:
+                cands = pred.candidates
+        s, ptr, x, p, u = pop(buf, s, ptr, freq, cdf, prob_bits, cands, mu,
+                              delta, lut, limit)
+        if predictor is not None:
+            ctx = predictor.update(ctx, x)
+        sym[t] = x
+        probes += p
+        under += u
+    return sym.T, probes, under
+
+
+def decode_grid(buf: torch.Tensor, start: torch.Tensor, t_len: int,
+                chunk_size: int, tbl, prob_bits: int = C.PROB_BITS,
+                predictor=None, candidates: torch.Tensor | None = None,
+                lut: torch.Tensor | None = None, limit=None):
+    """Decode every (chunk, lane) cell of ``buf (n_chunks, lanes, cap)``:
+    the full-stream decode kernel's arithmetic in plain PyTorch.
+
+    Each cell is a standalone stream read from ``start[c, l]``: state,
+    cursor, probe count and predictor context reset per chunk.  ``tbl``
+    has ``freq``/``cdf`` in the static, per-position or per-lane layout;
+    ``candidates`` is an optional ``(T, lanes, topk)`` plane; ``limit`` an
+    optional ``(n_chunks, lanes)`` read limit (default ``cap``).  The full
+    chunks decode together as one batch of cells, the ragged tail as
+    another.  Returns int64 ``symbols (lanes, T)``, ``probes (n_chunks,
+    lanes)`` and ``under (n_chunks, lanes)`` (flagged header reads and
+    active refills).  Callers pass ``t_len > 0`` and a chunk count checked
+    by :func:`check_chunk_count`.
+    """
+    n_chunks, lanes, cap = buf.shape
+    chunk = min(chunk_size, t_len)
+    layout = table_layout(tbl.freq, t_len, lanes)
+    if candidates is not None and candidates.shape[-1] == 0:
+        candidates = None
+    if candidates is not None and tuple(candidates.shape[:2]) != (t_len,
+                                                                  lanes):
+        raise ValueError(
+            f"candidate planes must be (T, lanes, topk)=({t_len}, {lanes}, "
+            f"*); got {tuple(candidates.shape)}")
+    dev = buf.device
+    if limit is None:
+        limit = torch.full((n_chunks, lanes), cap, dtype=_I64, device=dev)
+    sym = torch.empty((lanes, t_len), dtype=_I64, device=dev)
+    probes = torch.empty((n_chunks, lanes), dtype=_I64, device=dev)
+    under = torch.empty_like(probes)
+    n_full, tail = divmod(t_len, chunk)
+    for c0, g, n in ((0, n_full, chunk), (n_full, n_chunks - n_full, tail)):
+        if g == 0 or n == 0:
+            continue
+        cells = g * lanes
+        first = torch.arange(c0, c0 + g, device=dev) * chunk
+
+        def rows(t, c0=c0, g=g, first=first, cells=cells):
+            if g == 1:                       # one chunk: rows as they are
+                p = c0 * chunk + t
+                return (tbl.freq if layout == "static" else tbl.freq[p],
+                        tbl.cdf if layout == "static" else tbl.cdf[p],
+                        None if candidates is None else candidates[p])
+            pos = first + t
+
+            def cut(a):
+                if layout == "static":
+                    return a
+                a = a[pos]
+                if layout == "perpos":
+                    a = a[:, None].expand(g, lanes, a.shape[-1])
+                return a.reshape(cells, a.shape[-1])
+            return (cut(tbl.freq), cut(tbl.cdf),
+                    None if candidates is None
+                    else candidates[pos].reshape(cells, -1))
+
+        s, p, u = _decode_cells(
+            buf[c0:c0 + g].reshape(cells, cap),
+            start[c0:c0 + g].reshape(cells),
+            limit[c0:c0 + g].reshape(cells), n, rows, prob_bits, predictor,
+            lut)
+        sym[:, c0 * chunk:c0 * chunk + g * n] = (
+            s.reshape(g, lanes, n).permute(1, 0, 2).reshape(lanes, g * n))
+        probes[c0:c0 + g] = p.reshape(g, lanes)
+        under[c0:c0 + g] = u.reshape(g, lanes)
+    return sym, probes, under
+
+
+def _decode_lut(tbl, layout: str, candidates, prob_bits: int, use_lut: bool):
+    if not use_lut:
+        return None
+    if layout != "static":
+        raise ValueError("the LUT path requires a static (K,) table")
+    if candidates is not None and candidates.shape[-1] > 0:
+        raise ValueError("use_lut and candidate planes are exclusive: the "
+                         "LUT already inverts in one probe")
+    return spc.decode_lut(tbl, prob_bits)
+
+
+def no_symbols(lanes: int, device, lane_probes: bool = False,
+               chunk_probes: bool = False, exhausted_flags: bool = False,
+               n_chunks: int | None = None):
+    """The result of a decode of zero symbols: ``(symbols (lanes, 0),
+    avg 0[, per-lane probes][, per-chunk probes][, exhausted flags])``;
+    the probe and flag planes are ``(n_chunks, lanes)`` when ``n_chunks`` is
+    given, else ``(lanes,)``."""
+    cells = (lanes,) if n_chunks is None else (n_chunks, lanes)
+    out = (torch.zeros((lanes, 0), dtype=torch.int32, device=device),
+           torch.zeros((), dtype=torch.float32, device=device))
+    if lane_probes:
+        out = out + (torch.zeros((lanes,), dtype=_I64, device=device),)
+    if chunk_probes:
+        out = out + (torch.zeros(cells, dtype=torch.int32, device=device),)
+    if exhausted_flags:
+        out = out + (torch.zeros(cells, dtype=torch.bool, device=device),)
+    return out
+
+
+def _avg(probes: torch.Tensor, lanes: int, n_symbols: int) -> torch.Tensor:
+    return probes.sum().to(torch.float32) / max(lanes * n_symbols, 1)
+
+
+def decode(enc: EncodedLanes, n_symbols: int, tbl,
+           prob_bits: int = C.PROB_BITS, predictor=None,
+           use_lut: bool = False, lane_probes: bool = False,
+           candidates: torch.Tensor | None = None,
+           return_exhausted: bool = False):
+    """Decode ``n_symbols`` per lane against static ``(K,)`` or
+    per-position ``(T, K)`` / ``(T, lanes, K)`` tables.
+
+    ``predictor`` (a :mod:`repro_torch.core.predictors` config) drives the
+    window-gated search; ``use_lut`` inverts a static table in one probe
+    (ignored with a predictor, as in the reference); ``candidates`` is an
+    optional ``(T, lanes, topk)`` plane.  Returns ``(symbols (lanes, T)
+    int32, avg_probes[, per-lane probes])`` and raises
+    :class:`StreamExhaustedError` on a read past a lane's stream, unless
+    ``return_exhausted`` appends the per-lane flag instead.
+    """
+    lanes = enc.buf.shape[0]
+    dev = enc.buf.device
+    if n_symbols == 0:
+        _, _, under = _read_header(enc.buf, enc.start)
+        sym = torch.zeros((lanes, 0), dtype=torch.int32, device=dev)
+        probes = torch.zeros((lanes,), dtype=_I64, device=dev)
+    else:
+        layout = table_layout(tbl.freq, n_symbols, lanes)
+        lut = _decode_lut(tbl, layout, candidates, prob_bits, use_lut)
+        sym, probes, under = decode_grid(
+            enc.buf[None], enc.start[None], n_symbols, n_symbols, tbl,
+            prob_bits, predictor, candidates,
+            lut if predictor is None else None)
+        sym, probes, under = sym.to(torch.int32), probes[0], under[0]
+    out = (sym, _avg(probes, lanes, n_symbols))
+    if lane_probes:
+        out = out + (probes,)
+    if return_exhausted:
+        return out + (under > 0,)
+    _check_exhausted(under > 0)
+    return out
+
+
+def decode_chunked(chunks: ChunkedLanes, n_symbols: int, tbl,
+                   chunk_size: int, prob_bits: int = C.PROB_BITS,
+                   use_lut: bool = False, predictor=None,
+                   lane_probes: bool = False,
+                   candidates: torch.Tensor | None = None):
+    """Decode a chunked stream (bit-exact inverse of :func:`encode_chunked`);
+    the predictor context resets at every chunk.  Returns ``(symbols
+    (lanes, T) int32, avg_probes[, per-lane probes])``; raises
+    :class:`StreamExhaustedError` on a read past a stream."""
+    check_chunk_count(chunks.buf.shape[0], n_symbols, chunk_size)
+    lanes = chunks.buf.shape[1]
+    if n_symbols == 0:
+        return no_symbols(lanes, chunks.buf.device, lane_probes)
+    layout = table_layout(tbl.freq, n_symbols, lanes)
+    lut = _decode_lut(tbl, layout, candidates, prob_bits, use_lut)
+    sym, probes, under = decode_grid(
+        chunks.buf, chunks.start, n_symbols, chunk_size, tbl, prob_bits,
+        predictor, candidates, lut if predictor is None else None)
+    _check_exhausted((under > 0).any(0), "decode_chunked")
+    per_lane = probes.sum(0)
+    out = (sym.to(torch.int32), _avg(per_lane, lanes, n_symbols))
+    if lane_probes:
+        out = out + (per_lane,)
+    return out

@@ -1,9 +1,102 @@
-"""Decode-side predictors.  The main path needs only the model's own top-k
-as trial symbols (the LM analogue of the paper's trial-symbol path)."""
+"""Decode-side predictors (paper Sec. IV-C).
+
+Port of ``repro.core.predictors``.  A predictor proposes an anchor ``mu``
+and a tolerance ``delta``; the decoder verifies the bracket ``[mu - delta,
+mu + delta]`` against the CDF with one probe and falls back to the full
+binary search on a miss, so only the probe count depends on it, never the
+symbols.  The context of previously decoded symbols is a ``(lanes,
+window)`` int64 tensor that the decode loop threads through ``predict`` and
+``update``; it resets at every chunk (chunks are standalone streams).
+
+Configs are hashable NamedTuples that compare by type as well as fields
+(``LastValue(8) != ZeroPredictor(8)``), as in the reference.  The CUDA
+full-stream decode kernel (``csrc/rans_decode_lanes.cu``) repeats each
+predictor's arithmetic in registers.
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+_I64 = torch.int64
+
+
+class Prediction(NamedTuple):
+    mu: torch.Tensor                        # (lanes,) int64 anchor symbol
+    delta: int                              # half-window
+    candidates: torch.Tensor | None = None  # (lanes, k) trial symbols
+
+
+def _static_config(cls):
+    """Make a NamedTuple config hash and compare by type as well as fields
+    (plain NamedTuples compare as bare tuples)."""
+
+    def __eq__(self, other):
+        return type(other) is type(self) and tuple(self) == tuple(other)
+
+    cls.__eq__ = __eq__
+    cls.__ne__ = lambda self, other: not __eq__(self, other)
+    cls.__hash__ = lambda self: hash((cls.__qualname__,) + tuple(self))
+    return cls
+
+
+@_static_config
+class NeighborAverage(NamedTuple):
+    """Mean of the last ``window`` decoded symbols (the paper's Fig. 3
+    image predictor); last value with one neighbour, zero with none."""
+
+    window: int = 4
+    delta: int = 8
+
+    def init(self, lanes: int, device=None) -> torch.Tensor:
+        return torch.full((lanes, self.window), -1, dtype=_I64,
+                          device=device)
+
+    def predict(self, ctx: torch.Tensor) -> Prediction:
+        valid = ctx >= 0
+        n_valid = valid.sum(-1)
+        ssum = torch.where(valid, ctx, 0).sum(-1)
+        mu = torch.where(n_valid > 0, ssum // n_valid.clamp(min=1), 0)
+        return Prediction(mu=mu, delta=self.delta)
+
+    def update(self, ctx: torch.Tensor, decoded: torch.Tensor):
+        return torch.cat([ctx[:, 1:], decoded.to(_I64)[:, None]], dim=1)
+
+
+@_static_config
+class LastValue(NamedTuple):
+    """Anchor = the previous symbol (0 before the first)."""
+
+    delta: int = 8
+
+    def init(self, lanes: int, device=None) -> torch.Tensor:
+        return torch.zeros((lanes, 1), dtype=_I64, device=device)
+
+    def predict(self, ctx: torch.Tensor) -> Prediction:
+        return Prediction(mu=ctx[:, 0], delta=self.delta)
+
+    def update(self, ctx: torch.Tensor, decoded: torch.Tensor):
+        return decoded.to(_I64)[:, None]
+
+
+@_static_config
+class ZeroPredictor(NamedTuple):
+    """Anchor 0, the paper's "zero fallback"."""
+
+    delta: int = 8
+
+    def init(self, lanes: int, device=None) -> torch.Tensor:
+        return torch.zeros((lanes, 0), dtype=_I64, device=device)
+
+    def predict(self, ctx: torch.Tensor) -> Prediction:
+        return Prediction(mu=torch.zeros((ctx.shape[0],), dtype=_I64,
+                                         device=ctx.device),
+                          delta=self.delta)
+
+    def update(self, ctx: torch.Tensor, decoded: torch.Tensor):
+        return ctx
 
 
 def model_topk_candidates(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -4,13 +4,17 @@ Port of ``repro.core.search`` with the same normative probe accounting
 (the Fig. 4(b) unit is one CDF access):
 
   1. each candidate verify costs 1 probe per lane not yet resolved;
-  2. every *active* binary-search iteration costs 1 probe; the equality
+  2. the predictor's window verify costs 1 probe per lane the candidates
+     did not resolve, on a bracket hit and on a miss alike;
+  3. every *active* binary-search iteration costs 1 probe; the equality
      early-commit (``cdf[mid] == slot`` proves ``symbol == mid``) collapses
-     the bracket so later iterations stop counting.
+     the bracket so later iterations stop counting;
+  4. the static-table LUT (``coder.pop(lut=...)``) costs exactly 1 probe.
 
 CDF entries are below 2**31, so their int32 bit patterns compare as the
-uint32 values they are.  The CUDA decode-step kernel
-(``csrc/rans_decode_step.cu``) repeats this logic per lane.
+uint32 values they are.  The CUDA decode kernels
+(``csrc/rans_decode_step.cu``, ``csrc/rans_decode_lanes.cu``) repeat this
+logic per lane.
 """
 
 from __future__ import annotations
@@ -52,12 +56,16 @@ def bsearch(cdf: torch.Tensor, slot: torch.Tensor, lo: torch.Tensor,
 
 def find_symbol(cdf: torch.Tensor, k: int, slot: torch.Tensor,
                 candidates: torch.Tensor | None = None,
-                gather=take_gather):
-    """State-to-symbol inversion with optional candidate speculation.
+                gather=take_gather, mu: torch.Tensor | None = None,
+                delta=None):
+    """State-to-symbol inversion with optional speculation.
 
     ``cdf``: ``(K+1,)`` or ``(lanes, K+1)``; ``slot``: ``(lanes,)`` int64;
     ``candidates``: optional ``(lanes, topk)`` trial symbols (``topk == 0``
-    means none).  Returns int64 ``(symbol, probes)``.
+    means none); ``mu``/``delta``: optional predictor bracket
+    ``[mu - delta, mu + delta]``, verified with one probe per lane the
+    candidates left unresolved, on a hit and on a miss alike.  Returns
+    int64 ``(symbol, probes)``.
     """
     if candidates is not None and candidates.shape[-1] == 0:
         candidates = None
@@ -77,6 +85,16 @@ def find_symbol(cdf: torch.Tensor, k: int, slot: torch.Tensor,
             probes = probes + (~found).to(_I64)
             x_spec = torch.where(~found & ok, cand, x_spec)
             found = found | ok
+
+    if mu is not None:
+        d = torch.as_tensor(delta, dtype=_I64, device=dev)
+        lo_w = torch.clamp(mu.to(_I64) - d, 0, k - 1)
+        hi_w = torch.clamp(mu.to(_I64) + d + 1, 1, k)
+        hit = ((gather(cdf, lo_w).to(_I64) <= slot)
+               & (slot < gather(cdf, hi_w).to(_I64)) & ~found)
+        probes = probes + (~found).to(_I64)
+        lo0 = torch.where(hit, lo_w, lo0)
+        hi0 = torch.where(hit, hi_w, hi0)
 
     lo0 = torch.where(found, x_spec, lo0)
     hi0 = torch.where(found, x_spec + 1, hi0)

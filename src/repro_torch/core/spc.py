@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import constants as C
@@ -164,3 +165,27 @@ def tables_from_probs(probs: torch.Tensor,
                       prob_bits: int = C.PROB_BITS) -> TableSet:
     """One-shot SPC: BF16 probabilities -> coding tables."""
     return build_tables(quantize_probs(probs, prob_bits), prob_bits)
+
+
+class FreqCdf(NamedTuple):
+    """The two planes a decoder reads (a :class:`TableSet` without the
+    encoder's Barrett planes)."""
+
+    freq: torch.Tensor      # (..., K)
+    cdf: torch.Tensor       # (..., K+1)
+
+
+def decode_lut(tables, prob_bits: int = C.PROB_BITS) -> torch.Tensor:
+    """Static-table slot -> symbol lookup, ``(2**prob_bits,)`` int64: one
+    gather replaces the CDF search."""
+    slots = torch.arange(1 << prob_bits, dtype=_I64, device=tables.cdf.device)
+    return torch.searchsorted(tables.cdf.to(_I64), slots, right=True) - 1
+
+
+def tables_from_counts_np(counts: np.ndarray,
+                          prob_bits: int = C.PROB_BITS) -> TableSet:
+    """Raw symbol counts (numpy) -> host TableSet, with +1 smoothing."""
+    counts = np.asarray(counts, np.float64)
+    probs = (counts + 1.0) / (counts + 1.0).sum(-1, keepdims=True)
+    return tables_from_probs(torch.as_tensor(probs.astype(np.float32)),
+                             prob_bits)

@@ -1,7 +1,8 @@
-"""Deterministic synthetic token streams (numpy, seeded).
+"""Deterministic synthetic data (numpy, seeded).
 
-A copy of ``repro.data.pipeline.token_stream``: the same seed gives the
-same tokens in both packages.
+Copies of ``repro.data.pipeline``'s ``token_stream``, ``image_rows``,
+``synthetic_image`` and ``candidate_planes``: the same seed gives the same
+values in both packages.
 """
 
 from __future__ import annotations
@@ -27,3 +28,34 @@ def token_stream(vocab: int, shape: tuple, *, seed: int = 0,
         if rep[i]:
             out[i] = out[i - 1]
     return out.reshape(shape)
+
+
+def image_rows(lanes: int, t: int, *, seed: int = 0,
+               step_scale: int = 3) -> np.ndarray:
+    """Smooth random-walk rows in [0, 255]: image-like raster symbols."""
+    rng = _rng(seed, lanes, t)
+    steps = rng.integers(-step_scale, step_scale + 1, (lanes, t))
+    return np.clip(128 + np.cumsum(steps, axis=1), 0, 255).astype(np.int64)
+
+
+def synthetic_image(h: int, w: int, *, seed: int = 0) -> np.ndarray:
+    """2-D smooth field (separable random walk plus noise) as uint8."""
+    rng = _rng(seed, h, w)
+    rows = np.cumsum(rng.integers(-2, 3, (h, 1)), axis=0)
+    cols = np.cumsum(rng.integers(-2, 3, (1, w)), axis=1)
+    noise = rng.integers(-4, 5, (h, w))
+    img = 128 + rows + cols + noise
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def candidate_planes(syms: np.ndarray, k: int, topk: int,
+                     hit_rate: float, seed: int = 0) -> np.ndarray:
+    """(T, lanes, topk) model-top-k stand-in: slot 0 holds the true symbol
+    with probability ``hit_rate``, the other slots random alphabet ids."""
+    rng = _rng(seed, k, topk)
+    syms = np.asarray(syms)
+    lanes, t = syms.shape
+    cands = rng.integers(0, k, (t, lanes, topk))
+    hit = rng.random((t, lanes)) < hit_rate
+    cands[..., 0] = np.where(hit, syms.T, cands[..., 0])
+    return cands.astype(np.int32)

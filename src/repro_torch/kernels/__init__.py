@@ -1,4 +1,16 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
 The build module ``_build`` is imported lazily by the CUDA branches only.
+:data:`LAUNCHES` counts each kernel's launches: a wrapper adds one where
+it launches its kernel and nowhere else, so a run can show which kernels
+its path went through.
 """
+
+LAUNCHES = {"rans_encode_lanes": 0, "rans_decode_step": 0,
+            "rans_decode_lanes": 0, "rans_decode_slab": 0}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

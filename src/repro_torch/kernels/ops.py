@@ -1,26 +1,36 @@
 """Public wrappers around the port's kernels.
 
-``rans_encode`` / ``rans_encode_chunked`` wrap the encode kernel
-(:mod:`repro_torch.kernels.rans_encode`) and return packed
-``EncodedLanes`` / ``ChunkedLanes``, byte-identical to the pure-torch
-``core.coder.encode[_chunked]``; the chunked encode is one launch for the
-whole stream.  ``rans_decode_step`` (from
-:mod:`repro_torch.kernels.rans_decode`) is the fused serve decode's
-per-position pop.  Each wrapper runs its kernel for CUDA tensors and the
-kernel's plain version for CPU tensors.
+``rans_encode`` / ``rans_encode_chunked`` wrap the encode kernel (B1) and
+return packed ``EncodedLanes`` / ``ChunkedLanes``, byte-identical to the
+pure-torch ``core.coder.encode[_chunked]``; the chunked encode is one
+launch for the whole stream.  ``rans_decode`` / ``rans_decode_chunked``
+wrap the full-stream decode kernel (B3): static and adaptive tables, the
+predictors and ``(T, lanes, topk)`` candidate planes, one launch for the
+whole stream with the chunk axis in the grid.  ``rans_decode_chunked(
+from_container=...)`` decodes straight off a validated container's payload
+slab (B4).  ``rans_decode_step`` (B2) is the fused serve decode's
+per-position pop.  Symbols and per-lane probe counters equal the coder's.
+Each wrapper runs its kernel for CUDA tensors and the kernel's plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import constants as C
-from repro_torch.core.bitstream import ChunkedLanes, EncodedLanes
-from repro_torch.core.coder import default_cap, num_chunks
-from repro_torch.kernels.rans_decode import rans_decode_step  # noqa: F401
+from repro_torch.core.bitstream import (ChunkedLanes, ContainerSlab,
+                                        EncodedLanes)
+from repro_torch.core.coder import (_check_exhausted, check_chunk_count,
+                                    default_cap, no_symbols, num_chunks)
+from repro_torch.kernels.rans_decode import (rans_decode_lanes,
+                                             rans_decode_slab,
+                                             rans_decode_step)  # noqa: F401
 from repro_torch.kernels.rans_encode import rans_encode_lanes
 
-__all__ = ["rans_encode", "rans_encode_chunked", "rans_decode_step"]
+__all__ = ["rans_encode", "rans_encode_chunked", "rans_decode",
+           "rans_decode_chunked", "rans_decode_step", "slab_planes"]
 
 
 def _header_only(lanes: int, cap: int, device) -> EncodedLanes:
@@ -70,3 +80,122 @@ def rans_encode_chunked(symbols: torch.Tensor, tbl, chunk_size: int,
     return ChunkedLanes(*rans_encode_lanes(
         symbols.to(torch.int32).contiguous(), tbl, cap=cap,
         chunk_size=chunk_size))
+
+
+def rans_decode(enc: EncodedLanes, n_symbols: int, tbl,
+                prob_bits: int = C.PROB_BITS, predictor=None,
+                candidates: torch.Tensor | None = None,
+                lane_probes: bool = False, exhausted_flags: bool = False):
+    """Kernel-backed monolithic decode (B3); returns ``(symbols (lanes, T),
+    avg probes/symbol[, per-lane probes])``.
+
+    ``predictor`` is a :mod:`repro_torch.core.predictors` config;
+    ``candidates`` an optional ``(T, lanes, topk)`` plane.  A read past a
+    lane's stream raises :class:`~repro_torch.core.coder.StreamExhaustedError`,
+    unless ``exhausted_flags`` appends the per-lane flag instead.
+    """
+    lanes = enc.buf.shape[0]
+    if n_symbols == 0:
+        return no_symbols(lanes, enc.buf.device, lane_probes,
+                          exhausted_flags=exhausted_flags)
+    sym, probes, under = rans_decode_lanes(
+        enc.buf, enc.start, tbl.freq, tbl.cdf, n_symbols,
+        prob_bits=prob_bits, predictor=predictor, candidates=candidates)
+    probes = probes[0].to(torch.int64)
+    under = under[0] > 0
+    out = (sym, probes.sum().to(torch.float32) / (lanes * n_symbols))
+    if lane_probes:
+        out = out + (probes,)
+    if exhausted_flags:
+        return out + (under,)
+    _check_exhausted(under, "rans_decode")
+    return out
+
+
+def slab_planes(cs: ContainerSlab, device):
+    """A validated :class:`ContainerSlab` -> B4's inputs on ``device``:
+    ``(slab, base, wstart, wlen)`` and the window size ``cap``.
+
+    ``cap = max(cs.cap, 4)`` (the header read always has columns); the
+    payload is zero-padded to at least ``cap`` bytes; ``base = clip(offset,
+    0, S - cap)`` keeps every window inside the slab and ``wstart = offset -
+    base`` re-bases each span into its window.
+    """
+    if cs.slab.shape[0] >= 2 ** 31:
+        raise ValueError(
+            f"container payload of {cs.slab.shape[0]} bytes exceeds the "
+            "int32 index range of the device slab paths")
+    cap = max(cs.cap, 4)
+    slab = np.asarray(cs.slab, np.uint8)
+    if slab.shape[0] < cap:
+        slab = np.concatenate([slab, np.zeros(cap - slab.shape[0], np.uint8)])
+    base = np.clip(cs.offset, 0, slab.shape[0] - cap).astype(np.int32)
+    wstart = (cs.offset - base).astype(np.int32)
+    wlen = cs.length.astype(np.int32)
+    planes = tuple(torch.as_tensor(np.array(a), device=device)
+                   for a in (slab, base, wstart, wlen))
+    return planes, cap
+
+
+def rans_decode_chunked(chunks: ChunkedLanes | None = None,
+                        n_symbols: int | None = None, tbl=None,
+                        chunk_size: int | None = None,
+                        prob_bits: int = C.PROB_BITS, predictor=None,
+                        candidates: torch.Tensor | None = None,
+                        lane_probes: bool = False, chunk_probes: bool = False,
+                        exhausted_flags: bool = False,
+                        from_container: ContainerSlab | None = None):
+    """Kernel-backed chunked decode: one launch for the whole stream.
+
+    Every (chunk, lane) cell is a standalone stream: the kernel re-reads
+    its state header and resets cursor, probes and predictor context per
+    chunk.  Pass a dense :class:`ChunkedLanes` (B3) or
+    ``from_container=`` a validated :class:`ContainerSlab` (B4, decoding
+    straight off the payload on the tables' device; ``n_symbols`` and
+    ``chunk_size`` default to the container's).  Returns ``(symbols
+    (lanes, T), avg_probes[, per-lane probes][, per-(chunk, lane) probes])``
+    and raises :class:`~repro_torch.core.coder.StreamExhaustedError` unless
+    ``exhausted_flags`` appends the ``(n_chunks, lanes)`` flags.
+    """
+    if from_container is not None:
+        if chunks is not None:
+            raise ValueError(
+                "pass either a dense ChunkedLanes stream or "
+                "from_container=<ContainerSlab>, not both")
+        cs = from_container
+        n_symbols = cs.meta.n_symbols if n_symbols is None else n_symbols
+        chunk_size = (cs.meta.chunk_size if chunk_size is None
+                      else chunk_size)
+        n_chunks, lanes = cs.offset.shape
+        device = tbl.freq.device
+    else:
+        if chunks is None:
+            raise ValueError("a ChunkedLanes stream or from_container=... "
+                             "is required")
+        n_chunks, lanes = chunks.buf.shape[:2]
+        device = chunks.buf.device
+    if n_symbols == 0:                   # the kernel wrappers check t > 0
+        check_chunk_count(n_chunks, 0, chunk_size)
+        return no_symbols(lanes, device, lane_probes, chunk_probes,
+                          exhausted_flags, n_chunks=0)
+    if from_container is not None:
+        (slab, base, wstart, wlen), cap = slab_planes(cs, device)
+        sym, cprobes, cunder = rans_decode_slab(
+            slab, base, wstart, wlen, tbl.freq, tbl.cdf, cap=cap,
+            t_len=n_symbols, chunk_size=chunk_size, prob_bits=prob_bits,
+            predictor=predictor, candidates=candidates)
+    else:
+        sym, cprobes, cunder = rans_decode_lanes(
+            chunks.buf, chunks.start, tbl.freq, tbl.cdf, n_symbols,
+            chunk_size, prob_bits=prob_bits, predictor=predictor,
+            candidates=candidates)
+    per_lane = cprobes.sum(0)
+    out = (sym, per_lane.sum().to(torch.float32) / (lanes * n_symbols))
+    if lane_probes:
+        out = out + (per_lane,)
+    if chunk_probes:
+        out = out + (cprobes,)
+    if exhausted_flags:
+        return out + (cunder > 0,)
+    _check_exhausted(cunder > 0, "rans_decode_chunked")
+    return out

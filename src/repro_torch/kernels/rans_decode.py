@@ -1,28 +1,39 @@
-"""One rANS symbol pop per lane: the CUDA kernel and its plain version.
+"""rANS decode kernels and their plain versions.
 
-Replaces the TPU kernel ``repro/kernels/rans_decode.py::rans_decode_step``
-(body ``_decode_step_kernel``), the fused serve decode's building block:
-the model is autoregressive over its own decoded tokens, so the serve loop
-carries the coder state ``(s, ptr)`` and calls this once per position with
-that step's just-quantized tables and model top-k candidates.
+Three TPU kernels of ``repro/kernels/rans_decode.py`` are ported here:
 
-:func:`rans_decode_step` takes ``buf (lanes, cap)`` uint8 lane-major
-streams (the reference takes ``(cap, lanes)``; outputs match), ``s`` int32
-bit patterns of the uint32 states, ``ptr`` int32 cursors, ``freq`` ``(K,)``
-or ``(lanes, K)`` and ``cdf`` ``(K+1,)`` or ``(lanes, K+1)`` int32 rows and
-optional ``(lanes, topk)`` candidates.  It returns ``(s', ptr', symbols,
-probes, under)``, all ``(lanes,)`` int32; ``under`` counts active refills
-that read outside the lane's window: past the stream end for any state
-``coder.decoder_init`` gives (the reference counts only reads past the end,
-the same thing there).  A CPU tensor runs
-:func:`rans_decode_step_plain`; a CUDA tensor launches
-``csrc/rans_decode_step.cu`` and counts the launch in :data:`LAUNCHES`.
+* **B2** :func:`rans_decode_step` (``csrc/rans_decode_step.cu``, replaces
+  ``rans_decode_step``, body ``_decode_step_kernel``): one pop per lane
+  with the coder state ``(s, ptr)`` held by the caller, the fused serve
+  decode's building block, called once per position with that step's
+  freshly quantized rows and model top-k candidates.  It takes ``buf
+  (lanes, cap)`` uint8 lane-major streams (the reference takes ``(cap,
+  lanes)``; outputs match), ``s`` int32 bit patterns of the uint32 states,
+  ``ptr`` int32 cursors, ``freq`` ``(K,)`` or ``(lanes, K)`` and ``cdf``
+  ``(K+1,)`` or ``(lanes, K+1)`` int32 rows and optional ``(lanes, topk)``
+  candidates, and returns ``(s', ptr', symbols, probes, under)``, all
+  ``(lanes,)`` int32; ``under`` counts active refills outside the lane's
+  window.  One step is a few dozen dependent loads per lane, so the launch
+  itself bounds it.
+* **B3** :func:`rans_decode_lanes` (``csrc/rans_decode_lanes.cu``, replaces
+  ``rans_decode_lanes``, body ``_decode_kernel``): the whole stream in one
+  launch, monolithic ``(lanes, cap)`` or chunked ``(n_chunks, lanes,
+  cap)``, with static, per-position or per-lane tables, the in-kernel
+  predictors and ``(T, lanes, topk)`` candidate planes.  Returns
+  ``(symbols (lanes, T), probes (n_chunks, lanes), under (n_chunks,
+  lanes))``, all int32.
+* **B4** :func:`rans_decode_slab` (the same source, replaces
+  ``rans_decode_slab``): B3 read straight off a packed container payload
+  ``(S,)`` through per-(chunk, lane) windows ``base``/``wstart``/``wlen``
+  that :func:`repro_torch.kernels.ops.slab_planes` derives.
 
-On this card one step is a few dozen dependent loads per lane, nanoseconds
-of memory traffic, so the launch itself bounds it: one launch per position
-dominates.  The kernel reads tables and stream bytes straight from global
-memory; CUDA graphs or fusing the SPC and top-k into the step are later
-work.
+Each wrapper runs its plain version for CPU tensors and launches its
+kernel for CUDA tensors, counting the launch in
+``repro_torch.kernels.LAUNCHES``; there is no fallback between the two.
+The plain versions are built on :mod:`repro_torch.core.coder` (``pop`` and
+``decode_grid``), so one implementation answers to the reference's tests.
+B3 and B4 walk a serial chain of dependent loads per (chunk, lane) cell
+with few cells live: they are latency-bound (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -33,8 +44,12 @@ import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core import coder, search, u32
+from repro_torch.core.predictors import (LastValue, NeighborAverage,
+                                         ZeroPredictor)
+from repro_torch.core.spc import FreqCdf
+from repro_torch.kernels import LAUNCHES
 
-LAUNCHES = 0
+MAX_WINDOW = 16     # kMaxWindow in csrc/rans_decode_lanes.cu
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -79,7 +94,6 @@ def _load():
 
 
 def _launch(buf, s, ptr, freq, cdf, prob_bits, candidates):
-    global LAUNCHES
     lanes, k = _check_shapes(buf, freq, cdf, candidates)
     dev = buf.device
     ins = {"buf": (buf, torch.uint8), "s": (s, _I32), "ptr": (ptr, _I32),
@@ -101,7 +115,7 @@ def _launch(buf, s, ptr, freq, cdf, prob_bits, candidates):
              search.ceil_log2(k), *(o.data_ptr() for o in outs),
              torch.cuda.current_stream(dev).cuda_stream)
     check(err, "rans_decode_step")
-    LAUNCHES += 1
+    LAUNCHES["rans_decode_step"] += 1
     return tuple(outs)
 
 
@@ -118,3 +132,236 @@ def rans_decode_step(buf: torch.Tensor, s: torch.Tensor, ptr: torch.Tensor,
     if buf.device.type == "cuda":
         return _launch(buf, s, ptr, freq, cdf, prob_bits, candidates)
     raise ValueError(f"unsupported device {buf.device}")
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4: the full-stream decode
+# ---------------------------------------------------------------------------
+
+def _chunk_geometry(n_chunks: int, t_len: int, chunk_size: int) -> int:
+    """Check the stream's chunk count (the one check on the decode paths)
+    and return the chunk length."""
+    if t_len <= 0:
+        raise ValueError("the full-stream decode needs t_len > 0 (ops "
+                         "handles t_len == 0)")
+    coder.check_chunk_count(n_chunks, t_len, chunk_size)
+    return min(chunk_size, t_len)
+
+
+def _stream3(buf, start, t_len, chunk_size):
+    """Monolithic ``(lanes, cap)`` or chunked ``(n_chunks, lanes, cap)``
+    streams -> the chunked form and its chunk length."""
+    if buf.ndim == 2:
+        if chunk_size is not None:
+            raise ValueError("monolithic (lanes, cap) stream cannot take a "
+                             "chunk_size; pass a (n_chunks, lanes, cap) buf")
+        buf, start, chunk_size = buf[None], start.reshape(1, -1), t_len
+    elif buf.ndim == 3:
+        if chunk_size is None:
+            raise ValueError("chunked (n_chunks, lanes, cap) stream needs "
+                             "chunk_size")
+    else:
+        raise ValueError(f"unsupported stream rank {buf.ndim}")
+    return buf, start, _chunk_geometry(buf.shape[0], t_len, chunk_size)
+
+
+def _slab_windows(slab, base, wstart, wlen, cap):
+    """The clamped per-cell windows of B4: column ``p`` of cell (c, l) is
+    ``slab[base + p]`` inside the span ``[wstart, wstart + wlen)`` and 0
+    outside it.  Returns ``(windows (n_chunks, lanes, cap), wstart,
+    limit)`` with int64 ``wstart`` and ``limit = wstart + wlen``."""
+    col = torch.arange(cap, dtype=_I64, device=slab.device)
+    ws = wstart.to(_I64)
+    limit = ws + wlen.to(_I64)
+    live = (col >= ws[..., None]) & (col < limit[..., None])
+    win = slab[base.to(_I64)[..., None] + col]
+    return torch.where(live, win, torch.zeros_like(win)), ws, limit
+
+
+def _plain_out(sym, probes, under):
+    return sym.to(_I32), probes.to(_I32), under.to(_I32)
+
+
+def rans_decode_lanes_plain(buf, start, freq, cdf, t_len: int,
+                            chunk_size: int | None = None,
+                            prob_bits: int = C.PROB_BITS, predictor=None,
+                            candidates=None):
+    """Plain PyTorch version of B3: the pure-torch coder's cell grid."""
+    buf3, start2, chunk = _stream3(buf, start, t_len, chunk_size)
+    return _plain_out(*coder.decode_grid(
+        buf3, start2, t_len, chunk, FreqCdf(freq, cdf), prob_bits,
+        predictor, candidates))
+
+
+def rans_decode_slab_plain(slab, base, wstart, wlen, freq, cdf, *, cap: int,
+                           t_len: int, chunk_size: int,
+                           prob_bits: int = C.PROB_BITS, predictor=None,
+                           candidates=None):
+    """Plain PyTorch version of B4: the clamped windows built in torch,
+    then the coder's cell grid with the per-cell limit ``wstart + wlen``."""
+    chunk = _chunk_geometry(base.shape[0], t_len, chunk_size)
+    win, ws, limit = _slab_windows(slab, base, wstart, wlen, cap)
+    return _plain_out(*coder.decode_grid(
+        win, ws, t_len, chunk, FreqCdf(freq, cdf), prob_bits, predictor,
+        candidates, limit=limit))
+
+
+def _predictor_args(predictor) -> tuple[int, int, int]:
+    """A predictor config -> the kernel's ``(kind, window, delta)``."""
+    if predictor is None:
+        return 0, 0, 0
+    if not -2 ** 31 < predictor.delta < 2 ** 31:
+        raise ValueError(f"predictor delta {predictor.delta} does not fit "
+                         "the CUDA decode kernel's int32")
+    if isinstance(predictor, NeighborAverage):
+        if not 1 <= predictor.window <= MAX_WINDOW:
+            raise ValueError(
+                f"NeighborAverage window {predictor.window} is outside the "
+                f"CUDA decode kernel's [1, {MAX_WINDOW}]")
+        return 1, predictor.window, predictor.delta
+    if isinstance(predictor, LastValue):
+        return 2, 1, predictor.delta
+    if isinstance(predictor, ZeroPredictor):
+        return 3, 0, predictor.delta
+    raise TypeError(f"the CUDA decode kernel has no form of predictor "
+                    f"{predictor!r}")
+
+
+def _table_strides(layout: str, lanes: int, width: int) -> tuple[int, int]:
+    return {"static": (0, 0), "perpos": (width, 0),
+            "lane": (lanes * width, width)}[layout]
+
+
+def _load_full(name: str):
+    from repro_torch.kernels import _build
+    fn = getattr(_build.load("rans_decode_lanes"), name + "_launch")
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        src = [p, p, i] if name == "rans_decode_lanes" else [p, p, p, p, i]
+        fn.argtypes = src + [p, p, ll, ll, ll, ll, i, p, i, i, i, i, i, i,
+                             i, i, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn, _build.check
+
+
+def _launch_full(name, src_args, dev, lanes, t_len, chunk, n_chunks, freq,
+                 cdf, prob_bits, predictor, candidates):
+    """Launch B3 or B4 on ``src_args`` (pointer/int arguments of the byte
+    source); tables, candidates and outputs are common."""
+    layout = coder.table_layout(freq, t_len, lanes)
+    k = freq.shape[-1]
+    if tuple(cdf.shape) != tuple(freq.shape[:-1]) + (k + 1,):
+        raise ValueError(f"cdf must be {tuple(freq.shape[:-1]) + (k + 1,)}; "
+                         f"got {tuple(cdf.shape)}")
+    for name_, t in (("freq", freq), ("cdf", cdf)):
+        if t.device != dev or t.dtype != _I32 or not t.is_contiguous():
+            raise ValueError(f"{name_} must be a contiguous int32 tensor on "
+                             f"{dev}; got {t.dtype} on {t.device}")
+    topk = 0
+    if candidates is not None and candidates.shape[-1] > 0:
+        if tuple(candidates.shape[:2]) != (t_len, lanes):
+            raise ValueError(
+                f"candidate planes must be (T, lanes, topk)=({t_len}, "
+                f"{lanes}, *); got {tuple(candidates.shape)}")
+        if candidates.device != dev:
+            raise ValueError(f"candidates must be on {dev}")
+        candidates = candidates.to(_I32).contiguous()
+        topk = candidates.shape[-1]
+    kind, window, delta = _predictor_args(predictor)
+    fn, check = _load_full(name)
+    sym = torch.empty((lanes, t_len), dtype=_I32, device=dev)
+    probes = torch.empty((n_chunks, lanes), dtype=_I32, device=dev)
+    under = torch.empty_like(probes)
+    err = fn(*src_args, freq.data_ptr(), cdf.data_ptr(),
+             *_table_strides(layout, lanes, k),
+             *_table_strides(layout, lanes, k + 1), k,
+             candidates.data_ptr() if topk else None, topk, lanes, t_len,
+             chunk, n_chunks, prob_bits, search.ceil_log2(k), kind, window,
+             delta, sym.data_ptr(), probes.data_ptr(), under.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    check(err, name)
+    LAUNCHES[name] += 1
+    return sym, probes, under
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def rans_decode_lanes(buf: torch.Tensor, start: torch.Tensor,
+                      freq: torch.Tensor, cdf: torch.Tensor, t_len: int,
+                      chunk_size: int | None = None,
+                      prob_bits: int = C.PROB_BITS, predictor=None,
+                      candidates: torch.Tensor | None = None):
+    """Decode ``t_len`` symbols per lane in one launch (B3).
+
+    ``buf`` is ``(lanes, cap)`` (monolithic; no ``chunk_size``) or
+    ``(n_chunks, lanes, cap)`` (every (chunk, lane) cell standalone) uint8
+    with matching ``start``; tables static ``(K,)``, per-position ``(T, K)``
+    or per-lane ``(T, lanes, K)`` int32 with ``cdf`` one wider; ``predictor``
+    a :mod:`repro_torch.core.predictors` config; ``candidates`` an optional
+    ``(T, lanes, topk)`` plane.  Returns int32 ``(symbols (lanes, T),
+    probes (n_chunks, lanes), under (n_chunks, lanes))``.
+    """
+    if _device_of(buf) == "cpu":
+        return rans_decode_lanes_plain(buf, start, freq, cdf, t_len,
+                                       chunk_size, prob_bits, predictor,
+                                       candidates)
+    buf3, start2, chunk = _stream3(buf, start, t_len, chunk_size)
+    n_chunks, lanes, cap = buf3.shape
+    if buf3.dtype != torch.uint8:
+        raise ValueError(f"buf must be uint8; got {buf3.dtype}")
+    buf3 = buf3.contiguous()
+    start2 = start2.to(device=buf.device, dtype=_I32).contiguous()
+    return _launch_full("rans_decode_lanes",
+                        (buf3.data_ptr(), start2.data_ptr(), cap),
+                        buf.device, lanes, t_len, chunk, n_chunks, freq, cdf,
+                        prob_bits, predictor, candidates)
+
+
+def rans_decode_slab(slab: torch.Tensor, base: torch.Tensor,
+                     wstart: torch.Tensor, wlen: torch.Tensor,
+                     freq: torch.Tensor, cdf: torch.Tensor, *, cap: int,
+                     t_len: int, chunk_size: int,
+                     prob_bits: int = C.PROB_BITS, predictor=None,
+                     candidates: torch.Tensor | None = None):
+    """Decode a chunked stream straight off a packed payload slab (B4).
+
+    ``slab`` ``(S,)`` uint8 with ``S >= cap``; ``base``/``wstart``/``wlen``
+    ``(n_chunks, lanes)`` int32, ``base`` clipped to ``[0, S - cap]`` and
+    ``wstart = offset - base`` (:func:`repro_torch.kernels.ops.slab_planes`
+    derives all three from a validated container).  Cell (c, l) reads
+    window column ``p`` as ``slab[base + p]`` inside its span ``[wstart,
+    wstart + wlen)`` and as 0 outside it; reads at or past ``wstart +
+    wlen`` count in ``under``.  Returns what :func:`rans_decode_lanes`
+    returns.
+    """
+    if _device_of(slab) == "cpu":
+        return rans_decode_slab_plain(
+            slab, base, wstart, wlen, freq, cdf, cap=cap, t_len=t_len,
+            chunk_size=chunk_size, prob_bits=prob_bits, predictor=predictor,
+            candidates=candidates)
+    n_chunks, lanes = base.shape
+    chunk = _chunk_geometry(n_chunks, t_len, chunk_size)
+    if slab.dtype != torch.uint8 or slab.ndim != 1 or slab.shape[0] < cap:
+        raise ValueError(f"slab must be a (S >= cap={cap},) uint8 tensor; "
+                         f"got {slab.dtype} {tuple(slab.shape)}")
+    if slab.shape[0] >= 2 ** 31:
+        raise ValueError(f"slab of {slab.shape[0]} bytes exceeds the int32 "
+                         "index range of the slab decode")
+    planes = []
+    for name_, t in (("base", base), ("wstart", wstart), ("wlen", wlen)):
+        if tuple(t.shape) != (n_chunks, lanes) or t.device != slab.device:
+            raise ValueError(f"{name_} must be ({n_chunks}, {lanes}) on "
+                             f"{slab.device}; got {tuple(t.shape)} on "
+                             f"{t.device}")
+        planes.append(t.to(_I32).contiguous())
+    base, wstart, wlen = planes
+    slab = slab.contiguous()
+    return _launch_full("rans_decode_slab",
+                        (slab.data_ptr(), base.data_ptr(), wstart.data_ptr(),
+                         wlen.data_ptr(), cap),
+                        slab.device, lanes, t_len, chunk, n_chunks, freq, cdf,
+                        prob_bits, predictor, candidates)

@@ -14,7 +14,8 @@ are 0.
 It dispatches on the symbols' device: a CPU tensor runs
 :func:`rans_encode_lanes_plain`, a CUDA tensor launches
 ``csrc/rans_encode.cu`` (built by ``kernels/_build.py``) and counts the
-launch in :data:`LAUNCHES`.  There is no fallback between the two.
+launch in ``repro_torch.kernels.LAUNCHES``.  There is no fallback between
+the two.
 
 On this card the kernel is latency-bound: each thread runs a chain of
 ``chunk_size`` dependent steps and only ``n_chunks * lanes`` threads are
@@ -31,9 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.core import coder, update
-
-LAUNCHES = 0
-
+from repro_torch.kernels import LAUNCHES
 
 
 def _layout(tbl, lanes: int, t_len: int) -> str:
@@ -90,7 +89,6 @@ def _load():
 
 
 def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
-    global LAUNCHES
     lanes, t_len = symbols.shape
     layout = _layout(tbl, lanes, t_len)
     chunk, n_chunks = _geometry(t_len, chunk_size)
@@ -114,7 +112,7 @@ def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
              stride_l, k, lanes, t_len, chunk, n_chunks, cap, buf.data_ptr(),
              start.data_ptr(), length.data_ptr(), overflow.data_ptr(), stream)
     check(err, "rans_encode_lanes")
-    LAUNCHES += 1
+    LAUNCHES["rans_encode_lanes"] += 1
     return buf, start, length, overflow.bool()
 
 

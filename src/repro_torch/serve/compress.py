@@ -1,17 +1,27 @@
-"""LM-driven lossless compression, end to end (the paper's Fig. 1/2 path).
+"""Lossless compression end to end: the LM path (the paper's Fig. 1/2)
+and the static-table image path (Fig. 3 / Fig. 4(b)).
 
-Port of the chunked half of ``repro.serve.compress``:
+Port of ``repro.serve.compress``:
 
   compress    — a teacher-forced per-step ``decode_step`` scan prices every
                 (position, lane); the SPC quantizes each distribution; the
-                chunked multi-lane encoder writes the streams (one kernel
-                launch for the whole stream with ``backend="kernel"``).
+                multi-lane encoder writes the streams (one kernel launch
+                for the whole stream with ``backend="kernel"``).
   decompress  — the same per-step scan, except each step's symbol comes
                 out of the rANS decoder and is fed back into the model.
                 ``backend="kernel"`` is the fused serve decode: every step
                 runs the model, the SPC decode fast path, the model top-k
                 and one pop per lane with the decode-step kernel.
                 ``backend="coder"`` pops with the pure-torch coder.
+                ``backend="two_pass"`` is the differential reference: pass
+                1 runs the coder scan and keeps every step's tables and
+                top-k candidates, pass 2 re-decodes the whole stream in one
+                launch of the full-stream decode kernel (straight off the
+                payload slab when given a ``ContainerSlab``); its symbols
+                and probes come from pass 2 only.
+  histogram   — static-table rANS with an empirical histogram, decoded by
+                the full-stream kernel with an optional predictor (the
+                paper's image workload).
 
 Both directions run the identical ``decode_step`` at the identical row
 count, so the tables that price a stream are bit-for-bit the tables that
@@ -91,6 +101,12 @@ def collect_tables(model, tokens: torch.Tensor,
     return spc.TableSet(*planes), nll.mean() / math.log(2.0)
 
 
+class CompressStats(NamedTuple):
+    enc: bitstream.EncodedLanes
+    bits_per_symbol: torch.Tensor
+    model_xent_bits: torch.Tensor
+
+
 class ChunkedCompressStats(NamedTuple):
     chunks: bitstream.ChunkedLanes
     chunk_size: int
@@ -107,6 +123,28 @@ def _on_device(model, device) -> torch.device:
         raise ValueError(f"model lives on {have} but the call runs on {dev}:"
                          " move it with model.to(device)")
     return have
+
+
+def lm_compress(model, tokens, prob_bits: int = C.PROB_BITS,
+                backend: str = "coder", device=None) -> CompressStats:
+    """tokens (lanes, T) -> one monolithic rANS stream per lane + stats.
+
+    ``backend="kernel"`` encodes through the encode kernel (one launch),
+    ``"coder"`` through the pure-torch coder; the bytes are identical.
+    """
+    dev = _on_device(model, device)
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                             device=dev)
+    tables, xent_bits = collect_tables(model, tokens, prob_bits)
+    if backend == "kernel":
+        enc = ops.rans_encode(tokens, tables)
+    elif backend == "coder":
+        enc = coder.encode(tokens, tables)
+    else:
+        raise ValueError(f"unknown encode backend {backend!r}")
+    bits = enc.length.to(torch.float32).mean() * 8.0 / tokens.shape[1]
+    return CompressStats(enc=enc, bits_per_symbol=bits,
+                         model_xent_bits=xent_bits)
 
 
 def lm_compress_chunked(model, tokens, chunk_size: int,
@@ -138,9 +176,12 @@ def lm_compress_chunked(model, tokens, chunk_size: int,
 
 
 def _decode_chunk(model, enc: bitstream.EncodedLanes, state, tok, t0: int,
-                  n: int, prob_bits: int, topk: int, backend: str):
+                  n: int, prob_bits: int, topk: int, backend: str,
+                  planes=None):
     """Decode positions [t0, t0+n) of one chunk with the carried model
     state and token.  Returns (tok, symbols (lanes, n), probe sums, under).
+    ``planes`` (coder backend): ``(freq, cdf, candidates)`` tensors with a
+    leading T axis that receive every step's rows for a second pass.
     """
     vocab = model.cfg.vocab_size
     lanes = enc.buf.shape[0]
@@ -165,12 +206,66 @@ def _decode_chunk(model, enc: bitstream.EncodedLanes, state, tok, t0: int,
             tbl = step_tables(lg, vocab, prob_bits)
             dec, sym, probes = coder.decode_get(dec, enc.buf, tbl, prob_bits,
                                                 candidates=cands)
+            if planes is not None:
+                for dst, src in zip(planes, (tbl.freq, tbl.cdf, cands)):
+                    dst[t0 + i] = src
         syms[i] = sym
         probe_sum += probes
         tok = sym[:, None].to(torch.int64)
     if backend != "kernel":
         under = dec.underflow
     return tok, syms.T, probe_sum, under
+
+
+def _plane_buffers(lanes: int, n_symbols: int, vocab: int, topk: int,
+                   device):
+    """Empty ``(T, lanes, K)`` freq, ``(T, lanes, K+1)`` cdf and ``(T,
+    lanes, topk)`` candidate planes for the two-pass decode's pass 1."""
+    def plane(width):
+        return torch.empty((n_symbols, lanes, width), dtype=torch.int32,
+                           device=device)
+    return plane(vocab), plane(vocab + 1), plane(topk)
+
+
+def _decoded(sym, lane_sum, lanes: int, n_symbols: int, lane_probes: bool):
+    out = (sym, lane_sum.sum().to(torch.float32) / (lanes * n_symbols))
+    return out + (lane_sum,) if lane_probes else out
+
+
+def lm_decompress(model, enc: bitstream.EncodedLanes, n_symbols: int,
+                  prob_bits: int = C.PROB_BITS, topk: int = 4,
+                  backend: str = "coder", lane_probes: bool = False,
+                  device=None):
+    """Monolithic bitstream -> tokens (bit-exact inverse of
+    :func:`lm_compress`), with the model's top-k as trial symbols.
+
+    ``backend`` is ``"coder"``, ``"kernel"`` (the fused decode) or
+    ``"two_pass"`` (the coder scan collects tables and candidates, then
+    one full-stream kernel launch re-decodes the stream; its symbols and
+    probes come from that launch only).  Raises
+    :class:`~repro_torch.core.coder.StreamExhaustedError` on a read past a
+    lane's stream.  Returns ``(tokens (lanes, T) int32, avg_probes[,
+    per-lane probes])``.
+    """
+    if backend not in ("coder", "kernel", "two_pass"):
+        raise ValueError(f"unknown decode backend {backend!r}")
+    dev = _on_device(model, device)
+    enc = bitstream.EncodedLanes(*(a.to(dev) for a in enc[:3]))
+    lanes = enc.buf.shape[0]
+    state = init_state(model, lanes, n_symbols)
+    tok = torch.full((lanes, 1), BOS, dtype=torch.int64, device=dev)
+    if backend == "two_pass":
+        planes = _plane_buffers(lanes, n_symbols, model.cfg.vocab_size,
+                                topk, dev)
+        _decode_chunk(model, enc, state, tok, 0, n_symbols, prob_bits, topk,
+                      "coder", planes)
+        return ops.rans_decode(enc, n_symbols, spc.FreqCdf(*planes[:2]),
+                               prob_bits=prob_bits, candidates=planes[2],
+                               lane_probes=lane_probes)
+    _, sym, lane_sum, under = _decode_chunk(
+        model, enc, state, tok, 0, n_symbols, prob_bits, topk, backend)
+    coder._check_exhausted(under, "lm_decompress")
+    return _decoded(sym, lane_sum, lanes, n_symbols, lane_probes)
 
 
 def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
@@ -182,23 +277,27 @@ def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
 
     ``chunks`` is a :class:`~repro_torch.core.bitstream.ChunkedLanes` or a
     :class:`~repro_torch.core.bitstream.ContainerSlab` from
-    ``parse_chunked``; each chunk's window is right-aligned on the device
-    one chunk at a time.  Raises
+    ``parse_chunked``.  The ``coder`` and ``kernel`` backends right-align
+    each chunk's window on the device one chunk at a time.  ``two_pass``
+    walks the chunks with the coder scan collecting every step's tables
+    and top-k candidates (pass 1; its symbols, probes and flags are
+    discarded), then re-decodes the whole stream in ONE launch (pass 2):
+    B4 straight off a ``ContainerSlab``'s payload, B3's chunk grid from
+    ``ChunkedLanes``.  Raises
     :class:`~repro_torch.core.coder.StreamExhaustedError` when a lane reads
     past its stream.  Returns ``(tokens (lanes, T) int32, avg_probes[,
     per-lane probes])``.
     """
-    if backend not in ("coder", "kernel"):
+    if backend not in ("coder", "kernel", "two_pass"):
         raise ValueError(f"unknown decode backend {backend!r}")
     dev = _on_device(model, device)
     slab_in = isinstance(chunks, bitstream.ContainerSlab)
     n_have = chunks.offset.shape[0] if slab_in else chunks.buf.shape[0]
     lanes = chunks.offset.shape[1] if slab_in else chunks.buf.shape[1]
-    n_total = coder.num_chunks(n_symbols, chunk_size)
-    if n_have != n_total:
-        raise ValueError(
-            f"stream has {n_have} chunks but n_symbols="
-            f"{n_symbols} at chunk_size={chunk_size} implies {n_total}")
+    coder.check_chunk_count(n_have, n_symbols, chunk_size)
+    two_pass = backend == "two_pass"
+    planes = (_plane_buffers(lanes, n_symbols, model.cfg.vocab_size, topk,
+                             dev) if two_pass else None)
     state = init_state(model, lanes, n_symbols)
     tok = torch.full((lanes, 1), BOS, dtype=torch.int64, device=dev)
     outs = []
@@ -212,13 +311,65 @@ def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
                 *(a.to(dev) for a in coder.chunk_encoded(chunks, c)[:3]))
         tok, sym, probes, und = _decode_chunk(
             model, enc, state, tok, c * chunk_size, n, prob_bits, topk,
-            backend)
+            "coder" if two_pass else backend, planes)
         outs.append(sym)
         lane_sum += probes
         under |= und
+    if two_pass:
+        tables = spc.FreqCdf(*planes[:2])
+        if slab_in:
+            return ops.rans_decode_chunked(
+                n_symbols=n_symbols, tbl=tables, chunk_size=chunk_size,
+                prob_bits=prob_bits, candidates=planes[2],
+                lane_probes=lane_probes, from_container=chunks)
+        dense = bitstream.ChunkedLanes(*(a.to(dev) for a in chunks[:3]))
+        return ops.rans_decode_chunked(
+            dense, n_symbols, tables, chunk_size, prob_bits=prob_bits,
+            candidates=planes[2], lane_probes=lane_probes)
     coder._check_exhausted(under, "lm_decompress_chunked")
-    out = (torch.cat(outs, dim=1),
-           lane_sum.sum().to(torch.float32) / (lanes * n_symbols))
-    if lane_probes:
-        out = out + (lane_sum,)
-    return out
+    return _decoded(torch.cat(outs, dim=1), lane_sum, lanes, n_symbols,
+                    lane_probes)
+
+
+# ---------------------------------------------------------------------------
+# static-table path (classic rANS with an empirical histogram)
+# ---------------------------------------------------------------------------
+
+def histogram_compress(symbols, k: int, prob_bits: int = C.PROB_BITS,
+                       device=None):
+    """Symbols ``(lanes, T)`` (numpy or tensor) -> ``(EncodedLanes, static
+    TableSet)``: +1-smoothed histogram tables, coder encode on ``device``
+    (the card unless given)."""
+    dev = resolve_device(device)
+    symbols = np.asarray(symbols.cpu() if isinstance(symbols, torch.Tensor)
+                         else symbols)
+    counts = np.bincount(symbols.ravel(), minlength=k)
+    tbl = spc.TableSet(*(a.to(dev) for a in spc.tables_from_counts_np(
+        counts, prob_bits)))
+    enc = coder.encode(torch.as_tensor(symbols, dtype=torch.int64,
+                                       device=dev), tbl)
+    return enc, tbl
+
+
+def histogram_decompress(enc: bitstream.EncodedLanes, n_symbols: int, tbl,
+                         prob_bits: int = C.PROB_BITS, predictor=None,
+                         backend: str = "kernel", lane_probes: bool = False,
+                         device=None):
+    """Static-table decode on ``device`` (the card unless given): the
+    full-stream kernel (B3) by default, the pure-torch coder with
+    ``backend="coder"``; symbols and probes are identical.  ``enc``'s
+    ``buf``/``start`` may be tensors or the numpy arrays of
+    :func:`~repro_torch.core.bitstream.unpack`.  ``predictor`` enables the
+    window-gated search (the paper's ``NeighborAverage`` for image rows).
+    Returns ``(symbols, avg_probes[, per-lane probes])``."""
+    dev = resolve_device(device)
+    enc = bitstream.EncodedLanes(*(torch.as_tensor(a, device=dev)
+                                   for a in enc[:2]), None)
+    tbl = type(tbl)(*(a.to(dev) for a in tbl))
+    if backend == "kernel":
+        return ops.rans_decode(enc, n_symbols, tbl, prob_bits=prob_bits,
+                               predictor=predictor, lane_probes=lane_probes)
+    if backend == "coder":
+        return coder.decode(enc, n_symbols, tbl, prob_bits,
+                            predictor=predictor, lane_probes=lane_probes)
+    raise ValueError(f"unknown decode backend {backend!r}")

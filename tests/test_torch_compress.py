@@ -7,7 +7,8 @@
   to JAX's ``lm_compress_chunked(backend="kernel")`` + ``pack_chunked``;
 * with JAX-converted params the port's cross entropy is within 1e-4 bits
   of JAX's and its payload within 1%;
-* a guard keeps ``jax`` and ``repro`` out of the port and ``chip_smoke.py``.
+* a guard keeps ``jax`` and ``repro`` out of the port, ``chip_smoke.py``,
+  ``tools/`` and the JAX-free ``gpu`` tier ``tests/test_torch_gpu.py``.
 """
 
 import pathlib
@@ -158,8 +159,10 @@ _FORBIDDEN = re.compile(
 
 def test_port_never_imports_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 10
+    assert ROOT / "src" / "repro_torch" / "kernels" / "rans_decode.py" in files
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

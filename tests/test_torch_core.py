@@ -247,7 +247,7 @@ def test_golden_v2_parse_and_repack_identical(name):
     np.testing.assert_array_equal(cs.offset, ref.offset)
     np.testing.assert_array_equal(cs.length, ref.length)
     assert cs.meta == tuple(ref.meta) and cs.cap == ref.cap
-    dense = bitstream.slab_to_chunked(cs)
+    dense = bitstream.slab_to_chunked(cs, "cpu")
     jdense = jbs.slab_to_chunked(ref)
     for a, b in zip(dense[:3], jdense[:3]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

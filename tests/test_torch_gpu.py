@@ -6,17 +6,54 @@ dependencies (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
         tests/test_torch_gpu.py
+
+B1 (encode), B2 (decode step), B3 (full-stream decode) and B4 (slab
+decode) are held against their plain versions on every table layout and
+predictor, with candidates, truncated streams and poisoned slabs; the
+frozen corpus ``tests/golden_vectors/*.ras`` decodes on the card; each
+call launches its kernel exactly once.
 """
+
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import coder, spc, u32
+from repro_torch.core import bitstream, coder, predictors, spc, u32
 from repro_torch.core.bitstream import EncodedLanes
+from repro_torch.data.pipeline import candidate_planes
 from repro_torch.device import configure_cuda_numerics
-from repro_torch.kernels import rans_decode, rans_encode
+from repro_torch.kernels import LAUNCHES, ops, rans_decode, rans_encode
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden_vectors")
+
+# the frozen corpus's cases, as ``tests/golden_vectors/generate.py`` lists
+# them (that script imports JAX)
+CASES = {c["name"]: c for c in [
+    dict(name="v1_static", fmt="v1", seed=41, k=64, lanes=4, t=64,
+         tables="static"),
+    dict(name="v2_static_crc", fmt="v2", seed=42, k=64, lanes=4, t=64,
+         chunk_size=20, checksums=True, tables="static"),
+    dict(name="v2_perpos_nocrc", fmt="v2", seed=43, k=32, lanes=4, t=48,
+         chunk_size=16, checksums=False, tables="perpos"),
+    dict(name="v2_perlane_crc", fmt="v2", seed=44, k=16, lanes=4, t=32,
+         chunk_size=13, checksums=True, tables="perlane"),
+]}
+
+
+def case_tables(case):
+    """A corpus case's TableSet and symbols, rebuilt from its seed with the
+    port's own SPC (the same draws as ``generate.build_case``)."""
+    rng = np.random.default_rng(case["seed"])
+    k, lanes, t = case["k"], case["lanes"], case["t"]
+    size = {"static": None, "perpos": t, "perlane": (t, lanes)}[
+        case["tables"]]
+    probs = rng.dirichlet(np.full(k, 0.5), size=size)
+    tbl = spc.tables_from_probs(torch.as_tensor(probs.astype(np.float32)))
+    syms = rng.integers(0, k, (lanes, t)).astype(np.int32)
+    return tbl, syms
 
 
 def _t(a):
@@ -55,12 +92,12 @@ def test_gpu_encode_kernel_matches_plain(layout):
     tt, syms = _case(layout, seed=4, k=256, lanes=128, t=300)
     for chunk, cap in ((128, 264), (300, 608), (64, 40)):
         ref = rans_encode.rans_encode_lanes_plain(_t(syms), tt, cap, chunk)
-        before = rans_encode.LAUNCHES
+        before = LAUNCHES["rans_encode_lanes"]
         got = rans_encode.rans_encode_lanes(
             _t(syms).to(dev), spc.TableSet(*(a.to(dev) for a in tt)), cap,
             chunk)
         torch.cuda.synchronize()
-        assert rans_encode.LAUNCHES == before + 1
+        assert LAUNCHES["rans_encode_lanes"] == before + 1
         _assert_planes_equal(got, ref)
 
 
@@ -136,3 +173,120 @@ def test_gpu_slice_roundtrip_and_backends_identical():
             model, cs, 40, 16, backend=backend, lane_probes=True)
         assert np.array_equal(sym.cpu().numpy(), tokens)
     assert torch.equal(probes["kernel"], probes["coder"])
+
+
+PREDICTORS = [None, predictors.NeighborAverage(4, 8),
+              predictors.NeighborAverage(2, 4), predictors.LastValue(8),
+              predictors.ZeroPredictor(8)]
+
+
+def _on(tbl, dev):
+    return spc.TableSet(*(a.to(dev) for a in tbl))
+
+
+def _smooth_case(layout, seed, k=256, lanes=128, t=300):
+    tt, _ = _case(layout, seed, k, lanes, t)
+    rng = np.random.default_rng(seed)
+    syms = np.clip(k // 2 + np.cumsum(rng.integers(-3, 4, (lanes, t)), 1),
+                   0, k - 1).astype(np.int32)
+    return tt, syms
+
+
+def _launched(name, fn):
+    before = LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1, name
+    return out
+
+
+def _assert_same(got, ref):
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+@pytest.mark.parametrize("pred", range(len(PREDICTORS)))
+def test_gpu_decode_lanes_kernel_matches_plain(layout, pred):
+    dev = _cuda()
+    tt, syms = _smooth_case(layout, seed=7 + pred)
+    cands = torch.as_tensor(candidate_planes(syms, 256, 2, 0.5, seed=pred))
+    ch = coder.encode_chunked(_t(syms), tt, 128)
+    gt = _on(tt, dev)
+    cases = [(ch.buf, ch.start, 128, None, False),             # chunked
+             (ch.buf[..., :-3], ch.start, 128, cands, True)]   # truncated
+    if layout != "lane":
+        enc = coder.encode(_t(syms), tt)
+        cases.append((enc.buf, enc.start, None, cands, False))  # monolithic
+    for buf, start, chunk, cd, truncated in cases:
+        kw = dict(predictor=PREDICTORS[pred], candidates=cd)
+        ref = rans_decode.rans_decode_lanes_plain(
+            buf, start, tt.freq, tt.cdf, 300, chunk, **kw)
+        kw["candidates"] = None if cd is None else cd.to(dev)
+        got = _launched("rans_decode_lanes", lambda: rans_decode.rans_decode_lanes(
+            buf.to(dev), start.to(dev), gt.freq, gt.cdf, 300, chunk, **kw))
+        _assert_same(got, ref)
+        assert (int(ref[2].sum()) > 0) == truncated
+
+
+def _poisons(cs):
+    """The fuzz tier's three hostile-after-validation index planes; only
+    offsets past the payload end must be flagged (a length past the window
+    still reads the real stream to its end)."""
+    s = cs.slab.shape[0]
+    return [cs._replace(offset=np.full_like(cs.offset, s + 1000)),
+            cs._replace(length=np.full_like(cs.length, cs.cap + 7)),
+            cs._replace(offset=np.full_like(cs.offset, s - 1),
+                        length=np.full_like(cs.length, cs.cap + 3))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_decode_slab_kernel_matches_plain(layout):
+    dev = _cuda()
+    tt, syms = _smooth_case(layout, seed=21)
+    cands = torch.as_tensor(candidate_planes(syms, 256, 4, 0.6, seed=1))
+    ch = coder.encode_chunked(_t(syms), tt, 128)
+    cs = bitstream.parse_chunked(bitstream.pack_chunked(
+        *ch, chunk_size=128, n_symbols=300))
+    gt = _on(tt, dev)
+    for i, src in enumerate([cs] + _poisons(cs)):
+        pred = PREDICTORS[i % len(PREDICTORS)]
+        (planes, cap) = ops.slab_planes(src, dev)
+        kw = dict(cap=cap, t_len=300, chunk_size=128, predictor=pred)
+        ref = rans_decode.rans_decode_slab_plain(
+            *(p.cpu() for p in planes), tt.freq, tt.cdf, candidates=cands,
+            **kw)
+        got = _launched("rans_decode_slab", lambda: rans_decode.rans_decode_slab(
+            *planes, gt.freq, gt.cdf, candidates=cands.to(dev), **kw))
+        _assert_same(got, ref)
+        if i == 0:
+            assert torch.equal(got[0].cpu(), _t(syms))
+            dense = rans_decode.rans_decode_lanes(
+                ch.buf.to(dev), ch.start.to(dev), gt.freq, gt.cdf, 300, 128,
+                predictor=pred, candidates=cands.to(dev))
+            _assert_same(got, dense)
+        elif i == 1:                                # offsets past the end
+            assert int(got[2].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_gpu_golden_corpus_decodes(name):
+    dev = _cuda()
+    case = CASES[name]
+    tt, syms = case_tables(case)
+    with open(os.path.join(GOLDEN, name + ".ras"), "rb") as fh:
+        blob = fh.read()
+    gt = _on(tt, dev)
+    if case["fmt"] == "v1":
+        buf, start, meta = bitstream.unpack(blob)
+        enc = EncodedLanes(_t(buf).to(dev), _t(start).to(dev), None)
+        sym, _ = _launched("rans_decode_lanes", lambda: ops.rans_decode(
+            enc, meta.n_symbols, gt))
+    else:
+        cs = bitstream.parse_chunked(blob)
+        sym, _ = _launched("rans_decode_slab", lambda: ops.rans_decode_chunked(
+            tbl=gt, from_container=cs))
+    assert torch.equal(sym.cpu(), _t(syms))
