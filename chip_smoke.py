@@ -40,7 +40,29 @@ Phases (any failure raises and exits nonzero):
 8. the two-pass decode of the same container,
    ``lm_decompress_chunked(backend="two_pass")`` from the ``ContainerSlab``:
    bit-exact, per-lane probes equal to the fused decode's, and exactly one
-   B4 launch between counters reset and read.
+   B4 launch between counters reset and read;
+9. the records reference encode (B5) at B1's phase inputs:
+   ``ops.rans_encode_records`` -> ``ops.compact_records`` with launch
+   counters reset just before and read just after; kernel == plain on all
+   three planes (also at ``t_block = 96``, so padded rows occur), and the
+   compacted streams equal B1's byte for byte at the default cap and at
+   ``cap // 3`` (overflow); B5, B5 plus compaction and B1 timed side by
+   side with the analytic stream bytes of both datapaths;
+10. the Fig. 4(a) coder-speed point (128 lanes x 2048 ``image_rows(seed=0)``,
+   the static ``tables_from_counts_np`` table): the single-lane ``PyRans``
+   round trip on 40,000 symbols on the host; ``golden.encode`` == ``PyRans``
+   == lane 0 of ``coder.encode``, ``coder.encode_records``, B1 and B5 plus
+   ``compact_records``; all lanes byte-identical across them; ``coder.decode``
+   (with and without the LUT) and B3 bit-exact; microseconds per symbol and
+   speedups over ``PyRans`` beside the paper's figures;
+11. the SPC conversion (B6): ``bench_spc.run``'s point (256 x 256
+   ``dirichlet(0.5)``, seed 0) and the slice's whole per-position table
+   batch (B1's phase probabilities as 128,000 x 256): kernel ==
+   ``spc_quantize_plain`` == ``tables_from_probs(...).freq``, and
+   ``ops.spc_quantize_tables`` == ``tables_from_probs`` (on the card, and
+   on the CPU at the first point) on every plane with
+   one B6 launch between counters reset and read.
+Each phase prints its seconds.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
@@ -50,6 +72,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -62,6 +85,9 @@ sys.path.insert(0, str(ROOT / "src"))
 LANES, T, K, CHUNK, TOPK = 128, 1000, 256, 256, 4
 FIG4B_LANES, FIG4B_T = 64, 2048                # BENCH_search.json's point
 FIG4B_TOTALS = (1046915, 650352, 552027)       # its committed probe totals
+FIG4A_LANES, FIG4A_T, FIG4A_PY = 128, 2048, 40_000   # bench_speed.run's point
+SPC_POINT = (256, 256)                          # bench_spc.run's point
+RECORDS_T_BLOCK = 96                            # pads 256 and 232 to 288
 IMAGE_SIDE, IMAGE_LANES = 2048, 256            # 4-megapixel 8-bit image
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
@@ -119,6 +145,12 @@ def _check(ok, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def _only(**counts) -> dict:
+    """The launch counts of a path that runs exactly these kernels."""
+    from repro_torch.kernels import LAUNCHES
+    return {name: counts.get(name, 0) for name in LAUNCHES}
+
+
 def _max_abs_err(got, ref) -> int:
     """Max |kernel - plain| over all outputs; the outputs must be equal."""
     err = 0
@@ -126,7 +158,7 @@ def _max_abs_err(got, ref) -> int:
         _check(a.shape == b.shape, f"output shapes {tuple(a.shape)} vs "
                f"{tuple(b.shape)}")
         if a.numel():
-            err = max(err, int((a.long() - b.long()).abs().max()))
+            err = max(err, int((a.long() - b.to(a.device).long()).abs().max()))
     _check(err == 0, f"kernel and plain version disagree (max abs err {err})")
     return err
 
@@ -469,8 +501,7 @@ def image_phase(dev):
     (sym, avg, lp), t_dec = timed(lambda: compress.histogram_decompress(
         enc, meta.n_symbols, tbl, predictor=pred, lane_probes=True))
     launches = dict(LAUNCHES)
-    _check(launches == {"rans_encode_lanes": 1, "rans_decode_step": 0,
-                        "rans_decode_lanes": 1, "rans_decode_slab": 0},
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_lanes=1),
            f"image path launch counts {launches}")
     _check(np.array_equal(sym.cpu().numpy(), rows),
            "image round trip not exact")
@@ -566,8 +597,7 @@ def main_path(dev):
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    _check(launches == {"rans_encode_lanes": 1, "rans_decode_step": T,
-                        "rans_decode_lanes": 0, "rans_decode_slab": 0},
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=T),
            f"launch counts {launches}")
     _check(np.array_equal(sym.cpu().numpy(), tokens), "round trip not exact")
     print(f"slice: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
@@ -612,8 +642,7 @@ def two_pass_phase(slice_run):
     torch.cuda.synchronize()
     t_two = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    _check(launches == {"rans_encode_lanes": 0, "rans_decode_step": 0,
-                        "rans_decode_lanes": 0, "rans_decode_slab": 1},
+    _check(launches == _only(rans_decode_slab=1),
            f"two-pass launch counts {launches}")
     _check(np.array_equal(sym.cpu().numpy(), slice_run["tokens"]),
            "two-pass round trip not exact")
@@ -625,6 +654,288 @@ def two_pass_phase(slice_run):
           f"fused decode's {LANES * T / slice_run['t_dec']:.1f} symbols/s "
           "in this run", flush=True)
     return launches
+
+def _stream_hbm_bytes(lanes: int, t: int, chunk: int | None,
+                      cap: int) -> tuple[int, int]:
+    """The analytic encode-side stream traffic of the records and the fused
+    datapath, ``benchmarks/bench_speed._encode_stream_hbm_bytes``'s formula:
+    the records path writes ``(rows, 2, lanes)`` byte and mask planes and
+    the compaction reads both back before writing the packed buffer; the
+    fused path writes the packed buffer and three geometry planes once."""
+    chunk = t if chunk is None else min(chunk, t)
+    n_chunks = -(-t // chunk)
+    rec_planes = n_chunks * chunk * 2 * lanes * 2
+    packed = n_chunks * lanes * cap
+    return 2 * rec_planes + packed, packed + 3 * n_chunks * lanes * 4
+
+
+def _records_bound(rec, n_symbols: int, table_bytes: int):
+    """B5's bound: 4 B per symbol read, the table (``table_bytes``: rows
+    gathered per step, or a static table once), every record plane written
+    once and the states; ~10 integer operations per step."""
+    moved = (4 * n_symbols + table_bytes + rec[0].numel() + rec[1].numel()
+             + 4 * rec[2].numel())
+    return (*_bound(moved, 10 * n_symbols), moved)
+
+
+def records_phase(dev, encoded):
+    """B5 at B1's phase inputs: records -> compaction equals the fused
+    encode byte for byte, kernel == plain on all three planes."""
+    import torch
+    from repro_torch.core.coder import default_cap
+    from repro_torch.kernels import LAUNCHES, ops, rans_encode, reset_launches
+
+    t0 = time.perf_counter()
+    syms, tables, fused = encoded
+    cap, small = default_cap(CHUNK), default_cap(CHUNK) // 3
+    reset_launches()
+    rec = ops.rans_encode_records(syms, tables, CHUNK)
+    enc = ops.compact_records(*rec, cap)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_records=1),
+           f"records launch counts {launches}")
+    err = _max_abs_err(enc, fused)
+    fused_small = rans_encode.rans_encode_lanes(syms, tables, small, CHUNK)
+    _check(bool(fused_small[3].any()), "cap // 3 did not overflow")
+    for t_block in (None, RECORDS_T_BLOCK):
+        got = (rec if t_block is None else
+               rans_encode.rans_encode_records(syms, tables, CHUNK, t_block))
+        ref = rans_encode.rans_encode_records_plain(syms, tables, CHUNK,
+                                                    t_block)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, ref))
+        for c, want in ((cap, fused), (small, fused_small)):
+            err = max(err, _max_abs_err(ops.compact_records(*got, c), want))
+    padded = got[0].shape[1]
+    _check(padded == -(-CHUNK // RECORDS_T_BLOCK) * RECORDS_T_BLOCK,
+           f"padded chunk {padded}")
+    for plane in got[:2]:
+        _check(not bool(plane[:-1, CHUNK:].any())
+               and not bool(plane[-1, T % CHUNK:].any()),
+               "t_block padding rows are not zero")
+    print(f"B5 records: kernel == plain on bytes, mask and states at "
+          f"({LANES} lanes, T={T}, chunk {CHUNK}, per-lane tables) with "
+          f"t_block None and {RECORDS_T_BLOCK} (padded chunk {padded}); "
+          f"compact_records == B1 byte for byte at cap {cap} and at cap "
+          f"{small} ({int(fused_small[3].sum())} overflowed cells); "
+          f"launches {launches}", flush=True)
+
+    def b5():
+        return rans_encode.rans_encode_records(syms, tables, CHUNK)
+
+    def b5_compact():
+        return ops.compact_records(*b5(), cap)
+
+    def b1():
+        return rans_encode.rans_encode_lanes(syms, tables, cap, CHUNK)
+
+    ms = _device_ms(b5, n=10)
+    call_ms = _median_ms(b5, repeats=30)
+    b1_ms = _device_ms(b1, n=10)
+    b1_call_ms = _median_ms(b1, repeats=30)
+    compact_call_ms = _median_ms(b5_compact, repeats=30)
+    plain_ms = _median_ms(lambda: rans_encode.rans_encode_records_plain(
+        syms, tables, CHUNK), repeats=3, warmup=1)
+    bound_ms, bound_by, moved = _records_bound(rec, LANES * T,
+                                               LANES * T * 5 * 4)
+    rec_bytes, fused_bytes = _stream_hbm_bytes(LANES, T, CHUNK, cap)
+    print(f"B5 records: {ms:.4f} ms kernel on the device ({call_ms:.4f} ms "
+          f"per wrapper call), {compact_call_ms:.4f} ms per call with "
+          f"compact_records, beside B1 {b1_ms:.4f} ms on the device "
+          f"({b1_call_ms:.4f} ms per call); {plain_ms:.2f} ms plain; bound "
+          f"{bound_ms:.6f} ms by {bound_by} ({moved} B moved); analytic "
+          f"stream bytes: records {rec_bytes}, fused {fused_bytes} "
+          f"({rec_bytes / fused_bytes:.2f}x); latency-bound like B1 "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(name="rans_encode_records", route="cuda",
+                source="src/repro_torch/csrc/rans_encode.cu",
+                replaces="src/repro/kernels/rans_encode.py:396",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                call_ms=call_ms, compact_call_ms=compact_call_ms,
+                b1_ms=b1_ms, launches=launches["rans_encode_records"])
+
+
+def fig4a_phase(dev):
+    """The paper's Fig. 4(a) protocol: the scalar oracle and the Python
+    baseline, the multi-lane coder and the kernels, on the same CDFs with
+    identical bitstreams; microseconds per symbol on this card and host."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coder, golden, python_baseline, spc
+    from repro_torch.data.pipeline import image_rows
+    from repro_torch.kernels import (LAUNCHES, ops, rans_decode, rans_encode,
+                                     reset_launches)
+
+    t_phase = time.perf_counter()
+    rows = image_rows(FIG4A_LANES, FIG4A_T, seed=0)
+    n = rows.size
+    host_tbl = spc.tables_from_counts_np(np.bincount(rows.ravel(),
+                                                     minlength=K))
+    f, cdf = host_tbl.freq.numpy(), host_tbl.cdf.numpy()
+    tbl = spc.TableSet(*(a.to(dev) for a in host_tbl))
+    syms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+
+    pr = python_baseline.PyRans(f, cdf)
+    py_syms = [int(x) for x in rows.ravel()[:FIG4A_PY]]
+    t0 = time.perf_counter()
+    blob = pr.encode(py_syms)
+    py_enc = (time.perf_counter() - t0) / len(py_syms) * 1e6
+    t0 = time.perf_counter()
+    out = pr.decode(blob, len(py_syms))
+    py_dec = (time.perf_counter() - t0) / len(py_syms) * 1e6
+    _check(out == py_syms, "PyRans round trip not exact")
+    lane0 = golden.encode(rows[0], f, cdf)
+    _check(lane0 == pr.encode([int(x) for x in rows[0]]),
+           "golden and PyRans streams differ on lane 0")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) / n * 1e6
+
+    def b5():
+        b, m, st = ops.rans_encode_records(syms, tbl)
+        return coder.chunk_encoded(ops.compact_records(b, m, st,
+                                                       coder.default_cap(
+                                                           FIG4A_T)), 0)
+
+    reset_launches()
+    encs = {}
+    encs["coder.encode"], c_enc = timed(lambda: coder.encode(syms, tbl))
+    encs["coder.encode_records"], r_enc = timed(
+        lambda: coder.encode_records(syms, tbl))
+    encs["B1"], _ = timed(lambda: ops.rans_encode(syms, tbl))
+    encs["B5 + compact_records"], _ = timed(b5)
+    ref = encs["coder.encode"]
+    (dec, _), c_dec = timed(lambda: coder.decode(ref, FIG4A_T, tbl))
+    (dec_lut, _), c_lut = timed(lambda: coder.decode(ref, FIG4A_T, tbl,
+                                                     use_lut=True))
+    (dec_b3, _), _ = timed(lambda: ops.rans_decode(encs["B1"], FIG4A_T, tbl))
+    launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_lanes=1, rans_encode_records=1,
+                             rans_decode_lanes=1),
+           f"Fig. 4(a) launch counts {launches}")
+    for name, enc in encs.items():
+        _check(not bool(enc.overflow.any()), f"{name} overflowed")
+        s0, l0 = int(enc.start[0]), int(enc.length[0])
+        _check(bytes(enc.buf[0, s0:s0 + l0].cpu().numpy()) == lane0,
+               f"lane 0 of {name} differs from golden.encode")
+        _max_abs_err(enc, ref)
+    for name, d in (("coder.decode", dec), ("coder.decode(use_lut=True)",
+                                            dec_lut), ("B3", dec_b3)):
+        _check(np.array_equal(d.cpu().numpy(), rows), f"{name} not exact")
+    print(f"Fig. 4(a): {FIG4A_LANES} lanes x {FIG4A_T} image_rows(seed=0), "
+          f"static histogram table: golden == PyRans == lane 0 of "
+          f"{', '.join(encs)} ({len(lane0)} bytes); all lanes byte-identical "
+          f"across them; coder.decode, its LUT and B3 bit-exact; PyRans round "
+          f"trip exact on {FIG4A_PY} symbols; launches {launches}",
+          flush=True)
+
+    b1_ms = _device_ms(lambda: ops.rans_encode(syms, tbl), n=5)
+    b5_ms = _device_ms(lambda: rans_encode.rans_encode_records(syms, tbl),
+                       n=5)
+    b5c_ms = _median_ms(b5, repeats=10)
+    b1_enc = encs["B1"]
+    b3_ms = _device_ms(lambda: rans_decode.rans_decode_lanes(
+        b1_enc.buf, b1_enc.start, tbl.freq, tbl.cdf, FIG4A_T), n=3,
+        repeats=3)
+    per = {"encode": [("coder.encode", c_enc),
+                      ("coder.encode_records", r_enc),
+                      ("B1 kernel", b1_ms * 1e3 / n),
+                      ("B5 kernel", b5_ms * 1e3 / n),
+                      ("B5 + compact_records per call", b5c_ms * 1e3 / n)],
+           "decode": [("coder.decode", c_dec),
+                      ("coder.decode(use_lut=True)", c_lut),
+                      ("B3 kernel", b3_ms * 1e3 / n)]}
+    base = {"encode": py_enc, "decode": py_dec}
+    for side, paper in (("encode", 121.2), ("decode", 70.9)):
+        row = ", ".join(f"{name} {us:.6f} us ({base[side] / us:.1f}x)"
+                        for name, us in per[side])
+        print(f"Fig. 4(a) {side}: PyRans {base[side]:.4f} us/symbol on the "
+              f"host; {row}; paper {paper}x (RTL simulation against an "
+              "Apple M4 Python baseline; these are the H100 and its host)",
+              flush=True)
+    bound_ms, bound_by, moved = _records_bound(
+        rans_encode.rans_encode_records(syms, tbl), n, 5 * K * 4)
+    print(f"Fig. 4(a): B5 {b5_ms:.4f} ms on the device at this point, bound "
+          f"{bound_ms:.6f} ms by {bound_by} ({moved} B moved); "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(b5_fig4a_ms=b5_ms, b1_fig4a_ms=b1_ms, b3_fig4a_ms=b3_ms,
+                b5_fig4a_bound_ms=bound_ms)
+
+
+def _spc_bound(b: int, k: int):
+    """B6's bound: 4 B in and 4 B out per entry; K * ceil(log2 K) compares
+    per row (the work of a sort-based ranking, not the kernel's K**2)."""
+    moved = 8 * b * k
+    return (*_bound(moved, b * k * math.ceil(math.log2(k))), moved)
+
+
+def spc_phase(dev):
+    """B6 at bench_spc.run's point and on the slice's whole per-position
+    table batch (B1's phase probabilities as 128,000 x 256)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spc
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import spc_quantize
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    point = torch.as_tensor(rng.dirichlet(np.full(SPC_POINT[1], 0.5),
+                                          size=SPC_POINT[0]),
+                            dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)     # encode_phase's
+    logits = torch.randn((T, LANES, K), generator=gen, device=dev) * 3.0
+    full = spc.store_bf16(torch.softmax(logits, -1)).to(
+        torch.float32).reshape(T * LANES, K)
+    del logits
+    err, runs = 0, []
+    for name, probs in (("bench_spc point", point), ("slice batch", full)):
+        got = spc_quantize.spc_quantize(probs)
+        plain = spc_quantize.spc_quantize_plain(probs)
+        want = spc.tables_from_probs(probs)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err([got], [plain]),
+                  _max_abs_err([got], [want.freq]))
+        reset_launches()
+        tables = ops.spc_quantize_tables(probs)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        _check(launches == _only(spc_quantize=1),
+               f"spc_quantize_tables launch counts {launches}")
+        err = max(err, _max_abs_err(tables, want))
+        if name == "bench_spc point":       # the card's tables == the CPU's
+            err = max(err, _max_abs_err(
+                tables, spc.tables_from_probs(probs.cpu())))
+        b, k = probs.shape
+        ms = _device_ms(lambda: spc_quantize.spc_quantize(probs), n=5)
+        call_ms = _median_ms(lambda: spc_quantize.spc_quantize(probs),
+                             repeats=10)
+        plain_ms = _median_ms(lambda: spc_quantize.spc_quantize_plain(probs),
+                              repeats=5)
+        bound_ms, bound_by, moved = _spc_bound(b, k)
+        print(f"B6 SPC {name} ({b} x {k}): kernel == spc_quantize_plain == "
+              f"tables_from_probs(...).freq, ops.spc_quantize_tables == "
+              f"tables_from_probs on every plane; launches {launches}; "
+              f"{ms:.4f} ms kernel on the device ({call_ms:.4f} ms per "
+              f"call, {ms * 1e3 / b:.4f} us per table), {plain_ms:.4f} ms "
+              f"plain, bound {bound_ms:.6f} ms by {bound_by} ({moved} B "
+              "moved)", flush=True)
+        runs.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, call_ms=call_ms,
+                         launches=launches["spc_quantize"]))
+    print(f"B6 SPC: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the record is the slice batch's; the bench_spc point rides along
+    return dict(name="spc_quantize", route="cuda",
+                source="src/repro_torch/csrc/spc_quantize.cu",
+                replaces="src/repro/kernels/spc_quantize.py:72",
+                max_abs_err=err, library_ms=None, **runs[1],
+                point_ms=runs[0]["ms"])
 
 
 def main() -> int:
@@ -656,6 +967,7 @@ def main() -> int:
     b1, encoded = encode_phase(dev)
     b2 = decode_phase(dev, encoded)
     b4 = chunked_decode_phase(dev, encoded)
+    b5 = records_phase(dev, encoded)
     del encoded
     torch.cuda.empty_cache()
     b3_err = fig4b_phase(dev)
@@ -664,11 +976,15 @@ def main() -> int:
     reference_check(dev)
     slice_launches, slice_run = main_path(dev)
     two_pass_launches = two_pass_phase(slice_run)
+    del slice_run
+    torch.cuda.empty_cache()
+    b5.update(fig4a_phase(dev))
+    b6 = spc_phase(dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches)):
         rec["launches"] = launches[rec["name"]]
-    print(json.dumps({"kernels": [b1, b2, b3, b4]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

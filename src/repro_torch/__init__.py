@@ -2,12 +2,14 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``core/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``, ``data/``)
-and never imports ``jax`` or ``repro``.  Four of the reference's six TPU
-kernels are hand-written CUDA kernels for ``sm_90a`` under ``csrc/``: the
-encode (``rans_encode.cu``), the per-step decode (``rans_decode_step.cu``)
-and the full-stream and slab decodes (``rans_decode_lanes.cu``).  Each sits
-beside a plain PyTorch version of the same arithmetic, which runs for CPU
-tensors (the CPU test tier) and is the kernel's yardstick on the card.
+and never imports ``jax`` or ``repro``.  Each of the reference's six TPU
+kernels is a hand-written CUDA kernel for ``sm_90a`` under ``csrc/``: the
+fused and the records encode (``rans_encode.cu``), the per-step decode
+(``rans_decode_step.cu``), the full-stream and slab decodes
+(``rans_decode_lanes.cu``) and the SPC quantizer (``spc_quantize.cu``).
+Each sits beside a plain PyTorch version of the same arithmetic, which
+runs for CPU tensors (the CPU test tier) and is the kernel's yardstick on
+the card.
 
 Entry points (``models.init_model``, ``serve.compress``) run on the card
 unless the caller passes ``device="cpu"``; without CUDA and without an

@@ -1,2 +1,2 @@
 """Integer codec core: SPC tables, encode update, CDF search, lane coder,
-wire container."""
+wire container, and the scalar oracles (``golden``, ``python_baseline``)."""

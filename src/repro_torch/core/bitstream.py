@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.core import u32
 from repro_torch.device import resolve_device
 
 
@@ -58,6 +59,52 @@ class ChunkedLanes(NamedTuple):
     start: torch.Tensor                   # (n_chunks, lanes) int32
     length: torch.Tensor                  # (n_chunks, lanes) int32
     overflow: torch.Tensor | None = None  # (n_chunks, lanes) bool
+
+
+def compact_records(bytes_rec: torch.Tensor, mask_rec: torch.Tensor,
+                    states: torch.Tensor, cap: int) -> EncodedLanes:
+    """Fixed-shape renorm records -> right-aligned per-lane streams.
+
+    ``bytes_rec`` and ``mask_rec`` are ``(..., T, 2, lanes)`` uint8 (mask
+    0/1) records in the emission order of
+    :func:`repro_torch.core.update.encode_step` (t descending, then renorm
+    step ascending); ``states`` are the ``(..., lanes)`` final states, as
+    int32 bit patterns or int64 values.  Leading dims are batch dims: the
+    ``(n_chunks, padded_chunk, 2, lanes)`` planes of
+    ``kernels.rans_encode.rans_encode_records`` compact in one call into
+    ``(n_chunks, lanes, cap)`` streams.  A stream stores the emitted bytes
+    reversed, after the 4-byte big-endian state header; records with mask
+    0 (non-emitting steps, padding rows) contribute nothing.
+
+    Overflow: when a lane's stream (4 + emitted bytes) outgrows ``cap``,
+    the indices that fall before the buffer head are dropped, never
+    wrapped (at ``cap < 4`` the header itself is clipped); ``overflow`` is
+    set and ``length`` reports the bytes that were needed.  Dropped writes
+    go to a spare column ``cap`` that is sliced off, so no write lands
+    through a clamped index.  The surviving bytes and flags equal the
+    coder's backward cursor and the fused kernel's.
+    """
+    *batch, t_len, r, lanes = bytes_rec.shape
+    seq_b = bytes_rec.flip(-3).reshape(*batch, t_len * r, lanes)
+    seq_m = mask_rec.flip(-3).reshape(*batch, t_len * r, lanes).to(
+        torch.int64)
+    n_emit = seq_m.sum(-2)                              # (..., lanes)
+    pos = seq_m.cumsum(-2) - seq_m                      # exclusive prefix
+    length = 4 + n_emit
+    start = cap - length                                # may go negative
+    idx = start[..., None, :] + 4 + (n_emit[..., None, :] - 1 - pos)
+    idx = torch.where((seq_m > 0) & (idx >= 0), idx, cap)
+    buf = torch.zeros((*batch, lanes, cap + 1), dtype=torch.uint8,
+                      device=bytes_rec.device)
+    buf.scatter_(-1, idx.transpose(-1, -2), seq_b.transpose(-1, -2))
+    s = u32.value(states)
+    for i, shift in enumerate((24, 16, 8, 0)):
+        hidx = torch.where(start + i >= 0, start + i, cap)
+        buf.scatter_(-1, hidx[..., None],
+                     ((s >> shift) & 0xFF).to(torch.uint8)[..., None])
+    return EncodedLanes(buf=buf[..., :cap],
+                        start=torch.clamp(start, min=0).to(torch.int32),
+                        length=length.to(torch.int32), overflow=length > cap)
 
 
 MAGIC = b"RAS1"

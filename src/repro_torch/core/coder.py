@@ -13,10 +13,15 @@ underflow flag, which host entry points turn into
 lane) cell of a chunked stream at once, with the predictor-guided search,
 candidate planes and per-cell read limits.
 
+:func:`encode_records` is the scatter-free encode: the records scan
+(:func:`encode_record_planes`) stacks each step's fixed-shape renorm
+records, and one ``bitstream.compact_records`` pass builds the streams.
+
 States are int64 uint32 values; tables are int32 bit patterns.  The
 kernels' plain versions in ``repro_torch.kernels`` are built on this
-module (:func:`encode_chunked`, :func:`pop` and :func:`decode_grid`), so
-one implementation answers to the reference's tests.
+module (:func:`encode_chunked`, :func:`encode_record_planes`, :func:`pop`
+and :func:`decode_grid`), so one implementation answers to the
+reference's tests.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core import search, spc, update
-from repro_torch.core.bitstream import ChunkedLanes, EncodedLanes
+from repro_torch.core.bitstream import (ChunkedLanes, EncodedLanes,
+                                        compact_records)
 from repro_torch.core.search import take_gather
 from repro_torch.core.spc import TableSet
 
@@ -84,9 +90,10 @@ def default_cap(n_symbols: int) -> int:
     return 2 * n_symbols + 8
 
 
-def is_per_position(tbl: TableSet, t_len: int) -> bool:
-    """True when the TableSet carries a leading per-position T dim."""
-    return tbl.freq.ndim in (2, 3) and tbl.freq.shape[0] == t_len
+def is_per_position(tbl, t_len: int) -> bool:
+    """True when the encoder tables (a TableSet or its five encoder
+    planes) carry a leading per-position T dim."""
+    return tbl.x_max.ndim in (2, 3) and tbl.x_max.shape[0] == t_len
 
 
 def encode(symbols: torch.Tensor, tbl: TableSet,
@@ -105,6 +112,44 @@ def encode(symbols: torch.Tensor, tbl: TableSet,
     return EncodedLanes(buf=st.buf[:, :cap],
                         start=torch.clamp(st.ptr, min=0).to(_I32),
                         length=(cap - st.ptr).to(_I32), overflow=st.ptr < 0)
+
+
+def encode_record_planes(symbols: torch.Tensor, tbl):
+    """The records scan: push ``(lanes, T)`` symbols backward through
+    :func:`update.encode_step` and stack its fixed-shape renorm records.
+
+    ``tbl`` is a TableSet or its five encoder planes, static ``(K,)`` or
+    per-position ``(T, K)`` / ``(T, lanes, K)``.  Returns ``(bytes, mask,
+    s)``: ``(T, 2, lanes)`` uint8 planes, where every record's byte is the
+    state's low byte whatever its mask, and the final states ``(lanes,)``
+    as int64 values.
+    """
+    lanes, t_len = symbols.shape
+    planes = update.encode_planes(tbl)
+    per_position = is_per_position(planes, t_len)
+    sym = symbols.to(_I64)
+    dev = symbols.device
+    s = torch.full((lanes,), C.RANS_L, dtype=_I64, device=dev)
+    shape = (t_len, C.MAX_RENORM_STEPS, lanes)
+    byts = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    mask = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    for t in range(t_len - 1, -1, -1):
+        planes_t = (update.EncTables(*(a[t] for a in planes)) if per_position
+                    else planes)
+        s, recs = update.encode_step(
+            s, update.gather_encode_entry(planes_t, sym[:, t]))
+        byts[t] = torch.stack([b for b, _ in recs]).to(torch.uint8)
+        mask[t] = torch.stack([c for _, c in recs]).to(torch.uint8)
+    return byts, mask, s
+
+
+def encode_records(symbols: torch.Tensor, tbl: TableSet,
+                   cap: int | None = None) -> EncodedLanes:
+    """Scatter-free encode: the records scan, then one vectorized
+    :func:`~repro_torch.core.bitstream.compact_records` pass.  Byte-identical
+    to :func:`encode` (same emission order, same overflow contract)."""
+    cap = default_cap(symbols.shape[1]) if cap is None else cap
+    return compact_records(*encode_record_planes(symbols, tbl), cap)
 
 
 def num_chunks(n_symbols: int, chunk_size: int) -> int:

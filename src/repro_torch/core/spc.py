@@ -109,9 +109,16 @@ def quantize_probs(probs: torch.Tensor,
 
 
 def _bit_length(x: torch.Tensor) -> torch.Tensor:
-    """``int.bit_length`` of positive int64 values below 2**17 (exact: the
-    float64 log2 of such integers never rounds across an integer)."""
-    return torch.floor(torch.log2(x.to(torch.float64))).to(_I64) + 1
+    """``int.bit_length`` of non-negative int64 values below 2**32, in exact
+    integer steps (a binary search over the shift), like the reference's
+    ``32 - clz``.  A float ``log2`` is not exact on every device: on CUDA
+    it can land below an exact power of two and floor one short."""
+    n = torch.zeros_like(x)
+    for sh in (16, 8, 4, 2, 1):
+        big = x >= (1 << sh)
+        n = n + big * sh
+        x = torch.where(big, x >> sh, x)
+    return n + (x > 0)
 
 
 def barrett_planes(freq: torch.Tensor, start: torch.Tensor, prob_bits: int):

@@ -7,7 +7,8 @@ its path went through.
 """
 
 LAUNCHES = {"rans_encode_lanes": 0, "rans_decode_step": 0,
-            "rans_decode_lanes": 0, "rans_decode_slab": 0}
+            "rans_decode_lanes": 0, "rans_decode_slab": 0,
+            "rans_encode_records": 0, "spc_quantize": 0}
 
 
 def reset_launches() -> None:

@@ -10,8 +10,12 @@ whole stream with the chunk axis in the grid.  ``rans_decode_chunked(
 from_container=...)`` decodes straight off a validated container's payload
 slab (B4).  ``rans_decode_step`` (B2) is the fused serve decode's
 per-position pop.  Symbols and per-lane probe counters equal the coder's.
-Each wrapper runs its kernel for CUDA tensors and the kernel's plain
-version for CPU tensors.
+``rans_encode_records`` (B5) is the records reference encode: fixed-shape
+renorm record planes that the re-exported ``compact_records`` turns into
+the same streams as B1.  ``spc_quantize_tables`` is the kernel-backed SPC:
+B6 quantizes a ``(B, K)`` probability batch, then ``build_tables`` adds the
+CDF and Barrett planes.  Each wrapper runs its kernel for CUDA tensors and
+the kernel's plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,16 +25,21 @@ import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core.bitstream import (ChunkedLanes, ContainerSlab,
-                                        EncodedLanes)
+                                        EncodedLanes,
+                                        compact_records)  # noqa: F401
+from repro_torch.core.spc import TableSet, build_tables
 from repro_torch.core.coder import (_check_exhausted, check_chunk_count,
                                     default_cap, no_symbols, num_chunks)
 from repro_torch.kernels.rans_decode import (rans_decode_lanes,
                                              rans_decode_slab,
                                              rans_decode_step)  # noqa: F401
-from repro_torch.kernels.rans_encode import rans_encode_lanes
+from repro_torch.kernels.rans_encode import (rans_encode_lanes,
+                                             rans_encode_records)  # noqa: F401
+from repro_torch.kernels.spc_quantize import spc_quantize
 
-__all__ = ["rans_encode", "rans_encode_chunked", "rans_decode",
-           "rans_decode_chunked", "rans_decode_step", "slab_planes"]
+__all__ = ["rans_encode", "rans_encode_chunked", "rans_encode_records",
+           "compact_records", "rans_decode", "rans_decode_chunked",
+           "rans_decode_step", "slab_planes", "spc_quantize_tables"]
 
 
 def _header_only(lanes: int, cap: int, device) -> EncodedLanes:
@@ -199,3 +208,11 @@ def rans_decode_chunked(chunks: ChunkedLanes | None = None,
         return out + (cunder > 0,)
     _check_exhausted(cunder > 0, "rans_decode_chunked")
     return out
+
+
+def spc_quantize_tables(probs: torch.Tensor,
+                        prob_bits: int = C.PROB_BITS) -> TableSet:
+    """Kernel-backed SPC: ``(B, K)`` probabilities -> a full TableSet (B6,
+    then :func:`~repro_torch.core.spc.build_tables`); equal to
+    ``spc.tables_from_probs`` on every plane."""
+    return build_tables(spc_quantize(probs, prob_bits), prob_bits)

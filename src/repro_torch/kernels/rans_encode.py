@@ -1,28 +1,38 @@
-"""Multi-lane chunked rANS encode: the CUDA kernel and its plain version.
+"""Multi-lane chunked rANS encode: the CUDA kernels and their plain versions.
 
-Replaces the TPU kernel ``repro/kernels/rans_encode.py::rans_encode_lanes``
-(body ``_encode_fused_kernel``).  :func:`rans_encode_lanes` takes ``(lanes,
-T)`` symbols and a TableSet-like object (the five encoder planes, int32
-bit patterns) in one of three layouts, static ``(K,)``, per-position
-``(T, K)`` or per-lane ``(T, lanes, K)``, and returns the
-``ChunkedLanes``-layout planes ``(buf (n_chunks, lanes, cap) uint8, start,
-length (n_chunks, lanes) int32, overflow (n_chunks, lanes) bool)``.  Every
-(chunk, lane) cell is a standalone stream: state and cursor reset per
-chunk, writes past the head drop and are flagged, bytes outside the span
-are 0.
+Two kernels share one source (``csrc/rans_encode.cu``) and one encode step:
 
-It dispatches on the symbols' device: a CPU tensor runs
-:func:`rans_encode_lanes_plain`, a CUDA tensor launches
-``csrc/rans_encode.cu`` (built by ``kernels/_build.py``) and counts the
-launch in ``repro_torch.kernels.LAUNCHES``.  There is no fallback between
-the two.
+* B1 :func:`rans_encode_lanes` replaces the TPU kernel
+  ``repro/kernels/rans_encode.py::rans_encode_lanes`` (body
+  ``_encode_fused_kernel``).  It returns the ``ChunkedLanes``-layout planes
+  ``(buf (n_chunks, lanes, cap) uint8, start, length (n_chunks, lanes)
+  int32, overflow (n_chunks, lanes) bool)``.  Every (chunk, lane) cell is a
+  standalone stream: state and cursor reset per chunk, writes past the head
+  drop and are flagged, bytes outside the span are 0.
+* B5 :func:`rans_encode_records` replaces
+  ``repro/kernels/rans_encode.py::rans_encode_records`` (body
+  ``_encode_kernel``), the records *reference* datapath.  It returns the
+  fixed-shape renorm record planes ``bytes``, ``mask`` ``(n_chunks,
+  padded_chunk, 2, lanes)`` uint8 and the final ``states`` ``(n_chunks,
+  lanes)`` (int32 bit patterns, see :mod:`repro_torch.core.u32`);
+  :func:`repro_torch.core.bitstream.compact_records` turns them into the
+  same streams as B1.
 
-On this card the kernel is latency-bound: each thread runs a chain of
+Both take ``(lanes, T)`` int32 symbols and a TableSet-like object (the
+five encoder planes, int32 bit patterns) in one of three layouts, static
+``(K,)``, per-position ``(T, K)`` or per-lane ``(T, lanes, K)``.  Each
+dispatches on the symbols' device: a CPU tensor runs the plain version, a
+CUDA tensor launches the kernel (built by ``kernels/_build.py``) and counts
+the launch in ``repro_torch.kernels.LAUNCHES``.  There is no fallback
+between the two.
+
+On this card both kernels are latency-bound: each thread runs a chain of
 ``chunk_size`` dependent steps and only ``n_chunks * lanes`` threads are
-live (512 at the ras-pimc main-path shapes), while its byte bound is about
-24 B gathered and at most 2 B written per (t, lane).  The design writes
-bytes straight to global memory through the cursor: the TPU's one-hot
-scatter, byte ring and VMEM autotuner have no role here.
+live (512 at the ras-pimc main-path shapes), while the byte bound is about
+24 B gathered per (t, lane) and at most 2 B (B1) or 4 B of record planes
+(B5) written.  B1 writes bytes straight to global memory through the
+cursor: the TPU's one-hot scatter, byte ring and VMEM autotuner have no
+role here.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import coder, update
+from repro_torch.core import coder, u32, update
 from repro_torch.kernels import LAUNCHES
 
 
@@ -57,6 +67,8 @@ def _strides(layout: str, lanes: int, k: int) -> tuple[int, int]:
 
 
 def _geometry(t_len: int, chunk_size: int | None) -> tuple[int, int]:
+    if t_len == 0:
+        raise ValueError("the encode kernels need T > 0 (ops handles T == 0)")
     chunk = t_len if chunk_size is None else chunk_size
     if chunk <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk}")
@@ -64,10 +76,17 @@ def _geometry(t_len: int, chunk_size: int | None) -> tuple[int, int]:
     return chunk, -(-t_len // chunk)
 
 
+def _padded_chunk(chunk: int, t_block: int | None) -> int:
+    """Rows per chunk of the record planes: ``chunk`` rounded up to whole
+    ``t_block`` rows (as the reference's ``_encode_plan``)."""
+    tb = chunk if t_block is None else max(1, min(t_block, chunk))
+    return -(-chunk // tb) * tb
+
+
 def rans_encode_lanes_plain(symbols: torch.Tensor, tbl, cap: int,
                             chunk_size: int | None = None):
-    """Plain PyTorch version of the kernel: the pure-torch coder's chunked
-    encode, with the kernel's symbol clip."""
+    """Plain PyTorch version of B1: the pure-torch coder's chunked encode,
+    with the kernel's symbol clip."""
     lanes, t_len = symbols.shape
     _layout(tbl, lanes, t_len)
     chunk, _ = _geometry(t_len, chunk_size)
@@ -76,25 +95,29 @@ def rans_encode_lanes_plain(symbols: torch.Tensor, tbl, cap: int,
                                       cap=cap))
 
 
-def _load():
+_ARGTYPES = {
+    "rans_encode_launch": "pppppplliiiiiipppp",
+    "rans_encode_records_launch": "pppppplliiiiiippp",
+}
+
+
+def _load(name: str):
     from repro_torch.kernels import _build
-    lib = _build.load("rans_encode")
-    fn = lib.rans_encode_launch
+    fn = getattr(_build.load("rans_encode"), name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i, i, i,
-                       p, p, p, p, p]
+        kinds = {"p": ctypes.c_void_p, "l": ctypes.c_longlong,
+                 "i": ctypes.c_int}
+        fn.argtypes = [kinds[c] for c in _ARGTYPES[name]] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn, _build.check
 
 
-def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
+def _device_inputs(symbols: torch.Tensor, tbl):
+    """Validate a CUDA call's inputs: ``(planes, stride_t, stride_l, k)``."""
     lanes, t_len = symbols.shape
     layout = _layout(tbl, lanes, t_len)
-    chunk, n_chunks = _geometry(t_len, chunk_size)
     planes = update.encode_planes(tbl)
     k = planes.x_max.shape[-1]
-    stride_t, stride_l = _strides(layout, lanes, k)
     dev = symbols.device
     for name, p in zip(planes._fields, planes):
         if p.device != dev or p.dtype != torch.int32 or not p.is_contiguous():
@@ -102,7 +125,15 @@ def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
                              f"tensor on {dev}; got {p.dtype} on {p.device}")
     if symbols.dtype != torch.int32 or not symbols.is_contiguous():
         raise ValueError("symbols must be a contiguous int32 tensor")
-    fn, check = _load()
+    return (planes, *_strides(layout, lanes, k), k)
+
+
+def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
+    lanes, t_len = symbols.shape
+    chunk, n_chunks = _geometry(t_len, chunk_size)
+    planes, stride_t, stride_l, k = _device_inputs(symbols, tbl)
+    dev = symbols.device
+    fn, check = _load("rans_encode_launch")
     buf = torch.zeros((n_chunks, lanes, cap), dtype=torch.uint8, device=dev)
     start = torch.empty((n_chunks, lanes), dtype=torch.int32, device=dev)
     length = torch.empty_like(start)
@@ -125,10 +156,77 @@ def rans_encode_lanes(symbols: torch.Tensor, tbl, cap: int,
     """
     if cap <= 0:
         raise ValueError(f"cap must be positive, got {cap}")
-    if symbols.shape[1] == 0:
-        raise ValueError("rans_encode_lanes needs T > 0 (ops handles T == 0)")
     if symbols.device.type == "cpu":
         return rans_encode_lanes_plain(symbols, tbl, cap, chunk_size)
     if symbols.device.type == "cuda":
         return _launch(symbols, tbl, cap, chunk_size)
+    raise ValueError(f"unsupported device {symbols.device}")
+
+
+def rans_encode_records_plain(symbols: torch.Tensor, tbl,
+                              chunk_size: int | None = None,
+                              t_block: int | None = None):
+    """Plain PyTorch version of B5: the coder's records scan per chunk
+    (:func:`repro_torch.core.coder.encode_record_planes`), with the
+    kernel's symbol clip, laid into the padded chunk-major planes."""
+    lanes, t_len = symbols.shape
+    layout = _layout(tbl, lanes, t_len)
+    chunk, n_chunks = _geometry(t_len, chunk_size)
+    planes = update.encode_planes(tbl)
+    sym = symbols.clamp(0, planes.x_max.shape[-1] - 1)
+    dev = symbols.device
+    shape = (n_chunks, _padded_chunk(chunk, t_block), 2, lanes)
+    byts = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    mask = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    states = torch.empty((n_chunks, lanes), dtype=torch.int32, device=dev)
+    for c, n in enumerate(coder.chunk_lengths(t_len, chunk)):
+        t0 = c * chunk
+        planes_c = (planes if layout == "static" else
+                    update.EncTables(*(a[t0:t0 + n] for a in planes)))
+        b, m, s = coder.encode_record_planes(sym[:, t0:t0 + n], planes_c)
+        byts[c, :n], mask[c, :n], states[c] = b, m, u32.bits(s)
+    return byts, mask, states
+
+
+def _launch_records(symbols: torch.Tensor, tbl, chunk_size: int | None,
+                    t_block: int | None):
+    lanes, t_len = symbols.shape
+    chunk, n_chunks = _geometry(t_len, chunk_size)
+    padded = _padded_chunk(chunk, t_block)
+    planes, stride_t, stride_l, k = _device_inputs(symbols, tbl)
+    dev = symbols.device
+    fn, check = _load("rans_encode_records_launch")
+    shape = (n_chunks, padded, 2, lanes)
+    byts = torch.empty(shape, dtype=torch.uint8, device=dev)
+    mask = torch.empty(shape, dtype=torch.uint8, device=dev)
+    states = torch.empty((n_chunks, lanes), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(symbols.data_ptr(), *(p.data_ptr() for p in planes), stride_t,
+             stride_l, k, lanes, t_len, chunk, n_chunks, padded,
+             byts.data_ptr(), mask.data_ptr(), states.data_ptr(), stream)
+    check(err, "rans_encode_records")
+    LAUNCHES["rans_encode_records"] += 1
+    return byts, mask, states
+
+
+def rans_encode_records(symbols: torch.Tensor, tbl,
+                        chunk_size: int | None = None,
+                        t_block: int | None = None):
+    """Records-path encode (B5, one launch for the whole stream on CUDA).
+
+    Returns ``(bytes, mask, states)``: ``(n_chunks, padded_chunk, 2,
+    lanes)`` uint8 record planes and ``(n_chunks, lanes)`` int32 final
+    states, with ``padded_chunk = ceil(chunk / t_block) * t_block``
+    (``t_block=None``: no padding).  A record's byte is the state's low
+    byte at that renorm step whatever its mask, as in the reference; the
+    rows past a chunk's end are all zero.  ``chunk_size=None`` encodes one
+    chunk spanning all of ``T``.  Symbols outside ``[0, K)`` are clipped
+    into it by both versions (the reference's one-hot gather yields zero
+    table entries there instead).  Compact with
+    :func:`repro_torch.core.bitstream.compact_records`.
+    """
+    if symbols.device.type == "cpu":
+        return rans_encode_records_plain(symbols, tbl, chunk_size, t_block)
+    if symbols.device.type == "cuda":
+        return _launch_records(symbols, tbl, chunk_size, t_block)
     raise ValueError(f"unsupported device {symbols.device}")

@@ -7,11 +7,15 @@ dependencies (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
         tests/test_torch_gpu.py
 
-B1 (encode), B2 (decode step), B3 (full-stream decode) and B4 (slab
-decode) are held against their plain versions on every table layout and
-predictor, with candidates, truncated streams and poisoned slabs; the
-frozen corpus ``tests/golden_vectors/*.ras`` decodes on the card; each
-call launches its kernel exactly once.
+B1 (encode), B2 (decode step), B3 (full-stream decode), B4 (slab
+decode), B5 (records encode) and B6 (SPC quantizer) are held against their
+plain versions on every table layout and predictor, with candidates,
+truncated streams, poisoned slabs, ragged chunks, ``t_block`` padding and
+SPC tie patterns; B5 plus ``compact_records`` equals B1, overflow
+included; the frozen corpus ``tests/golden_vectors/*.ras`` decodes on the
+card and re-packs through B5 byte for byte; ``build_tables`` on the card
+equals the CPU's for every frequency; each call launches its kernel
+exactly once.
 """
 
 import os
@@ -25,7 +29,8 @@ from repro_torch.core import bitstream, coder, predictors, spc, u32
 from repro_torch.core.bitstream import EncodedLanes
 from repro_torch.data.pipeline import candidate_planes
 from repro_torch.device import configure_cuda_numerics
-from repro_torch.kernels import LAUNCHES, ops, rans_decode, rans_encode
+from repro_torch.kernels import (LAUNCHES, ops, rans_decode, rans_encode,
+                                 spc_quantize)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_vectors")
 
@@ -290,3 +295,107 @@ def test_gpu_golden_corpus_decodes(name):
         sym, _ = _launched("rans_decode_slab", lambda: ops.rans_decode_chunked(
             tbl=gt, from_container=cs))
     assert torch.equal(sym.cpu(), _t(syms))
+
+
+# ---------------------------------------------------------------------------
+# B5 records encode and B6 SPC quantizer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_records_kernel_matches_plain(layout):
+    dev = _cuda()
+    tt, syms = _case(layout, seed=8, k=256, lanes=128, t=300)
+    gt, gs = _on(tt, dev), _t(syms).to(dev)
+    for chunk, t_block in ((128, None), (300, None), (128, 48), (None, 7)):
+        ref = rans_encode.rans_encode_records_plain(_t(syms), tt, chunk,
+                                                    t_block)
+        got = _launched("rans_encode_records", lambda: (
+            rans_encode.rans_encode_records(gs, gt, chunk, t_block)))
+        _assert_same(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_records_compacted_match_fused(layout):
+    dev = _cuda()
+    tt, syms = _case(layout, seed=9, k=256, lanes=128, t=300)
+    gt, gs = _on(tt, dev), _t(syms).to(dev)
+    b, m, st = _launched("rans_encode_records", lambda: (
+        ops.rans_encode_records(gs, gt, 128, 96)))
+    for cap in (coder.default_cap(128), 90, 3):
+        fused = ops.rans_encode_chunked(gs, gt, 128, cap=cap)
+        got = ops.compact_records(b, m, st, cap)
+        _assert_same(got, fused)
+    assert not bool(ops.compact_records(
+        b, m, st, coder.default_cap(128)).overflow.any())
+    assert bool(got.overflow.all())                  # cap 3 < the header
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_gpu_golden_corpus_repacks_through_records(name):
+    dev = _cuda()
+    case = CASES[name]
+    tt, syms = case_tables(case)
+    with open(os.path.join(GOLDEN, name + ".ras"), "rb") as fh:
+        want = fh.read()
+    gt, gs = _on(tt, dev), _t(syms).to(dev)
+    chunk = case.get("chunk_size")
+    b, m, st = _launched("rans_encode_records", lambda: (
+        ops.rans_encode_records(gs, gt, chunk)))
+    cap = coder.default_cap(min(chunk or case["t"], case["t"]))
+    enc = ops.compact_records(b, m, st, cap)
+    if case["fmt"] == "v1":
+        blob = bitstream.pack(*coder.chunk_encoded(enc, 0),
+                              n_symbols=case["t"])
+    else:
+        blob = bitstream.pack_chunked(*enc, chunk_size=chunk,
+                                      n_symbols=case["t"],
+                                      checksums=case["checksums"])
+    assert blob == want
+
+
+def _spc_rows():
+    rng = np.random.default_rng(10)
+    k = 128
+    rows = [rng.dirichlet(np.full(256, conc), size=b).astype(np.float32)
+            for b, conc in ((8, 0.3), (16, 2.0))]
+    rows.append(rng.dirichlet(np.full(300, 0.1), size=8).astype(np.float32))
+    rows.append(np.stack([                       # pathological rows
+        np.full(k, 1.0 / k), np.r_[1.0, np.zeros(k - 1)],
+        np.r_[np.full(k - 1, 1e-9), [1.0]], np.full(k, 1 / 3),
+        np.tile([0.5, 0.25, 0.25, 0.0], k // 4) / (k // 4),   # ties
+        np.r_[np.full(k // 2, 3e-5), np.full(k // 2, 0.015)],
+    ]).astype(np.float32))
+    # 96 KB of shared memory (above the 48 KB default) and B = 5
+    rows.append(rng.dirichlet(np.full(8192, 0.5), size=5).astype(np.float32))
+    return rows
+
+
+@pytest.mark.gpu
+def test_gpu_barrett_planes_match_cpu():
+    """``build_tables`` on the card equals the CPU's for every frequency
+    (its shift once came from a float log2 that floors short on CUDA)."""
+    dev = _cuda()
+    for prob_bits in (8, 14, 16):
+        f = torch.arange(1, (1 << prob_bits) + 1, dtype=torch.int64)
+        start = (f * 7) % (1 << prob_bits)
+        ref = spc.barrett_planes(f, start, prob_bits)
+        got = spc.barrett_planes(f.to(dev), start.to(dev), prob_bits)
+        _assert_same(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(5))
+def test_gpu_spc_kernel_matches_plain(case):
+    dev = _cuda()
+    probs = _t(_spc_rows()[case])
+    ref = spc_quantize.spc_quantize_plain(probs)
+    got = _launched("spc_quantize", lambda: spc_quantize.spc_quantize(
+        probs.to(dev)))
+    assert torch.equal(got.cpu(), ref)
+    assert (ref.sum(-1) == 1 << 14).all() and int(ref.min()) >= 1
+    tables = _launched("spc_quantize", lambda: ops.spc_quantize_tables(
+        probs.to(dev)))
+    _assert_same(tables, spc.tables_from_probs(probs))
