@@ -29,6 +29,11 @@ Phases (any failure raises and exits nonzero):
    ``histogram_decompress(predictor=NeighborAverage(4, 8))`` (B3) is
    bit-exact, the ``coder`` backend gives equal per-lane probes, with
    launch counters reset just before and read just after;
+5a. B3 and B4 on the table cases no main path reaches (``DECODE_CASES``:
+   zero frequencies in a static table and in per-lane rows, prob_bits 16,
+   K = 1000, 4096 and 5000, per-position rows, windows 1 and 16, a window
+   wider than the kernel's probe tables), dense,
+   truncated and off the packed container, each against its plain version;
 6. a small-input reference check: the model's logits on the card agree
    with the same model's logits on the CPU;
 7. the slice: ``ras-pimc`` at full width, 128 lanes x 1000 tokens, chunk
@@ -62,7 +67,11 @@ Phases (any failure raises and exits nonzero):
    ``ops.spc_quantize_tables`` == ``tables_from_probs`` (on the card, and
    on the CPU at the first point) on every plane with
    one B6 launch between counters reset and read.
-Each phase prints its seconds.
+Each phase prints its seconds.  Every B3/B4 launch is also held to the
+code path it must run (``rans_decode.last_branches``): the slot-table path
+on the static tables of phases 4, 5 and 10, the warp row search on the
+per-lane rows of phases 3 and 8, and the exact bisection on the
+zero-frequency cases of 5a.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
@@ -143,6 +152,15 @@ def _check(ok, what: str) -> None:
     """Fail the run (kept under ``python -O``, unlike ``assert``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _branch(name: str, want: set, what: str) -> None:
+    """B3/B4's last launch ran exactly the code paths ``want``
+    (``rans_decode.BRANCH_BITS`` names)."""
+    from repro_torch.kernels import rans_decode
+    got = rans_decode.last_branches(name)
+    _check(got == want, f"{what}: {name} ran {sorted(got)}, expected "
+           f"{sorted(want)}")
 
 
 def _only(**counts) -> dict:
@@ -338,12 +356,14 @@ def chunked_decode_phase(dev, encoded):
 
     got, ref = b3(chunks.buf), b3(chunks.buf, plain=True)
     torch.cuda.synchronize()
+    _branch("rans_decode_lanes", {"warp_rows"}, "B3 on per-lane rows")
     err = _max_abs_err(got, ref)
     _check(torch.equal(got[0], syms), "B3 lost a symbol")
     _check(int(got[2].sum()) == 0, "B3 flagged a valid stream")
     short = chunks.buf[..., :-3].contiguous()     # 3 bytes cut per cell
     got_s, ref_s = b3(short), b3(short, plain=True)
     torch.cuda.synchronize()
+    _branch("rans_decode_lanes", {"warp_rows"}, "B3 truncated")
     err = max(err, _max_abs_err(got_s, ref_s))
     _check(int(got_s[2].sum()) > 0, "truncated stream not flagged")
     flags = ops.rans_decode_chunked(
@@ -355,6 +375,7 @@ def chunked_decode_phase(dev, encoded):
           f"by 3 bytes per cell ({int((got_s[2] > 0).sum())} cells flagged, "
           f"{int(got_s[2].sum())} underflowing reads)", flush=True)
     b3_ms = _device_ms(lambda: b3(chunks.buf), n=10)
+    b3_call_ms = _median_ms(lambda: b3(chunks.buf), repeats=30)
 
     blob = bitstream.pack_chunked(*chunks, chunk_size=CHUNK, n_symbols=T)
     cs = bitstream.parse_chunked(blob)
@@ -372,6 +393,7 @@ def chunked_decode_phase(dev, encoded):
 
     got4, ref4 = b4(planes), b4(planes, plain=True)
     torch.cuda.synchronize()
+    _branch("rans_decode_slab", {"warp_rows"}, "B4 on per-lane rows")
     err = max(err, _max_abs_err(got4, ref4), _max_abs_err(got4, got))
     s = cs.slab.shape[0]               # tests/test_bitstream_fuzz.py's three
     poisons = {
@@ -387,6 +409,7 @@ def chunked_decode_phase(dev, encoded):
     for name, bad in poisons.items():
         p, _ = ops.slab_planes(bad, dev)
         g, r = b4(p), b4(p, plain=True)
+        _branch("rans_decode_slab", {"warp_rows"}, f"B4 {name}")
         flags = ops.rans_decode_chunked(tbl=tbl, from_container=bad,
                                         candidates=cands,
                                         exhausted_flags=True)[-1]
@@ -408,7 +431,8 @@ def chunked_decode_phase(dev, encoded):
         got4[0], got4[1], stream_bytes=int(cs.length.sum()),
         cells=cs.offset.size, index_bytes=12, predictor=False, cands=cands)
     print(f"B4 slab: {ms:.4f} ms kernel on the device ({call_ms:.4f} ms per "
-          f"wrapper call; B3 on the dense stream {b3_ms:.4f} ms), "
+          f"wrapper call; B3 on the dense stream {b3_ms:.4f} ms, "
+          f"{b3_call_ms:.4f} ms per call), "
           f"{plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms by {bound_by} "
           f"({moved} B moved); {cs.offset.size} cells each walk {CHUNK} "
           "dependent steps: latency-bound", flush=True)
@@ -417,7 +441,8 @@ def chunked_decode_phase(dev, encoded):
                 replaces="src/repro/kernels/rans_decode.py:379",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                call_ms=call_ms, b3_chunked_ms=b3_ms)
+                call_ms=call_ms, b3_chunked_ms=b3_ms,
+                b3_chunked_call_ms=b3_call_ms)
 
 
 def fig4b_phase(dev):
@@ -444,6 +469,7 @@ def fig4b_phase(dev):
         got = rans_decode.rans_decode_lanes(*args, predictor=pred)
         ref = rans_decode.rans_decode_lanes_plain(*args, predictor=pred)
         torch.cuda.synchronize()
+        _branch("rans_decode_lanes", {"slot_table"}, f"Fig. 4(b) {name}")
         err = max(err, _max_abs_err(got, ref))
         _check(torch.equal(got[0], want) and int(got[2].sum()) == 0,
                f"Fig. 4(b) {name}: decode not exact")
@@ -453,15 +479,19 @@ def fig4b_phase(dev):
               "(kernel == plain)", flush=True)
     _check(tuple(totals[:3]) == FIG4B_TOTALS,
            f"probe totals {totals[:3]} != {FIG4B_TOTALS}")
-    ms = _device_ms(lambda: rans_decode.rans_decode_lanes(
-        *args, predictor=points[1][1]), n=5)
+    def b3():
+        return rans_decode.rans_decode_lanes(*args, predictor=points[1][1])
+
+    ms = _device_ms(b3, n=5)
+    call_ms = _median_ms(b3, repeats=10)
     print(f"Fig. 4(b): {FIG4B_LANES} lanes x {FIG4B_T} image_rows(seed=0), "
           f"totals {totals[:3]} equal BENCH_search.json's; "
           f"{totals[0] / want.numel():.4f} -> {totals[1] / want.numel():.4f}"
           f" -> {totals[2] / want.numel():.4f} probes/symbol (paper: 7.00 "
-          f"-> 3.15 search steps); B3 {ms:.4f} ms on the device with "
-          "NeighborAverage(4, 8)", flush=True)
-    return err
+          f"-> 3.15 search steps); B3 {ms:.4f} ms on the device ({call_ms:.4f}"
+          " ms per wrapper call) with NeighborAverage(4, 8) (slot-table path)",
+          flush=True)
+    return err, ms, call_ms
 
 
 def image_phase(dev):
@@ -503,6 +533,7 @@ def image_phase(dev):
     launches = dict(LAUNCHES)
     _check(launches == _only(rans_encode_lanes=1, rans_decode_lanes=1),
            f"image path launch counts {launches}")
+    _branch("rans_decode_lanes", {"slot_table"}, "image path")
     _check(np.array_equal(sym.cpu().numpy(), rows),
            "image round trip not exact")
     _, avg0 = compress.histogram_decompress(enc, n, tbl)
@@ -536,17 +567,114 @@ def image_phase(dev):
     bound_ms, bound_by, moved = _decode_bound(
         got[0], got[1], stream_bytes=int(enc_k.length.sum()), cells=lanes,
         index_bytes=4, predictor=True, static_table_bytes=(2 * K + 1) * 4)
+    _branch("rans_decode_lanes", {"slot_table"}, "B3 image record")
     print(f"B3 image: kernel == plain; {ms:.4f} ms kernel on the device "
           f"({call_ms:.4f} ms per wrapper call), {plain_s * 1e3:.1f} ms "
           f"plain (one run), bound {bound_ms:.6f} ms by {bound_by} ({moved} "
           f"B moved, {ms / bound_ms:.0f}x); {lanes} threads each walk {n} "
-          "dependent steps: latency-bound", flush=True)
+          "dependent steps through the slot table: latency-bound",
+          flush=True)
     return dict(name="rans_decode_lanes", route="cuda",
                 source="src/repro_torch/csrc/rans_decode_lanes.cu",
                 replaces="src/repro/kernels/rans_decode.py:223",
                 max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 call_ms=call_ms), launches
+
+
+# B3/B4 table cases beyond the main paths: (layout, K, prob_bits, zero
+# frequencies, predictor, the code paths the kernel must run)
+DECODE_CASES = {
+    "static K=256 with zero frequencies": (
+        "static", 256, 14, True, ("NeighborAverage", 4, 8),
+        {"shared_bisect"}),
+    "per-lane rows with zero frequencies": (
+        "lane", 256, 14, True, ("LastValue", 8), {"warp_rows", "warp_bisect"}),
+    "static prob_bits=16 (slot table over 48 KB)": (
+        "static", 256, 16, False, ("NeighborAverage", 1, 8), {"slot_table"}),
+    "static K=1000": (
+        "static", 1000, 14, False, ("NeighborAverage", 16, 3),
+        {"slot_table"}),
+    "static K=4096": ("static", 4096, 14, False, None, {"slot_table"}),
+    "static K=5000 (above the slot table's limit)": (
+        "static", 5000, 14, False, ("NeighborAverage", 16, 8),
+        {"warp_rows"}),
+    "per-position rows K=300": (
+        "perpos", 300, 14, False, ("ZeroPredictor", 8), {"warp_rows"}),
+    "static K=256, window wider than the probe tables": (
+        "static", 256, 14, False, ("LastValue", 40), {"warp_rows"}),
+}
+CASE_LANES, CASE_T, CASE_CHUNK = 64, 600, 256
+
+
+def decode_cases_phase(dev):
+    """B3 (dense, also truncated) and B4 (off the packed container) on the
+    table cases the main paths do not reach, each held against its plain
+    version, with the code path each launch ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream, predictors, spc
+    from repro_torch.core.bitstream import ChunkedLanes
+    from repro_torch.data.pipeline import candidate_planes
+    from repro_torch.kernels import ops, rans_decode
+
+    t0 = time.perf_counter()
+    err3 = err4 = 0
+    for i, (name, (layout, k, bits, zero, pcfg, want)) in enumerate(
+            DECODE_CASES.items()):
+        rng = np.random.default_rng(100 + i)
+        shape = {"static": None, "perpos": CASE_T,
+                 "lane": (CASE_T, CASE_LANES)}[layout]
+        probs = rng.dirichlet(np.full(k, 0.5), size=shape).astype(np.float32)
+        tt = spc.tables_from_probs(torch.as_tensor(probs), bits)
+        syms = np.clip(k // 2 + np.cumsum(rng.integers(
+            -3, 4, (CASE_LANES, CASE_T)), 1), 0, k - 1).astype(np.int32)
+        if zero:                 # frequency 0 at four symbols, in every row
+            zs = [3, 4, k // 2 - 7, k - 56]    # (static) or every 7th row
+            freq = tt.freq.clone().reshape(-1, k)
+            rows = slice(None, None, 1 if layout == "static" else 7)
+            freq[rows, k // 2] += freq[rows][:, zs].sum(-1)
+            freq[rows, zs] = 0
+            tt = spc.build_tables(freq.reshape(tt.freq.shape), bits)
+            for z in zs:
+                syms[syms == z] = z + 2
+        pred = None if pcfg is None else getattr(predictors, pcfg[0])(
+            *pcfg[1:])
+        gt = spc.TableSet(*(a.to(dev) for a in tt))
+        gs = torch.as_tensor(syms, device=dev)
+        cands = torch.as_tensor(candidate_planes(syms, k, 2, 0.5, seed=i),
+                                device=dev) if i % 2 else None
+        ch = ops.rans_encode_chunked(gs, gt, CASE_CHUNK)
+        kw = dict(prob_bits=bits, predictor=pred, candidates=cands)
+        for buf, tag in ((ch.buf, "dense"),
+                         (ch.buf[..., :-3].contiguous(), "truncated")):
+            got = rans_decode.rans_decode_lanes(
+                buf, ch.start, gt.freq, gt.cdf, CASE_T, CASE_CHUNK, **kw)
+            ref = rans_decode.rans_decode_lanes_plain(
+                buf, ch.start, gt.freq, gt.cdf, CASE_T, CASE_CHUNK, **kw)
+            torch.cuda.synchronize()
+            _branch("rans_decode_lanes", want, f"B3 {name}, {tag}")
+            err3 = max(err3, _max_abs_err(got, ref))
+            if tag == "dense" and not zero:
+                _check(torch.equal(got[0], gs), f"B3 {name}: not exact")
+        cs = bitstream.parse_chunked(bitstream.pack_chunked(
+            *ChunkedLanes(*ch), chunk_size=CASE_CHUNK, n_symbols=CASE_T))
+        planes, cap = ops.slab_planes(cs, dev)
+        kw4 = dict(kw, cap=cap, t_len=CASE_T, chunk_size=CASE_CHUNK)
+        got = rans_decode.rans_decode_slab(*planes, gt.freq, gt.cdf, **kw4)
+        ref = rans_decode.rans_decode_slab_plain(*planes, gt.freq, gt.cdf,
+                                                 **kw4)
+        torch.cuda.synchronize()
+        _branch("rans_decode_slab", want, f"B4 {name}")
+        err4 = max(err4, _max_abs_err(got, ref))
+        print(f"B3/B4 case {name} ({layout}, K={k}, prob_bits={bits}, "
+              f"predictor {pred}, {'top-2' if cands is not None else 'no'} "
+              f"candidates): kernel == plain, dense, truncated and off the "
+              f"container; paths {sorted(want)}", flush=True)
+    print(f"B3/B4 cases: {len(DECODE_CASES)} tables, {CASE_LANES} lanes x "
+          f"{CASE_T}, chunk {CASE_CHUNK} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return err3, err4
 
 
 def reference_check(dev):
@@ -644,6 +772,7 @@ def two_pass_phase(slice_run):
     launches = dict(LAUNCHES)
     _check(launches == _only(rans_decode_slab=1),
            f"two-pass launch counts {launches}")
+    _branch("rans_decode_slab", {"warp_rows"}, "two-pass B4")
     _check(np.array_equal(sym.cpu().numpy(), slice_run["tokens"]),
            "two-pass round trip not exact")
     _check(torch.equal(lane_probes, slice_run["lane_probes"]),
@@ -816,6 +945,7 @@ def fig4a_phase(dev):
                                                      use_lut=True))
     (dec_b3, _), _ = timed(lambda: ops.rans_decode(encs["B1"], FIG4A_T, tbl))
     launches = dict(LAUNCHES)
+    _branch("rans_decode_lanes", {"slot_table"}, "Fig. 4(a) B3")
     _check(launches == _only(rans_encode_lanes=1, rans_encode_records=1,
                              rans_decode_lanes=1),
            f"Fig. 4(a) launch counts {launches}")
@@ -840,9 +970,12 @@ def fig4a_phase(dev):
                        n=5)
     b5c_ms = _median_ms(b5, repeats=10)
     b1_enc = encs["B1"]
-    b3_ms = _device_ms(lambda: rans_decode.rans_decode_lanes(
-        b1_enc.buf, b1_enc.start, tbl.freq, tbl.cdf, FIG4A_T), n=3,
-        repeats=3)
+    def b3():
+        return rans_decode.rans_decode_lanes(b1_enc.buf, b1_enc.start,
+                                             tbl.freq, tbl.cdf, FIG4A_T)
+
+    b3_ms = _device_ms(b3, n=3, repeats=3)
+    b3_call_ms = _median_ms(b3, repeats=10)
     per = {"encode": [("coder.encode", c_enc),
                       ("coder.encode_records", r_enc),
                       ("B1 kernel", b1_ms * 1e3 / n),
@@ -864,8 +997,10 @@ def fig4a_phase(dev):
     print(f"Fig. 4(a): B5 {b5_ms:.4f} ms on the device at this point, bound "
           f"{bound_ms:.6f} ms by {bound_by} ({moved} B moved); "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"Fig. 4(a): B3 {b3_ms:.4f} ms on the device ({b3_call_ms:.4f} ms "
+          "per wrapper call, slot-table path)", flush=True)
     return dict(b5_fig4a_ms=b5_ms, b1_fig4a_ms=b1_ms, b3_fig4a_ms=b3_ms,
-                b5_fig4a_bound_ms=bound_ms)
+                b3_fig4a_call_ms=b3_call_ms, b5_fig4a_bound_ms=bound_ms)
 
 
 def _spc_bound(b: int, k: int):
@@ -970,15 +1105,22 @@ def main() -> int:
     b5 = records_phase(dev, encoded)
     del encoded
     torch.cuda.empty_cache()
-    b3_err = fig4b_phase(dev)
+    b3_err, b3_fig4b_ms, b3_fig4b_call_ms = fig4b_phase(dev)
     b3, image_launches = image_phase(dev)
-    b3["max_abs_err"] = max(b3["max_abs_err"], b3_err)
+    b3_cases_err, b4_cases_err = decode_cases_phase(dev)
+    b3["max_abs_err"] = max(b3["max_abs_err"], b3_err, b3_cases_err)
+    b4["max_abs_err"] = max(b4["max_abs_err"], b4_cases_err)
+    b3.update(b3_fig4b_ms=b3_fig4b_ms, b3_fig4b_call_ms=b3_fig4b_call_ms,
+              b3_slice_ms=b4["b3_chunked_ms"],
+              b3_slice_call_ms=b4["b3_chunked_call_ms"])
     reference_check(dev)
     slice_launches, slice_run = main_path(dev)
     two_pass_launches = two_pass_phase(slice_run)
     del slice_run
     torch.cuda.empty_cache()
     b5.update(fig4a_phase(dev))
+    b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
+              b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
     b6 = spc_phase(dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),

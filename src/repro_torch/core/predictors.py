@@ -10,8 +10,9 @@ window)`` int64 tensor that the decode loop threads through ``predict`` and
 
 Configs are hashable NamedTuples that compare by type as well as fields
 (``LastValue(8) != ZeroPredictor(8)``), as in the reference.  The CUDA
-full-stream decode kernel (``csrc/rans_decode_lanes.cu``) repeats each
-predictor's arithmetic in registers.
+full-stream decode kernel (``csrc/rans_decode_lanes.cu``) keeps the
+``NeighborAverage`` window as a ring with a running sum
+(:func:`running_mean_mu` is its plain mirror).
 """
 
 from __future__ import annotations
@@ -97,6 +98,43 @@ class ZeroPredictor(NamedTuple):
 
     def update(self, ctx: torch.Tensor, decoded: torch.Tensor):
         return ctx
+
+
+def mean_rcp(n: int) -> int:
+    """``ceil(2**32 / n)`` for ``n >= 2`` (0 otherwise): the CUDA decode
+    kernel's ``sum // n`` is ``(sum * mean_rcp(n)) >> 32``, exact for sums
+    below ``2**28``."""
+    return (0xFFFFFFFF // n) + 1 if n > 1 else 0
+
+
+def running_mean_mu(symbols: torch.Tensor, window: int,
+                    chunk: int) -> torch.Tensor:
+    """The anchors ``NeighborAverage(window)`` gives at every step of
+    ``symbols (lanes, T)``, the context reset every ``chunk`` steps, as the
+    CUDA decode kernel computes them: a ring of the last ``window`` symbols
+    with a running sum and a valid count, ``mu = sum // n_valid`` (0 with
+    none) taken as the kernel takes it, ``(sum * mean_rcp(n_valid)) >> 32``.
+    The plain mirror tests hold against :meth:`NeighborAverage.predict`;
+    nothing on the decode paths calls it.  Returns int64 ``(lanes, T)``."""
+    lanes, t_len = symbols.shape
+    syms = symbols.to(_I64)
+    mu = torch.zeros((lanes, t_len), dtype=_I64, device=symbols.device)
+    ring = torch.zeros((lanes, window), dtype=_I64, device=symbols.device)
+    total = torch.zeros((lanes,), dtype=_I64, device=symbols.device)
+    cnt = head = 0
+    for t in range(t_len):
+        if t % chunk == 0:
+            total.zero_()
+            cnt = head = 0
+        mu[:, t] = (total * mean_rcp(cnt)) >> 32 if cnt > 1 else total
+        if cnt == window:
+            total -= ring[:, head]
+        else:
+            cnt += 1
+        total += syms[:, t]
+        ring[:, head] = syms[:, t]
+        head = (head + 1) % window
+    return mu
 
 
 def model_topk_candidates(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -12,9 +12,12 @@ Port of ``repro.core.search`` with the same normative probe accounting
   4. the static-table LUT (``coder.pop(lut=...)``) costs exactly 1 probe.
 
 CDF entries are below 2**31, so their int32 bit patterns compare as the
-uint32 values they are.  The CUDA decode kernels
-(``csrc/rans_decode_step.cu``, ``csrc/rans_decode_lanes.cu``) repeat this
-logic per lane.
+uint32 values they are.  The CUDA decode-step kernel
+(``csrc/rans_decode_step.cu``) repeats this logic per lane; the
+full-stream decode (``csrc/rans_decode_lanes.cu``) runs it on tables with
+a zero frequency and otherwise replays the probe count from the symbol
+(``csrc/decode_search.cuh``), of which :func:`replay_probes` is the plain
+mirror.
 """
 
 from __future__ import annotations
@@ -100,3 +103,59 @@ def find_symbol(cdf: torch.Tensor, k: int, slot: torch.Tensor,
     hi0 = torch.where(found, x_spec + 1, hi0)
     x, steps = bsearch(cdf, slot, lo0, hi0, ceil_log2(k), gather=gather)
     return x, probes + steps
+
+
+def bisect_probes(w: torch.Tensor, off: torch.Tensor,
+                  at_start: torch.Tensor) -> torch.Tensor:
+    """Active iterations of :func:`bsearch` from ``[lo, lo + w)`` down to
+    ``lo + off`` on a strictly increasing CDF, ``at_start`` meaning ``slot
+    == cdf[lo + off]`` (the early commit).  The search is translation
+    invariant: ``(lo + hi) >> 1 == lo + (w >> 1)``."""
+    w, off = w.to(_I64), off.to(_I64)
+    probes = torch.zeros_like(w)
+    while bool((w > 1).any()):
+        act = w > 1
+        mid = w >> 1
+        right = act & (off >= mid)
+        off = torch.where(right, off - mid, off)
+        commit = right & at_start & (off == 0)
+        w = torch.where(right, torch.where(commit, 1, w - mid),
+                        torch.where(act, mid, w))
+        probes = probes + act.to(_I64)
+    return probes
+
+
+def replay_probes(x: torch.Tensor, at_start: torch.Tensor,
+                  candidates: torch.Tensor | None, lo_w, hi_w,
+                  k: int) -> torch.Tensor:
+    """The probes of :func:`find_symbol` from the symbol alone: the plain
+    mirror of the CUDA decode kernel's replay (``csrc/decode_search.cuh``),
+    exact when the CDF is strictly increasing (every frequency >= 1).
+
+    ``x``: ``(lanes,)`` symbols; ``at_start``: ``slot == cdf[x]``;
+    ``candidates``: ``(lanes, topk)`` or None (a candidate hits iff its
+    clipped id equals ``x``); ``lo_w``/``hi_w``: the predictor's window
+    ``[lo_w, hi_w)`` (already clipped) or None (it hits iff ``lo_w <= x <
+    hi_w``).  Tests hold it against :func:`find_symbol`; nothing on the
+    decode paths calls it."""
+    x = x.to(_I64)
+    at_start = at_start.to(torch.bool)
+    cand = torch.zeros_like(x)
+    found = torch.zeros_like(at_start)
+    if candidates is not None and candidates.shape[-1] > 0:
+        topk = candidates.shape[-1]
+        hits = torch.clamp(candidates.to(_I64), 0, k - 1) == x[:, None]
+        found = hits.any(-1)
+        cand = torch.where(found, hits.to(torch.int8).argmax(-1) + 1, topk)
+    lo = torch.zeros_like(x)
+    w = torch.full_like(x, k)
+    window = torch.zeros_like(x)
+    if lo_w is not None:
+        lo_w, hi_w = torch.as_tensor(lo_w).to(_I64), torch.as_tensor(hi_w).to(
+            _I64)
+        hit = (lo_w <= x) & (x < hi_w)
+        lo = torch.where(hit, lo_w, lo)
+        w = torch.where(hit, hi_w - lo_w, w)
+        window = torch.ones_like(x)
+    bis = bisect_probes(w, x - lo, at_start)
+    return torch.where(found, cand, cand + window + bis)

@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled on its
 own by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/repro_torch/lib<name>.so`` at the repository root (all
 sources start together, one ``nvcc`` each), then loaded with ``ctypes``.  A
-library is rebuilt when its source is newer.  Nothing here includes
+library is rebuilt when its source or a ``csrc/*.cuh`` header is newer.  Nothing here includes
 PyTorch's headers, so a build takes seconds.
 
 This module is imported lazily, from the kernel wrappers' CUDA branches and
@@ -45,9 +45,11 @@ def build_all(verbose: bool = False) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")), default=0)
     for src in sorted(CSRC.glob("*.cu")):
         out = _lib_path(src.stem)
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        if out.exists() and out.stat().st_mtime >= max(src.stat().st_mtime,
+                                                       headers):
             continue
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),

@@ -32,8 +32,13 @@ kernel for CUDA tensors, counting the launch in
 ``repro_torch.kernels.LAUNCHES``; there is no fallback between the two.
 The plain versions are built on :mod:`repro_torch.core.coder` (``pop`` and
 ``decode_grid``), so one implementation answers to the reference's tests.
-B3 and B4 walk a serial chain of dependent loads per (chunk, lane) cell
-with few cells live: they are latency-bound (``PERF.md``).
+B3 and B4 walk a serial chain per (chunk, lane) cell with few cells live,
+so they are latency-bound (``PERF.md``).  Their kernel takes the symbol
+from a slot table (static tables) or a warp-wide row count (rows in device
+memory) and replays the probe count from it; a table with a zero frequency
+runs the exact bisection instead.  Each launch records which of those code
+paths ran in ``repro_torch.kernels.BRANCHES``, read by
+:func:`last_branches`.
 """
 
 from __future__ import annotations
@@ -47,9 +52,15 @@ from repro_torch.core import coder, search, u32
 from repro_torch.core.predictors import (LastValue, NeighborAverage,
                                          ZeroPredictor)
 from repro_torch.core.spc import FreqCdf
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import BRANCHES, LAUNCHES
 
 MAX_WINDOW = 16     # kMaxWindow in csrc/rans_decode_lanes.cu
+MAX_K = 1 << 24     # the kernel's 32-bit NeighborAverage mean is exact below
+# the Branch bits of csrc/rans_decode_lanes.cu: the slot-table path, the
+# exact bisection on a static table in shared memory, the warp row search
+# and the warp path's exact bisection of a row
+BRANCH_BITS = {"slot_table": 1, "shared_bisect": 2, "warp_rows": 4,
+               "warp_bisect": 8}
 
 _I64 = torch.int64
 _I32 = torch.int32
@@ -239,7 +250,7 @@ def _load_full(name: str):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         src = [p, p, i] if name == "rans_decode_lanes" else [p, p, p, p, i]
         fn.argtypes = src + [p, p, ll, ll, ll, ll, i, p, i, i, i, i, i, i,
-                             i, i, i, i, p, p, p, p]
+                             i, i, i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn, _build.check
 
@@ -250,6 +261,9 @@ def _launch_full(name, src_args, dev, lanes, t_len, chunk, n_chunks, freq,
     source); tables, candidates and outputs are common."""
     layout = coder.table_layout(freq, t_len, lanes)
     k = freq.shape[-1]
+    if k >= MAX_K:
+        raise ValueError(f"alphabet of {k} symbols exceeds the CUDA decode "
+                         f"kernel's {MAX_K - 1}")
     if tuple(cdf.shape) != tuple(freq.shape[:-1]) + (k + 1,):
         raise ValueError(f"cdf must be {tuple(freq.shape[:-1]) + (k + 1,)}; "
                          f"got {tuple(cdf.shape)}")
@@ -272,16 +286,26 @@ def _launch_full(name, src_args, dev, lanes, t_len, chunk, n_chunks, freq,
     sym = torch.empty((lanes, t_len), dtype=_I32, device=dev)
     probes = torch.empty((n_chunks, lanes), dtype=_I32, device=dev)
     under = torch.empty_like(probes)
+    branch = torch.zeros((1,), dtype=_I32, device=dev)
     err = fn(*src_args, freq.data_ptr(), cdf.data_ptr(),
              *_table_strides(layout, lanes, k),
              *_table_strides(layout, lanes, k + 1), k,
              candidates.data_ptr() if topk else None, topk, lanes, t_len,
              chunk, n_chunks, prob_bits, search.ceil_log2(k), kind, window,
              delta, sym.data_ptr(), probes.data_ptr(), under.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             branch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check(err, name)
     LAUNCHES[name] += 1
+    BRANCHES[name] = branch
     return sym, probes, under
+
+
+def last_branches(name: str) -> set[str]:
+    """The code paths (``BRANCH_BITS`` names) that the last launch of B3
+    (``"rans_decode_lanes"``) or B4 (``"rans_decode_slab"``) ran; reading
+    them waits for that launch."""
+    bits = int(BRANCHES[name].item())
+    return {b for b, v in BRANCH_BITS.items() if bits & v}
 
 
 def _device_of(t: torch.Tensor) -> str:

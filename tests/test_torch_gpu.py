@@ -65,13 +65,13 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
-def _case(layout, seed, k, lanes, t):
+def _case(layout, seed, k, lanes, t, prob_bits=14):
     rng = np.random.default_rng(seed)
     shape = {"static": (), "perpos": (t,), "lane": (t, lanes)}[layout]
     probs = rng.dirichlet(np.full(k, 0.5), size=shape or None).astype(
         np.float32)
     syms = rng.integers(0, k, (lanes, t)).astype(np.int32)
-    return spc.tables_from_probs(_t(probs)), syms
+    return spc.tables_from_probs(_t(probs), prob_bits), syms
 
 
 def _assert_planes_equal(got, ref):
@@ -182,19 +182,65 @@ def test_gpu_slice_roundtrip_and_backends_identical():
 
 PREDICTORS = [None, predictors.NeighborAverage(4, 8),
               predictors.NeighborAverage(2, 4), predictors.LastValue(8),
-              predictors.ZeroPredictor(8)]
+              predictors.ZeroPredictor(8), predictors.NeighborAverage(1, 8),
+              predictors.NeighborAverage(16, 3), predictors.LastValue(40)]
+
+# the decode kernel's table cases: (layout, K, prob_bits, zero frequencies)
+# and the code paths (rans_decode.BRANCH_BITS) a launch on them must run
+TABLES = {
+    "static": ("static", 256, 14, False, {"slot_table"}),
+    "perpos": ("perpos", 256, 14, False, {"warp_rows"}),
+    "lane": ("lane", 256, 14, False, {"warp_rows"}),
+    "static_zero_freq": ("static", 256, 14, True, {"shared_bisect"}),
+    "lane_zero_freq": ("lane", 256, 14, True, {"warp_rows", "warp_bisect"}),
+    "static_bits16": ("static", 256, 16, False, {"slot_table"}),
+    "static_k1000": ("static", 1000, 14, False, {"slot_table"}),
+    "static_k4096": ("static", 4096, 14, False, {"slot_table"}),
+    "static_k5000": ("static", 5000, 14, False, {"warp_rows"}),
+}
+ZERO_SYMBOLS = (3, 4, 121, 200)      # symbols given frequency 0
 
 
 def _on(tbl, dev):
     return spc.TableSet(*(a.to(dev) for a in tbl))
 
 
-def _smooth_case(layout, seed, k=256, lanes=128, t=300):
-    tt, _ = _case(layout, seed, k, lanes, t)
+def _zero_freq(tt, prob_bits, every=1):
+    """``tt`` with ZERO_SYMBOLS at frequency 0 (their mass moved to symbol
+    128) in every ``every``-th row."""
+    freq = tt.freq.clone()
+    rows = freq.reshape(-1, freq.shape[-1])[::every]
+    zs = list(ZERO_SYMBOLS)
+    rows[:, 128] += rows[:, zs].sum(-1)
+    rows[:, zs] = 0
+    freq.reshape(-1, freq.shape[-1])[::every] = rows
+    return spc.build_tables(freq, prob_bits)
+
+
+def _smooth_case(table, seed, lanes=128, t=300):
+    """A TABLES case: its tables, smooth random-walk symbols (none of them
+    at a zero frequency) and its prob_bits."""
+    layout, k, prob_bits, zero, _ = TABLES[table]
+    tt, _ = _case(layout, seed, k, lanes, t, prob_bits)
     rng = np.random.default_rng(seed)
     syms = np.clip(k // 2 + np.cumsum(rng.integers(-3, 4, (lanes, t)), 1),
                    0, k - 1).astype(np.int32)
-    return tt, syms
+    if zero:
+        tt = _zero_freq(tt, prob_bits, every=1 if layout == "static" else 7)
+        for z in ZERO_SYMBOLS:
+            syms[syms == z] = z + 2
+    return tt, syms, prob_bits
+
+
+def _branches(name, table, pred):
+    """The code paths a launch on TABLES[table] with ``pred`` must run: a
+    window wider than the kernel's probe tables (2 * delta + 1 > 63) moves
+    a static table from the slot path to the warp path."""
+    want = TABLES[table][4]
+    if pred is not None and 2 * pred.delta + 1 > 63:
+        moved = {"slot_table": "warp_rows", "shared_bisect": "warp_bisect"}
+        want = {moved.get(w, w) for w in want}
+    assert rans_decode.last_branches(name) == want, name
 
 
 def _launched(name, fn):
@@ -211,28 +257,39 @@ def _assert_same(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+@pytest.mark.parametrize("layout", list(TABLES))
 @pytest.mark.parametrize("pred", range(len(PREDICTORS)))
 def test_gpu_decode_lanes_kernel_matches_plain(layout, pred):
     dev = _cuda()
-    tt, syms = _smooth_case(layout, seed=7 + pred)
-    cands = torch.as_tensor(candidate_planes(syms, 256, 2, 0.5, seed=pred))
+    tt, syms, prob_bits = _smooth_case(layout, seed=7 + pred)
+    k = tt.freq.shape[-1]
+    cands = torch.as_tensor(candidate_planes(syms, k, 2, 0.5, seed=pred))
+    cands[::5, :, 1] = cands[::5, :, 0]             # duplicate ids
+    cands[::7, :, 1] = k + 3                         # out of range
     ch = coder.encode_chunked(_t(syms), tt, 128)
     gt = _on(tt, dev)
     cases = [(ch.buf, ch.start, 128, None, False),             # chunked
              (ch.buf[..., :-3], ch.start, 128, cands, True)]   # truncated
-    if layout != "lane":
+    if TABLES[layout][0] != "lane":
         enc = coder.encode(_t(syms), tt)
         cases.append((enc.buf, enc.start, None, cands, False))  # monolithic
     for buf, start, chunk, cd, truncated in cases:
-        kw = dict(predictor=PREDICTORS[pred], candidates=cd)
+        kw = dict(prob_bits=prob_bits, predictor=PREDICTORS[pred],
+                  candidates=cd)
         ref = rans_decode.rans_decode_lanes_plain(
             buf, start, tt.freq, tt.cdf, 300, chunk, **kw)
         kw["candidates"] = None if cd is None else cd.to(dev)
         got = _launched("rans_decode_lanes", lambda: rans_decode.rans_decode_lanes(
             buf.to(dev), start.to(dev), gt.freq, gt.cdf, 300, chunk, **kw))
         _assert_same(got, ref)
-        assert (int(ref[2].sum()) > 0) == truncated
+        _branches("rans_decode_lanes", layout, PREDICTORS[pred])
+        if not TABLES[layout][3]:
+            # (the reference's early commit may answer a zero-frequency
+            # symbol and lose the stream, so only kernel == plain holds on
+            # those tables)
+            assert (int(ref[2].sum()) > 0) == truncated
+            if not truncated:
+                assert torch.equal(got[0].cpu(), _t(syms))
 
 
 def _poisons(cs):
@@ -247,11 +304,12 @@ def _poisons(cs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+@pytest.mark.parametrize("layout", list(TABLES))
 def test_gpu_decode_slab_kernel_matches_plain(layout):
     dev = _cuda()
-    tt, syms = _smooth_case(layout, seed=21)
-    cands = torch.as_tensor(candidate_planes(syms, 256, 4, 0.6, seed=1))
+    tt, syms, prob_bits = _smooth_case(layout, seed=21)
+    k = tt.freq.shape[-1]
+    cands = torch.as_tensor(candidate_planes(syms, k, 4, 0.6, seed=1))
     ch = coder.encode_chunked(_t(syms), tt, 128)
     cs = bitstream.parse_chunked(bitstream.pack_chunked(
         *ch, chunk_size=128, n_symbols=300))
@@ -259,18 +317,22 @@ def test_gpu_decode_slab_kernel_matches_plain(layout):
     for i, src in enumerate([cs] + _poisons(cs)):
         pred = PREDICTORS[i % len(PREDICTORS)]
         (planes, cap) = ops.slab_planes(src, dev)
-        kw = dict(cap=cap, t_len=300, chunk_size=128, predictor=pred)
+        kw = dict(cap=cap, t_len=300, chunk_size=128, prob_bits=prob_bits,
+                  predictor=pred)
         ref = rans_decode.rans_decode_slab_plain(
             *(p.cpu() for p in planes), tt.freq, tt.cdf, candidates=cands,
             **kw)
         got = _launched("rans_decode_slab", lambda: rans_decode.rans_decode_slab(
             *planes, gt.freq, gt.cdf, candidates=cands.to(dev), **kw))
         _assert_same(got, ref)
+        _branches("rans_decode_slab", layout, pred)
         if i == 0:
-            assert torch.equal(got[0].cpu(), _t(syms))
+            if not TABLES[layout][3]:
+                assert torch.equal(got[0].cpu(), _t(syms))
             dense = rans_decode.rans_decode_lanes(
                 ch.buf.to(dev), ch.start.to(dev), gt.freq, gt.cdf, 300, 128,
-                predictor=pred, candidates=cands.to(dev))
+                prob_bits=prob_bits, predictor=pred,
+                candidates=cands.to(dev))
             _assert_same(got, dense)
         elif i == 1:                                # offsets past the end
             assert int(got[2].sum()) > 0
