@@ -11,9 +11,11 @@ Phases (any failure raises and exits nonzero):
 2. kernel phases: the encode kernel (B1) and the decode-step kernel (B2)
    against their plain PyTorch versions on the card at the main-path
    shapes (128 lanes, K = 256, per-lane ``(T, lanes, K)`` tables, chunk 256
-   with a ragged tail, plus an overflow case): outputs must be identical.
-   Each is timed with CUDA events (median of repeats) beside its bound
-   computed from this run's inputs;
+   with a ragged tail, plus an overflow case): outputs must be identical,
+   and B2 must run its warp row path at every step and the exact bisection
+   on rows with zero frequencies.  Each is timed with CUDA events (median
+   of repeats) beside its bound computed from this run's inputs; B2 also
+   beside its launch floor, an empty kernel launched as B2 is;
 3. the full-stream decode (B3) and the slab decode (B4) on the same
    stream with top-4 candidates: B3 on the dense chunks, also truncated by
    3 bytes per cell; B4 straight off the packed v2 container, also on
@@ -40,8 +42,11 @@ Phases (any failure raises and exits nonzero):
    256, through ``lm_compress_chunked(backend="kernel")`` ->
    ``pack_chunked`` -> ``parse_chunked`` ->
    ``lm_decompress_chunked(backend="kernel")`` with launch counters reset
-   just before and read just after; then the ``coder`` backend on the card
-   must give a byte-identical container and equal per-lane probes;
+   just before and read just after (one B1, T B2 and T + 1 B6 launches:
+   the compress side's table batch and each decoded position) and with no
+   call of the sort-based ``spc.quantize_probs`` on the card; then the
+   ``coder`` backend (the plain SPC) on the card must give a
+   byte-identical container and equal per-lane probes;
 8. the two-pass decode of the same container,
    ``lm_decompress_chunked(backend="two_pass")`` from the ``ContainerSlab``:
    bit-exact, per-lane probes equal to the fused decode's, and exactly one
@@ -61,14 +66,17 @@ Phases (any failure raises and exits nonzero):
    (with and without the LUT) and B3 bit-exact; microseconds per symbol and
    speedups over ``PyRans`` beside the paper's figures;
 11. the SPC conversion (B6): ``bench_spc.run``'s point (256 x 256
-   ``dirichlet(0.5)``, seed 0) and the slice's whole per-position table
-   batch (B1's phase probabilities as 128,000 x 256): kernel ==
-   ``spc_quantize_plain`` == ``tables_from_probs(...).freq``, and
+   ``dirichlet(0.5)``, seed 0), one decoded position of the slice (128 x
+   256, BF16) and the slice's whole per-position table batch (B1's phase
+   probabilities as 128,000 x 256, float32 and BF16): kernel ==
+   ``spc_quantize_plain`` == ``tables_from_probs(...).freq``,
+   ``spc_freq_cdf`` == ``freq_cdf_from_probs``, and
    ``ops.spc_quantize_tables`` == ``tables_from_probs`` (on the card, and
    on the CPU at the first point) on every plane with
    one B6 launch between counters reset and read.
-Each phase prints its seconds.  Every B3/B4 launch is also held to the
-code path it must run (``rans_decode.last_branches``): the slot-table path
+Each phase prints its seconds.  Every B2/B3/B4 launch is also held to the
+code path it must run (``rans_decode.last_branches``): B2's warp row path
+on the slice's rows, the slot-table path
 on the static tables of phases 4, 5 and 10, the warp row search on the
 per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
@@ -155,7 +163,7 @@ def _check(ok, what: str) -> None:
 
 
 def _branch(name: str, want: set, what: str) -> None:
-    """B3/B4's last launch ran exactly the code paths ``want``
+    """B2's, B3's or B4's last launch ran exactly the code paths ``want``
     (``rans_decode.BRANCH_BITS`` names)."""
     from repro_torch.kernels import rans_decode
     got = rans_decode.last_branches(name)
@@ -237,7 +245,7 @@ def encode_phase(dev):
 
 def decode_phase(dev, encoded):
     import torch
-    from repro_torch.core import coder, u32
+    from repro_torch.core import coder, spc, u32
     from repro_torch.core.bitstream import ChunkedLanes
     from repro_torch.kernels import rans_decode
 
@@ -257,19 +265,34 @@ def decode_phase(dev, encoded):
         ref = rans_decode.rans_decode_step_plain(buf, sp, pp, *args,
                                                  candidates=cands[t])
         err = max(err, _max_abs_err(got, ref))
+        _branch("rans_decode_step", {"warp_rows"}, f"B2 step {t}")
         _check(torch.equal(ref[2], syms[:, t]), "plain decode lost a symbol")
         sk, pk, sp, pp = got[0], got[1], ref[0], ref[1]
     torch.cuda.synchronize()
     _check(int(ref[4].sum()) == 0 and torch.equal(
         pp.long(), (enc.start + enc.length).long()),
         "decode did not end exactly at the stream ends")
+    # rows with zero frequencies (every third lane): the exact bisection
+    zf = tables.freq[0].clone()
+    zf[::3, 128] += zf[::3, 3:7].sum(-1)
+    zf[::3, 3:7] = 0
+    zt = spc.build_tables(zf)
+    zargs = (buf, s0, p0, zt.freq, zt.cdf)
+    err = max(err, _max_abs_err(
+        rans_decode.rans_decode_step(*zargs, candidates=cands[0]),
+        rans_decode.rans_decode_step_plain(*zargs, candidates=cands[0])))
+    _branch("rans_decode_step", {"warp_rows", "warp_bisect"},
+            "B2 on zero-frequency rows")
     print(f"B2 decode step: kernel == plain at every one of {CHUNK} steps "
           f"over a {LANES}-lane stream (per-lane (lanes, K) rows, top-{TOPK}"
-          " candidates)", flush=True)
+          " candidates; warp row path at every step) and on rows with zero "
+          "frequencies (warp rows and the exact bisection)", flush=True)
     step_args = (buf, s0, p0, tables.freq[0], tables.cdf[0])
     def step():
         return rans_decode.rans_decode_step(*step_args, candidates=cands[0])
 
+    floor_ms = _device_ms(lambda: rans_decode.rans_decode_step_floor(
+        *step_args, candidates=cands[0]), n=100)
     ms = _device_ms(step, n=100)
     call_ms = _median_ms(step, repeats=200, warmup=10)
     plain_ms = _median_ms(lambda: rans_decode.rans_decode_step_plain(
@@ -285,15 +308,16 @@ def decode_phase(dev, encoded):
     ops = 12 * LANES + 4 * int(one[3].sum())  # per lane ~12, per probe ~4
     bound_ms, bound_by = _bound(moved, ops)
     print(f"B2 decode step: {ms:.4f} ms kernel on the device "
-          f"({call_ms:.4f} ms per wrapper call), {plain_ms:.3f} ms plain, "
-          f"bound {bound_ms:.8f} ms by {bound_by} ({moved} B moved, {ops} "
-          "ops); launch-bound", flush=True)
+          f"({call_ms:.4f} ms per wrapper call), launch floor {floor_ms:.4f} "
+          f"ms (an empty kernel with B2's grid, block and arguments), "
+          f"{plain_ms:.3f} ms plain, bound {bound_ms:.8f} ms by {bound_by} "
+          f"({moved} B moved, {ops} ops)", flush=True)
     return dict(name="rans_decode_step", route="cuda",
                 source="src/repro_torch/csrc/rans_decode_step.cu",
                 replaces="src/repro/kernels/rans_decode.py:560",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                call_ms=call_ms)
+                call_ms=call_ms, floor_ms=floor_ms)
 
 
 def _decode_bound(sym, probes, *, stream_bytes: int, cells: int,
@@ -702,7 +726,7 @@ def main_path(dev):
     import numpy as np
     import torch
     from repro_torch.configs.ras_pimc import CONFIG
-    from repro_torch.core import bitstream
+    from repro_torch.core import bitstream, spc
     from repro_torch.data.pipeline import token_stream
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_model
@@ -710,27 +734,46 @@ def main_path(dev):
 
     model = init_model(CONFIG, seed=0, device=dev)
     tokens = token_stream(CONFIG.vocab_size, (LANES, T), seed=0)
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = compress.lm_compress_chunked(model, tokens, CHUNK, backend="kernel")
-    torch.cuda.synchronize()
-    t_comp = time.perf_counter() - t0
-    blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK, n_symbols=T)
-    cs = bitstream.parse_chunked(blob)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sym, avg, lane_probes = compress.lm_decompress_chunked(
-        model, cs, T, CHUNK, backend="kernel", lane_probes=True)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=T),
+    # the sort-based plain SPC must not run on the card on this path
+    plain_spc, on_card = spc.quantize_probs, []
+
+    def spy(probs, *a, **kw):
+        if probs.is_cuda:
+            on_card.append(tuple(probs.shape))
+        return plain_spc(probs, *a, **kw)
+
+    spc.quantize_probs = spy
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = compress.lm_compress_chunked(model, tokens, CHUNK,
+                                          backend="kernel")
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK,
+                                      n_symbols=T)
+        cs = bitstream.parse_chunked(blob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sym, avg, lane_probes = compress.lm_decompress_chunked(
+            model, cs, T, CHUNK, backend="kernel", lane_probes=True)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        spc.quantize_probs = plain_spc
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=T,
+                             spc_quantize=T + 1),
            f"launch counts {launches}")
+    _check(not on_card, f"the plain SPC ran on the card {len(on_card)} times"
+           " on the kernel backend")
+    _branch("rans_decode_step", {"warp_rows"}, "slice B2, last position")
     _check(np.array_equal(sym.cpu().numpy(), tokens), "round trip not exact")
     print(f"slice: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
           f"{CONFIG.d_model}), {LANES} lanes x {T} tokens, chunk {CHUNK}: "
-          f"round trip bit-exact; launches {launches}", flush=True)
+          f"round trip bit-exact; launches {launches}; no plain SPC call on "
+          "the card", flush=True)
     print(f"slice: bits/symbol {float(st.bits_per_symbol):.4f}, model xent "
           f"{float(st.model_xent_bits):.4f} bits, avg probes/symbol "
           f"{float(avg):.4f}, container {len(blob)} bytes", flush=True)
@@ -1003,16 +1046,19 @@ def fig4a_phase(dev):
                 b3_fig4a_call_ms=b3_call_ms, b5_fig4a_bound_ms=bound_ms)
 
 
-def _spc_bound(b: int, k: int):
-    """B6's bound: 4 B in and 4 B out per entry; K * ceil(log2 K) compares
-    per row (the work of a sort-based ranking, not the kernel's K**2)."""
-    moved = 8 * b * k
+def _spc_bound(b: int, k: int, in_bytes: int = 4, cdf: bool = False):
+    """B6's bound: ``in_bytes`` in and 4 B out per entry (4 more per entry
+    with the CDF rows); K * ceil(log2 K) compares per row (the work of a
+    sort-based ranking, not the kernel's K**2)."""
+    moved = b * k * (in_bytes + 4) + (4 * b * (k + 1) if cdf else 0)
     return (*_bound(moved, b * k * math.ceil(math.log2(k))), moved)
 
 
 def spc_phase(dev):
-    """B6 at bench_spc.run's point and on the slice's whole per-position
-    table batch (B1's phase probabilities as 128,000 x 256)."""
+    """B6 at bench_spc.run's point, at one decoded position of the slice
+    (128 x 256, BF16, with the CDF rows) and on the slice's whole
+    per-position table batch (B1's phase probabilities as 128,000 x 256),
+    each in float32 and BF16."""
     import numpy as np
     import torch
     from repro_torch.core import spc
@@ -1026,17 +1072,23 @@ def spc_phase(dev):
                             dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)     # encode_phase's
     logits = torch.randn((T, LANES, K), generator=gen, device=dev) * 3.0
-    full = spc.store_bf16(torch.softmax(logits, -1)).to(
-        torch.float32).reshape(T * LANES, K)
+    full16 = spc.store_bf16(torch.softmax(logits, -1)).reshape(T * LANES, K)
     del logits
-    err, runs = 0, []
-    for name, probs in (("bench_spc point", point), ("slice batch", full)):
+    err, runs = 0, {}
+    for name, probs in (("bench_spc point", point),
+                        ("slice position", full16[:LANES]),
+                        ("slice batch", full16.to(torch.float32)),
+                        ("slice batch bf16", full16)):
         got = spc_quantize.spc_quantize(probs)
         plain = spc_quantize.spc_quantize_plain(probs)
         want = spc.tables_from_probs(probs)
+        fc = spc_quantize.spc_freq_cdf(probs)
+        fc_plain = spc.freq_cdf_from_probs(probs)
         torch.cuda.synchronize()
         err = max(err, _max_abs_err([got], [plain]),
-                  _max_abs_err([got], [want.freq]))
+                  _max_abs_err([got], [want.freq]),
+                  _max_abs_err(fc, fc_plain),
+                  _max_abs_err(fc, (want.freq, want.cdf)))
         reset_launches()
         tables = ops.spc_quantize_tables(probs)
         torch.cuda.synchronize()
@@ -1048,29 +1100,41 @@ def spc_phase(dev):
             err = max(err, _max_abs_err(
                 tables, spc.tables_from_probs(probs.cpu())))
         b, k = probs.shape
-        ms = _device_ms(lambda: spc_quantize.spc_quantize(probs), n=5)
-        call_ms = _median_ms(lambda: spc_quantize.spc_quantize(probs),
-                             repeats=10)
-        plain_ms = _median_ms(lambda: spc_quantize.spc_quantize_plain(probs),
-                              repeats=5)
-        bound_ms, bound_by, moved = _spc_bound(b, k)
-        print(f"B6 SPC {name} ({b} x {k}): kernel == spc_quantize_plain == "
-              f"tables_from_probs(...).freq, ops.spc_quantize_tables == "
-              f"tables_from_probs on every plane; launches {launches}; "
+        in_bytes = probs.element_size()
+        # the position's call is the fused decode's: frequencies and CDF
+        with_cdf = name == "slice position"
+        fn = spc_quantize.spc_freq_cdf if with_cdf else \
+            spc_quantize.spc_quantize
+        plain_fn = spc.freq_cdf_from_probs if with_cdf else \
+            spc_quantize.spc_quantize_plain
+        ms = _device_ms(lambda: fn(probs), n=20 if b <= 256 else 5)
+        call_ms = _median_ms(lambda: fn(probs), repeats=20)
+        plain_ms = _median_ms(lambda: plain_fn(probs), repeats=5)
+        bound_ms, bound_by, moved = _spc_bound(b, k, in_bytes, with_cdf)
+        print(f"B6 SPC {name} ({b} x {k}, {probs.dtype}): kernel == "
+              f"spc_quantize_plain == tables_from_probs(...).freq, "
+              f"spc_freq_cdf == freq_cdf_from_probs, ops.spc_quantize_tables"
+              f" == tables_from_probs on every plane; launches {launches}; "
+              f"{'spc_freq_cdf' if with_cdf else 'spc_quantize'} "
               f"{ms:.4f} ms kernel on the device ({call_ms:.4f} ms per "
               f"call, {ms * 1e3 / b:.4f} us per table), {plain_ms:.4f} ms "
               f"plain, bound {bound_ms:.6f} ms by {bound_by} ({moved} B "
               "moved)", flush=True)
-        runs.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, call_ms=call_ms,
-                         launches=launches["spc_quantize"]))
+        runs[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, call_ms=call_ms)
     print(f"B6 SPC: {time.perf_counter() - t0:.1f} s", flush=True)
-    # the record is the slice batch's; the bench_spc point rides along
+    # the record is the compress side's call (the BF16 slice batch); the
+    # other points ride along
     return dict(name="spc_quantize", route="cuda",
                 source="src/repro_torch/csrc/spc_quantize.cu",
                 replaces="src/repro/kernels/spc_quantize.py:72",
-                max_abs_err=err, library_ms=None, **runs[1],
-                point_ms=runs[0]["ms"])
+                max_abs_err=err, library_ms=None,
+                **runs["slice batch bf16"],
+                f32_batch_ms=runs["slice batch"]["ms"],
+                position_freq_cdf_ms=runs["slice position"]["ms"],
+                position_freq_cdf_call_ms=runs["slice position"]["call_ms"],
+                position_freq_cdf_plain_ms=runs["slice position"]["plain_ms"],
+                point_ms=runs["bench_spc point"]["ms"])
 
 
 def main() -> int:
@@ -1124,7 +1188,8 @@ def main() -> int:
     b6 = spc_phase(dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
-                          (b3, image_launches), (b4, two_pass_launches)):
+                          (b3, image_launches), (b4, two_pass_launches),
+                          (b6, slice_launches)):
         rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // The decoder's symbol search for Hopper: the exact bisection, its probe
 // replay and the warp row count.  Shared by the full-stream decode
-// (rans_decode_lanes.cu, B3/B4); header-only, device code.
+// (rans_decode_lanes.cu, B3/B4) and the decode step (rans_decode_step.cu,
+// B2); header-only, device code.
 //
 // The normative search (repro_torch/core/search.py) tries the candidates
 // (one probe each while unresolved), verifies the predictor's window (one
@@ -27,6 +28,14 @@
 namespace decode_search {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// A CDF row in device memory, read through the read-only cache.
+struct GlobalCdf {
+  const uint32_t* cd;
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    return __ldg(cd + i);
+  }
+};
 
 // Active bisection iterations from [lo, lo + w) down to lo + off.
 __device__ __forceinline__ int bisect_probes(int w, int off, bool at_start) {

@@ -598,13 +598,6 @@ __global__ void __launch_bounds__(kSlotBlock) slot_kernel(Args a) {
 // Rows in device memory: one warp per cell
 // ---------------------------------------------------------------------------
 
-struct GlobalCdf {
-  const uint32_t* cd;
-  __device__ __forceinline__ uint32_t operator()(int i) const {
-    return __ldg(cd + i);
-  }
-};
-
 // A warp's rows in flight: row t's first pass (cdf entries 0 .. 256, freq
 // entries 0 .. 255) and its first 32 candidates, in slot t % kRowRing of
 // this warp's ring, requested kRowRing - 1 steps ahead as 16-byte cp.async
@@ -720,8 +713,8 @@ struct WarpStep {
     bool strict = true;
     ds::warp_count_pass(SmemRowCdf{row}, k, 0, slot, count, strict);
     for (int pass = 1; pass < n_pass; ++pass) {
-      ds::warp_count_pass(GlobalCdf{cd(t)}, k, pass * ds::kPassEntries, slot,
-                          count, strict);
+      ds::warp_count_pass(ds::GlobalCdf{cd(t)}, k, pass * ds::kPassEntries,
+                          slot, count, strict);
     }
     const int x = count - 1;
     const bool near = x < ds::kPassEntries;   // x + 1 is in the ring too
@@ -748,7 +741,7 @@ struct WarpStep {
       return {x, f, c};
     }
     int p = 0;
-    const int xe = ds::exact_search(GlobalCdf{cd(t)}, slot, k, n_iter,
+    const int xe = ds::exact_search(ds::GlobalCdf{cd(t)}, slot, k, n_iter,
                                     cands(t), topk, has_window, lo_w, hi_w,
                                     p);
     probes += p;

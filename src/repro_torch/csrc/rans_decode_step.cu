@@ -1,120 +1,238 @@
-// One rANS symbol pop per lane for Hopper (sm_90a).
+// One rANS symbol pop per lane for Hopper (sm_90a): kernel B2.
 //
 // Replaces the TPU kernel repro/kernels/rans_decode.py::rans_decode_step
-// (body _decode_step_kernel).  One thread per lane:
-//   slot = s & (2**n - 1);
-//   candidate verify (each candidate clipped to [0, K-1], one probe while
-//   the lane is not yet resolved), then the masked binary search with
-//   exactly ceil_log2(K) iterations, counting only active ones and keeping
-//   the cdf[mid] == slot early commit (repro/core/search.py);
-//   s = f * (s >> n) + slot - start (mod 2**32);
-//   a 2-step masked refill where a read outside [0, cap) injects 0 and
-//   counts toward `under` when the refill is active.
-// Tables are this step's rows, shared (K,) / (K+1,) (lane strides 0) or
-// per-lane (lanes, K) / (lanes, K+1); candidates (lanes, topk).  Streams
-// are lane-major (lanes, cap) rows.
+// (body _decode_step_kernel): per lane, slot = s & (2**n - 1), the symbol
+// x with cdf[x] <= slot < cdf[x+1] and the normative probe count of
+// repro/core/search.py (candidates clipped to [0, K-1], one probe each
+// while unresolved, then the masked bisection with the cdf[mid] == slot
+// early commit), s = f * (s >> n) + slot - cdf[x] (mod 2**32) and a 2-step
+// masked refill where a read outside [0, cap) injects 0 and counts toward
+// `under` when the refill is active.  Tables are this step's rows, shared
+// (K,) / (K+1,) (lane strides 0) or per-lane (lanes, K) / (lanes, K+1);
+// candidates (lanes, topk); streams lane-major (lanes, cap) rows.
 //
-// What bounds it on this card: launch latency.  The work is a few dozen
-// dependent loads per lane (~100 B per lane), nanoseconds at the memory
-// rate, so one launch per position dominates.  The design reads tables and
-// stream bytes straight from global memory (no one-hot gathers); CUDA
-// graphs or fusing the SPC and top-k into the step are later work.
+// One warp per lane.  The chain of dependent loads is two levels deep:
+//   level 1: the state s and cursor ptr, the whole cdf row (K + 1 entries,
+//            16 bytes a thread, up to kRegChunks chunks each: K <= 380) and
+//            the first 32 candidates, all independent;
+//   level 2: the two refill bytes at ptr and ptr + 1 (a byte outside
+//            [0, cap) reads 0);
+// then, with no further load, one warp count of cdf[e] <= slot and a vote
+// on strict increase (decode_search.cuh); on a strictly increasing row
+// x = count - 1, cdf[x] and cdf[x+1] come from the owning lanes by shuffle
+// and f = cdf[x+1] - cdf[x] (every SPC table's freq row is its CDF's
+// differences); the probes are replayed from x (ds::warp_cand_probes,
+// ds::replay_probes); the update and both refills are selects.  Rows wider
+// than the registers are counted 256 entries a pass from device memory and
+// read cdf[x], cdf[x+1] after the count.  A row with a zero frequency (not
+// strictly increasing) runs the exact bisection, ds::exact_search, and
+// reads f from the freq row.  Each lane's row in `out` records the path it
+// ran (kWarpRows or kWarpBisect, rans_decode.BRANCH_BITS).
+//
+// What bounds it on this card: the launch.  One call moves about 1.1 KB
+// per lane (the row, the state, the bytes, the outputs), 0.04 us at the
+// memory rate for 128 lanes.  On an H100 (700 W) an empty kernel launched
+// the same way (rans_decode_step_floor_launch) takes 0.0010-0.0011 ms as a
+// CUDA graph node and this kernel 0.0021 ms; the rest is the two load
+// levels' latency (L2 hits: the SPC has just written the rows), the count
+// and the shuffles.  Fewer launches (a captured or fused scan), not a
+// faster step, is what would cut it further.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "decode_search.cuh"
+
 namespace {
 
-constexpr uint32_t kRansL = 1u << 23;
+namespace ds = decode_search;
 
-__global__ void rans_decode_step_kernel(
+constexpr uint32_t kRansL = 1u << 23;
+constexpr int kWarps = 4;             // lanes per block: one warp each
+constexpr int kRegChunks = 3;         // 16-byte cdf chunks a thread holds
+// the register row covers K + 1 entries plus up to 3 of alignment shift
+constexpr int kRegK = 4 * 32 * kRegChunks - 4;   // 380
+
+enum Branch : int {                   // rans_decode_lanes.cu's bits
+  kWarpRows = 4,
+  kWarpBisect = 8,
+};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& c, int q) {
+  return q == 0 ? c.x : (q == 1 ? c.y : (q == 2 ? c.z : c.w));
+}
+
+__global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
     const uint8_t* __restrict__ buf, int cap,
     const uint32_t* __restrict__ s_in, const int32_t* __restrict__ ptr_in,
     const uint32_t* __restrict__ freq, const uint32_t* __restrict__ cdf,
     long long freq_lane_stride, long long cdf_lane_stride, int k,
     const int32_t* __restrict__ cands, int topk, int lanes, int prob_bits,
-    int n_iter, uint32_t* __restrict__ s_out, int32_t* __restrict__ ptr_out,
-    int32_t* __restrict__ sym_out, int32_t* __restrict__ probes_out,
-    int32_t* __restrict__ under_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const uint32_t* cd = cdf + lane * cdf_lane_stride;
-  const uint32_t* fr = freq + lane * freq_lane_stride;
-  const uint8_t* row = buf + static_cast<long long>(lane) * cap;
-  uint32_t s = s_in[lane];
-  int ptr = ptr_in[lane];
-  const uint32_t slot = s & ((1u << prob_bits) - 1u);
+    int n_iter, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int cell = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (cell >= lanes) return;          // warp-uniform
+  const uint32_t* cd = cdf + cell * cdf_lane_stride;
+  const uint32_t* fr = freq + cell * freq_lane_stride;
+  const int32_t* crow = topk ? cands + static_cast<long long>(cell) * topk
+                             : nullptr;
+  const uint8_t* row = buf + static_cast<long long>(cell) * cap;
 
-  int probes = 0;
-  bool found = false;
-  int x_spec = 0;
-  for (int j = 0; j < topk; ++j) {
-    const int cand = min(max(cands[lane * topk + j], 0), k - 1);
-    const bool ok = cd[cand] <= slot && slot < cd[cand + 1];
-    if (!found) {
-      ++probes;
-      if (ok) x_spec = cand;
-    }
-    found = found || ok;
-  }
-  int lo = found ? x_spec : 0;
-  int hi = found ? x_spec + 1 : k;
-  for (int it = 0; it < n_iter; ++it) {
-    if (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      const uint32_t c_mid = cd[mid];
-      if (c_mid <= slot) {
-        lo = mid;
-        if (c_mid == slot) hi = mid + 1;
-      } else {
-        hi = mid;
-      }
-      ++probes;
-    }
-  }
-  const int x = lo;
-  s = fr[x] * (s >> prob_bits) + slot - cd[x];
-
-  int under = 0;
+  // level 1
+  const uint32_t s = __ldg(s_in + cell);
+  const int ptr = __ldg(ptr_in + cell);
+  const int first = lane < topk ? __ldg(crow + lane) : -1;
+  const bool in_regs = k <= kRegK;
+  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(cd) >> 2) & 3u);
+  uint4 c[kRegChunks];
+  if (in_regs) {
+    // 16-byte blocks holding entries 0 .. K: entry e sits at word sh + e
+    const uint4* base = reinterpret_cast<const uint4*>(cd - sh);
+    const int n_chunks = (sh + k + 4) >> 2;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (s < kRansL) {
-      uint32_t byte = 0;
-      if (ptr < 0 || ptr >= cap) {
-        ++under;
-      } else {
-        byte = row[ptr];
-      }
-      s = (s << 8) | byte;
-      ++ptr;
+    for (int r = 0; r < kRegChunks; ++r) {
+      const int i = lane + 32 * r;
+      c[r] = i < n_chunks ? __ldg(base + i) : make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  s_out[lane] = s;
-  ptr_out[lane] = ptr;
-  sym_out[lane] = x;
-  probes_out[lane] = probes;
-  under_out[lane] = under;
+  // level 2
+  const bool in0 = static_cast<unsigned>(ptr) < static_cast<unsigned>(cap);
+  const bool in1 =
+      static_cast<unsigned>(ptr + 1) < static_cast<unsigned>(cap);
+  const uint32_t b0 = in0 ? __ldg(row + ptr) : 0u;
+  const uint32_t b1 = in1 ? __ldg(row + ptr + 1) : 0u;
+
+  const uint32_t slot = s & ((1u << prob_bits) - 1u);
+  int count = 0;
+  bool strict = true;
+  uint32_t c_lo, c_hi;
+  if (in_regs) {
+    int n = 0;
+#pragma unroll
+    for (int r = 0; r < kRegChunks; ++r) {
+      // entry after a chunk's last word: the next lane's first word, or
+      // for lane 31 lane 0's first word of the next chunk
+      const uint32_t down = __shfl_down_sync(ds::kFullMask, c[r].x, 1);
+      const uint32_t wrap = __shfl_sync(
+          ds::kFullMask, c[r + 1 < kRegChunks ? r + 1 : r].x, 0);
+      const uint32_t after = lane == 31 ? wrap : down;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = 4 * (lane + 32 * r) + q - sh;
+        const bool in = e >= 0 && e < k;
+        const uint32_t v = word_of(c[r], q);
+        const uint32_t vn = q < 3 ? word_of(c[r], q + 1) : after;
+        n += in && v <= slot;
+        strict = strict && (!in || v < vn);
+      }
+    }
+    count = static_cast<int>(
+        __reduce_add_sync(ds::kFullMask, static_cast<unsigned>(n)));
+    // cdf[x] and cdf[x + 1] from the lanes that hold them
+    const int xr = count > 0 ? count - 1 : 0;
+    uint32_t mine_lo = 0, mine_hi = 0;
+    const int p_lo = sh + xr, p_hi = sh + xr + 1;    // word positions
+#pragma unroll
+    for (int r = 0; r < kRegChunks; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = 4 * (lane + 32 * r) + q;       // this lane's words
+        if (p == p_lo) mine_lo = word_of(c[r], q);
+        if (p == p_hi) mine_hi = word_of(c[r], q);
+      }
+    }
+    c_lo = __shfl_sync(ds::kFullMask, mine_lo, (p_lo >> 2) & 31);
+    c_hi = __shfl_sync(ds::kFullMask, mine_hi, (p_hi >> 2) & 31);
+  } else {
+    for (int base = 0; base < k; base += ds::kPassEntries) {
+      ds::warp_count_pass(ds::GlobalCdf{cd}, k, base, slot, count, strict);
+    }
+    const int xr = count > 0 ? count - 1 : 0;
+    c_lo = __ldg(cd + xr);
+    c_hi = __ldg(cd + xr + 1);
+  }
+
+  int x, probes;
+  uint32_t f, start;
+  int32_t branch;
+  if (__all_sync(ds::kFullMask, strict) && count > 0 && slot < c_hi) {
+    x = count - 1;
+    bool found = false;
+    int cp = 0;
+    if (topk) cp = ds::warp_cand_probes(crow, topk, k, x, first, found);
+    probes = ds::replay_probes(x, slot == c_lo, cp, found, false, 0, 0, k,
+                               ds::LoopDepth{});
+    f = c_hi - c_lo;
+    start = c_lo;
+    branch = kWarpRows;
+  } else {
+    probes = 0;
+    x = ds::exact_search(ds::GlobalCdf{cd}, slot, k, n_iter, crow, topk,
+                         false, 0, 0, probes);
+    f = __ldg(fr + x);
+    start = __ldg(cd + x);
+    branch = kWarpBisect;
+  }
+
+  uint32_t s2 = f * (s >> prob_bits) + slot - start;
+  const bool r1 = s2 < kRansL;
+  s2 = r1 ? (s2 << 8) | b0 : s2;
+  const bool r2 = r1 && s2 < kRansL;
+  s2 = r2 ? (s2 << 8) | b1 : s2;
+  if (lane == 0) {
+    out[cell] = static_cast<int32_t>(s2);
+    out[lanes + cell] = ptr + r1 + r2;
+    out[2 * lanes + cell] = x;
+    out[3 * lanes + cell] = probes;
+    out[4 * lanes + cell] = (r1 && !in0) + (r2 && !in1);
+    out[5 * lanes + cell] = branch;
+  }
 }
 
-}  // namespace
+// An empty kernel with B2's arguments and geometry: the launch floor that
+// B2's time is held against (chip_smoke.py).
+__global__ void __launch_bounds__(32 * kWarps) empty_step_kernel(
+    const uint8_t*, int, const uint32_t*, const int32_t*, const uint32_t*,
+    const uint32_t*, long long, long long, int, const int32_t*, int, int,
+    int, int, int32_t*) {}
 
-extern "C" int rans_decode_step_launch(
-    const void* buf, int cap, const void* s_in, const void* ptr_in,
-    const void* freq, const void* cdf, long long freq_lane_stride,
-    long long cdf_lane_stride, int k, const void* cands, int topk, int lanes,
-    int prob_bits, int n_iter, void* s_out, void* ptr_out, void* sym_out,
-    void* probes_out, void* under_out, void* stream) {
-  const int block = 128;
-  const int grid = (lanes + block - 1) / block;
-  rans_decode_step_kernel<<<grid, block, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+template <typename Kernel>
+int launch(Kernel kernel, const void* buf, int cap, const void* s_in,
+           const void* ptr_in, const void* freq, const void* cdf,
+           long long freq_lane_stride, long long cdf_lane_stride, int k,
+           const void* cands, int topk, int lanes, int prob_bits, int n_iter,
+           void* out, void* stream) {
+  const int grid = (lanes + kWarps - 1) / kWarps;
+  kernel<<<grid, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(buf), cap,
       static_cast<const uint32_t*>(s_in), static_cast<const int32_t*>(ptr_in),
       static_cast<const uint32_t*>(freq), static_cast<const uint32_t*>(cdf),
       freq_lane_stride, cdf_lane_stride, k,
       static_cast<const int32_t*>(cands), topk, lanes, prob_bits, n_iter,
-      static_cast<uint32_t*>(s_out), static_cast<int32_t*>(ptr_out),
-      static_cast<int32_t*>(sym_out), static_cast<int32_t*>(probes_out),
-      static_cast<int32_t*>(under_out));
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out: (6, lanes) int32 rows s', ptr', symbol, probes, under, branch.
+extern "C" int rans_decode_step_launch(
+    const void* buf, int cap, const void* s_in, const void* ptr_in,
+    const void* freq, const void* cdf, long long freq_lane_stride,
+    long long cdf_lane_stride, int k, const void* cands, int topk, int lanes,
+    int prob_bits, int n_iter, void* out, void* stream) {
+  return launch(rans_decode_step_kernel, buf, cap, s_in, ptr_in, freq, cdf,
+                freq_lane_stride, cdf_lane_stride, k, cands, topk, lanes,
+                prob_bits, n_iter, out, stream);
+}
+
+// The empty kernel, launched as rans_decode_step_launch launches B2.
+extern "C" int rans_decode_step_floor_launch(
+    const void* buf, int cap, const void* s_in, const void* ptr_in,
+    const void* freq, const void* cdf, long long freq_lane_stride,
+    long long cdf_lane_stride, int k, const void* cands, int topk, int lanes,
+    int prob_bits, int n_iter, void* out, void* stream) {
+  return launch(empty_step_kernel, buf, cap, s_in, ptr_in, freq, cdf,
+                freq_lane_stride, cdf_lane_stride, k, cands, topk, lanes,
+                prob_bits, n_iter, out, stream);
 }

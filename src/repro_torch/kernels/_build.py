@@ -81,6 +81,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def stream(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` returns, without
+    building the stream object (a few microseconds a call, which the
+    per-position wrappers pay T times a run)."""
+    import torch
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C launcher."""
     if err != 0:

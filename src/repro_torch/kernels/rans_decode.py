@@ -13,8 +13,13 @@ Three TPU kernels of ``repro/kernels/rans_decode.py`` are ported here:
   ``(K+1,)`` or ``(lanes, K+1)`` int32 rows and optional ``(lanes, topk)``
   candidates, and returns ``(s', ptr', symbols, probes, under)``, all
   ``(lanes,)`` int32; ``under`` counts active refills outside the lane's
-  window.  One step is a few dozen dependent loads per lane, so the launch
-  itself bounds it.
+  window.  Its kernel gives each lane a warp: the cdf row, the state and
+  the two refill bytes are two dependent load levels, a ballot count over
+  the row gives the symbol and the probes are replayed from it, so a step
+  costs about twice the launch floor of a graph node (0.0021 against
+  0.0011 ms on an H100, ``PERF.md``), and the wrapper's host work is ten
+  times that.  ``freq`` must be the cdf's differences, as every SPC
+  table's is: the kernel reads ``f`` from the cdf row.
 * **B3** :func:`rans_decode_lanes` (``csrc/rans_decode_lanes.cu``, replaces
   ``rans_decode_lanes``, body ``_decode_kernel``): the whole stream in one
   launch, monolithic ``(lanes, cap)`` or chunked ``(n_chunks, lanes,
@@ -36,8 +41,9 @@ B3 and B4 walk a serial chain per (chunk, lane) cell with few cells live,
 so they are latency-bound (``PERF.md``).  Their kernel takes the symbol
 from a slot table (static tables) or a warp-wide row count (rows in device
 memory) and replays the probe count from it; a table with a zero frequency
-runs the exact bisection instead.  Each launch records which of those code
-paths ran in ``repro_torch.kernels.BRANCHES``, read by
+runs the exact bisection instead.  B2 runs the warp row count or, on a row
+with a zero frequency, the bisection.  Each launch of B2, B3 or B4 records
+which of those code paths ran in ``repro_torch.kernels.BRANCHES``, read by
 :func:`last_branches`.
 """
 
@@ -56,9 +62,10 @@ from repro_torch.kernels import BRANCHES, LAUNCHES
 
 MAX_WINDOW = 16     # kMaxWindow in csrc/rans_decode_lanes.cu
 MAX_K = 1 << 24     # the kernel's 32-bit NeighborAverage mean is exact below
-# the Branch bits of csrc/rans_decode_lanes.cu: the slot-table path, the
-# exact bisection on a static table in shared memory, the warp row search
-# and the warp path's exact bisection of a row
+# the Branch bits of csrc/rans_decode_lanes.cu (B2's rans_decode_step.cu
+# uses the last two): the slot-table path, the exact bisection on a static
+# table in shared memory, the warp row search and the warp path's exact
+# bisection of a row
 BRANCH_BITS = {"slot_table": 1, "shared_bisect": 2, "warp_rows": 4,
                "warp_bisect": 8}
 
@@ -92,42 +99,53 @@ def rans_decode_step_plain(buf, s, ptr, freq, cdf,
             under.to(_I32))
 
 
-def _load():
-    from repro_torch.kernels import _build
-    lib = _build.load("rans_decode_step")
-    fn = lib.rans_decode_step_launch
-    if fn.argtypes is None:
+_STEP_FNS = {}     # B2's resolved ctypes launchers, by entry point
+
+
+def _step_fn(entry: str):
+    if entry not in _STEP_FNS:
+        from repro_torch.kernels import _build
+        fn = getattr(_build.load("rans_decode_step"), entry)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, p, p, p, p, ll, ll, i, p, i, i, i, i,
-                       p, p, p, p, p, p]
+        fn.argtypes = [p, i, p, p, p, p, ll, ll, i, p, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
-    return fn, _build.check
+        _STEP_FNS[entry] = (fn, _build.check, _build.stream)
+    return _STEP_FNS[entry]
 
 
-def _launch(buf, s, ptr, freq, cdf, prob_bits, candidates):
+def _launch(buf, s, ptr, freq, cdf, prob_bits, candidates,
+            entry="rans_decode_step_launch"):
     lanes, k = _check_shapes(buf, freq, cdf, candidates)
     dev = buf.device
-    ins = {"buf": (buf, torch.uint8), "s": (s, _I32), "ptr": (ptr, _I32),
-           "freq": (freq, _I32), "cdf": (cdf, _I32)}
-    if candidates is not None:
-        ins["candidates"] = (candidates, _I32)
-    for name, (t, dt) in ins.items():
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+    for name, t, dt in (("buf", buf, torch.uint8), ("s", s, _I32),
+                        ("ptr", ptr, _I32), ("freq", freq, _I32),
+                        ("cdf", cdf, _I32), ("candidates", candidates, _I32)):
+        if t is not None and (t.device != dev or t.dtype != dt
+                              or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{dev}; got {t.dtype} on {t.device}")
     topk = 0 if candidates is None else candidates.shape[1]
     per_lane = freq.ndim == 2
-    fn, check = _load()
-    outs = [torch.empty((lanes,), dtype=_I32, device=dev) for _ in range(5)]
+    fn, check, stream = _step_fn(entry)
+    # rows s', ptr', symbols, probes, under and the path each lane ran
+    out = torch.empty((6, lanes), dtype=_I32, device=dev)
     err = fn(buf.data_ptr(), buf.shape[1], s.data_ptr(), ptr.data_ptr(),
              freq.data_ptr(), cdf.data_ptr(), k if per_lane else 0,
              k + 1 if per_lane else 0, k,
              candidates.data_ptr() if topk else None, topk, lanes, prob_bits,
-             search.ceil_log2(k), *(o.data_ptr() for o in outs),
-             torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "rans_decode_step")
-    LAUNCHES["rans_decode_step"] += 1
-    return tuple(outs)
+             search.ceil_log2(k), out.data_ptr(), stream(dev))
+    check(err, entry)
+    return out
+
+
+def rans_decode_step_floor(buf, s, ptr, freq, cdf,
+                           prob_bits: int = C.PROB_BITS, candidates=None):
+    """Launch an empty kernel exactly as :func:`rans_decode_step` launches
+    B2 (same checks, output allocation, grid, block and arguments; CUDA
+    tensors only): the launch floor B2's time is measured against.  Not a
+    kernel of the path, so it counts no launch."""
+    _launch(buf, s, ptr, freq, cdf, prob_bits, candidates,
+            "rans_decode_step_floor_launch")
 
 
 def rans_decode_step(buf: torch.Tensor, s: torch.Tensor, ptr: torch.Tensor,
@@ -141,7 +159,10 @@ def rans_decode_step(buf: torch.Tensor, s: torch.Tensor, ptr: torch.Tensor,
         return rans_decode_step_plain(buf, s, ptr, freq, cdf, prob_bits,
                                       candidates)
     if buf.device.type == "cuda":
-        return _launch(buf, s, ptr, freq, cdf, prob_bits, candidates)
+        out = _launch(buf, s, ptr, freq, cdf, prob_bits, candidates)
+        LAUNCHES["rans_decode_step"] += 1
+        *rows, BRANCHES["rans_decode_step"] = out.unbind(0)
+        return tuple(rows)
     raise ValueError(f"unsupported device {buf.device}")
 
 
@@ -301,10 +322,13 @@ def _launch_full(name, src_args, dev, lanes, t_len, chunk, n_chunks, freq,
 
 
 def last_branches(name: str) -> set[str]:
-    """The code paths (``BRANCH_BITS`` names) that the last launch of B3
+    """The code paths (``BRANCH_BITS`` names) that the last launch of B2
+    (``"rans_decode_step"``, one entry per lane), B3
     (``"rans_decode_lanes"``) or B4 (``"rans_decode_slab"``) ran; reading
     them waits for that launch."""
-    bits = int(BRANCHES[name].item())
+    bits = 0
+    for v in BRANCHES[name].unique().tolist():
+        bits |= v
     return {b for b, v in BRANCH_BITS.items() if bits & v}
 
 

@@ -5,14 +5,19 @@ Port of ``repro.serve.compress``:
 
   compress    — a teacher-forced per-step ``decode_step`` scan prices every
                 (position, lane); the SPC quantizes each distribution; the
-                multi-lane encoder writes the streams (one kernel launch
-                for the whole stream with ``backend="kernel"``).
+                multi-lane encoder writes the streams.  With
+                ``backend="kernel"`` the scan keeps every step's BF16
+                probabilities, the SPC kernel quantizes all of them in one
+                launch and the encode kernel writes the whole stream in
+                one launch.
   decompress  — the same per-step scan, except each step's symbol comes
                 out of the rANS decoder and is fed back into the model.
                 ``backend="kernel"`` is the fused serve decode: every step
-                runs the model, the SPC decode fast path, the model top-k
-                and one pop per lane with the decode-step kernel.
-                ``backend="coder"`` pops with the pure-torch coder.
+                runs the model, the SPC kernel (frequencies and CDF in one
+                launch), the model top-k and one pop per lane with the
+                decode-step kernel.
+                ``backend="coder"`` pops with the pure-torch coder and
+                quantizes with the plain SPC on both sides.
                 ``backend="two_pass"`` is the differential reference: pass
                 1 runs the coder scan and keeps every step's tables and
                 top-k candidates, pass 2 re-decodes the whole stream in one
@@ -44,25 +49,30 @@ import torch
 from repro_torch.core import bitstream, coder, constants as C, spc, u32
 from repro_torch.core.predictors import model_topk_candidates
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, spc_quantize
 from repro_torch.models import decode_step, init_state
 
 BOS = 0
 
 
+def step_probs(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Model logits (rows, Vpad) -> the SPC's input (rows, V): f32 softmax
+    in BF16 storage."""
+    return spc.store_bf16(torch.softmax(
+        logits[:, :vocab].to(torch.float32), dim=-1))
+
+
 def step_tables(logits: torch.Tensor, vocab: int,
                 prob_bits: int) -> spc.TableSet:
     """Model logits (rows, Vpad) -> TableSet (rows, V): f32 softmax, BF16
-    storage, mass correction, CDF and Barrett planes."""
-    probs = torch.softmax(logits[:, :vocab].to(torch.float32), dim=-1)
-    return spc.tables_from_probs(spc.store_bf16(probs), prob_bits)
+    storage, mass correction, CDF and Barrett planes (the plain SPC)."""
+    return spc.tables_from_probs(step_probs(logits, vocab), prob_bits)
 
 
 def _step_freq_cdf(logits: torch.Tensor, vocab: int, prob_bits: int):
-    """The decode-side SPC: identical quantization minus the Barrett
-    planes."""
-    probs = torch.softmax(logits[:, :vocab].to(torch.float32), dim=-1)
-    return spc.freq_cdf_from_probs(spc.store_bf16(probs), prob_bits)
+    """The fused decode's SPC: identical quantization minus the Barrett
+    planes, one SPC kernel launch for frequencies and CDF on the card."""
+    return spc_quantize.spc_freq_cdf(step_probs(logits, vocab), prob_bits)
 
 
 def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn):
@@ -76,28 +86,47 @@ def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn):
 
 
 def collect_tables(model, tokens: torch.Tensor,
-                   prob_bits: int = C.PROB_BITS):
+                   prob_bits: int = C.PROB_BITS, backend: str = "coder"):
     """Teacher-forced pass: per-(position, lane) tables ``(T, lanes, K)``
-    and the model cross entropy in bits/symbol."""
+    and the model cross entropy in bits/symbol.
+
+    ``backend="coder"`` runs the plain SPC at every step.  ``"kernel"``
+    keeps every step's BF16 probabilities in a ``(T, lanes, K)`` buffer and
+    quantizes the whole buffer after the scan in one SPC kernel launch
+    (:func:`~repro_torch.kernels.ops.spc_quantize_tables`); the tables are
+    identical.
+    """
+    if backend not in ("coder", "kernel"):
+        raise ValueError(f"unknown encode backend {backend!r}")
     vocab = model.cfg.vocab_size
     lanes, t_len = tokens.shape
     inputs = torch.cat([torch.full((lanes, 1), BOS, dtype=tokens.dtype,
                                    device=tokens.device), tokens[:, :-1]], 1)
     planes = None
+    probs = (torch.empty((t_len, lanes, vocab), dtype=torch.bfloat16,
+                         device=tokens.device) if backend == "kernel"
+             else None)
     nll = torch.empty((t_len,), dtype=torch.float32, device=tokens.device)
 
     def per_step(lg, t):
         nonlocal planes
-        tbl = step_tables(lg, vocab, prob_bits)
-        if planes is None:
-            planes = [torch.empty((t_len,) + a.shape, dtype=a.dtype,
-                                  device=a.device) for a in tbl]
-        for dst, src in zip(planes, tbl):
-            dst[t] = src
+        if probs is not None:
+            probs[t] = step_probs(lg, vocab)
+        else:
+            tbl = step_tables(lg, vocab, prob_bits)
+            if planes is None:
+                planes = [torch.empty((t_len,) + a.shape, dtype=a.dtype,
+                                      device=a.device) for a in tbl]
+            for dst, src in zip(planes, tbl):
+                dst[t] = src
         lp = torch.log_softmax(lg[:, :vocab].to(torch.float32), dim=-1)
         nll[t] = -lp.gather(1, tokens[:, t:t + 1]).mean()
 
     teacher_forced_scan(model, inputs, t_len, per_step)
+    if probs is not None:
+        flat = ops.spc_quantize_tables(probs.reshape(t_len * lanes, vocab),
+                                       prob_bits)
+        planes = [a.reshape((t_len, lanes) + a.shape[1:]) for a in flat]
     return spc.TableSet(*planes), nll.mean() / math.log(2.0)
 
 
@@ -129,19 +158,16 @@ def lm_compress(model, tokens, prob_bits: int = C.PROB_BITS,
                 backend: str = "coder", device=None) -> CompressStats:
     """tokens (lanes, T) -> one monolithic rANS stream per lane + stats.
 
-    ``backend="kernel"`` encodes through the encode kernel (one launch),
-    ``"coder"`` through the pure-torch coder; the bytes are identical.
+    ``backend="kernel"`` quantizes through the SPC kernel and encodes
+    through the encode kernel (one launch each), ``"coder"`` through the
+    plain SPC and the pure-torch coder; the bytes are identical.
     """
     dev = _on_device(model, device)
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
-    tables, xent_bits = collect_tables(model, tokens, prob_bits)
-    if backend == "kernel":
-        enc = ops.rans_encode(tokens, tables)
-    elif backend == "coder":
-        enc = coder.encode(tokens, tables)
-    else:
-        raise ValueError(f"unknown encode backend {backend!r}")
+    tables, xent_bits = collect_tables(model, tokens, prob_bits, backend)
+    enc = (ops.rans_encode(tokens, tables) if backend == "kernel"
+           else coder.encode(tokens, tables))
     bits = enc.length.to(torch.float32).mean() * 8.0 / tokens.shape[1]
     return CompressStats(enc=enc, bits_per_symbol=bits,
                          model_xent_bits=xent_bits)
@@ -153,8 +179,9 @@ def lm_compress_chunked(model, tokens, chunk_size: int,
                         device=None) -> ChunkedCompressStats:
     """tokens (lanes, T) -> chunked multi-lane bitstream + stats.
 
-    ``backend="kernel"`` encodes through the encode kernel's chunk grid in
-    one launch; ``"coder"`` runs the pure-torch lane coder.  ``cap`` bounds
+    ``backend="kernel"`` quantizes through the SPC kernel and encodes
+    through the encode kernel's chunk grid, one launch each; ``"coder"``
+    runs the plain SPC and the pure-torch lane coder.  ``cap`` bounds
     the per-(chunk, lane) bytes; outgrown cells come back flagged on
     ``chunks.overflow`` and refuse to pack.
     """
@@ -162,13 +189,10 @@ def lm_compress_chunked(model, tokens, chunk_size: int,
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
     lanes, t_len = tokens.shape
-    tables, xent_bits = collect_tables(model, tokens, prob_bits)
-    if backend == "kernel":
-        chunks = ops.rans_encode_chunked(tokens, tables, chunk_size, cap=cap)
-    elif backend == "coder":
-        chunks = coder.encode_chunked(tokens, tables, chunk_size, cap=cap)
-    else:
-        raise ValueError(f"unknown encode backend {backend!r}")
+    tables, xent_bits = collect_tables(model, tokens, prob_bits, backend)
+    chunks = (ops.rans_encode_chunked(tokens, tables, chunk_size, cap=cap)
+              if backend == "kernel"
+              else coder.encode_chunked(tokens, tables, chunk_size, cap=cap))
     bits = chunks.length.to(torch.float32).sum() * 8.0 / (lanes * t_len)
     return ChunkedCompressStats(chunks=chunks, chunk_size=chunk_size,
                                 n_symbols=t_len, bits_per_symbol=bits,

@@ -8,10 +8,12 @@ dependencies (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
         tests/test_torch_gpu.py
 
 B1 (encode), B2 (decode step), B3 (full-stream decode), B4 (slab
-decode), B5 (records encode) and B6 (SPC quantizer) are held against their
-plain versions on every table layout and predictor, with candidates,
-truncated streams, poisoned slabs, ragged chunks, ``t_block`` padding and
-SPC tie patterns; B5 plus ``compact_records`` equals B1, overflow
+decode), B5 (records encode) and B6 (SPC quantizer, also with its CDF
+output) are held against their plain versions on every table layout and
+predictor, with candidates, truncated streams, poisoned slabs, ragged
+chunks, ``t_block`` padding, SPC tie patterns and waterfill rows, B2 and
+B3/B4 with the code path each launch ran; the kernel-backed LM path runs
+its SPC through B6 and never the sort-based plain version on the card; B5 plus ``compact_records`` equals B1, overflow
 included; the frozen corpus ``tests/golden_vectors/*.ras`` decodes on the
 card and re-packs through B5 byte for byte; ``build_tables`` on the card
 equals the CPU's for every frequency; each call launches its kernel
@@ -154,6 +156,87 @@ def test_gpu_decode_step_shared_rows_without_candidates():
         s, ptr, gs, gp = ref[0], ref[1], got[0], got[1]
 
 
+def _step_pair(buf, s, ptr, freq, cdf, cands, dev):
+    """One B2 launch and its plain version on the same inputs (the plain
+    one on the CPU); returns the plain outputs after checking equality."""
+    ref = rans_decode.rans_decode_step_plain(buf, s, ptr, freq, cdf,
+                                             candidates=cands)
+    got = _launched("rans_decode_step", lambda: rans_decode.rans_decode_step(
+        buf.to(dev), s.to(dev), ptr.to(dev), freq.to(dev), cdf.to(dev),
+        candidates=None if cands is None else cands.to(dev)))
+    _assert_same(got, ref)
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk", [0, 1, 4, 40])
+@pytest.mark.parametrize("k", [2, 255, 256, 4096])
+@pytest.mark.parametrize("rows", ["shared", "lane"])
+def test_gpu_decode_step_rows_match_plain(rows, k, topk):
+    """B2 on shared (K,) and per-lane (lanes, K) rows, registers (K <= 380)
+    and device-memory row passes (K = 4096): the warp row count path."""
+    dev = _cuda()
+    lanes, t = 64, 24
+    tt, syms = _case("perpos" if rows == "shared" else "lane",
+                     seed=k + topk, k=k, lanes=lanes, t=t)
+    enc = coder.encode(_t(syms), tt)
+    dec = coder.decoder_init(enc)
+    s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
+    cands = (torch.as_tensor(candidate_planes(syms, k, topk, 0.5, seed=k))
+             if topk else None)
+    for i in range(t):
+        ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i],
+                         None if cands is None else cands[i], dev)
+        assert rans_decode.last_branches("rans_decode_step") == {"warp_rows"}
+        assert torch.equal(ref[2], _t(syms[:, i]))
+        s, ptr = ref[0], ref[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["oob_candidates", "ptr_edges",
+                                  "zero_freq"])
+def test_gpu_decode_step_edges_match_plain(case):
+    """B2 on out-of-range and duplicate candidates, on cursors at 0, cap - 1
+    and outside the stream with states that refill twice (``under``
+    fires), and on rows with zero frequencies (the exact bisection)."""
+    dev = _cuda()
+    lanes, k, t = 64, 256, 16
+    tt, syms = _case("lane", seed=31, k=k, lanes=lanes, t=t)
+    want = {"warp_rows"}
+    if case == "zero_freq":
+        tt = _zero_freq(tt, 14, every=3)
+        for z in ZERO_SYMBOLS:
+            syms[syms == z] = z + 2
+        want = {"warp_rows", "warp_bisect"}
+    enc = coder.encode(_t(syms), tt)
+    dec = coder.decoder_init(enc)
+    s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    cands = torch.as_tensor(candidate_planes(syms, k, 6, 0.5, seed=3))
+    if case == "oob_candidates":
+        cands[:, ::2, 1] = -5
+        cands[:, ::3, 2] = k + 3
+        cands[:, ::4, 3] = cands[:, ::4, 0]
+    if case == "ptr_edges":
+        cap = enc.buf.shape[1]
+        s = torch.randint(0, 1 << 14, (lanes,), generator=gen,
+                          dtype=torch.int32)        # both refills fire
+        ptr = torch.tensor([0, cap - 1, -1, cap] * (lanes // 4),
+                           dtype=torch.int32)
+        ref = _step_pair(enc.buf, s, ptr, tt.freq[0], tt.cdf[0], cands[0],
+                         dev)
+        assert rans_decode.last_branches("rans_decode_step") == want
+        assert int(ref[4].sum()) > 0
+        return
+    seen = set()
+    for i in range(t):
+        ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i], cands[i],
+                         dev)
+        seen |= rans_decode.last_branches("rans_decode_step")
+        s, ptr = ref[0], ref[1]
+    assert seen == want
+
+
 @pytest.mark.gpu
 def test_gpu_slice_roundtrip_and_backends_identical():
     dev = _cuda()
@@ -178,6 +261,40 @@ def test_gpu_slice_roundtrip_and_backends_identical():
             model, cs, 40, 16, backend=backend, lane_probes=True)
         assert np.array_equal(sym.cpu().numpy(), tokens)
     assert torch.equal(probes["kernel"], probes["coder"])
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_backend_runs_no_plain_spc(monkeypatch):
+    """The fused LM path's SPC runs through B6 on the card: one launch for
+    the compress side's whole table batch, one per decoded position, and
+    no call of the sort-based ``quantize_probs`` on a CUDA tensor."""
+    dev = _cuda()
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import init_model
+    from repro_torch.serve import compress
+
+    plain = spc.quantize_probs
+    on_card = []
+
+    def spy(probs, *a, **kw):
+        if probs.is_cuda:
+            on_card.append(tuple(probs.shape))
+        return plain(probs, *a, **kw)
+
+    monkeypatch.setattr(spc, "quantize_probs", spy)
+    model = init_model(SMOKE, seed=0, device=dev)
+    tokens = token_stream(256, (8, 40), seed=2)
+    before = dict(LAUNCHES)
+    st = compress.lm_compress_chunked(model, tokens, 16, backend="kernel")
+    sym, _ = compress.lm_decompress_chunked(model, st.chunks, 40, 16,
+                                            backend="kernel")
+    torch.cuda.synchronize()
+    assert np.array_equal(sym.cpu().numpy(), tokens)
+    ran = {n: LAUNCHES[n] - before[n] for n in LAUNCHES}
+    assert ran == {**{n: 0 for n in LAUNCHES}, "rans_encode_lanes": 1,
+                   "rans_decode_step": 40, "spc_quantize": 41}
+    assert on_card == []
 
 
 PREDICTORS = [None, predictors.NeighborAverage(4, 8),
@@ -433,6 +550,47 @@ def _spc_rows():
     # 96 KB of shared memory (above the 48 KB default) and B = 5
     rows.append(rng.dirichlet(np.full(8192, 0.5), size=5).astype(np.float32))
     return rows
+
+
+def _spc_route_cases():
+    """B6 cases for ``spc_freq_cdf``: (probs, prob_bits)."""
+    rng = np.random.default_rng(17)
+    k = 256
+    tiny = np.r_[np.full(200, 1e-9), rng.dirichlet(np.full(56, 0.5))]
+    # exact multiples of 2**-14: every residual is +0.0, so the mass
+    # correction is one tie run ordered by index (-0.0 cannot arise from
+    # probabilities: scaled - rint(scaled) is +0.0 when it is zero)
+    grid = rng.integers(1, 100, (4, k)) / float(1 << 14)
+    return {
+        "waterfill": (np.stack([tiny, np.full(k, 1 / 3), tiny[::-1]]), 14),
+        "tie_runs": (np.stack([
+            np.full(k, 1.0 / k), np.tile([0.5, 0.25, 0.25, 0.0], k // 4)
+            / (k // 4), np.r_[np.full(k // 2, 3e-5), np.full(k // 2, 0.015)],
+        ]), 14),
+        "zero_residuals": (grid, 14),
+        "b1": (rng.dirichlet(np.full(k, 0.5), size=1), 14),
+        "k1": (np.array([[1.0], [0.3], [0.0], [2.0], [np.nan]]), 14),
+        "k16384_bits16": (rng.dirichlet(np.full(16384, 0.5), size=3), 16),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["waterfill", "tie_runs", "zero_residuals",
+                                  "b1", "k1", "k16384_bits16"])
+def test_gpu_spc_freq_cdf_matches_plain(case, dtype):
+    dev = _cuda()
+    probs, prob_bits = _spc_route_cases()[case]
+    x = torch.as_tensor(probs.astype(np.float32)).to(getattr(torch, dtype))
+    ref = spc.freq_cdf_from_probs(x, prob_bits)
+    assert torch.equal(spc_quantize.spc_quantize_plain(x, prob_bits), ref[0])
+    assert (ref[1][:, -1] == 1 << prob_bits).all()
+    got = _launched("spc_quantize", lambda: spc_quantize.spc_freq_cdf(
+        x.to(dev), prob_bits))
+    _assert_same(got, ref)
+    freq = _launched("spc_quantize", lambda: spc_quantize.spc_quantize(
+        x.to(dev), prob_bits))
+    assert torch.equal(freq.cpu(), ref[0])
 
 
 @pytest.mark.gpu

@@ -105,7 +105,7 @@ def test_spc_quantize_named_errors():
     with pytest.raises(ValueError, match="exceeds 2\\*\\*prob_bits"):
         spc_kernel.spc_quantize(torch.full((1, 300), 1 / 300), prob_bits=8)
     big = spc_kernel.MAX_K + 1
-    with pytest.raises(ValueError, match="shared-memory layout"):
+    with pytest.raises(ValueError, match="register layout"):
         spc_kernel.spc_quantize(torch.full((1, big), 1 / big), prob_bits=16)
 
 

@@ -1,0 +1,276 @@
+"""The fused LM path's SPC through B6, and B6's selection rule (CPU).
+
+* At ``tests/test_torch_compress.py``'s size (the ``SMOKE`` model, 4 lanes
+  x 40 tokens, chunk 16 with a ragged tail), ``backend="kernel"`` gives
+  the same container bytes, symbols and per-lane probes as
+  ``backend="coder"``, and its SPC goes through the B6 wrappers: one
+  ``ops.spc_quantize_tables`` call on the compress side, one
+  ``spc_quantize.spc_freq_cdf`` call per decoded position.
+* The batched ``collect_tables`` (one quantization of every step's BF16
+  probabilities) equals the per-step one on every plane.
+* The selection rule of ``csrc/spc_quantize.cu``, written here in numpy
+  (the -0.0 canonicalisation, the order-preserving key with the index as
+  tiebreak, the radix select of the top-up and the weighted radix select
+  of the waterfill), equals JAX's ``repro.core.spc.quantize_probs`` on tie
+  patterns, pathological rows and random Dirichlet rows at K in {1, 2,
+  255, 256, 4096}, and a sort-based rule on residuals that hold both -0.0
+  and +0.0.  ``spc_freq_cdf`` on the CPU equals JAX's
+  ``freq_cdf_from_probs`` for float32 and bfloat16 input.
+
+Integer outputs compare exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import spc as jspc
+from repro_torch.configs.ras_pimc import SMOKE
+from repro_torch.core import bitstream, spc
+from repro_torch.data.pipeline import token_stream
+from repro_torch.kernels import ops, spc_quantize
+from repro_torch.models import init_model
+from repro_torch.serve import compress
+
+jax.config.update("jax_platforms", "cpu")
+
+LANES, T, CHUNK = 4, 40, 16          # ragged: 16 + 16 + 8
+
+
+@pytest.fixture(scope="module")
+def model():
+    return init_model(SMOKE, seed=0, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tokens():
+    return token_stream(256, (LANES, T), seed=5)
+
+
+def _counting(monkeypatch):
+    """Count the B6 wrappers' calls on the serve path."""
+    calls = {"spc_freq_cdf": 0, "spc_quantize_tables": 0}
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+
+    wrap(spc_quantize, "spc_freq_cdf")
+    wrap(ops, "spc_quantize_tables")
+    return calls
+
+
+def _round_trip(model, tokens, backend):
+    st = compress.lm_compress_chunked(model, tokens, CHUNK, backend=backend,
+                                      device="cpu")
+    blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK, n_symbols=T)
+    sym, avg, probes = compress.lm_decompress_chunked(
+        model, bitstream.parse_chunked(blob), T, CHUNK, backend=backend,
+        lane_probes=True, device="cpu")
+    return blob, sym.numpy(), float(avg), probes.numpy()
+
+
+def test_kernel_backend_equals_coder_backend(model, tokens):
+    kern = _round_trip(model, tokens, "kernel")
+    ref = _round_trip(model, tokens, "coder")
+    assert kern[0] == ref[0]
+    np.testing.assert_array_equal(kern[1], tokens)
+    np.testing.assert_array_equal(kern[1], ref[1])
+    assert kern[2] == ref[2]
+    np.testing.assert_array_equal(kern[3], ref[3])
+
+
+@pytest.mark.parametrize("backend,want", [
+    ("kernel", {"spc_quantize_tables": 1, "spc_freq_cdf": T}),
+    ("coder", {"spc_quantize_tables": 0, "spc_freq_cdf": 0}),
+])
+def test_kernel_backend_routes_its_spc_through_b6(model, tokens, monkeypatch,
+                                                  backend, want):
+    calls = _counting(monkeypatch)
+    _round_trip(model, tokens, backend)
+    assert calls == want
+
+
+@pytest.mark.parametrize("prob_bits", [14, 16])
+def test_batched_collect_tables_equals_per_step(model, tokens, prob_bits):
+    toks = torch.as_tensor(tokens, dtype=torch.int64)
+    got, xent = compress.collect_tables(model, toks, prob_bits, "kernel")
+    want, want_xent = compress.collect_tables(model, toks, prob_bits,
+                                              "coder")
+    for name in spc.TableSet._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.shape == b.shape == (T, LANES, 256 + (name == "cdf")), name
+        assert torch.equal(a, b), name
+    assert float(xent) == float(want_xent)
+
+
+def test_collect_tables_rejects_unknown_backend(model, tokens):
+    toks = torch.as_tensor(tokens, dtype=torch.int64)
+    with pytest.raises(ValueError, match="unknown encode backend"):
+        compress.collect_tables(model, toks, 14, "two_pass")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's selection rule, in numpy
+# ---------------------------------------------------------------------------
+
+def _bf16(p: np.ndarray) -> np.ndarray:
+    """float32 -> bf16 (round to nearest even) -> float32, as the kernel's
+    F32In::round_bf16 does it on the bits."""
+    u = p.astype(np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    nan = (u & 0x7FFFFFFF) > 0x7F800000
+    return np.where(nan, np.float32(np.nan), r.view(np.float32))
+
+
+def _key(resid: np.ndarray) -> np.ndarray:
+    """resid -> the order-preserving uint32 key, -0.0 made +0.0 first."""
+    u = resid.astype(np.float32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    neg = (u >> 31) == 1
+    return np.where(neg, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def select_rule(resid, f0, delta) -> np.ndarray:
+    """The radix-select correction of ``spc_quantize.cu`` on one row."""
+    k = f0.size
+    key = _key(resid).astype(np.int64)
+    f = f0.astype(np.int64).copy()
+    if delta >= 0:
+        r = delta % k
+        f += delta // k
+        if r:
+            v = 0                                  # the r-th largest key
+            for b in range(31, -1, -1):
+                if (key >= (v | 1 << b)).sum() >= r:
+                    v |= 1 << b
+            m = r - (key > v).sum()
+            tie = key == v
+            before = np.cumsum(tie) - tie          # index-order tie rank
+            f += (key > v) | (tie & (before < m))
+        return f
+    need = -delta
+    cap = f0.astype(np.int64) - 1
+    v = 0                                  # least key with sum(cap) >= need
+    for b in range(31, -1, -1):
+        if cap[key <= (v | ((1 << b) - 1))].sum() < need:
+            v |= 1 << b
+    rem = need - cap[key < v].sum()
+    tcap = np.where(key == v, cap, 0)
+    before = np.cumsum(tcap) - tcap
+    take = np.where(key < v, cap,
+                    np.where(key == v, np.clip(rem - before, 0, cap), 0))
+    return f - take
+
+
+def sort_rule(resid, f0, delta) -> np.ndarray:
+    """The reference's stable-sort correction on one row."""
+    k = f0.size
+    f = f0.astype(np.int64).copy()
+    if delta >= 0:
+        order = np.argsort(-resid, kind="stable")  # resid desc, index asc
+        rank = np.empty(k, np.int64)
+        rank[order] = np.arange(k)
+        return f + delta // k + (rank < delta % k)
+    order = np.argsort(resid, kind="stable")
+    cap = (f0.astype(np.int64) - 1)[order]
+    excl = np.cumsum(cap) - cap
+    take = np.empty(k, np.int64)
+    take[order] = np.minimum(np.clip(-delta - excl, 0, None), cap)
+    return f - take
+
+
+def quantize_rows(probs: np.ndarray, prob_bits: int = 14) -> np.ndarray:
+    """Steps 1-5 of the kernel, then :func:`select_rule` per row."""
+    total = 1 << prob_bits
+    p = _bf16(probs)
+    p = np.where(np.isfinite(p) & (p > 0), p, np.float32(0))
+    scaled = (p * np.float32(total)).astype(np.float32)
+    f0 = np.maximum(1, np.rint(scaled)).astype(np.int64)
+    resid = (scaled - f0.astype(np.float32)).astype(np.float32)
+    return np.stack([select_rule(r, f, total - int(f.sum()))
+                     for r, f in zip(resid, f0)])
+
+
+def _pathological(k=128):            # tests/test_torch_spc_kernel.py's
+    return np.stack([
+        np.full(k, 1.0 / k),
+        np.r_[1.0, np.zeros(k - 1)],
+        np.r_[np.full(k - 1, 1e-9), [1.0]],
+        np.full(k, 1 / 3),                # unnormalised: delta far below 0
+    ] * 2)
+
+
+def _ties(k=64):                     # the tie rows of the SPC tests
+    return np.stack([
+        np.full(k, 1.0 / k),
+        np.tile([0.5, 0.25, 0.25, 0.0] * 4, 4) / 4.0,
+        np.r_[np.full(k // 2, 3e-5), np.full(k // 2, 0.03)],
+        np.tile([0.5, 0.25, 0.25, 0.0], k // 4) / (k // 4),
+        np.r_[np.full(k // 2, 3e-5), np.full(k // 2, 0.015)],
+    ])
+
+
+ROWS = {
+    "pathological": lambda: _pathological(),
+    "ties": lambda: _ties(),
+    **{f"dirichlet_k{k}": (lambda k=k: np.random.default_rng(k).dirichlet(
+        np.full(k, 0.5), size=6)) for k in (1, 2, 255, 256, 4096)},
+}
+
+
+@pytest.mark.parametrize("name", list(ROWS))
+def test_selection_rule_matches_jax(name):
+    probs = ROWS[name]().astype(np.float32)
+    want = np.asarray(jspc.quantize_probs(jnp.asarray(probs)))
+    got = quantize_rows(probs)
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(-1) == 1 << 14).all() and got.min() >= 1
+    # the torch plain version the CPU path runs agrees too
+    np.testing.assert_array_equal(
+        spc_quantize.spc_quantize_plain(torch.as_tensor(probs)).numpy(),
+        want)
+
+
+def test_selection_rule_ties_signed_zero_residuals():
+    """Residuals with -0.0 and +0.0 interleaved: the reference's stable
+    sort ties them, so the selection must order them by index alone."""
+    rng = np.random.default_rng(3)
+    k = 64
+    zeros = np.where(np.arange(k) % 2 == 0, np.float32(-0.0),
+                     np.float32(0.0))
+    base = rng.uniform(-0.5, 0.5, k).astype(np.float32)
+    rows = 0
+    for frac in (0.25, 0.5, 1.0):
+        resid = np.where(rng.uniform(size=k) < frac, zeros, base).astype(
+            np.float32)
+        assert np.signbit(resid[resid == 0]).any()
+        assert (~np.signbit(resid[resid == 0])).any()
+        f0 = rng.integers(1, 40, k)
+        for delta in (1, 5, k - 1, 3 * k + 7, -1, -9, -int(f0.sum() - k)):
+            np.testing.assert_array_equal(select_rule(resid, f0, delta),
+                                          sort_rule(resid, f0, delta))
+            rows += 1
+    assert rows == 21
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spc_freq_cdf_matches_jax(dtype):
+    rng = np.random.default_rng(7)
+    probs = np.concatenate([rng.dirichlet(np.full(256, 0.4), size=12),
+                            _pathological(256)]).astype(np.float32)
+    x = torch.as_tensor(probs).to(getattr(torch, dtype))
+    freq, cdf = spc_quantize.spc_freq_cdf(x)
+    jf, jc = jspc.freq_cdf_from_probs(jnp.asarray(x.float().numpy()))
+    np.testing.assert_array_equal(freq.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(cdf.numpy(), np.asarray(jc))
+    assert (cdf[:, -1] == 1 << 14).all()
+    np.testing.assert_array_equal(
+        spc_quantize.spc_quantize(x).numpy(), np.asarray(jf))

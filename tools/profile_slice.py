@@ -6,10 +6,12 @@
 
 At the full-width ``ras-pimc`` shapes (random seeded weights, a KV ring of
 ``--max-len`` slots) it times each layer of one compress position (model
-step, SPC tables, cross entropy) and one decompress position (model step,
-SPC decode fast path, top-k, the decode-step kernel): host clock around
-work that ends in ``torch.cuda.synchronize()``, median over ``--steps``
-positions.  Then it traces ``--trace-steps`` whole decompress positions
+step, the BF16 probabilities stored for the SPC kernel, cross entropy;
+the per-run SPC kernel batch over ``--max-len`` x lanes rows, and its
+share per position) and one decompress position (model step, the SPC
+kernel's frequencies and CDF, top-k, the decode-step kernel), beside the
+plain SPC that the ``coder`` backend runs: host clock around work that
+ends in ``torch.cuda.synchronize()``, median over ``--steps`` positions.  Then it traces ``--trace-steps`` whole decompress positions
 with ``torch.profiler`` and prints the device busy share of the traced
 window and the device time by kernel.  Needs one CUDA card.
 """
@@ -53,6 +55,7 @@ def main() -> int:
     from repro_torch.core.predictors import model_topk_candidates
     from repro_torch.device import configure_cuda_numerics, resolve_device
     from repro_torch.kernels import ops
+    from repro_torch.core import spc
     from repro_torch.models import decode_step, init_model, init_state
     from repro_torch.serve import compress
 
@@ -85,14 +88,27 @@ def main() -> int:
         k = model_topk_candidates(out[:, :vocab], 4)
         return ops.rans_decode_step(buf, s, ptr, f, c, candidates=k)
 
+    batch = torch.empty((args.max_len, lanes, vocab), dtype=torch.bfloat16,
+                        device=dev)
+    batch[:] = compress.step_probs(lg, vocab)
+
+    def store_probs(i):
+        batch[i % args.max_len] = compress.step_probs(lg, vocab)
+
+    def spc_batch(_):
+        return ops.spc_quantize_tables(batch.reshape(-1, vocab), C.PROB_BITS)
+
     layers = {
         "model decode_step": lambda i: decode_step(model, state, tok,
                                                    pos + i % 8),
-        "SPC step_tables (compress)": lambda i: compress.step_tables(
-            lg, vocab, C.PROB_BITS),
+        "SPC probs to buffer (compress)": store_probs,
         "cross entropy (compress)": xent,
-        "SPC freq/cdf (decompress)": lambda i: compress._step_freq_cdf(
+        "SPC freq/cdf, B6 (decompress)": lambda i: compress._step_freq_cdf(
             lg, vocab, C.PROB_BITS),
+        "plain step_tables (coder)": lambda i: compress.step_tables(
+            lg, vocab, C.PROB_BITS),
+        "plain freq/cdf (coder)": lambda i: spc.freq_cdf_from_probs(
+            compress.step_probs(lg, vocab), C.PROB_BITS),
         "model top-k (decompress)": lambda i: model_topk_candidates(
             lg[:, :vocab], 4),
         "rans_decode_step wrapper": lambda i: ops.rans_decode_step(
@@ -103,6 +119,10 @@ def main() -> int:
           f"host wall per call over {args.steps} calls")
     for name, fn in layers.items():
         print(f"  {name:32s} {_median_wall_ms(fn, args.steps):9.3f} ms")
+    whole = _median_wall_ms(spc_batch, 5)
+    print(f"  {'SPC batch, B6 + build_tables':32s} {whole:9.3f} ms per run "
+          f"of {args.max_len} positions ({whole / args.max_len:.4f} ms per "
+          "position; compress)")
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
