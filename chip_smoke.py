@@ -13,9 +13,15 @@ Phases (any failure raises and exits nonzero):
    shapes (128 lanes, K = 256, per-lane ``(T, lanes, K)`` tables, chunk 256
    with a ragged tail, plus an overflow case): outputs must be identical,
    and B2 must run its warp row path at every step and the exact bisection
-   on rows with zero frequencies.  Each is timed with CUDA events (median
-   of repeats) beside its bound computed from this run's inputs; B2 also
-   beside its launch floor, an empty kernel launched as B2 is;
+   on rows with zero frequencies.  B1's call must be one kernel node of a
+   CUDA graph (no memset), and B1 must equal its plain version on the
+   encode edge cases (``ENCODE_EDGES``: every layout, chunk lengths 1 and
+   around the kernel's gather lead, ragged tails, K from 2 to 4096, caps
+   below the header, out-of-range symbols); B2 also on ``(freq, cdf)``
+   pairs whose freq is not the cdf's differences.  Each is timed with CUDA
+   events (median of repeats) beside its bound computed from this run's
+   inputs; B2 also beside its launch floor, an empty kernel launched as B2
+   is;
 3. the full-stream decode (B3) and the slab decode (B4) on the same
    stream with top-4 candidates: B3 on the dense chunks, also truncated by
    3 bytes per cell; B4 straight off the packed v2 container, also on
@@ -30,7 +36,8 @@ Phases (any failure raises and exits nonzero):
    give byte-identical v1 containers, ``unpack`` ->
    ``histogram_decompress(predictor=NeighborAverage(4, 8))`` (B3) is
    bit-exact, the ``coder`` backend gives equal per-lane probes, with
-   launch counters reset just before and read just after;
+   launch counters reset just before and read just after; B1's and B3's
+   device times at these shapes;
 5a. B3 and B4 on the table cases no main path reaches (``DECODE_CASES``:
    zero frequencies in a static table and in per-lane rows, prob_bits 16,
    K = 1000, 4096 and 5000, per-position rows, windows 1 and 16, a window
@@ -56,8 +63,9 @@ Phases (any failure raises and exits nonzero):
    counters reset just before and read just after; kernel == plain on all
    three planes (also at ``t_block = 96``, so padded rows occur), and the
    compacted streams equal B1's byte for byte at the default cap and at
-   ``cap // 3`` (overflow); B5, B5 plus compaction and B1 timed side by
-   side with the analytic stream bytes of both datapaths;
+   ``cap // 3`` (overflow); one kernel node per call; kernel == plain on
+   B1's edge cases, compacted equal to B1; B5, B5 plus compaction and B1
+   timed side by side with the analytic stream bytes of both datapaths;
 10. the Fig. 4(a) coder-speed point (128 lanes x 2048 ``image_rows(seed=0)``,
    the static ``tables_from_counts_np`` table): the single-lane ``PyRans``
    round trip on 40,000 symbols on the host; ``golden.encode`` == ``PyRans``
@@ -189,6 +197,64 @@ def _max_abs_err(got, ref) -> int:
     return err
 
 
+def _graph_nodes(fn) -> list[str]:
+    """The device work of one call of ``fn``: the kind (``KERNEL``,
+    ``MEMSET``, ``MEMCPY``, ...) of each node of a CUDA graph that captured
+    it, read from the graph's DOT dump (written under ``build/``)."""
+    import re
+    import torch
+    from repro_torch.kernels import _build
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    path = _build.BUILD_DIR.parent / "graph_nodes.dot"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    graph.debug_dump(str(path))
+    text = path.read_text()
+    path.unlink()
+    # one declaration per node: "graph_1_node_0"[... label="{KERNEL | ...
+    return re.findall(r'"graph_\d+_node_\d+"\s*\[[^\]]*?label="\{?(\w+)',
+                      text)
+
+
+# encode edge cases beyond the main shapes (chunk lengths around the
+# kernels' lookup lead D = 48 steps, ragged tails, K from 2 to above the
+# shared-memory table limit, caps below the header): (K, chunk)
+ENCODE_EDGES = ((2, 1), (256, 47), (2048, 48), (4096, 49), (256, 256))
+EDGE_LANES, EDGE_T = 40, 300       # a partial warp; ragged tails
+EDGE_OOB = 0.03                    # share of out-of-range symbols
+
+
+def _encode_edges(dev):
+    """The encode edge cases on ``dev``: ``(name, symbols, tables,
+    chunk)`` for every layout and ENCODE_EDGES entry, with out-of-range
+    symbols (negative, K and far above) mixed in."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spc
+    for li, layout in enumerate(("static", "perpos", "lane")):
+        for k, chunk in ENCODE_EDGES:
+            rng = np.random.default_rng(1000 * li + k + chunk)
+            shape = {"static": None, "perpos": EDGE_T,
+                     "lane": (EDGE_T, EDGE_LANES)}[layout]
+            probs = rng.dirichlet(np.full(k, 0.5), size=shape).astype(
+                np.float32)
+            tbl = spc.tables_from_probs(torch.as_tensor(probs, device=dev))
+            syms = rng.integers(0, k, (EDGE_LANES, EDGE_T))
+            bad = rng.random(syms.shape) < EDGE_OOB
+            syms[bad] = rng.choice([-1, -2**31, k, k + 1000, 2**31 - 1],
+                                   int(bad.sum()))
+            yield (f"{layout} K={k} chunk {chunk}",
+                   torch.as_tensor(syms.astype(np.int32), device=dev), tbl,
+                   chunk)
+
+
 def encode_phase(dev):
     import torch
     from repro_torch.core import spc
@@ -222,6 +288,24 @@ def encode_phase(dev):
     print(f"B1 encode: kernel == plain at ({LANES} lanes, T={T}, K={K}, "
           f"chunk {CHUNK}, cap {cap}) and at cap {small} "
           f"({int(ovf_ref[3].sum())} overflowed cells flagged)", flush=True)
+    nodes = _graph_nodes(lambda: call(cap))
+    _check(nodes == ["KERNEL"], f"B1's call runs {nodes} on the device, not "
+           "one kernel")
+    t0 = time.perf_counter()
+    n_edges = 0
+    for name, esyms, etbl, chunk in _encode_edges(dev):
+        ecap = default_cap(chunk)
+        for c in (ecap, 1, 3, 4, ecap // 3):
+            err = max(err, _max_abs_err(
+                rans_encode.rans_encode_lanes(esyms, etbl, c, chunk),
+                rans_encode.rans_encode_lanes_plain(esyms, etbl, c, chunk)))
+            n_edges += 1
+    torch.cuda.synchronize()
+    print(f"B1 encode: one kernel node per call (no memset); kernel == plain"
+          f" on {n_edges} edge cases ({EDGE_LANES} lanes x {EDGE_T}, every "
+          f"layout, (K, chunk) in {ENCODE_EDGES}, caps default, 1, 3, 4 and "
+          f"a third, {EDGE_OOB:.0%} out-of-range symbols; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
     ms = _device_ms(lambda: call(cap), n=10)
     call_ms = _median_ms(lambda: call(cap), repeats=30)
     plain_ms = _median_ms(lambda: plain(cap), repeats=3, warmup=1)
@@ -233,7 +317,7 @@ def encode_phase(dev):
     print(f"B1 encode: {ms:.4f} ms kernel on the device ({call_ms:.4f} ms "
           f"per wrapper call), {plain_ms:.2f} ms plain, bound "
           f"{bound_ms:.6f} ms by {bound_by} ({moved} B moved, {ops} ops); "
-          f"one thread per (chunk, lane) walks {CHUNK} dependent steps: "
+          f"each (chunk, lane) cell walks {CHUNK} dependent steps: "
           "latency-bound", flush=True)
     return dict(name="rans_encode_lanes", route="cuda",
                 source="src/repro_torch/csrc/rans_encode.cu",
@@ -283,10 +367,27 @@ def decode_phase(dev, encoded):
         rans_decode.rans_decode_step_plain(*zargs, candidates=cands[0])))
     _branch("rans_decode_step", {"warp_rows", "warp_bisect"},
             "B2 on zero-frequency rows")
+    # a (freq, cdf) pair whose freq is not the cdf's differences: f comes
+    # from freq on every path, as in the reference
+    gen_f = torch.Generator(device=dev).manual_seed(2)
+    for f_rows, c_rows in ((tables.freq[1], tables.cdf[1]),
+                           (tables.freq[1][0], tables.cdf[1][0])):
+        bent = (f_rows + torch.randint(0, 3, f_rows.shape, generator=gen_f,
+                                       device=dev,
+                                       dtype=torch.int32)).contiguous()
+        for cand in (cands[1], None):
+            margs = (buf, s0, p0, bent, c_rows)
+            err = max(err, _max_abs_err(
+                rans_decode.rans_decode_step(*margs, candidates=cand),
+                rans_decode.rans_decode_step_plain(*margs, candidates=cand)))
+            _branch("rans_decode_step", {"warp_rows"},
+                    "B2 on a mismatched (freq, cdf) pair")
     print(f"B2 decode step: kernel == plain at every one of {CHUNK} steps "
           f"over a {LANES}-lane stream (per-lane (lanes, K) rows, top-{TOPK}"
-          " candidates; warp row path at every step) and on rows with zero "
-          "frequencies (warp rows and the exact bisection)", flush=True)
+          " candidates; warp row path at every step), on rows with zero "
+          "frequencies (warp rows and the exact bisection) and on "
+          "(freq, cdf) pairs with freq != diff(cdf), per-lane and shared, "
+          "with and without candidates", flush=True)
     step_args = (buf, s0, p0, tables.freq[0], tables.cdf[0])
     def step():
         return rans_decode.rans_decode_step(*step_args, candidates=cands[0])
@@ -526,6 +627,7 @@ def image_phase(dev):
     from repro_torch.core import bitstream
     from repro_torch.core.predictors import NeighborAverage
     from repro_torch.data.pipeline import synthetic_image
+    from repro_torch.core.coder import default_cap
     from repro_torch.kernels import LAUNCHES, ops, rans_decode, reset_launches
     from repro_torch.serve import compress
 
@@ -577,6 +679,21 @@ def image_phase(dev):
           f"symbols/s ({t_dec:.4f} s), coder compress "
           f"{rows.size / t_coder:.1f} symbols/s", flush=True)
 
+    img_syms = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+
+    def b1():
+        return ops.rans_encode(img_syms, tbl)
+
+    b1_ms = _device_ms(b1, n=3, repeats=3)
+    b1_call_ms = _median_ms(b1, repeats=5, warmup=1)
+    b1_moved = (img_syms.numel() * 4 + 5 * K * 4
+                + lanes * (default_cap(n) + 9))
+    b1_bound_ms, b1_bound_by = _bound(b1_moved, img_syms.numel() * 10)
+    print(f"B1 image: {b1_ms:.4f} ms kernel on the device ({b1_call_ms:.4f} "
+          f"ms per wrapper call; {t_enc * 1e3:.1f} ms wall for the first "
+          f"call above), bound {b1_bound_ms:.6f} ms by {b1_bound_by} "
+          f"({b1_moved} B moved); {lanes} cells each walk {n} dependent "
+          "steps: latency-bound", flush=True)
     args = (enc.buf, enc.start, tbl.freq, tbl.cdf, n)
 
     def call():
@@ -603,7 +720,9 @@ def image_phase(dev):
                 replaces="src/repro/kernels/rans_decode.py:223",
                 max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                call_ms=call_ms), launches
+                call_ms=call_ms), launches, dict(
+                    b1_image_ms=b1_ms, b1_image_call_ms=b1_call_ms,
+                    b1_image_bound_ms=b1_bound_ms)
 
 
 # B3/B4 table cases beyond the main paths: (layout, K, prob_bits, zero
@@ -892,6 +1011,28 @@ def records_phase(dev, encoded):
           f"compact_records == B1 byte for byte at cap {cap} and at cap "
           f"{small} ({int(fused_small[3].sum())} overflowed cells); "
           f"launches {launches}", flush=True)
+    nodes = _graph_nodes(lambda: rans_encode.rans_encode_records(
+        syms, tables, CHUNK))
+    _check(nodes == ["KERNEL"], f"B5's call runs {nodes} on the device, not "
+           "one kernel")
+    n_edges = 0
+    for name, esyms, etbl, chunk in _encode_edges(dev):
+        for t_block in (None, 7):
+            got = rans_encode.rans_encode_records(esyms, etbl, chunk,
+                                                  t_block)
+            err = max(err, _max_abs_err(got, rans_encode.
+                                        rans_encode_records_plain(
+                                            esyms, etbl, chunk, t_block)))
+            n_edges += 1
+        ecap = default_cap(chunk)
+        for c in (ecap, 3):        # the records compact to B1's streams
+            err = max(err, _max_abs_err(
+                ops.compact_records(*got, c),
+                rans_encode.rans_encode_lanes(esyms, etbl, c, chunk)))
+    torch.cuda.synchronize()
+    print(f"B5 records: one kernel node per call; kernel == plain on "
+          f"{n_edges} edge cases (the B1 phase's, t_block None and 7), "
+          "compacted == B1 at the default cap and cap 3", flush=True)
 
     def b5():
         return rans_encode.rans_encode_records(syms, tables, CHUNK)
@@ -1170,7 +1311,8 @@ def main() -> int:
     del encoded
     torch.cuda.empty_cache()
     b3_err, b3_fig4b_ms, b3_fig4b_call_ms = fig4b_phase(dev)
-    b3, image_launches = image_phase(dev)
+    b3, image_launches, b1_image = image_phase(dev)
+    b1.update(b1_image)
     b3_cases_err, b4_cases_err = decode_cases_phase(dev)
     b3["max_abs_err"] = max(b3["max_abs_err"], b3_err, b3_cases_err)
     b4["max_abs_err"] = max(b4["max_abs_err"], b4_cases_err)
@@ -1183,6 +1325,7 @@ def main() -> int:
     del slice_run
     torch.cuda.empty_cache()
     b5.update(fig4a_phase(dev))
+    b1.update(b1_fig4a_ms=b5["b1_fig4a_ms"])
     b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
               b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
     b6 = spc_phase(dev)

@@ -12,22 +12,23 @@
 // candidates (lanes, topk); streams lane-major (lanes, cap) rows.
 //
 // One warp per lane.  The chain of dependent loads is two levels deep:
-//   level 1: the state s and cursor ptr, the whole cdf row (K + 1 entries,
-//            16 bytes a thread, up to kRegChunks chunks each: K <= 380) and
-//            the first 32 candidates, all independent;
+//   level 1: the state s and cursor ptr, the whole cdf row (K + 1 entries)
+//            and the whole freq row (K entries), 16 bytes a thread each, up
+//            to kRegChunks chunks of each (K <= 380), and the first 32
+//            candidates, all independent;
 //   level 2: the two refill bytes at ptr and ptr + 1 (a byte outside
 //            [0, cap) reads 0);
 // then, with no further load, one warp count of cdf[e] <= slot and a vote
 // on strict increase (decode_search.cuh); on a strictly increasing row
-// x = count - 1, cdf[x] and cdf[x+1] come from the owning lanes by shuffle
-// and f = cdf[x+1] - cdf[x] (every SPC table's freq row is its CDF's
-// differences); the probes are replayed from x (ds::warp_cand_probes,
-// ds::replay_probes); the update and both refills are selects.  Rows wider
-// than the registers are counted 256 entries a pass from device memory and
-// read cdf[x], cdf[x+1] after the count.  A row with a zero frequency (not
-// strictly increasing) runs the exact bisection, ds::exact_search, and
-// reads f from the freq row.  Each lane's row in `out` records the path it
-// ran (kWarpRows or kWarpBisect, rans_decode.BRANCH_BITS).
+// x = count - 1, and cdf[x], cdf[x+1] and freq[x] come from the owning
+// lanes by shuffle (f is read from the freq row on every path, as the
+// reference reads it, whatever the cdf says); the probes are replayed from
+// x (ds::warp_cand_probes, ds::replay_probes); the update and both refills
+// are selects.  Rows wider than the registers are counted 256 entries a
+// pass from device memory and read cdf[x], cdf[x+1] and freq[x] after the
+// count.  A row with a zero frequency (not strictly increasing) runs the
+// exact bisection, ds::exact_search.  Each lane's row in `out` records the
+// path it ran (kWarpRows or kWarpBisect, rans_decode.BRANCH_BITS).
 //
 // What bounds it on this card: the launch.  One call moves about 1.1 KB
 // per lane (the row, the state, the bytes, the outputs), 0.04 us at the
@@ -49,9 +50,10 @@ namespace ds = decode_search;
 
 constexpr uint32_t kRansL = 1u << 23;
 constexpr int kWarps = 4;             // lanes per block: one warp each
-constexpr int kRegChunks = 3;         // 16-byte cdf chunks a thread holds
+constexpr int kRegChunks = 3;         // 16-byte chunks a thread holds a row
 // the register row covers K + 1 entries plus up to 3 of alignment shift
 constexpr int kRegK = 4 * 32 * kRegChunks - 4;   // 380
+static_assert(kRegChunks == 3, "row_word picks among three chunks");
 
 enum Branch : int {                   // rans_decode_lanes.cu's bits
   kWarpRows = 4,
@@ -60,6 +62,31 @@ enum Branch : int {                   // rans_decode_lanes.cu's bits
 
 __device__ __forceinline__ uint32_t word_of(const uint4& c, int q) {
   return q == 0 ? c.x : (q == 1 ? c.y : (q == 2 ? c.z : c.w));
+}
+
+// Load a row's 16-byte blocks from the aligned word below it: entry e sits
+// at word position sh + e, held by lane (sh + e) / 4 % 32 in chunk
+// (sh + e) / 128.  Blocks past n_words read as zeros.
+__device__ __forceinline__ int load_row(const uint32_t* row, int n_words,
+                                        int lane, uint4 (&c)[kRegChunks]) {
+  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3u);
+  const uint4* base = reinterpret_cast<const uint4*>(row - sh);
+  const int n_chunks = (sh + n_words + 3) >> 2;
+#pragma unroll
+  for (int r = 0; r < kRegChunks; ++r) {
+    const int i = lane + 32 * r;
+    c[r] = i < n_chunks ? __ldg(base + i) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  return sh;
+}
+
+// The word at position p of a row loaded by load_row, taken from the lane
+// that holds it (p is the same on every lane).
+__device__ __forceinline__ uint32_t row_word(const uint4 (&c)[kRegChunks],
+                                             int p) {
+  const int r = p >> 7;
+  const uint4 ch = r == 0 ? c[0] : (r == 1 ? c[1] : c[kRegChunks - 1]);
+  return __shfl_sync(ds::kFullMask, word_of(ch, p & 3), (p >> 2) & 31);
 }
 
 __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
@@ -83,17 +110,11 @@ __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
   const int ptr = __ldg(ptr_in + cell);
   const int first = lane < topk ? __ldg(crow + lane) : -1;
   const bool in_regs = k <= kRegK;
-  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(cd) >> 2) & 3u);
-  uint4 c[kRegChunks];
+  uint4 c[kRegChunks], fc[kRegChunks];
+  int sh = 0, shf = 0;
   if (in_regs) {
-    // 16-byte blocks holding entries 0 .. K: entry e sits at word sh + e
-    const uint4* base = reinterpret_cast<const uint4*>(cd - sh);
-    const int n_chunks = (sh + k + 4) >> 2;
-#pragma unroll
-    for (int r = 0; r < kRegChunks; ++r) {
-      const int i = lane + 32 * r;
-      c[r] = i < n_chunks ? __ldg(base + i) : make_uint4(0u, 0u, 0u, 0u);
-    }
+    sh = load_row(cd, k + 1, lane, c);      // cdf entries 0 .. K
+    shf = load_row(fr, k, lane, fc);        // freq entries 0 .. K - 1
   }
   // level 2
   const bool in0 = static_cast<unsigned>(ptr) < static_cast<unsigned>(cap);
@@ -105,7 +126,7 @@ __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
   const uint32_t slot = s & ((1u << prob_bits) - 1u);
   int count = 0;
   bool strict = true;
-  uint32_t c_lo, c_hi;
+  uint32_t c_lo, c_hi, f_x;
   if (in_regs) {
     int n = 0;
 #pragma unroll
@@ -128,21 +149,11 @@ __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
     }
     count = static_cast<int>(
         __reduce_add_sync(ds::kFullMask, static_cast<unsigned>(n)));
-    // cdf[x] and cdf[x + 1] from the lanes that hold them
+    // cdf[x], cdf[x + 1] and freq[x] from the lanes that hold them
     const int xr = count > 0 ? count - 1 : 0;
-    uint32_t mine_lo = 0, mine_hi = 0;
-    const int p_lo = sh + xr, p_hi = sh + xr + 1;    // word positions
-#pragma unroll
-    for (int r = 0; r < kRegChunks; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = 4 * (lane + 32 * r) + q;       // this lane's words
-        if (p == p_lo) mine_lo = word_of(c[r], q);
-        if (p == p_hi) mine_hi = word_of(c[r], q);
-      }
-    }
-    c_lo = __shfl_sync(ds::kFullMask, mine_lo, (p_lo >> 2) & 31);
-    c_hi = __shfl_sync(ds::kFullMask, mine_hi, (p_hi >> 2) & 31);
+    c_lo = row_word(c, sh + xr);
+    c_hi = row_word(c, sh + xr + 1);
+    f_x = row_word(fc, shf + xr);
   } else {
     for (int base = 0; base < k; base += ds::kPassEntries) {
       ds::warp_count_pass(ds::GlobalCdf{cd}, k, base, slot, count, strict);
@@ -150,6 +161,7 @@ __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
     const int xr = count > 0 ? count - 1 : 0;
     c_lo = __ldg(cd + xr);
     c_hi = __ldg(cd + xr + 1);
+    f_x = __ldg(fr + xr);
   }
 
   int x, probes;
@@ -162,7 +174,7 @@ __global__ void __launch_bounds__(32 * kWarps) rans_decode_step_kernel(
     if (topk) cp = ds::warp_cand_probes(crow, topk, k, x, first, found);
     probes = ds::replay_probes(x, slot == c_lo, cp, found, false, 0, 0, k,
                                ds::LoopDepth{});
-    f = c_hi - c_lo;
+    f = f_x;
     start = c_lo;
     branch = kWarpRows;
   } else {

@@ -18,8 +18,9 @@ Three TPU kernels of ``repro/kernels/rans_decode.py`` are ported here:
   the row gives the symbol and the probes are replayed from it, so a step
   costs about twice the launch floor of a graph node (0.0021 against
   0.0011 ms on an H100, ``PERF.md``), and the wrapper's host work is ten
-  times that.  ``freq`` must be the cdf's differences, as every SPC
-  table's is: the kernel reads ``f`` from the cdf row.
+  times that.  ``f`` comes from the ``freq`` row on every path, as in the
+  reference, so a pair whose ``freq`` is not the cdf's differences decodes
+  as the reference decodes it.
 * **B3** :func:`rans_decode_lanes` (``csrc/rans_decode_lanes.cu``, replaces
   ``rans_decode_lanes``, body ``_decode_kernel``): the whole stream in one
   launch, monolithic ``(lanes, cap)`` or chunked ``(n_chunks, lanes,

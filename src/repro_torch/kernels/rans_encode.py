@@ -20,19 +20,23 @@ Two kernels share one source (``csrc/rans_encode.cu``) and one encode step:
 
 Both take ``(lanes, T)`` int32 symbols and a TableSet-like object (the
 five encoder planes, int32 bit patterns) in one of three layouts, static
-``(K,)``, per-position ``(T, K)`` or per-lane ``(T, lanes, K)``.  Each
-dispatches on the symbols' device: a CPU tensor runs the plain version, a
-CUDA tensor launches the kernel (built by ``kernels/_build.py``) and counts
-the launch in ``repro_torch.kernels.LAUNCHES``.  There is no fallback
-between the two.
+``(K,)``, per-position ``(T, K)`` or per-lane ``(T, lanes, K)``.  A symbol
+outside ``[0, K)`` gathers zero from all five planes, as the reference's
+one-hot gather does: both renorm steps emit and the state is otherwise
+kept.  Each dispatches on the symbols' device: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel (built by ``kernels/_build.py``)
+and counts the launch in ``repro_torch.kernels.LAUNCHES``.  There is no
+fallback between the two.
 
-On this card both kernels are latency-bound: each thread runs a chain of
-``chunk_size`` dependent steps and only ``n_chunks * lanes`` threads are
-live (512 at the ras-pimc main-path shapes), while the byte bound is about
-24 B gathered per (t, lane) and at most 2 B (B1) or 4 B of record planes
-(B5) written.  B1 writes bytes straight to global memory through the
-cursor: the TPU's one-hot scatter, byte ring and VMEM autotuner have no
-role here.
+On this card both kernels are latency-bound: each cell runs a chain of
+``chunk_size`` dependent steps and only ``n_chunks * lanes`` cells exist
+(512 at the ras-pimc main-path shapes), while the byte bound is about 24 B
+gathered per (t, lane) and at most 2 B (B1) or 4 B of record planes (B5)
+written.  The kernels look the planes up ahead of the state's chain (one
+warp per 4 lanes of a chunk), and B1 writes bytes straight to global
+memory through the cursor and zeroes each row's head itself, so a call is
+one launch: the TPU's one-hot scatter, byte ring and VMEM autotuner have
+no role here.
 """
 
 from __future__ import annotations
@@ -83,15 +87,27 @@ def _padded_chunk(chunk: int, t_block: int | None) -> int:
     return -(-chunk // tb) * tb
 
 
+def _zero_outside(symbols: torch.Tensor, tbl):
+    """``(symbols, tbl)`` as the reference's one-hot gather reads them: when
+    a symbol lies outside ``[0, K)``, every plane gets a zero entry at index
+    K and such symbols are sent there, so they gather zero from all five
+    planes.  In-range inputs are returned as they are."""
+    k = tbl.x_max.shape[-1]
+    inside = (symbols >= 0) & (symbols < k)
+    if bool(inside.all()):
+        return symbols, tbl
+    return (torch.where(inside, symbols, k),
+            type(tbl)(*(torch.nn.functional.pad(a, (0, 1)) for a in tbl)))
+
+
 def rans_encode_lanes_plain(symbols: torch.Tensor, tbl, cap: int,
                             chunk_size: int | None = None):
     """Plain PyTorch version of B1: the pure-torch coder's chunked encode,
-    with the kernel's symbol clip."""
+    with the reference's zero entries for symbols outside ``[0, K)``."""
     lanes, t_len = symbols.shape
     _layout(tbl, lanes, t_len)
     chunk, _ = _geometry(t_len, chunk_size)
-    k = tbl.x_max.shape[-1]
-    return tuple(coder.encode_chunked(symbols.clamp(0, k - 1), tbl, chunk,
+    return tuple(coder.encode_chunked(*_zero_outside(symbols, tbl), chunk,
                                       cap=cap))
 
 
@@ -109,7 +125,7 @@ def _load(name: str):
                  "i": ctypes.c_int}
         fn.argtypes = [kinds[c] for c in _ARGTYPES[name]] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn, _build.check
+    return fn, _build.check, _build.stream
 
 
 def _device_inputs(symbols: torch.Tensor, tbl):
@@ -133,26 +149,29 @@ def _launch(symbols: torch.Tensor, tbl, cap: int, chunk_size: int | None):
     chunk, n_chunks = _geometry(t_len, chunk_size)
     planes, stride_t, stride_l, k = _device_inputs(symbols, tbl)
     dev = symbols.device
-    fn, check = _load("rans_encode_launch")
-    buf = torch.zeros((n_chunks, lanes, cap), dtype=torch.uint8, device=dev)
+    fn, check, stream = _load("rans_encode_launch")
+    # the kernel writes every byte of buf (zeros outside each cell's span)
+    # and overflow as 0/1 bytes, so nothing is cleared or converted here
+    buf = torch.empty((n_chunks, lanes, cap), dtype=torch.uint8, device=dev)
     start = torch.empty((n_chunks, lanes), dtype=torch.int32, device=dev)
     length = torch.empty_like(start)
-    overflow = torch.empty((n_chunks, lanes), dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    overflow = torch.empty((n_chunks, lanes), dtype=torch.bool, device=dev)
     err = fn(symbols.data_ptr(), *(p.data_ptr() for p in planes), stride_t,
              stride_l, k, lanes, t_len, chunk, n_chunks, cap, buf.data_ptr(),
-             start.data_ptr(), length.data_ptr(), overflow.data_ptr(), stream)
+             start.data_ptr(), length.data_ptr(), overflow.data_ptr(),
+             stream(dev))
     check(err, "rans_encode_lanes")
     LAUNCHES["rans_encode_lanes"] += 1
-    return buf, start, length, overflow.bool()
+    return buf, start, length, overflow
 
 
 def rans_encode_lanes(symbols: torch.Tensor, tbl, cap: int,
                       chunk_size: int | None = None):
     """Chunked multi-lane encode (one launch for the whole stream on CUDA).
 
-    ``chunk_size=None`` encodes one chunk spanning all of ``T``.  Symbols
-    outside ``[0, K)`` are clipped into it by both versions.
+    ``chunk_size=None`` encodes one chunk spanning all of ``T``.  A symbol
+    outside ``[0, K)`` gathers zero table entries in both versions, as in
+    the reference.
     """
     if cap <= 0:
         raise ValueError(f"cap must be positive, got {cap}")
@@ -168,12 +187,12 @@ def rans_encode_records_plain(symbols: torch.Tensor, tbl,
                               t_block: int | None = None):
     """Plain PyTorch version of B5: the coder's records scan per chunk
     (:func:`repro_torch.core.coder.encode_record_planes`), with the
-    kernel's symbol clip, laid into the padded chunk-major planes."""
+    reference's zero entries for symbols outside ``[0, K)``, laid into the
+    padded chunk-major planes."""
     lanes, t_len = symbols.shape
     layout = _layout(tbl, lanes, t_len)
     chunk, n_chunks = _geometry(t_len, chunk_size)
-    planes = update.encode_planes(tbl)
-    sym = symbols.clamp(0, planes.x_max.shape[-1] - 1)
+    sym, planes = _zero_outside(symbols, update.encode_planes(tbl))
     dev = symbols.device
     shape = (n_chunks, _padded_chunk(chunk, t_block), 2, lanes)
     byts = torch.zeros(shape, dtype=torch.uint8, device=dev)
@@ -195,15 +214,15 @@ def _launch_records(symbols: torch.Tensor, tbl, chunk_size: int | None,
     padded = _padded_chunk(chunk, t_block)
     planes, stride_t, stride_l, k = _device_inputs(symbols, tbl)
     dev = symbols.device
-    fn, check = _load("rans_encode_records_launch")
+    fn, check, stream = _load("rans_encode_records_launch")
     shape = (n_chunks, padded, 2, lanes)
     byts = torch.empty(shape, dtype=torch.uint8, device=dev)
     mask = torch.empty(shape, dtype=torch.uint8, device=dev)
     states = torch.empty((n_chunks, lanes), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(symbols.data_ptr(), *(p.data_ptr() for p in planes), stride_t,
              stride_l, k, lanes, t_len, chunk, n_chunks, padded,
-             byts.data_ptr(), mask.data_ptr(), states.data_ptr(), stream)
+             byts.data_ptr(), mask.data_ptr(), states.data_ptr(),
+             stream(dev))
     check(err, "rans_encode_records")
     LAUNCHES["rans_encode_records"] += 1
     return byts, mask, states
@@ -220,10 +239,9 @@ def rans_encode_records(symbols: torch.Tensor, tbl,
     (``t_block=None``: no padding).  A record's byte is the state's low
     byte at that renorm step whatever its mask, as in the reference; the
     rows past a chunk's end are all zero.  ``chunk_size=None`` encodes one
-    chunk spanning all of ``T``.  Symbols outside ``[0, K)`` are clipped
-    into it by both versions (the reference's one-hot gather yields zero
-    table entries there instead).  Compact with
-    :func:`repro_torch.core.bitstream.compact_records`.
+    chunk spanning all of ``T``.  A symbol outside ``[0, K)`` gathers zero
+    table entries in both versions, as the reference's one-hot gather
+    does.  Compact with :func:`repro_torch.core.bitstream.compact_records`.
     """
     if symbols.device.type == "cpu":
         return rans_encode_records_plain(symbols, tbl, chunk_size, t_block)

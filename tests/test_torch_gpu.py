@@ -11,7 +11,10 @@ B1 (encode), B2 (decode step), B3 (full-stream decode), B4 (slab
 decode), B5 (records encode) and B6 (SPC quantizer, also with its CDF
 output) are held against their plain versions on every table layout and
 predictor, with candidates, truncated streams, poisoned slabs, ragged
-chunks, ``t_block`` padding, SPC tie patterns and waterfill rows, B2 and
+chunks, ``t_block`` padding, SPC tie patterns and waterfill rows, B1 and B5
+at chunk lengths around their gather lead, K from 2 to 4096, caps below
+the header and symbols outside ``[0, K)``, B2 on ``(freq, cdf)`` pairs
+whose freq is not the cdf's differences, B2 and
 B3/B4 with the code path each launch ran; the kernel-backed LM path runs
 its SPC through B6 and never the sort-based plain version on the card; B5 plus ``compact_records`` equals B1, overflow
 included; the frozen corpus ``tests/golden_vectors/*.ras`` decodes on the
@@ -106,6 +109,88 @@ def test_gpu_encode_kernel_matches_plain(layout):
         torch.cuda.synchronize()
         assert LAUNCHES["rans_encode_lanes"] == before + 1
         _assert_planes_equal(got, ref)
+
+
+def _out_of_range(syms, k, seed, share=0.05):
+    """``syms`` with about ``share`` of them replaced by ids outside
+    ``[0, k)`` (negative, k and far above, the int32 extremes)."""
+    rng = np.random.default_rng(seed)
+    out = syms.copy()
+    bad = rng.random(out.shape) < share
+    out[bad] = rng.choice(np.array([-1, -2**31, k, k + 1000, 2**31 - 1]),
+                          int(bad.sum()))
+    return out
+
+
+def _encode_both_match(tt, syms, chunk, dev):
+    """B1 at caps default, 1, 3, 4 and a third of the default, and B5 at
+    t_block None and 7, each one launch, against their plain versions."""
+    gt, gs = _on(tt, dev), _t(syms).to(dev)
+    cap = coder.default_cap(min(chunk, syms.shape[1]))
+    for c in (cap, 1, 3, 4, cap // 3):
+        ref = rans_encode.rans_encode_lanes_plain(_t(syms), tt, c, chunk)
+        got = _launched("rans_encode_lanes", lambda: (
+            rans_encode.rans_encode_lanes(gs, gt, c, chunk)))
+        _assert_same(got, ref)
+    for t_block in (None, 7):
+        ref = rans_encode.rans_encode_records_plain(_t(syms), tt, chunk,
+                                                    t_block)
+        got = _launched("rans_encode_records", lambda: (
+            rans_encode.rans_encode_records(gs, gt, chunk, t_block)))
+        _assert_same(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 7, 8, 9, 33, 47, 48, 49, 256])
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_encode_chunk_edges_match_plain(layout, chunk):
+    """B1 and B5 at chunk lengths 1, around a batch (8 steps), a symbol tile
+    (32) and the kernels' lookup lead (48 steps), and 256, with ragged
+    tails at T = 300, on 40 lanes (ten warps of 4 lanes), with out-of-range
+    symbols."""
+    dev = _cuda()
+    tt, syms = _case(layout, seed=chunk, k=256, lanes=40, t=300)
+    _encode_both_match(tt, _out_of_range(syms, 256, seed=chunk), chunk, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 2048, 2049, 4096])
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_encode_alphabet_edges_match_plain(layout, k):
+    """B1 and B5 at K = 2, at and above the static table's shared-memory
+    limit (2,048) and at 4,096, with out-of-range symbols."""
+    dev = _cuda()
+    tt, syms = _case(layout, seed=k, k=k, lanes=40, t=120)
+    _encode_both_match(tt, _out_of_range(syms, k, seed=k), 40, dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk", [0, 4])
+@pytest.mark.parametrize("k", [256, 4096])
+@pytest.mark.parametrize("rows", ["shared", "lane"])
+def test_gpu_decode_step_mismatched_pair_matches_plain(rows, k, topk):
+    """B2 on (freq, cdf) pairs whose freq is not the cdf's differences: f
+    comes from the freq row on every path (registers at K = 256, device
+    memory passes at K = 4096), as in the plain version."""
+    dev = _cuda()
+    lanes, t = 64, 8
+    tt, syms = _case("perpos" if rows == "shared" else "lane", seed=k + 1,
+                     k=k, lanes=lanes, t=t)
+    enc = coder.encode(_t(syms), tt)
+    dec = coder.decoder_init(enc)
+    s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
+    bump = torch.randint(0, 3, tt.freq.shape, dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(k))
+    cands = (torch.as_tensor(candidate_planes(syms, k, topk, 0.5, seed=k))
+             if topk else None)
+    for i in range(t):
+        bent = (tt.freq[i] + bump[i]).contiguous()
+        _step_pair(enc.buf, s, ptr, bent, tt.cdf[i],
+                   None if cands is None else cands[i], dev)
+        assert rans_decode.last_branches("rans_decode_step") == {"warp_rows"}
+        ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i],
+                         None if cands is None else cands[i], dev)
+        s, ptr = ref[0], ref[1]
 
 
 @pytest.mark.gpu

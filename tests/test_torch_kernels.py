@@ -3,9 +3,12 @@
 * B1: ``rans_encode_lanes_plain`` equals ``repro.kernels.rans_encode.
   rans_encode_lanes`` byte for byte (buf, start, length, overflow) on every
   table layout, ragged chunks, and an overflow sweep down to ``cap < 4``.
+  Symbols outside ``[0, K)`` (negative, K and above) gather zero table
+  entries in both, as the reference's one-hot gather does.
 * B2: ``rans_decode_step_plain`` stepped over a JAX-encoded stream equals
   ``repro.kernels.rans_decode.rans_decode_step`` on (s', ptr', symbol,
-  probes, under) at every step, truncated stream included.
+  probes, under) at every step, truncated stream included, and on a
+  ``(freq, cdf)`` pair whose freq is not the cdf's differences.
 The ``gpu``-marked twins that hold each CUDA kernel against its plain
 version on the card live in ``tests/test_torch_gpu.py``, which imports no
 JAX (the GPU host has none).
@@ -42,6 +45,18 @@ def _case(layout, seed, k=40, lanes=4, t=37):
             spc.tables_from_probs(_t(probs)), syms)
 
 
+def _with_out_of_range(syms, k, seed):
+    """``syms`` with about one symbol in eight replaced by an id outside
+    ``[0, k)``: -1, the int32 extremes, k and far above."""
+    rng = np.random.default_rng(seed)
+    out = syms.copy()
+    bad = rng.random(out.shape) < 0.125
+    out[bad] = rng.choice(np.array([-1, -7, -2**31, k, k + 1, 2**31 - 1]),
+                          int(bad.sum()))
+    out[0, 0], out[-1, -1] = -1, k          # at both ends of the walk
+    return out
+
+
 def _assert_planes_equal(got, ref):
     for name, a, b in zip(("buf", "start", "length", "overflow"), got, ref):
         np.testing.assert_array_equal(a.cpu().numpy(), np.asarray(b),
@@ -66,6 +81,22 @@ def test_plain_encode_overflow_sweep_matches_pallas():
         if cap < 4:
             assert got[3].all()
     assert not got[3].any()
+
+
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_plain_encode_out_of_range_symbols_match_pallas(layout):
+    """The reference's one-hot gather reads zero planes for a symbol outside
+    [0, K): both renorm steps emit and the state is kept."""
+    jt, tt, syms = _case(layout, seed=8)
+    syms = _with_out_of_range(syms, 40, seed=9)
+    for chunk, cap in ((10, 28), (37, 82), (16, 12), (5, 3)):
+        ref = j_encode_lanes(jnp.asarray(syms), jt, cap=cap, chunk_size=chunk)
+        got = rans_encode.rans_encode_lanes_plain(_t(syms), tt, cap, chunk)
+        _assert_planes_equal(got, ref)
+    # the wrapper runs the plain version for CPU tensors
+    _assert_planes_equal(rans_encode.rans_encode_lanes(_t(syms), tt, 82, 37),
+                         j_encode_lanes(jnp.asarray(syms), jt, cap=82,
+                                        chunk_size=37))
 
 
 def test_ops_encode_matches_coder_and_header_only():
@@ -138,3 +169,30 @@ def test_plain_decode_step_truncated_stream_matches_pallas():
                                 length=enc.length - cut)
     under = _step_both(trunc, (jt, tt), syms.shape[1] + 2, None, True)
     assert under > 0
+
+
+def _mismatched(jt, tt, seed):
+    """Freq rows raised by 0-2 at random: no longer the cdf's differences,
+    every entry still >= 1, the cdf unchanged."""
+    bump = np.random.default_rng(seed).integers(0, 3, np.shape(jt.freq))
+    return (jt._replace(freq=jnp.asarray(np.asarray(jt.freq) + bump)),
+            tt._replace(freq=(tt.freq + _t(bump).to(torch.int32))))
+
+
+@pytest.mark.parametrize("layout,topk", [("static", 0), ("static", 3),
+                                         ("lane", 0), ("lane", 4)])
+def test_plain_decode_step_mismatched_pair_matches_pallas(layout, topk):
+    """B2 reads f from the freq row, as the reference does, also where freq
+    is not the cdf's differences (every output is compared at every
+    step of a stream encoded with the true tables)."""
+    jt, tt, syms = _case(layout, seed=16, t=12)
+    lanes, t = syms.shape
+    enc = jcoder.encode(jnp.asarray(syms), jt)
+    cands = None
+    if topk:
+        cands = np.random.default_rng(5).integers(-1, 42, (t, lanes, topk))
+        cands[1::2, :, 0] = syms.T[1::2]
+    jm, tm = _mismatched(jt, tt, seed=17)
+    assert not np.array_equal(np.asarray(jm.freq), np.diff(np.asarray(
+        jm.cdf), axis=-1))
+    _step_both(enc, (jm, tm), t, cands, layout == "lane")

@@ -8,7 +8,9 @@
 * ``coder.encode_records`` equals JAX's and the port's ``coder.encode``.
 * ``rans_encode_records_plain`` equals ``repro.kernels.rans_encode.
   rans_encode_records`` on all three planes (bytes, mask, states) for every
-  table layout, a ragged chunk and ``t_block`` padding rows.
+  table layout, a ragged chunk and ``t_block`` padding rows, also with
+  symbols outside ``[0, K)`` (zero table entries, as the reference's
+  one-hot gather reads them).
 * ``golden`` and ``PyRans`` equal the JAX oracles by stream bytes, decoded
   symbols and ``search_steps``.
 Integer outputs compare exactly.
@@ -123,6 +125,29 @@ def test_plain_records_match_pallas(layout, chunk, t_block):
     fused = ops.rans_encode_chunked(_t(syms), tt, chunk or syms.shape[1],
                                     cap=cap)
     for x, y in zip(ops.compact_records(b, m, s, cap), fused):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+@pytest.mark.parametrize("chunk,t_block", [(None, None), (13, 5)])
+def test_plain_records_out_of_range_symbols_match_pallas(layout, chunk,
+                                                         t_block):
+    jt, tt, syms = _case(layout, seed=33)
+    rng = np.random.default_rng(34)
+    bad = rng.random(syms.shape) < 0.125
+    syms[bad] = rng.choice(np.array([-1, -2**31, 40, 41, 2**31 - 1]),
+                           int(bad.sum()))
+    ref = j_records(jnp.asarray(syms), jt, chunk_size=chunk,
+                    t_block=t_block)
+    got = rans_encode.rans_encode_records_plain(_t(syms), tt, chunk,
+                                                t_block)
+    for name, a, b in zip(("bytes", "mask", "states"), got, ref):
+        np.testing.assert_array_equal(a.numpy().view(np.asarray(b).dtype),
+                                      np.asarray(b), err_msg=name)
+    # compacted, they are B1's streams on the same symbols
+    cap = coder.default_cap(chunk or syms.shape[1])
+    fused = rans_encode.rans_encode_lanes_plain(_t(syms), tt, cap, chunk)
+    for x, y in zip(ops.compact_records(*got, cap), fused):
         assert torch.equal(x, y)
 
 
