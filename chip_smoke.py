@@ -81,7 +81,35 @@ Phases (any failure raises and exits nonzero):
    ``spc_freq_cdf`` == ``freq_cdf_from_probs``, and
    ``ops.spc_quantize_tables`` == ``tables_from_probs`` (on the card, and
    on the CPU at the first point) on every plane with
-   one B6 launch between counters reset and read.
+   one B6 launch between counters reset and read;
+12. row invariance (C3), before any scheduler code runs: at full width, 128
+   rows alone against the same rows inside the engine's 512 (4 slots as
+   row groups) over 8 steps, at an int and at per-row positions: logits
+   and KV rows bitwise equal (the plain 512-row call's difference is
+   printed beside it);
+13. prefill against step (C4): ``prefill_chunk`` over a 256-position chunk
+   of two slots' 256 rows (pos0 > 0, one ragged row) bitwise equal to 256
+   ``decode_step`` calls on every live logit and on the cache (a GEMM over
+   all positions' rows is printed beside it);
+14. ``benchmarks/bench_serve.py``'s point (16 streams x 2 lanes x 64
+   symbols, chunk 16, 4 slots, Poisson 200 Hz, seed 0): a serial
+   ``lm_compress_chunked(backend="kernel")`` + ``pack_chunked`` server
+   against ``BatchEngine(step_backend="kernel", clock="wall")``, every
+   blob byte-identical; streams/s, p50/p99 latency, prefill cycles;
+15. the engine at full width (4 slots x 128 lanes, 1000-token requests,
+   chunk 256): 4 compress requests (prefill cycles), then their blobs
+   decompressed with 2 new compress requests queued behind them, with launch
+   counters reset just before and read just after (B1 once per compress
+   slot and cycle, B2 and B6 once per decode step, B6 once per cycle with
+   compress rows), no sort-based SPC call on the card and every cycle's
+   device half under ``torch.cuda.set_sync_debug_mode("error")``: blobs
+   byte-identical to ``lm_compress_chunked``, tokens exact and per-lane
+   probes equal to ``lm_decompress_chunked``; symbols/s each way; then on
+   the 2 new requests' 16-symbol blobs, one 4-slot decompress cycle's
+   device-busy share from ``torch.profiler`` with a container cut short
+   retiring alone with ``StreamExhaustedError``, and the coder step
+   backend's blobs, tokens and probes equal to the single-request kernel
+   path's.
 Each phase prints its seconds.  Every B2/B3/B4 launch is also held to the
 code path it must run (``rans_decode.last_branches``): B2's warp row path
 on the slice's rows, the slot-table path
@@ -89,13 +117,16 @@ on the static tables of phases 4, 5 and 10, the warp row search on the
 per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
-The last two lines are the kernels' JSON record and
+The kernels' JSON record gives each kernel's launches on its main path
+(``launches``) and in the engine phase (``engine_launches``).  The last
+two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -841,19 +872,12 @@ def reference_check(dev):
           f"abs diff {worst:.3e} (tolerance 1e-4)", flush=True)
 
 
-def main_path(dev):
-    import numpy as np
-    import torch
-    from repro_torch.configs.ras_pimc import CONFIG
-    from repro_torch.core import bitstream, spc
-    from repro_torch.data.pipeline import token_stream
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import init_model
-    from repro_torch.serve import compress
-
-    model = init_model(CONFIG, seed=0, device=dev)
-    tokens = token_stream(CONFIG.vocab_size, (LANES, T), seed=0)
-    # the sort-based plain SPC must not run on the card on this path
+@contextlib.contextmanager
+def _plain_spc_spy():
+    """Record every call of the sort-based plain SPC on a CUDA tensor in
+    the block (the kernel paths must make none); yields the list of the
+    calls' shapes."""
+    from repro_torch.core import spc
     plain_spc, on_card = spc.quantize_probs, []
 
     def spy(probs, *a, **kw):
@@ -863,6 +887,25 @@ def main_path(dev):
 
     spc.quantize_probs = spy
     try:
+        yield on_card
+    finally:
+        spc.quantize_probs = plain_spc
+
+
+def main_path(dev):
+    import numpy as np
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.core import bitstream
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.serve import compress
+
+    model = init_model(CONFIG, seed=0, device=dev)
+    tokens = token_stream(CONFIG.vocab_size, (LANES, T), seed=0)
+    # the sort-based plain SPC must not run on the card on this path
+    with _plain_spc_spy() as on_card:
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -880,8 +923,6 @@ def main_path(dev):
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-    finally:
-        spc.quantize_probs = plain_spc
     _check(launches == _only(rans_encode_lanes=1, rans_decode_step=T,
                              spc_quantize=T + 1),
            f"launch counts {launches}")
@@ -911,7 +952,7 @@ def main_path(dev):
     _check(torch.equal(lane_probes_c, lane_probes), "per-lane probes differ")
     print("slice: coder backend on the card: byte-identical container, "
           "equal per-lane probes", flush=True)
-    return launches, dict(model=model, tokens=tokens, cs=cs,
+    return launches, dict(model=model, tokens=tokens, cs=cs, blob=blob,
                           lane_probes=lane_probes, t_dec=t_dec)
 
 
@@ -1278,6 +1319,421 @@ def spc_phase(dev):
                 point_ms=runs["bench_spc point"]["ms"])
 
 
+# --- the batching engine (slice 4) ---------------------------------------
+
+ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 1024        # 4 slots x 128 lanes = 512 rows
+C3_STEPS = 8
+C4_SLOTS, C4_WARM, C4_RAGGED = 2, 8, (172, 100)   # (row, its n_valid)
+SHORT_T = 16                                  # the engine's short requests
+SERVE_POINT = dict(streams=16, slots=4, lanes=2, n_symbols=64, chunk=16,
+                   rate_hz=200.0, seed=0)     # bench_serve.run's point
+
+
+def _clone_state(st):
+    return type(st)(st.k.clone(), st.v.clone(), st.length)
+
+
+def row_invariance_phase(dev, model):
+    """C3 at full width, before any scheduler code runs: 128 rows alone
+    against the same rows inside the engine's 512 (4 slots x 128) over
+    ``C3_STEPS`` steps, at an int position and at per-row positions (slot
+    s starts s steps late, so the slots sit at different positions and a
+    not-yet-started slot is left out of the call).  The engine's call runs
+    each slot as a row group; logits and KV rows must be bitwise equal.
+    The plain 512-row call (one GEMM over all rows), a batched GEMM of the
+    4 slots and the same rows under a shorter ring are printed beside it:
+    that is what the groups work around."""
+    import torch
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import RowGroup, decode_step, init_state
+    from repro_torch.models.attention import ring_slots
+
+    t0 = time.perf_counter()
+    rows = ENGINE_SLOTS * LANES
+    toks = torch.as_tensor(token_stream(K, (rows, C3_STEPS), seed=5),
+                           device=dev)
+    plain_diff = 0.0
+    for per_row in (False, True):
+        offs = [s if per_row else 0 for s in range(ENGINE_SLOTS)]
+        big = init_state(model, rows, ENGINE_MAX_LEN)
+        alone = [init_state(model, LANES, T) for _ in range(ENGINE_SLOTS)]
+        plain = None if per_row else init_state(model, rows, T)
+        for t in range(C3_STEPS + max(offs)):
+            live = [s for s in range(ENGINE_SLOTS)
+                    if 0 <= t - offs[s] < C3_STEPS]
+            groups = tuple(RowGroup(s * LANES, (s + 1) * LANES, T)
+                           for s in live)
+            pos = torch.zeros(rows, dtype=torch.int64, device=dev)
+            tok = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
+            for s in live:
+                pos[s * LANES:(s + 1) * LANES] = t - offs[s]
+                tok[s * LANES:(s + 1) * LANES, 0] = toks[
+                    s * LANES:(s + 1) * LANES, t - offs[s]]
+            lg = decode_step(model, big, tok, t if not per_row else pos,
+                             groups)
+            if plain is not None:
+                lg_plain = decode_step(model, plain, tok, t)
+            for s in live:
+                r = slice(s * LANES, (s + 1) * LANES)
+                want = decode_step(model, alone[s], tok[r], t - offs[s])
+                _check(torch.equal(lg[r], want),
+                       f"C3: slot {s} logits differ inside 512 rows at step "
+                       f"{t} ({'per-row' if per_row else 'int'} positions)")
+                if plain is not None:
+                    plain_diff = max(plain_diff, float(
+                        (lg_plain[r] - want).abs().max()))
+        n = ring_slots(T)
+        for s in range(ENGINE_SLOTS):
+            r = slice(s * LANES, (s + 1) * LANES)
+            _check(torch.equal(big.k[:, r, :n], alone[s].k)
+                   and torch.equal(big.v[:, r, :n], alone[s].v),
+                   f"C3: slot {s} KV rows differ")
+    # what the groups work around, beside the checks: a batched GEMM of the
+    # 4 slots, and the same 128 rows under a shorter ring
+    with torch.no_grad():
+        x = model.embedding[toks[:, 0]]
+        w = model.blocks[0].attn.wq.reshape(x.shape[1], -1)
+        bmm = torch.bmm(x.view(ENGINE_SLOTS, LANES, -1),
+                        w.expand(ENGINE_SLOTS, *w.shape))
+        bmm_diff = max(float((bmm[s] - x[s * LANES:(s + 1) * LANES] @ w)
+                             .abs().max()) for s in range(ENGINE_SLOTS))
+    short, ring_diff = init_state(model, LANES, C3_STEPS), 0.0
+    long_ = init_state(model, LANES, T)
+    for t in range(C3_STEPS):
+        a = decode_step(model, short, toks[:LANES, t:t + 1], t)
+        b = decode_step(model, long_, toks[:LANES, t:t + 1], t)
+        ring_diff = max(ring_diff, float((a - b).abs().max()))
+    torch.cuda.synchronize()
+    print(f"C3 row invariance: {LANES} rows alone == the same rows inside "
+          f"{rows} (4 slots as row groups, ring {T} of {ENGINE_MAX_LEN}), "
+          f"logits and KV bitwise over {C3_STEPS} steps at int and per-row "
+          f"positions; the plain {rows}-row call differs from {LANES} alone "
+          f"by up to {plain_diff:.3e} (cuBLAS's kernel for M={rows} orders "
+          f"the sums otherwise), a torch.bmm of {ENGINE_SLOTS} x {LANES} "
+          f"rows differs from each {LANES}-row GEMM by up to "
+          f"{bmm_diff:.3e}, and {LANES} rows under a ring of {C3_STEPS} "
+          f"differ from the same under a ring of {T} by up to "
+          f"{ring_diff:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return plain_diff
+
+
+def prefill_phase(dev, model):
+    """C4 at full width: one ``prefill_chunk`` over a CHUNK-position chunk
+    (pos0 = C4_WARM > 0, one ragged row) of C4_SLOTS slots' rows against
+    CHUNK ``decode_step`` calls: bitwise on every live logit and on the
+    whole cache but the ragged row's clamped slot (which the step path
+    writes and the next chunk's first step overwrites).  A GEMM over all
+    B x S positions is printed beside it: that is what the per-position
+    GEMMs replace."""
+    import torch
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import (RowGroup, decode_step, init_state,
+                                    prefill_chunk)
+
+    t0 = time.perf_counter()
+    rows = C4_SLOTS * LANES
+    toks = torch.as_tensor(token_stream(K, (rows, C4_WARM + CHUNK), seed=6),
+                           device=dev)
+    groups = tuple(RowGroup(s * LANES, (s + 1) * LANES, T)
+                   for s in range(C4_SLOTS))
+    step = init_state(model, rows, ENGINE_MAX_LEN)
+    for t in range(C4_WARM):
+        decode_step(model, step, toks[:, t:t + 1], t, groups)
+    pf = _clone_state(step)
+    nv = torch.full((rows,), CHUNK, dtype=torch.int64, device=dev)
+    row, n_r = C4_RAGGED
+    nv[row] = n_r
+    pos0 = torch.full((rows,), C4_WARM, dtype=torch.int64, device=dev)
+    t1 = time.perf_counter()
+    ref = torch.stack([decode_step(model, step,
+                                   toks[:, C4_WARM + t:C4_WARM + t + 1],
+                                   pos0 + torch.clamp(nv, max=t), groups)
+                       for t in range(CHUNK)], 1)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lg = prefill_chunk(model, pf, toks[:, C4_WARM:], pos0, nv, groups)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t1
+    live = torch.arange(CHUNK, device=dev)[None] < nv[:, None]
+    _check(torch.equal(lg[live], ref[live]), "C4: prefill logits differ "
+           "from the step path's")
+    others = torch.ones(rows, dtype=torch.bool, device=dev)
+    others[row] = False
+    keep = torch.ones(pf.k.shape[2], dtype=torch.bool, device=dev)
+    keep[C4_WARM + n_r] = False
+    for a, b in ((pf.k, step.k), (pf.v, step.v)):
+        _check(torch.equal(a[:, others], b[:, others])
+               and torch.equal(a[:, row][:, keep], b[:, row][:, keep]),
+               "C4: prefill cache differs from the step path's")
+    with torch.no_grad():
+        x = model.embedding[toks[:, C4_WARM:]].transpose(0, 1).contiguous()
+        d = model.cfg.d_model
+        w = model.blocks[0].attn.wq.reshape(d, -1)
+        whole = x.reshape(-1, d) @ w
+        per = torch.stack([x[t] @ w for t in range(CHUNK)])
+        gemm_diff = float((whole - per.reshape(whole.shape)).abs().max())
+    print(f"C4 prefill == step: prefill_chunk over {CHUNK} positions of "
+          f"{rows} rows (pos0 {C4_WARM}, row {row} ragged at n_valid {n_r})"
+          f" bitwise equal to {CHUNK} decode_steps on live logits and the "
+          f"cache; prefill {t_prefill:.3f} s, steps {t_steps:.3f} s; one "
+          f"GEMM over all {rows * CHUNK} positions differs from {rows}-row "
+          f"GEMMs by up to {gemm_diff:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(prefill_s=t_prefill, steps_s=t_steps, gemm_diff=gemm_diff)
+
+
+def _pack(chunks, chunk, n):
+    from repro_torch.core import bitstream
+    return bitstream.pack_chunked(*chunks, chunk_size=chunk, n_symbols=n)
+
+
+def bench_serve_phase(dev, model):
+    """``benchmarks/bench_serve.py``'s protocol at its point: the same
+    seeded Poisson compress workload through a serial one-request-at-a-time
+    server (``lm_compress_chunked(backend="kernel")`` + ``pack_chunked``,
+    arrivals respected) and through ``BatchEngine(step_backend="kernel")``
+    with wall-clock admission; every engine blob equals the serial one."""
+    import numpy as np
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    p = SERVE_POINT
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(p["seed"])
+    arrivals = np.cumsum(rng.exponential(1.0 / p["rate_hz"],
+                                         size=p["streams"]))
+    data = [token_stream(K, (p["lanes"], p["n_symbols"]), seed=100 + i)
+            for i in range(p["streams"])]
+
+    def serial_blob(toks):
+        st = compress.lm_compress_chunked(model, toks, p["chunk"],
+                                          backend="kernel")
+        return _pack(st.chunks, p["chunk"], p["n_symbols"])
+
+    def engine():
+        return BatchEngine(model, slots=p["slots"], lanes=p["lanes"],
+                           chunk_size=p["chunk"], max_len=p["n_symbols"],
+                           step_backend="kernel")
+
+    serial_blob(data[0])                  # warm both servers' shapes
+    warm = engine()
+    warm.submit_compress(data[0])
+    warm.run(clock="wall")
+    s_blobs, s_lat = [], []
+    t0 = time.perf_counter()
+    for toks, arr in zip(data, arrivals):
+        gap = arr - (time.perf_counter() - t0)
+        if gap > 0:
+            time.sleep(gap)
+        s_blobs.append(serial_blob(toks))
+        s_lat.append((time.perf_counter() - t0) - arr)
+    s_wall = time.perf_counter() - t0
+    eng = engine()
+    rids = [eng.submit_compress(t, arrival=float(a))
+            for t, a in zip(data, arrivals)]
+    t0 = time.perf_counter()
+    res = eng.run(clock="wall")
+    e_wall = time.perf_counter() - t0
+    e_lat = []
+    for rid, arr, blob in zip(rids, arrivals, s_blobs):
+        _check(res[rid].ok, f"bench_serve request {rid}: {res[rid].error}")
+        _check(res[rid].blob == blob, f"bench_serve request {rid}: engine "
+               "blob differs from the serial path's")
+        e_lat.append(res[rid].completed_at - arr)
+    n = p["streams"]
+    out = dict(serial_streams_per_s=n / s_wall,
+               engine_streams_per_s=n / e_wall,
+               speedup=s_wall / e_wall,
+               serial_p50_s=float(np.percentile(s_lat, 50)),
+               serial_p99_s=float(np.percentile(s_lat, 99)),
+               engine_p50_s=float(np.percentile(e_lat, 50)),
+               engine_p99_s=float(np.percentile(e_lat, 99)),
+               prefill_cycles=eng.prefill_cycles)
+    print(f"bench_serve point ({n} streams x {p['lanes']} lanes x "
+          f"{p['n_symbols']} symbols, chunk {p['chunk']}, {p['slots']} slots,"
+          f" Poisson {p['rate_hz']:.0f} Hz seed {p['seed']}): all {n} engine "
+          f"blobs byte-identical to the serial path's; engine "
+          f"{out['engine_streams_per_s']:.3f} streams/s against serial "
+          f"{out['serial_streams_per_s']:.3f} ({out['speedup']:.3f}x); "
+          f"latency p50/p99 engine {out['engine_p50_s']:.4f} / "
+          f"{out['engine_p99_s']:.4f} s, serial {out['serial_p50_s']:.4f} / "
+          f"{out['serial_p99_s']:.4f} s; {out['prefill_cycles']} prefill "
+          f"cycles; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def _cut(blob, cut):
+    """The same container with ``cut`` bytes cut from each cell's end."""
+    from repro_torch.core import bitstream
+    cs = bitstream.parse_chunked(blob)
+    ch = bitstream.slab_to_chunked(cs, "cpu")
+    return bitstream.pack_chunked(ch.buf[..., :-cut], ch.start,
+                                  ch.length - cut,
+                                  chunk_size=cs.meta.chunk_size,
+                                  n_symbols=cs.meta.n_symbols)
+
+
+def _busy_share(fn):
+    """Run ``fn`` under ``torch.profiler``, tracing the card only (the host
+    side's events would multiply the trace): ``(result, wall ms, device
+    busy ms)``, busy being the kernels' summed self device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy_ms = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    return out, wall_ms, busy_ms
+
+
+def engine_phase(dev, model, slice_run):
+    """The engine at full width: 4 slots x 128 lanes, ``T``-token requests,
+    chunk ``CHUNK``, the kernel step backend, every cycle's device half
+    under ``set_sync_debug_mode("error")``.
+
+    Run A compresses 4 streams (seeds 0-3; seed 0 is the slice's, whose
+    single-request blob and probes the slice phase made); run B
+    decompresses the 4 blobs with 2 new SHORT_T-symbol compress requests
+    queued behind them.  Launch counters are reset before A and read after
+    B, and the sort-based plain SPC must not run on the card.  Then, on
+    the 2 short blobs: one 4-slot decompress cycle under ``torch.profiler``
+    (the device-busy share) with a container cut 3 bytes short per cell
+    beside valid neighbours, and the coder step backend on decompress and
+    compress requests."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream, coder
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    t_phase = time.perf_counter()
+    toks = [slice_run["tokens"]] + [token_stream(K, (LANES, T), seed=s)
+                                    for s in range(1, ENGINE_SLOTS)]
+    short = [token_stream(K, (LANES, SHORT_T), seed=10 + i) for i in (0, 1)]
+    ref_blob, ref_probes = [slice_run["blob"]], [slice_run["lane_probes"]]
+    t0 = time.perf_counter()
+    for t in toks[1:] + short:
+        n = t.shape[1]
+        ref_blob.append(_pack(compress.lm_compress_chunked(
+            model, t, CHUNK, backend="kernel").chunks, CHUNK, n))
+        ref_probes.append(compress.lm_decompress_chunked(
+            model, bitstream.parse_chunked(ref_blob[-1]), n, CHUNK,
+            backend="kernel", lane_probes=True)[2].cpu().numpy())
+    ref_probes[0] = ref_probes[0].cpu().numpy()
+    s_blob, s_probes = ref_blob[ENGINE_SLOTS:], ref_probes[ENGINE_SLOTS:]
+    t_refs = time.perf_counter() - t0
+
+    def engine(backend="kernel"):
+        eng = BatchEngine(model, slots=ENGINE_SLOTS, lanes=LANES,
+                          chunk_size=CHUNK, max_len=ENGINE_MAX_LEN,
+                          topk=TOPK, step_backend=backend)
+        eng.check_sync = backend == "kernel"
+        return eng
+
+    n_cyc = -(-T // CHUNK)
+    with _plain_spc_spy() as on_card:
+        reset_launches()
+        eng = engine()
+        rids = [eng.submit_compress(t) for t in toks]
+        t0 = time.perf_counter()
+        res = eng.run(clock="wall")
+        t_comp = time.perf_counter() - t0
+        pf_a = eng.prefill_cycles
+        blobs = [res[r].blob for r in rids]
+        for i, r in enumerate(rids):
+            _check(res[r].ok and blobs[i] == ref_blob[i],
+                   f"engine compress {i}: blob differs from "
+                   "lm_compress_chunked's")
+        eng = engine()
+        dec = [eng.submit_decompress(b) for b in blobs]
+        comp = [eng.submit_compress(t) for t in short]
+        t0 = time.perf_counter()
+        res = eng.run(clock="wall")
+        t_b = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    # A: one B6 batch per prefill cycle, B1 per slot and cycle; B: B2 and
+    # B6 per decode step, then one prefill cycle of the 2 short requests
+    want = _only(rans_encode_lanes=ENGINE_SLOTS * n_cyc + 2,
+                 rans_decode_step=T, spc_quantize=n_cyc + T + 1)
+    _check(launches == want, f"engine launch counts {launches}, expected "
+           f"{want}")
+    _check(not on_card, f"the plain SPC ran on the card {len(on_card)} "
+           "times in the engine")
+    t_dec = max(res[r].completed_at for r in dec)
+    for i, r in enumerate(dec):
+        _check(res[r].ok, f"engine decompress {i}: {res[r].error}")
+        _check(np.array_equal(res[r].tokens, toks[i]),
+               f"engine decompress {i}: tokens not exact")
+        _check(np.array_equal(res[r].lane_probes, ref_probes[i]),
+               f"engine decompress {i}: probes differ from "
+               "lm_decompress_chunked's")
+    for i, r in enumerate(comp):
+        _check(res[r].ok and res[r].blob == s_blob[i],
+               f"short compress {i} behind decompress traffic: blob differs "
+               "from lm_compress_chunked's")
+    _check(pf_a == n_cyc and eng.prefill_cycles == 1,
+           f"prefill cycles {pf_a}, {eng.prefill_cycles}")
+    syms = ENGINE_SLOTS * LANES * T
+    print(f"engine: {ENGINE_SLOTS} slots x {LANES} lanes x {T} tokens, chunk "
+          f"{CHUNK}: {ENGINE_SLOTS} blobs byte-identical to "
+          f"lm_compress_chunked's ({pf_a} prefill cycles), decompressed "
+          "exactly with per-lane probes equal to lm_decompress_chunked's, "
+          f"2 new {SHORT_T}-symbol compress requests behind them "
+          f"byte-identical; launches {launches}; no plain SPC call on the "
+          f"card; no host sync inside a cycle; single-request references "
+          f"{t_refs:.1f} s", flush=True)
+    print(f"engine: compress {syms / t_comp:.1f} symbols/s ({t_comp:.3f} s, "
+          f"prefill), decompress {syms / t_dec:.1f} symbols/s ({t_dec:.3f} "
+          f"s); whole run B {t_b:.3f} s", flush=True)
+
+    eng = engine()
+    rbad = eng.submit_decompress(_cut(s_blob[0], 3))
+    rd = [eng.submit_decompress(s_blob[i]) for i in (1, 0, 1)]
+    res, wall_ms, busy_ms = _busy_share(lambda: eng.run(clock="wall"))
+    _check(not res[rbad].ok and isinstance(res[rbad].error,
+                                           coder.StreamExhaustedError),
+           f"a container cut short did not retire with StreamExhaustedError"
+           f" ({res[rbad].error!r})")
+    for i, r in zip((1, 0, 1), rd):
+        _check(res[r].ok and np.array_equal(res[r].tokens, short[i])
+               and np.array_equal(res[r].lane_probes, s_probes[i]),
+               f"short decompress {i} beside a truncated container differs "
+               "from lm_decompress_chunked")
+    print(f"engine: one decompress cycle ({ENGINE_SLOTS} x {LANES} lanes x "
+          f"{SHORT_T} steps; a container cut 3 bytes short per cell retires "
+          "alone with StreamExhaustedError, its neighbours exact) under "
+          f"torch.profiler: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms device "
+          f"busy ({100 * busy_ms / wall_ms:.1f}% busy)", flush=True)
+    eng = engine("coder")
+    rd = [eng.submit_decompress(b) for b in s_blob]
+    rc = [eng.submit_compress(t) for t in short]
+    res = eng.run()
+    for i in (0, 1):
+        _check(res[rd[i]].ok and np.array_equal(res[rd[i]].tokens, short[i])
+               and np.array_equal(res[rd[i]].lane_probes, s_probes[i]),
+               f"coder step backend: decompress {i} differs")
+        _check(res[rc[i]].ok and res[rc[i]].blob == s_blob[i],
+               f"coder step backend: compress {i} differs")
+    print(f"engine: the coder step backend gives the kernel path's blobs, "
+          f"tokens and per-lane probes on {SHORT_T}-symbol requests; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, dict(compress_symbols_per_s=syms / t_comp,
+                          decompress_symbols_per_s=syms / t_dec,
+                          busy_share=busy_ms / wall_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1289,6 +1745,7 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     configure_cuda_numerics()
     dev = resolve_device(None)
     smi = subprocess.run(
@@ -1304,36 +1761,53 @@ def main() -> int:
     print(f"build: {secs:.2f} s for {len(list(_build.CSRC.glob('*.cu')))} "
           "sources", flush=True)
 
-    b1, encoded = encode_phase(dev)
-    b2 = decode_phase(dev, encoded)
-    b4 = chunked_decode_phase(dev, encoded)
-    b5 = records_phase(dev, encoded)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    b1, encoded = timed("B1 encode", encode_phase, dev)
+    b2 = timed("B2 decode step", decode_phase, dev, encoded)
+    b4 = timed("B3/B4 chunked decode", chunked_decode_phase, dev, encoded)
+    b5 = timed("B5 records", records_phase, dev, encoded)
     del encoded
     torch.cuda.empty_cache()
-    b3_err, b3_fig4b_ms, b3_fig4b_call_ms = fig4b_phase(dev)
-    b3, image_launches, b1_image = image_phase(dev)
+    b3_err, b3_fig4b_ms, b3_fig4b_call_ms = timed("Fig. 4(b)", fig4b_phase,
+                                                  dev)
+    b3, image_launches, b1_image = timed("image", image_phase, dev)
     b1.update(b1_image)
-    b3_cases_err, b4_cases_err = decode_cases_phase(dev)
+    b3_cases_err, b4_cases_err = timed("B3/B4 cases", decode_cases_phase,
+                                       dev)
     b3["max_abs_err"] = max(b3["max_abs_err"], b3_err, b3_cases_err)
     b4["max_abs_err"] = max(b4["max_abs_err"], b4_cases_err)
     b3.update(b3_fig4b_ms=b3_fig4b_ms, b3_fig4b_call_ms=b3_fig4b_call_ms,
               b3_slice_ms=b4["b3_chunked_ms"],
               b3_slice_call_ms=b4["b3_chunked_call_ms"])
-    reference_check(dev)
-    slice_launches, slice_run = main_path(dev)
-    two_pass_launches = two_pass_phase(slice_run)
-    del slice_run
+    timed("reference check", reference_check, dev)
+    slice_launches, slice_run = timed("slice", main_path, dev)
+    two_pass_launches = timed("two-pass", two_pass_phase, slice_run)
+    model = slice_run["model"]
+    timed("C3 row invariance", row_invariance_phase, dev, model)
+    timed("C4 prefill", prefill_phase, dev, model)
+    timed("bench_serve point", bench_serve_phase, dev, model)
+    engine_launches, _ = timed("engine", engine_phase, dev, model, slice_run)
+    del slice_run, model
     torch.cuda.empty_cache()
-    b5.update(fig4a_phase(dev))
+    b5.update(timed("Fig. 4(a)", fig4a_phase, dev))
     b1.update(b1_fig4a_ms=b5["b1_fig4a_ms"])
     b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
               b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
-    b6 = spc_phase(dev)
+    b6 = timed("B6 SPC", spc_phase, dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
                           (b6, slice_launches)):
         rec["launches"] = launches[rec["name"]]
+    for rec in (b1, b2, b3, b4, b5, b6):
+        rec["engine_launches"] = engine_launches[rec["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,9 @@
-"""Model configurations ported so far."""
+"""Model configurations ported so far, and the registry's lookups."""
 
 from repro_torch.configs import ras_pimc
+from repro_torch.configs.registry import (ARCH_IDS, PORTED,
+                                          SERVE_SMOKE_ARCHS, get_config,
+                                          get_protocol, get_smoke_config)
 
-__all__ = ["ras_pimc"]
+__all__ = ["ARCH_IDS", "PORTED", "SERVE_SMOKE_ARCHS", "get_config",
+           "get_protocol", "get_smoke_config", "ras_pimc"]

@@ -9,7 +9,9 @@ predictors and ``(T, lanes, topk)`` candidate planes, one launch for the
 whole stream with the chunk axis in the grid.  ``rans_decode_chunked(
 from_container=...)`` decodes straight off a validated container's payload
 slab (B4).  ``rans_decode_step`` (B2) is the fused serve decode's
-per-position pop.  Symbols and per-lane probe counters equal the coder's.
+per-position pop; ``rans_decode_step_rows`` is the batching engine's pop
+over its ``slots x lanes`` rows, through B2 or the coder.  Symbols and
+per-lane probe counters equal the coder's.
 ``rans_encode_records`` (B5) is the records reference encode: fixed-shape
 renorm record planes that the re-exported ``compact_records`` turns into
 the same streams as B1.  ``spc_quantize_tables`` is the kernel-backed SPC:
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import coder, u32
 from repro_torch.core import constants as C
 from repro_torch.core.bitstream import (ChunkedLanes, ContainerSlab,
                                         EncodedLanes,
@@ -39,7 +42,8 @@ from repro_torch.kernels.spc_quantize import spc_quantize
 
 __all__ = ["rans_encode", "rans_encode_chunked", "rans_encode_records",
            "compact_records", "rans_decode", "rans_decode_chunked",
-           "rans_decode_step", "slab_planes", "spc_quantize_tables"]
+           "rans_decode_step", "rans_decode_step_rows", "slab_planes",
+           "spc_quantize_tables"]
 
 
 def _header_only(lanes: int, cap: int, device) -> EncodedLanes:
@@ -208,6 +212,43 @@ def rans_decode_chunked(chunks: ChunkedLanes | None = None,
         return out + (cunder > 0,)
     _check_exhausted(cunder > 0, "rans_decode_chunked")
     return out
+
+
+def rans_decode_step_rows(buf: torch.Tensor, s: torch.Tensor,
+                          ptr: torch.Tensor, tbl,
+                          prob_bits: int = C.PROB_BITS,
+                          candidates: torch.Tensor | None = None,
+                          backend: str = "kernel"):
+    """One rANS pop across the batching engine's flattened ``slots x
+    lanes`` rows: every row owns a byte stream (one row of ``buf``), its
+    coder state and its candidate row, so the per-step kernel that serves
+    one request's lanes serves the whole slot batch unchanged.
+
+    ``buf`` is ``(rows, cap)`` uint8, row-major: B2 reads each row's
+    window as one contiguous run, so this takes the layout B2 takes (the
+    reference transposes to ``(cap, rows)`` once for its TPU kernel's
+    lane-minor blocks).  ``s`` holds the uint32 states as int32 bit
+    patterns and ``ptr`` int32 cursors (B2's convention); ``tbl`` has
+    ``(rows, K)`` ``freq`` and ``(rows, K+1)`` ``cdf``; ``candidates`` an
+    optional ``(rows, topk)`` plane.  ``backend="kernel"`` pops with B2
+    (:func:`rans_decode_step`), ``"coder"`` with the pure-torch
+    ``coder.decode_get``: symbols, probes and flags are identical.
+    Returns ``(s', ptr', symbols, probes, under)``, all ``(rows,)`` int32,
+    ``under`` 0/1 (this step read past the row's stream) on both
+    backends."""
+    if backend == "kernel":
+        s2, ptr2, sym, probes, under = rans_decode_step(
+            buf, s, ptr, tbl.freq, tbl.cdf, prob_bits=prob_bits,
+            candidates=candidates)
+        return s2, ptr2, sym, probes, (under > 0).to(torch.int32)
+    if backend != "coder":
+        raise ValueError(f"unknown step backend {backend!r}")
+    st, sym, probes = coder.decode_get(
+        coder.DecState(u32.value(s), ptr.to(torch.int64)), buf, tbl,
+        prob_bits, candidates=candidates)
+    i32 = torch.int32
+    return (u32.bits(st.s), st.ptr.to(i32), sym.to(i32), probes.to(i32),
+            st.underflow.to(i32))
 
 
 def spc_quantize_tables(probs: torch.Tensor,

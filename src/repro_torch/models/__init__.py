@@ -1,8 +1,15 @@
 """The model surface ``serve/`` imports: config, protocol, construction."""
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.protocol import decode_step, init_state
-from repro_torch.models.transformer import DenseLM, KVState, init_model
+from repro_torch.models.protocol import (PrefillUnsupportedError, StateSpec,
+                                         can_prefill, decode_step,
+                                         get_protocol, init_state,
+                                         prefill_chunk, ring_length,
+                                         state_spec, wrap_length)
+from repro_torch.models.transformer import (DenseLM, KVState, RowGroup,
+                                            init_model)
 
-__all__ = ["ModelConfig", "DenseLM", "KVState", "decode_step", "init_model",
-           "init_state"]
+__all__ = ["ModelConfig", "DenseLM", "KVState", "RowGroup",
+           "PrefillUnsupportedError", "StateSpec", "can_prefill",
+           "decode_step", "get_protocol", "init_model", "init_state",
+           "prefill_chunk", "ring_length", "state_spec", "wrap_length"]

@@ -1,15 +1,18 @@
-"""Grouped-query self-attention decode against a KV ring cache.
+"""Grouped-query self-attention against a KV ring cache: the decode step
+and the teacher-forced prefill.
 
-Port of ``repro.models.attention.attn_decode`` and its single attend core
-``_attend_slots``.  Two properties of the reference are kept, not its
-floats (DESIGN.md §11):
+Port of ``repro.models.attention.attn_decode``/``attn_prefill`` and their
+single attend core ``_attend_slots``.  Two properties of the reference are
+kept, not its floats (DESIGN.md §11):
 
 * **fixed 32-slot tiles** (``_RING_BLOCK``): scores are one batched GEMM of
   fixed per-tile shape, and the softmax denominator and the weighted value
   sum accumulate tile by tile in a fixed sequential order, so a longer ring
-  only appends all-zero tiles that add an exact +0.0;
-* **query extent 1**: every attend sees one query position, the shape a
-  later prefill path must reuse to stay bitwise equal to the step path.
+  only appends all-zero tiles that add an exact +0.0 (on the card the
+  batched GEMM's kernel still depends on the tile count, so a stream's
+  floats depend on its ring length there);
+* **query extent 1**: every attend sees one query position, the shape the
+  prefill reuses to stay bitwise equal to the step path.
 
 The cache is allocated with its slot axis padded to a whole number of
 tiles; slots past the ring length are never valid.  The step writes its
@@ -71,26 +74,112 @@ def _attend_slots(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(b, 1, hp, dh)
 
 
-def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
-                cv: torch.Tensor, cache_len: int, pos: int,
-                cfg: ModelConfig) -> torch.Tensor:
-    """One-token decode at absolute position ``pos`` (a Python int shared by
-    all rows).  ``x1``: (B,1,D); ``ck``/``cv``: this layer's (B,Rp,KV,Dh)
-    cache, written in place at ``slot = pos % cache_len`` (a cache shorter
-    than the stream rings; entries older than ``cache_len`` age out)."""
+def _positions(pos, b: int, device):
+    """``pos`` (a Python int, or a ``(B,)`` int64 device tensor) -> the
+    rows' positions as a ``(1|B,)`` int64 tensor (one row for an int)."""
+    if isinstance(pos, int):
+        return torch.full((1,), pos, dtype=torch.int64, device=device)
+    if pos.shape != (b,):
+        raise ValueError(f"per-row positions must be ({b},); got "
+                         f"{tuple(pos.shape)}")
+    return pos.to(torch.int64)
+
+
+def _qkv(wq, wk, wv, x1: torch.Tensor, cfg: ModelConfig):
+    """x1 (B,1,D) -> q (B,1,Hp,Dh), k and v (B,1,KV,Dh)."""
     b, _, d = x1.shape
     hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     q = (x1 @ wq.reshape(d, hp * dh)).view(b, 1, hp, dh)
     k = (x1 @ wk.reshape(d, kv * dh)).view(b, 1, kv, dh)
     v = (x1 @ wv.reshape(d, kv * dh)).view(b, 1, kv, dh)
-    pos_t = torch.full((1, 1), pos, dtype=torch.int64, device=x1.device)
-    q = apply_rope(q, pos_t, cfg.rope_theta)
-    k = apply_rope(k, pos_t, cfg.rope_theta)
-    slot = pos % cache_len
-    ck[:, slot] = k[:, 0]
-    cv[:, slot] = v[:, 0]
+    return q, k, v
+
+
+def _write_kv(ck, cv, k, v, pos, slot, write=None):
+    """Write each row's K/V into its ring slot in place.  ``slot`` is an
+    int shared by all rows or a ``(B,)`` tensor (a row-indexed write, one
+    slot per row, so no index repeats and the write is deterministic).
+    ``write`` (B,) bool keeps the rows where it is False unchanged."""
+    if isinstance(pos, int):
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        return
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    kn, vn = k[:, 0], v[:, 0]
+    if write is not None:
+        keep = ~write[:, None, None]
+        kn = torch.where(keep, ck[rows, slot], kn)
+        vn = torch.where(keep, cv[rows, slot], vn)
+    ck[rows, slot] = kn
+    cv[rows, slot] = vn
+
+
+def _valid(pos_b: torch.Tensor, slot, idx: torch.Tensor,
+           cache_len: int) -> torch.Tensor:
+    """(1|B, Rp) slot mask: each row sees its own ring's entries no older
+    than its position; slots past the ring length are never valid."""
+    slot_b = slot if isinstance(slot, torch.Tensor) else pos_b % cache_len
+    age = (slot_b[:, None] - idx[None, :]) % cache_len
+    return (age <= pos_b[:, None]) & (idx < cache_len)[None]
+
+
+def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
+                cv: torch.Tensor, cache_len: int, pos,
+                cfg: ModelConfig) -> torch.Tensor:
+    """One-token decode.  ``x1``: (B,1,D); ``ck``/``cv``: this layer's
+    (B,Rp,KV,Dh) cache (or a view of it), written in place at ``slot = pos
+    % cache_len`` (a cache shorter than the stream rings; entries older
+    than ``cache_len`` age out).
+
+    ``pos`` is a Python int shared by all rows, or a ``(B,)`` int64 device
+    tensor of per-row positions (the batching engine's slots): every row
+    then writes its own slot and masks its own ring, with no host read.
+    An int gives logits bitwise equal to a constant vector: the same ops
+    on the same values, one mask row broadcast over the batch."""
+    b, _, d = x1.shape
+    hp, dh = cfg.n_heads_padded, cfg.head_dim_
+    q, k, v = _qkv(wq, wk, wv, x1, cfg)
+    pos_b = _positions(pos, b, x1.device)
+    q = apply_rope(q, pos_b[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos_b[:, None], cfg.rope_theta)
+    slot = pos % cache_len if isinstance(pos, int) else pos_b % cache_len
+    _write_kv(ck, cv, k, v, pos, slot)
     idx = torch.arange(ck.shape[1], device=x1.device)
-    age = (slot - idx) % cache_len
-    valid = ((age <= pos) & (idx < cache_len))[None]
-    out = _attend_slots(q, ck, cv, valid, cfg)
+    out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len), cfg)
     return out.reshape(b, 1, hp * dh) @ wo.reshape(hp * dh, d)
+
+
+def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
+                 cache_len: int, pos0: torch.Tensor, n_valid: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Teacher-forced attention over S positions, bitwise the S
+    :func:`attn_decode` steps on the live positions.  ``hs``: the S
+    positions' normed inputs, each (B,1,D); ``pos0``/``n_valid``: (B,)
+    int64 chunk start and live step count.  Position t of row b runs at
+    ``pos0 + min(t, n_valid)``; rows past ``n_valid`` write nothing, and
+    their queries (which the engine discards) attend the unchanged ring.
+
+    Each position runs the step path's exact shapes: its projections are
+    GEMMs of B rows (cuBLAS may order a sum otherwise at another row
+    count), then the K/V write and the query-extent-1
+    :func:`_attend_slots`.  Only the RoPE runs over all positions at once
+    (elementwise).  Returns (S,B,D)."""
+    s_len, b = len(hs), hs[0].shape[0]
+    d = hs[0].shape[-1]
+    hp, dh = cfg.n_heads_padded, cfg.head_dim_
+    qkv = [_qkv(wq, wk, wv, h, cfg) for h in hs]
+    steps = torch.arange(s_len, device=ck.device)
+    pq = pos0[None, :] + torch.minimum(steps[:, None], n_valid[None, :])
+    q = apply_rope(torch.cat([x[0] for x in qkv], 1), pq.T, cfg.rope_theta)
+    k = apply_rope(torch.cat([x[1] for x in qkv], 1), pq.T, cfg.rope_theta)
+    v = torch.cat([x[2] for x in qkv], 1)
+    idx = torch.arange(ck.shape[1], device=ck.device)
+    outs = []
+    for t in range(s_len):
+        slot = pq[t] % cache_len
+        _write_kv(ck, cv, k[:, t:t + 1], v[:, t:t + 1], pq[t], slot,
+                  write=t < n_valid)
+        out = _attend_slots(q[:, t:t + 1], ck, cv,
+                            _valid(pq[t], slot, idx, cache_len), cfg)
+        outs.append(out.reshape(b, hp * dh) @ wo.reshape(hp * dh, d))
+    return torch.stack(outs)

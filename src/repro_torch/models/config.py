@@ -2,7 +2,10 @@
 
 Field names and derived quantities match the reference so a config reads
 the same in both packages.  Only the dense family is ported so far, in
-float32 (the reference's ``dtype`` field is therefore absent).
+float32 (the reference's ``dtype`` field is therefore absent).  The window
+fields and the layer-kind ``pattern``/``stages`` are here for the serving
+protocol's state classification (``models.protocol``); no ported model
+reads a window yet (``DenseLM`` refuses one).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tp: int = 1                      # q heads are padded to a multiple
+    local_window: int = 0            # local attention window (0 = full)
+    sliding_window: int = 0          # sliding-window attention (0 = full)
 
     @property
     def head_dim_(self) -> int:
@@ -41,6 +46,29 @@ class ModelConfig:
     @property
     def vocab_padded(self) -> int:
         return math.ceil(self.vocab_size / 256) * 256
+
+    @property
+    def is_encdec(self) -> bool:
+        """The dense family has no encoder."""
+        return False
+
+    @property
+    def pattern(self) -> tuple[str, ...]:
+        """Layer-kind pattern unit: the dense family's is one attention
+        block."""
+        return ("attn",)
+
+    @property
+    def stages(self) -> tuple[tuple[tuple[str, ...], int], ...]:
+        """(pattern, repeats) stages covering n_layers."""
+        pat = self.pattern
+        full, rem = divmod(self.n_layers, len(pat))
+        out = []
+        if full:
+            out.append((pat, full))
+        if rem:
+            out.append((pat[:rem], 1))
+        return tuple(out)
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

@@ -21,12 +21,24 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+_FREQS: dict = {}     # rope_freqs as float32 tensors, per device
+
+
+def _freqs(dh: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_freqs` on ``device``, copied there once (a copy from
+    host memory would wait for the card at every step)."""
+    key = (dh, theta, device)
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(rope_freqs(dh, theta),
+                                      dtype=torch.float32, device=device)
+    return _FREQS[key]
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh); positions broadcastable to (..., S)."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _freqs(dh, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, Dh/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]

@@ -20,7 +20,12 @@ its SPC through B6 and never the sort-based plain version on the card; B5 plus `
 included; the frozen corpus ``tests/golden_vectors/*.ras`` decodes on the
 card and re-packs through B5 byte for byte; ``build_tables`` on the card
 equals the CPU's for every frequency; each call launches its kernel
-exactly once.
+exactly once.  The batching engine's path: ``ops.rans_decode_step_rows``
+through B2 equals the coder pop; the engine's row groups are the
+single-request calls bitwise and ``prefill_chunk`` is the step path
+bitwise on the card; a small mixed engine workload is byte-identical to
+the single-request kernel path with its B1, B2 and B6 launches counted and
+no host sync inside a cycle.
 """
 
 import os
@@ -32,7 +37,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import bitstream, coder, predictors, spc, u32
 from repro_torch.core.bitstream import EncodedLanes
-from repro_torch.data.pipeline import candidate_planes
+from repro_torch.data.pipeline import candidate_planes, token_stream
 from repro_torch.device import configure_cuda_numerics
 from repro_torch.kernels import (LAUNCHES, ops, rans_decode, rans_encode,
                                  spc_quantize)
@@ -327,7 +332,6 @@ def test_gpu_slice_roundtrip_and_backends_identical():
     dev = _cuda()
     from repro_torch.configs.ras_pimc import SMOKE
     from repro_torch.core import bitstream
-    from repro_torch.data.pipeline import token_stream
     from repro_torch.models import init_model
     from repro_torch.serve import compress
 
@@ -355,7 +359,6 @@ def test_gpu_kernel_backend_runs_no_plain_spc(monkeypatch):
     no call of the sort-based ``quantize_probs`` on a CUDA tensor."""
     dev = _cuda()
     from repro_torch.configs.ras_pimc import SMOKE
-    from repro_torch.data.pipeline import token_stream
     from repro_torch.models import init_model
     from repro_torch.serve import compress
 
@@ -704,3 +707,137 @@ def test_gpu_spc_kernel_matches_plain(case):
     tables = _launched("spc_quantize", lambda: ops.spc_quantize_tables(
         probs.to(dev)))
     _assert_same(tables, spc.tables_from_probs(probs))
+
+
+# ---------------------------------------------------------------------------
+# the batching engine's path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk", [0, 4])
+def test_gpu_decode_step_rows_kernel_matches_coder(topk):
+    """``ops.rans_decode_step_rows``: B2 over 4 slots x 32 lanes of rows ==
+    the coder pop, over 20 steps, one launch a step."""
+    dev = _cuda()
+    tt, syms = _case("lane", seed=12, k=256, lanes=128, t=20)
+    enc = coder.encode(_t(syms), tt)
+    dec = coder.decoder_init(enc)
+    buf = enc.buf.to(dev)
+    s = {b: u32.bits(dec.s).to(dev) for b in ("kernel", "coder")}
+    ptr = {b: dec.ptr.to(torch.int32).to(dev) for b in ("kernel", "coder")}
+    cands = torch.as_tensor(candidate_planes(syms, 256, topk, 0.5, seed=3),
+                            device=dev) if topk else None
+    for t in range(20):
+        tbl = spc.FreqCdf(tt.freq[t].to(dev), tt.cdf[t].to(dev))
+        c = None if cands is None else cands[t]
+        out = {b: _launched("rans_decode_step", lambda: (
+            ops.rans_decode_step_rows(buf, s[b], ptr[b], tbl, candidates=c,
+                                      backend=b)))
+               if b == "kernel" else
+               ops.rans_decode_step_rows(buf, s[b], ptr[b], tbl,
+                                         candidates=c, backend=b)
+               for b in ("kernel", "coder")}
+        _assert_same(out["kernel"], out["coder"])
+        assert torch.equal(out["kernel"][2].cpu(), _t(syms[:, t]))
+        for b in out:
+            s[b], ptr[b] = out[b][0], out[b][1]
+
+
+def _small_model(dev):
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.models import init_model
+    return init_model(SMOKE, seed=0, device=dev)
+
+
+@pytest.mark.gpu
+def test_gpu_row_groups_are_row_count_invariant():
+    """The engine's model call (4 slots as row groups) equals each slot's
+    single-request call bitwise on the card, logits and cache, at per-row
+    positions; the int position equals a constant vector."""
+    from repro_torch.models import RowGroup, decode_step, init_state
+    dev = _cuda()
+    model = _small_model(dev)
+    lanes, slots, steps = 16, 4, 6
+    toks = _t(token_stream(256, (lanes * slots, steps), seed=8)).to(dev)
+    groups = tuple(RowGroup(s * lanes, (s + 1) * lanes, steps)
+                   for s in range(slots))
+    big = init_state(model, lanes * slots, 64)
+    alone = [init_state(model, lanes, steps) for _ in range(slots)]
+    for t in range(steps):
+        lg = decode_step(model, big, toks[:, t:t + 1],
+                         torch.full((lanes * slots,), t, device=dev), groups)
+        for g, st in zip(groups, alone):
+            want = decode_step(model, st, toks[g.r0:g.r1, t:t + 1], t)
+            assert torch.equal(lg[g.r0:g.r1], want)
+    for g, st in zip(groups, alone):
+        assert torch.equal(big.k[:, g.r0:g.r1, :st.k.shape[2]], st.k)
+        assert torch.equal(big.v[:, g.r0:g.r1, :st.v.shape[2]], st.v)
+
+
+@pytest.mark.gpu
+def test_gpu_prefill_chunk_bitwise_matches_steps():
+    from repro_torch.models import (RowGroup, decode_step, init_state,
+                                    prefill_chunk)
+    dev = _cuda()
+    model = _small_model(dev)
+    b, s, warm = 32, 24, 5
+    toks = _t(token_stream(256, (b, warm + s), seed=9)).to(dev)
+    groups = (RowGroup(0, 16, 40), RowGroup(16, 32, 40))
+    step = init_state(model, b, 40)
+    for t in range(warm):
+        decode_step(model, step, toks[:, t:t + 1], t, groups)
+    pf = type(step)(step.k.clone(), step.v.clone(), step.length)
+    nv = torch.full((b,), s, dtype=torch.int64, device=dev)
+    nv[20:24] = 7                                    # one ragged slot's rows
+    pos0 = torch.full((b,), warm, dtype=torch.int64, device=dev)
+    ref = torch.stack([decode_step(model, step, toks[:, warm + t:warm + t + 1],
+                                   pos0 + torch.clamp(nv, max=t), groups)
+                       for t in range(s)], 1)
+    lg = prefill_chunk(model, pf, toks[:, warm:], pos0, nv, groups)
+    live = (torch.arange(s, device=dev)[None] < nv[:, None])
+    assert torch.equal(lg[live], ref[live])
+    keep = torch.ones(pf.k.shape[2], dtype=torch.bool)
+    keep[warm + 7] = False             # the ragged rows' clamped slot
+    assert torch.equal(pf.k[:, :20], step.k[:, :20])
+    assert torch.equal(pf.k[:, 20:24][:, :, keep],
+                       step.k[:, 20:24][:, :, keep])
+    assert torch.equal(pf.v[:, 24:], step.v[:, 24:])
+
+
+@pytest.mark.gpu
+def test_gpu_engine_byte_identical_to_single_request():
+    """A small mixed workload on the card through the kernel step backend:
+    blobs equal ``lm_compress_chunked(backend="kernel")``'s, tokens and
+    per-lane probes ``lm_decompress_chunked``'s, with B1, B2 and B6
+    launched and no host sync inside a cycle."""
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+    dev = _cuda()
+    model = _small_model(dev)
+    lanes, chunk = 8, 16
+    toks = [token_stream(256, (lanes, n), seed=60 + i)
+            for i, n in enumerate((40, 23, 33))]
+    ref = [bitstream.pack_chunked(*compress.lm_compress_chunked(
+        model, t, chunk, backend="kernel").chunks, chunk_size=chunk,
+        n_symbols=t.shape[1]) for t in toks]
+    eng = BatchEngine(model, slots=3, lanes=lanes, chunk_size=chunk,
+                      max_len=48, step_backend="kernel")
+    eng.check_sync = True
+    rc = [eng.submit_compress(t) for t in toks[:2]]
+    rd = eng.submit_decompress(ref[2])
+    before = dict(LAUNCHES)
+    res = eng.run()
+    ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    for r, blob in zip(rc, ref):
+        assert res[r].ok and res[r].blob == blob
+    sym, _, lp = compress.lm_decompress_chunked(
+        model, bitstream.parse_chunked(ref[2]), 33, chunk, backend="kernel",
+        lane_probes=True)
+    assert res[rd].ok
+    np.testing.assert_array_equal(res[rd].tokens, toks[2])
+    np.testing.assert_array_equal(res[rd].lane_probes, lp.cpu().numpy())
+    # cycles of 16, 16 and 8 steps (the longest chunk left), each with a
+    # decode and compress rows
+    assert ran["rans_decode_step"] == 40
+    assert ran["rans_encode_lanes"] == 2 + 2 + 1     # each compress chunk
+    assert ran["spc_quantize"] == 40 + 3             # per step + per cycle
