@@ -110,6 +110,20 @@ Phases (any failure raises and exits nonzero):
    retiring alone with ``StreamExhaustedError``, and the coder step
    backend's blobs, tokens and probes equal to the single-request kernel
    path's.
+16. the Fig. 4(c) ratio ladder (``benchmarks/bench_ratio.run``'s
+   defaults: a 128 x 256 ``synthetic_image(seed=0)`` as 16 lanes x 2048,
+   chunk 512): zlib level 9, the static histogram, ``ras-pimc`` trained
+   120 steps (8 x 128, lr 3e-3) at full width and at the smoke width, each
+   through ``lm_compress_chunked(backend="kernel")`` (byte-identical to
+   the coder backend's container) and the fused kernel decode (bit-exact;
+   one B1, 2048 B2 and 2049 B6 launches), and the bits-back VAE trained
+   300 steps (lr 1e-2) coding the image's 512 8 x 8 patches:
+   ``bb_encode`` on both pop backends (byte-identical stacks), ``bb_decode``
+   through B2 (pixels exact, the initial stack restored, no underflow; one
+   B2 launch per pop), its tables' SPC through B6, and no sort-based SPC
+   on the card on any of these kernel paths.  Every ratio is printed
+   beside the reference's ``BENCH_ratio.json`` figure; the phase's
+   launches are counted from 0.
 Each phase prints its seconds.  Every B2/B3/B4 launch is also held to the
 code path it must run (``rans_decode.last_branches``): B2's warp row path
 on the slice's rows, the slot-table path
@@ -118,7 +132,8 @@ per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
 The kernels' JSON record gives each kernel's launches on its main path
-(``launches``) and in the engine phase (``engine_launches``).  The last
+(``launches``), in the engine phase (``engine_launches``) and in the
+Fig. 4(c) phase (``fig4c_launches``).  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
@@ -145,6 +160,12 @@ FIG4A_LANES, FIG4A_T, FIG4A_PY = 128, 2048, 40_000   # bench_speed.run's point
 SPC_POINT = (256, 256)                          # bench_spc.run's point
 RECORDS_T_BLOCK = 96                            # pads 256 and 232 to 288
 IMAGE_SIDE, IMAGE_LANES = 2048, 256            # 4-megapixel 8-bit image
+# benchmarks/bench_ratio.run's defaults: a 128 x 256 synthetic_image(seed=0)
+# as 16 lanes x 2048 symbols, chunk 512; _train_arch's 120 steps of 8 x 128
+# at lr 3e-3; _latent_rung's 300 VAE steps at lr 1e-2, 8 x 8 patches
+FIG4C_H, FIG4C_W, FIG4C_LANES, FIG4C_CHUNK = 128, 256, 16, 512
+FIG4C_STEPS, FIG4C_BATCH, FIG4C_SEQ, FIG4C_LR = 120, 8, 128, 3e-3
+FIG4C_VAE_STEPS, FIG4C_VAE_LR, FIG4C_VAE_CAP = 300, 1e-2, 1024
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 # (the coders do integer work; the 67 TFLOP/s float32 rate counts an FMA
@@ -890,6 +911,27 @@ def _plain_spc_spy():
         yield on_card
     finally:
         spc.quantize_probs = plain_spc
+
+
+@contextlib.contextmanager
+def _b6_capture():
+    """Record every B6 ``spc_freq_cdf`` call on a CUDA tensor in the block:
+    yields the list of ``(probs, freq, cdf)``, each tensor as the call saw
+    or returned it, for holding against the plain version afterwards."""
+    from repro_torch.kernels import spc_quantize
+    kernel_spc, calls = spc_quantize.spc_freq_cdf, []
+
+    def capture(probs, *a, **kw):
+        f, c = kernel_spc(probs, *a, **kw)
+        if probs.is_cuda:
+            calls.append((probs.clone(), f, c))
+        return f, c
+
+    spc_quantize.spc_freq_cdf = capture
+    try:
+        yield calls
+    finally:
+        spc_quantize.spc_freq_cdf = kernel_spc
 
 
 def main_path(dev):
@@ -1734,6 +1776,233 @@ def engine_phase(dev, model, slice_run):
                           busy_share=busy_ms / wall_ms)
 
 
+def _fig4c_train(cfg, rows, dev):
+    """``bench_ratio._train_arch`` on the port: a seeded model of ``cfg``
+    trained on the image rows as next-byte prediction.  Returns the model
+    and every step's loss (nats)."""
+    import torch
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    model = init_model(cfg, seed=0, device=dev)
+    state = train_loop.init_train_state(model)
+    step = train_loop.make_train_step(cfg, base_lr=FIG4C_LR)
+    b, s = FIG4C_BATCH, FIG4C_SEQ
+    flat = rows.reshape(-1)
+    n = (len(flat) - 1) // (b * s) * (b * s)
+    losses = []
+    for i in range(FIG4C_STEPS):
+        off = (i * b * s) % max(n - b * s, 1)
+        batch = {"tokens": flat[off:off + b * s].reshape(b, s),
+                 "labels": flat[off + 1:off + 1 + b * s].reshape(b, s)}
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    return model, torch.stack(losses).cpu().numpy()
+
+
+def _fig4c_neural(cfg, rows, dev, raw_bytes: int):
+    """One neural rung: train, then ``lm_compress_chunked`` on the kernel
+    backend (B6 batch + B1) into the v2 container, the fused kernel decode
+    (B2 + B6 per position) bit-exact, and the coder backend's container
+    byte-identical.  Returns the rung's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serve import compress
+
+    t0 = time.perf_counter()
+    model, losses = _fig4c_train(cfg, rows, dev)
+    t_train = time.perf_counter() - t0
+    head, tail = float(losses[:10].mean()), float(losses[-10:].mean())
+    _check(np.isfinite(losses).all() and tail < head,
+           f"{cfg.name}: training loss did not fall ({head} -> {tail})")
+    lanes, t_len = rows.shape
+    before = dict(LAUNCHES)
+    with _plain_spc_spy() as on_card:
+        t0 = time.perf_counter()
+        st = compress.lm_compress_chunked(model, rows, FIG4C_CHUNK,
+                                          backend="kernel")
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=FIG4C_CHUNK,
+                                      n_symbols=t_len)
+        sym, _ = compress.lm_decompress_chunked(
+            model, bitstream.parse_chunked(blob), t_len, FIG4C_CHUNK,
+            backend="kernel")
+        torch.cuda.synchronize()
+        t_code = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{cfg.name}: launch counts {launches}")
+    _check(not on_card, f"{cfg.name}: the plain SPC ran on the card "
+           f"{len(on_card)} times on the kernel backend")
+    _check(np.array_equal(sym.cpu().numpy(), rows),
+           f"{cfg.name}: fused kernel decode not bit-exact")
+    st_c = compress.lm_compress_chunked(model, rows, FIG4C_CHUNK,
+                                        backend="coder")
+    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=FIG4C_CHUNK,
+                                  n_symbols=t_len) == blob,
+           f"{cfg.name}: kernel and coder v2 containers differ")
+    return dict(cr=raw_bytes / len(blob), blob_bytes=len(blob),
+                bits_per_symbol=float(st.bits_per_symbol),
+                model_xent_bits=float(st.model_xent_bits),
+                loss_first=float(losses[0]), loss_final=float(losses[-1]),
+                train_s=t_train, code_s=t_code)
+
+
+def _fig4c_latent(img, dev, raw_bytes: int):
+    """``bench_ratio._latent_rung`` on the port: the Bit-Swap VAE trained
+    on seeded images' 8 x 8 patches, then ``bb_encode`` of the image's
+    512 patches on both pop backends (byte-identical stacks) and
+    ``bb_decode`` through B2 (pixels and the initial stack back, no
+    underflow).  Returns the rung's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core import stack
+    from repro_torch.data.pipeline import synthetic_image
+    from repro_torch.kernels import LAUNCHES, spc_quantize
+    from repro_torch.models import vae
+
+    h, w = img.shape
+    cfg = vae.VAEConfig()
+
+    def patch(im):
+        return im.reshape(h // 8, 8, w // 8, 8).swapaxes(1, 2).reshape(
+            -1, cfg.d_x)
+
+    t0 = time.perf_counter()
+    params, loss = vae.train_vae(
+        cfg, lambda i: patch(synthetic_image(h, w, seed=100 + i)).astype(
+            np.int64), steps=FIG4C_VAE_STEPS, lr=FIG4C_VAE_LR, seed=0,
+        device=dev)
+    t_train = time.perf_counter() - t0
+    _check(np.isfinite(loss), f"VAE loss {loss}")
+    x = torch.as_tensor(patch(img).astype(np.int64), device=dev)
+    lanes = x.shape[0]
+    st0 = stack.stack_init_bits(lanes, FIG4C_VAE_CAP, n_bytes=32, seed=7,
+                                device=dev)
+    before = dict(LAUNCHES)
+    with _plain_spc_spy() as on_card, _b6_capture() as b6_calls:
+        t0 = time.perf_counter()
+        st = vae.bb_encode(st0, params, x, cfg, backend="kernel")
+        b2_enc = LAUNCHES["rans_decode_step"] - before["rans_decode_step"]
+        st_c = vae.bb_encode(st0, params, x, cfg, backend="coder")
+        b2_mid = LAUNCHES["rans_decode_step"]
+        st_d, x_d = vae.bb_decode(st, params, cfg, backend="kernel")
+        b2_dec = LAUNCHES["rans_decode_step"] - b2_mid
+        torch.cuda.synchronize()
+        t_code = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    _check(not on_card, f"VAE: the plain SPC ran on the card {len(on_card)}"
+           " times")
+    _check(b2_enc == 2 * cfg.d_z and b2_dec == 2 * cfg.d_z + cfg.d_x,
+           f"VAE: B2 launches {b2_enc} (encode) and {b2_dec} (decode) are "
+           f"not the pops ({2 * cfg.d_z}, {2 * cfg.d_z + cfg.d_x})")
+    # the tables' SPC: 4 B6 launches per bb_encode and per bb_decode
+    _check(launches == _only(rans_decode_step=b2_enc + b2_dec,
+                             spc_quantize=12), f"VAE launch counts {launches}")
+    # B6 against its plain version at the phase's own table shapes: the
+    # byte-identical stacks below hold only the pops, since both backends
+    # quantize their tables through B6
+    b6_err, b6_rows = 0, {}
+    for probs, f, c in b6_calls:
+        b6_err = max(b6_err, _max_abs_err(
+            (f, c), spc_quantize.spc_freq_cdf_plain(probs.cpu(),
+                                                    cfg.prob_bits)))
+        b6_rows[probs.shape[-1]] = b6_rows.get(probs.shape[-1], set()) | {
+            probs.shape[0]}
+    want_rows = {cfg.z_bins: {cfg.d_z * lanes}, cfg.x_bins: {cfg.d_x * lanes}}
+    _check(len(b6_calls) == 12 and b6_rows == want_rows,
+           f"VAE: B6 calls {len(b6_calls)} at rows {b6_rows}, expected 12 "
+           f"at {want_rows}")
+    print(f"fig4c VAE: B6 == plain on all 12 table sets (rows per K "
+          f"{ {k: sorted(v) for k, v in b6_rows.items()} }, max abs err "
+          f"{b6_err})", flush=True)
+    _check(not bool(st.underflow.any()), "VAE encode underflowed")
+    _check(all(bool(torch.equal(a, b)) for a, b in zip(st, st_c)),
+           "VAE: kernel and coder stacks differ")
+    _check(bool(torch.equal(x_d, x)), "VAE: bb_decode pixels not bit-exact")
+    live = all(bool(torch.equal(st_d.buf[i, p:], st0.buf[i, p:]))
+               for i, p in enumerate(st0.ptr.tolist()))
+    _check(bool(torch.equal(st_d.s, st0.s)) and bool(torch.equal(
+        st_d.ptr, st0.ptr)) and live, "VAE: initial stack not restored")
+    _check(not bool(st_d.underflow.any()), "VAE decode underflowed")
+    net = int((stack.stack_bytes(st) - stack.stack_bytes(st0)).sum())
+    return dict(cr=raw_bytes / net, net_bytes=net, lanes=lanes,
+                elbo_bits_per_pixel=loss / math.log(2) / cfg.d_x,
+                b2_pops=b2_enc + b2_dec, train_s=t_train,
+                code_s=t_code)
+
+
+def fig4c_phase(dev):
+    """The Fig. 4(c) ratio ladder (``benchmarks/bench_ratio.run``) on the
+    card: zlib, the static histogram, ``ras-pimc`` trained at full width
+    and at the smoke width, and the bits-back VAE; every ratio beside the
+    reference's ``BENCH_ratio.json`` figure (CPU-interpret JAX), with the
+    phase's B1/B2/B6 launches counted from 0."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG, SMOKE
+    from repro_torch.core import bitstream
+    from repro_torch.data.pipeline import synthetic_image
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import compress
+
+    ref = json.loads((ROOT / "BENCH_ratio.json").read_text())
+    img = synthetic_image(FIG4C_H, FIG4C_W, seed=0)
+    raw = img.tobytes()
+    rows = img.reshape(FIG4C_LANES, -1).astype(np.int64)
+    reset_launches()
+    ladder = {"zlib(PNG-DEFLATE)": len(raw) / len(zlib.compress(raw, 9))}
+    enc, _ = compress.histogram_compress(rows, 256, device=dev)
+    ladder["rANS-static-histogram"] = len(raw) / bitstream.compressed_size(
+        enc.length)
+    rungs = {}
+    for name, cfg in (("full", CONFIG), ("smoke", SMOKE)):
+        rungs[name] = _fig4c_neural(cfg, rows, dev, len(raw))
+    ladder["rANS-neural(ras-pimc)"] = rungs["smoke"]["cr"]
+    rungs["vae"] = _fig4c_latent(img, dev, len(raw))
+    ladder["rANS-bitsback-latent(vae)"] = rungs["vae"]["cr"]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    t_len = rows.shape[1]
+    _check(launches == _only(rans_encode_lanes=2,
+                             rans_decode_step=2 * t_len
+                             + rungs["vae"]["b2_pops"],
+                             spc_quantize=2 * (t_len + 1) + 12),
+           f"Fig. 4(c) launch counts {launches}")
+    print(f"fig4c: {FIG4C_H}x{FIG4C_W} synthetic_image(seed=0) as "
+          f"{FIG4C_LANES} lanes x {t_len}, chunk {FIG4C_CHUNK}; CR here "
+          "(reference BENCH_ratio.json, CPU-interpret JAX):", flush=True)
+    for name, cr in ladder.items():
+        print(f"fig4c:   {name}: {cr:.4f} ({ref[name]:.4f})", flush=True)
+    for name, cfg in (("full", CONFIG), ("smoke", SMOKE)):
+        r = rungs[name]
+        final_bits = r["loss_final"] / math.log(2)
+        print(f"fig4c: {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}): CR {r['cr']:.4f}, {r['bits_per_symbol']:.4f} "
+              f"bits/symbol against the model's {r['model_xent_bits']:.4f}-bit"
+              f" cross entropy over the stream; train loss "
+              f"{r['loss_first']:.4f} -> {r['loss_final']:.4f} nats "
+              f"({final_bits:.4f} bits; reference smoke "
+              f"{ref['_pimc_train_loss_bits']:.4f} bits) in {FIG4C_STEPS} "
+              f"steps, {r['train_s']:.1f} s; compress + fused decode "
+              f"{r['code_s']:.1f} s; kernel and coder containers "
+              "byte-identical, decode bit-exact", flush=True)
+    v = rungs["vae"]
+    print(f"fig4c: VAE ({v['lanes']} patches of 8x8): net {v['net_bytes']} "
+          f"stack bytes, CR {v['cr']:.4f}; ELBO {v['elbo_bits_per_pixel']:.4f}"
+          f" bits/pixel (reference {ref['_vae_elbo_bits_per_pixel']:.4f}); "
+          f"train {v['train_s']:.1f} s, bb_encode x2 + bb_decode "
+          f"{v['code_s']:.1f} s; kernel and coder stacks byte-identical, "
+          f"decode bit-exact with the initial stack restored, B2 launches = "
+          f"{v['b2_pops']} pops", flush=True)
+    print(f"fig4c: launches {launches}; no plain SPC call on the card on "
+          "the kernel paths", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1799,6 +2068,7 @@ def main() -> int:
     b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
               b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
     b6 = timed("B6 SPC", spc_phase, dev)
+    fig4c_launches = timed("Fig. 4(c)", fig4c_phase, dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -1806,6 +2076,7 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
     for rec in (b1, b2, b3, b4, b5, b6):
         rec["engine_launches"] = engine_launches[rec["name"]]
+        rec["fig4c_launches"] = fig4c_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

@@ -1,8 +1,8 @@
 """Deterministic synthetic data (numpy, seeded).
 
 Copies of ``repro.data.pipeline``'s ``token_stream``, ``image_rows``,
-``synthetic_image`` and ``candidate_planes``: the same seed gives the same
-values in both packages.
+``synthetic_image``, ``candidate_planes`` and the dense case of
+``train_batch``: the same seed gives the same values in both packages.
 """
 
 from __future__ import annotations
@@ -59,3 +59,19 @@ def candidate_planes(syms: np.ndarray, k: int, topk: int,
     hit = rng.random((t, lanes)) < hit_rate
     cands[..., 0] = np.where(hit, syms.T, cands[..., 0])
     return cands.astype(np.int32)
+
+
+def train_batch(cfg, batch: int, seq: int, *, step: int = 0, host: int = 0,
+                seed: int = 0) -> dict:
+    """One training batch for ``cfg``: ``tokens`` and next-token
+    ``labels``, ``(batch, seq)`` int32 from one :func:`token_stream` seeded
+    by ``(seed, step, host)``.  The families that also take a ``memory``
+    or ``enc_inputs`` plane (vlm, encoder-decoder) are not ported."""
+    if cfg.family == "vlm" or cfg.is_encdec:
+        raise NotImplementedError(
+            f"train_batch for family {cfg.family!r} (memory/enc_inputs "
+            "planes) is not ported yet (ROADMAP A6)")
+    toks = token_stream(cfg.vocab_size, (batch, seq + 1),
+                        seed=seed * 1000003 + step * 101 + host)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}

@@ -1,4 +1,5 @@
-"""The model surface ``serve/`` imports: config, protocol, construction."""
+"""The model surface ``serve/`` and ``train/`` import: config, protocol,
+construction, the training loss."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.protocol import (PrefillUnsupportedError, StateSpec,
@@ -7,9 +8,10 @@ from repro_torch.models.protocol import (PrefillUnsupportedError, StateSpec,
                                          prefill_chunk, ring_length,
                                          state_spec, wrap_length)
 from repro_torch.models.transformer import (DenseLM, KVState, RowGroup,
-                                            init_model)
+                                            init_model, loss_fn)
 
 __all__ = ["ModelConfig", "DenseLM", "KVState", "RowGroup",
            "PrefillUnsupportedError", "StateSpec", "can_prefill",
            "decode_step", "get_protocol", "init_model", "init_state",
-           "prefill_chunk", "ring_length", "state_spec", "wrap_length"]
+           "loss_fn", "prefill_chunk", "ring_length", "state_spec",
+           "wrap_length"]

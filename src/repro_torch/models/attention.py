@@ -1,5 +1,6 @@
 """Grouped-query self-attention against a KV ring cache: the decode step
-and the teacher-forced prefill.
+and the teacher-forced prefill; and the full-sequence causal attention of
+training (:func:`attn_forward`).
 
 Port of ``repro.models.attention.attn_decode``/``attn_prefill`` and their
 single attend core ``_attend_slots``.  Two properties of the reference are
@@ -17,6 +18,12 @@ kept, not its floats (DESIGN.md §11):
 The cache is allocated with its slot axis padded to a whole number of
 tiles; slots past the ring length are never valid.  The step writes its
 K/V row in place (the reference returns a new cache).
+
+:func:`attn_forward` is the reference's naive schedule (``_naive_attn``):
+one batched product for the scores, float32, causal mask, softmax, one
+batched product for the values.  It has no tie to the decode path's
+tiles: trained weights are priced by ``decode_step`` on both sides of a
+stream, so training needs no bitwise tie to decode.
 """
 
 from __future__ import annotations
@@ -183,3 +190,35 @@ def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
                             _valid(pq[t], slot, idx, cache_len), cfg)
         outs.append(out.reshape(b, hp * dh) @ wo.reshape(hp * dh, d))
     return torch.stack(outs)
+
+
+def attn_forward(wq, wk, wv, wo, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Causal self-attention over a whole sequence (training): x (B,S,D)
+    -> (B,S,D), RoPE at positions ``arange(S)``.  Query head ``i`` reads
+    kv head ``i // (n_heads_padded // n_kv_heads)``, the decode path's
+    grouping.  Only ``attn_impl="naive"`` is ported."""
+    if cfg.attn_impl != "naive":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP A6); "
+            "the port has the 'naive' schedule")
+    b, s, d = x.shape
+    hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+    if kv == 0 or hp % kv:
+        raise ValueError(f"grouped attention needs n_heads_padded % "
+                         f"n_kv_heads == 0; got {hp} and {kv}")
+    g = hp // kv
+    pos = torch.arange(s, device=x.device)
+    q = apply_rope((x @ wq.reshape(d, hp * dh)).view(b, s, hp, dh), pos,
+                   cfg.rope_theta)
+    k = apply_rope((x @ wk.reshape(d, kv * dh)).view(b, s, kv, dh), pos,
+                   cfg.rope_theta)
+    v = (x @ wv.reshape(d, kv * dh)).view(b, s, kv, dh)
+    qg = q.view(b, s, kv, g, dh).permute(0, 2, 3, 1, 4)   # (B,KV,g,S,Dh)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                # (B,KV,1,Dh,S)
+    sc = torch.matmul(qg, kt) * (1.0 / math.sqrt(dh))     # (B,KV,g,S,S)
+    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    p = torch.softmax(torch.where(causal, sc, _NEG), dim=-1)
+    out = torch.matmul(p, v.permute(0, 2, 1, 3)[:, :, None])
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hp * dh)
+    return out @ wo.reshape(hp * dh, d)

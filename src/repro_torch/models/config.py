@@ -5,7 +5,10 @@ the same in both packages.  Only the dense family is ported so far, in
 float32 (the reference's ``dtype`` field is therefore absent).  The window
 fields and the layer-kind ``pattern``/``stages`` are here for the serving
 protocol's state classification (``models.protocol``); no ported model
-reads a window yet (``DenseLM`` refuses one).
+reads a window yet (``DenseLM`` refuses one).  The training fields
+(``attn_impl``, ``logits_chunk``, ``grad_accum``, ``moment_dtype``,
+``grad_dtype``) carry the reference's defaults; only ``attn_impl="naive"``
+is ported.
 """
 
 from __future__ import annotations
@@ -32,6 +35,13 @@ class ModelConfig:
     tp: int = 1                      # q heads are padded to a multiple
     local_window: int = 0            # local attention window (0 = full)
     sliding_window: int = 0          # sliding-window attention (0 = full)
+
+    # training
+    attn_impl: str = "naive"         # naive | blockwise (not ported)
+    logits_chunk: int = 0            # 0 = unchunked loss
+    grad_accum: int = 1
+    moment_dtype: str = "float32"    # AdamW moments
+    grad_dtype: str = "float32"      # accumulated gradients (grad_accum > 1)
 
     @property
     def head_dim_(self) -> int:

@@ -1,4 +1,4 @@
-"""Reference parameters -> port model.
+"""Reference parameters <-> port model.
 
 ``from_reference(tree, cfg)`` takes the parameter tree of
 ``repro.models.init_model`` as nested dicts of numpy arrays (the caller
@@ -6,7 +6,9 @@ converts with ``np.asarray``; this module never imports JAX) and returns a
 :class:`DenseLM` holding the same weights.  The reference stacks each
 stage's layers on a leading ``reps`` axis:
 ``tree["stages"]["s0"]["b0_attn"]["attn"]["wq"][r]`` is layer ``r``'s
-``wq``.
+``wq``.  ``to_reference(model)`` is the inverse: the model's parameters,
+or any tensors keyed by its parameter names (gradients, updated values),
+as that tree of numpy arrays.
 """
 
 from __future__ import annotations
@@ -62,3 +64,28 @@ def from_reference(tree: dict, cfg: ModelConfig,
         for name in ("wi_gate", "wi_up", "wo"):
             put(getattr(blk.ffn, name), p["ffn"][name])
     return model.to(dev)
+
+
+def to_reference(model: DenseLM, tensors: dict | None = None) -> dict:
+    """The reference's dense parameter tree of numpy float32 arrays, one
+    stage ``s0`` of ``n_layers`` stacked ``b0_attn`` blocks.  ``tensors``
+    maps the model's parameter names (``named_parameters``) to tensors of
+    their shapes, for example gradients; the default is the parameters."""
+    vals = dict(model.named_parameters()) if tensors is None else tensors
+
+    def np_(name):
+        return vals[name].detach().to("cpu", torch.float32).numpy().copy()
+
+    def stacked(suffix):
+        return np.stack([np_(f"blocks.{i}.{suffix}")
+                         for i in range(len(model.blocks))])
+
+    block = {"ln1": {"scale": stacked("ln1")},
+             "attn": {n: stacked(f"attn.{n}") for n in ("wq", "wk", "wv",
+                                                        "wo")},
+             "ln2": {"scale": stacked("ln2")},
+             "ffn": {n: stacked(f"ffn.{n}") for n in ("wi_gate", "wi_up",
+                                                      "wo")}}
+    return {"tok": {"embedding": np_("embedding")},
+            "final_norm": {"scale": np_("final_norm")},
+            "stages": {"s0": {"b0_attn": block}}}

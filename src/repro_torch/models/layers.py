@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, gated MLP, embeddings, tied logits.
+"""Shared layers: RMSNorm, RoPE, gated MLP, embeddings, tied logits and
+the training losses.
 
 Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
 ``wo (ff, d)``, ``embedding (Vpad, d)``).
@@ -58,3 +59,33 @@ def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def logits(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied-embedding logits ``x @ E^T`` over the padded vocabulary."""
     return x @ embedding.T
+
+
+def xent_loss(lg: torch.Tensor, labels: torch.Tensor,
+              vocab_size: int) -> torch.Tensor:
+    """Mean token cross entropy in float32; the padded vocabulary tail is
+    pushed to -1e30 so it takes no mass."""
+    lg = lg.to(torch.float32)
+    if lg.shape[-1] > vocab_size:
+        lg = torch.cat([lg[..., :vocab_size], lg[..., vocab_size:] - 1e30],
+                       -1)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+    return (lse - gold).mean()
+
+
+def chunked_xent_loss(embedding: torch.Tensor, x: torch.Tensor,
+                      labels: torch.Tensor, vocab_size: int,
+                      chunk: int) -> torch.Tensor:
+    """:func:`xent_loss` of the tied logits over ``chunk``-position slices
+    of the sequence, averaged over the slices: never holds the whole
+    ``(B, S, V)`` logits."""
+    s = x.shape[1]
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of "
+                         f"logits_chunk {chunk}")
+    total = x.new_zeros((), dtype=torch.float32)
+    for c in range(0, s, chunk):
+        total = total + xent_loss(logits(embedding, x[:, c:c + chunk]),
+                                  labels[:, c:c + chunk], vocab_size)
+    return total / (s // chunk)

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer as an ``nn.Module`` (serving direction).
+"""Dense decoder-only transformer as an ``nn.Module``: the serving
+direction and the training forward.
 
 Port of the dense part of ``repro.models.transformer``: pre-norm blocks of
 RoPE grouped-query self-attention and a gated SiLU MLP, a final RMSNorm and
@@ -6,6 +7,8 @@ tied-embedding logits over the padded vocabulary.  Weight layouts match
 the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate (d, ff)``,
 ...), so ``models.convert`` copies a JAX parameter tree over unchanged.
 
+Training runs :meth:`DenseLM.forward` over whole sequences (causal
+:func:`~repro_torch.models.attention.attn_forward`) and :func:`loss_fn`.
 Serving runs one token at a time through :meth:`DenseLM.decode_step`
 against a :class:`KVState`, which the step updates in place, or a
 teacher-forced chunk of positions through :meth:`DenseLM.prefill_chunk`,
@@ -30,10 +33,11 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (attn_decode, attn_prefill,
-                                         ring_slots)
+from repro_torch.models.attention import (attn_decode, attn_forward,
+                                         attn_prefill, ring_slots)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed, logits, mlp, rmsnorm
+from repro_torch.models.layers import (chunked_xent_loss, embed, logits, mlp,
+                                       rmsnorm, xent_loss)
 
 
 @dataclass
@@ -116,6 +120,20 @@ class DenseLM(nn.Module):
             else:
                 p.copy_(torch.randn(p.shape, generator=generator) * scale)
         return self
+
+    def forward(self, tokens: torch.Tensor):
+        """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss);
+        the aux loss is 0.0 for the dense family."""
+        cfg = self.cfg
+        x = embed(self.embedding, tokens)
+        for blk in self.blocks:
+            a, f = blk.attn, blk.ffn
+            x = x + attn_forward(a.wq, a.wk, a.wv, a.wo,
+                                 rmsnorm(blk.ln1, x, cfg.norm_eps), cfg)
+            x = x + mlp(f.wi_gate, f.wi_up, f.wo,
+                        rmsnorm(blk.ln2, x, cfg.norm_eps))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
 
     def init_state(self, batch: int, max_len: int) -> KVState:
         cfg = self.cfg
@@ -231,6 +249,24 @@ class DenseLM(nn.Module):
             out[r] = self._prefill(*self._kv(state, g), g.length, tokens[r],
                                    pos0[r], n_valid[r])
         return out
+
+
+def loss_fn(model: DenseLM, batch: dict) -> torch.Tensor:
+    """Next-token cross entropy of ``batch`` (``tokens``/``labels`` (B,S)
+    tensors on the model's device) plus 0.01 x the aux loss.
+    ``model.cfg.logits_chunk`` > 0 runs the chunked loss."""
+    cfg = model.cfg
+    if batch.get("memory") is not None or batch.get("enc_inputs") is not None:
+        raise NotImplementedError("memory/enc_inputs batches are not ported "
+                                  "yet (ROADMAP A6)")
+    x, aux = model(batch["tokens"])
+    if cfg.logits_chunk:
+        ce = chunked_xent_loss(model.embedding, x, batch["labels"],
+                               cfg.vocab_size, cfg.logits_chunk)
+    else:
+        ce = xent_loss(logits(model.embedding, x), batch["labels"],
+                       cfg.vocab_size)
+    return ce + 0.01 * aux
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,

@@ -1,0 +1,125 @@
+"""The train step: microbatch gradient accumulation, global-norm clip,
+cosine learning rate and AdamW.
+
+Port of ``repro.train.train_loop`` for the dense model.
+``make_train_step(cfg)`` returns ``step(state, batch) -> (state,
+metrics)``; the step runs where the model lives (the card, unless the
+model was built on the CPU), moves the batch there, and writes the updated
+parameters into the model in place.  The reference's cross-pod compressed
+gradient reduce (``compress_crosspod=True``) is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields, replace
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import DenseLM, loss_fn
+from repro_torch.train.optimizer import (AdamWState, adamw_init,
+                                         adamw_update, as_dtype,
+                                         clip_by_global_norm, cosine_lr)
+
+
+class TrainState(NamedTuple):
+    model: DenseLM          # its parameters are the trained parameters
+    opt: AdamWState
+    step: torch.Tensor      # () int32
+
+
+def init_train_state(model: DenseLM, moment_dtype=None) -> TrainState:
+    """AdamW moments in ``moment_dtype`` (default: the model config's
+    ``moment_dtype``) and step 0."""
+    if moment_dtype is None:
+        moment_dtype = model.cfg.moment_dtype
+    opt = adamw_init(dict(model.named_parameters()), moment_dtype)
+    return TrainState(model=model, opt=opt, step=torch.zeros_like(opt.step))
+
+
+def _on_model(model: DenseLM, batch: dict) -> dict:
+    """The batch's arrays as int64 tensors on the model's device."""
+    dev = model.embedding.device
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
+        v, torch.Tensor) else v, device=dev).to(torch.int64)
+        for k, v in batch.items()}
+
+
+def _value_and_grad(model: DenseLM, batch: dict):
+    params = dict(model.named_parameters())
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def _grads(model: DenseLM, batch: dict, n: int):
+    """:func:`grads_fn` over ``n`` microbatches."""
+    batch = _on_model(model, batch)
+    if n <= 1:
+        return _value_and_grad(model, batch)
+    b = next(iter(batch.values())).shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split into grad_accum={n} "
+                         "microbatches")
+    total = torch.zeros((), dtype=torch.float32,
+                        device=model.embedding.device)
+    gsum = None
+    for i in range(n):
+        mb = {k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
+        loss, g = _value_and_grad(model, mb)
+        total = total + loss
+        gsum = ({k: x.to(torch.float32) for k, x in g.items()} if gsum is None
+                else {k: gsum[k] + x for k, x in g.items()})
+    scale = 1.0 / n
+    gdt = as_dtype(model.cfg.grad_dtype)
+    return total * scale, {k: (g * scale).to(gdt) for k, g in gsum.items()}
+
+
+def grads_fn(model: DenseLM, batch: dict):
+    """``(loss, grads)`` by parameter name.  Under ``model.cfg.grad_accum
+    = n > 1`` the batch splits into n equal microbatches along its first
+    axis; loss and gradients are their means (accumulated in float32, the
+    gradients then cast to ``model.cfg.grad_dtype``)."""
+    return _grads(model, batch, model.cfg.grad_accum)
+
+
+def _check_step_cfg(cfg: ModelConfig, model_cfg: ModelConfig) -> None:
+    """The step's config may differ from the model's only in
+    ``grad_accum``: the model's config is what its forward reads."""
+    if replace(cfg, grad_accum=model_cfg.grad_accum) != model_cfg:
+        diff = sorted(f.name for f in fields(cfg) if f.name != "grad_accum"
+                      and getattr(cfg, f.name) != getattr(model_cfg, f.name))
+        raise ValueError(f"train step config differs from the model's in "
+                         f"{diff}: only grad_accum may differ")
+
+
+def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
+                    max_grad_norm: float = 1.0,
+                    compress_crosspod: bool = False):
+    """Returns ``train_step(state, batch) -> (state, metrics)`` with
+    metrics ``{"loss", "grad_norm", "lr"}`` as device scalars (no host
+    sync).  ``cfg`` must be the model's config, its ``grad_accum`` aside
+    (the step splits the batch into ``cfg.grad_accum`` microbatches);
+    the step raises otherwise.  The learning rate of step ``i`` is
+    ``cosine_lr(i)`` (zero at step 0, the reference's warmup)."""
+    if compress_crosspod:
+        raise NotImplementedError(
+            "compress_crosspod (the cross-pod int8 gradient reduce) is not "
+            "ported yet: it needs the placement of ROADMAP A4")
+
+    def train_step(state: TrainState, batch: dict):
+        _check_step_cfg(cfg, state.model.cfg)
+        loss, grads = _grads(state.model, batch, cfg.grad_accum)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr = cosine_lr(state.step, base_lr=base_lr)
+        params = dict(state.model.named_parameters())
+        new_params, opt = adamw_update(grads, state.opt, params, lr)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(new_params[k])
+        return (TrainState(state.model, opt, state.step + 1),
+                {"loss": loss, "grad_norm": gnorm, "lr": lr})
+
+    return train_step

@@ -25,7 +25,12 @@ through B2 equals the coder pop; the engine's row groups are the
 single-request calls bitwise and ``prefill_chunk`` is the step path
 bitwise on the card; a small mixed engine workload is byte-identical to
 the single-request kernel path with its B1, B2 and B6 launches counted and
-no host sync inside a cycle.
+no host sync inside a cycle.  Training and bits-back: B2 at the stack's
+shapes (per-lane K = 16 and K = 256 rows and a shared row, 512 lanes, no
+candidates, popping past the stream end) and B6 on rows of 16 against
+their plain versions; one train step on the card against the same step on
+the CPU; a small ``bb_encode``/``bb_decode`` round trip on the card whose
+kernel and coder stacks are byte-identical, with one B2 launch per pop.
 """
 
 import os
@@ -841,3 +846,147 @@ def test_gpu_engine_byte_identical_to_single_request():
     assert ran["rans_decode_step"] == 40
     assert ran["rans_encode_lanes"] == 2 + 2 + 1     # each compress chunk
     assert ran["spc_quantize"] == 40 + 3             # per step + per cycle
+
+
+# ---------------------------------------------------------------------------
+# training and bits-back (slice 5)
+# ---------------------------------------------------------------------------
+
+def _dirichlet_rows(rng, k, rows, dev):
+    probs = rng.dirichlet(np.full(k, 0.3), size=rows)
+    return spc.freq_cdf_from_probs(spc.store_bf16(
+        torch.as_tensor(probs.astype(np.float32)))), probs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,per_lane", [(16, True), (256, True), (16, False)])
+def test_gpu_decode_step_at_stack_shapes(k, per_lane):
+    """B2 as the stack pops: 512 lanes, no candidates, per-lane or shared
+    rows, from 8 initial bytes per lane until every lane has read past
+    its stream end (underflow counted on both)."""
+    from repro_torch.core import stack
+    dev = _cuda()
+    lanes = 512
+    rng = np.random.default_rng(70 + k)
+    (freq, cdf), _ = _dirichlet_rows(rng, k, lanes if per_lane else None,
+                                     dev)
+    freq, cdf = freq.to(dev), cdf.to(dev)
+    st = stack.stack_init_bits(lanes, 64, n_bytes=8, seed=k, device=dev)
+    s, ptr = u32.bits(st.s), st.ptr.to(torch.int32)
+    flagged = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    for step in range(256):
+        if bool(flagged.all()):
+            break
+        ref = rans_decode.rans_decode_step_plain(st.buf, s, ptr, freq, cdf)
+        before = LAUNCHES["rans_decode_step"]
+        got = rans_decode.rans_decode_step(st.buf, s, ptr, freq, cdf)
+        assert LAUNCHES["rans_decode_step"] == before + 1
+        for name, a, b in zip(("s", "ptr", "sym", "probes", "under"), got,
+                              ref):
+            assert torch.equal(a, b), (step, name)
+        s, ptr = got[0], got[1]
+        flagged |= got[4] > 0
+    assert bool(flagged.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_spc_rows_of_16(dtype):
+    """B6 on the VAE's latent rows (K = 16): Gaussian bin masses with
+    tails far below one unit, and Dirichlet rows."""
+    from repro_torch.core import stack
+    dev = _cuda()
+    rng = np.random.default_rng(71)
+    edges, _ = stack.std_gaussian_bins(16)
+    mu = torch.as_tensor(rng.normal(0, 2, 2048), dtype=torch.float32)
+    sig = torch.as_tensor(rng.uniform(0.02, 3, 2048), dtype=torch.float32)
+    gauss = stack.gaussian_bin_probs(mu, sig, edges)
+    _, dirich = _dirichlet_rows(rng, 16, 2048, dev)
+    for probs in (gauss, torch.as_tensor(dirich.astype(np.float32))):
+        p = probs.to(dtype)
+        ref = spc_quantize.spc_freq_cdf_plain(p)
+        before = LAUNCHES["spc_quantize"]
+        got = spc_quantize.spc_freq_cdf(p.to(dev))
+        assert LAUNCHES["spc_quantize"] == before + 1
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_cpu():
+    """Two train steps of the smoke model on the card and on the CPU from
+    the same weights and batches, both past the warmup (step counter 100,
+    lr 3e-3, so every leaf moves by far more than the tolerance): losses,
+    norms and every updated parameter within 1e-4 of the leaf's largest
+    entry (the card's GEMMs and reductions sum in other orders)."""
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+    dev = _cuda()
+    init = {k: v.detach().clone() for k, v in
+            init_model(SMOKE, seed=4, device="cpu").named_parameters()}
+    runs = {}
+    for d in ("cpu", dev):
+        state = train_loop.init_train_state(init_model(SMOKE, seed=4,
+                                                       device=d))
+        state = state._replace(step=torch.full_like(state.step, 100))
+        step = train_loop.make_train_step(SMOKE, base_lr=3e-3)
+        for i in range(2):
+            state, m = step(state, train_batch(SMOKE, 8, 64, step=i))
+        runs[str(d)] = (state, {k: float(v) for k, v in m.items()})
+    (cpu, mc), (card, mg) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(mg["lr"], 3e-3, rtol=1e-6)
+    for k in mc:
+        np.testing.assert_allclose(mg[k], mc[k], rtol=1e-4, err_msg=k)
+    assert int(card.step) == 102
+    for (name, a), b in zip(card.model.named_parameters(),
+                            cpu.model.parameters()):
+        a, b = a.detach().cpu(), b.detach()
+        tol = 1e-4 * float(b.abs().max())
+        moved = float((a - init[name]).abs().max())
+        assert moved > 10 * tol, f"{name} moved {moved}, tolerance {tol}"
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.gpu
+def test_gpu_bitsback_roundtrip(monkeypatch):
+    """A small VAE trained on the card: ``bb_encode`` through the coder and
+    the kernel pops lands byte-identical stacks, ``bb_decode`` through B2
+    returns the pixels and the initial stack, one B2 launch per pop, and
+    the tables' SPC runs through B6 (no sort-based SPC on the card)."""
+    from repro_torch.core import stack
+    from repro_torch.models import vae
+    dev = _cuda()
+    plain, on_card = spc.quantize_probs, []
+
+    def spy(probs, *a, **kw):
+        if probs.is_cuda:
+            on_card.append(tuple(probs.shape))
+        return plain(probs, *a, **kw)
+
+    monkeypatch.setattr(spc, "quantize_probs", spy)
+    cfg = vae.VAEConfig(d_x=16, d_h=16)
+    lanes = 64
+    params, loss = vae.train_vae(
+        cfg, lambda i: np.random.default_rng(i).integers(
+            0, cfg.x_bins, (lanes, cfg.d_x)), steps=5, lr=1e-3, device=dev)
+    assert np.isfinite(loss)
+    x = torch.as_tensor(np.random.default_rng(72).integers(
+        0, cfg.x_bins, (lanes, cfg.d_x)), device=dev)
+    st0 = stack.stack_init_bits(lanes, 1024, n_bytes=32, seed=73,
+                                device=dev)
+    st_c = vae.bb_encode(st0, params, x, cfg, backend="coder")
+    before = LAUNCHES["rans_decode_step"]
+    st_k = vae.bb_encode(st0, params, x, cfg, backend="kernel")
+    assert LAUNCHES["rans_decode_step"] - before == 2 * cfg.d_z
+    for a, b in zip(st_k, st_c):
+        assert torch.equal(a, b)
+    before = LAUNCHES["rans_decode_step"]
+    st_d, x_d = vae.bb_decode(st_k, params, cfg, backend="kernel")
+    assert LAUNCHES["rans_decode_step"] - before == 2 * cfg.d_z + cfg.d_x
+    assert torch.equal(x_d, x)
+    assert torch.equal(st_d.s, st0.s) and torch.equal(st_d.ptr, st0.ptr)
+    assert not bool(st_d.underflow.any())
+    assert not on_card, on_card
