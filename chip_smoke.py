@@ -131,9 +131,30 @@ on the static tables of phases 4, 5 and 10, the warp row search on the
 per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
+17. the recurrent families (``mamba2_phase``): ``mamba2-130m`` at full
+   width (24 layers, d_model 768, BF16, vocab 50,280) on seeded random
+   weights, 16 lanes x 512 ``token_stream`` tokens, chunk 128,
+   ``prob_bits=16``, top-4: ``lm_compress_chunked`` on the kernel backend
+   (one B6 batch of 8,192 x 50,280, one B1) and on the coder backend give
+   byte-identical containers, the fused decode (B6 and B2 per position)
+   is bit-exact with per-lane probes equal to the coder decode's,
+   launches exactly B1 1 / B2 512 / B6 513 with no sort-based SPC on the
+   card, peak memory printed; B6 (its wide layout) at (16, 50,280) with
+   the CDF and at (8,192, 50,280), and at K = 16,385 and 65,536, and B2 at
+   (16, 50,280), each against its plain version and timed beside its
+   bound; the full width in float32 on the card against the CPU (2 rows x
+   4 steps, logits within 1e-4); the engine (2 slots x 16 lanes, max_len
+   256) on two 512-token requests, blobs byte-identical to
+   ``lm_compress_chunked``, decodes exact; and ``recurrentgemma-2b`` SMOKE
+   (a (rec, rec, attn) pattern, a (rec,) tail, a 16-slot local window
+   wrapping 4 times at 8 lanes x 64): kernel and coder containers
+   byte-identical, fused decode exact, and an engine run whose short
+   last chunk freezes a slot, ``prefill="auto"`` stepping down.
+
 The kernels' JSON record gives each kernel's launches on its main path
-(``launches``), in the engine phase (``engine_launches``) and in the
-Fig. 4(c) phase (``fig4c_launches``).  The last
+(``launches``), in the engine phase (``engine_launches``), in the
+Fig. 4(c) phase (``fig4c_launches``) and in the mamba2 slice
+(``mamba2_launches``), and B6's and B2's times at K = 50,280.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
@@ -451,15 +472,7 @@ def decode_phase(dev, encoded):
     plain_ms = _median_ms(lambda: rans_decode.rans_decode_step_plain(
         *step_args, candidates=cands[0]), repeats=20)
     one = rans_decode.rans_decode_step_plain(*step_args, candidates=cands[0])
-    # a lane pays min(probes, topk) candidate checks (cdf[c], cdf[c+1]) and
-    # the rest as bisection probes (cdf[mid]); cdf[x] is read by then
-    cand_probes = int(one[3].clamp(max=TOPK).sum())
-    bisect_probes = int(one[3].sum()) - cand_probes
-    read = int((one[1] - p0).sum())
-    moved = (LANES * (8 + 4 * TOPK + 4 + 20)  # s, ptr, cands, f[x], outputs
-             + 8 * cand_probes + 4 * bisect_probes + read)
-    ops = 12 * LANES + 4 * int(one[3].sum())  # per lane ~12, per probe ~4
-    bound_ms, bound_by = _bound(moved, ops)
+    bound_ms, bound_by, moved, ops = _b2_bound(one, p0, TOPK)
     print(f"B2 decode step: {ms:.4f} ms kernel on the device "
           f"({call_ms:.4f} ms per wrapper call), launch floor {floor_ms:.4f} "
           f"ms (an empty kernel with B2's grid, block and arguments), "
@@ -471,6 +484,21 @@ def decode_phase(dev, encoded):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 call_ms=call_ms, floor_ms=floor_ms)
+
+
+def _b2_bound(one, p0, topk: int):
+    """B2's bound on one pop whose plain outputs are ``one`` from cursors
+    ``p0``: ``(ms, bound_by, bytes moved, ops)``.  A lane pays min(probes,
+    topk) candidate checks (cdf[c], cdf[c+1]) and the rest as bisection
+    probes (cdf[mid]); cdf[x] is read by then."""
+    lanes = one[3].numel()
+    cand_probes = int(one[3].clamp(max=topk).sum())
+    bisect_probes = int(one[3].sum()) - cand_probes
+    read = int((one[1] - p0).sum())
+    moved = (lanes * (8 + 4 * topk + 4 + 20)  # s, ptr, cands, f[x], outputs
+             + 8 * cand_probes + 4 * bisect_probes + read)
+    ops = 12 * lanes + 4 * int(one[3].sum())  # per lane ~12, per probe ~4
+    return (*_bound(moved, ops), moved, ops)
 
 
 def _decode_bound(sym, probes, *, stream_bytes: int, cells: int,
@@ -2003,6 +2031,362 @@ def fig4c_phase(dev):
     return launches
 
 
+# --- the recurrent families (slice 6) -------------------------------------
+
+# mamba2-130m at full width: 16 lanes x 512 token_stream(50280) tokens,
+# chunk 128, prob_bits 16 (its vocabulary needs the SPC's ceiling), top-4;
+# the engine: 2 slots x 16 lanes at max_len 256 (the requests are longer)
+M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 512, 128, 16
+M2_SLOTS, M2_MAX_LEN = 2, 256
+M2_CPU_ROWS, M2_CPU_STEPS = 2, 4
+# B6 beyond the register layouts, against the plain SPC: K and rows
+WIDE_K = ((16385, 4), (65536, 4))
+# recurrentgemma-2b SMOKE: 8 lanes x 64 (its 16-slot ring wraps 4 times)
+HYB_LANES, HYB_T, HYB_CHUNK = 8, 64, 16
+
+
+@contextlib.contextmanager
+def _last_call(module, name: str):
+    """Keep the arguments of the last call of ``module.name`` in the block
+    (the call itself runs unchanged); yields a dict with ``args`` and
+    ``kwargs``."""
+    fn, seen = getattr(module, name), {}
+
+    def keep(*a, **kw):
+        seen["args"], seen["kwargs"] = a, kw
+        return fn(*a, **kw)
+
+    setattr(module, name, keep)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def _m2_slice(dev, model, tokens):
+    """The mamba2 slice through the kernel backend with counters reset
+    just before and read just after, then the coder backend; returns the
+    run's numbers and the B6/B2 inputs it last saw."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels import spc_quantize
+    from repro_torch.serve import compress
+
+    torch.cuda.reset_peak_memory_stats()
+    with _plain_spc_spy() as on_card, \
+            _last_call(ops, "spc_quantize_tables") as b6_batch, \
+            _last_call(spc_quantize, "spc_freq_cdf") as b6_pos, \
+            _last_call(ops, "rans_decode_step") as b2_pop:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = compress.lm_compress_chunked(model, tokens, M2_CHUNK,
+                                          prob_bits=M2_BITS,
+                                          backend="kernel")
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=M2_CHUNK,
+                                      n_symbols=M2_T, prob_bits=M2_BITS)
+        cs = bitstream.parse_chunked(blob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sym, avg, lane_probes = compress.lm_decompress_chunked(
+            model, cs, M2_T, M2_CHUNK, prob_bits=M2_BITS, backend="kernel",
+            lane_probes=True)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=M2_T,
+                             spc_quantize=M2_T + 1),
+           f"mamba2 launch counts {launches}")
+    _check(not on_card, f"the plain SPC ran on the card {len(on_card)} times"
+           " on the mamba2 kernel path")
+    _branch("rans_decode_step", {"warp_rows"}, "mamba2 B2, last position")
+    _check(np.array_equal(sym.cpu().numpy(), tokens),
+           "mamba2 round trip not exact")
+    st_c = compress.lm_compress_chunked(model, tokens, M2_CHUNK,
+                                        prob_bits=M2_BITS, backend="coder")
+    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=M2_CHUNK,
+                                  n_symbols=M2_T, prob_bits=M2_BITS) == blob,
+           "mamba2: coder and kernel containers differ")
+    del st_c
+    sym_c, _, lane_probes_c = compress.lm_decompress_chunked(
+        model, cs, M2_T, M2_CHUNK, prob_bits=M2_BITS, backend="coder",
+        lane_probes=True)
+    _check(np.array_equal(sym_c.cpu().numpy(), tokens),
+           "mamba2: coder round trip not exact")
+    _check(torch.equal(lane_probes_c, lane_probes),
+           "mamba2: per-lane probes differ between backends")
+    return dict(launches=launches, blob=blob, lane_probes=lane_probes,
+                bits=float(st.bits_per_symbol),
+                xent=float(st.model_xent_bits), avg_probes=float(avg),
+                t_comp=t_comp, t_dec=t_dec, peak=peak,
+                b6_batch=b6_batch["args"], b6_pos=b6_pos["args"],
+                b2_pop=(b2_pop["args"], b2_pop["kwargs"]))
+
+
+def _m2_kernels(dev, run):
+    """B6 at the slice's two shapes and at K up to 65,536, and B2 at (16,
+    50,280), each against its plain version on the card, timed beside its
+    bound; returns the two kernels' large-K records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spc
+    from repro_torch.kernels import rans_decode, spc_quantize
+
+    out = {}
+    probs16 = run["b6_pos"][0]                   # (16, K) BF16, with CDF
+    batch = run["b6_batch"][0]                   # (8192, K) BF16
+    for name, probs, with_cdf in (("position", probs16, True),
+                                  ("batch", batch, False)):
+        fn = spc_quantize.spc_freq_cdf if with_cdf else \
+            spc_quantize.spc_quantize
+        plain = (lambda p: spc.freq_cdf_from_probs(p, M2_BITS)) \
+            if with_cdf else (lambda p: spc.quantize_probs(p, M2_BITS))
+        got, want = fn(probs, M2_BITS), plain(probs)
+        if not with_cdf:
+            got, want = (got,), (want,)
+        err = _max_abs_err(got, want)
+        b, k = probs.shape
+        ms = _device_ms(lambda: fn(probs, M2_BITS), n=20 if b <= 256 else 3)
+        plain_ms = _median_ms(lambda: plain(probs), repeats=3, warmup=1)
+        bound_ms, bound_by, moved = _spc_bound(b, k, probs.element_size(),
+                                               with_cdf)
+        print(f"mamba2: B6 at {b} x {k} BF16{' with the CDF' * with_cdf}: "
+              f"kernel == plain; {ms:.4f} ms kernel on the device, "
+              f"{plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms by "
+              f"{bound_by} ({moved} B moved)", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, err=err)
+    rng = np.random.default_rng(5)
+    for k, b in WIDE_K:
+        p = torch.as_tensor(rng.dirichlet(np.full(k, 0.5), size=b),
+                            dtype=torch.float32, device=dev)
+        for x in (p, spc.store_bf16(p)):
+            err = _max_abs_err(spc_quantize.spc_freq_cdf(x, 16),
+                               spc.freq_cdf_from_probs(x, 16))
+            out["batch"]["err"] = max(out["batch"]["err"], err)
+    print(f"mamba2: B6 kernel == plain at K = "
+          f"{', '.join(str(k) for k, _ in WIDE_K)} (float32 and BF16, with "
+          "the CDF)", flush=True)
+    (buf, s, ptr, freq, cdf), kw = run["b2_pop"][0][:5], run["b2_pop"][1]
+    args = (buf, s, ptr, freq, cdf)
+    err = _max_abs_err(rans_decode.rans_decode_step(*args, **kw),
+                       rans_decode.rans_decode_step_plain(*args, **kw))
+    _branch("rans_decode_step", {"warp_rows"}, "B2 at K = 50,280")
+    ms = _device_ms(lambda: rans_decode.rans_decode_step(*args, **kw), n=50)
+    plain_ms = _median_ms(lambda: rans_decode.rans_decode_step_plain(
+        *args, **kw), repeats=5)
+    one = rans_decode.rans_decode_step_plain(*args, **kw)
+    bound_ms, bound_by, moved, ops = _b2_bound(one, ptr, TOPK)
+    print(f"mamba2: B2 at {buf.shape[0]} lanes x K = {freq.shape[-1]} "
+          f"(per-lane rows, top-{TOPK}): kernel == plain; {ms:.4f} ms kernel"
+          f" on the device, {plain_ms:.3f} ms plain, bound {bound_ms:.8f} ms"
+          f" by {bound_by} ({moved} B moved, {ops} ops)", flush=True)
+    out["b2"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, err=err)
+    return out
+
+
+def _m2_card_vs_cpu(dev):
+    """mamba2-130m at full width in float32, the same seeded weights on
+    the card and on the CPU: the largest logit difference."""
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.models import decode_step, init_model, init_state
+
+    cfg = CONFIG.with_(dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (M2_CPU_ROWS, M2_CPU_STEPS),
+                         generator=torch.Generator().manual_seed(0))
+    models = [init_model(cfg, seed=1, device=d) for d in ("cpu", dev)]
+    states = [init_state(m, M2_CPU_ROWS, M2_CPU_STEPS) for m in models]
+    worst = 0.0
+    for t in range(M2_CPU_STEPS):
+        lg = [decode_step(m, st, toks[:, t:t + 1].to(m.embedding.device), t)
+              for m, st in zip(models, states)]
+        _check(bool(torch.isfinite(lg[1]).all()), "non-finite logits")
+        worst = max(worst, float((lg[1].cpu() - lg[0]).abs().max()))
+    _check(worst <= 1e-4, f"mamba2 card logits differ from the CPU's by "
+           f"{worst}")
+    print(f"mamba2: full width float32, {M2_CPU_ROWS} rows x {M2_CPU_STEPS}"
+          f" steps, card vs CPU: max abs logit diff {worst:.3e} (tolerance "
+          "1e-4)", flush=True)
+    return worst
+
+
+def _m2_engine(dev, model, tokens, run):
+    """2 slots x 16 lanes at max_len 256: two 512-token compress requests
+    (the state never wraps), then their decompress; blobs byte-identical
+    to ``lm_compress_chunked``'s, tokens exact, probes equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    other = token_stream(model.cfg.vocab_size, (M2_LANES, M2_T), seed=1)
+    st = compress.lm_compress_chunked(model, other, M2_CHUNK,
+                                      prob_bits=M2_BITS, backend="kernel")
+    blob_other = bitstream.pack_chunked(*st.chunks, chunk_size=M2_CHUNK,
+                                        n_symbols=M2_T, prob_bits=M2_BITS)
+    del st
+    eng = BatchEngine(model, slots=M2_SLOTS, lanes=M2_LANES,
+                      chunk_size=M2_CHUNK, max_len=M2_MAX_LEN,
+                      prob_bits=M2_BITS, step_backend="kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit_compress(x) for x in (tokens, other)]
+    with _plain_spc_spy() as on_card:
+        res = eng.run()
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+    for rid, want in zip(rids, (run["blob"], blob_other)):
+        _check(res[rid].ok and res[rid].blob == want,
+               f"mamba2 engine request {rid}: blob differs from the "
+               "single-request path")
+    t0 = time.perf_counter()
+    dids = [eng.submit_decompress(res[r].blob) for r in rids]
+    with _plain_spc_spy() as on_card_dec:
+        out = eng.run()
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    _check(not on_card and not on_card_dec,
+           "the plain SPC ran on the card in the mamba2 engine")
+    for did, want in zip(dids, (tokens, other)):
+        _check(out[did].ok and np.array_equal(out[did].tokens, want),
+               f"mamba2 engine decompress {did} not exact")
+    _check(np.array_equal(out[dids[0]].lane_probes,
+                          run["lane_probes"].cpu().numpy()),
+           "mamba2 engine probes differ from the single-request decode")
+    _check(eng.prefill_cycles == 0, "mamba2 engine ran a prefill cycle")
+    n = 2 * M2_LANES * M2_T
+    print(f"mamba2 engine: {M2_SLOTS} slots x {M2_LANES} lanes, max_len "
+          f"{M2_MAX_LEN}, two {M2_T}-token requests: blobs byte-identical "
+          f"to lm_compress_chunked, decodes exact, probes equal; compress "
+          f"{n / t_comp:.1f} symbols/s ({t_comp:.3f} s), decompress "
+          f"{n / t_dec:.1f} symbols/s ({t_dec:.3f} s)", flush=True)
+
+
+def _hybrid(dev):
+    """recurrentgemma-2b SMOKE on the card: kernel and coder containers
+    byte-identical, the fused decode exact (its launches counted), and an
+    engine run in which one slot's last chunk is short (the frozen rows)
+    with ``prefill="auto"`` stepping down."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.recurrentgemma_2b import SMOKE
+    from repro_torch.core import bitstream
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    model = init_model(SMOKE, seed=0, device=dev)
+    toks = token_stream(SMOKE.vocab_size, (HYB_LANES, HYB_T), seed=2)
+
+    def blob_of(x, backend):
+        st = compress.lm_compress_chunked(model, x, HYB_CHUNK,
+                                          backend=backend)
+        return bitstream.pack_chunked(*st.chunks, chunk_size=HYB_CHUNK,
+                                      n_symbols=x.shape[1])
+
+    with _plain_spc_spy() as on_card:
+        reset_launches()
+        blob = blob_of(toks, "kernel")
+        sym, _, lp = compress.lm_decompress_chunked(
+            model, bitstream.parse_chunked(blob), HYB_T, HYB_CHUNK,
+            backend="kernel", lane_probes=True)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=HYB_T,
+                             spc_quantize=HYB_T + 1),
+           f"hybrid launch counts {launches}")
+    _check(not on_card, "the plain SPC ran on the card on the hybrid path")
+    _check(blob == blob_of(toks, "coder"),
+           "hybrid: coder and kernel containers differ")
+    _check(np.array_equal(sym.cpu().numpy(), toks),
+           "hybrid round trip not exact")
+    short = token_stream(SMOKE.vocab_size, (HYB_LANES, 40), seed=3)
+    eng = BatchEngine(model, slots=2, lanes=HYB_LANES, chunk_size=HYB_CHUNK,
+                      max_len=2 * SMOKE.local_window, prefill="auto",
+                      step_backend="kernel")
+    _check(not eng._prefill, "hybrid engine kept a prefill path")
+    rids = [eng.submit_compress(x) for x in (short, toks)]
+    with _plain_spc_spy() as on_card:
+        res = eng.run()
+    _check(not on_card, "the plain SPC ran on the card in the hybrid engine")
+    for rid, x in zip(rids, (short, toks)):
+        _check(res[rid].ok and res[rid].blob == blob_of(x, "kernel"),
+               f"hybrid engine request {rid}: blob differs")
+    dids = [eng.submit_decompress(res[r].blob) for r in rids]
+    with _plain_spc_spy() as on_card:
+        out = eng.run()
+    _check(not on_card, "the plain SPC ran on the card in the hybrid engine")
+    for did, x in zip(dids, (short, toks)):
+        _check(out[did].ok and np.array_equal(out[did].tokens, x),
+               f"hybrid engine decompress {did} not exact")
+    _check(np.array_equal(out[dids[1]].lane_probes, lp.cpu().numpy()),
+           "hybrid engine probes differ from the single-request decode")
+    _check(eng.prefill_cycles == 0, "hybrid engine ran a prefill cycle")
+    print(f"hybrid: {SMOKE.name} ({SMOKE.n_layers} layers, stages "
+          f"{SMOKE.stages}, local window {SMOKE.local_window}), "
+          f"{HYB_LANES} lanes x {HYB_T}, chunk {HYB_CHUNK}: kernel and coder"
+          f" containers byte-identical, fused decode exact, launches "
+          f"{launches}; engine (2 slots, a 40-token request whose last "
+          f"chunk is short beside a {HYB_T}-token one): blobs byte-identical, "
+          "decodes exact, prefill='auto' stepped down", flush=True)
+
+
+def mamba2_phase(dev):
+    """The recurrent families on the card: ``mamba2-130m`` at full width
+    (BF16, vocab 50,280, ``prob_bits=16``) through the kernel and coder
+    backends, its kernels at K = 50,280, the card against the CPU, the
+    engine on streams longer than ``max_len``, and the hybrid's smoke
+    round trip and engine.  Returns the slice's launches and the large-K
+    kernel records."""
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import decode_step, init_model, init_state
+
+    t0 = time.perf_counter()
+    model = init_model(CONFIG, seed=0, device=dev)
+    tokens = token_stream(CONFIG.vocab_size, (M2_LANES, M2_T), seed=0)
+    run = _m2_slice(dev, model, tokens)
+    n = M2_LANES * M2_T
+    print(f"mamba2: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
+          f"{CONFIG.d_model}, vocab {CONFIG.vocab_size}, {CONFIG.dtype}), "
+          f"{M2_LANES} lanes x {M2_T} tokens, chunk {M2_CHUNK}, prob_bits "
+          f"{M2_BITS}: round trip bit-exact, kernel and coder containers "
+          f"byte-identical, per-lane probes equal; launches "
+          f"{run['launches']}; no plain SPC call on the card", flush=True)
+    state = init_state(model, M2_LANES, M2_T)
+    tok = torch.zeros((M2_LANES, 1), dtype=torch.int64, device=dev)
+    step_ms = _median_ms(lambda: decode_step(model, state, tok, 0),
+                         repeats=20)
+    print(f"mamba2: bits/symbol {run['bits']:.4f}, model xent "
+          f"{run['xent']:.4f} bits, avg probes/symbol "
+          f"{run['avg_probes']:.4f}, container {len(run['blob'])} bytes; "
+          f"compress {n / run['t_comp']:.1f} symbols/s "
+          f"({run['t_comp']:.3f} s), decompress {n / run['t_dec']:.1f} "
+          f"symbols/s ({run['t_dec']:.3f} s); model step {step_ms:.3f} ms "
+          f"({M2_LANES} rows); peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+    recs = _m2_kernels(dev, run)
+    _m2_card_vs_cpu(dev)
+    _m2_engine(dev, model, tokens, run)
+    del run["b6_batch"], run["b6_pos"], run["b2_pop"]
+    torch.cuda.empty_cache()
+    _hybrid(dev)
+    print(f"mamba2 slice: {time.perf_counter() - t0:.1f} s", flush=True)
+    return run["launches"], recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2069,6 +2453,20 @@ def main() -> int:
               b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
     b6 = timed("B6 SPC", spc_phase, dev)
     fig4c_launches = timed("Fig. 4(c)", fig4c_phase, dev)
+    torch.cuda.empty_cache()
+    m2_launches, m2 = timed("mamba2 slice", mamba2_phase, dev)
+    b6.update(mamba2_batch_ms=m2["batch"]["ms"],
+              mamba2_batch_plain_ms=m2["batch"]["plain_ms"],
+              mamba2_batch_bound_ms=m2["batch"]["bound_ms"],
+              mamba2_position_ms=m2["position"]["ms"],
+              mamba2_position_plain_ms=m2["position"]["plain_ms"],
+              mamba2_position_bound_ms=m2["position"]["bound_ms"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], m2["batch"]["err"],
+                            m2["position"]["err"])
+    b2.update(mamba2_ms=m2["b2"]["ms"], mamba2_plain_ms=m2["b2"]["plain_ms"],
+              mamba2_bound_ms=m2["b2"]["bound_ms"],
+              mamba2_bound_by=m2["b2"]["bound_by"])
+    b2["max_abs_err"] = max(b2["max_abs_err"], m2["b2"]["err"])
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -2077,6 +2475,7 @@ def main() -> int:
     for rec in (b1, b2, b3, b4, b5, b6):
         rec["engine_launches"] = engine_launches[rec["name"]]
         rec["fig4c_launches"] = fig4c_launches[rec["name"]]
+        rec["mamba2_launches"] = m2_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

@@ -1,9 +1,10 @@
 """Model configurations ported so far, and the registry's lookups."""
 
-from repro_torch.configs import ras_pimc
+from repro_torch.configs import mamba2_130m, ras_pimc, recurrentgemma_2b
 from repro_torch.configs.registry import (ARCH_IDS, PORTED,
                                           SERVE_SMOKE_ARCHS, get_config,
                                           get_protocol, get_smoke_config)
 
 __all__ = ["ARCH_IDS", "PORTED", "SERVE_SMOKE_ARCHS", "get_config",
-           "get_protocol", "get_smoke_config", "ras_pimc"]
+           "get_protocol", "get_smoke_config", "mamba2_130m", "ras_pimc",
+           "recurrentgemma_2b"]

@@ -29,7 +29,7 @@ ARCH_IDS = (
 )
 
 # the ids whose configs this package holds
-PORTED = ("ras-pimc",)
+PORTED = ("ras-pimc", "mamba2-130m", "recurrentgemma-2b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

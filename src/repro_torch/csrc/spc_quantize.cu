@@ -30,26 +30,43 @@
 // Layout: a row of K <= 1024 is owned by one warp, four rows a block, each
 // lane holding E = K/32 (rounded up to a power of two) consecutive entries
 // in registers, loaded and stored 16 bytes at a time where the row allows.
-// Rows of K <= 16,384 (kMaxK) are owned by a block of 512 threads with 32
-// entries each; the group reductions then go through shared memory.
+// Rows of K <= 16,384 (kRegMaxK) are owned by a block of 512 threads with
+// 32 entries each; the group reductions then go through shared memory.
+// Rows of 16,384 < K <= 65,536 (kMaxK, the SPC's ceiling at prob_bits 16;
+// mamba2-130m's K = 50,280) fit neither: 65,536 keys are 64 registers a
+// thread at 1,024 threads, and 256 KB of keys exceed a block's 227 KB of
+// shared memory.  There a block of 1,024 threads owns the row and keeps
+// only its BF16 bit patterns in shared memory (2 B an entry, <= 128 KB):
+// every radix pass re-derives each entry's f0 and key from them (steps
+// 1-5 are a few instructions), the counting passes read entries strided
+// over the block, and the last pass, which needs index order for the tie
+// ranks and the CDF, gives each warp a contiguous segment that its lanes
+// walk 32 entries at a time (warp scans, one cross-warp prefix), so every
+// load and store stays coalesced.
 //
 // What bounds it on this card: instructions.  The selection is 32 group
 // counts per row (one per key bit), each E compares and adds per lane and
 // one warp reduction, against a byte bound of 6-8 B per entry (the O(K**2)
 // pairwise ranking it replaces was 65,536 compares per row at K = 256).  On an H100 (700 W) 128,000 BF16 rows of 256
-// take 0.31 ms against a byte bound of 0.059 ms (PERF.md).  Only the
-// branch a row needs runs.
+// take 0.31 ms against a byte bound of 0.059 ms (PERF.md).  The wide
+// layout re-derives K keys from shared memory on each of its 32 passes
+// (operations again; its times at the mamba2 slice's shapes are in
+// PERF.md).  Only the branch a row needs runs.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 16384;        // MAX_K in kernels/spc_quantize.py
+constexpr int kMaxK = 65536;        // MAX_K in kernels/spc_quantize.py
+constexpr int kRegMaxK = 16384;     // the register layouts' largest K
 constexpr int kRowWarps = 4;        // warp-per-row blocks: four rows a block
 constexpr int kBlockWarps = 16;     // block-per-row: 512 threads ...
 constexpr int kBlockE = 32;         // ... of 32 entries (16,384 / 512)
+constexpr int kWideWarps = 32;      // wide rows: a block of 1,024 threads
+constexpr int kWideThreads = 32 * kWideWarps;
 
 // Input element types, read as 32-bit words: float32 (rounded to bf16
 // here) or bfloat16 bit patterns (two a word).
@@ -61,6 +78,10 @@ struct F32In {
   }
   __device__ __forceinline__ static float one(const T* p) {
     return __uint_as_float(round_bf16(__float_as_uint(*p)));
+  }
+  __device__ __forceinline__ static uint16_t bits16(const T* p) {
+    return static_cast<uint16_t>(round_bf16(__float_as_uint(__ldg(p))) >>
+                                 16);
   }
   // float32 -> bf16 (round to nearest even; NaN stays NaN) -> float32 bits
   __device__ __forceinline__ static uint32_t round_bf16(uint32_t u) {
@@ -77,6 +98,9 @@ struct BF16In {
   }
   __device__ __forceinline__ static float one(const T* p) {
     return __uint_as_float(static_cast<uint32_t>(*p) << 16);
+  }
+  __device__ __forceinline__ static uint16_t bits16(const T* p) {
+    return __ldg(p);
   }
 };
 
@@ -320,6 +344,173 @@ __device__ __forceinline__ void quantize_row(
   }
 }
 
+// ---- wide rows (16,384 < K <= 65,536) ------------------------------------
+
+struct WideEntry {
+  int f0;
+  uint32_t key;
+};
+
+// Steps 1-5 of one entry from its BF16 bit pattern (quantize_row's).
+__device__ __forceinline__ WideEntry wide_entry(uint16_t b, float scale) {
+  const float v = __uint_as_float(static_cast<uint32_t>(b) << 16);
+  const float p = (isfinite(v) && v > 0.0f) ? v : 0.0f;
+  const float scaled = p * scale;
+  const int f0 = max(1, __float2int_rn(scaled));
+  return {f0, order_key(scaled - static_cast<float>(f0))};
+}
+
+// Inclusive prefix over the warp's lanes.
+template <typename U>
+__device__ __forceinline__ U warp_incl(U v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const U u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// The sum of a warp-uniform `total` over the warps before this one.
+__device__ __forceinline__ unsigned long long warps_excl(
+    unsigned long long total, unsigned long long* scratch) {
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) scratch[warp] = total;
+  __syncthreads();
+  unsigned long long before = 0;
+  for (int w = 0; w < warp; ++w) before += scratch[w];
+  __syncthreads();
+  return before;
+}
+
+template <typename In>
+__global__ void __launch_bounds__(kWideThreads) spc_wide_kernel(
+    const typename In::T* __restrict__ probs, int k, int prob_bits,
+    int32_t* __restrict__ freq, int32_t* __restrict__ cdf) {
+  extern __shared__ uint16_t row_bits[];    // the row's BF16 bit patterns
+  __shared__ unsigned long long scratch[kWideWarps];
+  const Group<kWideWarps> g{scratch};
+  const long long row = blockIdx.x;
+  const typename In::T* src = probs + row * k;
+  int32_t* frow = freq + row * k;
+  int32_t* crow = cdf ? cdf + row * (k + 1) : nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int total = 1 << prob_bits;
+  const float scale = static_cast<float>(total);
+
+  unsigned long long mass = 0;
+  for (int i = tid; i < k; i += kWideThreads) {
+    const uint16_t b = In::bits16(src + i);
+    row_bits[i] = b;
+    mass += wide_entry(b, scale).f0;
+  }
+  // (the group sum's barrier also publishes row_bits to the block)
+  const long long delta = total - static_cast<long long>(g.sum(mass));
+
+  // Step 6 or 7's selection, counting passes strided over the block: the
+  // boundary key v and m, the top-up's count of keys equal to v that get
+  // one more, or the waterfill's need left at v.
+  const bool topup = delta >= 0;
+  const int base = topup ? static_cast<int>(delta / k) : 0;
+  const int r = topup ? static_cast<int>(delta % k) : 0;
+  uint32_t v = 0;
+  long long m = 0;
+  if (topup && r > 0) {
+    for (int b = 31; b >= 0; --b) {
+      const uint32_t c = v | (1u << b);
+      unsigned n = 0;
+      for (int i = tid; i < k; i += kWideThreads) {
+        n += wide_entry(row_bits[i], scale).key >= c;
+      }
+      if (g.sum(n) >= static_cast<unsigned>(r)) v = c;
+    }
+    unsigned gt = 0;
+    for (int i = tid; i < k; i += kWideThreads) {
+      gt += wide_entry(row_bits[i], scale).key > v;
+    }
+    m = r - static_cast<long long>(g.sum(gt));
+  } else if (!topup) {
+    const unsigned long long need = static_cast<unsigned long long>(-delta);
+    for (int b = 31; b >= 0; --b) {
+      const uint32_t x = v | ((1u << b) - 1u);
+      unsigned long long w = 0;
+      for (int i = tid; i < k; i += kWideThreads) {
+        const WideEntry e = wide_entry(row_bits[i], scale);
+        w += e.key <= x ? static_cast<unsigned long long>(e.f0 - 1) : 0ull;
+      }
+      if (g.sum(w) < need) v |= 1u << b;
+    }
+    unsigned long long lt = 0;
+    for (int i = tid; i < k; i += kWideThreads) {
+      const WideEntry e = wide_entry(row_bits[i], scale);
+      lt += e.key < v ? static_cast<unsigned long long>(e.f0 - 1) : 0ull;
+    }
+    m = static_cast<long long>(need - g.sum(lt));
+  }
+
+  // The last pass in index order: warp w owns entries [w * seg, (w + 1) *
+  // seg), its lanes taking 32 consecutive entries a round.  The tie
+  // weights (1 a tie on the top-up, the cap on the waterfill) before each
+  // entry are the earlier warps' totals plus a running warp scan.
+  const bool ties = !topup || r > 0;        // block-uniform
+  const int seg = (k + kWideThreads - 1) / kWideThreads * 32;
+  const int lo = warp * seg, hi = min(k, lo + seg);
+  long long before = 0;
+  if (ties) {
+    unsigned long long mine = 0;
+    for (int i = lo + lane; i < hi; i += 32) {
+      const WideEntry e = wide_entry(row_bits[i], scale);
+      mine += e.key == v ? (topup ? 1ull : static_cast<unsigned long long>(
+                                               e.f0 - 1))
+                         : 0ull;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(kFull, mine, o);
+    before = static_cast<long long>(warps_excl(mine, scratch));
+  }
+  unsigned fsum = 0;
+  for (int j = 0; j < seg; j += 32) {
+    const int i = lo + j + lane;
+    const bool in = i < hi;
+    const WideEntry e = in ? wide_entry(row_bits[i], scale) : WideEntry{1, 0u};
+    const bool at = in && e.key == v;
+    const long long t = at ? (topup ? 1ll : e.f0 - 1ll) : 0ll;
+    long long excl = 0;
+    if (ties) {
+      const long long inc = warp_incl(t);
+      excl = before + inc - t;
+      before += __shfl_sync(kFull, inc, 31);
+    }
+    int f;
+    if (topup) {
+      f = e.f0 + base + (r > 0 && (e.key > v || (at && excl < m)));
+    } else {
+      const long long cap = e.f0 - 1;
+      const long long take =
+          e.key < v ? cap : (at ? min(max(m - excl, 0ll), cap) : 0ll);
+      f = e.f0 - static_cast<int>(take);
+    }
+    if (in) {
+      frow[i] = f;
+      fsum += f;
+    }
+  }
+
+  if (crow != nullptr) {                    // step 8, the same walk
+    unsigned run = static_cast<unsigned>(
+        warps_excl(__reduce_add_sync(kFull, fsum), scratch));
+    if (tid == 0) crow[0] = 0;
+    for (int j = 0; j < seg; j += 32) {
+      const int i = lo + j + lane;
+      const unsigned f = i < hi ? static_cast<unsigned>(frow[i]) : 0u;
+      const unsigned inc = warp_incl(f);
+      if (i < hi) crow[i + 1] = static_cast<int32_t>(run + inc);
+      run += __shfl_sync(kFull, inc, 31);
+    }
+  }
+}
+
 template <int E, typename In>
 __global__ void __launch_bounds__(32 * kRowWarps) spc_warp_kernel(
     const typename In::T* __restrict__ probs, int b, int k, int prob_bits,
@@ -352,9 +543,27 @@ void launch_warp(const void* probs, int b, int k, int prob_bits, void* freq,
       static_cast<int32_t*>(freq), static_cast<int32_t*>(cdf));
 }
 
+// Above 48 KB of dynamic shared memory a kernel runs only after opting in.
+// The attribute holds per device, so it is set once on each (devices past
+// 63 set it on every launch).
 template <typename In>
-void launch(const void* probs, int b, int k, int prob_bits, void* freq,
-            void* cdf, cudaStream_t stream) {
+cudaError_t allow_wide_smem() {
+  static std::atomic<unsigned long long> set_on{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit & set_on.load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      spc_wide_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxK * sizeof(uint16_t)));
+  if (err == cudaSuccess) set_on.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename In>
+cudaError_t launch(const void* probs, int b, int k, int prob_bits,
+                   void* freq, void* cdf, cudaStream_t stream) {
   if (k <= 32) {
     launch_warp<1, In>(probs, b, k, prob_bits, freq, cdf, stream);
   } else if (k <= 64) {
@@ -367,11 +576,20 @@ void launch(const void* probs, int b, int k, int prob_bits, void* freq,
     launch_warp<16, In>(probs, b, k, prob_bits, freq, cdf, stream);
   } else if (k <= 1024) {
     launch_warp<32, In>(probs, b, k, prob_bits, freq, cdf, stream);
-  } else {
+  } else if (k <= kRegMaxK) {
     spc_block_kernel<In><<<b, 32 * kBlockWarps, 0, stream>>>(
         static_cast<const typename In::T*>(probs), k, prob_bits,
         static_cast<int32_t*>(freq), static_cast<int32_t*>(cdf));
+  } else {
+    const cudaError_t err = allow_wide_smem<In>();
+    if (err != cudaSuccess) return err;
+    spc_wide_kernel<In>
+        <<<b, kWideThreads, static_cast<size_t>(k) * sizeof(uint16_t),
+           stream>>>(static_cast<const typename In::T*>(probs), k,
+                     prob_bits, static_cast<int32_t*>(freq),
+                     static_cast<int32_t*>(cdf));
   }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -386,10 +604,9 @@ extern "C" int spc_quantize_launch(const void* probs, int bf16, int b, int k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch<BF16In>(probs, b, k, prob_bits, freq, cdf, st);
-  } else {
-    launch<F32In>(probs, b, k, prob_bits, freq, cdf, st);
-  }
+  const cudaError_t err =
+      bf16 ? launch<BF16In>(probs, b, k, prob_bits, freq, cdf, st)
+           : launch<F32In>(probs, b, k, prob_bits, freq, cdf, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

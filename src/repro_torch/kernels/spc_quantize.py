@@ -14,9 +14,11 @@ launch: the fused LM decode's per-position SPC.  The plain versions are
 
 It dispatches on the probabilities' device: a CPU tensor runs the plain
 version, a CUDA tensor launches ``csrc/spc_quantize.cu`` (one warp per row
-up to K = 1024, one block per row above, built by ``kernels/_build.py``)
-and counts the launch in ``repro_torch.kernels.LAUNCHES``.  There is no
-fallback between the two.
+up to K = 1024, a block of 512 threads per row up to 16,384, and above, up
+to the SPC's ceiling of 65,536 at ``prob_bits=16``, a block of 1,024
+threads that keeps the row's BF16 bits in shared memory; built by
+``kernels/_build.py``) and counts the launch in
+``repro_torch.kernels.LAUNCHES``.  There is no fallback between the two.
 
 The kernel replaces the reference's sort (and the TPU kernel's O(K**2)
 pairwise ranking) by a radix select over an order-preserving key of the
@@ -36,9 +38,9 @@ from repro_torch.core import constants as C
 from repro_torch.core import spc
 from repro_torch.kernels import LAUNCHES
 
-# the block-per-row layout holds 32 entries in each of 512 threads
-# (kMaxK in csrc/spc_quantize.cu)
-MAX_K = 16384
+# the wide layout's shared-memory row holds up to 65,536 BF16 entries
+# (kMaxK in csrc/spc_quantize.cu): every K that 2**prob_bits admits
+MAX_K = 1 << 16
 
 _FN = []          # the resolved ctypes launcher, once loaded
 
@@ -103,9 +105,6 @@ def _check(probs: torch.Tensor, prob_bits: int) -> str:
     if k > 1 << prob_bits:
         raise ValueError(f"alphabet size {k} exceeds 2**prob_bits="
                          f"{1 << prob_bits}; raise prob_bits")
-    if k > MAX_K:
-        raise ValueError(f"alphabet size {k} exceeds the spc_quantize "
-                         f"kernel's register layout (K <= {MAX_K})")
     if probs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {probs.device}")
     return probs.device.type
@@ -120,8 +119,9 @@ def spc_quantize(probs: torch.Tensor,
     bfloat16 is read as it is, other types go through float32, then BF16.
     Returns ``(B, K)`` int32 frequencies, equal to
     :func:`~repro_torch.core.spc.quantize_probs`.  Raises ``ValueError``
-    for a rank other than 2, an empty batch, ``K > 2**prob_bits``, and a
-    ``K`` beyond the kernel's layout (:data:`MAX_K`), on either device.
+    for a rank other than 2, an empty batch and ``K > 2**prob_bits``, on
+    either device (the kernel's layouts cover every ``K <= 2**16``,
+    :data:`MAX_K`).
     """
     if _check(probs, prob_bits) == "cpu":
         return spc_quantize_plain(probs, prob_bits)

@@ -4,14 +4,17 @@ construction, the training loss."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.protocol import (PrefillUnsupportedError, StateSpec,
                                          can_prefill, decode_step,
-                                         get_protocol, init_state,
-                                         prefill_chunk, ring_length,
-                                         state_spec, wrap_length)
-from repro_torch.models.transformer import (DenseLM, KVState, RowGroup,
+                                         get_protocol, has_recurrent_state,
+                                         init_state, prefill_chunk,
+                                         recurrent_state_tree, reset_rows,
+                                         ring_length, state_spec,
+                                         wrap_length)
+from repro_torch.models.transformer import (LM, ModelState, RowGroup,
                                             init_model, loss_fn)
 
-__all__ = ["ModelConfig", "DenseLM", "KVState", "RowGroup",
+__all__ = ["ModelConfig", "LM", "ModelState", "RowGroup",
            "PrefillUnsupportedError", "StateSpec", "can_prefill",
-           "decode_step", "get_protocol", "init_model", "init_state",
-           "loss_fn", "prefill_chunk", "ring_length", "state_spec",
-           "wrap_length"]
+           "decode_step", "get_protocol", "has_recurrent_state",
+           "init_model", "init_state", "loss_fn", "prefill_chunk",
+           "recurrent_state_tree", "reset_rows", "ring_length",
+           "state_spec", "wrap_length"]

@@ -17,7 +17,12 @@ kept, not its floats (DESIGN.md §11):
 
 The cache is allocated with its slot axis padded to a whole number of
 tiles; slots past the ring length are never valid.  The step writes its
-K/V row in place (the reference returns a new cache).
+K/V row in place (the reference returns a new cache).  A config with a
+``local_window`` (the hybrid's attention blocks) rings a cache of
+``min(max_len, window)`` slots and also masks entries ``window`` or more
+positions old.  In a bfloat16 model the scores and the softmax run in
+float32 and the weights round to bfloat16 before the value product, as
+the reference's ``preferred_element_type`` does.
 
 :func:`attn_forward` is the reference's naive schedule (``_naive_attn``):
 one batched product for the scores, float32, causal mask, softmax, one
@@ -67,7 +72,7 @@ def _attend_slots(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(b, kv, 1, g, dh)
     kt = ck.view(b, nb, _RING_BLOCK, kv, dh).permute(0, 3, 1, 4, 2)
-    s = torch.matmul(qg, kt)                       # (B, KV, nb, g, BLOCK)
+    s = torch.matmul(qg.float(), kt.float())       # (B, KV, nb, g, BLOCK)
     s = s.permute(0, 1, 3, 2, 4).reshape(b, kv, g, rp) * scale
     vmask = valid[:, None, None, :]
     s = torch.where(vmask, s, torch.full_like(s, _NEG))
@@ -75,7 +80,7 @@ def _attend_slots(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     e = torch.where(vmask, torch.exp(s - m), torch.zeros_like(s))
     tiles = e.view(b, kv, g, nb, _RING_BLOCK)
     prob = e / _seq_sum(tiles.sum(-1), dim=-1)[..., None]
-    pt = prob.view(b, kv, g, nb, _RING_BLOCK).transpose(2, 3)
+    pt = prob.to(cv.dtype).view(b, kv, g, nb, _RING_BLOCK).transpose(2, 3)
     vt = cv.view(b, nb, _RING_BLOCK, kv, dh).permute(0, 3, 1, 2, 4)
     out = _seq_sum(torch.matmul(pt, vt), dim=2)    # (B, KV, g, Dh)
     return out.reshape(b, 1, hp, dh)
@@ -122,12 +127,14 @@ def _write_kv(ck, cv, k, v, pos, slot, write=None):
 
 
 def _valid(pos_b: torch.Tensor, slot, idx: torch.Tensor,
-           cache_len: int) -> torch.Tensor:
+           cache_len: int, window: int = 0) -> torch.Tensor:
     """(1|B, Rp) slot mask: each row sees its own ring's entries no older
-    than its position; slots past the ring length are never valid."""
+    than its position (and, with a ``window``, younger than it); slots past
+    the ring length are never valid."""
     slot_b = slot if isinstance(slot, torch.Tensor) else pos_b % cache_len
     age = (slot_b[:, None] - idx[None, :]) % cache_len
-    return (age <= pos_b[:, None]) & (idx < cache_len)[None]
+    valid = (age <= pos_b[:, None]) & (idx < cache_len)[None]
+    return valid & (age < window) if window else valid
 
 
 def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
@@ -152,7 +159,8 @@ def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
     slot = pos % cache_len if isinstance(pos, int) else pos_b % cache_len
     _write_kv(ck, cv, k, v, pos, slot)
     idx = torch.arange(ck.shape[1], device=x1.device)
-    out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len), cfg)
+    out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len,
+                                          cfg.local_window), cfg)
     return out.reshape(b, 1, hp * dh) @ wo.reshape(hp * dh, d)
 
 
@@ -187,7 +195,8 @@ def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
         _write_kv(ck, cv, k[:, t:t + 1], v[:, t:t + 1], pq[t], slot,
                   write=t < n_valid)
         out = _attend_slots(q[:, t:t + 1], ck, cv,
-                            _valid(pq[t], slot, idx, cache_len), cfg)
+                            _valid(pq[t], slot, idx, cache_len,
+                                   cfg.local_window), cfg)
         outs.append(out.reshape(b, hp * dh) @ wo.reshape(hp * dh, d))
     return torch.stack(outs)
 

@@ -1,14 +1,18 @@
-"""ModelConfig: the dense-transformer fields of ``repro.models.config``.
+"""ModelConfig: the fields of ``repro.models.config`` that the ported
+families read.
 
 Field names and derived quantities match the reference so a config reads
-the same in both packages.  Only the dense family is ported so far, in
-float32 (the reference's ``dtype`` field is therefore absent).  The window
-fields and the layer-kind ``pattern``/``stages`` are here for the serving
-protocol's state classification (``models.protocol``); no ported model
-reads a window yet (``DenseLM`` refuses one).  The training fields
+the same in both packages.  The dense, ``ssm`` (Mamba2) and ``hybrid``
+(RecurrentGemma) families are ported for serving; the family-dependent
+layer-kind ``pattern`` and its ``stages`` drive the model's assembly
+(``models.transformer``) and the serving protocol's state classification
+(``models.protocol``).  ``local_window`` bounds the hybrid's attention
+ring; the dense ``sliding_window`` (mixtral's) is classified but not
+ported (``LM`` refuses it).  ``dtype`` is the parameters' and
+activations' type (``"float32"`` or ``"bfloat16"``).  The training fields
 (``attn_impl``, ``logits_chunk``, ``grad_accum``, ``moment_dtype``,
-``grad_dtype``) carry the reference's defaults; only ``attn_impl="naive"``
-is ported.
+``grad_dtype``) carry the reference's defaults; only
+``attn_impl="naive"`` is ported.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | ssm | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,8 +37,21 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tp: int = 1                      # q heads are padded to a multiple
+
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 128             # training-side chunk (not ported)
+    conv_width: int = 4
+
+    # hybrid (recurrentgemma): layer-kind pattern, tiled over depth
+    block_pattern: tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     local_window: int = 0            # local attention window (0 = full)
     sliding_window: int = 0          # sliding-window attention (0 = full)
+    rglru_c: float = 8.0
+
+    dtype: str = "float32"           # float32 | bfloat16
 
     # training
     attn_impl: str = "naive"         # naive | blockwise (not ported)
@@ -59,18 +76,28 @@ class ModelConfig:
 
     @property
     def is_encdec(self) -> bool:
-        """The dense family has no encoder."""
+        """No ported family has an encoder."""
         return False
 
     @property
+    def supports_long_context(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def pattern(self) -> tuple[str, ...]:
-        """Layer-kind pattern unit: the dense family's is one attention
-        block."""
+        """Layer-kind pattern unit; defaults per family."""
+        if self.block_pattern:
+            return self.block_pattern
+        if self.family == "ssm":
+            return ("ssm",)
+        if self.family == "moe":
+            return ("attn_moe",)
         return ("attn",)
 
     @property
     def stages(self) -> tuple[tuple[tuple[str, ...], int], ...]:
-        """(pattern, repeats) stages covering n_layers."""
+        """(pattern, repeats) stages covering n_layers; the tail partial
+        pattern becomes its own stage."""
         pat = self.pattern
         full, rem = divmod(self.n_layers, len(pat))
         out = []

@@ -2,13 +2,15 @@
 
 ``from_reference(tree, cfg)`` takes the parameter tree of
 ``repro.models.init_model`` as nested dicts of numpy arrays (the caller
-converts with ``np.asarray``; this module never imports JAX) and returns a
-:class:`DenseLM` holding the same weights.  The reference stacks each
-stage's layers on a leading ``reps`` axis:
-``tree["stages"]["s0"]["b0_attn"]["attn"]["wq"][r]`` is layer ``r``'s
-``wq``.  ``to_reference(model)`` is the inverse: the model's parameters,
-or any tensors keyed by its parameter names (gradients, updated values),
-as that tree of numpy arrays.
+converts with ``np.asarray``; this module never imports JAX) and returns an
+:class:`~repro_torch.models.transformer.LM` holding the same weights.  The
+reference stacks each stage's blocks on a leading ``reps`` axis:
+``tree["stages"]["s1"]["b0_rec"]["rec"]["w_x"][r]`` is the ``w_x`` of the
+first block of stage 1's ``r``-th repeat.  A bfloat16 tree (numpy's
+``bfloat16`` from ``ml_dtypes``) is read by bit pattern.
+``to_reference(model)`` is the inverse: the model's parameters, or any
+tensors keyed by its parameter names (gradients, updated values), as that
+tree of numpy float32 arrays.
 """
 
 from __future__ import annotations
@@ -18,74 +20,89 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import LM, torch_dtype
 
 
-def _layers(tree: dict):
-    """Yield each layer's block subtree in depth order."""
+def _path(name: str) -> tuple[str, str]:
+    """A block parameter's name -> its (subtree, leaf) in the reference
+    block: ``ln1`` -> ``("ln1", "scale")``, ``ssm.A_log`` -> ``("ssm",
+    "A_log")``."""
+    top, _, leaf = name.partition(".")
+    return top, leaf or "scale"
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, np.float32))
+
+
+def _check_stages(tree: dict, cfg: ModelConfig) -> None:
     stages = tree["stages"]
-    for i in range(len(stages)):
+    if len(stages) != len(cfg.stages):
+        raise ValueError(f"tree holds {len(stages)} stages, config "
+                         f"{len(cfg.stages)}")
+    for i, (pat, reps) in enumerate(cfg.stages):
         unit = stages[f"s{i}"]
-        keys = sorted(unit, key=lambda k: int(k[1:].split("_")[0]))
-        reps = np.asarray(unit[keys[0]]["ln1"]["scale"]).shape[0]
-        for r in range(reps):
-            for key in keys:
-                if not key.endswith("_attn"):
-                    raise KeyError(f"layer kind of {key!r} is not ported")
-                yield {name: {leaf: np.asarray(a)[r]
-                              for leaf, a in sub.items()}
-                       for name, sub in unit[key].items()}
+        want = {f"b{j}_{kind}" for j, kind in enumerate(pat)}
+        if set(unit) != want:
+            raise KeyError(f"stage s{i} holds blocks {sorted(unit)}, config "
+                           f"{sorted(want)}")
+        for key in want:
+            got = np.asarray(unit[key]["ln1"]["scale"]).shape[0]
+            if got != reps:
+                raise ValueError(f"stage s{i} block {key} stacks {got} "
+                                 f"repeats, config {reps}")
 
 
 @torch.no_grad()
 def from_reference(tree: dict, cfg: ModelConfig,
-                   device: torch.device | str | None = None) -> DenseLM:
+                   device: torch.device | str | None = None) -> LM:
     dev = resolve_device(device)
-    model = DenseLM(cfg)
+    model = LM(cfg).to(torch_dtype(cfg))
+    _check_stages(tree, cfg)
 
-    def put(param, arr):
-        arr = np.asarray(arr, np.float32)
-        if tuple(param.shape) != arr.shape:
-            raise ValueError(f"shape {arr.shape} does not fit parameter "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.from_numpy(arr.copy()))
+    def put(param, t):
+        if tuple(param.shape) != tuple(t.shape):
+            raise ValueError(f"shape {tuple(t.shape)} does not fit "
+                             f"parameter {tuple(param.shape)}")
+        param.copy_(t)
 
-    put(model.embedding, tree["tok"]["embedding"])
-    put(model.final_norm, tree["final_norm"]["scale"])
-    layers = list(_layers(tree))
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, config "
-                         f"{cfg.n_layers}")
-    for blk, p in zip(model.blocks, layers):
-        put(blk.ln1, p["ln1"]["scale"])
-        put(blk.ln2, p["ln2"]["scale"])
-        for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.attn, name), p["attn"][name])
-        for name in ("wi_gate", "wi_up", "wo"):
-            put(getattr(blk.ffn, name), p["ffn"][name])
+    put(model.embedding, _tensor(tree["tok"]["embedding"]))
+    put(model.final_norm, _tensor(tree["final_norm"]["scale"]))
+    for blk, (i, key, r) in zip(model.blocks, model.layout):
+        sub = tree["stages"][f"s{i}"][key]
+        for name, param in blk.named_parameters():
+            top, leaf = _path(name)
+            put(param, _tensor(sub[top][leaf])[r])
     return model.to(dev)
 
 
-def to_reference(model: DenseLM, tensors: dict | None = None) -> dict:
-    """The reference's dense parameter tree of numpy float32 arrays, one
-    stage ``s0`` of ``n_layers`` stacked ``b0_attn`` blocks.  ``tensors``
-    maps the model's parameter names (``named_parameters``) to tensors of
-    their shapes, for example gradients; the default is the parameters."""
+def to_reference(model: LM, tensors: dict | None = None) -> dict:
+    """The reference's parameter tree of numpy float32 arrays: one
+    ``stages/s{i}/b{j}_{kind}`` subtree per block of each stage's pattern,
+    stacked over its repeats.  ``tensors`` maps the model's parameter names
+    (``named_parameters``) to tensors of their shapes, for example
+    gradients; the default is the parameters."""
     vals = dict(model.named_parameters()) if tensors is None else tensors
 
     def np_(name):
         return vals[name].detach().to("cpu", torch.float32).numpy().copy()
 
-    def stacked(suffix):
-        return np.stack([np_(f"blocks.{i}.{suffix}")
-                         for i in range(len(model.blocks))])
-
-    block = {"ln1": {"scale": stacked("ln1")},
-             "attn": {n: stacked(f"attn.{n}") for n in ("wq", "wk", "wv",
-                                                        "wo")},
-             "ln2": {"scale": stacked("ln2")},
-             "ffn": {n: stacked(f"ffn.{n}") for n in ("wi_gate", "wi_up",
-                                                      "wo")}}
+    stacks: dict = {}
+    for n, (blk, (i, key, _r)) in enumerate(zip(model.blocks, model.layout)):
+        unit = stacks.setdefault(f"s{i}", {}).setdefault(key, {})
+        for name, _ in blk.named_parameters():
+            top, leaf = _path(name)
+            unit.setdefault(top, {}).setdefault(leaf, []).append(
+                np_(f"blocks.{n}.{name}"))
+    stages = {s: {key: {top: {leaf: np.stack(reps)
+                              for leaf, reps in sub.items()}
+                        for top, sub in unit.items()}
+                  for key, unit in blocks.items()}
+              for s, blocks in stacks.items()}
     return {"tok": {"embedding": np_("embedding")},
             "final_norm": {"scale": np_("final_norm")},
-            "stages": {"s0": {"b0_attn": block}}}
+            "stages": stages}

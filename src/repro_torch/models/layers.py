@@ -1,8 +1,10 @@
-"""Shared layers: RMSNorm, RoPE, gated MLP, embeddings, tied logits and
-the training losses.
+"""Shared layers: RMSNorm, RoPE, gated MLP, the recurrent blocks' causal
+convolution step, embeddings, tied logits and the training losses.
 
 Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
-``wo (ff, d)``, ``embedding (Vpad, d)``).
+``wo (ff, d)``, ``embedding (Vpad, d)``).  In a bfloat16 model the norm
+and the RoPE rotation compute in float32 and round once to bfloat16, as
+the reference does; in a float32 model every cast below is the identity.
 """
 
 from __future__ import annotations
@@ -14,8 +16,20 @@ import torch.nn.functional as F
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    var = (x * x).sum(-1, keepdim=True) / x.shape[-1]
-    return x * torch.rsqrt(var + eps) * scale
+    """Second moment and scaling in float32 (bfloat16 squares are exact
+    there), the result in ``x``'s type."""
+    xf = x.float()
+    var = (xf * xf).sum(-1, keepdim=True) / x.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def conv_step(hist: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """One output of a depthwise causal convolution: the history ``hist``
+    (B, W, C) (oldest first, the newest input last) against the taps ``w``
+    (W, C) plus the bias (C,), the reference's ``einsum("bwc,wc->bc")``:
+    a float32 sum rounded once to the model's type."""
+    return (hist.float() * w.float()).sum(1).to(hist.dtype) + b
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -44,7 +58,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     -1).to(x.dtype)
 
 
 def mlp(wi_gate: torch.Tensor, wi_up: torch.Tensor, wo: torch.Tensor,

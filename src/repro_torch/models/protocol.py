@@ -1,14 +1,15 @@
 """The model-state protocol surface ``serve/`` drives.
 
-Port of the dense part of ``repro.models.protocol``: serving code calls
-:func:`init_state`, :func:`decode_step` and :func:`prefill_chunk` and
-never touches an architecture module, and :func:`state_spec` classifies a
-config's serving state (KV ring or recurrent leaves) for the batching
-engine's geometry (:func:`ring_length`, :func:`wrap_length`,
-:func:`can_prefill`).  Only the dense family is ported; other families
-raise a named ``KeyError``.  The dense family has no recurrent leaves, so
-the reference's recurrent freeze (``recurrent_state_tree``) has no
-counterpart yet.
+Port of ``repro.models.protocol``: serving code calls :func:`init_state`,
+:func:`decode_step` and :func:`prefill_chunk` and never touches an
+architecture module, and :func:`state_spec` classifies a config's serving
+state (KV ring or recurrent leaves) for the batching engine's geometry
+(:func:`ring_length`, :func:`wrap_length`, :func:`can_prefill`).  The
+``dense``, ``ssm`` and ``hybrid`` families are ported, all through the
+pattern/stage model :class:`~repro_torch.models.transformer.LM`; another
+family raises a named ``KeyError``.  :func:`recurrent_state_tree` marks a
+state's recurrent leaves (the reference's path classification) and
+:func:`reset_rows` zeroes every leaf of a slot's rows (a fresh admit).
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM, KVState
-
-FAMILIES = ("dense",)
+from repro_torch.models.transformer import FAMILIES, LM, ModelState
 
 
 class PrefillUnsupportedError(RuntimeError):
@@ -105,22 +104,30 @@ class ModelProtocol(NamedTuple):
     state_spec: Callable[[ModelConfig], StateSpec]
 
 
-def _dense_init_state(model: DenseLM, batch: int, max_len: int) -> KVState:
+def _init_state(model: LM, batch: int, max_len: int) -> ModelState:
     return model.init_state(batch, max_len)
 
 
-def _dense_decode_step(model: DenseLM, state, token, pos, groups=None):
+def _decode_step(model: LM, state, token, pos, groups=None):
     return model.decode_step(state, token, pos, groups)
 
 
-def _dense_prefill_chunk(model: DenseLM, state, tokens, pos0, n_valid,
-                         groups=None):
+def _prefill_chunk(model: LM, state, tokens, pos0, n_valid, groups=None):
     return model.prefill_chunk(state, tokens, pos0, n_valid, groups)
 
 
+def _shared(family: str, prefillable: bool) -> ModelProtocol:
+    return ModelProtocol(family, _init_state, _decode_step,
+                         _prefill_chunk if prefillable else None,
+                         state_spec)
+
+
+# every ported family composes the shared assembler; the recurrent ones
+# have no block-parallel prefill
 FAMILY_PROTOCOLS: dict[str, ModelProtocol] = {
-    "dense": ModelProtocol("dense", _dense_init_state, _dense_decode_step,
-                           _dense_prefill_chunk, state_spec),
+    "dense": _shared("dense", prefillable=True),
+    "ssm": _shared("ssm", prefillable=False),
+    "hybrid": _shared("hybrid", prefillable=False),
 }
 
 
@@ -144,12 +151,12 @@ def can_prefill(cfg: ModelConfig) -> bool:
 # the dispatching surface (what serve/ imports)
 # ---------------------------------------------------------------------------
 
-def init_state(model, batch: int, max_len: int) -> KVState:
+def init_state(model, batch: int, max_len: int) -> ModelState:
     """All-zero serving state for ``batch`` rows and a ``max_len`` ring."""
     return get_protocol(model.cfg).init_state(model, batch, max_len)
 
 
-def decode_step(model, state: KVState, token, pos, groups=None):
+def decode_step(model, state: ModelState, token, pos, groups=None):
     """One serving step: token (B,1) -> logits (B, Vpad); state in place.
     ``pos`` is an int or a ``(B,)`` int64 device tensor; ``groups`` the
     engine's :class:`~repro_torch.models.transformer.RowGroup` s."""
@@ -157,7 +164,7 @@ def decode_step(model, state: KVState, token, pos, groups=None):
                                                groups)
 
 
-def prefill_chunk(model, state: KVState, tokens, pos0, n_valid,
+def prefill_chunk(model, state: ModelState, tokens, pos0, n_valid,
                   groups=None):
     """Teacher-forced chunk (B,S) -> logits (B,S,Vpad); named error when
     the config cannot prefill bitwise."""
@@ -170,3 +177,22 @@ def prefill_chunk(model, state: KVState, tokens, pos0, n_valid,
             "the sequential step program instead")
     return get_protocol(cfg).prefill_chunk(model, state, tokens, pos0,
                                            n_valid, groups)
+
+
+def recurrent_state_tree(state: ModelState) -> dict[str, bool]:
+    """Each state leaf's name -> True on recurrent leaves (``ssm.*``,
+    ``rec.*``: position-free, changed by every step), False on the KV
+    rings (position-addressed)."""
+    return {name: name.split(".")[0] in _RECURRENT_KINDS
+            for name in state.leaves()}
+
+
+def has_recurrent_state(state: ModelState) -> bool:
+    return any(recurrent_state_tree(state).values())
+
+
+def reset_rows(state: ModelState, r0: int, r1: int) -> None:
+    """Zero rows ``[r0, r1)`` of every state leaf in place: the state
+    :func:`init_state` gives a fresh request (the engine's admit)."""
+    for t in state.leaves().values():
+        t[:, r0:r1].zero_()

@@ -1,32 +1,45 @@
-"""Dense decoder-only transformer as an ``nn.Module``: the serving
-direction and the training forward.
+"""Decoder-only language models as an ``nn.Module``: the layer-kind
+pattern/stage assembly, its serving direction and the dense training
+forward.
 
-Port of the dense part of ``repro.models.transformer``: pre-norm blocks of
-RoPE grouped-query self-attention and a gated SiLU MLP, a final RMSNorm and
-tied-embedding logits over the padded vocabulary.  Weight layouts match
-the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate (d, ff)``,
-...), so ``models.convert`` copies a JAX parameter tree over unchanged.
+Port of ``repro.models.transformer``.  A model is a sequence of stages,
+each a layer-kind pattern repeated ``reps`` times (``cfg.stages``; a tail
+partial pattern is its own stage), laid out here as one list of blocks in
+depth order.  Ported kinds:
 
-Training runs :meth:`DenseLM.forward` over whole sequences (causal
-:func:`~repro_torch.models.attention.attn_forward`) and :func:`loss_fn`.
-Serving runs one token at a time through :meth:`DenseLM.decode_step`
-against a :class:`KVState`, which the step updates in place, or a
-teacher-forced chunk of positions through :meth:`DenseLM.prefill_chunk`,
-bitwise the same steps.
+    attn   RoPE grouped-query self-attention + gated SiLU MLP (dense;
+           the hybrid's local-window attention)
+    ssm    Mamba2 SSD mixer, no FFN                    (mamba2)
+    rec    RG-LRU recurrent block + gated MLP          (recurrentgemma)
 
-Both take optional :class:`RowGroup` s, the batching engine's slots: each
-group runs as the single-request step of the same request would, at the
-same shapes (``lanes`` rows, the request's own ring length).  cuBLAS
-picks a GEMM's kernel, and with it the order of each output's sum, from
-the GEMM's shape, and PyTorch's row reductions pick their thread layout
-from the row count, so the same rows inside a larger batch can round
-differently on the card; a group is the unit at which the engine's floats
-are the single-request path's by construction (``PERF.md`` §7).
+``attn_moe``, ``cross`` and ``dec`` raise (ROADMAP A6).  A final RMSNorm
+and tied-embedding logits over the padded vocabulary close the model.
+Weight layouts match the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh,
+d)``, ``wi_gate (d, ff)``, the SSM's and RG-LRU's leaves), so
+``models.convert`` copies a JAX parameter tree over unchanged.
+
+Serving runs one token at a time through :meth:`LM.decode_step` against a
+:class:`ModelState`, which the step updates in place: the attention
+blocks' KV rings and the recurrent blocks' ``(conv, h)`` leaves.  A
+teacher-forced chunk of positions runs through :meth:`LM.prefill_chunk`
+(all-attention patterns only), bitwise the same steps.  Training runs
+:meth:`LM.forward` over whole sequences and :func:`loss_fn` (the dense
+family; the recurrent kinds' training scans raise, ROADMAP A6).
+
+Both serving calls take optional :class:`RowGroup` s, the batching
+engine's slots: each group runs as the single-request step of the same
+request would, at the same shapes (``lanes`` rows, the request's own ring
+length).  cuBLAS picks a GEMM's kernel, and with it the order of each
+output's sum, from the GEMM's shape, and PyTorch's row reductions pick
+their thread layout from the row count, so the same rows inside a larger
+batch can round differently on the card; a group is the unit at which
+the engine's floats are the single-request path's by construction
+(``PERF.md`` §7).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -38,16 +51,46 @@ from repro_torch.models.attention import (attn_decode, attn_forward,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_xent_loss, embed, logits, mlp,
                                        rmsnorm, xent_loss)
+from repro_torch.models.rglru import (RGLRU, init_rglru_cache,
+                                      rglru_decode_step, rglru_forward)
+from repro_torch.models.ssm import (SSM, init_ssm_cache, ssm_decode_step,
+                                    ssm_forward)
+
+FAMILIES = ("dense", "ssm", "hybrid")  # the ported families
+KINDS = ("attn", "ssm", "rec")         # and their layer kinds
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The config's parameter and activation type."""
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype {cfg.dtype!r} is not ported (float32 or "
+                         "bfloat16)")
+    return getattr(torch, cfg.dtype)
 
 
 @dataclass
-class KVState:
-    """Per-layer KV rings: ``k``/``v`` are (L, B, Rp, KV, Dh) with the slot
-    axis padded to whole attention tiles; ``length`` is the ring length."""
+class ModelState:
+    """The serving state, every leaf with the rows on axis 1.
 
-    k: torch.Tensor
-    v: torch.Tensor
+    ``k``/``v``: the attention blocks' KV rings (A, B, Rp, KV, Dh) in depth
+    order, with the slot axis padded to whole attention tiles (None when
+    the pattern has no attention); ``length`` is the ring length.
+    ``recurrent``: the recurrent blocks' leaves by ``"<kind>.<leaf>"``
+    (``ssm.conv``, ``ssm.h``, ``rec.conv``, ``rec.h``), each stacked over
+    the blocks of its kind in depth order.  The reference classifies its
+    state tree's leaves by path the same way (``"kv"`` vs ``"ssm"``/
+    ``"rec"``)."""
+
+    k: torch.Tensor | None
+    v: torch.Tensor | None
     length: int
+    recurrent: dict = field(default_factory=dict)
+
+    def leaves(self) -> dict:
+        """Every state tensor by name (``k``, ``v``, then the recurrent
+        leaves)."""
+        ring = {} if self.k is None else {"k": self.k, "v": self.v}
+        return {**ring, **self.recurrent}
 
 
 class RowGroup(NamedTuple):
@@ -82,6 +125,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """An ``attn`` block: self-attention and the gated MLP."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
@@ -90,61 +135,141 @@ class Block(nn.Module):
         self.ffn = MLP(cfg)
 
 
-class DenseLM(nn.Module):
-    """The dense ``ras-pimc``-family model (float32, tied embeddings)."""
+class SSMBlock(nn.Module):
+    """An ``ssm`` block: the Mamba2 mixer, no FFN."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
-            raise ValueError(f"DenseLM ports the tied-embedding dense family;"
-                             f" got family={cfg.family!r}, "
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
+        self.ssm = SSM(cfg)
+
+
+class RecBlock(nn.Module):
+    """A ``rec`` block: the RG-LRU recurrent block and the gated MLP."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
+        self.rec = RGLRU(cfg)
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model))
+        self.ffn = MLP(cfg)
+
+
+_BLOCKS = {"attn": Block, "ssm": SSMBlock, "rec": RecBlock}
+# leaves initialised to a constant, by leaf name; every other matrix and
+# the RG-LRU's gate weights are normal(0, scale), every other vector 1
+_INIT = {**SSM.INIT, **RGLRU.INIT}
+_NORMAL_VECTORS = ("gate_a_w", "gate_i_w")
+
+
+class LM(nn.Module):
+    """The ported decoder-only families (``dense``, ``ssm``, ``hybrid``):
+    tied embeddings, the blocks of ``cfg.stages`` in depth order, the
+    parameters in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} (config {cfg.name!r}) is not ported "
+                f"(ROADMAP A6); ported families: {FAMILIES}")
+        if not cfg.tie_embeddings:
+            raise ValueError(f"the port ties the embeddings; got "
                              f"tie_embeddings={cfg.tie_embeddings}")
-        if cfg.sliding_window or cfg.local_window:
-            raise ValueError("windowed attention is not ported yet; got "
-                             f"sliding_window={cfg.sliding_window}, "
-                             f"local_window={cfg.local_window}")
+        if cfg.sliding_window:
+            raise ValueError("windowed attention of the dense family is not "
+                             "ported yet (ROADMAP A6); got sliding_window="
+                             f"{cfg.sliding_window}")
+        kinds = tuple(k for pat, reps in cfg.stages for _ in range(reps)
+                      for k in pat)
+        for kind in kinds:
+            if kind not in KINDS:
+                raise NotImplementedError(
+                    f"layer kind {kind!r} of config {cfg.name!r} is not "
+                    f"ported (ROADMAP A6); ported kinds: {KINDS}")
         self.cfg = cfg
+        self.kinds = kinds
+        # (stage, block key, rep) of each block, the reference's tree path
+        self.layout = tuple((i, f"b{j}_{kind}", r)
+                            for i, (pat, reps) in enumerate(cfg.stages)
+                            for r in range(reps)
+                            for j, kind in enumerate(pat))
+        # each block's index among the blocks of its kind (its state row)
+        self._index = tuple(kinds[:i].count(k) for i, k in enumerate(kinds))
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_padded,
                                                   cfg.d_model))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(_BLOCKS[k](cfg) for k in kinds)
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
-                         scale: float = 0.02) -> "DenseLM":
-        """Seeded init: normal(0, scale) matrices and embeddings, unit norm
-        scales (the reference's init rule; its random bits differ)."""
+                         scale: float = 0.02) -> "LM":
+        """Seeded init, the reference's rule (its random bits differ):
+        normal(0, scale) matrices, embeddings and RG-LRU gate weights, the
+        reference's constants for the SSM's and RG-LRU's biases and
+        scales, unit norm scales; padded query heads are zero."""
+        cfg = self.cfg
         for name, p in self.named_parameters():
-            if p.ndim == 1:
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in _INIT:
+                p.fill_(_INIT[leaf])
+            elif p.ndim == 1 and leaf not in _NORMAL_VECTORS:
                 p.fill_(1.0)
             else:
                 p.copy_(torch.randn(p.shape, generator=generator) * scale)
+        for blk in self.blocks:
+            if isinstance(blk, Block):
+                blk.attn.wq[:, cfg.n_heads:] = 0.0
+                blk.attn.wo[cfg.n_heads:] = 0.0
         return self
 
     def forward(self, tokens: torch.Tensor):
         """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss);
-        the aux loss is 0.0 for the dense family."""
+        the aux loss is 0.0 (no ported kind has one).  The recurrent kinds'
+        training scans are not ported (ROADMAP A6) and raise."""
         cfg = self.cfg
         x = embed(self.embedding, tokens)
-        for blk in self.blocks:
-            a, f = blk.attn, blk.ffn
-            x = x + attn_forward(a.wq, a.wk, a.wv, a.wo,
-                                 rmsnorm(blk.ln1, x, cfg.norm_eps), cfg)
+        for kind, blk in zip(self.kinds, self.blocks):
+            h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+            if kind == "ssm":
+                x = x + ssm_forward(blk.ssm, h, cfg)
+                continue
+            if kind == "rec":
+                x = x + rglru_forward(blk.rec, h, cfg)
+            else:
+                a = blk.attn
+                x = x + attn_forward(a.wq, a.wk, a.wv, a.wo, h, cfg)
+            f = blk.ffn
             x = x + mlp(f.wi_gate, f.wi_up, f.wo,
                         rmsnorm(blk.ln2, x, cfg.norm_eps))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
 
-    def init_state(self, batch: int, max_len: int) -> KVState:
+    def init_state(self, batch: int, max_len: int) -> ModelState:
+        """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
+        local_window)`` slots (``max_len`` without a window) and the
+        recurrent blocks' leaves."""
         cfg = self.cfg
         p = self.embedding
-        shape = (cfg.n_layers, batch, ring_slots(max_len), cfg.n_kv_heads,
-                 cfg.head_dim_)
-        return KVState(k=torch.zeros(shape, dtype=p.dtype, device=p.device),
-                       v=torch.zeros(shape, dtype=p.dtype, device=p.device),
-                       length=max_len)
+        win = cfg.local_window
+        ring = min(max_len, win) if win else max_len
+        k = v = None
+        n = self.kinds.count("attn")
+        if n:
+            shape = (n, batch, ring_slots(ring), cfg.n_kv_heads,
+                     cfg.head_dim_)
+            k, v = (torch.zeros(shape, dtype=p.dtype, device=p.device)
+                    for _ in range(2))
+        recurrent = {}
+        for kind, init in (("ssm", init_ssm_cache), ("rec", init_rglru_cache)):
+            n = self.kinds.count(kind)
+            if n:
+                leaves = init(cfg, batch, p.dtype, p.device, layers=n)
+                recurrent.update({f"{kind}.{leaf}": t
+                                  for leaf, t in leaves.items()})
+        return ModelState(k=k, v=v, length=ring, recurrent=recurrent)
 
-    def _groups(self, state: KVState, rows: int, groups):
+    def _groups(self, state: ModelState, rows: int, groups):
         if groups is None:
             return (RowGroup(0, rows, state.length),)
         for g in groups:
@@ -154,44 +279,59 @@ class DenseLM(nn.Module):
                                  f"of a ring of length {state.length}")
         return tuple(groups)
 
-    def _kv(self, state: KVState, g: RowGroup):
-        """The group's rows of every layer's ring, cut to its length."""
-        n = ring_slots(g.length)
-        return (state.k[:, g.r0:g.r1, :n], state.v[:, g.r0:g.r1, :n])
+    def _rows(self, state: ModelState, g: RowGroup) -> dict:
+        """The group's rows of every state leaf (views), the rings cut to
+        its length."""
+        out = {name: t[:, g.r0:g.r1]
+               for name, t in state.recurrent.items()}
+        if state.k is not None:
+            n = ring_slots(g.length)
+            out["k"] = state.k[:, g.r0:g.r1, :n]
+            out["v"] = state.v[:, g.r0:g.r1, :n]
+        return out
 
-    def _step(self, ck, cv, length: int, token, pos) -> torch.Tensor:
-        """The single-request step over rings ``ck``/``cv`` (L,B,Rp,KV,Dh)
-        of ring length ``length``."""
+    def _step(self, st: dict, length: int, token, pos) -> torch.Tensor:
+        """The single-request step over the state views ``st`` (:meth:
+        `_rows`) of ring length ``length``."""
         cfg = self.cfg
         x = embed(self.embedding, token)
-        for i, blk in enumerate(self.blocks):
-            a, f = blk.attn, blk.ffn
+        for kind, i, blk in zip(self.kinds, self._index, self.blocks):
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
-            x = x + attn_decode(a.wq, a.wk, a.wv, a.wo, h, ck[i], cv[i],
-                                length, pos, cfg)
+            if kind == "ssm":
+                x = x + ssm_decode_step(blk.ssm, h, {
+                    "conv": st["ssm.conv"][i], "h": st["ssm.h"][i]}, cfg)
+                continue
+            if kind == "rec":
+                x = x + rglru_decode_step(blk.rec, h, {
+                    "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg)
+            else:
+                a = blk.attn
+                x = x + attn_decode(a.wq, a.wk, a.wv, a.wo, h, st["k"][i],
+                                    st["v"][i], length, pos, cfg)
+            f = blk.ffn
             h = rmsnorm(blk.ln2, x, cfg.norm_eps)
             x = x + mlp(f.wi_gate, f.wi_up, f.wo, h)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
         return logits(self.embedding, x)[:, 0]
 
     @torch.no_grad()
-    def decode_step(self, state: KVState, token: torch.Tensor, pos,
+    def decode_step(self, state: ModelState, token: torch.Tensor, pos,
                     groups=None) -> torch.Tensor:
         """token (B,1) int -> logits (B, Vpad); ``state`` advances in
         place.  ``pos`` is an int shared by all rows or a ``(B,)`` int64
-        device tensor of per-row positions.  ``groups`` (default: all
-        rows, the state's ring) runs each :class:`RowGroup` as its own
-        single-request step; rows outside every group get zero logits and
-        leave the state unchanged."""
+        device tensor of per-row positions (only attention reads it).
+        ``groups`` (default: all rows, the state's ring) runs each
+        :class:`RowGroup` as its own single-request step; rows outside
+        every group get zero logits and leave the state unchanged."""
         groups = self._groups(state, token.shape[0], groups)
         if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
-            return self._step(*self._kv(state, groups[0]), groups[0].length,
+            return self._step(self._rows(state, groups[0]), groups[0].length,
                               token, pos)
         out = self.embedding.new_zeros((token.shape[0],
                                         self.cfg.vocab_padded))
         for g in groups:
             p = pos if isinstance(pos, int) else pos[g.r0:g.r1]
-            out[g.r0:g.r1] = self._step(*self._kv(state, g), g.length,
+            out[g.r0:g.r1] = self._step(self._rows(state, g), g.length,
                                         token[g.r0:g.r1], p)
         return out
 
@@ -219,11 +359,12 @@ class DenseLM(nn.Module):
             xs).transpose(0, 1)
 
     @torch.no_grad()
-    def prefill_chunk(self, state: KVState, tokens: torch.Tensor,
+    def prefill_chunk(self, state: ModelState, tokens: torch.Tensor,
                       pos0: torch.Tensor, n_valid: torch.Tensor,
                       groups=None) -> torch.Tensor:
         """Teacher-forced chunk: tokens (B,S) at per-row positions ``pos0 +
-        [0, S)`` -> logits (B,S,Vpad), ``state`` updated in place.
+        [0, S)`` -> logits (B,S,Vpad), ``state`` updated in place.  Every
+        block must be ``attn`` (the protocol's ``can_prefill``).
 
         Bitwise equal to S :meth:`decode_step` calls at positions ``pos0 +
         min(t, n_valid)`` on every live position (``t < n_valid``) and on
@@ -236,22 +377,30 @@ class DenseLM(nn.Module):
         and attend runs per position at the step path's shapes, since
         cuBLAS's GEMMs and PyTorch's row reductions may order a sum
         otherwise at another row count."""
+        if set(self.kinds) != {"attn"}:
+            raise ValueError(f"prefill_chunk runs attention blocks only; "
+                             f"this model has {sorted(set(self.kinds))}")
         b = tokens.shape[0]
         groups = self._groups(state, b, groups)
         pos0, n_valid = pos0.to(torch.int64), n_valid.to(torch.int64)
+
+        def kv(g):
+            st = self._rows(state, g)
+            return st["k"], st["v"]
+
         if len(groups) == 1 and groups[0][:2] == (0, b):
-            return self._prefill(*self._kv(state, groups[0]),
-                                 groups[0].length, tokens, pos0, n_valid)
+            return self._prefill(*kv(groups[0]), groups[0].length, tokens,
+                                 pos0, n_valid)
         out = self.embedding.new_zeros(tuple(tokens.shape)
                                        + (self.cfg.vocab_padded,))
         for g in groups:
             r = slice(g.r0, g.r1)
-            out[r] = self._prefill(*self._kv(state, g), g.length, tokens[r],
-                                   pos0[r], n_valid[r])
+            out[r] = self._prefill(*kv(g), g.length, tokens[r], pos0[r],
+                                   n_valid[r])
         return out
 
 
-def loss_fn(model: DenseLM, batch: dict) -> torch.Tensor:
+def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     """Next-token cross entropy of ``batch`` (``tokens``/``labels`` (B,S)
     tensors on the model's device) plus 0.01 x the aux loss.
     ``model.cfg.logits_chunk`` > 0 runs the chunked loss."""
@@ -270,10 +419,10 @@ def loss_fn(model: DenseLM, batch: dict) -> torch.Tensor:
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
-               device: torch.device | str | None = None) -> DenseLM:
-    """Seeded random weights, drawn on the CPU so every device gets the
-    same ones, then moved to ``device`` (the card when None)."""
+               device: torch.device | str | None = None) -> LM:
+    """Seeded random weights, drawn in float32 on the CPU so every device
+    gets the same ones, then cast to ``cfg.dtype`` and moved to ``device``
+    (the card when None)."""
     dev = resolve_device(device)
-    model = DenseLM(cfg).reset_parameters(
-        torch.Generator().manual_seed(seed))
-    return model.to(dev)
+    model = LM(cfg).reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(device=dev, dtype=torch_dtype(cfg))

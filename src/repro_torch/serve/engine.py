@@ -12,10 +12,11 @@ Port of ``repro.serve.engine``.  Two layers live here:
 * :class:`BatchEngine`, the request-level continuous-batching engine
   (DESIGN.md §11).  Concurrent compress and decompress requests are
   admitted into ``slots``; the batch is ``slots * lanes`` rows of one
-  shared ring cache, each slot with its own per-row positions and per-row
-  rANS state.  Requests join and retire at chunk boundaries.  Every
-  per-request output is byte-identical to the single-request
-  ``serve.compress`` paths: the engine is a scheduler, not a new coder.
+  shared model state (KV rings and recurrent leaves), each slot with its
+  own per-row positions and per-row rANS state.  Requests join and retire
+  at chunk boundaries.  Every per-request output is byte-identical to the
+  single-request ``serve.compress`` paths: the engine is a scheduler, not
+  a new coder.
 
 On the card the engine runs the kernels of the single-request kernel
 path: every step pops all rows with B2 (``ops.rans_decode_step_rows``)
@@ -48,8 +49,8 @@ from repro_torch.core.predictors import model_topk_candidates
 from repro_torch.kernels import ops, spc_quantize
 from repro_torch.models import (PrefillUnsupportedError, RowGroup,
                                 can_prefill, decode_step, init_state,
-                                prefill_chunk, ring_length, state_spec,
-                                wrap_length)
+                                prefill_chunk, reset_rows, ring_length,
+                                state_spec, wrap_length)
 from repro_torch.serve.compress import (BOS, _on_device, step_probs,
                                         teacher_forced_scan)
 
@@ -208,7 +209,9 @@ class BatchEngine:
     every other op, and the per-chunk coder is the same code.  A longer
     request would wrap the ring and is refused with a named error unless
     ``allow_wrap=True`` (it then round-trips through an engine of the same
-    geometry).
+    geometry); a config whose state never wraps at ``max_len``
+    (``models.wrap_length`` is None: pure recurrent state, or a local
+    window no wider than ``max_len``) takes streams of any length.
 
     Admission: FIFO by ``(arrival, rid)``, at most ``max_queue`` waiting
     requests (``submit_*`` raises :class:`EngineQueueFullError` beyond).
@@ -220,7 +223,8 @@ class BatchEngine:
     chunk, bitwise the step path) and the rest with the step loop;
     ``"off"`` runs every cycle on the step loop; ``"force"`` raises
     :class:`~repro_torch.models.PrefillUnsupportedError` at construction
-    when the config cannot prefill.  ``prefill_cycles`` counts prefill
+    when the config cannot prefill (the recurrent families: ``"auto"``
+    steps down to the step loop there).  ``prefill_cycles`` counts prefill
     cycles.  The reference's ``mesh`` (lane placement) and ``interpret``
     (TPU) arguments have no counterpart here; ``device`` is the model's
     device (the card unless given, raising without one).
@@ -448,10 +452,9 @@ class BatchEngine:
         guard = (torch.cuda.set_sync_debug_mode if self.check_sync
                  and self.device.type == "cuda" else None)
         with _sync_debug(guard):
-            st, L = self._state, self.lanes
+            L = self.lanes
             for s in cyc.fresh:           # a fresh admit is a zero state
-                st.k[:, s * L:(s + 1) * L].zero_()
-                st.v[:, s * L:(s + 1) * L].zero_()
+                reset_rows(self._state, s * L, (s + 1) * L)
                 self._tok[s * L:(s + 1) * L] = BOS
             if cyc.prefill:
                 self.prefill_cycles += 1
@@ -462,11 +465,19 @@ class BatchEngine:
         return cyc.spec, out, encs
 
     def _step_body(self, cyc: _Cycle, dev: dict):
-        """The step loop over all rows, as many steps as the cycle's longest
-        chunk: per-row positions ``pos0 + min(t, n_valid)``; rows past
-        ``n_valid`` hold their coder state and token.  Returns the compress
-        rows' BF16 probabilities ``(S, B, V)`` (or None) and the decode
-        outputs ``(syms, probes, unders, header under)`` (or None)."""
+        """The step loop, as many steps as the cycle's longest chunk: step
+        ``t`` runs the model on the slots whose chunk is longer than ``t``
+        (per-row positions ``pos0 + t``), then the SPC and the pop on all
+        rows; rows past ``n_valid`` hold their coder state and token.
+
+        A slot past its ``n_valid`` (only a request's last chunk is short)
+        is not stepped, so its state is frozen: its recurrent leaves keep
+        their values bit for bit, as the reference's ``_freeze`` select
+        does, and its ring rows are not written (the reference writes the
+        clamped position's slot, which nothing reads before the request
+        retires).  Returns the compress rows' BF16 probabilities ``(S, B,
+        V)`` (or None) and the decode outputs ``(syms, probes, unders,
+        header under)`` (or None)."""
         S, vocab, pb = cyc.steps, self.cfg.vocab_size, self.prob_bits
         kernel = self.step_backend == "kernel"
         n_valid, pos0, tf = dev["n_valid"], dev["pos0"], dev["tf"]
@@ -484,11 +495,12 @@ class BatchEngine:
                                                 dtype=torch.int32,
                                                 device=self.device)
                                     for _ in range(3))
+        n_of = [n_c for _, _, _, n_c, _ in cyc.spec]     # per group
         tok = self._tok
         for t in range(S):
             active = n_valid > t
-            pos = pos0 + torch.clamp(n_valid, max=t)
-            lg = decode_step(self.model, self._state, tok, pos, cyc.groups)
+            live = tuple(g for g, n in zip(cyc.groups, n_of) if t < n)
+            lg = decode_step(self.model, self._state, tok, pos0 + t, live)
             probs = step_probs(lg, vocab)
             if probs_buf is not None:
                 probs_buf[t] = probs

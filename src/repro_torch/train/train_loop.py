@@ -18,19 +18,19 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLM, loss_fn
+from repro_torch.models.transformer import LM, loss_fn
 from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          adamw_update, as_dtype,
                                          clip_by_global_norm, cosine_lr)
 
 
 class TrainState(NamedTuple):
-    model: DenseLM          # its parameters are the trained parameters
+    model: LM               # its parameters are the trained parameters
     opt: AdamWState
     step: torch.Tensor      # () int32
 
 
-def init_train_state(model: DenseLM, moment_dtype=None) -> TrainState:
+def init_train_state(model: LM, moment_dtype=None) -> TrainState:
     """AdamW moments in ``moment_dtype`` (default: the model config's
     ``moment_dtype``) and step 0."""
     if moment_dtype is None:
@@ -39,7 +39,7 @@ def init_train_state(model: DenseLM, moment_dtype=None) -> TrainState:
     return TrainState(model=model, opt=opt, step=torch.zeros_like(opt.step))
 
 
-def _on_model(model: DenseLM, batch: dict) -> dict:
+def _on_model(model: LM, batch: dict) -> dict:
     """The batch's arrays as int64 tensors on the model's device."""
     dev = model.embedding.device
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(
@@ -47,14 +47,14 @@ def _on_model(model: DenseLM, batch: dict) -> dict:
         for k, v in batch.items()}
 
 
-def _value_and_grad(model: DenseLM, batch: dict):
+def _value_and_grad(model: LM, batch: dict):
     params = dict(model.named_parameters())
     loss = loss_fn(model, batch)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
 
-def _grads(model: DenseLM, batch: dict, n: int):
+def _grads(model: LM, batch: dict, n: int):
     """:func:`grads_fn` over ``n`` microbatches."""
     batch = _on_model(model, batch)
     if n <= 1:
@@ -77,7 +77,7 @@ def _grads(model: DenseLM, batch: dict, n: int):
     return total * scale, {k: (g * scale).to(gdt) for k, g in gsum.items()}
 
 
-def grads_fn(model: DenseLM, batch: dict):
+def grads_fn(model: LM, batch: dict):
     """``(loss, grads)`` by parameter name.  Under ``model.cfg.grad_accum
     = n > 1`` the batch splits into n equal microbatches along its first
     axis; loss and gradients are their means (accumulated in float32, the

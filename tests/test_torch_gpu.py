@@ -31,6 +31,12 @@ candidates, popping past the stream end) and B6 on rows of 16 against
 their plain versions; one train step on the card against the same step on
 the CPU; a small ``bb_encode``/``bb_decode`` round trip on the card whose
 kernel and coder stacks are byte-identical, with one B2 launch per pop.
+The recurrent families: B6's wide layout (16,384 < K <= 65,536) on
+Dirichlet, near-uniform, tied and waterfill rows in BF16 and float32,
+with and without the CDF; B2 at mamba2-130m's (16 lanes, K = 50,280)
+per-lane rows; the mamba2-130m (smoke and full width) and
+recurrentgemma-2b (smoke) decode steps in float32 on the card against the
+CPU.
 """
 
 import os
@@ -990,3 +996,96 @@ def test_gpu_bitsback_roundtrip(monkeypatch):
     assert torch.equal(st_d.s, st0.s) and torch.equal(st_d.ptr, st0.ptr)
     assert not bool(st_d.underflow.any())
     assert not on_card, on_card
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (mamba2-130m's K = 50,280 and its model)
+# ---------------------------------------------------------------------------
+
+def _wide_rows(k: int, case: str) -> np.ndarray:
+    """B6 rows above the register layouts' 16,384: (B, K) float32."""
+    rng = np.random.default_rng(k)
+    if case == "dirichlet":
+        return rng.dirichlet(np.full(k, 0.5), size=3)
+    if case == "near_uniform":          # residual ties and near-ties
+        base = np.full(k, 1.0 / k)
+        return np.stack([base, base * (1 + 1e-3 * rng.standard_normal(k)),
+                         base * (1 + rng.integers(0, 2, k) * 2e-2)])
+    if case == "ties":
+        return np.stack([
+            np.tile([0.5, 0.25, 0.25, 0.0], k // 4 + 1)[:k] / (k / 4),
+            np.r_[np.full(k // 2, 3e-6), np.full(k - k // 2, 1.5e-5)],
+        ])
+    tiny = np.r_[np.full(k - 56, 1e-9), rng.dirichlet(np.full(56, 0.5))]
+    return np.stack([tiny, np.full(k, 1 / 3), tiny[::-1]])   # waterfill
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["dirichlet", "near_uniform", "ties",
+                                  "waterfill"])
+@pytest.mark.parametrize("k", [16385, 50280, 65536])
+def test_gpu_spc_wide_matches_plain(k, case, dtype):
+    """B6's wide layout (16,384 < K <= 65,536) at prob_bits 16, with and
+    without the CDF, against the sort-based plain SPC."""
+    dev = _cuda()
+    x = torch.as_tensor(_wide_rows(k, case).astype(np.float32)).to(
+        getattr(torch, dtype))
+    ref = spc.freq_cdf_from_probs(x, 16)
+    assert (ref[1][:, -1] == 1 << 16).all() and int(ref[0].min()) >= 1
+    got = _launched("spc_quantize", lambda: spc_quantize.spc_freq_cdf(
+        x.to(dev), 16))
+    _assert_same(got, ref)
+    freq = _launched("spc_quantize", lambda: spc_quantize.spc_quantize(
+        x.to(dev), 16))
+    assert torch.equal(freq.cpu(), ref[0])
+
+
+@pytest.mark.gpu
+def test_gpu_decode_step_large_k_rows_match_plain():
+    """B2 at the mamba2 slice's shape: 16 lanes of per-lane rows of K =
+    50,280 at prob_bits 16 with top-4 candidates (the device-memory row
+    pass)."""
+    dev = _cuda()
+    lanes, k, t = 16, 50280, 6
+    tt, syms = _case("lane", seed=9, k=k, lanes=lanes, t=t, prob_bits=16)
+    enc = coder.encode(_t(syms), tt)
+    dec = coder.decoder_init(enc)
+    s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
+    cands = torch.as_tensor(candidate_planes(syms, k, 4, 0.5, seed=9))
+    for i in range(t):
+        ref = rans_decode.rans_decode_step_plain(
+            enc.buf, s, ptr, tt.freq[i], tt.cdf[i], prob_bits=16,
+            candidates=cands[i])
+        got = _launched("rans_decode_step", lambda: rans_decode.
+                        rans_decode_step(enc.buf.to(dev), s.to(dev),
+                                         ptr.to(dev), tt.freq[i].to(dev),
+                                         tt.cdf[i].to(dev), prob_bits=16,
+                                         candidates=cands[i].to(dev)))
+        _assert_same(got, ref)
+        assert torch.equal(ref[2], _t(syms[:, i]))
+        s, ptr = ref[0], ref[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,width", [("mamba2-130m", "smoke"),
+                                        ("mamba2-130m", "full"),
+                                        ("recurrentgemma-2b", "smoke")])
+def test_gpu_recurrent_steps_match_cpu(arch, width):
+    """The same float32 weights on the card and on the CPU, 2 rows x 4
+    steps: logits within 1e-4 (the summation orders of cuBLAS and the
+    card's reductions against the CPU's)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import decode_step, init_model, init_state
+    dev = _cuda()
+    cfg = (get_smoke_config(arch) if width == "smoke"
+           else get_config(arch)).with_(dtype="float32")
+    models = [init_model(cfg, seed=3, device=d) for d in ("cpu", dev)]
+    states = [init_state(m, 2, 8) for m in models]
+    toks = torch.randint(0, cfg.vocab_size, (2, 4),
+                         generator=torch.Generator().manual_seed(4))
+    for t in range(4):
+        lg = [decode_step(m, st, toks[:, t:t + 1].to(m.embedding.device), t)
+              for m, st in zip(models, states)]
+        assert bool(torch.isfinite(lg[1]).all())
+        assert float((lg[1].cpu() - lg[0]).abs().max()) <= 1e-4

@@ -203,13 +203,13 @@ def test_registry_and_protocol_named_errors():
     assert registry.get_smoke_config("ras-pimc") == SMOKE
     assert registry.get_protocol("ras-pimc").family == "dense"
     with pytest.raises(KeyError, match="not ported yet.*ras-pimc"):
-        registry.get_config("mamba2-130m")
+        registry.get_config("mixtral-8x22b")
     with pytest.raises(KeyError, match="unknown arch 'gpt-9'"):
         registry.get_smoke_config("gpt-9")
-    with pytest.raises(KeyError, match="family 'ssm'.*not ported"):
-        models.get_protocol(CONFIG.with_(family="ssm"))
+    with pytest.raises(KeyError, match="family 'moe'.*not ported"):
+        models.get_protocol(CONFIG.with_(family="moe"))
     with pytest.raises(ValueError, match="windowed attention"):
-        models.DenseLM(SMOKE.with_(sliding_window=8))
+        models.LM(SMOKE.with_(sliding_window=8))
 
 
 @pytest.mark.parametrize("backend", ["coder", "kernel"])

@@ -104,8 +104,11 @@ def test_spc_quantize_named_errors():
         spc_kernel.spc_quantize(ok[:0])
     with pytest.raises(ValueError, match="exceeds 2\\*\\*prob_bits"):
         spc_kernel.spc_quantize(torch.full((1, 300), 1 / 300), prob_bits=8)
+    # the kernel's layouts reach the SPC's own ceiling: a wider row is
+    # refused by the mass check on either device
+    assert spc_kernel.MAX_K == 1 << 16
     big = spc_kernel.MAX_K + 1
-    with pytest.raises(ValueError, match="register layout"):
+    with pytest.raises(ValueError, match="exceeds 2\\*\\*prob_bits"):
         spc_kernel.spc_quantize(torch.full((1, big), 1 / big), prob_bits=16)
 
 

@@ -16,6 +16,11 @@
   255, 256, 4096}, and a sort-based rule on residuals that hold both -0.0
   and +0.0.  ``spc_freq_cdf`` on the CPU equals JAX's
   ``freq_cdf_from_probs`` for float32 and bfloat16 input.
+* Above the register layouts (16,384 < K <= 65,536, the wide layout):
+  the same rule with the wide layout's index-order walk (each of 32 warps
+  a contiguous segment of ``ceil(K / 1024) * 32`` entries, 32 a round)
+  equals JAX's ``quantize_probs`` at K in {16,385, 50,280, 65,536},
+  ``prob_bits=16``, on Dirichlet, tied and near-uniform rows.
 
 Integer outputs compare exactly.
 """
@@ -274,3 +279,85 @@ def test_spc_freq_cdf_matches_jax(dtype):
     assert (cdf[:, -1] == 1 << 14).all()
     np.testing.assert_array_equal(
         spc_quantize.spc_quantize(x).numpy(), np.asarray(jf))
+
+
+def wide_rule(resid, f0, delta) -> np.ndarray:
+    """:func:`select_rule` with the wide layout's last pass: the tie ranks
+    come from a walk of 32 warp segments in rounds of 32 entries, each
+    warp starting from the earlier warps' totals."""
+    k = f0.size
+    key = _key(resid).astype(np.int64)
+    f = f0.astype(np.int64).copy()
+    topup = delta >= 0
+    base, r = (delta // k, delta % k) if topup else (0, 0)
+    sel = select_rule(resid, f0, delta)        # for v, via its selection
+    if topup and r == 0:
+        return f + base
+    if topup:
+        v = 0
+        for b in range(31, -1, -1):
+            if (key >= (v | 1 << b)).sum() >= r:
+                v |= 1 << b
+        m = r - (key > v).sum()
+        weight = (key == v).astype(np.int64)
+    else:
+        cap = f - 1
+        v = 0
+        for b in range(31, -1, -1):
+            if cap[key <= (v | ((1 << b) - 1))].sum() < -delta:
+                v |= 1 << b
+        m = -delta - cap[key < v].sum()
+        weight = np.where(key == v, cap, 0)
+    seg = -(-k // 1024) * 32
+    excl = np.zeros(k, np.int64)
+    before = 0
+    for lo in range(0, 32 * seg, seg):          # the warps, in order
+        for j in range(lo, min(k, lo + seg), 32):   # their rounds
+            w = weight[j:min(k, j + 32)]
+            excl[j:j + w.size] = before + np.cumsum(w) - w
+            before += w.sum()
+    at = key == v
+    if topup:
+        out = f + base + ((key > v) | (at & (excl < m)))
+    else:
+        take = np.where(key < v, cap,
+                        np.where(at, np.clip(m - excl, 0, cap), 0))
+        out = f - take
+    np.testing.assert_array_equal(out, sel)
+    return out
+
+
+def _wide_rows(k):
+    rng = np.random.default_rng(k)
+    base = np.full(k, 1.0 / k)
+    return np.stack([
+        rng.dirichlet(np.full(k, 0.5)),
+        base,                                              # one tie run
+        base * (1 + 1e-3 * rng.standard_normal(k)),        # near-uniform
+        np.tile([0.5, 0.25, 0.25, 0.0], k // 4 + 1)[:k] / (k / 4),
+        np.r_[np.full(k // 2, 3e-6), np.full(k - k // 2, 1.5e-5)],
+        np.full(k, 1 / 3),                                 # the waterfill
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [16385, 50280, 65536])
+def test_wide_selection_rule_matches_jax(k):
+    probs = _wide_rows(k)
+    want = np.asarray(jspc.quantize_probs(jnp.asarray(probs), 16))
+    total = 1 << 16
+    p = _bf16(probs)
+    p = np.where(np.isfinite(p) & (p > 0), p, np.float32(0))
+    scaled = (p * np.float32(total)).astype(np.float32)
+    f0 = np.maximum(1, np.rint(scaled)).astype(np.int64)
+    resid = (scaled - f0.astype(np.float32)).astype(np.float32)
+    deltas = [total - int(f.sum()) for f in f0]
+    # both corrections run (at K = 2**16 every f0 >= 1 already fills the
+    # mass, so only the waterfill and delta = 0 can)
+    assert min(deltas) < 0 and (max(deltas) > 0 or k == total)
+    got = np.stack([wide_rule(r, f, d)
+                    for r, f, d in zip(resid, f0, deltas)])
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(-1) == total).all() and got.min() >= 1
+    np.testing.assert_array_equal(
+        spc_quantize.spc_quantize_plain(torch.as_tensor(probs), 16).numpy(),
+        want)

@@ -9,7 +9,7 @@
   vocabulary is wider than its vocabulary (the -1e30 tail).  Tolerance:
   the loss within rtol 1e-5, each gradient leaf within 1e-5 of its largest
   entry (two frameworks' reduction orders in matmul, softmax and rsqrt).
-* ``DenseLM.forward``'s last-position logits against the port's
+* ``LM.forward``'s last-position logits against the port's
   ``decode_step`` scan over the same tokens (atol 1e-4, rtol 1e-4: the
   decode path's tiled attention sums in another order).
 * Three ``adamw_update`` steps with float32 and bfloat16 moments,

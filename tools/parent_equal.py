@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""The dense family's outputs of two checkouts, byte for byte, on the CPU.
+
+    git archive <commit> | tar -x -C build/parent
+    python3 tools/parent_equal.py build/parent .
+
+For each checkout given (its ``src/`` on the path), a fresh process runs
+the ``ras-pimc`` SMOKE model (seeded random weights) on the CPU and
+hashes what it puts out:
+
+- the v2 containers of ``lm_compress_chunked`` (4 lanes x 40 tokens,
+  chunk 16: a short last chunk) on the ``kernel`` and ``coder`` backends,
+  and the tokens and per-lane probes of their ``lm_decompress_chunked``
+  on the same backend and on ``two_pass``;
+- the blobs, tokens and probes of a ``BatchEngine`` (2 slots, chunk 8,
+  ``max_len`` 32) on both step backends, with prefill and without, over
+  three requests of 29, 17 and 32 tokens and their decompress;
+- the logits of 20 ``decode_step`` positions on a ring of 8 slots (it
+  wraps twice), 3 rows.
+
+It prints each checkout's digests and exits nonzero unless every one
+agrees.  Needs no card and no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+LANES, T, CHUNK = 4, 40, 16
+
+
+def _digest(*arrays) -> str:
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a if isinstance(a, bytes) else np.ascontiguousarray(a)
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def worker() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import bitstream
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import decode_step, init_model, init_state
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    cfg = get_smoke_config("ras-pimc")
+    model = init_model(cfg, seed=0, device="cpu")
+    tokens = token_stream(cfg.vocab_size, (LANES, T), seed=0)
+    out = {}
+    for backend in ("kernel", "coder"):
+        st = compress.lm_compress_chunked(model, tokens, CHUNK,
+                                          backend=backend, device="cpu")
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK,
+                                      n_symbols=T)
+        out[f"container {backend}"] = _digest(blob)
+        for dec in (backend, "two_pass"):
+            sym, _, probes = compress.lm_decompress_chunked(
+                model, bitstream.parse_chunked(blob), T, CHUNK,
+                backend=dec, lane_probes=True, device="cpu")
+            out[f"decode {dec} of {backend}"] = _digest(
+                sym.cpu().numpy(), np.asarray(probes.cpu()))
+
+    reqs = [token_stream(cfg.vocab_size, (LANES, n), seed=1 + i)
+            for i, n in enumerate((29, 17, 32))]
+    for step_backend in ("coder", "kernel"):
+        for prefill in ("auto", "off"):
+            eng = BatchEngine(model, slots=2, lanes=LANES, chunk_size=8,
+                              max_len=32, step_backend=step_backend,
+                              prefill=prefill, device="cpu")
+            rids = [eng.submit_compress(t) for t in reqs]
+            res = eng.run(clock="virtual")
+            blobs = [res[r].blob for r in rids]
+            rids = [eng.submit_decompress(b) for b in blobs]
+            res = eng.run(clock="virtual")
+            out[f"engine {step_backend} prefill={prefill}"] = _digest(
+                *blobs, *(res[r].tokens for r in rids),
+                *(res[r].lane_probes for r in rids))
+
+    state = init_state(model, 3, 8)
+    tok = torch.zeros((3, 1), dtype=torch.int64)
+    logits = []
+    for pos in range(20):
+        lg = decode_step(model, state, tok, pos)
+        logits.append(lg.float().numpy())
+        tok = lg.argmax(-1, keepdim=True)
+    out["wrapped-ring logits"] = _digest(*logits)
+    print(json.dumps(out))
+
+
+def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--worker":
+        worker()
+        return 0
+    trees = [Path(p).resolve() for p in sys.argv[1:]]
+    if len(trees) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    got = []
+    for tree in trees:
+        env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+        r = subprocess.run([sys.executable, __file__, "--worker"], env=env,
+                           cwd=tree, capture_output=True, text=True,
+                           timeout=900)
+        if r.returncode != 0:
+            print(r.stdout + r.stderr, file=sys.stderr)
+            return 1
+        got.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        print(f"{tree}: {json.dumps(got[-1])}")
+    same = got[0] == got[1]
+    for key in got[0]:
+        mark = "equal" if got[0][key] == got[1].get(key) else "DIFFER"
+        print(f"  {key}: {mark}")
+    print("every output equal" if same else "outputs differ")
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

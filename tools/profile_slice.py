@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where one position's time goes in the port's slice, on the card.
 
-    python3 tools/profile_slice.py [--lanes 128] [--max-len 1000]
-                                   [--steps 50] [--trace-steps 10]
+    python3 tools/profile_slice.py [--arch ras-pimc] [--lanes 128]
+                                   [--max-len 1000] [--steps 50]
+                                   [--trace-steps 10]
 
-At the full-width ``ras-pimc`` shapes (random seeded weights, a KV ring of
-``--max-len`` slots) it times each layer of one compress position (model
+At ``--arch``'s full width (``ras-pimc`` by default, or ``mamba2-130m``
+at ``--lanes 16 --max-len 512``, its ``chip_smoke.py`` slice; random
+seeded weights, a KV ring of ``--max-len`` slots where the
+model has attention) it times each layer of one compress position (model
 step, the BF16 probabilities stored for the SPC kernel, cross entropy;
 the per-run SPC kernel batch over ``--max-len`` x lanes rows, and its
 share per position) and one decompress position (model step, the SPC
@@ -43,6 +46,8 @@ def _median_wall_ms(fn, steps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="ras-pimc",
+                    help="a ported arch id (configs.registry.PORTED)")
     ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--max-len", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=50)
@@ -50,7 +55,7 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.configs import get_config
     from repro_torch.core import constants as C
     from repro_torch.core.predictors import model_topk_candidates
     from repro_torch.device import configure_cuda_numerics, resolve_device
@@ -64,7 +69,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
+    CONFIG = get_config(args.arch)
     lanes, vocab = args.lanes, CONFIG.vocab_size
+    # The default precision, raised as far as the vocabulary needs (every
+    # symbol keeps a nonzero frequency): 14 for ras-pimc, 16 for mamba2.
+    bits = max(C.PROB_BITS, (vocab - 1).bit_length())
     model = init_model(CONFIG, seed=0, device=dev)
     state = init_state(model, lanes, args.max_len)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -75,7 +84,7 @@ def main() -> int:
                         dtype=torch.int32).to(torch.uint8)
     s = torch.full((lanes,), C.RANS_L, dtype=torch.int32, device=dev)
     ptr = torch.full((lanes,), 4, dtype=torch.int32, device=dev)
-    freq, cdf = compress._step_freq_cdf(lg, vocab, C.PROB_BITS)
+    freq, cdf = compress._step_freq_cdf(lg, vocab, bits)
     cands = model_topk_candidates(lg[:, :vocab], 4)
 
     def xent(_):
@@ -84,9 +93,10 @@ def main() -> int:
 
     def decompress_position(i):
         out = decode_step(model, state, tok, pos + i % 8)
-        f, c = compress._step_freq_cdf(out, vocab, C.PROB_BITS)
+        f, c = compress._step_freq_cdf(out, vocab, bits)
         k = model_topk_candidates(out[:, :vocab], 4)
-        return ops.rans_decode_step(buf, s, ptr, f, c, candidates=k)
+        return ops.rans_decode_step(buf, s, ptr, f, c, prob_bits=bits,
+                                    candidates=k)
 
     batch = torch.empty((args.max_len, lanes, vocab), dtype=torch.bfloat16,
                         device=dev)
@@ -96,7 +106,7 @@ def main() -> int:
         batch[i % args.max_len] = compress.step_probs(lg, vocab)
 
     def spc_batch(_):
-        return ops.spc_quantize_tables(batch.reshape(-1, vocab), C.PROB_BITS)
+        return ops.spc_quantize_tables(batch.reshape(-1, vocab), bits)
 
     layers = {
         "model decode_step": lambda i: decode_step(model, state, tok,
@@ -104,19 +114,20 @@ def main() -> int:
         "SPC probs to buffer (compress)": store_probs,
         "cross entropy (compress)": xent,
         "SPC freq/cdf, B6 (decompress)": lambda i: compress._step_freq_cdf(
-            lg, vocab, C.PROB_BITS),
+            lg, vocab, bits),
         "plain step_tables (coder)": lambda i: compress.step_tables(
-            lg, vocab, C.PROB_BITS),
+            lg, vocab, bits),
         "plain freq/cdf (coder)": lambda i: spc.freq_cdf_from_probs(
-            compress.step_probs(lg, vocab), C.PROB_BITS),
+            compress.step_probs(lg, vocab), bits),
         "model top-k (decompress)": lambda i: model_topk_candidates(
             lg[:, :vocab], 4),
         "rans_decode_step wrapper": lambda i: ops.rans_decode_step(
-            buf, s, ptr, freq, cdf, candidates=cands),
+            buf, s, ptr, freq, cdf, prob_bits=bits, candidates=cands),
         "whole decompress position": decompress_position,
     }
-    print(f"ras-pimc full width, {lanes} lanes, ring {args.max_len}: median "
-          f"host wall per call over {args.steps} calls")
+    print(f"{args.arch} full width, {lanes} lanes, ring {args.max_len}, "
+          f"prob_bits {bits}: median host wall per call over {args.steps} "
+          "calls")
     for name, fn in layers.items():
         print(f"  {name:32s} {_median_wall_ms(fn, args.steps):9.3f} ms")
     whole = _median_wall_ms(spc_batch, 5)
