@@ -133,28 +133,48 @@ zero-frequency cases of 5a.
 
 17. the recurrent families (``mamba2_phase``): ``mamba2-130m`` at full
    width (24 layers, d_model 768, BF16, vocab 50,280) on seeded random
-   weights, 16 lanes x 512 ``token_stream`` tokens, chunk 128,
+   weights, 16 lanes x 256 ``token_stream`` tokens, chunk 128,
    ``prob_bits=16``, top-4: ``lm_compress_chunked`` on the kernel backend
-   (one B6 batch of 8,192 x 50,280, one B1) and on the coder backend give
+   (one B6 batch of 4,096 x 50,280, one B1) and on the coder backend give
    byte-identical containers, the fused decode (B6 and B2 per position)
    is bit-exact with per-lane probes equal to the coder decode's,
-   launches exactly B1 1 / B2 512 / B6 513 with no sort-based SPC on the
+   launches exactly B1 1 / B2 256 / B6 257 with no sort-based SPC on the
    card, peak memory printed; B6 (its wide layout) at (16, 50,280) with
-   the CDF and at (8,192, 50,280), and at K = 16,385 and 65,536, and B2 at
+   the CDF and at (4,096, 50,280), and at K = 16,385 and 65,536, and B2 at
    (16, 50,280), each against its plain version and timed beside its
    bound; the full width in float32 on the card against the CPU (2 rows x
    4 steps, logits within 1e-4); the engine (2 slots x 16 lanes, max_len
-   256) on two 512-token requests, blobs byte-identical to
+   128) on two 256-token requests, blobs byte-identical to
    ``lm_compress_chunked``, decodes exact; and ``recurrentgemma-2b`` SMOKE
    (a (rec, rec, attn) pattern, a (rec,) tail, a 16-slot local window
    wrapping 4 times at 8 lanes x 64): kernel and coder containers
    byte-identical, fused decode exact, and an engine run whose short
    last chunk freezes a slot, ``prefill="auto"`` stepping down.
 
+18. the MoE family (``moe_phase``): ``mixtral-8x22b`` at full width
+   (d_model 6,144, 48 heads x 128, 8 kv heads, d_ff 16,384, 8 experts
+   top-2, a 4,096-position sliding window, vocab 32,768, BF16, an untied
+   head), its depth cut to 4 of 56 layers, on seeded random weights drawn
+   on the card, 16 lanes x 512 ``token_stream`` tokens, chunk 128,
+   ``prob_bits=16``, top-4: kernel and coder containers byte-identical,
+   the fused decode bit-exact with per-lane probes equal to the coder
+   decode's, launches exactly B1 1 / B2 512 / B6 513 with no sort-based
+   SPC on the card, peak memory printed; a step's time and device-busy
+   share beside the bytes of weights it reads; B6 at (16, 32,768) with the
+   CDF and at (8,192, 32,768), and B2 at (16, 32,768), each against its
+   plain version and timed beside its bound; one full-width layer in
+   float32 on the card against the CPU (2 rows x 4 steps, logits within
+   1e-4); the engine (2 slots x 16 lanes, max_len 512, ``prefill="auto"``)
+   on two 512-token requests, with prefill cycles and no host sync in a
+   cycle, blobs byte-identical to ``lm_compress_chunked``, decodes exact;
+   and ``mixtral-8x22b`` SMOKE at 8 lanes x 64, its 16-slot window
+   wrapping: kernel and coder containers byte-identical, decode exact.
+
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
-Fig. 4(c) phase (``fig4c_launches``) and in the mamba2 slice
-(``mamba2_launches``), and B6's and B2's times at K = 50,280.  The last
+Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
+(``mamba2_launches``) and in the mixtral slice (``moe_launches``), and
+B6's and B2's times at K = 50,280 and K = 32,768.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
@@ -2033,11 +2053,13 @@ def fig4c_phase(dev):
 
 # --- the recurrent families (slice 6) -------------------------------------
 
-# mamba2-130m at full width: 16 lanes x 512 token_stream(50280) tokens,
+# mamba2-130m at full width: 16 lanes x 256 token_stream(50280) tokens,
 # chunk 128, prob_bits 16 (its vocabulary needs the SPC's ceiling), top-4;
-# the engine: 2 slots x 16 lanes at max_len 256 (the requests are longer)
-M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 512, 128, 16
-M2_SLOTS, M2_MAX_LEN = 2, 256
+# the engine: 2 slots x 16 lanes at max_len 128 (the requests are longer).
+# 256 tokens keep the whole script well inside its time limit beside the
+# mixtral phase.
+M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 256, 128, 16
+M2_SLOTS, M2_MAX_LEN = 2, 128
 M2_CPU_ROWS, M2_CPU_STEPS = 2, 4
 # B6 beyond the register layouts, against the plain SPC: K and rows
 WIDE_K = ((16385, 4), (65536, 4))
@@ -2063,10 +2085,11 @@ def _last_call(module, name: str):
         setattr(module, name, fn)
 
 
-def _m2_slice(dev, model, tokens):
-    """The mamba2 slice through the kernel backend with counters reset
-    just before and read just after, then the coder backend; returns the
-    run's numbers and the B6/B2 inputs it last saw."""
+def _zoo_slice(model, tokens, chunk: int, bits: int, what: str):
+    """A zoo model's slice through the kernel backend with counters reset
+    just before and read just after, then the coder backend (``what``
+    names it in the checks); returns the run's numbers and the B6/B2
+    inputs it last saw."""
     import numpy as np
     import torch
     from repro_torch.core import bitstream
@@ -2074,6 +2097,7 @@ def _m2_slice(dev, model, tokens):
     from repro_torch.kernels import spc_quantize
     from repro_torch.serve import compress
 
+    t_len = tokens.shape[1]
     torch.cuda.reset_peak_memory_stats()
     with _plain_spc_spy() as on_card, \
             _last_call(ops, "spc_quantize_tables") as b6_batch, \
@@ -2082,44 +2106,44 @@ def _m2_slice(dev, model, tokens):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = compress.lm_compress_chunked(model, tokens, M2_CHUNK,
-                                          prob_bits=M2_BITS,
+        st = compress.lm_compress_chunked(model, tokens, chunk,
+                                          prob_bits=bits,
                                           backend="kernel")
         torch.cuda.synchronize()
         t_comp = time.perf_counter() - t0
-        blob = bitstream.pack_chunked(*st.chunks, chunk_size=M2_CHUNK,
-                                      n_symbols=M2_T, prob_bits=M2_BITS)
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=chunk,
+                                      n_symbols=t_len, prob_bits=bits)
         cs = bitstream.parse_chunked(blob)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sym, avg, lane_probes = compress.lm_decompress_chunked(
-            model, cs, M2_T, M2_CHUNK, prob_bits=M2_BITS, backend="kernel",
+            model, cs, t_len, chunk, prob_bits=bits, backend="kernel",
             lane_probes=True)
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
         launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=M2_T,
-                             spc_quantize=M2_T + 1),
-           f"mamba2 launch counts {launches}")
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{what} launch counts {launches}")
     _check(not on_card, f"the plain SPC ran on the card {len(on_card)} times"
-           " on the mamba2 kernel path")
-    _branch("rans_decode_step", {"warp_rows"}, "mamba2 B2, last position")
+           f" on the {what} kernel path")
+    _branch("rans_decode_step", {"warp_rows"}, f"{what} B2, last position")
     _check(np.array_equal(sym.cpu().numpy(), tokens),
-           "mamba2 round trip not exact")
-    st_c = compress.lm_compress_chunked(model, tokens, M2_CHUNK,
-                                        prob_bits=M2_BITS, backend="coder")
-    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=M2_CHUNK,
-                                  n_symbols=M2_T, prob_bits=M2_BITS) == blob,
-           "mamba2: coder and kernel containers differ")
+           f"{what} round trip not exact")
+    st_c = compress.lm_compress_chunked(model, tokens, chunk,
+                                        prob_bits=bits, backend="coder")
+    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=chunk,
+                                  n_symbols=t_len, prob_bits=bits) == blob,
+           f"{what}: coder and kernel containers differ")
     del st_c
     sym_c, _, lane_probes_c = compress.lm_decompress_chunked(
-        model, cs, M2_T, M2_CHUNK, prob_bits=M2_BITS, backend="coder",
+        model, cs, t_len, chunk, prob_bits=bits, backend="coder",
         lane_probes=True)
     _check(np.array_equal(sym_c.cpu().numpy(), tokens),
-           "mamba2: coder round trip not exact")
+           f"{what}: coder round trip not exact")
     _check(torch.equal(lane_probes_c, lane_probes),
-           "mamba2: per-lane probes differ between backends")
+           f"{what}: per-lane probes differ between backends")
     return dict(launches=launches, blob=blob, lane_probes=lane_probes,
                 bits=float(st.bits_per_symbol),
                 xent=float(st.model_xent_bits), avg_probes=float(avg),
@@ -2128,10 +2152,10 @@ def _m2_slice(dev, model, tokens):
                 b2_pop=(b2_pop["args"], b2_pop["kwargs"]))
 
 
-def _m2_kernels(dev, run):
-    """B6 at the slice's two shapes and at K up to 65,536, and B2 at (16,
-    50,280), each against its plain version on the card, timed beside its
-    bound; returns the two kernels' large-K records."""
+def _zoo_kernels(run, bits: int, what: str, wide=()):
+    """B6 at a zoo slice's two shapes (and at each K of ``wide``), and B2
+    at its per-lane rows, each against its plain version on the card,
+    timed beside its bound; returns the two kernels' large-K records."""
     import numpy as np
     import torch
     from repro_torch.core import spc
@@ -2144,45 +2168,47 @@ def _m2_kernels(dev, run):
                                   ("batch", batch, False)):
         fn = spc_quantize.spc_freq_cdf if with_cdf else \
             spc_quantize.spc_quantize
-        plain = (lambda p: spc.freq_cdf_from_probs(p, M2_BITS)) \
-            if with_cdf else (lambda p: spc.quantize_probs(p, M2_BITS))
-        got, want = fn(probs, M2_BITS), plain(probs)
+        plain = (lambda p: spc.freq_cdf_from_probs(p, bits)) \
+            if with_cdf else (lambda p: spc.quantize_probs(p, bits))
+        got, want = fn(probs, bits), plain(probs)
         if not with_cdf:
             got, want = (got,), (want,)
         err = _max_abs_err(got, want)
         b, k = probs.shape
-        ms = _device_ms(lambda: fn(probs, M2_BITS), n=20 if b <= 256 else 3)
+        ms = _device_ms(lambda: fn(probs, bits), n=20 if b <= 256 else 3)
         plain_ms = _median_ms(lambda: plain(probs), repeats=3, warmup=1)
         bound_ms, bound_by, moved = _spc_bound(b, k, probs.element_size(),
                                                with_cdf)
-        print(f"mamba2: B6 at {b} x {k} BF16{' with the CDF' * with_cdf}: "
+        print(f"{what}: B6 at {b} x {k} BF16{' with the CDF' * with_cdf}: "
               f"kernel == plain; {ms:.4f} ms kernel on the device, "
               f"{plain_ms:.4f} ms plain, bound {bound_ms:.6f} ms by "
               f"{bound_by} ({moved} B moved)", flush=True)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, err=err)
     rng = np.random.default_rng(5)
-    for k, b in WIDE_K:
+    for k, b in wide:
         p = torch.as_tensor(rng.dirichlet(np.full(k, 0.5), size=b),
-                            dtype=torch.float32, device=dev)
+                            dtype=torch.float32, device=probs16.device)
         for x in (p, spc.store_bf16(p)):
             err = _max_abs_err(spc_quantize.spc_freq_cdf(x, 16),
                                spc.freq_cdf_from_probs(x, 16))
             out["batch"]["err"] = max(out["batch"]["err"], err)
-    print(f"mamba2: B6 kernel == plain at K = "
-          f"{', '.join(str(k) for k, _ in WIDE_K)} (float32 and BF16, with "
-          "the CDF)", flush=True)
+    if wide:
+        print(f"{what}: B6 kernel == plain at K = "
+              f"{', '.join(str(k) for k, _ in wide)} (float32 and BF16, "
+              "with the CDF)", flush=True)
     (buf, s, ptr, freq, cdf), kw = run["b2_pop"][0][:5], run["b2_pop"][1]
     args = (buf, s, ptr, freq, cdf)
     err = _max_abs_err(rans_decode.rans_decode_step(*args, **kw),
                        rans_decode.rans_decode_step_plain(*args, **kw))
-    _branch("rans_decode_step", {"warp_rows"}, "B2 at K = 50,280")
+    _branch("rans_decode_step", {"warp_rows"},
+            f"B2 at K = {freq.shape[-1]}")
     ms = _device_ms(lambda: rans_decode.rans_decode_step(*args, **kw), n=50)
     plain_ms = _median_ms(lambda: rans_decode.rans_decode_step_plain(
         *args, **kw), repeats=5)
     one = rans_decode.rans_decode_step_plain(*args, **kw)
     bound_ms, bound_by, moved, ops = _b2_bound(one, ptr, TOPK)
-    print(f"mamba2: B2 at {buf.shape[0]} lanes x K = {freq.shape[-1]} "
+    print(f"{what}: B2 at {buf.shape[0]} lanes x K = {freq.shape[-1]} "
           f"(per-lane rows, top-{TOPK}): kernel == plain; {ms:.4f} ms kernel"
           f" on the device, {plain_ms:.3f} ms plain, bound {bound_ms:.8f} ms"
           f" by {bound_by} ({moved} B moved, {ops} ops)", flush=True)
@@ -2191,36 +2217,39 @@ def _m2_kernels(dev, run):
     return out
 
 
-def _m2_card_vs_cpu(dev):
-    """mamba2-130m at full width in float32, the same seeded weights on
-    the card and on the CPU: the largest logit difference."""
+def _zoo_card_vs_cpu(cpu, card, rows: int, steps: int, what: str):
+    """The same weights on the CPU and on the card, ``rows`` x ``steps``
+    decode steps of seeded tokens: the largest logit difference, at most
+    1e-4."""
     import torch
-    from repro_torch.configs.mamba2_130m import CONFIG
-    from repro_torch.models import decode_step, init_model, init_state
+    from repro_torch.models import decode_step, init_state
 
-    cfg = CONFIG.with_(dtype="float32")
-    toks = torch.randint(0, cfg.vocab_size, (M2_CPU_ROWS, M2_CPU_STEPS),
+    toks = torch.randint(0, cpu.cfg.vocab_size, (rows, steps),
                          generator=torch.Generator().manual_seed(0))
-    models = [init_model(cfg, seed=1, device=d) for d in ("cpu", dev)]
-    states = [init_state(m, M2_CPU_ROWS, M2_CPU_STEPS) for m in models]
+    models = (cpu, card)
+    states = [init_state(m, rows, steps) for m in models]
     worst = 0.0
-    for t in range(M2_CPU_STEPS):
+    for t in range(steps):
         lg = [decode_step(m, st, toks[:, t:t + 1].to(m.embedding.device), t)
               for m, st in zip(models, states)]
         _check(bool(torch.isfinite(lg[1]).all()), "non-finite logits")
         worst = max(worst, float((lg[1].cpu() - lg[0]).abs().max()))
-    _check(worst <= 1e-4, f"mamba2 card logits differ from the CPU's by "
+    _check(worst <= 1e-4, f"{what}: card logits differ from the CPU's by "
            f"{worst}")
-    print(f"mamba2: full width float32, {M2_CPU_ROWS} rows x {M2_CPU_STEPS}"
-          f" steps, card vs CPU: max abs logit diff {worst:.3e} (tolerance "
-          "1e-4)", flush=True)
+    print(f"{what}, {rows} rows x {steps} steps, card vs CPU: max abs "
+          f"logit diff {worst:.3e} (tolerance 1e-4)", flush=True)
     return worst
 
 
-def _m2_engine(dev, model, tokens, run):
-    """2 slots x 16 lanes at max_len 256: two 512-token compress requests
-    (the state never wraps), then their decompress; blobs byte-identical
-    to ``lm_compress_chunked``'s, tokens exact, probes equal."""
+def _zoo_engine(model, tokens, run, *, chunk: int, bits: int, slots: int,
+                max_len: int, what: str, prefill: bool):
+    """``slots`` slots x the slice's lanes at ``max_len``: two compress
+    requests of the slice's length (``tokens`` and a second stream), then
+    their decompress; blobs byte-identical to ``lm_compress_chunked``'s,
+    tokens exact, probes equal.  With ``prefill`` the compress cycles must
+    run as prefill chunks and every cycle's device half runs under
+    ``torch.cuda.set_sync_debug_mode("error")``; without, no cycle may
+    prefill."""
     import numpy as np
     import torch
     from repro_torch.core import bitstream
@@ -2228,15 +2257,17 @@ def _m2_engine(dev, model, tokens, run):
     from repro_torch.serve import compress
     from repro_torch.serve.engine import BatchEngine
 
-    other = token_stream(model.cfg.vocab_size, (M2_LANES, M2_T), seed=1)
-    st = compress.lm_compress_chunked(model, other, M2_CHUNK,
-                                      prob_bits=M2_BITS, backend="kernel")
-    blob_other = bitstream.pack_chunked(*st.chunks, chunk_size=M2_CHUNK,
-                                        n_symbols=M2_T, prob_bits=M2_BITS)
+    lanes, t_len = tokens.shape
+    other = token_stream(model.cfg.vocab_size, (lanes, t_len), seed=1)
+    st = compress.lm_compress_chunked(model, other, chunk,
+                                      prob_bits=bits, backend="kernel")
+    blob_other = bitstream.pack_chunked(*st.chunks, chunk_size=chunk,
+                                        n_symbols=t_len, prob_bits=bits)
     del st
-    eng = BatchEngine(model, slots=M2_SLOTS, lanes=M2_LANES,
-                      chunk_size=M2_CHUNK, max_len=M2_MAX_LEN,
-                      prob_bits=M2_BITS, step_backend="kernel")
+    eng = BatchEngine(model, slots=slots, lanes=lanes, chunk_size=chunk,
+                      max_len=max_len, prob_bits=bits, step_backend="kernel",
+                      prefill="auto")
+    eng.check_sync = prefill
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit_compress(x) for x in (tokens, other)]
@@ -2246,7 +2277,7 @@ def _m2_engine(dev, model, tokens, run):
         t_comp = time.perf_counter() - t0
     for rid, want in zip(rids, (run["blob"], blob_other)):
         _check(res[rid].ok and res[rid].blob == want,
-               f"mamba2 engine request {rid}: blob differs from the "
+               f"{what} engine request {rid}: blob differs from the "
                "single-request path")
     t0 = time.perf_counter()
     dids = [eng.submit_decompress(res[r].blob) for r in rids]
@@ -2255,20 +2286,64 @@ def _m2_engine(dev, model, tokens, run):
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
     _check(not on_card and not on_card_dec,
-           "the plain SPC ran on the card in the mamba2 engine")
+           f"the plain SPC ran on the card in the {what} engine")
     for did, want in zip(dids, (tokens, other)):
         _check(out[did].ok and np.array_equal(out[did].tokens, want),
-               f"mamba2 engine decompress {did} not exact")
+               f"{what} engine decompress {did} not exact")
     _check(np.array_equal(out[dids[0]].lane_probes,
                           run["lane_probes"].cpu().numpy()),
-           "mamba2 engine probes differ from the single-request decode")
-    _check(eng.prefill_cycles == 0, "mamba2 engine ran a prefill cycle")
-    n = 2 * M2_LANES * M2_T
-    print(f"mamba2 engine: {M2_SLOTS} slots x {M2_LANES} lanes, max_len "
-          f"{M2_MAX_LEN}, two {M2_T}-token requests: blobs byte-identical "
-          f"to lm_compress_chunked, decodes exact, probes equal; compress "
+           f"{what} engine probes differ from the single-request decode")
+    _check((eng.prefill_cycles > 0) == prefill,
+           f"{what} engine ran {eng.prefill_cycles} prefill cycles")
+    n = 2 * lanes * t_len
+    print(f"{what} engine: {slots} slots x {lanes} lanes, max_len "
+          f"{max_len}, two {t_len}-token requests: blobs byte-identical "
+          f"to lm_compress_chunked, decodes exact, probes equal; "
+          f"{eng.prefill_cycles} prefill cycles"
+          f"{' (no host sync in a cycle)' * prefill}; compress "
           f"{n / t_comp:.1f} symbols/s ({t_comp:.3f} s), decompress "
           f"{n / t_dec:.1f} symbols/s ({t_dec:.3f} s)", flush=True)
+
+
+def _smoke_blob(model, x, chunk: int, backend: str) -> bytes:
+    """``x``'s v2 container at the default ``prob_bits``."""
+    from repro_torch.core import bitstream
+    from repro_torch.serve import compress
+
+    st = compress.lm_compress_chunked(model, x, chunk, backend=backend)
+    return bitstream.pack_chunked(*st.chunks, chunk_size=chunk,
+                                  n_symbols=x.shape[1])
+
+
+def _smoke_roundtrip(model, toks, chunk: int, what: str):
+    """A SMOKE model through the kernel backend with its launches counted
+    (B1 once, B2 and B6 once a position), the coder's container
+    byte-identical and the fused decode exact; returns the container, the
+    per-lane probes and the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import compress
+
+    t_len = toks.shape[1]
+    with _plain_spc_spy() as on_card:
+        reset_launches()
+        blob = _smoke_blob(model, toks, chunk, "kernel")
+        sym, _, lp = compress.lm_decompress_chunked(
+            model, bitstream.parse_chunked(blob), t_len, chunk,
+            backend="kernel", lane_probes=True)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{what} launch counts {launches}")
+    _check(not on_card, f"the plain SPC ran on the card on the {what} path")
+    _check(blob == _smoke_blob(model, toks, chunk, "coder"),
+           f"{what}: coder and kernel containers differ")
+    _check(np.array_equal(sym.cpu().numpy(), toks),
+           f"{what} round trip not exact")
+    return blob, lp, launches
 
 
 def _hybrid(dev):
@@ -2277,40 +2352,14 @@ def _hybrid(dev):
     engine run in which one slot's last chunk is short (the frozen rows)
     with ``prefill="auto"`` stepping down."""
     import numpy as np
-    import torch
     from repro_torch.configs.recurrentgemma_2b import SMOKE
-    from repro_torch.core import bitstream
     from repro_torch.data.pipeline import token_stream
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_model
-    from repro_torch.serve import compress
     from repro_torch.serve.engine import BatchEngine
 
     model = init_model(SMOKE, seed=0, device=dev)
     toks = token_stream(SMOKE.vocab_size, (HYB_LANES, HYB_T), seed=2)
-
-    def blob_of(x, backend):
-        st = compress.lm_compress_chunked(model, x, HYB_CHUNK,
-                                          backend=backend)
-        return bitstream.pack_chunked(*st.chunks, chunk_size=HYB_CHUNK,
-                                      n_symbols=x.shape[1])
-
-    with _plain_spc_spy() as on_card:
-        reset_launches()
-        blob = blob_of(toks, "kernel")
-        sym, _, lp = compress.lm_decompress_chunked(
-            model, bitstream.parse_chunked(blob), HYB_T, HYB_CHUNK,
-            backend="kernel", lane_probes=True)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=HYB_T,
-                             spc_quantize=HYB_T + 1),
-           f"hybrid launch counts {launches}")
-    _check(not on_card, "the plain SPC ran on the card on the hybrid path")
-    _check(blob == blob_of(toks, "coder"),
-           "hybrid: coder and kernel containers differ")
-    _check(np.array_equal(sym.cpu().numpy(), toks),
-           "hybrid round trip not exact")
+    blob, lp, launches = _smoke_roundtrip(model, toks, HYB_CHUNK, "hybrid")
     short = token_stream(SMOKE.vocab_size, (HYB_LANES, 40), seed=3)
     eng = BatchEngine(model, slots=2, lanes=HYB_LANES, chunk_size=HYB_CHUNK,
                       max_len=2 * SMOKE.local_window, prefill="auto",
@@ -2320,8 +2369,9 @@ def _hybrid(dev):
     with _plain_spc_spy() as on_card:
         res = eng.run()
     _check(not on_card, "the plain SPC ran on the card in the hybrid engine")
-    for rid, x in zip(rids, (short, toks)):
-        _check(res[rid].ok and res[rid].blob == blob_of(x, "kernel"),
+    wants = (_smoke_blob(model, short, HYB_CHUNK, "kernel"), blob)
+    for rid, want in zip(rids, wants):
+        _check(res[rid].ok and res[rid].blob == want,
                f"hybrid engine request {rid}: blob differs")
     dids = [eng.submit_decompress(res[r].blob) for r in rids]
     with _plain_spc_spy() as on_card:
@@ -2357,7 +2407,7 @@ def mamba2_phase(dev):
     t0 = time.perf_counter()
     model = init_model(CONFIG, seed=0, device=dev)
     tokens = token_stream(CONFIG.vocab_size, (M2_LANES, M2_T), seed=0)
-    run = _m2_slice(dev, model, tokens)
+    run = _zoo_slice(model, tokens, M2_CHUNK, M2_BITS, "mamba2")
     n = M2_LANES * M2_T
     print(f"mamba2: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
           f"{CONFIG.d_model}, vocab {CONFIG.vocab_size}, {CONFIG.dtype}), "
@@ -2377,13 +2427,139 @@ def mamba2_phase(dev):
           f"symbols/s ({run['t_dec']:.3f} s); model step {step_ms:.3f} ms "
           f"({M2_LANES} rows); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
-    recs = _m2_kernels(dev, run)
-    _m2_card_vs_cpu(dev)
-    _m2_engine(dev, model, tokens, run)
+    recs = _zoo_kernels(run, M2_BITS, "mamba2", wide=WIDE_K)
+    _zoo_card_vs_cpu(*(init_model(CONFIG.with_(dtype="float32"), seed=1,
+                                  device=d) for d in ("cpu", dev)),
+                     M2_CPU_ROWS, M2_CPU_STEPS,
+                     "mamba2: full width in float32")
+    _zoo_engine(model, tokens, run, chunk=M2_CHUNK, bits=M2_BITS,
+                slots=M2_SLOTS, max_len=M2_MAX_LEN, what="mamba2",
+                prefill=False)
     del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
     _hybrid(dev)
     print(f"mamba2 slice: {time.perf_counter() - t0:.1f} s", flush=True)
+    return run["launches"], recs
+
+
+# --- the MoE family (slice 7) ----------------------------------------------
+
+# mixtral-8x22b at full width, its depth cut to 4 of 56 layers (5.01 GB of
+# BF16 weights a layer): 16 lanes x 512 token_stream(32768) tokens, chunk
+# 128, prob_bits 16, top-4; the engine: 2 slots x 16 lanes at max_len 512
+# (the requests fit the ring, so prefill="auto" prefills their cycles);
+# MX_STEPS steps timed alone and traced for the device-busy share
+MX_LAYERS = 4
+MX_LANES, MX_T, MX_CHUNK, MX_BITS = 16, 512, 128, 16
+MX_SLOTS, MX_MAX_LEN, MX_STEPS = 2, 512, 8
+MX_CPU_ROWS, MX_CPU_STEPS = 2, 4
+# mixtral-8x22b SMOKE: 8 lanes x 64 (its 16-slot window wraps 4 times)
+MXS_LANES, MXS_T, MXS_CHUNK = 8, 64, 16
+
+
+def _mx_step(dev, model):
+    """One 16-row decode step of the cut model: its median time, and
+    ``MX_STEPS`` steps under ``torch.profiler`` for the device-busy share,
+    beside the bytes a step must read (every weight but the embedding
+    table, of which it gathers 16 rows)."""
+    import torch
+    from repro_torch.models import decode_step, init_state
+
+    state = init_state(model, MX_LANES, MX_T)
+    tok = torch.zeros((MX_LANES, 1), dtype=torch.int64, device=dev)
+    step_ms = _median_ms(lambda: decode_step(model, state, tok, 0),
+                         repeats=20)
+    _, wall_ms, busy_ms = _busy_share(lambda: [
+        decode_step(model, state, tok, t) for t in range(MX_STEPS)])
+    emb = model.embedding
+    moved = (sum(p.numel() * p.element_size() for p in model.parameters())
+             - emb.numel() * emb.element_size()
+             + MX_LANES * emb.shape[1] * emb.element_size())
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"mixtral: model step {step_ms:.3f} ms ({MX_LANES} rows), bound "
+          f"{bound_ms:.3f} ms by bytes ({moved} B of weights a step); "
+          f"{MX_STEPS} steps traced: {wall_ms:.3f} ms wall, {busy_ms:.3f} "
+          f"ms device busy ({100 * busy_ms / wall_ms:.1f}% busy)", flush=True)
+
+
+def _mx_smoke(dev):
+    """mixtral-8x22b SMOKE on the card, its 16-slot window wrapping 4
+    times: kernel and coder containers byte-identical, the fused decode
+    exact, its launches counted."""
+    from repro_torch.configs.mixtral_8x22b import SMOKE
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import init_model, init_state
+
+    model = init_model(SMOKE, seed=0, device=dev)
+    _check(init_state(model, MXS_LANES, MXS_T).length == SMOKE.window,
+           "mixtral SMOKE ring is not its window")
+    toks = token_stream(SMOKE.vocab_size, (MXS_LANES, MXS_T), seed=2)
+    _, _, launches = _smoke_roundtrip(model, toks, MXS_CHUNK,
+                                      "mixtral SMOKE")
+    print(f"mixtral SMOKE: {SMOKE.n_layers} layers, {SMOKE.n_experts} "
+          f"experts top-{SMOKE.topk_experts}, window {SMOKE.window}, "
+          f"{MXS_LANES} lanes x {MXS_T} (the ring wraps "
+          f"{MXS_T // SMOKE.window - 1} times), chunk {MXS_CHUNK}: kernel "
+          f"and coder containers byte-identical, fused decode exact, "
+          f"launches {launches}", flush=True)
+
+
+def moe_phase(dev):
+    """The MoE family on the card: ``mixtral-8x22b`` at full width, cut to
+    ``MX_LAYERS`` layers (BF16, vocab 32,768, ``prob_bits=16``), through
+    the kernel and coder backends; its step's time and device-busy share;
+    B6 and B2 at K = 32,768; one full-width layer against the CPU; the
+    engine with prefill cycles; and the SMOKE model's wrapping window.
+    Returns the slice's launches and the large-K kernel records."""
+    import torch
+    from repro_torch.configs.mixtral_8x22b import CONFIG
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import LM, init_model
+
+    t0 = time.perf_counter()
+    cfg = CONFIG.with_(n_layers=MX_LAYERS)
+    model = init_model(cfg, seed=0, device=dev, draw="device")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = token_stream(cfg.vocab_size, (MX_LANES, MX_T), seed=0)
+    run = _zoo_slice(model, tokens, MX_CHUNK, MX_BITS, "mixtral")
+    n = MX_LANES * MX_T
+    print(f"mixtral: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim_}, kv {cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top-{cfg.topk_experts}, "
+          f"window {cfg.window}, vocab {cfg.vocab_size}, {cfg.dtype}, untied"
+          f" head), depth cut to {cfg.n_layers} of {CONFIG.n_layers} layers "
+          f"({n_params} parameters, drawn on the card in {t_init:.1f} s), "
+          f"{MX_LANES} lanes x {MX_T} tokens, chunk {MX_CHUNK}, prob_bits "
+          f"{MX_BITS}: round trip bit-exact, kernel and coder containers "
+          f"byte-identical, per-lane probes equal; launches "
+          f"{run['launches']}; no plain SPC call on the card", flush=True)
+    print(f"mixtral: bits/symbol {run['bits']:.4f}, model xent "
+          f"{run['xent']:.4f} bits, avg probes/symbol "
+          f"{run['avg_probes']:.4f}, container {len(run['blob'])} bytes; "
+          f"compress {n / run['t_comp']:.1f} symbols/s "
+          f"({run['t_comp']:.3f} s), decompress {n / run['t_dec']:.1f} "
+          f"symbols/s ({run['t_dec']:.3f} s); peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+    _mx_step(dev, model)
+    recs = _zoo_kernels(run, MX_BITS, "mixtral")
+    # one float32 layer drawn on the card, its weights copied to the CPU
+    one = CONFIG.with_(n_layers=1, dtype="float32")
+    card = init_model(one, seed=1, device=dev, draw="device")
+    cpu = LM(one)
+    cpu.load_state_dict(card.state_dict())
+    _zoo_card_vs_cpu(cpu, card, MX_CPU_ROWS, MX_CPU_STEPS,
+                     "mixtral: one full-width layer in float32")
+    del cpu, card
+    torch.cuda.empty_cache()
+    _zoo_engine(model, tokens, run, chunk=MX_CHUNK, bits=MX_BITS,
+                slots=MX_SLOTS, max_len=MX_MAX_LEN, what="mixtral",
+                prefill=True)
+    del run["b6_batch"], run["b6_pos"], run["b2_pop"], model
+    torch.cuda.empty_cache()
+    _mx_smoke(dev)
+    print(f"mixtral slice: {time.perf_counter() - t0:.1f} s", flush=True)
     return run["launches"], recs
 
 
@@ -2467,6 +2643,20 @@ def main() -> int:
               mamba2_bound_ms=m2["b2"]["bound_ms"],
               mamba2_bound_by=m2["b2"]["bound_by"])
     b2["max_abs_err"] = max(b2["max_abs_err"], m2["b2"]["err"])
+    torch.cuda.empty_cache()
+    mx_launches, mx = timed("mixtral slice", moe_phase, dev)
+    b6.update(moe_batch_ms=mx["batch"]["ms"],
+              moe_batch_plain_ms=mx["batch"]["plain_ms"],
+              moe_batch_bound_ms=mx["batch"]["bound_ms"],
+              moe_position_ms=mx["position"]["ms"],
+              moe_position_plain_ms=mx["position"]["plain_ms"],
+              moe_position_bound_ms=mx["position"]["bound_ms"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], mx["batch"]["err"],
+                            mx["position"]["err"])
+    b2.update(moe_ms=mx["b2"]["ms"], moe_plain_ms=mx["b2"]["plain_ms"],
+              moe_bound_ms=mx["b2"]["bound_ms"],
+              moe_bound_by=mx["b2"]["bound_by"])
+    b2["max_abs_err"] = max(b2["max_abs_err"], mx["b2"]["err"])
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -2476,6 +2666,7 @@ def main() -> int:
         rec["engine_launches"] = engine_launches[rec["name"]]
         rec["fig4c_launches"] = fig4c_launches[rec["name"]]
         rec["mamba2_launches"] = m2_launches[rec["name"]]
+        rec["moe_launches"] = mx_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

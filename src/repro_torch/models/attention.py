@@ -18,15 +18,17 @@ kept, not its floats (DESIGN.md §11):
 The cache is allocated with its slot axis padded to a whole number of
 tiles; slots past the ring length are never valid.  The step writes its
 K/V row in place (the reference returns a new cache).  A config with a
-``local_window`` (the hybrid's attention blocks) rings a cache of
-``min(max_len, window)`` slots and also masks entries ``window`` or more
-positions old.  In a bfloat16 model the scores and the softmax run in
-float32 and the weights round to bfloat16 before the value product, as
-the reference's ``preferred_element_type`` does.
+window (``cfg.window``: the hybrid's ``local_window``, mixtral's
+``sliding_window``) rings a cache of ``min(max_len, window)`` slots and
+also masks entries ``window`` or more positions old.  In a bfloat16
+model the scores and the softmax run in float32 and the weights round to
+bfloat16 before the value product, as the reference's
+``preferred_element_type`` does.
 
 :func:`attn_forward` is the reference's naive schedule (``_naive_attn``):
-one batched product for the scores, float32, causal mask, softmax, one
-batched product for the values.  It has no tie to the decode path's
+one batched product for the scores, float32, causal mask (and the
+``sliding_window``, as the reference's training path reads it), softmax,
+one batched product for the values.  It has no tie to the decode path's
 tiles: trained weights are priced by ``decode_step`` on both sides of a
 stream, so training needs no bitwise tie to decode.
 """
@@ -160,7 +162,7 @@ def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
     _write_kv(ck, cv, k, v, pos, slot)
     idx = torch.arange(ck.shape[1], device=x1.device)
     out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len,
-                                          cfg.local_window), cfg)
+                                          cfg.window), cfg)
     return out.reshape(b, 1, hp * dh) @ wo.reshape(hp * dh, d)
 
 
@@ -196,7 +198,7 @@ def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
                   write=t < n_valid)
         out = _attend_slots(q[:, t:t + 1], ck, cv,
                             _valid(pq[t], slot, idx, cache_len,
-                                   cfg.local_window), cfg)
+                                   cfg.window), cfg)
         outs.append(out.reshape(b, hp * dh) @ wo.reshape(hp * dh, d))
     return torch.stack(outs)
 
@@ -206,7 +208,9 @@ def attn_forward(wq, wk, wv, wo, x: torch.Tensor,
     """Causal self-attention over a whole sequence (training): x (B,S,D)
     -> (B,S,D), RoPE at positions ``arange(S)``.  Query head ``i`` reads
     kv head ``i // (n_heads_padded // n_kv_heads)``, the decode path's
-    grouping.  Only ``attn_impl="naive"`` is ported."""
+    grouping.  A ``sliding_window`` also masks keys ``window`` or more
+    positions behind the query (the reference's ``kv_idx > q_idx -
+    window``).  Only ``attn_impl="naive"`` is ported."""
     if cfg.attn_impl != "naive":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP A6); "
@@ -227,6 +231,8 @@ def attn_forward(wq, wk, wv, wo, x: torch.Tensor,
     kt = k.permute(0, 2, 3, 1)[:, :, None]                # (B,KV,1,Dh,S)
     sc = torch.matmul(qg, kt) * (1.0 / math.sqrt(dh))     # (B,KV,g,S,S)
     causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    if cfg.sliding_window:
+        causal = causal.triu(1 - cfg.sliding_window)
     p = torch.softmax(torch.where(causal, sc, _NEG), dim=-1)
     out = torch.matmul(p, v.permute(0, 2, 1, 3)[:, :, None])
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hp * dh)

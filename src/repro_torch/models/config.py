@@ -2,13 +2,14 @@
 families read.
 
 Field names and derived quantities match the reference so a config reads
-the same in both packages.  The dense, ``ssm`` (Mamba2) and ``hybrid``
-(RecurrentGemma) families are ported for serving; the family-dependent
-layer-kind ``pattern`` and its ``stages`` drive the model's assembly
-(``models.transformer``) and the serving protocol's state classification
-(``models.protocol``).  ``local_window`` bounds the hybrid's attention
-ring; the dense ``sliding_window`` (mixtral's) is classified but not
-ported (``LM`` refuses it).  ``dtype`` is the parameters' and
+the same in both packages.  The dense, ``moe`` (Mixtral, Phi-3.5-MoE),
+``ssm`` (Mamba2) and ``hybrid`` (RecurrentGemma) families are ported for
+serving; the family-dependent layer-kind ``pattern`` and its ``stages``
+drive the model's assembly (``models.transformer``) and the serving
+protocol's state classification (``models.protocol``).  ``local_window``
+(the hybrid's) or ``sliding_window`` (mixtral's) bounds the attention
+ring and its mask (:attr:`ModelConfig.window`).  ``dtype`` is the
+parameters' and
 activations' type (``"float32"`` or ``"bfloat16"``).  The training fields
 (``attn_impl``, ``logits_chunk``, ``grad_accum``, ``moment_dtype``,
 ``grad_dtype``) carry the reference's defaults; only
@@ -24,7 +25,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | ssm | hybrid are ported
+    family: str                      # dense | moe | ssm | hybrid are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,6 +38,12 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tp: int = 1                      # q heads are padded to a multiple
+
+    # MoE
+    n_experts: int = 0
+    topk_experts: int = 2
+    moe_impl: str = "capacity"       # capacity | dense
+    capacity_factor: float = 1.25
 
     # SSM (mamba2 / SSD)
     ssm_state: int = 0
@@ -63,6 +70,13 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def window(self) -> int:
+        """The attention window of a decode step (0 = full): the hybrid's
+        ``local_window`` or the dense ``sliding_window``, as the
+        reference's ``attn_decode`` reads them."""
+        return self.local_window or self.sliding_window
 
     @property
     def n_heads_padded(self) -> int:

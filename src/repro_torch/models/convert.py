@@ -6,8 +6,10 @@ converts with ``np.asarray``; this module never imports JAX) and returns an
 :class:`~repro_torch.models.transformer.LM` holding the same weights.  The
 reference stacks each stage's blocks on a leading ``reps`` axis:
 ``tree["stages"]["s1"]["b0_rec"]["rec"]["w_x"][r]`` is the ``w_x`` of the
-first block of stage 1's ``r``-th repeat.  A bfloat16 tree (numpy's
-``bfloat16`` from ``ml_dtypes``) is read by bit pattern.
+first block of stage 1's ``r``-th repeat (an ``attn_moe`` block's
+experts: ``["ffn"]["wi_gate"][r]``, ``(E, D, F)``); an untied head is
+``tree["tok"]["lm_head"]``.  A bfloat16 tree (numpy's ``bfloat16`` from
+``ml_dtypes``) is read by bit pattern.
 ``to_reference(model)`` is the inverse: the model's parameters, or any
 tensors keyed by its parameter names (gradients, updated values), as that
 tree of numpy float32 arrays.
@@ -71,6 +73,8 @@ def from_reference(tree: dict, cfg: ModelConfig,
         param.copy_(t)
 
     put(model.embedding, _tensor(tree["tok"]["embedding"]))
+    if model.lm_head is not None:
+        put(model.lm_head, _tensor(tree["tok"]["lm_head"]))
     put(model.final_norm, _tensor(tree["final_norm"]["scale"]))
     for blk, (i, key, r) in zip(model.blocks, model.layout):
         sub = tree["stages"][f"s{i}"][key]
@@ -103,6 +107,8 @@ def to_reference(model: LM, tensors: dict | None = None) -> dict:
                         for top, sub in unit.items()}
                   for key, unit in blocks.items()}
               for s, blocks in stacks.items()}
-    return {"tok": {"embedding": np_("embedding")},
-            "final_norm": {"scale": np_("final_norm")},
+    tok = {"embedding": np_("embedding")}
+    if model.lm_head is not None:
+        tok["lm_head"] = np_("lm_head")
+    return {"tok": tok, "final_norm": {"scale": np_("final_norm")},
             "stages": stages}

@@ -1,5 +1,6 @@
 """Shared layers: RMSNorm, RoPE, gated MLP, the recurrent blocks' causal
-convolution step, embeddings, tied logits and the training losses.
+convolution step, embeddings, the logits (tied or through ``lm_head``)
+and the training losses.
 
 Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
 ``wo (ff, d)``, ``embedding (Vpad, d)``).  In a bfloat16 model the norm
@@ -71,9 +72,11 @@ def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embedding[tokens]
 
 
-def logits(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding logits ``x @ E^T`` over the padded vocabulary."""
-    return x @ embedding.T
+def logits(embedding: torch.Tensor, x: torch.Tensor,
+           lm_head: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits over the padded vocabulary: tied ``x @ E^T``, or ``x @
+    lm_head`` (D, Vpad) when the config unties the head."""
+    return x @ embedding.T if lm_head is None else x @ lm_head
 
 
 def xent_loss(lg: torch.Tensor, labels: torch.Tensor,
@@ -90,17 +93,18 @@ def xent_loss(lg: torch.Tensor, labels: torch.Tensor,
 
 
 def chunked_xent_loss(embedding: torch.Tensor, x: torch.Tensor,
-                      labels: torch.Tensor, vocab_size: int,
-                      chunk: int) -> torch.Tensor:
-    """:func:`xent_loss` of the tied logits over ``chunk``-position slices
-    of the sequence, averaged over the slices: never holds the whole
-    ``(B, S, V)`` logits."""
+                      labels: torch.Tensor, vocab_size: int, chunk: int,
+                      lm_head: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`xent_loss` of the :func:`logits` over ``chunk``-position
+    slices of the sequence, averaged over the slices: never holds the
+    whole ``(B, S, V)`` logits."""
     s = x.shape[1]
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of "
                          f"logits_chunk {chunk}")
     total = x.new_zeros((), dtype=torch.float32)
     for c in range(0, s, chunk):
-        total = total + xent_loss(logits(embedding, x[:, c:c + chunk]),
+        total = total + xent_loss(logits(embedding, x[:, c:c + chunk],
+                                         lm_head),
                                   labels[:, c:c + chunk], vocab_size)
     return total / (s // chunk)

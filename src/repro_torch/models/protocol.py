@@ -5,9 +5,11 @@ Port of ``repro.models.protocol``: serving code calls :func:`init_state`,
 architecture module, and :func:`state_spec` classifies a config's serving
 state (KV ring or recurrent leaves) for the batching engine's geometry
 (:func:`ring_length`, :func:`wrap_length`, :func:`can_prefill`).  The
-``dense``, ``ssm`` and ``hybrid`` families are ported, all through the
-pattern/stage model :class:`~repro_torch.models.transformer.LM`; another
-family raises a named ``KeyError``.  :func:`recurrent_state_tree` marks a
+``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported, all
+through the pattern/stage model
+:class:`~repro_torch.models.transformer.LM`; another family raises a
+named ``KeyError``.  ``moe`` is a ring family (mixtral's ring is its
+``sliding_window``) with a prefill.  :func:`recurrent_state_tree` marks a
 state's recurrent leaves (the reference's path classification) and
 :func:`reset_rows` zeroes every leaf of a slot's rows (a fresh admit).
 """
@@ -61,7 +63,7 @@ def state_spec(cfg: ModelConfig) -> StateSpec:
     if not ring:
         window = 0
     else:
-        window = (cfg.local_window or cfg.sliding_window) or -1
+        window = cfg.window or -1
     return StateSpec(kinds=kinds, ring=ring, recurrent=recurrent,
                      ring_window=window)
 
@@ -126,6 +128,7 @@ def _shared(family: str, prefillable: bool) -> ModelProtocol:
 # have no block-parallel prefill
 FAMILY_PROTOCOLS: dict[str, ModelProtocol] = {
     "dense": _shared("dense", prefillable=True),
+    "moe": _shared("moe", prefillable=True),
     "ssm": _shared("ssm", prefillable=False),
     "hybrid": _shared("hybrid", prefillable=False),
 }

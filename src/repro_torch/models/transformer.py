@@ -7,24 +7,31 @@ each a layer-kind pattern repeated ``reps`` times (``cfg.stages``; a tail
 partial pattern is its own stage), laid out here as one list of blocks in
 depth order.  Ported kinds:
 
-    attn   RoPE grouped-query self-attention + gated SiLU MLP (dense;
-           the hybrid's local-window attention)
-    ssm    Mamba2 SSD mixer, no FFN                    (mamba2)
-    rec    RG-LRU recurrent block + gated MLP          (recurrentgemma)
+    attn      RoPE grouped-query self-attention + gated SiLU MLP (dense;
+              the hybrid's local-window attention)
+    attn_moe  the same attention + the top-k MoE FFN   (mixtral, phi3.5)
+    ssm       Mamba2 SSD mixer, no FFN                 (mamba2)
+    rec       RG-LRU recurrent block + gated MLP       (recurrentgemma)
 
-``attn_moe``, ``cross`` and ``dec`` raise (ROADMAP A6).  A final RMSNorm
-and tied-embedding logits over the padded vocabulary close the model.
-Weight layouts match the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh,
-d)``, ``wi_gate (d, ff)``, the SSM's and RG-LRU's leaves), so
+``cross`` and ``dec`` raise (ROADMAP A6).  A final RMSNorm and the logits
+over the padded vocabulary (tied to the embedding, or through ``lm_head``
+when ``cfg.tie_embeddings`` is false) close the model.  Weight layouts
+match the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate
+(d, ff)``, the experts' ``(E, d, ff)``, the SSM's and RG-LRU's leaves), so
 ``models.convert`` copies a JAX parameter tree over unchanged.
 
 Serving runs one token at a time through :meth:`LM.decode_step` against a
 :class:`ModelState`, which the step updates in place: the attention
 blocks' KV rings and the recurrent blocks' ``(conv, h)`` leaves.  A
 teacher-forced chunk of positions runs through :meth:`LM.prefill_chunk`
-(all-attention patterns only), bitwise the same steps.  Training runs
-:meth:`LM.forward` over whole sequences and :func:`loss_fn` (the dense
-family; the recurrent kinds' training scans raise, ROADMAP A6).
+(all-attention patterns only), bitwise the same steps: the MoE FFN runs
+per position at the step's shapes (:func:`~repro_torch.models.moe.
+moe_step`), so no token of a chunk is dropped, where the reference's
+capacity dispatch over the chunk drops some.  Training runs
+:meth:`LM.forward` over whole sequences (the MoE FFN through the
+configured capacity or dense schedule) and :func:`loss_fn` (the dense
+and MoE families; the recurrent kinds' training scans raise, ROADMAP
+A6).
 
 Both serving calls take optional :class:`RowGroup` s, the batching
 engine's slots: each group runs as the single-request step of the same
@@ -51,13 +58,16 @@ from repro_torch.models.attention import (attn_decode, attn_forward,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_xent_loss, embed, logits, mlp,
                                        rmsnorm, xent_loss)
+from repro_torch.models.moe import MoE, moe, moe_step
 from repro_torch.models.rglru import (RGLRU, init_rglru_cache,
                                       rglru_decode_step, rglru_forward)
 from repro_torch.models.ssm import (SSM, init_ssm_cache, ssm_decode_step,
                                     ssm_forward)
 
-FAMILIES = ("dense", "ssm", "hybrid")  # the ported families
-KINDS = ("attn", "ssm", "rec")         # and their layer kinds
+FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the ported families
+KINDS = ("attn", "attn_moe", "ssm", "rec")    # and their layer kinds
+# the state each kind keeps: a KV ring ("attn") or recurrent leaves
+_STATE = {"attn": "attn", "attn_moe": "attn", "ssm": "ssm", "rec": "rec"}
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -125,14 +135,15 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """An ``attn`` block: self-attention and the gated MLP."""
+    """An ``attn`` block: self-attention and the gated MLP (``attn_moe``:
+    the MoE FFN)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, ffn=MLP):
         super().__init__()
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
         self.attn = Attention(cfg)
         self.ln2 = nn.Parameter(torch.ones(cfg.d_model))
-        self.ffn = MLP(cfg)
+        self.ffn = ffn(cfg)
 
 
 class SSMBlock(nn.Module):
@@ -155,7 +166,8 @@ class RecBlock(nn.Module):
         self.ffn = MLP(cfg)
 
 
-_BLOCKS = {"attn": Block, "ssm": SSMBlock, "rec": RecBlock}
+_BLOCKS = {"attn": Block, "attn_moe": lambda cfg: Block(cfg, MoE),
+           "ssm": SSMBlock, "rec": RecBlock}
 # leaves initialised to a constant, by leaf name; every other matrix and
 # the RG-LRU's gate weights are normal(0, scale), every other vector 1
 _INIT = {**SSM.INIT, **RGLRU.INIT}
@@ -163,9 +175,10 @@ _NORMAL_VECTORS = ("gate_a_w", "gate_i_w")
 
 
 class LM(nn.Module):
-    """The ported decoder-only families (``dense``, ``ssm``, ``hybrid``):
-    tied embeddings, the blocks of ``cfg.stages`` in depth order, the
-    parameters in ``cfg.dtype``."""
+    """The ported decoder-only families (``dense``, ``moe``, ``ssm``,
+    ``hybrid``): the embedding, the blocks of ``cfg.stages`` in depth
+    order, the final norm and (untied) ``lm_head``, the parameters in
+    ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -173,13 +186,6 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} (config {cfg.name!r}) is not ported "
                 f"(ROADMAP A6); ported families: {FAMILIES}")
-        if not cfg.tie_embeddings:
-            raise ValueError(f"the port ties the embeddings; got "
-                             f"tie_embeddings={cfg.tie_embeddings}")
-        if cfg.sliding_window:
-            raise ValueError("windowed attention of the dense family is not "
-                             "ported yet (ROADMAP A6); got sliding_window="
-                             f"{cfg.sliding_window}")
         kinds = tuple(k for pat, reps in cfg.stages for _ in range(reps)
                       for k in pat)
         for kind in kinds:
@@ -194,20 +200,30 @@ class LM(nn.Module):
                             for i, (pat, reps) in enumerate(cfg.stages)
                             for r in range(reps)
                             for j, kind in enumerate(pat))
-        # each block's index among the blocks of its kind (its state row)
-        self._index = tuple(kinds[:i].count(k) for i, k in enumerate(kinds))
+        # each block's index among the blocks keeping its kind of state
+        # (its row of the KV rings or of the recurrent leaves)
+        states = [_STATE[k] for k in kinds]
+        self._index = tuple(states[:i].count(st)
+                            for i, st in enumerate(states))
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_padded,
                                                   cfg.d_model))
         self.blocks = nn.ModuleList(_BLOCKS[k](cfg) for k in kinds)
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty(cfg.d_model, cfg.vocab_padded))
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return logits(self.embedding, x, self.lm_head)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
                          scale: float = 0.02) -> "LM":
         """Seeded init, the reference's rule (its random bits differ):
-        normal(0, scale) matrices, embeddings and RG-LRU gate weights, the
-        reference's constants for the SSM's and RG-LRU's biases and
-        scales, unit norm scales; padded query heads are zero."""
+        normal(0, scale) matrices (the experts' and the router's, the
+        untied head), embeddings and RG-LRU gate weights, the reference's
+        constants for the SSM's and RG-LRU's biases and scales, unit norm
+        scales; padded query heads are zero.  Each draw is float32 from
+        ``generator``, on its device, then rounded into the parameter."""
         cfg = self.cfg
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -216,7 +232,8 @@ class LM(nn.Module):
             elif p.ndim == 1 and leaf not in _NORMAL_VECTORS:
                 p.fill_(1.0)
             else:
-                p.copy_(torch.randn(p.shape, generator=generator) * scale)
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=generator.device) * scale)
         for blk in self.blocks:
             if isinstance(blk, Block):
                 blk.attn.wq[:, cfg.n_heads:] = 0.0
@@ -224,11 +241,13 @@ class LM(nn.Module):
         return self
 
     def forward(self, tokens: torch.Tensor):
-        """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss);
-        the aux loss is 0.0 (no ported kind has one).  The recurrent kinds'
-        training scans are not ported (ROADMAP A6) and raise."""
+        """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss):
+        the sum of the MoE blocks' load-balance losses (0.0 without
+        one).  The recurrent kinds' training scans are not ported (ROADMAP
+        A6) and raise."""
         cfg = self.cfg
         x = embed(self.embedding, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, blk in zip(self.kinds, self.blocks):
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
             if kind == "ssm":
@@ -239,22 +258,26 @@ class LM(nn.Module):
             else:
                 a = blk.attn
                 x = x + attn_forward(a.wq, a.wk, a.wv, a.wo, h, cfg)
-            f = blk.ffn
-            x = x + mlp(f.wi_gate, f.wi_up, f.wo,
-                        rmsnorm(blk.ln2, x, cfg.norm_eps))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+            if kind == "attn_moe":
+                h, a = moe(blk.ffn, h, cfg)
+                aux = aux + a
+            else:
+                f = blk.ffn
+                h = mlp(f.wi_gate, f.wi_up, f.wo, h)
+            x = x + h
         return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
 
     def init_state(self, batch: int, max_len: int) -> ModelState:
         """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
-        local_window)`` slots (``max_len`` without a window) and the
-        recurrent blocks' leaves."""
+        window)`` slots (``max_len`` without a window) and the recurrent
+        blocks' leaves."""
         cfg = self.cfg
         p = self.embedding
-        win = cfg.local_window
+        win = cfg.window
         ring = min(max_len, win) if win else max_len
         k = v = None
-        n = self.kinds.count("attn")
+        n = sum(_STATE[kind] == "attn" for kind in self.kinds)
         if n:
             shape = (n, batch, ring_slots(ring), cfg.n_kv_heads,
                      cfg.head_dim_)
@@ -308,11 +331,18 @@ class LM(nn.Module):
                 a = blk.attn
                 x = x + attn_decode(a.wq, a.wk, a.wv, a.wo, h, st["k"][i],
                                     st["v"][i], length, pos, cfg)
-            f = blk.ffn
-            h = rmsnorm(blk.ln2, x, cfg.norm_eps)
-            x = x + mlp(f.wi_gate, f.wi_up, f.wo, h)
+            x = x + self._ffn(kind, blk, x)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
-        return logits(self.embedding, x)[:, 0]
+        return self._logits(x)[:, 0]
+
+    def _ffn(self, kind: str, blk, x1: torch.Tensor) -> torch.Tensor:
+        """A block's FFN on one position (B,1,D): the gated MLP, or the MoE
+        FFN in its fixed-shape step form."""
+        h = rmsnorm(blk.ln2, x1, self.cfg.norm_eps)
+        if kind == "attn_moe":
+            return moe_step(blk.ffn, h, self.cfg)
+        f = blk.ffn
+        return mlp(f.wi_gate, f.wi_up, f.wo, h)
 
     @torch.no_grad()
     def decode_step(self, state: ModelState, token: torch.Tensor, pos,
@@ -345,18 +375,16 @@ class LM(nn.Module):
                                 for t in range(s_len)])
 
         xs = embed(self.embedding, tokens.T)            # (S, B, D)
-        for i, blk in enumerate(self.blocks):
-            a, f = blk.attn, blk.ffn
+        for i, (kind, blk) in enumerate(zip(self.kinds, self.blocks)):
+            a = blk.attn
             hs = [rmsnorm(blk.ln1, xs[t][:, None], cfg.norm_eps)
                   for t in range(s_len)]
             xs = xs + attn_prefill(a.wq, a.wk, a.wv, a.wo, hs, ck[i], cv[i],
                                    length, pos0, n_valid, cfg)
-            xs = xs + per_position(lambda x1: mlp(
-                f.wi_gate, f.wi_up, f.wo,
-                rmsnorm(blk.ln2, x1, cfg.norm_eps)), xs)
-        return per_position(lambda x1: logits(
-            self.embedding, rmsnorm(self.final_norm, x1, cfg.norm_eps)),
-            xs).transpose(0, 1)
+            xs = xs + per_position(
+                lambda x1, kind=kind, blk=blk: self._ffn(kind, blk, x1), xs)
+        return per_position(lambda x1: self._logits(
+            rmsnorm(self.final_norm, x1, cfg.norm_eps)), xs).transpose(0, 1)
 
     @torch.no_grad()
     def prefill_chunk(self, state: ModelState, tokens: torch.Tensor,
@@ -364,7 +392,8 @@ class LM(nn.Module):
                       groups=None) -> torch.Tensor:
         """Teacher-forced chunk: tokens (B,S) at per-row positions ``pos0 +
         [0, S)`` -> logits (B,S,Vpad), ``state`` updated in place.  Every
-        block must be ``attn`` (the protocol's ``can_prefill``).
+        block must be ``attn`` or ``attn_moe`` (the protocol's
+        ``can_prefill``).
 
         Bitwise equal to S :meth:`decode_step` calls at positions ``pos0 +
         min(t, n_valid)`` on every live position (``t < n_valid``) and on
@@ -373,11 +402,12 @@ class LM(nn.Module):
         write nothing; their logits are not the step path's (the step path
         writes the clamped position's slot, the next chunk's first step
         overwrites it).  Only the embedding, the RoPE and the residual adds
-        (elementwise) run over all S positions at once: every norm, GEMM
-        and attend runs per position at the step path's shapes, since
-        cuBLAS's GEMMs and PyTorch's row reductions may order a sum
-        otherwise at another row count."""
-        if set(self.kinds) != {"attn"}:
+        (elementwise) run over all S positions at once: every norm, GEMM,
+        attend and MoE FFN runs per position at the step path's shapes,
+        since cuBLAS's GEMMs and PyTorch's row reductions may order a sum
+        otherwise at another row count (and a MoE chunk would drop
+        tokens)."""
+        if not set(self.kinds) <= {"attn", "attn_moe"}:
             raise ValueError(f"prefill_chunk runs attention blocks only; "
                              f"this model has {sorted(set(self.kinds))}")
         b = tokens.shape[0]
@@ -411,18 +441,40 @@ def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     x, aux = model(batch["tokens"])
     if cfg.logits_chunk:
         ce = chunked_xent_loss(model.embedding, x, batch["labels"],
-                               cfg.vocab_size, cfg.logits_chunk)
+                               cfg.vocab_size, cfg.logits_chunk,
+                               model.lm_head)
     else:
-        ce = xent_loss(logits(model.embedding, x), batch["labels"],
-                       cfg.vocab_size)
+        ce = xent_loss(model._logits(x), batch["labels"], cfg.vocab_size)
     return ce + 0.01 * aux
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
-               device: torch.device | str | None = None) -> LM:
-    """Seeded random weights, drawn in float32 on the CPU so every device
-    gets the same ones, then cast to ``cfg.dtype`` and moved to ``device``
-    (the card when None)."""
+               device: torch.device | str | None = None, *,
+               draw: str = "cpu") -> LM:
+    """Seeded random weights on ``device`` (the card when None), in
+    ``cfg.dtype``.
+
+    Two draws, because a seed must give the same model on every device
+    for the card-against-CPU checks, and a host draw does not scale:
+
+    * ``draw="cpu"`` (the default) draws in float32 on the CPU, then casts
+      and moves: the same weights on every device, so a check builds its
+      CPU and card models from the seed alone.
+    * ``draw="device"`` draws each parameter in float32 from a generator
+      on ``device``, straight into its storage: no float32 host copy, and
+      seconds instead of minutes for a full-width MoE model, but on the
+      card other bits than the CPU's (a comparison across devices then
+      copies the weights with ``load_state_dict``).  On the CPU it gives
+      the bits of ``"cpu"``."""
     dev = resolve_device(device)
-    model = LM(cfg).reset_parameters(torch.Generator().manual_seed(seed))
-    return model.to(device=dev, dtype=torch_dtype(cfg))
+    if draw == "cpu":
+        model = LM(cfg).reset_parameters(torch.Generator().manual_seed(seed))
+        return model.to(device=dev, dtype=torch_dtype(cfg))
+    if draw != "device":
+        raise ValueError(f"unknown draw {draw!r} (expected 'cpu' or "
+                         "'device')")
+    with torch.device("meta"):
+        model = LM(cfg)
+    model = model.to(dtype=torch_dtype(cfg)).to_empty(device=dev)
+    return model.reset_parameters(
+        torch.Generator(device=dev).manual_seed(seed))

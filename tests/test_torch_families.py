@@ -291,7 +291,7 @@ def test_training_scans_are_named_gaps(arch):
         model(torch.zeros((1, 4), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("kind", ["attn_moe", "cross", "dec"])
+@pytest.mark.parametrize("kind", ["cross", "dec"])
 def test_unported_kinds_raise(kind):
     cfg = get_smoke_config("recurrentgemma-2b").with_(
         block_pattern=("rec", kind))

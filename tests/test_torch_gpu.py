@@ -36,7 +36,10 @@ Dirichlet, near-uniform, tied and waterfill rows in BF16 and float32,
 with and without the CDF; B2 at mamba2-130m's (16 lanes, K = 50,280)
 per-lane rows; the mamba2-130m (smoke and full width) and
 recurrentgemma-2b (smoke) decode steps in float32 on the card against the
-CPU.
+CPU.  The MoE family: B6 and B2 also at mixtral-8x22b's K = 32,768; both
+MoE SMOKE models round-trip on the card (kernel and coder containers
+byte-identical, one B2 and one B6 launch per decoded position), their
+steps match the CPU's and their prefill is their steps bitwise.
 """
 
 import os
@@ -1024,7 +1027,7 @@ def _wide_rows(k: int, case: str) -> np.ndarray:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["dirichlet", "near_uniform", "ties",
                                   "waterfill"])
-@pytest.mark.parametrize("k", [16385, 50280, 65536])
+@pytest.mark.parametrize("k", [16385, 32768, 50280, 65536])
 def test_gpu_spc_wide_matches_plain(k, case, dtype):
     """B6's wide layout (16,384 < K <= 65,536) at prob_bits 16, with and
     without the CDF, against the sort-based plain SPC."""
@@ -1042,12 +1045,13 @@ def test_gpu_spc_wide_matches_plain(k, case, dtype):
 
 
 @pytest.mark.gpu
-def test_gpu_decode_step_large_k_rows_match_plain():
-    """B2 at the mamba2 slice's shape: 16 lanes of per-lane rows of K =
-    50,280 at prob_bits 16 with top-4 candidates (the device-memory row
-    pass)."""
+@pytest.mark.parametrize("k", [32768, 50280])
+def test_gpu_decode_step_large_k_rows_match_plain(k):
+    """B2 at the mixtral and mamba2 slices' shapes: 16 lanes of per-lane
+    rows of K = 32,768 or 50,280 at prob_bits 16 with top-4 candidates
+    (the device-memory row pass)."""
     dev = _cuda()
-    lanes, k, t = 16, 50280, 6
+    lanes, t = 16, 6
     tt, syms = _case("lane", seed=9, k=k, lanes=lanes, t=t, prob_bits=16)
     enc = coder.encode(_t(syms), tt)
     dec = coder.decoder_init(enc)
@@ -1089,3 +1093,57 @@ def test_gpu_recurrent_steps_match_cpu(arch, width):
               for m, st in zip(models, states)]
         assert bool(torch.isfinite(lg[1]).all())
         assert float((lg[1].cpu() - lg[0]).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (mixtral-8x22b's and phi3.5-moe's SMOKE on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b"])
+def test_gpu_moe_smoke_roundtrip(arch):
+    """The SMOKE model on the card, 4 lanes x 40 tokens (mixtral's 16-slot
+    window wraps): kernel and coder containers byte-identical, the fused
+    decode exact with one B2 and one B6 launch per position; its float32
+    steps against the same weights on the CPU within 1e-4; the card's
+    ``prefill_chunk`` bitwise its own steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, init_model, init_state,
+                                    prefill_chunk)
+    from repro_torch.serve import compress
+    dev = _cuda()
+    cfg = get_smoke_config(arch)
+    model = init_model(cfg, seed=2, device=dev)
+    toks = token_stream(cfg.vocab_size, (4, 40), seed=5)
+
+    def blob(backend):
+        st = compress.lm_compress_chunked(model, toks, 16, backend=backend)
+        return bitstream.pack_chunked(*st.chunks, chunk_size=16,
+                                      n_symbols=40)
+
+    b = blob("kernel")
+    assert b == blob("coder")
+    before = dict(LAUNCHES)
+    sym, _, _ = compress.lm_decompress_chunked(
+        model, bitstream.parse_chunked(b), 40, 16, backend="kernel",
+        lane_probes=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rans_decode_step"] - before["rans_decode_step"] == 40
+    assert LAUNCHES["spc_quantize"] - before["spc_quantize"] == 40
+    assert np.array_equal(sym.cpu().numpy(), toks)
+    cpu = init_model(cfg, seed=2, device="cpu")
+    states = [init_state(m, 2, 40) for m in (cpu, model)]
+    t_in = torch.as_tensor(toks[:2])
+    for t in range(24):
+        lg = [decode_step(m, st, t_in[:, t:t + 1].to(m.embedding.device), t)
+              for m, st in zip((cpu, model), states)]
+        assert float((lg[1].cpu() - lg[0]).abs().max()) <= 1e-4
+    st_p = init_state(model, 2, 40)
+    lp = prefill_chunk(model, st_p, t_in[:, :16].to(dev),
+                       torch.zeros(2, dtype=torch.int64, device=dev),
+                       torch.full((2,), 16, dtype=torch.int64, device=dev))
+    st_s = init_state(model, 2, 40)
+    for t in range(16):
+        ls = decode_step(model, st_s, t_in[:, t:t + 1].to(dev), t)
+        assert torch.equal(lp[:, t], ls)
+    assert torch.equal(st_p.k, st_s.k) and torch.equal(st_p.v, st_s.v)

@@ -197,19 +197,38 @@ def test_state_geometry_matches_reference(cfg_pair):
 
 
 def test_registry_and_protocol_named_errors():
+    """The registry's and the protocol's named errors; a dense
+    ``sliding_window`` masks its ring as JAX's does (20 steps of an
+    8-position window, logits within 1e-4)."""
     assert registry.ARCH_IDS == jregistry.ARCH_IDS
     assert registry.SERVE_SMOKE_ARCHS == jregistry.SERVE_SMOKE_ARCHS
     assert registry.get_config("ras-pimc") == CONFIG
     assert registry.get_smoke_config("ras-pimc") == SMOKE
     assert registry.get_protocol("ras-pimc").family == "dense"
     with pytest.raises(KeyError, match="not ported yet.*ras-pimc"):
-        registry.get_config("mixtral-8x22b")
+        registry.get_config("llama-3.2-vision-11b")
     with pytest.raises(KeyError, match="unknown arch 'gpt-9'"):
         registry.get_smoke_config("gpt-9")
-    with pytest.raises(KeyError, match="family 'moe'.*not ported"):
-        models.get_protocol(CONFIG.with_(family="moe"))
-    with pytest.raises(ValueError, match="windowed attention"):
-        models.LM(SMOKE.with_(sliding_window=8))
+    with pytest.raises(KeyError, match="family 'vlm'.*not ported"):
+        models.get_protocol(CONFIG.with_(family="vlm"))
+    jcfg = J_SMOKE.with_(sliding_window=8)
+    params = jmodels.init_model(jcfg, jax.random.PRNGKey(4))
+    model = from_reference(jax.tree.map(np.asarray, params),
+                           SMOKE.with_(sliding_window=8), device="cpu")
+    b, steps = 2, 20
+    toks = _toks(b, steps, 23)
+    jcache = j_init_cache(jcfg, b, steps)
+    state = model.init_state(b, steps)
+    assert state.length == models.ring_length(model.cfg, steps) == 8
+    step = jax.jit(lambda c, tok, pos: j_decode_step(params, c, tok, pos,
+                                                     jcfg))
+    for t in range(steps):
+        jlg, jcache = step(jcache, jnp.asarray(toks[:, t:t + 1], jnp.int32),
+                           jnp.int32(t))
+        lg = models.decode_step(model, state, torch.as_tensor(
+            toks[:, t:t + 1]), t)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=1e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("backend", ["coder", "kernel"])

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where one position's time goes in the port's slice, on the card.
 
-    python3 tools/profile_slice.py [--arch ras-pimc] [--lanes 128]
-                                   [--max-len 1000] [--steps 50]
-                                   [--trace-steps 10]
+    python3 tools/profile_slice.py [--arch ras-pimc] [--layers N]
+                                   [--lanes 128] [--max-len 1000]
+                                   [--steps 50] [--trace-steps 10]
 
-At ``--arch``'s full width (``ras-pimc`` by default, or ``mamba2-130m``
-at ``--lanes 16 --max-len 512``, its ``chip_smoke.py`` slice; random
-seeded weights, a KV ring of ``--max-len`` slots where the
-model has attention) it times each layer of one compress position (model
+At ``--arch``'s full width (``ras-pimc`` by default; ``mamba2-130m`` at
+``--lanes 16 --max-len 256`` or ``mixtral-8x22b --layers 4 --lanes 16
+--max-len 512``, their ``chip_smoke.py`` slices; random seeded weights
+drawn on the card, a KV ring of ``--max-len`` slots (the window's where
+it is shorter) where the model has attention; ``--layers`` cuts the
+depth) it times each layer of one compress position (model
 step, the BF16 probabilities stored for the SPC kernel, cross entropy;
 the per-run SPC kernel batch over ``--max-len`` x lanes rows, and its
 share per position) and one decompress position (model step, the SPC
@@ -48,6 +50,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="ras-pimc",
                     help="a ported arch id (configs.registry.PORTED)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's)")
     ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--max-len", type=int, default=1000)
     ap.add_argument("--steps", type=int, default=50)
@@ -70,11 +75,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     CONFIG = get_config(args.arch)
+    if args.layers is not None:
+        CONFIG = CONFIG.with_(n_layers=args.layers)
     lanes, vocab = args.lanes, CONFIG.vocab_size
-    # The default precision, raised as far as the vocabulary needs (every
-    # symbol keeps a nonzero frequency): 14 for ras-pimc, 16 for mamba2.
-    bits = max(C.PROB_BITS, (vocab - 1).bit_length())
-    model = init_model(CONFIG, seed=0, device=dev)
+    # The default precision, raised until the vocabulary fills at most
+    # half of the mass (every symbol keeps a nonzero frequency, and no
+    # table is forced flat): 14 for ras-pimc, 16 for mamba2 and mixtral,
+    # the chip_smoke.py slices' precisions.
+    bits = max(C.PROB_BITS, vocab.bit_length())
+    model = init_model(CONFIG, seed=0, device=dev, draw="device")
     state = init_state(model, lanes, args.max_len)
     gen = torch.Generator(device=dev).manual_seed(0)
     tok = torch.randint(0, vocab, (lanes, 1), generator=gen, device=dev)
@@ -125,7 +134,8 @@ def main() -> int:
             buf, s, ptr, freq, cdf, prob_bits=bits, candidates=cands),
         "whole decompress position": decompress_position,
     }
-    print(f"{args.arch} full width, {lanes} lanes, ring {args.max_len}, "
+    print(f"{args.arch} full width, {CONFIG.n_layers} layers, {lanes} "
+          f"lanes, ring {state.length}, "
           f"prob_bits {bits}: median host wall per call over {args.steps} "
           "calls")
     for name, fn in layers.items():
