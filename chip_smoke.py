@@ -31,8 +31,8 @@ Phases (any failure raises and exits nonzero):
    static histogram table and each predictor; kernel == plain, and the
    probe totals must be exactly 1,046,915 / 650,352 / 552,027 (no
    predictor, ``NeighborAverage(4, 8)``, ``NeighborAverage(2, 4)``);
-5. the image path at 4 megapixels (a 2048 x 2048 ``synthetic_image`` as
-   256 lanes x 16,384): ``histogram_compress`` and the B1 static encode
+5. the image path at 1 megapixel (a 1024 x 1024 ``synthetic_image`` as
+   256 lanes x 4,096): ``histogram_compress`` and the B1 static encode
    give byte-identical v1 containers, ``unpack`` ->
    ``histogram_decompress(predictor=NeighborAverage(4, 8))`` (B3) is
    bit-exact, the ``coder`` backend gives equal per-lane probes, with
@@ -96,10 +96,11 @@ Phases (any failure raises and exits nonzero):
    ``lm_compress_chunked(backend="kernel")`` + ``pack_chunked`` server
    against ``BatchEngine(step_backend="kernel", clock="wall")``, every
    blob byte-identical; streams/s, p50/p99 latency, prefill cycles;
-15. the engine at full width (4 slots x 128 lanes, 1000-token requests,
-   chunk 256): 4 compress requests (prefill cycles), then their blobs
-   decompressed with 2 new compress requests queued behind them, with launch
-   counters reset just before and read just after (B1 once per compress
+15. the engine at full width (4 slots x 128 lanes, 300-token requests,
+   chunk 256: a full chunk and a ragged tail): 4 compress requests
+   (prefill cycles), then their blobs decompressed with 2 new compress
+   requests queued behind them, with launch counters reset just before
+   and read just after (B1 once per compress
    slot and cycle, B2 and B6 once per decode step, B6 once per cycle with
    compress rows), no sort-based SPC call on the card and every cycle's
    device half under ``torch.cuda.set_sync_debug_mode("error")``: blobs
@@ -114,9 +115,10 @@ Phases (any failure raises and exits nonzero):
    defaults: a 128 x 256 ``synthetic_image(seed=0)`` as 16 lanes x 2048,
    chunk 512): zlib level 9, the static histogram, ``ras-pimc`` trained
    120 steps (8 x 128, lr 3e-3) at full width and at the smoke width, each
-   through ``lm_compress_chunked(backend="kernel")`` (byte-identical to
-   the coder backend's container) and the fused kernel decode (bit-exact;
-   one B1, 2048 B2 and 2049 B6 launches), and the bits-back VAE trained
+   (the full width on each lane's first chunk only) through
+   ``lm_compress_chunked(backend="kernel")`` (byte-identical to the coder
+   backend's container) and the fused kernel decode (bit-exact; one B1,
+   T B2 and T + 1 B6 launches), and the bits-back VAE trained
    300 steps (lr 1e-2) coding the image's 512 8 x 8 patches:
    ``bb_encode`` on both pop backends (byte-identical stacks), ``bb_decode``
    through B2 (pixels exact, the initial stack restored, no underflow; one
@@ -124,7 +126,8 @@ Phases (any failure raises and exits nonzero):
    on the card on any of these kernel paths.  Every ratio is printed
    beside the reference's ``BENCH_ratio.json`` figure; the phase's
    launches are counted from 0.
-Each phase prints its seconds.  Every B2/B3/B4 launch is also held to the
+Each phase prints its seconds and the script's running total, on standard
+output and on standard error.  Every B2/B3/B4 launch is also held to the
 code path it must run (``rans_decode.last_branches``): B2's warp row path
 on the slice's rows, the slot-table path
 on the static tables of phases 4, 5 and 10, the warp row search on the
@@ -170,11 +173,38 @@ zero-frequency cases of 5a.
    and ``mixtral-8x22b`` SMOKE at 8 lanes x 64, its 16-slot window
    wrapping: kernel and coder containers byte-identical, decode exact.
 
+19. the Fig. 4(c) zoo rungs (``zoo_phase``, ``bench_ratio._zoo_frontier``:
+   the Fig. 4(c) image's 16 lanes x their first 256 symbols, chunk 128):
+   ``mamba2-130m`` and ``recurrentgemma-2b`` SMOKE trained 60 steps (8 x
+   128, lr 3e-3) on the card and phase 16's ``ras-pimc`` SMOKE, each
+   through the kernel backend (kernel and coder containers
+   byte-identical, fused decode bit-exact, no plain SPC on the card), the
+   phase's launches counted from 0 (B1 3, B2 768, B6 771); every CR,
+   bits/symbol and model entropy beside ``BENCH_ratio.json``'s;
+20. ``mamba2-130m`` at full width as a trainer (``mamba2_train_phase``):
+   4 BF16 train steps of 4 x 512 ``token_stream`` tokens (losses, step
+   time, peak memory), then its first step in float32 on the card and on
+   the CPU from the same weights at 2 x 256 (loss and gradient norm
+   within 1e-4 relative);
+21. the dense zoo (``dense_zoo_phase``): ``qwen3-4b`` (QK norm, 32 x 128
+   heads over d_model 2,560) and ``qwen1.5-4b`` (QKV bias, 20 heads padded
+   to 32 over 20 kv heads) at full width cut to one float32 layer, the
+   biases, norm scales and padded heads drawn off their inits, card
+   against CPU (4 decode steps of 2 rows and a 256-token forward, logits
+   within 1e-4); ``llama3-405b``'s blockwise attention at ``qwen3-4b``'s
+   heads (S 2,048, ``attn_block`` 1,024) against the naive schedule on
+   the card (within 1e-4, both timed); the four dense SMOKE models at 8
+   lanes x 64 through the kernel backend (launches counted, containers
+   byte-identical to the coder's, decode exact);
+22. the decode's first-index top-k (``topk_phase``): card equal to the
+   CPU on built ties at 16 x 32,768, timed beside ``torch.topk``.
+
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
-(``mamba2_launches``) and in the mixtral slice (``moe_launches``), and
-B6's and B2's times at K = 50,280 and K = 32,768.  The last
+(``mamba2_launches``), in the mixtral slice (``moe_launches``) and in
+the zoo rungs (``zoo_launches``), and B6's and B2's times at K = 50,280
+and K = 32,768.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
@@ -200,13 +230,19 @@ FIG4B_TOTALS = (1046915, 650352, 552027)       # its committed probe totals
 FIG4A_LANES, FIG4A_T, FIG4A_PY = 128, 2048, 40_000   # bench_speed.run's point
 SPC_POINT = (256, 256)                          # bench_spc.run's point
 RECORDS_T_BLOCK = 96                            # pads 256 and 232 to 288
-IMAGE_SIDE, IMAGE_LANES = 2048, 256            # 4-megapixel 8-bit image
+# a 1-megapixel 8-bit image (4 megapixels until the script neared its time
+# limit: the coder backend and the plain B3 walk every column on the host)
+IMAGE_SIDE, IMAGE_LANES = 1024, 256
 # benchmarks/bench_ratio.run's defaults: a 128 x 256 synthetic_image(seed=0)
 # as 16 lanes x 2048 symbols, chunk 512; _train_arch's 120 steps of 8 x 128
 # at lr 3e-3; _latent_rung's 300 VAE steps at lr 1e-2, 8 x 8 patches
 FIG4C_H, FIG4C_W, FIG4C_LANES, FIG4C_CHUNK = 128, 256, 16, 512
 FIG4C_STEPS, FIG4C_BATCH, FIG4C_SEQ, FIG4C_LR = 120, 8, 128, 3e-3
 FIG4C_VAE_STEPS, FIG4C_VAE_LR, FIG4C_VAE_CAP = 300, 1e-2, 1024
+# the full-width ras-pimc rung (not on the reference's ladder) codes each
+# lane's first chunk; all 2,048 symbols cost it about 100 s of the script's
+# time limit, each position a host-bound model step
+FIG4C_FULL_T = FIG4C_CHUNK
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 # (the coders do integer work; the 67 TFLOP/s float32 rate counts an FMA
@@ -720,7 +756,7 @@ def fig4b_phase(dev):
 
 
 def image_phase(dev):
-    """The static-table image path at 4 megapixels, end to end, then B3's
+    """The static-table image path at 1 megapixel, end to end, then B3's
     record at its shapes."""
     import numpy as np
     import torch
@@ -847,7 +883,7 @@ DECODE_CASES = {
     "static K=256, window wider than the probe tables": (
         "static", 256, 14, False, ("LastValue", 40), {"warp_rows"}),
 }
-CASE_LANES, CASE_T, CASE_CHUNK = 64, 600, 256
+CASE_LANES, CASE_T, CASE_CHUNK = 64, 300, 256   # a ragged 44-symbol tail
 
 
 def decode_cases_phase(dev):
@@ -1412,6 +1448,9 @@ def spc_phase(dev):
 # --- the batching engine (slice 4) ---------------------------------------
 
 ENGINE_SLOTS, ENGINE_MAX_LEN = 4, 1024        # 4 slots x 128 lanes = 512 rows
+# the engine phase's requests: a full chunk and a ragged 44-token tail (the
+# slice's 1,000 tokens took the phase past 180 s of the script's limit)
+ENGINE_T = 300
 C3_STEPS = 8
 C4_SLOTS, C4_WARM, C4_RAGGED = 2, 8, (172, 100)   # (row, its n_valid)
 SHORT_T = 16                                  # the engine's short requests
@@ -1686,13 +1725,12 @@ def _busy_share(fn):
     return out, wall_ms, busy_ms
 
 
-def engine_phase(dev, model, slice_run):
-    """The engine at full width: 4 slots x 128 lanes, ``T``-token requests,
-    chunk ``CHUNK``, the kernel step backend, every cycle's device half
-    under ``set_sync_debug_mode("error")``.
+def engine_phase(dev, model):
+    """The engine at full width: 4 slots x 128 lanes, ``ENGINE_T``-token
+    requests, chunk ``CHUNK``, the kernel step backend, every cycle's device
+    half under ``set_sync_debug_mode("error")``.
 
-    Run A compresses 4 streams (seeds 0-3; seed 0 is the slice's, whose
-    single-request blob and probes the slice phase made); run B
+    Run A compresses 4 streams (seeds 0-3); run B
     decompresses the 4 blobs with 2 new SHORT_T-symbol compress requests
     queued behind them.  Launch counters are reset before A and read after
     B, and the sort-based plain SPC must not run on the card.  Then, on
@@ -1709,19 +1747,18 @@ def engine_phase(dev, model, slice_run):
     from repro_torch.serve.engine import BatchEngine
 
     t_phase = time.perf_counter()
-    toks = [slice_run["tokens"]] + [token_stream(K, (LANES, T), seed=s)
-                                    for s in range(1, ENGINE_SLOTS)]
+    toks = [token_stream(K, (LANES, ENGINE_T), seed=s)
+            for s in range(ENGINE_SLOTS)]
     short = [token_stream(K, (LANES, SHORT_T), seed=10 + i) for i in (0, 1)]
-    ref_blob, ref_probes = [slice_run["blob"]], [slice_run["lane_probes"]]
+    ref_blob, ref_probes = [], []
     t0 = time.perf_counter()
-    for t in toks[1:] + short:
+    for t in toks + short:
         n = t.shape[1]
         ref_blob.append(_pack(compress.lm_compress_chunked(
             model, t, CHUNK, backend="kernel").chunks, CHUNK, n))
         ref_probes.append(compress.lm_decompress_chunked(
             model, bitstream.parse_chunked(ref_blob[-1]), n, CHUNK,
             backend="kernel", lane_probes=True)[2].cpu().numpy())
-    ref_probes[0] = ref_probes[0].cpu().numpy()
     s_blob, s_probes = ref_blob[ENGINE_SLOTS:], ref_probes[ENGINE_SLOTS:]
     t_refs = time.perf_counter() - t0
 
@@ -1732,7 +1769,7 @@ def engine_phase(dev, model, slice_run):
         eng.check_sync = backend == "kernel"
         return eng
 
-    n_cyc = -(-T // CHUNK)
+    n_cyc = -(-ENGINE_T // CHUNK)
     with _plain_spc_spy() as on_card:
         reset_launches()
         eng = engine()
@@ -1756,7 +1793,8 @@ def engine_phase(dev, model, slice_run):
     # A: one B6 batch per prefill cycle, B1 per slot and cycle; B: B2 and
     # B6 per decode step, then one prefill cycle of the 2 short requests
     want = _only(rans_encode_lanes=ENGINE_SLOTS * n_cyc + 2,
-                 rans_decode_step=T, spc_quantize=n_cyc + T + 1)
+                 rans_decode_step=ENGINE_T,
+                 spc_quantize=n_cyc + ENGINE_T + 1)
     _check(launches == want, f"engine launch counts {launches}, expected "
            f"{want}")
     _check(not on_card, f"the plain SPC ran on the card {len(on_card)} "
@@ -1775,9 +1813,9 @@ def engine_phase(dev, model, slice_run):
                "from lm_compress_chunked's")
     _check(pf_a == n_cyc and eng.prefill_cycles == 1,
            f"prefill cycles {pf_a}, {eng.prefill_cycles}")
-    syms = ENGINE_SLOTS * LANES * T
-    print(f"engine: {ENGINE_SLOTS} slots x {LANES} lanes x {T} tokens, chunk "
-          f"{CHUNK}: {ENGINE_SLOTS} blobs byte-identical to "
+    syms = ENGINE_SLOTS * LANES * ENGINE_T
+    print(f"engine: {ENGINE_SLOTS} slots x {LANES} lanes x {ENGINE_T} "
+          f"tokens, chunk {CHUNK}: {ENGINE_SLOTS} blobs byte-identical to "
           f"lm_compress_chunked's ({pf_a} prefill cycles), decompressed "
           "exactly with per-lane probes equal to lm_decompress_chunked's, "
           f"2 new {SHORT_T}-symbol compress requests behind them "
@@ -1824,10 +1862,10 @@ def engine_phase(dev, model, slice_run):
                           busy_share=busy_ms / wall_ms)
 
 
-def _fig4c_train(cfg, rows, dev):
+def _fig4c_train(cfg, rows, dev, steps: int = FIG4C_STEPS):
     """``bench_ratio._train_arch`` on the port: a seeded model of ``cfg``
-    trained on the image rows as next-byte prediction.  Returns the model
-    and every step's loss (nats)."""
+    trained ``steps`` steps on the image rows as next-byte prediction.
+    Returns the model and every step's loss (nats)."""
     import torch
     from repro_torch.models import init_model
     from repro_torch.train import train_loop
@@ -1839,7 +1877,7 @@ def _fig4c_train(cfg, rows, dev):
     flat = rows.reshape(-1)
     n = (len(flat) - 1) // (b * s) * (b * s)
     losses = []
-    for i in range(FIG4C_STEPS):
+    for i in range(steps):
         off = (i * b * s) % max(n - b * s, 1)
         batch = {"tokens": flat[off:off + b * s].reshape(b, s),
                  "labels": flat[off + 1:off + 1 + b * s].reshape(b, s)}
@@ -1848,16 +1886,54 @@ def _fig4c_train(cfg, rows, dev):
     return model, torch.stack(losses).cpu().numpy()
 
 
-def _fig4c_neural(cfg, rows, dev, raw_bytes: int):
-    """One neural rung: train, then ``lm_compress_chunked`` on the kernel
-    backend (B6 batch + B1) into the v2 container, the fused kernel decode
-    (B2 + B6 per position) bit-exact, and the coder backend's container
-    byte-identical.  Returns the rung's record."""
+def _neural_rung(model, rows, chunk: int, raw_bytes: int, what: str):
+    """A trained model's rung: ``lm_compress_chunked`` on the kernel
+    backend (B6 batch + B1) into the v2 container and the fused kernel
+    decode (B2 + B6 per position) with the launches counted (exactly B1 1,
+    B2 T, B6 T + 1) and no plain SPC on the card, bit-exact, and the coder
+    backend's container byte-identical.  Returns the rung's record."""
     import numpy as np
     import torch
     from repro_torch.core import bitstream
     from repro_torch.kernels import LAUNCHES
     from repro_torch.serve import compress
+
+    lanes, t_len = rows.shape
+    before = dict(LAUNCHES)
+    with _plain_spc_spy() as on_card:
+        t0 = time.perf_counter()
+        st = compress.lm_compress_chunked(model, rows, chunk,
+                                          backend="kernel")
+        blob = bitstream.pack_chunked(*st.chunks, chunk_size=chunk,
+                                      n_symbols=t_len)
+        sym, _ = compress.lm_decompress_chunked(
+            model, bitstream.parse_chunked(blob), t_len, chunk,
+            backend="kernel")
+        torch.cuda.synchronize()
+        t_code = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{what}: launch counts {launches}")
+    _check(not on_card, f"{what}: the plain SPC ran on the card "
+           f"{len(on_card)} times on the kernel backend")
+    _check(np.array_equal(sym.cpu().numpy(), rows),
+           f"{what}: fused kernel decode not bit-exact")
+    st_c = compress.lm_compress_chunked(model, rows, chunk, backend="coder")
+    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=chunk,
+                                  n_symbols=t_len) == blob,
+           f"{what}: kernel and coder v2 containers differ")
+    return dict(cr=raw_bytes / len(blob), blob_bytes=len(blob),
+                bits_per_symbol=float(st.bits_per_symbol),
+                model_xent_bits=float(st.model_xent_bits), code_s=t_code)
+
+
+def _fig4c_neural(cfg, rows, dev, t_code: int):
+    """One neural rung of the ladder: train on all of ``rows``, then
+    :func:`_neural_rung` on each lane's first ``t_code`` symbols (one raw
+    byte each) at the ladder's chunk.  Returns the rung's record with the
+    model."""
+    import numpy as np
 
     t0 = time.perf_counter()
     model, losses = _fig4c_train(cfg, rows, dev)
@@ -1865,37 +1941,11 @@ def _fig4c_neural(cfg, rows, dev, raw_bytes: int):
     head, tail = float(losses[:10].mean()), float(losses[-10:].mean())
     _check(np.isfinite(losses).all() and tail < head,
            f"{cfg.name}: training loss did not fall ({head} -> {tail})")
-    lanes, t_len = rows.shape
-    before = dict(LAUNCHES)
-    with _plain_spc_spy() as on_card:
-        t0 = time.perf_counter()
-        st = compress.lm_compress_chunked(model, rows, FIG4C_CHUNK,
-                                          backend="kernel")
-        blob = bitstream.pack_chunked(*st.chunks, chunk_size=FIG4C_CHUNK,
-                                      n_symbols=t_len)
-        sym, _ = compress.lm_decompress_chunked(
-            model, bitstream.parse_chunked(blob), t_len, FIG4C_CHUNK,
-            backend="kernel")
-        torch.cuda.synchronize()
-        t_code = time.perf_counter() - t0
-    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
-                             spc_quantize=t_len + 1),
-           f"{cfg.name}: launch counts {launches}")
-    _check(not on_card, f"{cfg.name}: the plain SPC ran on the card "
-           f"{len(on_card)} times on the kernel backend")
-    _check(np.array_equal(sym.cpu().numpy(), rows),
-           f"{cfg.name}: fused kernel decode not bit-exact")
-    st_c = compress.lm_compress_chunked(model, rows, FIG4C_CHUNK,
-                                        backend="coder")
-    _check(bitstream.pack_chunked(*st_c.chunks, chunk_size=FIG4C_CHUNK,
-                                  n_symbols=t_len) == blob,
-           f"{cfg.name}: kernel and coder v2 containers differ")
-    return dict(cr=raw_bytes / len(blob), blob_bytes=len(blob),
-                bits_per_symbol=float(st.bits_per_symbol),
-                model_xent_bits=float(st.model_xent_bits),
+    code_rows = np.ascontiguousarray(rows[:, :t_code])
+    return dict(_neural_rung(model, code_rows, FIG4C_CHUNK, code_rows.size,
+                             cfg.name), t_code=t_code,
                 loss_first=float(losses[0]), loss_final=float(losses[-1]),
-                train_s=t_train, code_s=t_code)
+                train_s=t_train, model=model)
 
 
 def _fig4c_latent(img, dev, raw_bytes: int):
@@ -2007,18 +2057,19 @@ def fig4c_phase(dev):
     ladder["rANS-static-histogram"] = len(raw) / bitstream.compressed_size(
         enc.length)
     rungs = {}
-    for name, cfg in (("full", CONFIG), ("smoke", SMOKE)):
-        rungs[name] = _fig4c_neural(cfg, rows, dev, len(raw))
+    t_len = rows.shape[1]
+    for name, cfg, t_code in (("full", CONFIG, FIG4C_FULL_T),
+                              ("smoke", SMOKE, t_len)):
+        rungs[name] = _fig4c_neural(cfg, rows, dev, t_code)
     ladder["rANS-neural(ras-pimc)"] = rungs["smoke"]["cr"]
     rungs["vae"] = _fig4c_latent(img, dev, len(raw))
     ladder["rANS-bitsback-latent(vae)"] = rungs["vae"]["cr"]
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    t_len = rows.shape[1]
     _check(launches == _only(rans_encode_lanes=2,
-                             rans_decode_step=2 * t_len
+                             rans_decode_step=t_len + FIG4C_FULL_T
                              + rungs["vae"]["b2_pops"],
-                             spc_quantize=2 * (t_len + 1) + 12),
+                             spc_quantize=t_len + FIG4C_FULL_T + 2 + 12),
            f"Fig. 4(c) launch counts {launches}")
     print(f"fig4c: {FIG4C_H}x{FIG4C_W} synthetic_image(seed=0) as "
           f"{FIG4C_LANES} lanes x {t_len}, chunk {FIG4C_CHUNK}; CR here "
@@ -2029,7 +2080,8 @@ def fig4c_phase(dev):
         r = rungs[name]
         final_bits = r["loss_final"] / math.log(2)
         print(f"fig4c: {cfg.name} ({cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}): CR {r['cr']:.4f}, {r['bits_per_symbol']:.4f} "
+              f"{cfg.d_model}), each lane's first {r['t_code']} symbols: CR "
+              f"{r['cr']:.4f}, {r['bits_per_symbol']:.4f} "
               f"bits/symbol against the model's {r['model_xent_bits']:.4f}-bit"
               f" cross entropy over the stream; train loss "
               f"{r['loss_first']:.4f} -> {r['loss_final']:.4f} nats "
@@ -2048,7 +2100,7 @@ def fig4c_phase(dev):
           f"{v['b2_pops']} pops", flush=True)
     print(f"fig4c: launches {launches}; no plain SPC call on the card on "
           "the kernel paths", flush=True)
-    return launches
+    return launches, rungs["smoke"]
 
 
 # --- the recurrent families (slice 6) -------------------------------------
@@ -2563,6 +2615,268 @@ def moe_phase(dev):
     return run["launches"], recs
 
 
+# --- training of the recurrent families and the dense zoo (slice 8) --------
+
+# bench_ratio._zoo_frontier: the Fig. 4(c) image's first 256 symbols of each
+# of its 16 lanes, chunk 128; mamba2-130m and recurrentgemma-2b SMOKE trained
+# 60 steps (8 x 128 at lr 3e-3, _train_arch); ras-pimc is the Fig. 4(c)
+# phase's smoke model (120 steps over the whole image, as the reference's)
+ZOO_T, ZOO_CHUNK, ZOO_STEPS = 256, 128, 60
+# mamba2-130m at full width as a trainer: ZOO_M2_STEPS BF16 steps of 4 x 512
+# token_stream tokens from the end of the lr warmup, then its first step in
+# float32 on the card and on the CPU at 2 x 256 (the CPU side stays short)
+ZOO_M2_STEPS, ZOO_M2_BATCH, ZOO_M2_SEQ, ZOO_M2_WARM = 4, 4, 512, 100
+ZOO_M2_CPU_BATCH, ZOO_M2_CPU_SEQ = 2, 256
+# the dense zoo: one full-width float32 layer, card vs CPU (decode steps and
+# a 256-token forward); blockwise attention at S 2,048, attn_block 1,024
+DZ_ROWS, DZ_STEPS, DZ_FWD_T = 2, 4, 256
+DZ_BLOCK_T, DZ_BLOCK = 2048, 1024
+# the dense SMOKE round trips: 8 lanes x 64, chunk 16
+DZS_LANES, DZS_T, DZS_CHUNK = 8, 64, 16
+# the decode's top-k at the mixtral slice's rows
+TOPK_ROWS, TOPK_K = 16, 32768
+
+
+def zoo_phase(dev, pimc):
+    """The Fig. 4(c) zoo rungs (``bench_ratio._zoo_frontier``) on the card:
+    ``mamba2-130m`` and ``recurrentgemma-2b`` SMOKE trained on the image's
+    rows, ``ras-pimc`` SMOKE from the Fig. 4(c) phase (``pimc``, its rung
+    record), each through :func:`_neural_rung` at 16 lanes x 256, chunk
+    128; every CR, bits/symbol and model entropy (the last step's loss in
+    bits) beside ``BENCH_ratio.json``'s.  Returns the phase's launches,
+    counted from 0."""
+    import numpy as np
+    from repro_torch.configs import SERVE_SMOKE_ARCHS, get_smoke_config
+    from repro_torch.data.pipeline import synthetic_image
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    ref = {p["arch"]: p for p in json.loads(
+        (ROOT / "BENCH_ratio.json").read_text())["_zoo_frontier"]}
+    img = synthetic_image(FIG4C_H, FIG4C_W, seed=0)
+    rows = img.reshape(FIG4C_LANES, -1)[:, :ZOO_T].astype(np.int64)
+    reset_launches()
+    for arch in SERVE_SMOKE_ARCHS:
+        if arch == "ras-pimc":
+            model, loss, t_train, steps = (pimc["model"], pimc["loss_final"],
+                                           pimc["train_s"], FIG4C_STEPS)
+        else:
+            t0 = time.perf_counter()
+            model, losses = _fig4c_train(get_smoke_config(arch), rows, dev,
+                                         steps=ZOO_STEPS)
+            t_train, steps = time.perf_counter() - t0, ZOO_STEPS
+            head, tail = float(losses[:10].mean()), float(losses[-10:].mean())
+            _check(np.isfinite(losses).all() and tail < head,
+                   f"{arch}: training loss did not fall ({head} -> {tail})")
+            loss = float(losses[-1])
+        r = _neural_rung(model, rows, ZOO_CHUNK, rows.size, f"zoo {arch}")
+        want = ref[arch]
+        print(f"zoo: {arch} SMOKE ({model.cfg.family}), trained {steps} "
+              f"steps in {t_train:.1f} s: CR {r['cr']:.4f} (reference "
+              f"{want['cr']:.4f}), {r['bits_per_symbol']:.4f} bits/symbol "
+              f"({want['bits_per_symbol']:.4f}), model entropy "
+              f"{loss / math.log(2):.4f} bits "
+              f"({want['model_entropy_bits']:.4f}); stream cross entropy "
+              f"{r['model_xent_bits']:.4f} bits; compress + fused decode "
+              f"{r['code_s']:.1f} s; kernel and coder containers "
+              "byte-identical, decode bit-exact", flush=True)
+    launches = dict(LAUNCHES)
+    n = len(SERVE_SMOKE_ARCHS)
+    _check(launches == _only(rans_encode_lanes=n,
+                             rans_decode_step=n * ZOO_T,
+                             spc_quantize=n * (ZOO_T + 1)),
+           f"zoo launch counts {launches}")
+    print(f"zoo: {FIG4C_LANES} lanes x {ZOO_T}, chunk {ZOO_CHUNK}; launches "
+          f"{launches}; no plain SPC call on the card", flush=True)
+    return launches
+
+
+def mamba2_train_phase(dev):
+    """``mamba2-130m`` at full width as a trainer: ``ZOO_M2_STEPS`` BF16
+    train steps on the card (losses, step time, peak memory), then its
+    first step in float32 on the card and on the CPU from the same
+    weights and batch: loss and gradient norm within 1e-4 relative."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import LM, init_model
+    from repro_torch.train import train_loop
+
+    model = init_model(CONFIG, seed=0, device=dev, draw="device")
+    state = train_loop.init_train_state(model)
+    state = state._replace(step=torch.full_like(state.step, ZOO_M2_WARM))
+    step = train_loop.make_train_step(CONFIG, base_lr=FIG4C_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(ZOO_M2_STEPS):
+        batch = train_batch(CONFIG, ZOO_M2_BATCH, ZOO_M2_SEQ, step=i)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    _check(np.isfinite(losses).all(), f"mamba2 trainer losses {losses}")
+    print(f"mamba2 trainer: {CONFIG.name} at full width ({CONFIG.n_layers} "
+          f"layers, d_model {CONFIG.d_model}, vocab {CONFIG.vocab_size}, "
+          f"{CONFIG.dtype}), {ZOO_M2_STEPS} steps of {ZOO_M2_BATCH} x "
+          f"{ZOO_M2_SEQ} tokens from step {ZOO_M2_WARM}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} nats; step "
+          f"{1e3 * statistics.median(secs[1:]):.1f} ms (median of steps "
+          f"2-{ZOO_M2_STEPS}; the first {1e3 * secs[0]:.1f} ms); peak memory"
+          f" {peak / 2**30:.2f} GiB", flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+    cfg = CONFIG.with_(dtype="float32")
+    card = init_model(cfg, seed=1, device=dev, draw="device")
+    cpu = LM(cfg)
+    cpu.load_state_dict(card.state_dict())
+    batch = train_batch(cfg, ZOO_M2_CPU_BATCH, ZOO_M2_CPU_SEQ, step=0)
+    got = []
+    for m in (cpu, card):
+        _, met = train_loop.make_train_step(cfg, base_lr=FIG4C_LR)(
+            train_loop.init_train_state(m), batch)
+        got.append((float(met["loss"]), float(met["grad_norm"])))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got[1], got[0]))
+    _check(np.isfinite(got[1]).all() and rel <= 1e-4,
+           f"mamba2 trainer: card (loss, grad norm) {got[1]} against the "
+           f"CPU's {got[0]}")
+    print(f"mamba2 trainer: first step in float32 at {ZOO_M2_CPU_BATCH} x "
+          f"{ZOO_M2_CPU_SEQ}, card vs CPU: loss {got[1][0]:.6f} / "
+          f"{got[0][0]:.6f}, grad norm {got[1][1]:.6f} / {got[0][1]:.6f}, "
+          f"max relative difference {rel:.3e} (tolerance 1e-4)", flush=True)
+
+
+def _dz_perturb(model, seed: int) -> None:
+    """Move the attention biases and q/k norm scales off their inits (zeros
+    and ones) and draw the padded query heads' weights (zero at init) by
+    seeded draws on the model's device, so a check reads them."""
+    import torch
+
+    cfg = model.cfg
+    g = torch.Generator(device=model.embedding.device).manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for name, p in blk.attn.named_parameters():
+                if name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+                    p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                             device=p.device))
+            for p in (blk.attn.wq[:, cfg.n_heads:], blk.attn.wo[cfg.n_heads:]):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g,
+                                           device=p.device))
+
+
+def dense_zoo_phase(dev):
+    """The dense zoo on the card: ``qwen3-4b`` (QK norm, 32 heads x 128
+    over d_model 2,560) and ``qwen1.5-4b`` (QKV bias, 20 heads padded to 32
+    over 20 kv heads) at full width cut to one float32 layer, their
+    vocabularies kept, card against CPU (decode steps through
+    :func:`_zoo_card_vs_cpu` and a 256-token ``forward``, logits within
+    1e-4); ``llama3-405b``'s blockwise attention at ``qwen3-4b``'s head
+    shapes against the naive schedule on the card; and the four SMOKE
+    models' round trips through the kernel backend."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import LM, init_model
+    from repro_torch.models.attention import attn_forward
+
+    for arch in ("qwen3-4b", "qwen1.5-4b"):
+        cfg = get_config(arch).with_(n_layers=1, dtype="float32")
+        card = init_model(cfg, seed=1, device=dev, draw="device")
+        _dz_perturb(card, 2)
+        cpu = LM(cfg)
+        cpu.load_state_dict(card.state_dict())
+        what = (f"{arch}: one full-width layer in float32 ({cfg.n_heads} "
+                f"heads padded to {cfg.n_heads_padded} x {cfg.head_dim_} over"
+                f" {cfg.n_kv_heads} kv heads, d_model {cfg.d_model}, vocab "
+                f"{cfg.vocab_size})")
+        _zoo_card_vs_cpu(cpu, card, DZ_ROWS, DZ_STEPS, what)
+        toks = torch.randint(0, cfg.vocab_size, (1, DZ_FWD_T),
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            lg = [m._logits(m(toks.to(m.embedding.device))[0])
+                  for m in (cpu, card)]
+        err = float((lg[1].cpu() - lg[0]).abs().max())
+        _check(bool(torch.isfinite(lg[1]).all()) and err <= 1e-4,
+               f"{arch}: forward logits differ from the CPU's by {err}")
+        print(f"{arch}: {DZ_FWD_T}-token forward, card vs CPU: max abs "
+              f"logit diff {err:.3e} (tolerance 1e-4)", flush=True)
+        if arch == "qwen3-4b":
+            gen = torch.Generator(device=dev).manual_seed(3)
+            x = torch.randn((1, DZ_BLOCK_T, cfg.d_model), device=dev,
+                            generator=gen)
+            blk = cfg.with_(attn_impl="blockwise", attn_block=DZ_BLOCK)
+            a = card.blocks[0].attn
+            with torch.no_grad():
+                yb, yn = (attn_forward(a, x, c) for c in (blk, cfg))
+                ms_b = _median_ms(lambda: attn_forward(a, x, blk), repeats=5)
+                ms_n = _median_ms(lambda: attn_forward(a, x, cfg), repeats=5)
+            err = float((yb - yn).abs().max())
+            _check(bool(torch.isfinite(yb).all()) and err <= 1e-4,
+                   f"blockwise attention differs from naive by {err}")
+            print(f"blockwise attention (llama3-405b's schedule) at {arch}'s "
+                  f"heads, S {DZ_BLOCK_T}, attn_block {DZ_BLOCK}, float32: "
+                  f"max abs diff against naive {err:.3e} (tolerance 1e-4); "
+                  f"{ms_b:.3f} ms blockwise, {ms_n:.3f} ms naive", flush=True)
+        del cpu, card, lg
+        torch.cuda.empty_cache()
+    for arch in ("qwen1.5-4b", "qwen3-4b", "qwen3-32b", "llama3-405b"):
+        cfg = get_smoke_config(arch)
+        model = init_model(cfg, seed=0, device=dev)
+        toks = token_stream(cfg.vocab_size, (DZS_LANES, DZS_T), seed=2)
+        _, _, launches = _smoke_roundtrip(model, toks, DZS_CHUNK,
+                                          f"{arch} SMOKE")
+        print(f"{arch} SMOKE: {DZS_LANES} lanes x {DZS_T}, chunk "
+              f"{DZS_CHUNK}: kernel and coder containers byte-identical, "
+              f"fused decode exact, launches {launches}", flush=True)
+
+
+def topk_phase(dev):
+    """The decode's first-index top-k (``predictors.model_topk_candidates``
+    over ``topk_first``, a stable descending sort) on the card at the
+    mixtral slice's rows (16 x 32,768): equal to the CPU's on built ties
+    (all-zero and integer-valued rows, rows of -inf) and on BF16 logits,
+    and with no host sync (the engine's cycles run it under
+    ``set_sync_debug_mode("error")``), timed beside ``torch.topk`` (100
+    calls between CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.predictors import model_topk_candidates
+
+    rng = np.random.default_rng(0)
+    inf = np.full((TOPK_ROWS, TOPK_K), -np.inf, np.float32)
+    inf[:, rng.integers(0, TOPK_K, 3)] = 0.0
+    cases = [np.zeros((TOPK_ROWS, TOPK_K), np.float32),
+             rng.integers(-3, 3, (TOPK_ROWS, TOPK_K)).astype(np.float32),
+             inf]
+    xs = [torch.as_tensor(x) for x in cases] + [torch.as_tensor(
+        rng.normal(0, 2, (TOPK_ROWS, TOPK_K)).astype(np.float32)).to(
+        torch.bfloat16)]
+    for x in xs:
+        got = model_topk_candidates(x.to(dev), TOPK).cpu()
+        _check(torch.equal(got, model_topk_candidates(x, TOPK)),
+               "top-k on the card differs from the CPU's")
+    logits = xs[-1].to(dev)
+    # the engine's cycles run it under this mode (no host sync in a cycle)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model_topk_candidates(logits, TOPK)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n = 100
+    ms = _median_ms(lambda: [model_topk_candidates(logits, TOPK)
+                             for _ in range(n)], repeats=5) / n
+    ms_t = _median_ms(lambda: [torch.topk(logits, TOPK, dim=-1).indices.to(
+        torch.int32) for _ in range(n)], repeats=5) / n
+    print(f"top-k: model_topk_candidates == CPU on {len(xs)} cases at "
+          f"{TOPK_ROWS} x {TOPK_K} (ties, -inf, BF16); {ms:.4f} ms a call "
+          f"(stable sort), torch.topk {ms_t:.4f} ms (BF16, top-{TOPK})",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2593,7 +2907,10 @@ def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        line = (f"phase {name}: {time.perf_counter() - t0:.1f} s "
+                f"({time.perf_counter() - t_start:.1f} s in all)")
+        print(line, flush=True)
+        print(line, file=sys.stderr, flush=True)
         return out
 
     b1, encoded = timed("B1 encode", encode_phase, dev)
@@ -2620,7 +2937,7 @@ def main() -> int:
     timed("C3 row invariance", row_invariance_phase, dev, model)
     timed("C4 prefill", prefill_phase, dev, model)
     timed("bench_serve point", bench_serve_phase, dev, model)
-    engine_launches, _ = timed("engine", engine_phase, dev, model, slice_run)
+    engine_launches, _ = timed("engine", engine_phase, dev, model)
     del slice_run, model
     torch.cuda.empty_cache()
     b5.update(timed("Fig. 4(a)", fig4a_phase, dev))
@@ -2628,7 +2945,7 @@ def main() -> int:
     b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
               b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
     b6 = timed("B6 SPC", spc_phase, dev)
-    fig4c_launches = timed("Fig. 4(c)", fig4c_phase, dev)
+    fig4c_launches, pimc_smoke = timed("Fig. 4(c)", fig4c_phase, dev)
     torch.cuda.empty_cache()
     m2_launches, m2 = timed("mamba2 slice", mamba2_phase, dev)
     b6.update(mamba2_batch_ms=m2["batch"]["ms"],
@@ -2657,6 +2974,12 @@ def main() -> int:
               moe_bound_ms=mx["b2"]["bound_ms"],
               moe_bound_by=mx["b2"]["bound_by"])
     b2["max_abs_err"] = max(b2["max_abs_err"], mx["b2"]["err"])
+    torch.cuda.empty_cache()
+    zoo_launches = timed("zoo rungs", zoo_phase, dev, pimc_smoke)
+    del pimc_smoke
+    timed("mamba2 trainer", mamba2_train_phase, dev)
+    timed("dense zoo", dense_zoo_phase, dev)
+    timed("top-k", topk_phase, dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -2667,6 +2990,7 @@ def main() -> int:
         rec["fig4c_launches"] = fig4c_launches[rec["name"]]
         rec["mamba2_launches"] = m2_launches[rec["name"]]
         rec["moe_launches"] = mx_launches[rec["name"]]
+        rec["zoo_launches"] = zoo_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

@@ -29,8 +29,9 @@ ARCH_IDS = (
 )
 
 # the ids whose configs this package holds
-PORTED = ("ras-pimc", "mixtral-8x22b", "phi3.5-moe-42b-a6.6b",
-          "mamba2-130m", "recurrentgemma-2b")
+PORTED = ("ras-pimc", "qwen1.5-4b", "qwen3-4b", "qwen3-32b", "llama3-405b",
+          "mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "mamba2-130m",
+          "recurrentgemma-2b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -137,13 +137,24 @@ def running_mean_mu(symbols: torch.Tensor, window: int,
     return mu
 
 
-def model_topk_candidates(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """(lanes, V) logits -> (lanes, k) int32 trial symbols.
+def topk_first(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: (values, indices), each (...,
+    k), the largest first and the lower index first among equal values.
 
-    ``torch.topk`` may order tied logits differently from
-    ``jax.lax.top_k``: that changes probe counts, never symbols.
-    """
+    A stable descending sort keeps that order on the CPU and on the card
+    (``torch.topk`` orders ties otherwise on both), whatever the row holds:
+    ``-inf`` entries sort last in index order, where repeated ``argmax``
+    over a row masked with ``-inf`` could pick an index twice."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return x.gather(-1, idx), idx
+
+
+def model_topk_candidates(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """(lanes, V) logits -> (lanes, k) int32 trial symbols, in
+    ``jax.lax.top_k``'s order (:func:`topk_first`), so the per-lane probe
+    counts are the reference's."""
     if k == 0:
         return torch.zeros((logits.shape[0], 0), dtype=torch.int32,
                            device=logits.device)
-    return torch.topk(logits, k, dim=-1).indices.to(torch.int32)
+    return topk_first(logits, k)[1].to(torch.int32)

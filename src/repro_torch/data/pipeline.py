@@ -70,7 +70,7 @@ def train_batch(cfg, batch: int, seq: int, *, step: int = 0, host: int = 0,
     if cfg.family == "vlm" or cfg.is_encdec:
         raise NotImplementedError(
             f"train_batch for family {cfg.family!r} (memory/enc_inputs "
-            "planes) is not ported yet (ROADMAP A6)")
+            "planes) is not ported yet (ROADMAP A2)")
     toks = token_stream(cfg.vocab_size, (batch, seq + 1),
                         seed=seed * 1000003 + step * 101 + host)
     return {"tokens": toks[:, :-1].astype(np.int32),

@@ -1,6 +1,6 @@
 """Grouped-query self-attention against a KV ring cache: the decode step
 and the teacher-forced prefill; and the full-sequence causal attention of
-training (:func:`attn_forward`).
+training (:func:`attn_forward`), naive or blockwise.
 
 Port of ``repro.models.attention.attn_decode``/``attn_prefill`` and their
 single attend core ``_attend_slots``.  Two properties of the reference are
@@ -25,12 +25,25 @@ model the scores and the softmax run in float32 and the weights round to
 bfloat16 before the value product, as the reference's
 ``preferred_element_type`` does.
 
-:func:`attn_forward` is the reference's naive schedule (``_naive_attn``):
-one batched product for the scores, float32, causal mask (and the
+The projections are the reference's ``_project_qkv`` in all three paths:
+with ``cfg.qkv_bias`` the biases ``bq``/``bk``/``bv`` are added, then
+with ``cfg.qk_norm`` q and k take a per-head RMSNorm over ``head_dim``;
+RoPE follows.  A query head reads the kv head of the reference's
+``kv_head_map``: the true heads in groups of ``n_heads // n_kv_heads``,
+every padded head kv head 0.  Where ``n_heads`` is unpadded and a multiple
+of ``n_kv_heads`` that is the grouping ``i // (n_heads // n_kv_heads)``,
+and the heads contract against the kv heads directly; otherwise (for
+example ``qwen1.5-4b``: 20 heads padded to 32 over 20 kv heads) the K/V
+heads are gathered to the query heads first.
+
+:func:`attn_forward` is the reference's naive schedule (``_naive_attn``:
+one batched product for the scores in float32, the causal mask (and the
 ``sliding_window``, as the reference's training path reads it), softmax,
-one batched product for the values.  It has no tie to the decode path's
-tiles: trained weights are priced by ``decode_step`` on both sides of a
-stream, so training needs no bitwise tie to decode.
+one batched product for the values) or, with ``attn_impl="blockwise"``,
+its online softmax over ``attn_block`` key chunks (``_blockwise_attn``).
+Neither has a tie to the decode path's tiles: trained weights are priced
+by ``decode_step`` on both sides of a stream, so training needs no
+bitwise tie to decode.
 """
 
 from __future__ import annotations
@@ -38,12 +51,69 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 _NEG = -1e30
 _RING_BLOCK = 32
+
+
+class Attention(nn.Module):
+    """The parameters of ``make_attn_defs``: ``wq (D,Hp,Dh)``, ``wk``/``wv
+    (D,KV,Dh)``, ``wo (Hp,Dh,D)``, and with ``cfg.qkv_bias`` ``bq
+    (Hp,Dh)``, ``bk``/``bv (KV,Dh)``, with ``cfg.qk_norm`` ``q_norm``/
+    ``k_norm (Dh,)``."""
+
+    INIT = {"bq": 0.0, "bk": 0.0, "bv": 0.0}    # the norms' scales: 1
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d, hp, kv, dh = (cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads,
+                         cfg.head_dim_)
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape))
+
+        self.wq, self.wk, self.wv = p(d, hp, dh), p(d, kv, dh), p(d, kv, dh)
+        self.wo = p(hp, dh, d)
+        if cfg.qkv_bias:
+            self.bq, self.bk, self.bv = p(hp, dh), p(kv, dh), p(kv, dh)
+        if cfg.qk_norm:
+            self.q_norm, self.k_norm = p(dh), p(dh)
+
+
+def kv_head_map(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The reference's static query-head -> kv-head map, (Hp,) int64 on
+    ``device``: true head ``i`` reads ``min(i // (n_heads // n_kv_heads),
+    n_kv_heads - 1)``, a padded head kv head 0 (built on the device: no
+    host copy)."""
+    h, kv, hp = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads_padded
+    i = torch.arange(hp, device=device)
+    return torch.where(i < h, torch.clamp(i // (h // kv), max=kv - 1), 0)
+
+
+def _grouped(cfg: ModelConfig) -> bool:
+    """Whether :func:`kv_head_map` is the grouping ``i // (Hp // KV)``:
+    no padded heads and whole groups."""
+    return (cfg.n_heads_padded == cfg.n_heads
+            and cfg.n_heads % cfg.n_kv_heads == 0)
+
+
+def _heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """K/V with the head axis 2 in the layout the attend contracts: as
+    they are when grouped, else gathered to the query heads by
+    :func:`kv_head_map`.  Returns (k, v, kv heads, queries per kv
+    head)."""
+    if _grouped(cfg):
+        kv = cfg.n_kv_heads
+    else:
+        idx = kv_head_map(cfg, k.device)
+        k, v, kv = k.index_select(2, idx), v.index_select(2, idx), \
+            cfg.n_heads_padded
+    return k, v, kv, cfg.n_heads_padded // kv
 
 
 def ring_slots(max_len: int) -> int:
@@ -64,11 +134,8 @@ def _attend_slots(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                   valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Single-position attention: q (B,1,Hp,Dh) against the tile-padded
     cache (B,Rp,KV,Dh) under a (B|1, Rp) slot mask -> (B,1,Hp,Dh)."""
-    hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
-    if kv == 0 or hp % kv:
-        raise ValueError(f"grouped decode needs n_heads_padded % n_kv_heads"
-                         f" == 0; got {hp} and {kv}")
-    g = hp // kv
+    hp, dh = cfg.n_heads_padded, cfg.head_dim_
+    ck, cv, kv, g = _heads(ck, cv, cfg)
     b, rp = ck.shape[:2]
     nb = rp // _RING_BLOCK
     scale = 1.0 / math.sqrt(dh)
@@ -99,13 +166,20 @@ def _positions(pos, b: int, device):
     return pos.to(torch.int64)
 
 
-def _qkv(wq, wk, wv, x1: torch.Tensor, cfg: ModelConfig):
-    """x1 (B,1,D) -> q (B,1,Hp,Dh), k and v (B,1,KV,Dh)."""
-    b, _, d = x1.shape
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+    """x (B,S,D) -> q (B,S,Hp,Dh), k and v (B,S,KV,Dh): the projections,
+    the biases (``qkv_bias``) and the per-head norms (``qk_norm``), as
+    the reference's ``_project_qkv``."""
+    b, s, d = x.shape
     hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
-    q = (x1 @ wq.reshape(d, hp * dh)).view(b, 1, hp, dh)
-    k = (x1 @ wk.reshape(d, kv * dh)).view(b, 1, kv, dh)
-    v = (x1 @ wv.reshape(d, kv * dh)).view(b, 1, kv, dh)
+    q = (x @ p.wq.reshape(d, hp * dh)).view(b, s, hp, dh)
+    k = (x @ p.wk.reshape(d, kv * dh)).view(b, s, kv, dh)
+    v = (x @ p.wv.reshape(d, kv * dh)).view(b, s, kv, dh)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if cfg.qk_norm:
+        q = rmsnorm(p.q_norm, q, cfg.norm_eps)
+        k = rmsnorm(p.k_norm, k, cfg.norm_eps)
     return q, k, v
 
 
@@ -139,7 +213,7 @@ def _valid(pos_b: torch.Tensor, slot, idx: torch.Tensor,
     return valid & (age < window) if window else valid
 
 
-def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
+def attn_decode(p: Attention, x1: torch.Tensor, ck: torch.Tensor,
                 cv: torch.Tensor, cache_len: int, pos,
                 cfg: ModelConfig) -> torch.Tensor:
     """One-token decode.  ``x1``: (B,1,D); ``ck``/``cv``: this layer's
@@ -154,7 +228,7 @@ def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
     on the same values, one mask row broadcast over the batch."""
     b, _, d = x1.shape
     hp, dh = cfg.n_heads_padded, cfg.head_dim_
-    q, k, v = _qkv(wq, wk, wv, x1, cfg)
+    q, k, v = _qkv(p, x1, cfg)
     pos_b = _positions(pos, b, x1.device)
     q = apply_rope(q, pos_b[:, None], cfg.rope_theta)
     k = apply_rope(k, pos_b[:, None], cfg.rope_theta)
@@ -163,10 +237,10 @@ def attn_decode(wq, wk, wv, wo, x1: torch.Tensor, ck: torch.Tensor,
     idx = torch.arange(ck.shape[1], device=x1.device)
     out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len,
                                           cfg.window), cfg)
-    return out.reshape(b, 1, hp * dh) @ wo.reshape(hp * dh, d)
+    return out.reshape(b, 1, hp * dh) @ p.wo.reshape(hp * dh, d)
 
 
-def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
+def attn_prefill(p: Attention, hs, ck: torch.Tensor, cv: torch.Tensor,
                  cache_len: int, pos0: torch.Tensor, n_valid: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Teacher-forced attention over S positions, bitwise the S
@@ -184,7 +258,7 @@ def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
     s_len, b = len(hs), hs[0].shape[0]
     d = hs[0].shape[-1]
     hp, dh = cfg.n_heads_padded, cfg.head_dim_
-    qkv = [_qkv(wq, wk, wv, h, cfg) for h in hs]
+    qkv = [_qkv(p, h, cfg) for h in hs]
     steps = torch.arange(s_len, device=ck.device)
     pq = pos0[None, :] + torch.minimum(steps[:, None], n_valid[None, :])
     q = apply_rope(torch.cat([x[0] for x in qkv], 1), pq.T, cfg.rope_theta)
@@ -199,41 +273,74 @@ def attn_prefill(wq, wk, wv, wo, hs, ck: torch.Tensor, cv: torch.Tensor,
         out = _attend_slots(q[:, t:t + 1], ck, cv,
                             _valid(pq[t], slot, idx, cache_len,
                                    cfg.window), cfg)
-        outs.append(out.reshape(b, hp * dh) @ wo.reshape(hp * dh, d))
+        outs.append(out.reshape(b, hp * dh) @ p.wo.reshape(hp * dh, d))
     return torch.stack(outs)
 
 
-def attn_forward(wq, wk, wv, wo, x: torch.Tensor,
+def _blockwise_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, block: int) -> torch.Tensor:
+    """The reference's ``_blockwise_attn`` (causal): the queries ``qg``
+    (B,KV,g,S,Dh) against ``k``/``v`` (B,S,KV,Dh) one chunk of ``block``
+    keys at a time (the keys zero-padded to whole chunks), with an online
+    softmax in float32 from a running max of ``_NEG``; returns (B,KV,g,S,Dh)
+    in ``qg``'s type."""
+    b, kv, g, s, dh = qg.shape
+    blk = min(block, s)
+    n = -(-s // blk)
+    k = F.pad(k, (0, 0, 0, 0, 0, n * blk - s))
+    v = F.pad(v, (0, 0, 0, 0, 0, n * blk - s))
+    scale = 1.0 / math.sqrt(dh)
+    q_idx = torch.arange(s, device=qg.device)[:, None]
+    qf = qg.float()
+    m = qf.new_full((b, kv, g, s), _NEG)
+    l = qf.new_zeros((b, kv, g, s))
+    acc = qf.new_zeros((b, kv, g, s, dh))
+    for j in range(n):
+        kv_idx = j * blk + torch.arange(blk, device=qg.device)[None, :]
+        ok = (kv_idx <= q_idx) & (kv_idx < s)            # (S, blk)
+        if window:
+            ok &= kv_idx > q_idx - window
+        kj = k[:, j * blk:(j + 1) * blk].permute(0, 2, 3, 1)[:, :, None]
+        vj = v[:, j * blk:(j + 1) * blk].permute(0, 2, 1, 3)[:, :, None]
+        sc = torch.where(ok, torch.matmul(qf, kj.float()) * scale, _NEG)
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None]) * ok
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p.to(v.dtype), vj).float()
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(qg.dtype)
+
+
+def attn_forward(p: Attention, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Causal self-attention over a whole sequence (training): x (B,S,D)
-    -> (B,S,D), RoPE at positions ``arange(S)``.  Query head ``i`` reads
-    kv head ``i // (n_heads_padded // n_kv_heads)``, the decode path's
-    grouping.  A ``sliding_window`` also masks keys ``window`` or more
-    positions behind the query (the reference's ``kv_idx > q_idx -
-    window``).  Only ``attn_impl="naive"`` is ported."""
-    if cfg.attn_impl != "naive":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP A6); "
-            "the port has the 'naive' schedule")
+    -> (B,S,D), RoPE at positions ``arange(S)``, each query head reading
+    its :func:`kv_head_map` kv head.  A ``sliding_window`` also masks keys
+    ``window`` or more positions behind the query (the reference's
+    ``kv_idx > q_idx - window``).  ``cfg.attn_impl``: ``"naive"`` (the
+    whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn` over
+    ``cfg.attn_block`` keys at a time)."""
+    if cfg.attn_impl not in ("naive", "blockwise"):
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected 'naive' "
+                         "or 'blockwise'")
     b, s, d = x.shape
-    hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
-    if kv == 0 or hp % kv:
-        raise ValueError(f"grouped attention needs n_heads_padded % "
-                         f"n_kv_heads == 0; got {hp} and {kv}")
-    g = hp // kv
+    hp, dh = cfg.n_heads_padded, cfg.head_dim_
+    q, k, v = _qkv(p, x, cfg)
     pos = torch.arange(s, device=x.device)
-    q = apply_rope((x @ wq.reshape(d, hp * dh)).view(b, s, hp, dh), pos,
-                   cfg.rope_theta)
-    k = apply_rope((x @ wk.reshape(d, kv * dh)).view(b, s, kv, dh), pos,
-                   cfg.rope_theta)
-    v = (x @ wv.reshape(d, kv * dh)).view(b, s, kv, dh)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    k, v, kv, g = _heads(k, v, cfg)
     qg = q.view(b, s, kv, g, dh).permute(0, 2, 3, 1, 4)   # (B,KV,g,S,Dh)
-    kt = k.permute(0, 2, 3, 1)[:, :, None]                # (B,KV,1,Dh,S)
-    sc = torch.matmul(qg, kt) * (1.0 / math.sqrt(dh))     # (B,KV,g,S,S)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-    if cfg.sliding_window:
-        causal = causal.triu(1 - cfg.sliding_window)
-    p = torch.softmax(torch.where(causal, sc, _NEG), dim=-1)
-    out = torch.matmul(p, v.permute(0, 2, 1, 3)[:, :, None])
+    if cfg.attn_impl == "blockwise":
+        out = _blockwise_attn(qg, k, v, cfg.sliding_window, cfg.attn_block)
+    else:
+        kt = k.permute(0, 2, 3, 1)[:, :, None]            # (B,KV,1,Dh,S)
+        sc = torch.matmul(qg.float(), kt.float()) * (1.0 / math.sqrt(dh))
+        causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        if cfg.sliding_window:
+            causal = causal.triu(1 - cfg.sliding_window)
+        pr = torch.softmax(torch.where(causal, sc, _NEG), dim=-1)
+        out = torch.matmul(pr.to(v.dtype), v.permute(0, 2, 1, 3)[:, :, None])
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hp * dh)
-    return out @ wo.reshape(hp * dh, d)
+    return out @ p.wo.reshape(hp * dh, d)

@@ -10,10 +10,12 @@ protocol's state classification (``models.protocol``).  ``local_window``
 (the hybrid's) or ``sliding_window`` (mixtral's) bounds the attention
 ring and its mask (:attr:`ModelConfig.window`).  ``dtype`` is the
 parameters' and
-activations' type (``"float32"`` or ``"bfloat16"``).  The training fields
-(``attn_impl``, ``logits_chunk``, ``grad_accum``, ``moment_dtype``,
-``grad_dtype``) carry the reference's defaults; only
-``attn_impl="naive"`` is ported.
+activations' type (``"float32"`` or ``"bfloat16"``).  ``qkv_bias`` and
+``qk_norm`` (the Qwen models) add the attention's biases and its per-head
+q/k norms.  The training fields (``attn_impl``: ``"naive"`` or
+``"blockwise"`` over ``attn_block`` keys, ``logits_chunk``,
+``grad_accum``, ``moment_dtype``, ``grad_dtype``) carry the reference's
+defaults.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: int | None = None      # default d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -49,7 +53,7 @@ class ModelConfig:
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_headdim: int = 64
-    ssm_chunk: int = 128             # training-side chunk (not ported)
+    ssm_chunk: int = 128             # training-side chunk
     conv_width: int = 4
 
     # hybrid (recurrentgemma): layer-kind pattern, tiled over depth
@@ -61,7 +65,8 @@ class ModelConfig:
     dtype: str = "float32"           # float32 | bfloat16
 
     # training
-    attn_impl: str = "naive"         # naive | blockwise (not ported)
+    attn_impl: str = "naive"         # naive | blockwise
+    attn_block: int = 1024           # kv-chunk for blockwise attention
     logits_chunk: int = 0            # 0 = unchunked loss
     grad_accum: int = 1
     moment_dtype: str = "float32"    # AdamW moments

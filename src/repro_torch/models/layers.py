@@ -1,5 +1,5 @@
 """Shared layers: RMSNorm, RoPE, gated MLP, the recurrent blocks' causal
-convolution step, embeddings, the logits (tied or through ``lm_head``)
+convolution (whole sequence and step), embeddings, the logits (tied or through ``lm_head``)
 and the training losses.
 
 Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
@@ -22,6 +22,22 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     xf = x.float()
     var = (xf * xf).sum(-1, keepdim=True) / x.shape[-1]
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal convolution of training, the reference's
+    ``_causal_conv``: ``x`` (B, S, C) zero-padded by ``W - 1`` positions in
+    front, against the taps ``w`` (W, C) (tap ``W - 1`` meets the current
+    input), plus the bias (C,).  The taps sum in float32 in the
+    reference's order and round once to the model's type, as
+    :func:`conv_step` does at one position (identity in float32)."""
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0)).float()
+    out = xp[:, :s] * w[0].float()
+    for i in range(1, width):
+        out = out + xp[:, i:i + s] * w[i].float()
+    return out.to(x.dtype) + b
 
 
 def conv_step(hist: torch.Tensor, w: torch.Tensor,

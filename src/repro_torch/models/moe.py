@@ -30,8 +30,9 @@ Top-k keeps ``jax.lax.top_k``'s order: among equal probabilities the lower
 expert index comes first.  Router logits are rounded to the model's type
 before the float32 softmax, so in bfloat16 equal probabilities are common,
 and a tie between the k-th and the (k+1)-th place decides which experts
-run.  :func:`topk_first` picks by repeated ``argmax``, which returns the
-first maximal index on both devices.
+run.  :func:`topk_first` (``core.predictors``, shared with the decode's
+top-k candidates) is a stable descending sort, which keeps that order on
+both devices.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.predictors import topk_first
 from repro_torch.models.config import ModelConfig
 
 
@@ -55,21 +57,6 @@ class MoE(nn.Module):
         self.wi_gate = nn.Parameter(torch.empty(e, d, ff))
         self.wi_up = nn.Parameter(torch.empty(e, d, ff))
         self.wo = nn.Parameter(torch.empty(e, ff, d))
-
-
-def topk_first(probs: torch.Tensor, k: int):
-    """``jax.lax.top_k`` over the last axis of non-negative ``probs``:
-    (values, indices), each (..., k), largest first and the lower index
-    first among equal values."""
-    iota = torch.arange(probs.shape[-1], device=probs.device)
-    left = probs
-    vals, ids = [], []
-    for _ in range(k):
-        i = left.argmax(-1, keepdim=True)
-        vals.append(probs.gather(-1, i))
-        ids.append(i)
-        left = left.masked_fill(iota == i, -1.0)
-    return torch.cat(vals, -1), torch.cat(ids, -1)
 
 
 def _gate(p: MoE, x2: torch.Tensor, cfg: ModelConfig):

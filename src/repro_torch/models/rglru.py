@@ -1,5 +1,5 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin), the serving
-direction: an O(1)-state decode step.
+"""RG-LRU recurrent block (RecurrentGemma / Griffin): the whole-sequence
+block of training and an O(1)-state decode step.
 
 Port of ``repro.models.rglru``:
 
@@ -10,9 +10,12 @@ Port of ``repro.models.rglru``:
     log a_t = -c * softplus(Lambda) * r_t
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
-The GeLU is the tanh approximation, ``jax.nn.gelu``'s default.  The
-associative scan of training (``rglru_forward``) is not ported yet
-(ROADMAP A6).
+The GeLU is the tanh approximation, ``jax.nn.gelu``'s default.  Training
+runs the recurrence over the sequence as a doubling scan in float32
+(:func:`linear_scan`, the reference's ``associative_scan``): log2 S steps,
+each combining every position with the one ``d`` behind it.  A closed
+form ``exp(cumsum(log a))`` would divide by products that underflow
+within a few steps (``log a_t`` reaches ``-c * softplus(Lambda)`` a step).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import conv_step
+from repro_torch.models.layers import causal_conv, conv_step
 
 
 def rglru_width(cfg: ModelConfig) -> int:
@@ -56,7 +59,8 @@ def _rglru_gates(p: RGLRU, u: torch.Tensor, cfg: ModelConfig):
     i = torch.sigmoid(uf * p.gate_i_w.float() + p.gate_i_b.float())
     log_a = -cfg.rglru_c * F.softplus(p.lam.float()) * r
     a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    # maximum, not clamp: at the floor the gradient splits as JAX's does
+    beta = torch.sqrt(torch.maximum(1.0 - a * a, a.new_tensor(1e-12)))
     return a, beta * i * uf
 
 
@@ -89,9 +93,24 @@ def rglru_decode_step(p: RGLRU, x1: torch.Tensor, cache: dict,
     return out @ p.w_out
 
 
-def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig):
-    """The full-sequence block of training (the associative scan)."""
-    raise NotImplementedError(
-        "rglru_forward (the RG-LRU training scan) is not ported yet "
-        "(ROADMAP A6); the port serves RecurrentGemma through "
-        "rglru_decode_step")
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0`` over axis 1 of
+    ``a``/``b`` (B,S,W): the Hillis-Steele scan of the combine ``(a1, b1)
+    . (a2, b2) = (a1 a2, a2 b1 + b2)``, out of place (differentiable)."""
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], 1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    return b
+
+
+def rglru_forward(p: RGLRU, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence block of training, x (B,S,D) -> (B,S,D): ``w_x``,
+    the causal convolution (no activation), the gates, the recurrence in
+    float32, times ``gelu_tanh(x @ w_y)``, then ``w_out``."""
+    u = causal_conv(x @ p.w_x, p.conv_w, p.conv_b)
+    gy = F.gelu(x @ p.w_y, approximate="tanh")
+    a, b = _rglru_gates(p, u, cfg)
+    return (linear_scan(a, b).to(x.dtype) * gy) @ p.w_out

@@ -1,4 +1,5 @@
-"""Mamba-2 SSD mixer, the serving direction: an O(1)-state decode step.
+"""Mamba-2 SSD mixer: the chunked SSD scan of training and an O(1)-state
+decode step.
 
 Port of ``repro.models.ssm``.  The linear recurrence
 
@@ -9,8 +10,18 @@ runs one token at a time against a cache of the convolution's last
 ``conv_width - 1`` inputs (``conv``, the model's type) and the state
 (``h``, float32).  The input projection is stored per component (``wz wx
 wb wc wdt``), as in the reference, so a JAX parameter tree copies over
-leaf for leaf.  The chunked SSD scan of training (``ssd_chunked``,
-``ssm_forward``) is not ported yet (ROADMAP A6).
+leaf for leaf.
+
+Training runs the whole sequence through :func:`ssm_forward`, whose scan
+is :func:`ssd_chunked`: within a chunk of ``cfg.ssm_chunk`` positions an
+attention-like quadratic form, across chunks a loop over the chunk-final
+states, all in float32 (:func:`ssd_sequential` is its step-by-step oracle
+for tests).  Two choices keep it trainable on the card under
+deterministic algorithms: the in-chunk cumulative log-decay is a product
+with a lower-triangular matrix (a float ``cumsum`` has no deterministic
+CUDA kernel), and the decay's upper triangle is masked before the
+``exp`` (``exp`` of it overflows, and ``inf * 0`` is NaN in the backward
+pass).
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import conv_step, rmsnorm
+from repro_torch.models.layers import causal_conv, conv_step, rmsnorm
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -108,9 +119,97 @@ def ssm_decode_step(p: SSM, x1: torch.Tensor, cache: dict,
     return y @ p.out_proj
 
 
-def ssm_forward(p: SSM, x: torch.Tensor, cfg: ModelConfig):
-    """The full-sequence mixer of training (the chunked SSD scan)."""
-    raise NotImplementedError(
-        "ssm_forward / ssd_chunked (the Mamba2 training scan) are not "
-        "ported yet (ROADMAP A6); the port serves Mamba2 through "
-        "ssm_decode_step")
+def ssd_chunked(x, dt, a_head, bm, cm, chunk: int) -> torch.Tensor:
+    """x (B,S,H,P), dt (B,S,H), a_head (H,), bm/cm (B,S,G,N) -> y
+    (B,S,H,P) in ``x``'s type; float32 inside.  ``S`` not a multiple of
+    the chunk is zero-padded (dt = 0: a padded step decays by 1 and adds
+    nothing) and the output cut back."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, s)
+    if s % q:
+        pad = q - s % q
+
+        def zpad(t):
+            return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+
+        return ssd_chunked(zpad(x), zpad(dt), a_head, zpad(bm), zpad(cm),
+                           q)[:, :s]
+    nc, rep = s // q, h // g
+    dtf = dt.float()
+    da = dtf * a_head.float()                              # (B,S,H) log-decay
+    xdt = x.float() * dtf[..., None]                       # dt-weighted input
+
+    def r4(t):                                  # (B,S,...) -> (B,nc,Q,...)
+        return t.reshape((b, nc, q) + t.shape[2:])
+
+    da_c, xdt_c = r4(da), r4(xdt)
+    bh_c = r4(bm.repeat_interleave(rep, 2).float())        # (B,nc,Q,H,N)
+    ch_c = r4(cm.repeat_interleave(rep, 2).float())
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    cs = torch.einsum("ij,bcjh->bcih", tri.float(), da_c)  # inclusive sums
+
+    # intra-chunk: y_i += sum_{j<=i} exp(cs_i - cs_j) (C_i . B_j) xdt_j
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (B,nc,i,j,H)
+    el = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                               float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", ch_c, bh_c)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores * el, xdt_c)
+
+    # chunk-final states: S_c = sum_j exp(cs_end - cs_j) xdt_j (x) B_j
+    dec_end = torch.exp(cs[:, :, -1:, :] - cs)             # (B,nc,Q,H)
+    s_c = torch.einsum("bcjhp,bcjhn->bchpn", xdt_c * dec_end[..., None],
+                       bh_c)
+
+    # inter-chunk recurrence: the state before each chunk
+    chunk_decay = torch.exp(cs[:, :, -1, :])[..., None, None]  # (B,nc,H,1,1)
+    hprev = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    before = []
+    for c in range(nc):
+        before.append(hprev)
+        hprev = chunk_decay[:, c] * hprev + s_c[:, c]
+    h_before = torch.stack(before, 1)                      # (B,nc,H,P,N)
+
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", ch_c, h_before) \
+        * torch.exp(cs)[..., None]
+    return (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
+
+
+def ssd_sequential(x, dt, a_head, bm, cm) -> torch.Tensor:
+    """The step-by-step oracle of :func:`ssd_chunked` (the same
+    recurrence, one position at a time, float32); tests only."""
+    b, s, h, p = x.shape
+    rep = h // bm.shape[2]
+    bh = bm.repeat_interleave(rep, 2).float()
+    ch = cm.repeat_interleave(rep, 2).float()
+    xf, dtf, a = x.float(), dt.float(), a_head.float()
+    hs = x.new_zeros((b, h, p, bm.shape[3]), dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)[..., None, None]
+        hs = decay * hs + (xf[:, t] * dtf[:, t, :, None])[..., None] \
+            * bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", hs, ch[:, t]))
+    return torch.stack(ys, 1).to(x.dtype)
+
+
+def ssm_forward(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The full-sequence mixer of training, x (B,S,D) -> (B,S,D):
+    projections, the three causal convolutions with SiLU, softplus ``dt``,
+    :func:`ssd_chunked`, the D skip, the gated RMSNorm and ``out_proj``."""
+    b, s, _ = x.shape
+    d_in, heads, groups = ssm_dims(cfg)
+    z, xs, bm, cm, dt = (x @ w for w in (p.wz, p.wx, p.wb, p.wc, p.wdt))
+    xs = F.silu(causal_conv(xs, p.conv_x_w, p.conv_x_b))
+    bm = F.silu(causal_conv(bm, p.conv_b_w, p.conv_b_b))
+    cm = F.silu(causal_conv(cm, p.conv_c_w, p.conv_c_b))
+    xh = xs.reshape(b, s, heads, cfg.ssm_headdim)
+    dtv = F.softplus(dt.float() + p.dt_bias.float())
+    a_head = -torch.exp(p.A_log.float())
+    y = ssd_chunked(xh, dtv, a_head,
+                    bm.reshape(b, s, groups, cfg.ssm_state),
+                    cm.reshape(b, s, groups, cfg.ssm_state), cfg.ssm_chunk)
+    y = y + xh * p.D[:, None].to(y.dtype)
+    y = rmsnorm(p.norm_scale, y.reshape(b, s, d_in) * F.silu(z),
+                cfg.norm_eps)
+    return y @ p.out_proj

@@ -13,7 +13,7 @@ depth order.  Ported kinds:
     ssm       Mamba2 SSD mixer, no FFN                 (mamba2)
     rec       RG-LRU recurrent block + gated MLP       (recurrentgemma)
 
-``cross`` and ``dec`` raise (ROADMAP A6).  A final RMSNorm and the logits
+``cross`` and ``dec`` raise (ROADMAP A2).  A final RMSNorm and the logits
 over the padded vocabulary (tied to the embedding, or through ``lm_head``
 when ``cfg.tie_embeddings`` is false) close the model.  Weight layouts
 match the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate
@@ -29,9 +29,12 @@ per position at the step's shapes (:func:`~repro_torch.models.moe.
 moe_step`), so no token of a chunk is dropped, where the reference's
 capacity dispatch over the chunk drops some.  Training runs
 :meth:`LM.forward` over whole sequences (the MoE FFN through the
-configured capacity or dense schedule) and :func:`loss_fn` (the dense
-and MoE families; the recurrent kinds' training scans raise, ROADMAP
-A6).
+configured capacity or dense schedule, the recurrent kinds through their
+sequence scans) and :func:`loss_fn`.  As in the reference, training
+attention masks by ``cfg.sliding_window`` only: the hybrid's attention
+blocks train with full causal attention and serve through their
+``local_window`` ring, so its ``forward`` is not its own step scan past
+the window.
 
 Both serving calls take optional :class:`RowGroup` s, the batching
 engine's slots: each group runs as the single-request step of the same
@@ -53,8 +56,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (attn_decode, attn_forward,
-                                         attn_prefill, ring_slots)
+from repro_torch.models.attention import (Attention, attn_decode,
+                                         attn_forward, attn_prefill,
+                                         ring_slots)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_xent_loss, embed, logits, mlp,
                                        rmsnorm, xent_loss)
@@ -114,17 +118,6 @@ class RowGroup(NamedTuple):
     length: int
 
 
-class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        d, hp, kv, dh = (cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads,
-                         cfg.head_dim_)
-        self.wq = nn.Parameter(torch.empty(d, hp, dh))
-        self.wk = nn.Parameter(torch.empty(d, kv, dh))
-        self.wv = nn.Parameter(torch.empty(d, kv, dh))
-        self.wo = nn.Parameter(torch.empty(hp, dh, d))
-
-
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -170,7 +163,7 @@ _BLOCKS = {"attn": Block, "attn_moe": lambda cfg: Block(cfg, MoE),
            "ssm": SSMBlock, "rec": RecBlock}
 # leaves initialised to a constant, by leaf name; every other matrix and
 # the RG-LRU's gate weights are normal(0, scale), every other vector 1
-_INIT = {**SSM.INIT, **RGLRU.INIT}
+_INIT = {**Attention.INIT, **SSM.INIT, **RGLRU.INIT}
 _NORMAL_VECTORS = ("gate_a_w", "gate_i_w")
 
 
@@ -185,14 +178,14 @@ class LM(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} (config {cfg.name!r}) is not ported "
-                f"(ROADMAP A6); ported families: {FAMILIES}")
+                f"(ROADMAP A2); ported families: {FAMILIES}")
         kinds = tuple(k for pat, reps in cfg.stages for _ in range(reps)
                       for k in pat)
         for kind in kinds:
             if kind not in KINDS:
                 raise NotImplementedError(
                     f"layer kind {kind!r} of config {cfg.name!r} is not "
-                    f"ported (ROADMAP A6); ported kinds: {KINDS}")
+                    f"ported (ROADMAP A2); ported kinds: {KINDS}")
         self.cfg = cfg
         self.kinds = kinds
         # (stage, block key, rep) of each block, the reference's tree path
@@ -243,8 +236,7 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor):
         """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss):
         the sum of the MoE blocks' load-balance losses (0.0 without
-        one).  The recurrent kinds' training scans are not ported (ROADMAP
-        A6) and raise."""
+        one)."""
         cfg = self.cfg
         x = embed(self.embedding, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -256,8 +248,7 @@ class LM(nn.Module):
             if kind == "rec":
                 x = x + rglru_forward(blk.rec, h, cfg)
             else:
-                a = blk.attn
-                x = x + attn_forward(a.wq, a.wk, a.wv, a.wo, h, cfg)
+                x = x + attn_forward(blk.attn, h, cfg)
             h = rmsnorm(blk.ln2, x, cfg.norm_eps)
             if kind == "attn_moe":
                 h, a = moe(blk.ffn, h, cfg)
@@ -328,9 +319,8 @@ class LM(nn.Module):
                 x = x + rglru_decode_step(blk.rec, h, {
                     "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg)
             else:
-                a = blk.attn
-                x = x + attn_decode(a.wq, a.wk, a.wv, a.wo, h, st["k"][i],
-                                    st["v"][i], length, pos, cfg)
+                x = x + attn_decode(blk.attn, h, st["k"][i], st["v"][i],
+                                    length, pos, cfg)
             x = x + self._ffn(kind, blk, x)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)[:, 0]
@@ -376,11 +366,10 @@ class LM(nn.Module):
 
         xs = embed(self.embedding, tokens.T)            # (S, B, D)
         for i, (kind, blk) in enumerate(zip(self.kinds, self.blocks)):
-            a = blk.attn
             hs = [rmsnorm(blk.ln1, xs[t][:, None], cfg.norm_eps)
                   for t in range(s_len)]
-            xs = xs + attn_prefill(a.wq, a.wk, a.wv, a.wo, hs, ck[i], cv[i],
-                                   length, pos0, n_valid, cfg)
+            xs = xs + attn_prefill(blk.attn, hs, ck[i], cv[i], length, pos0,
+                                   n_valid, cfg)
             xs = xs + per_position(
                 lambda x1, kind=kind, blk=blk: self._ffn(kind, blk, x1), xs)
         return per_position(lambda x1: self._logits(
@@ -437,7 +426,7 @@ def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     cfg = model.cfg
     if batch.get("memory") is not None or batch.get("enc_inputs") is not None:
         raise NotImplementedError("memory/enc_inputs batches are not ported "
-                                  "yet (ROADMAP A6)")
+                                  "yet (ROADMAP A2)")
     x, aux = model(batch["tokens"])
     if cfg.logits_chunk:
         ce = chunked_xent_loss(model.embedding, x, batch["labels"],

@@ -47,6 +47,17 @@ sys.path.insert(0, _GEN_PATH)
 from generate import CASES, build_case  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     return init_model(SMOKE, seed=2, device="cpu")

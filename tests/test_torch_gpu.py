@@ -40,8 +40,18 @@ CPU.  The MoE family: B6 and B2 also at mixtral-8x22b's K = 32,768; both
 MoE SMOKE models round-trip on the card (kernel and coder containers
 byte-identical, one B2 and one B6 launch per decoded position), their
 steps match the CPU's and their prefill is their steps bitwise.
+Training of the zoo: ``ssd_chunked`` and ``rglru_forward`` (values and
+gradients) on the card against the CPU, and a train step of the
+mamba2-130m, recurrentgemma-2b and mixtral-8x22b SMOKE models on the
+card against the CPU's under deterministic algorithms (loss, every
+gradient, the step's metrics).  The dense zoo:
+the four SMOKE models (QKV bias, QK norm, blockwise attention) round-trip
+through the kernel backend (B6, B1, B2) byte-identical to the coder
+backend.  The decode's first-index top-k on the card equals the CPU's on
+built ties.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -1147,3 +1157,162 @@ def test_gpu_moe_smoke_roundtrip(arch):
         ls = decode_step(model, st_s, t_in[:, t:t + 1].to(dev), t)
         assert torch.equal(lp[:, t], ls)
     assert torch.equal(st_p.k, st_s.k) and torch.equal(st_p.v, st_s.v)
+
+
+# ---------------------------------------------------------------------------
+# training of the zoo, the dense zoo's SMOKE models and the decode's top-k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scan", ["ssd_chunked", "rglru_forward"])
+def test_gpu_recurrent_scans_match_cpu(scan):
+    """The training scans on the card against the CPU in float32, at a
+    length that is not a multiple of the SSD chunk (29 over 8): values
+    and the gradients of a weighted sum within 1e-5 of their largest
+    entry."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model, rglru, ssm
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    if scan == "ssd_chunked":
+        b, s, h, p, n = 2, 29, 4, 8, 16
+        args = [rng.normal(size=(b, s, h, p)),
+                np.log1p(np.exp(rng.normal(size=(b, s, h)))),
+                -np.exp(rng.normal(size=(h,)) * 0.5),
+                rng.normal(size=(b, s, 1, n)), rng.normal(size=(b, s, 1, n))]
+        out_shape = (b, s, h, p)
+    else:
+        cfg = get_smoke_config("recurrentgemma-2b")
+        blk = init_model(cfg, seed=2, device="cpu").blocks[0].rec
+        args = [rng.normal(size=(2, 40, cfg.d_model))]
+        out_shape = (2, 40, cfg.d_model)
+    w = torch.as_tensor(rng.normal(size=out_shape).astype(np.float32))
+    got = []
+    for d in ("cpu", dev):
+        xs = [torch.as_tensor(a.astype(np.float32), device=d)
+              .requires_grad_() for a in args]
+        if scan == "ssd_chunked":
+            y = ssm.ssd_chunked(*xs, chunk=8)
+        else:
+            rec = copy.deepcopy(blk).to(d)
+            y = rglru.rglru_forward(rec, xs[0], cfg)
+        grads = torch.autograd.grad((y * w.to(d)).sum(), xs)
+        got.append([t.detach().cpu() for t in (y, *grads)])
+    for c, g in zip(*got):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=0,
+                                   atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "mixtral-8x22b"])
+def test_gpu_zoo_train_step_matches_cpu(arch):
+    """The recurrent families' and mixtral's SMOKE train step (the SSD
+    chunk scan, the RG-LRU doubling scan and the capacity MoE backward
+    under deterministic algorithms) on the card against the CPU from the
+    same weights and batch: the loss within rtol 1e-5, every gradient leaf
+    within 1e-4 of its largest entry, and the step's loss and gradient
+    norm within rtol 1e-4.  The updated parameters are not compared: from
+    fresh moments AdamW moves each entry by about lr * sign(g), so an entry
+    whose gradient is near 0 steps apart on the two devices (1 of 8,192
+    entries of a recurrentgemma-2b MLP leaf differed by 1.03e-5 after two
+    steps, against a 1e-4-of-largest bound of 8.4e-6)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+    dev = _cuda()
+    cfg = get_smoke_config(arch)
+    batch = train_batch(cfg, 8, 64, step=0)
+    runs = {}
+    for d in ("cpu", dev):
+        model = init_model(cfg, seed=4, device=d)
+        loss, grads = train_loop.grads_fn(model, batch)
+        state = train_loop.init_train_state(model)
+        state = state._replace(step=torch.full_like(state.step, 100))
+        state, m = train_loop.make_train_step(cfg, base_lr=3e-3)(state,
+                                                                 batch)
+        assert all(bool(torch.isfinite(p).all())
+                   for p in state.model.parameters())
+        runs[str(d)] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                        {k: float(v) for k, v in m.items()})
+    (lc, gc, mc), (lg, gg, mg) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for name, b in gc.items():
+        np.testing.assert_allclose(gg[name].numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   err_msg=name)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(mg[k], mc[k], rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-4b", "qwen3-32b",
+                                  "llama3-405b"])
+def test_gpu_dense_smoke_roundtrip(arch):
+    """The SMOKE model on the card, 4 lanes x 40 tokens, chunk 16: kernel
+    and coder containers byte-identical, the fused decode exact with one
+    B1 launch and one B2 and one B6 launch per position (one more B6 for
+    the compress side's batch); its float32 steps against the same weights
+    on the CPU within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_model, init_state
+    from repro_torch.serve import compress
+    dev = _cuda()
+    cfg = get_smoke_config(arch)
+    model = init_model(cfg, seed=2, device=dev)
+    toks = token_stream(cfg.vocab_size, (4, 40), seed=5)
+
+    def blob(backend):
+        st = compress.lm_compress_chunked(model, toks, 16, backend=backend)
+        return bitstream.pack_chunked(*st.chunks, chunk_size=16,
+                                      n_symbols=40)
+
+    b = blob("coder")
+    before = dict(LAUNCHES)
+    assert blob("kernel") == b
+    sym, _ = compress.lm_decompress_chunked(
+        model, bitstream.parse_chunked(b), 40, 16, backend="kernel")
+    torch.cuda.synchronize()
+    want = {"rans_encode_lanes": 1, "rans_decode_step": 40,
+            "spc_quantize": 41}
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        k: want.get(k, 0) for k in LAUNCHES}
+    assert np.array_equal(sym.cpu().numpy(), toks)
+    cpu = init_model(cfg, seed=2, device="cpu")
+    states = [init_state(m, 2, 16) for m in (cpu, model)]
+    t_in = torch.as_tensor(toks[:2])
+    for t in range(12):
+        lg = [decode_step(m, st, t_in[:, t:t + 1].to(m.embedding.device), t)
+              for m, st in zip((cpu, model), states)]
+        assert float((lg[1].cpu() - lg[0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [256, 4096, 32768])
+def test_gpu_topk_matches_cpu_on_ties(k):
+    """``model_topk_candidates`` (a stable descending sort) on the card
+    equals the CPU's, largest first and the lower index first among
+    equals: all-zero rows, integer-valued rows, rows of -inf with a few
+    finite entries, and BF16 logits; ``topk_first`` routes router
+    probabilities as on the CPU."""
+    dev = _cuda()
+    rng = np.random.default_rng(k)
+    inf = np.full((4, k), -np.inf, np.float32)
+    inf[:, rng.integers(0, k, 3)] = 0.0
+    xs = [torch.zeros((16, k)),
+          torch.as_tensor(rng.integers(-3, 3, (16, k)).astype(np.float32)),
+          torch.as_tensor(inf),
+          torch.as_tensor(rng.normal(0, 2, (16, k)).astype(
+              np.float32)).to(torch.bfloat16)]
+    for x in xs:
+        for topk in (1, 4):
+            assert torch.equal(
+                predictors.model_topk_candidates(x.to(dev), topk).cpu(),
+                predictors.model_topk_candidates(x, topk))
+    probs = torch.softmax(torch.as_tensor(rng.normal(
+        0, 0.5, (512, 8)).astype(np.float32)).to(torch.bfloat16).float(), -1)
+    for got, want in zip(predictors.topk_first(probs.to(dev), 2),
+                         predictors.topk_first(probs, 2)):
+        assert torch.equal(got.cpu(), want)

@@ -462,9 +462,8 @@ def test_sliding_window_training_mask_matches_reference(zoo):
     a = model.blocks[0].attn
     jx, tx = _x((2, 40, jcfg.d_model), 10)
     with torch.no_grad():
-        y = attn_forward(a.wq, a.wk, a.wv, a.wo, tx, model.cfg)
-        full = attn_forward(a.wq, a.wk, a.wv, a.wo, tx,
-                            model.cfg.with_(sliding_window=0))
+        y = attn_forward(a, tx, model.cfg)
+        full = attn_forward(a, tx, model.cfg.with_(sliding_window=0))
     _close(y, j_attn_forward(p, jx, jcfg), **TOL)
     assert torch.equal(y[:, :16], full[:, :16])
     assert float((y[:, 16:] - full[:, 16:]).abs().max()) > 1e-4

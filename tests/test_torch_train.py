@@ -124,9 +124,9 @@ def test_forward_last_position_matches_decode_step():
 
 
 def test_unported_training_options_raise():
-    model = init_model(SMOKE.with_(attn_impl="blockwise"), device="cpu")
+    model = init_model(SMOKE.with_(attn_impl="flash"), device="cpu")
     batch = _tensors(pipeline.train_batch(SMOKE, 1, 4))
-    with pytest.raises(NotImplementedError, match="blockwise"):
+    with pytest.raises(ValueError, match="attn_impl='flash'"):
         loss_fn(model, batch)
     with pytest.raises(NotImplementedError, match="A4"):
         train_loop.make_train_step(SMOKE, compress_crosspod=True)

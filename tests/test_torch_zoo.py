@@ -57,6 +57,17 @@ ARCHS = ("mamba2-130m", "recurrentgemma-2b")
 CHUNK = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def zoo():
     return {arch: init_model(get_smoke_config(arch), seed=0, device="cpu")
