@@ -197,14 +197,42 @@ zero-frequency cases of 5a.
    lanes x 64 through the kernel backend (launches counted, containers
    byte-identical to the coder's, decode exact);
 22. the decode's first-index top-k (``topk_phase``): card equal to the
-   CPU on built ties at 16 x 32,768, timed beside ``torch.topk``.
+   CPU on built ties at 16 x 32,768, timed beside ``torch.topk``;
+23. ``phi3.5-moe-42b-a6.6b`` at full width (``phi_phase``: d_model 4,096,
+   32 heads x 128 over 8 kv heads, 16 experts top-2, d_ff 6,400, vocab
+   32,064 padded to 32,256, BF16, untied head), its depth cut to 4 of 32
+   layers, drawn on the card, 16 lanes x 256 ``token_stream`` tokens,
+   chunk 128, ``prob_bits=16``: kernel and coder containers
+   byte-identical, the fused decode bit-exact with equal per-lane probes,
+   launches exactly B1 1 / B2 256 / B6 257, B6 fed the 32,064 true
+   symbols; a 16-row step and its busy share beside its byte bound; B6
+   (batch, and per position with the CDF) and B2 at K = 32,064 against
+   their plain versions; one float32 layer card vs CPU (logits within
+   1e-4);
+24. cross attention (``vlm_phase``): ``llama-3.2-vision-11b`` whole (40
+   layers, 8 of them ``cross``, BF16, drawn on the card) against a
+   ``train_batch`` memory of 2 x 4,096 x 4,096 in BF16: greedy
+   ``generate`` of 2 rows x 16 + 32 tokens twice (identical tokens,
+   finite logits), a step's time beside the bytes of its weights and
+   memory and the FLOPs of its memory projections; one (attn, cross)
+   pattern at full width in float32 card vs CPU (memory cut to 512
+   tokens; 4 decode steps and a 64-token forward within 1e-4); 2 BF16
+   train steps of 2 x 256 tokens at 5 of 40 layers (finite losses, step
+   time, peak memory);
+25. the encoder-decoder (``audio_phase``): ``seamless-m4t-large-v2`` whole
+   (24 encoder + 24 ``dec`` layers, BF16): 2 x 1,024 x 1,024 encoder
+   inputs through ``encode_memory``, then ``generate`` as in 24; one
+   encoder and one ``dec`` layer in float32 card vs CPU (the encoder's
+   output, 4 decode steps and a 64-token forward within 1e-4); 2 BF16
+   train steps at full depth.
 
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
-(``mamba2_launches``), in the mixtral slice (``moe_launches``) and in
-the zoo rungs (``zoo_launches``), and B6's and B2's times at K = 50,280
-and K = 32,768.  The last
+(``mamba2_launches``), in the mixtral slice (``moe_launches``), in
+the zoo rungs (``zoo_launches``) and in the phi slice
+(``phi_launches``), and B6's and B2's times at K = 50,280, K = 32,768
+and K = 32,064.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
 a checkout of the repository.
@@ -2269,9 +2297,11 @@ def _zoo_kernels(run, bits: int, what: str, wide=()):
     return out
 
 
-def _zoo_card_vs_cpu(cpu, card, rows: int, steps: int, what: str):
+def _zoo_card_vs_cpu(cpu, card, rows: int, steps: int, what: str,
+                     memory=None):
     """The same weights on the CPU and on the card, ``rows`` x ``steps``
-    decode steps of seeded tokens: the largest logit difference, at most
+    decode steps of seeded tokens (against ``memory``, a CPU tensor, for a
+    model with cross attention): the largest logit difference, at most
     1e-4."""
     import torch
     from repro_torch.models import decode_step, init_state
@@ -2280,10 +2310,13 @@ def _zoo_card_vs_cpu(cpu, card, rows: int, steps: int, what: str):
                          generator=torch.Generator().manual_seed(0))
     models = (cpu, card)
     states = [init_state(m, rows, steps) for m in models]
+    mems = [None if memory is None else memory.to(m.embedding.device)
+            for m in models]
     worst = 0.0
     for t in range(steps):
-        lg = [decode_step(m, st, toks[:, t:t + 1].to(m.embedding.device), t)
-              for m, st in zip(models, states)]
+        lg = [decode_step(m, st, toks[:, t:t + 1].to(m.embedding.device), t,
+                          memory=mem)
+              for m, st, mem in zip(models, states, mems)]
         _check(bool(torch.isfinite(lg[1]).all()), "non-finite logits")
         worst = max(worst, float((lg[1].cpu() - lg[0]).abs().max()))
     _check(worst <= 1e-4, f"{what}: card logits differ from the CPU's by "
@@ -2509,26 +2542,34 @@ MX_CPU_ROWS, MX_CPU_STEPS = 2, 4
 MXS_LANES, MXS_T, MXS_CHUNK = 8, 64, 16
 
 
-def _mx_step(dev, model):
-    """One 16-row decode step of the cut model: its median time, and
+def _step_bytes(model, rows: int) -> int:
+    """The weights a decode step of ``rows`` rows must read: every
+    parameter but the embedding table (of which it gathers ``rows`` rows)
+    and the encoder's (the memory is encoded before the steps)."""
+    emb = model.embedding
+    enc = 0 if model.encoder is None else sum(
+        p.numel() * p.element_size() for p in model.encoder.parameters())
+    return (sum(p.numel() * p.element_size() for p in model.parameters())
+            - emb.numel() * emb.element_size() - enc
+            + rows * emb.shape[1] * emb.element_size())
+
+
+def _mx_step(dev, model, rows: int, max_len: int, what: str):
+    """One ``rows``-row decode step of the cut model: its median time, and
     ``MX_STEPS`` steps under ``torch.profiler`` for the device-busy share,
-    beside the bytes a step must read (every weight but the embedding
-    table, of which it gathers 16 rows)."""
+    beside the bytes a step must read (:func:`_step_bytes`)."""
     import torch
     from repro_torch.models import decode_step, init_state
 
-    state = init_state(model, MX_LANES, MX_T)
-    tok = torch.zeros((MX_LANES, 1), dtype=torch.int64, device=dev)
+    state = init_state(model, rows, max_len)
+    tok = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
     step_ms = _median_ms(lambda: decode_step(model, state, tok, 0),
                          repeats=20)
     _, wall_ms, busy_ms = _busy_share(lambda: [
         decode_step(model, state, tok, t) for t in range(MX_STEPS)])
-    emb = model.embedding
-    moved = (sum(p.numel() * p.element_size() for p in model.parameters())
-             - emb.numel() * emb.element_size()
-             + MX_LANES * emb.shape[1] * emb.element_size())
+    moved = _step_bytes(model, rows)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(f"mixtral: model step {step_ms:.3f} ms ({MX_LANES} rows), bound "
+    print(f"{what}: model step {step_ms:.3f} ms ({rows} rows), bound "
           f"{bound_ms:.3f} ms by bytes ({moved} B of weights a step); "
           f"{MX_STEPS} steps traced: {wall_ms:.3f} ms wall, {busy_ms:.3f} "
           f"ms device busy ({100 * busy_ms / wall_ms:.1f}% busy)", flush=True)
@@ -2594,7 +2635,7 @@ def moe_phase(dev):
           f"({run['t_comp']:.3f} s), decompress {n / run['t_dec']:.1f} "
           f"symbols/s ({run['t_dec']:.3f} s); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
-    _mx_step(dev, model)
+    _mx_step(dev, model, MX_LANES, MX_T, "mixtral")
     recs = _zoo_kernels(run, MX_BITS, "mixtral")
     # one float32 layer drawn on the card, its weights copied to the CPU
     one = CONFIG.with_(n_layers=1, dtype="float32")
@@ -2877,6 +2918,306 @@ def topk_phase(dev):
           flush=True)
 
 
+# --- phi3.5-moe at full width, cross attention and the encoder-decoder
+# (slice 9) ----------------------------------------------------------------
+
+# phi3.5-moe-42b-a6.6b at full width, its depth cut to 4 of 32 layers (2.60
+# GB of BF16 weights a layer): 16 lanes x 256 token_stream(32064) tokens,
+# chunk 128, prob_bits 16, top-4; one float32 layer card vs CPU
+PHI_LAYERS = 4
+PHI_LANES, PHI_T, PHI_CHUNK, PHI_BITS = 16, 256, 128, 16
+# llama-3.2-vision-11b whole (40 layers) and seamless-m4t-large-v2 whole
+# (24 + 24 layers) in BF16: greedy generate of 2 rows x a 16-token prompt +
+# 32 new tokens at max_len 64, twice; card vs CPU in float32 at full width
+# cut to one (attn, cross) pattern / one encoder and one dec layer, 4 decode
+# steps of 2 rows and a 64-token forward, the vlm memory cut to 512 tokens;
+# 2 BF16 train steps of 2 x 256 tokens from the end of the lr warmup (the
+# vlm at one pattern, 5 of 40 layers: its AdamW state at full depth would
+# be ~117 GB)
+ED_ROWS, ED_PROMPT, ED_NEW, ED_MAX_LEN = 2, 16, 32, 64
+ED_CPU_STEPS, ED_FWD_T, VLM_CPU_MEMORY = 4, 64, 512
+ED_TRAIN_STEPS, ED_TRAIN_BATCH, ED_TRAIN_SEQ = 2, 2, 256
+# the reference's make_train_step default: AdamW's first step moves every
+# weight by about lr, and at 3e-3 the vlm's loss rose 12.55 -> 35.65 nats
+# in one step (NVIDIA H100 80GB HBM3)
+ED_TRAIN_LR = 3e-4
+VLM_TRAIN_LAYERS = 5
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense BF16 tensor-core rate
+
+
+def phi_phase(dev):
+    """``phi3.5-moe-42b-a6.6b`` at full width, cut to ``PHI_LAYERS``
+    layers (BF16, vocab 32,064 padded to 32,256, ``prob_bits=16``),
+    through the kernel and coder backends (the SPC sees the 32,064 true
+    symbols, never the padded tail); a 16-row step beside its byte bound;
+    B6 and B2 at K = 32,064; one full-width layer in float32 against the
+    CPU.  Returns the slice's launches and the kernel records."""
+    import torch
+    from repro_torch.configs.phi3_5_moe_42b_a6_6b import CONFIG
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.models import LM, init_model
+
+    t0 = time.perf_counter()
+    cfg = CONFIG.with_(n_layers=PHI_LAYERS)
+    model = init_model(cfg, seed=0, device=dev, draw="device")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = token_stream(cfg.vocab_size, (PHI_LANES, PHI_T), seed=0)
+    run = _zoo_slice(model, tokens, PHI_CHUNK, PHI_BITS, "phi")
+    k_in = {run["b6_pos"][0].shape[-1], run["b6_batch"][0].shape[-1]}
+    _check(k_in == {cfg.vocab_size} and cfg.vocab_padded > cfg.vocab_size,
+           f"phi: B6 saw K = {k_in}, not the {cfg.vocab_size} true symbols")
+    n = PHI_LANES * PHI_T
+    print(f"phi: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim_}, kv {cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top-{cfg.topk_experts}, vocab"
+          f" {cfg.vocab_size} padded to {cfg.vocab_padded}, {cfg.dtype}, "
+          f"untied head), depth cut to {cfg.n_layers} of {CONFIG.n_layers} "
+          f"layers ({n_params} parameters, drawn on the card in "
+          f"{t_init:.1f} s), {PHI_LANES} lanes x {PHI_T} tokens, chunk "
+          f"{PHI_CHUNK}, prob_bits {PHI_BITS}: round trip bit-exact, kernel "
+          f"and coder containers byte-identical, per-lane probes equal; B6 "
+          f"at K = {cfg.vocab_size}; launches {run['launches']}; no plain "
+          "SPC call on the card", flush=True)
+    print(f"phi: bits/symbol {run['bits']:.4f}, model xent "
+          f"{run['xent']:.4f} bits, avg probes/symbol "
+          f"{run['avg_probes']:.4f}, container {len(run['blob'])} bytes; "
+          f"compress {n / run['t_comp']:.1f} symbols/s "
+          f"({run['t_comp']:.3f} s), decompress {n / run['t_dec']:.1f} "
+          f"symbols/s ({run['t_dec']:.3f} s); peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+    _mx_step(dev, model, PHI_LANES, PHI_T, "phi")
+    recs = _zoo_kernels(run, PHI_BITS, "phi")
+    del run["b6_batch"], run["b6_pos"], run["b2_pop"], model
+    torch.cuda.empty_cache()
+    one = CONFIG.with_(n_layers=1, dtype="float32")
+    card = init_model(one, seed=1, device=dev, draw="device")
+    cpu = LM(one)
+    cpu.load_state_dict(card.state_dict())
+    _zoo_card_vs_cpu(cpu, card, ED_ROWS, ED_CPU_STEPS,
+                     "phi: one full-width layer in float32")
+    del cpu, card
+    torch.cuda.empty_cache()
+    print(f"phi slice: {time.perf_counter() - t0:.1f} s", flush=True)
+    return run["launches"], recs
+
+
+def _ed_inputs(cfg, rows: int, seq: int, dev, seed: int = 0):
+    """``train_batch``'s tokens and its memory or encoder-input plane on
+    the card, the plane in the model's dtype: (tokens, memory or None,
+    enc_inputs or None)."""
+    import torch
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models.transformer import torch_dtype
+
+    b = train_batch(cfg, rows, seq, seed=seed)
+
+    def put(k):
+        return None if k not in b else torch.as_tensor(b[k]).to(
+            dev, torch_dtype(cfg))
+
+    return (torch.as_tensor(b["tokens"], dtype=torch.int64, device=dev),
+            put("memory"), put("enc_inputs"))
+
+
+def _ed_serve(model, prompt, memory, what: str, cross_flops: float):
+    """Greedy ``generate`` twice on the card (``ED_NEW`` new tokens at
+    ``ED_MAX_LEN``): identical tokens, finite logits; a step's median time
+    beside the bytes of weights it reads and the FLOPs of its memory
+    projections."""
+    import torch
+    from repro_torch.models import decode_step, init_state
+    from repro_torch.serve.engine import generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, lgs = generate(model, prompt, ED_NEW, ED_MAX_LEN, memory=memory,
+                        return_logits=True)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    again = generate(model, prompt, ED_NEW, ED_MAX_LEN, memory=memory)
+    _check(torch.equal(out, again), f"{what}: two generate runs differ")
+    _check(bool(torch.isfinite(lgs).all()), f"{what}: non-finite logits")
+    rows = prompt.shape[0]
+    state = init_state(model, rows, ED_MAX_LEN)
+    tok = prompt[:, :1]
+    step_ms = _median_ms(lambda: decode_step(model, state, tok, 0,
+                                             memory=memory), repeats=10)
+    moved = _step_bytes(model, rows) + memory.numel() * memory.element_size()
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_flops = cross_flops / BF16_FLOPS_PER_S * 1e3
+    n_steps = prompt.shape[1] + ED_NEW - 1
+    print(f"{what}: generate {rows} rows x {prompt.shape[1]} prompt + "
+          f"{ED_NEW} new tokens (max_len {ED_MAX_LEN}) in {t_gen:.3f} s "
+          f"({1e3 * t_gen / n_steps:.3f} ms a step over {n_steps} steps); "
+          f"two runs give identical tokens, logits finite; model step "
+          f"{step_ms:.3f} ms ({rows} rows) against a byte bound of "
+          f"{t_bytes:.3f} ms ({moved} B: the weights and the memory) and "
+          f"{t_flops:.3f} ms for the {cross_flops:.4g} FLOP of the memory's "
+          f"K/V projections at {BF16_FLOPS_PER_S:.4g} FLOP/s", flush=True)
+    return out
+
+
+def _ed_card_vs_cpu(cfg, dev, memory_cpu, what: str):
+    """``cfg`` (a float32 cut) drawn on the card and copied to the CPU:
+    ``ED_CPU_STEPS`` decode steps of 2 rows and an ``ED_FWD_T``-token
+    forward against ``memory_cpu`` (or, for an encoder-decoder, the
+    memory each side encodes from the same inputs), logits within 1e-4;
+    the encoder's output too."""
+    import torch
+    from repro_torch.models import LM, encode_memory, init_model
+
+    card = init_model(cfg, seed=1, device=dev, draw="device")
+    cpu = LM(cfg)
+    cpu.load_state_dict(card.state_dict())
+    models = (cpu, card)
+    if cfg.is_encdec:
+        with torch.no_grad():
+            mems = [encode_memory(m, memory_cpu.to(m.embedding.device))
+                    for m in models]
+        err = float((mems[1].cpu() - mems[0]).abs().max())
+        _check(bool(torch.isfinite(mems[1]).all()) and err <= 1e-4,
+               f"{what}: encoder output differs from the CPU's by {err}")
+        print(f"{what}: encode_memory of {tuple(memory_cpu.shape)}, card vs "
+              f"CPU: max abs diff {err:.3e} (tolerance 1e-4)", flush=True)
+        memory_cpu = mems[0]
+    _zoo_card_vs_cpu(cpu, card, ED_ROWS, ED_CPU_STEPS, what,
+                     memory=memory_cpu[:ED_ROWS])
+    toks = torch.randint(0, cfg.vocab_size, (1, ED_FWD_T),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        lg = [m._logits(m(toks.to(m.embedding.device),
+                          memory=memory_cpu[:1].to(m.embedding.device))[0])
+              for m in models]
+    err = float((lg[1].cpu() - lg[0]).abs().max())
+    _check(bool(torch.isfinite(lg[1]).all()) and err <= 1e-4,
+           f"{what}: forward logits differ from the CPU's by {err}")
+    print(f"{what}: {ED_FWD_T}-token forward, card vs CPU: max abs logit "
+          f"diff {err:.3e} (tolerance 1e-4)", flush=True)
+
+
+def _ed_train(cfg, dev, what: str):
+    """``ED_TRAIN_STEPS`` BF16 train steps of ``ED_TRAIN_BATCH`` x
+    ``ED_TRAIN_SEQ`` tokens and their memory planes (``train_batch``'s
+    float32 draws, which the step casts to BF16) from the end of the lr
+    warmup, two microbatches a step: finite losses, the step time and the
+    peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, seed=2, device=dev, draw="device")
+    state = train_loop.init_train_state(model)
+    state = state._replace(step=torch.full_like(state.step, ZOO_M2_WARM))
+    step = train_loop.make_train_step(cfg.with_(grad_accum=2),
+                                      base_lr=ED_TRAIN_LR)
+    losses, secs = [], []
+    for i in range(ED_TRAIN_STEPS):
+        batch = train_batch(cfg, ED_TRAIN_BATCH, ED_TRAIN_SEQ, step=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    _check(np.isfinite(losses).all(), f"{what} losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{what}: {cfg.n_layers} layers ({n_params} parameters, "
+          f"{cfg.dtype}), {ED_TRAIN_STEPS} steps of {ED_TRAIN_BATCH} x "
+          f"{ED_TRAIN_SEQ} tokens (2 microbatches) from step {ZOO_M2_WARM}:"
+          f" losses {', '.join(f'{x:.4f}' for x in losses)} nats (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}); step {1e3 * secs[-1]:.1f} ms "
+          f"(the first {1e3 * secs[0]:.1f} ms); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def vlm_phase(dev):
+    """``llama-3.2-vision-11b`` whole (40 layers: 8 x (4 ``attn`` + 1
+    ``cross``), BF16, drawn on the card) against a (2, 4,096, 4,096) BF16
+    memory: greedy generation twice (identical tokens), a step's time
+    beside its bounds; one (attn, cross) pattern at full width in float32
+    against the CPU (memory cut to ``VLM_CPU_MEMORY`` tokens); BF16 train
+    steps at ``VLM_TRAIN_LAYERS`` layers."""
+    import torch
+    from repro_torch.configs.llama_3_2_vision_11b import CONFIG
+    from repro_torch.models import init_model
+
+    t0 = time.perf_counter()
+    model = init_model(CONFIG, seed=0, device=dev, draw="device")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vlm: {CONFIG.name} whole ({CONFIG.n_layers} layers, "
+          f"{model.kinds.count('cross')} cross, d_model {CONFIG.d_model}, "
+          f"{CONFIG.n_heads} heads x {CONFIG.head_dim_} over "
+          f"{CONFIG.n_kv_heads} kv heads, vocab {CONFIG.vocab_size}, "
+          f"{CONFIG.dtype}; {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    prompt, memory, _ = _ed_inputs(CONFIG, ED_ROWS, ED_PROMPT, dev)
+    kv = CONFIG.n_kv_heads * CONFIG.head_dim_
+    flops = (2 * 2 * model.kinds.count("cross") * memory.shape[0]
+             * memory.shape[1] * CONFIG.d_model * kv)
+    _ed_serve(model, prompt, memory, "vlm", flops)
+    del model, memory
+    torch.cuda.empty_cache()
+    cut = CONFIG.with_(n_layers=2, cross_attn_every=2, dtype="float32")
+    mem = torch.randn((ED_ROWS, VLM_CPU_MEMORY, CONFIG.d_model),
+                      generator=torch.Generator().manual_seed(2)) * 0.02
+    _ed_card_vs_cpu(cut, dev, mem, "vlm: one (attn, cross) pattern at full "
+                    f"width in float32, memory {VLM_CPU_MEMORY} tokens")
+    _ed_train(CONFIG.with_(n_layers=VLM_TRAIN_LAYERS), dev, "vlm trainer")
+    print(f"vlm: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def audio_phase(dev):
+    """``seamless-m4t-large-v2`` whole (24 encoder + 24 ``dec`` layers,
+    BF16): its (2, 1,024, 1,024) encoder inputs through ``encode_memory``,
+    then greedy generation twice against that memory; one encoder and one
+    ``dec`` layer at full width in float32 against the CPU; BF16 train
+    steps at full depth."""
+    import torch
+    from repro_torch.configs.seamless_m4t_large_v2 import CONFIG
+    from repro_torch.models import encode_memory, init_model
+
+    t0 = time.perf_counter()
+    model = init_model(CONFIG, seed=0, device=dev, draw="device")
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt, _, enc = _ed_inputs(CONFIG, ED_ROWS, ED_PROMPT, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        memory = encode_memory(model, enc)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t1
+    _check(bool(torch.isfinite(memory).all()), "audio: non-finite memory")
+    print(f"audio: {CONFIG.name} whole ({CONFIG.encoder_layers} encoder + "
+          f"{CONFIG.n_layers} dec layers, d_model {CONFIG.d_model}, "
+          f"{CONFIG.n_heads} heads x {CONFIG.head_dim_}, vocab "
+          f"{CONFIG.vocab_size}, {CONFIG.dtype}; {n_params} parameters drawn "
+          f"on the card); encode_memory of {tuple(enc.shape)} in "
+          f"{1e3 * t_enc:.1f} ms", flush=True)
+    kv = CONFIG.n_kv_heads * CONFIG.head_dim_
+    flops = (2 * 2 * CONFIG.n_layers * memory.shape[0] * memory.shape[1]
+             * CONFIG.d_model * kv)
+    _ed_serve(model, prompt, memory, "audio", flops)
+    del model, memory, enc
+    torch.cuda.empty_cache()
+    cut = CONFIG.with_(n_layers=1, encoder_layers=1, dtype="float32")
+    enc_cpu = torch.randn((ED_ROWS, CONFIG.memory_tokens, CONFIG.d_model),
+                          generator=torch.Generator().manual_seed(2)) * 0.02
+    _ed_card_vs_cpu(cut, dev, enc_cpu, "audio: one encoder and one dec "
+                    "layer at full width in float32")
+    _ed_train(CONFIG, dev, "audio trainer")
+    print(f"audio: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2980,6 +3321,24 @@ def main() -> int:
     timed("mamba2 trainer", mamba2_train_phase, dev)
     timed("dense zoo", dense_zoo_phase, dev)
     timed("top-k", topk_phase, dev)
+    torch.cuda.empty_cache()
+    phi_launches, phi = timed("phi slice", phi_phase, dev)
+    b6.update(phi_batch_ms=phi["batch"]["ms"],
+              phi_batch_plain_ms=phi["batch"]["plain_ms"],
+              phi_batch_bound_ms=phi["batch"]["bound_ms"],
+              phi_position_ms=phi["position"]["ms"],
+              phi_position_plain_ms=phi["position"]["plain_ms"],
+              phi_position_bound_ms=phi["position"]["bound_ms"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], phi["batch"]["err"],
+                            phi["position"]["err"])
+    b2.update(phi_ms=phi["b2"]["ms"], phi_plain_ms=phi["b2"]["plain_ms"],
+              phi_bound_ms=phi["b2"]["bound_ms"],
+              phi_bound_by=phi["b2"]["bound_by"])
+    b2["max_abs_err"] = max(b2["max_abs_err"], phi["b2"]["err"])
+    torch.cuda.empty_cache()
+    timed("vlm", vlm_phase, dev)
+    torch.cuda.empty_cache()
+    timed("audio", audio_phase, dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -2991,6 +3350,7 @@ def main() -> int:
         rec["mamba2_launches"] = m2_launches[rec["name"]]
         rec["moe_launches"] = mx_launches[rec["name"]]
         rec["zoo_launches"] = zoo_launches[rec["name"]]
+        rec["phi_launches"] = phi_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

@@ -1,10 +1,9 @@
-"""Architecture registry: the reference's ids, the ported configs.
+"""Architecture registry: the reference's ids and their configs.
 
 Port of ``repro.configs.registry``'s lookup surface.  Every id the
-reference registers is listed in :data:`ARCH_IDS`; only the ids in
-:data:`PORTED` resolve, each from its own module here.  Another registered
-id raises a ``KeyError`` that says it is not ported yet, and an unknown id
-the reference's unknown-arch ``KeyError``.
+reference registers is listed in :data:`ARCH_IDS` and ported
+(:data:`PORTED`), each resolving from its own module here; an unknown id
+raises the reference's unknown-arch ``KeyError``.
 """
 
 from __future__ import annotations
@@ -28,10 +27,8 @@ ARCH_IDS = (
     "ras-pimc",
 )
 
-# the ids whose configs this package holds
-PORTED = ("ras-pimc", "qwen1.5-4b", "qwen3-4b", "qwen3-32b", "llama3-405b",
-          "mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "mamba2-130m",
-          "recurrentgemma-2b")
+# the ids whose configs this package holds: every registered id
+PORTED = ARCH_IDS
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -48,9 +45,6 @@ def _module(arch: str) -> str:
         raise KeyError(
             f"unknown arch {arch!r}: registered ids are "
             f"{', '.join(ARCH_IDS)}") from None
-    if arch not in PORTED:
-        raise KeyError(f"arch {arch!r} is registered but not ported yet: "
-                       f"ported ids are {', '.join(PORTED)}")
     return mod
 
 

@@ -1,8 +1,8 @@
 """Deterministic synthetic data (numpy, seeded).
 
 Copies of ``repro.data.pipeline``'s ``token_stream``, ``image_rows``,
-``synthetic_image``, ``candidate_planes`` and the dense case of
-``train_batch``: the same seed gives the same values in both packages.
+``synthetic_image``, ``candidate_planes`` and ``train_batch``: the same
+seed gives the same values in both packages.
 """
 
 from __future__ import annotations
@@ -65,13 +65,21 @@ def train_batch(cfg, batch: int, seq: int, *, step: int = 0, host: int = 0,
                 seed: int = 0) -> dict:
     """One training batch for ``cfg``: ``tokens`` and next-token
     ``labels``, ``(batch, seq)`` int32 from one :func:`token_stream` seeded
-    by ``(seed, step, host)``.  The families that also take a ``memory``
-    or ``enc_inputs`` plane (vlm, encoder-decoder) are not ported."""
-    if cfg.family == "vlm" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"train_batch for family {cfg.family!r} (memory/enc_inputs "
-            "planes) is not ported yet (ROADMAP A2)")
+    by ``(seed, step, host)``; a ``vlm`` config's ``memory`` and an
+    encoder-decoder's ``enc_inputs``, ``(batch, memory_tokens, d_model)``
+    float32 normal draws x 0.02, in that order from one generator seeded
+    by ``(seed, step, host, batch, seq)``."""
+    rng = _rng(seed, step, host, batch, seq)
     toks = token_stream(cfg.vocab_size, (batch, seq + 1),
                         seed=seed * 1000003 + step * 101 + host)
-    return {"tokens": toks[:, :-1].astype(np.int32),
-            "labels": toks[:, 1:].astype(np.int32)}
+    out = {"tokens": toks[:, :-1].astype(np.int32),
+           "labels": toks[:, 1:].astype(np.int32)}
+    if cfg.family == "vlm":
+        out["memory"] = (rng.standard_normal(
+            (batch, cfg.memory_tokens, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    if cfg.is_encdec:
+        out["enc_inputs"] = (rng.standard_normal(
+            (batch, cfg.memory_tokens, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    return out

@@ -10,11 +10,12 @@ from repro_torch.models.protocol import (PrefillUnsupportedError, StateSpec,
                                          ring_length, state_spec,
                                          wrap_length)
 from repro_torch.models.transformer import (LM, ModelState, RowGroup,
-                                            init_model, loss_fn)
+                                            encode_memory, init_model,
+                                            loss_fn)
 
 __all__ = ["ModelConfig", "LM", "ModelState", "RowGroup",
            "PrefillUnsupportedError", "StateSpec", "can_prefill",
-           "decode_step", "get_protocol", "has_recurrent_state",
-           "init_model", "init_state", "loss_fn", "prefill_chunk",
-           "recurrent_state_tree", "reset_rows", "ring_length",
-           "state_spec", "wrap_length"]
+           "decode_step", "encode_memory", "get_protocol",
+           "has_recurrent_state", "init_model", "init_state", "loss_fn",
+           "prefill_chunk", "recurrent_state_tree", "reset_rows",
+           "ring_length", "state_spec", "wrap_length"]

@@ -1,6 +1,7 @@
 """Grouped-query self-attention against a KV ring cache: the decode step
-and the teacher-forced prefill; and the full-sequence causal attention of
-training (:func:`attn_forward`), naive or blockwise.
+and the teacher-forced prefill; the full-sequence causal attention of
+training (:func:`attn_forward`), naive or blockwise; and cross attention
+over a memory (:func:`attn_forward` with ``mem``, :func:`attn_cross`).
 
 Port of ``repro.models.attention.attn_decode``/``attn_prefill`` and their
 single attend core ``_attend_slots``.  Two properties of the reference are
@@ -44,6 +45,16 @@ its online softmax over ``attn_block`` key chunks (``_blockwise_attn``).
 Neither has a tie to the decode path's tiles: trained weights are priced
 by ``decode_step`` on both sides of a stream, so training needs no
 bitwise tie to decode.
+
+Cross attention is the reference's ``mem`` branch: K and V are the
+memory's projections, there is no RoPE and no causal mask, and each query
+head reads its :func:`kv_head_map` kv head, as on the self path.
+:func:`attn_forward` with ``mem`` masks keys by ``cfg.sliding_window``
+(the reference's ``attn_forward``); the decode step's
+:func:`attn_cross` is the reference's ``attn_decode(mem=)``: the naive
+schedule with no window, the memory's K and V projected anew at every
+step (nothing is cached).  The encoder's self-attention is cross
+attention against its own input (the reference's ``mem=h``).
 """
 
 from __future__ import annotations
@@ -166,15 +177,19 @@ def _positions(pos, b: int, device):
     return pos.to(torch.int64)
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
-    """x (B,S,D) -> q (B,S,Hp,Dh), k and v (B,S,KV,Dh): the projections,
-    the biases (``qkv_bias``) and the per-head norms (``qk_norm``), as
-    the reference's ``_project_qkv``."""
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+         mem: torch.Tensor | None = None):
+    """x (B,S,D) -> q (B,S,Hp,Dh), k and v (B,M,KV,Dh): the projections
+    (K and V of ``mem`` (B,M,D) when given, else of ``x``), the biases
+    (``qkv_bias``) and the per-head norms (``qk_norm``), as the
+    reference's ``_project_qkv``."""
     b, s, d = x.shape
+    src = x if mem is None else mem
+    m = src.shape[1]
     hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
     q = (x @ p.wq.reshape(d, hp * dh)).view(b, s, hp, dh)
-    k = (x @ p.wk.reshape(d, kv * dh)).view(b, s, kv, dh)
-    v = (x @ p.wv.reshape(d, kv * dh)).view(b, s, kv, dh)
+    k = (src @ p.wk.reshape(d, kv * dh)).view(b, m, kv, dh)
+    v = (src @ p.wv.reshape(d, kv * dh)).view(b, m, kv, dh)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     if cfg.qk_norm:
@@ -278,17 +293,18 @@ def attn_prefill(p: Attention, hs, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def _blockwise_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int, block: int) -> torch.Tensor:
-    """The reference's ``_blockwise_attn`` (causal): the queries ``qg``
-    (B,KV,g,S,Dh) against ``k``/``v`` (B,S,KV,Dh) one chunk of ``block``
+                    causal: bool, window: int, block: int) -> torch.Tensor:
+    """The reference's ``_blockwise_attn``: the queries ``qg``
+    (B,KV,g,S,Dh) against ``k``/``v`` (B,M,KV,Dh) one chunk of ``block``
     keys at a time (the keys zero-padded to whole chunks), with an online
     softmax in float32 from a running max of ``_NEG``; returns (B,KV,g,S,Dh)
     in ``qg``'s type."""
     b, kv, g, s, dh = qg.shape
-    blk = min(block, s)
-    n = -(-s // blk)
-    k = F.pad(k, (0, 0, 0, 0, 0, n * blk - s))
-    v = F.pad(v, (0, 0, 0, 0, 0, n * blk - s))
+    m_len = k.shape[1]
+    blk = min(block, m_len)
+    n = -(-m_len // blk)
+    k = F.pad(k, (0, 0, 0, 0, 0, n * blk - m_len))
+    v = F.pad(v, (0, 0, 0, 0, 0, n * blk - m_len))
     scale = 1.0 / math.sqrt(dh)
     q_idx = torch.arange(s, device=qg.device)[:, None]
     qf = qg.float()
@@ -297,9 +313,11 @@ def _blockwise_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = qf.new_zeros((b, kv, g, s, dh))
     for j in range(n):
         kv_idx = j * blk + torch.arange(blk, device=qg.device)[None, :]
-        ok = (kv_idx <= q_idx) & (kv_idx < s)            # (S, blk)
+        ok = kv_idx < m_len                              # (1, blk)
+        if causal:
+            ok = ok & (kv_idx <= q_idx)                  # (S, blk)
         if window:
-            ok &= kv_idx > q_idx - window
+            ok = ok & (kv_idx > q_idx - window)
         kj = k[:, j * blk:(j + 1) * blk].permute(0, 2, 3, 1)[:, :, None]
         vj = v[:, j * blk:(j + 1) * blk].permute(0, 2, 1, 3)[:, :, None]
         sc = torch.where(ok, torch.matmul(qf, kj.float()) * scale, _NEG)
@@ -312,35 +330,66 @@ def _blockwise_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(qg.dtype)
 
 
-def attn_forward(p: Attention, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """Causal self-attention over a whole sequence (training): x (B,S,D)
-    -> (B,S,D), RoPE at positions ``arange(S)``, each query head reading
-    its :func:`kv_head_map` kv head.  A ``sliding_window`` also masks keys
+def _attend(p: Attention, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, cfg: ModelConfig, causal: bool, window: int,
+            blockwise: bool) -> torch.Tensor:
+    """Queries (B,S,Hp,Dh) against keys and values (B,M,KV,Dh), each query
+    head reading its :func:`kv_head_map` kv head, then the output
+    projection -> (B,S,D).  The naive schedule (the reference's
+    ``_naive_attn``: the whole score matrix in float32, the mask, softmax,
+    the value product) or :func:`_blockwise_attn`; the mask keeps keys at
+    or before the query (``causal``) and, with a ``window``, keys less
+    than ``window`` positions behind it."""
+    b, s = q.shape[:2]
+    hp, dh = cfg.n_heads_padded, cfg.head_dim_
+    k, v, kv, g = _heads(k, v, cfg)
+    qg = q.view(b, s, kv, g, dh).permute(0, 2, 3, 1, 4)   # (B,KV,g,S,Dh)
+    if blockwise:
+        out = _blockwise_attn(qg, k, v, causal, window, cfg.attn_block)
+    else:
+        m_len = k.shape[1]
+        kt = k.permute(0, 2, 3, 1)[:, :, None]            # (B,KV,1,Dh,M)
+        sc = torch.matmul(qg.float(), kt.float()) * (1.0 / math.sqrt(dh))
+        if causal or window:
+            ok = torch.ones((s, m_len), dtype=torch.bool, device=q.device)
+            if causal:
+                ok = ok.tril()
+            if window:
+                ok = ok.triu(1 - window)
+            sc = torch.where(ok, sc, _NEG)
+        pr = torch.softmax(sc, dim=-1)
+        out = torch.matmul(pr.to(v.dtype), v.permute(0, 2, 1, 3)[:, :, None])
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hp * dh)
+    return out @ p.wo.reshape(hp * dh, p.wo.shape[-1])
+
+
+def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 mem: torch.Tensor | None = None) -> torch.Tensor:
+    """Attention over a whole sequence (training, the encoder): x (B,S,D)
+    -> (B,S,D).  Without ``mem``: causal self-attention, RoPE at positions
+    ``arange(S)``.  With ``mem`` (B,M,D): cross attention, K and V from
+    the memory, no RoPE, no causal mask.  A ``sliding_window`` masks keys
     ``window`` or more positions behind the query (the reference's
-    ``kv_idx > q_idx - window``).  ``cfg.attn_impl``: ``"naive"`` (the
-    whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn` over
-    ``cfg.attn_block`` keys at a time)."""
+    ``kv_idx > q_idx - window``) on both.  ``cfg.attn_impl``: ``"naive"``
+    (the whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn`
+    over ``cfg.attn_block`` keys at a time)."""
     if cfg.attn_impl not in ("naive", "blockwise"):
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected 'naive' "
                          "or 'blockwise'")
-    b, s, d = x.shape
-    hp, dh = cfg.n_heads_padded, cfg.head_dim_
-    q, k, v = _qkv(p, x, cfg)
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    k, v, kv, g = _heads(k, v, cfg)
-    qg = q.view(b, s, kv, g, dh).permute(0, 2, 3, 1, 4)   # (B,KV,g,S,Dh)
-    if cfg.attn_impl == "blockwise":
-        out = _blockwise_attn(qg, k, v, cfg.sliding_window, cfg.attn_block)
-    else:
-        kt = k.permute(0, 2, 3, 1)[:, :, None]            # (B,KV,1,Dh,S)
-        sc = torch.matmul(qg.float(), kt.float()) * (1.0 / math.sqrt(dh))
-        causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-        if cfg.sliding_window:
-            causal = causal.triu(1 - cfg.sliding_window)
-        pr = torch.softmax(torch.where(causal, sc, _NEG), dim=-1)
-        out = torch.matmul(pr.to(v.dtype), v.permute(0, 2, 1, 3)[:, :, None])
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hp * dh)
-    return out @ p.wo.reshape(hp * dh, d)
+    q, k, v = _qkv(p, x, cfg, mem)
+    if mem is None:
+        pos = torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    return _attend(p, q, k, v, cfg, causal=mem is None,
+                   window=cfg.sliding_window,
+                   blockwise=cfg.attn_impl == "blockwise")
+
+
+def attn_cross(p: Attention, x1: torch.Tensor, mem: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The decode step's cross attention, the reference's
+    ``attn_decode(mem=)``: x1 (B,1,D) against the whole memory (B,M,D),
+    its K and V projected at this step, naive, no mask -> (B,1,D)."""
+    q, k, v = _qkv(p, x1, cfg, mem)
+    return _attend(p, q, k, v, cfg, causal=False, window=0, blockwise=False)

@@ -3,12 +3,18 @@ families read.
 
 Field names and derived quantities match the reference so a config reads
 the same in both packages.  The dense, ``moe`` (Mixtral, Phi-3.5-MoE),
-``ssm`` (Mamba2) and ``hybrid`` (RecurrentGemma) families are ported for
-serving; the family-dependent layer-kind ``pattern`` and its ``stages``
+``ssm`` (Mamba2), ``hybrid`` (RecurrentGemma), ``vlm`` (Llama-3.2-Vision:
+cross-attention layers over a memory) and ``audio`` (SeamlessM4T: an
+encoder-decoder) families are ported; the family-dependent layer-kind
+``pattern`` and its ``stages``
 drive the model's assembly (``models.transformer``) and the serving
 protocol's state classification (``models.protocol``).  ``local_window``
 (the hybrid's) or ``sliding_window`` (mixtral's) bounds the attention
-ring and its mask (:attr:`ModelConfig.window`).  ``dtype`` is the
+ring and its mask (:attr:`ModelConfig.window`).  ``cross_attn_every``
+(vlm: one ``cross`` layer per N), ``encoder_layers`` (audio: a
+bidirectional encoder before the ``dec`` layers) and ``memory_tokens``/
+``memory_dim`` (the stub frontends' sequence length and width) describe
+the memory the cross attention reads.  ``dtype`` is the
 parameters' and
 activations' type (``"float32"`` or ``"bfloat16"``).  ``qkv_bias`` and
 ``qk_norm`` (the Qwen models) add the attention's biases and its per-head
@@ -27,7 +33,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid are ported
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +68,12 @@ class ModelConfig:
     sliding_window: int = 0          # sliding-window attention (0 = full)
     rglru_c: float = 8.0
 
+    # encoder-decoder (seamless) / cross attention (vlm)
+    encoder_layers: int = 0
+    cross_attn_every: int = 0        # vlm: 1 cross layer per N
+    memory_tokens: int = 0           # stub modality frontend length
+    memory_dim: int = 0              # frontend embedding dim (= d_model)
+
     dtype: str = "float32"           # float32 | bfloat16
 
     # training
@@ -95,8 +107,7 @@ class ModelConfig:
 
     @property
     def is_encdec(self) -> bool:
-        """No ported family has an encoder."""
-        return False
+        return self.encoder_layers > 0
 
     @property
     def supports_long_context(self) -> bool:
@@ -111,6 +122,8 @@ class ModelConfig:
             return ("ssm",)
         if self.family == "moe":
             return ("attn_moe",)
+        if self.family == "vlm" and self.cross_attn_every:
+            return ("attn",) * (self.cross_attn_every - 1) + ("cross",)
         return ("attn",)
 
     @property

@@ -7,9 +7,13 @@ converts with ``np.asarray``; this module never imports JAX) and returns an
 reference stacks each stage's blocks on a leading ``reps`` axis:
 ``tree["stages"]["s1"]["b0_rec"]["rec"]["w_x"][r]`` is the ``w_x`` of the
 first block of stage 1's ``r``-th repeat (an ``attn_moe`` block's
-experts: ``["ffn"]["wi_gate"][r]``, ``(E, D, F)``); an untied head is
-``tree["tok"]["lm_head"]``.  A bfloat16 tree (numpy's ``bfloat16`` from
-``ml_dtypes``) is read by bit pattern.
+experts: ``["ffn"]["wi_gate"][r]``, ``(E, D, F)``; a ``cross`` block's
+cross attention ``["cross"]["wq"][r]``, a ``dec`` block's also
+``["ln_cross"]["scale"][r]``); an untied head is
+``tree["tok"]["lm_head"]``; an encoder-decoder's encoder is
+``tree["encoder"]["stack"]["b0_attn"]``, its blocks stacked over
+``encoder_layers``, and ``tree["encoder"]["final_norm"]``.  A bfloat16
+tree (numpy's ``bfloat16`` from ``ml_dtypes``) is read by bit pattern.
 ``to_reference(model)`` is the inverse: the model's parameters, or any
 tensors keyed by its parameter names (gradients, updated values), as that
 tree of numpy float32 arrays.
@@ -42,6 +46,10 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def _check_stages(tree: dict, cfg: ModelConfig) -> None:
+    if ("encoder" in tree) != cfg.is_encdec:
+        raise KeyError(f"tree {'holds' if 'encoder' in tree else 'lacks'} "
+                       f"an encoder, config encoder_layers = "
+                       f"{cfg.encoder_layers}")
     stages = tree["stages"]
     if len(stages) != len(cfg.stages):
         raise ValueError(f"tree holds {len(stages)} stages, config "
@@ -76,8 +84,14 @@ def from_reference(tree: dict, cfg: ModelConfig,
     if model.lm_head is not None:
         put(model.lm_head, _tensor(tree["tok"]["lm_head"]))
     put(model.final_norm, _tensor(tree["final_norm"]["scale"]))
-    for blk, (i, key, r) in zip(model.blocks, model.layout):
-        sub = tree["stages"][f"s{i}"][key]
+    units = [(blk, tree["stages"][f"s{i}"][key], r)
+             for blk, (i, key, r) in zip(model.blocks, model.layout)]
+    if model.encoder is not None:
+        enc = tree["encoder"]
+        put(model.encoder.final_norm, _tensor(enc["final_norm"]["scale"]))
+        units += [(blk, enc["stack"]["b0_attn"], r)
+                  for r, blk in enumerate(model.encoder.blocks)]
+    for blk, sub, r in units:
         for name, param in blk.named_parameters():
             top, leaf = _path(name)
             put(param, _tensor(sub[top][leaf])[r])
@@ -87,7 +101,8 @@ def from_reference(tree: dict, cfg: ModelConfig,
 def to_reference(model: LM, tensors: dict | None = None) -> dict:
     """The reference's parameter tree of numpy float32 arrays: one
     ``stages/s{i}/b{j}_{kind}`` subtree per block of each stage's pattern,
-    stacked over its repeats.  ``tensors`` maps the model's parameter names
+    stacked over its repeats (and the ``encoder`` tree of an
+    encoder-decoder).  ``tensors`` maps the model's parameter names
     (``named_parameters``) to tensors of their shapes, for example
     gradients; the default is the parameters."""
     vals = dict(model.named_parameters()) if tensors is None else tensors
@@ -95,20 +110,31 @@ def to_reference(model: LM, tensors: dict | None = None) -> dict:
     def np_(name):
         return vals[name].detach().to("cpu", torch.float32).numpy().copy()
 
-    stacks: dict = {}
-    for n, (blk, (i, key, _r)) in enumerate(zip(model.blocks, model.layout)):
-        unit = stacks.setdefault(f"s{i}", {}).setdefault(key, {})
-        for name, _ in blk.named_parameters():
-            top, leaf = _path(name)
-            unit.setdefault(top, {}).setdefault(leaf, []).append(
-                np_(f"blocks.{n}.{name}"))
-    stages = {s: {key: {top: {leaf: np.stack(reps)
-                              for leaf, reps in sub.items()}
-                        for top, sub in unit.items()}
-                  for key, unit in blocks.items()}
-              for s, blocks in stacks.items()}
+    def stack(blocks, prefix: str, keys) -> dict:
+        """``{group: {key: {top: {leaf: (reps, ...)}}}}`` of ``blocks``,
+        block ``n`` into ``keys[n]`` = (group, key)."""
+        out: dict = {}
+        for n, (blk, (group, key)) in enumerate(zip(blocks, keys)):
+            unit = out.setdefault(group, {}).setdefault(key, {})
+            for name, _ in blk.named_parameters():
+                top, leaf = _path(name)
+                unit.setdefault(top, {}).setdefault(leaf, []).append(
+                    np_(f"{prefix}.{n}.{name}"))
+        return {g: {key: {top: {leaf: np.stack(reps)
+                                for leaf, reps in sub.items()}
+                          for top, sub in unit.items()}
+                    for key, unit in units.items()}
+                for g, units in out.items()}
+
     tok = {"embedding": np_("embedding")}
     if model.lm_head is not None:
         tok["lm_head"] = np_("lm_head")
-    return {"tok": tok, "final_norm": {"scale": np_("final_norm")},
-            "stages": stages}
+    tree = {"tok": tok, "final_norm": {"scale": np_("final_norm")},
+            "stages": stack(model.blocks, "blocks",
+                            [(f"s{i}", key) for i, key, _ in model.layout])}
+    if model.encoder is not None:
+        enc = model.encoder.blocks
+        tree["encoder"] = {
+            **stack(enc, "encoder.blocks", [("stack", "b0_attn")] * len(enc)),
+            "final_norm": {"scale": np_("encoder.final_norm")}}
+    return tree

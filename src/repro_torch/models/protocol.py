@@ -4,12 +4,16 @@ Port of ``repro.models.protocol``: serving code calls :func:`init_state`,
 :func:`decode_step` and :func:`prefill_chunk` and never touches an
 architecture module, and :func:`state_spec` classifies a config's serving
 state (KV ring or recurrent leaves) for the batching engine's geometry
-(:func:`ring_length`, :func:`wrap_length`, :func:`can_prefill`).  The
-``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported, all
-through the pattern/stage model
+(:func:`ring_length`, :func:`wrap_length`, :func:`can_prefill`).  Every
+family of the reference (``dense``, ``moe``, ``ssm``, ``hybrid``,
+``vlm``, ``audio``) runs through the pattern/stage model
 :class:`~repro_torch.models.transformer.LM`; another family raises a
 named ``KeyError``.  ``moe`` is a ring family (mixtral's ring is its
-``sliding_window``) with a prefill.  :func:`recurrent_state_tree` marks a
+``sliding_window``) with a prefill.  ``vlm`` advertises a prefill, but
+its configs hold ``cross`` blocks, so ``can_prefill`` is False for them;
+``audio`` (the encoder-decoder) has none.  Both step with ``memory=``:
+the ``vlm`` caller's patch embeddings, or the ``audio`` caller's
+``encode_memory`` output.  :func:`recurrent_state_tree` marks a
 state's recurrent leaves (the reference's path classification) and
 :func:`reset_rows` zeroes every leaf of a slot's rows (a fresh admit).
 """
@@ -110,8 +114,8 @@ def _init_state(model: LM, batch: int, max_len: int) -> ModelState:
     return model.init_state(batch, max_len)
 
 
-def _decode_step(model: LM, state, token, pos, groups=None):
-    return model.decode_step(state, token, pos, groups)
+def _decode_step(model: LM, state, token, pos, groups=None, memory=None):
+    return model.decode_step(state, token, pos, groups, memory)
 
 
 def _prefill_chunk(model: LM, state, tokens, pos0, n_valid, groups=None):
@@ -124,11 +128,14 @@ def _shared(family: str, prefillable: bool) -> ModelProtocol:
                          state_spec)
 
 
-# every ported family composes the shared assembler; the recurrent ones
-# have no block-parallel prefill
+# every family composes the shared assembler; the recurrent ones and the
+# encoder-decoder have no block-parallel prefill (a vlm config with cross
+# layers steps down through can_prefill)
 FAMILY_PROTOCOLS: dict[str, ModelProtocol] = {
     "dense": _shared("dense", prefillable=True),
     "moe": _shared("moe", prefillable=True),
+    "vlm": _shared("vlm", prefillable=True),
+    "audio": _shared("audio", prefillable=False),
     "ssm": _shared("ssm", prefillable=False),
     "hybrid": _shared("hybrid", prefillable=False),
 }
@@ -139,8 +146,8 @@ def get_protocol(cfg: ModelConfig) -> ModelProtocol:
         return FAMILY_PROTOCOLS[cfg.family]
     except KeyError:
         raise KeyError(
-            f"family {cfg.family!r} (config {cfg.name!r}) is not ported "
-            f"yet (ported: {FAMILIES})") from None
+            f"no model protocol for family {cfg.family!r} (config "
+            f"{cfg.name!r}): families are {FAMILIES}") from None
 
 
 def can_prefill(cfg: ModelConfig) -> bool:
@@ -159,12 +166,14 @@ def init_state(model, batch: int, max_len: int) -> ModelState:
     return get_protocol(model.cfg).init_state(model, batch, max_len)
 
 
-def decode_step(model, state: ModelState, token, pos, groups=None):
+def decode_step(model, state: ModelState, token, pos, groups=None,
+                memory=None):
     """One serving step: token (B,1) -> logits (B, Vpad); state in place.
     ``pos`` is an int or a ``(B,)`` int64 device tensor; ``groups`` the
-    engine's :class:`~repro_torch.models.transformer.RowGroup` s."""
+    engine's :class:`~repro_torch.models.transformer.RowGroup` s;
+    ``memory`` (B,M,D) what the ``cross``/``dec`` blocks attend."""
     return get_protocol(model.cfg).decode_step(model, state, token, pos,
-                                               groups)
+                                               groups, memory)
 
 
 def prefill_chunk(model, state: ModelState, tokens, pos0, n_valid,

@@ -1,24 +1,39 @@
-"""Decoder-only language models as an ``nn.Module``: the layer-kind
-pattern/stage assembly, its serving direction and the dense training
-forward.
+"""Language models as an ``nn.Module``: the layer-kind pattern/stage
+assembly (with cross attention and an encoder), its serving direction and
+the training forward.
 
 Port of ``repro.models.transformer``.  A model is a sequence of stages,
 each a layer-kind pattern repeated ``reps`` times (``cfg.stages``; a tail
 partial pattern is its own stage), laid out here as one list of blocks in
-depth order.  Ported kinds:
+depth order.  Layer kinds:
 
     attn      RoPE grouped-query self-attention + gated SiLU MLP (dense;
               the hybrid's local-window attention)
     attn_moe  the same attention + the top-k MoE FFN   (mixtral, phi3.5)
     ssm       Mamba2 SSD mixer, no FFN                 (mamba2)
     rec       RG-LRU recurrent block + gated MLP       (recurrentgemma)
+    cross     cross attention over the memory + MLP    (llama-3.2-vision)
+    dec       self-attention + cross attention + MLP   (seamless decoder)
 
-``cross`` and ``dec`` raise (ROADMAP A2).  A final RMSNorm and the logits
-over the padded vocabulary (tied to the embedding, or through ``lm_head``
-when ``cfg.tie_embeddings`` is false) close the model.  Weight layouts
-match the reference (``wq (d, Hp, Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate
-(d, ff)``, the experts' ``(E, d, ff)``, the SSM's and RG-LRU's leaves), so
-``models.convert`` copies a JAX parameter tree over unchanged.
+A final RMSNorm and the logits over the padded vocabulary (tied to the
+embedding, or through ``lm_head`` when ``cfg.tie_embeddings`` is false)
+close the model.  Weight layouts match the reference (``wq (d, Hp,
+Dh)``, ``wo (Hp, Dh, d)``, ``wi_gate (d, ff)``, the experts' ``(E, d,
+ff)``, the SSM's and RG-LRU's leaves), so ``models.convert`` copies a JAX
+parameter tree over unchanged.
+
+The ``cross`` and ``dec`` kinds read a memory (B, M, D) in the model's
+dtype: the ``vlm`` family's precomputed patch embeddings, or the
+``audio`` family's encoder output (:func:`encode_memory`: ``encoder_layers``
+blocks of bidirectional self-attention without RoPE, the reference's
+cross attention of a sequence against itself, and their final norm).
+``forward``, ``decode_step`` and ``loss_fn`` take it as ``memory``
+(``forward`` and ``loss_fn`` also as ``enc_inputs``, encoded first).  A
+model with such blocks raises a named ``ValueError`` when it runs without
+a memory, or with one of another dtype, batch or width; the reference
+runs a ``cross`` block without memory as causal self-attention over its
+cross weights (ROADMAP C).  Cross attention keeps no state: each decode
+step projects the memory's K and V anew, as the reference does.
 
 Serving runs one token at a time through :meth:`LM.decode_step` against a
 :class:`ModelState`, which the step updates in place: the attention
@@ -56,9 +71,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (Attention, attn_decode,
-                                         attn_forward, attn_prefill,
-                                         ring_slots)
+from repro_torch.models.attention import (Attention, attn_cross,
+                                         attn_decode, attn_forward,
+                                         attn_prefill, ring_slots)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_xent_loss, embed, logits, mlp,
                                        rmsnorm, xent_loss)
@@ -68,10 +83,12 @@ from repro_torch.models.rglru import (RGLRU, init_rglru_cache,
 from repro_torch.models.ssm import (SSM, init_ssm_cache, ssm_decode_step,
                                     ssm_forward)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the ported families
-KINDS = ("attn", "attn_moe", "ssm", "rec")    # and their layer kinds
-# the state each kind keeps: a KV ring ("attn") or recurrent leaves
-_STATE = {"attn": "attn", "attn_moe": "attn", "ssm": "ssm", "rec": "rec"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the state each layer kind keeps: a KV ring ("attn"), recurrent leaves,
+# or none (``cross`` reads the memory)
+_STATE = {"attn": "attn", "attn_moe": "attn", "dec": "attn", "ssm": "ssm",
+          "rec": "rec", "cross": None}
+KINDS = tuple(_STATE)
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -159,8 +176,46 @@ class RecBlock(nn.Module):
         self.ffn = MLP(cfg)
 
 
+class CrossBlock(nn.Module):
+    """A ``cross`` block: cross attention over the memory and the gated
+    MLP."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
+        self.cross = Attention(cfg)
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model))
+        self.ffn = MLP(cfg)
+
+
+class DecBlock(nn.Module):
+    """A ``dec`` block: self-attention, cross attention over the memory
+    (after its own norm ``ln_cross``) and the gated MLP."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
+        self.attn = Attention(cfg)
+        self.ln_cross = nn.Parameter(torch.ones(cfg.d_model))
+        self.cross = Attention(cfg)
+        self.ln2 = nn.Parameter(torch.ones(cfg.d_model))
+        self.ffn = MLP(cfg)
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``encoder_layers`` ``attn`` blocks
+    (run bidirectionally by :func:`encode_memory`) and their final norm."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(cfg)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
+
+
 _BLOCKS = {"attn": Block, "attn_moe": lambda cfg: Block(cfg, MoE),
-           "ssm": SSMBlock, "rec": RecBlock}
+           "ssm": SSMBlock, "rec": RecBlock, "cross": CrossBlock,
+           "dec": DecBlock}
 # leaves initialised to a constant, by leaf name; every other matrix and
 # the RG-LRU's gate weights are normal(0, scale), every other vector 1
 _INIT = {**Attention.INIT, **SSM.INIT, **RGLRU.INIT}
@@ -168,24 +223,23 @@ _NORMAL_VECTORS = ("gate_a_w", "gate_i_w")
 
 
 class LM(nn.Module):
-    """The ported decoder-only families (``dense``, ``moe``, ``ssm``,
-    ``hybrid``): the embedding, the blocks of ``cfg.stages`` in depth
-    order, the final norm and (untied) ``lm_head``, the parameters in
+    """The reference's families (``dense``, ``moe``, ``ssm``, ``hybrid``,
+    ``vlm``, ``audio``): the embedding, the blocks of ``cfg.stages`` in
+    depth order, the final norm and (untied) ``lm_head``, and for an
+    encoder-decoder the :class:`Encoder`, the parameters in
     ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} (config {cfg.name!r}) is not ported "
-                f"(ROADMAP A2); ported families: {FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r} (config "
+                             f"{cfg.name!r}); families: {FAMILIES}")
         kinds = tuple(k for pat, reps in cfg.stages for _ in range(reps)
                       for k in pat)
         for kind in kinds:
             if kind not in KINDS:
-                raise NotImplementedError(
-                    f"layer kind {kind!r} of config {cfg.name!r} is not "
-                    f"ported (ROADMAP A2); ported kinds: {KINDS}")
+                raise ValueError(f"unknown layer kind {kind!r} of config "
+                                 f"{cfg.name!r}; layer kinds: {KINDS}")
         self.cfg = cfg
         self.kinds = kinds
         # (stage, block key, rep) of each block, the reference's tree path
@@ -204,6 +258,7 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model))
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_padded))
+        self.encoder = Encoder(cfg) if cfg.is_encdec else None
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return logits(self.embedding, x, self.lm_head)
@@ -227,18 +282,47 @@ class LM(nn.Module):
             else:
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=generator.device) * scale)
-        for blk in self.blocks:
-            if isinstance(blk, Block):
-                blk.attn.wq[:, cfg.n_heads:] = 0.0
-                blk.attn.wo[cfg.n_heads:] = 0.0
+        for m in self.modules():
+            if isinstance(m, Attention):
+                m.wq[:, cfg.n_heads:] = 0.0
+                m.wo[cfg.n_heads:] = 0.0
         return self
 
-    def forward(self, tokens: torch.Tensor):
+    def _memory(self, memory, rows: int):
+        """``memory`` checked against what the model's ``cross``/``dec``
+        blocks read: None for a model without them (the reference ignores
+        a memory there), else a (rows, M, D) tensor in the model's
+        dtype."""
+        if not {"cross", "dec"} & set(self.kinds):
+            return None
+        cfg, dt = self.cfg, self.embedding.dtype
+        if memory is None:
+            raise ValueError(
+                f"config {cfg.name!r} has cross-attention blocks: pass "
+                "memory= (for an encoder-decoder, encode_memory's output, "
+                "or enc_inputs= to forward)")
+        if memory.dtype != dt:
+            raise ValueError(f"memory is {memory.dtype}, the model "
+                             f"{cfg.name!r} is {dt}: cast it first")
+        if (memory.ndim != 3 or memory.shape[0] != rows
+                or memory.shape[2] != cfg.d_model):
+            raise ValueError(f"memory of shape {tuple(memory.shape)} does "
+                             f"not fit ({rows}, M, {cfg.d_model})")
+        return memory
+
+    def forward(self, tokens: torch.Tensor,
+                memory: torch.Tensor | None = None,
+                enc_inputs: torch.Tensor | None = None):
         """tokens (B,S) -> (final-normed hidden states (B,S,D), aux loss):
         the sum of the MoE blocks' load-balance losses (0.0 without
-        one)."""
+        one).  ``memory`` (B,M,D) feeds the ``cross``/``dec`` blocks; an
+        encoder-decoder given ``enc_inputs`` (B,M,D) encodes them into the
+        memory first (:func:`encode_memory`)."""
         cfg = self.cfg
+        if cfg.is_encdec and enc_inputs is not None:
+            memory = encode_memory(self, enc_inputs)
         x = embed(self.embedding, tokens)
+        memory = self._memory(memory, x.shape[0])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, blk in zip(self.kinds, self.blocks):
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
@@ -247,8 +331,13 @@ class LM(nn.Module):
                 continue
             if kind == "rec":
                 x = x + rglru_forward(blk.rec, h, cfg)
+            elif kind == "cross":
+                x = x + attn_forward(blk.cross, h, cfg, mem=memory)
             else:
                 x = x + attn_forward(blk.attn, h, cfg)
+            if kind == "dec":
+                h = rmsnorm(blk.ln_cross, x, cfg.norm_eps)
+                x = x + attn_forward(blk.cross, h, cfg, mem=memory)
             h = rmsnorm(blk.ln2, x, cfg.norm_eps)
             if kind == "attn_moe":
                 h, a = moe(blk.ffn, h, cfg)
@@ -304,9 +393,10 @@ class LM(nn.Module):
             out["v"] = state.v[:, g.r0:g.r1, :n]
         return out
 
-    def _step(self, st: dict, length: int, token, pos) -> torch.Tensor:
+    def _step(self, st: dict, length: int, token, pos,
+              memory=None) -> torch.Tensor:
         """The single-request step over the state views ``st`` (:meth:
-        `_rows`) of ring length ``length``."""
+        `_rows`) of ring length ``length``, its rows' ``memory``."""
         cfg = self.cfg
         x = embed(self.embedding, token)
         for kind, i, blk in zip(self.kinds, self._index, self.blocks):
@@ -318,9 +408,15 @@ class LM(nn.Module):
             if kind == "rec":
                 x = x + rglru_decode_step(blk.rec, h, {
                     "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg)
+            elif kind == "cross":
+                x = x + attn_cross(blk.cross, h, memory, cfg)
             else:
                 x = x + attn_decode(blk.attn, h, st["k"][i], st["v"][i],
                                     length, pos, cfg)
+            if kind == "dec":
+                x = x + attn_cross(blk.cross,
+                                   rmsnorm(blk.ln_cross, x, cfg.norm_eps),
+                                   memory, cfg)
             x = x + self._ffn(kind, blk, x)
         x = rmsnorm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)[:, 0]
@@ -336,23 +432,27 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, state: ModelState, token: torch.Tensor, pos,
-                    groups=None) -> torch.Tensor:
+                    groups=None, memory=None) -> torch.Tensor:
         """token (B,1) int -> logits (B, Vpad); ``state`` advances in
         place.  ``pos`` is an int shared by all rows or a ``(B,)`` int64
         device tensor of per-row positions (only attention reads it).
         ``groups`` (default: all rows, the state's ring) runs each
-        :class:`RowGroup` as its own single-request step; rows outside
-        every group get zero logits and leave the state unchanged."""
+        :class:`RowGroup` as its own single-request step, on its rows of
+        ``memory``; rows outside every group get zero logits and leave the
+        state unchanged.  ``memory`` (B,M,D): what the ``cross``/``dec``
+        blocks attend (required there)."""
         groups = self._groups(state, token.shape[0], groups)
+        memory = self._memory(memory, token.shape[0])
         if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
             return self._step(self._rows(state, groups[0]), groups[0].length,
-                              token, pos)
+                              token, pos, memory)
         out = self.embedding.new_zeros((token.shape[0],
                                         self.cfg.vocab_padded))
         for g in groups:
             p = pos if isinstance(pos, int) else pos[g.r0:g.r1]
+            mem = None if memory is None else memory[g.r0:g.r1]
             out[g.r0:g.r1] = self._step(self._rows(state, g), g.length,
-                                        token[g.r0:g.r1], p)
+                                        token[g.r0:g.r1], p, mem)
         return out
 
     def _prefill(self, ck, cv, length: int, tokens, pos0, n_valid):
@@ -419,15 +519,37 @@ class LM(nn.Module):
         return out
 
 
+def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:
+    """The encoder over stub frontend embeddings ``enc_inputs`` (B,M,D),
+    cast to the model's dtype as the reference casts them: each block's
+    self-attention is bidirectional, without RoPE (the reference's cross
+    attention of the sequence against itself), then the final norm ->
+    the memory (B,M,D)."""
+    cfg = model.cfg
+    if model.encoder is None:
+        raise ValueError(f"config {cfg.name!r} has no encoder "
+                         "(encoder_layers = 0)")
+    if enc_inputs.ndim != 3 or enc_inputs.shape[2] != cfg.d_model:
+        raise ValueError(f"enc_inputs of shape {tuple(enc_inputs.shape)} "
+                         f"do not fit (B, M, {cfg.d_model})")
+    x = enc_inputs.to(model.embedding.dtype)
+    for blk in model.encoder.blocks:
+        h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+        x = x + attn_forward(blk.attn, h, cfg, mem=h)
+        h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+        f = blk.ffn
+        x = x + mlp(f.wi_gate, f.wi_up, f.wo, h)
+    return rmsnorm(model.encoder.final_norm, x, cfg.norm_eps)
+
+
 def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     """Next-token cross entropy of ``batch`` (``tokens``/``labels`` (B,S)
-    tensors on the model's device) plus 0.01 x the aux loss.
+    tensors on the model's device, and the ``memory`` or ``enc_inputs``
+    (B,M,D) of a model that reads one) plus 0.01 x the aux loss.
     ``model.cfg.logits_chunk`` > 0 runs the chunked loss."""
     cfg = model.cfg
-    if batch.get("memory") is not None or batch.get("enc_inputs") is not None:
-        raise NotImplementedError("memory/enc_inputs batches are not ported "
-                                  "yet (ROADMAP A2)")
-    x, aux = model(batch["tokens"])
+    x, aux = model(batch["tokens"], memory=batch.get("memory"),
+                   enc_inputs=batch.get("enc_inputs"))
     if cfg.logits_chunk:
         ce = chunked_xent_loss(model.embedding, x, batch["labels"],
                                cfg.vocab_size, cfg.logits_chunk,

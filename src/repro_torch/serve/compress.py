@@ -75,13 +75,16 @@ def _step_freq_cdf(logits: torch.Tensor, vocab: int, prob_bits: int):
     return spc_quantize.spc_freq_cdf(step_probs(logits, vocab), prob_bits)
 
 
-def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn):
-    """Run ``decode_step`` over ``tokens`` (B, S) teacher-forced, handing
-    each step's logits to ``step_fn(logits, t)``; returns the state."""
+def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn,
+                        memory: torch.Tensor | None = None):
+    """Run ``decode_step`` over ``tokens`` (B, S) teacher-forced (against
+    ``memory`` (B, M, D) for a model with cross attention), handing each
+    step's logits to ``step_fn(logits, t)``; returns the state."""
     b, s = tokens.shape
     state = init_state(model, b, max_len)
     for t in range(s):
-        step_fn(decode_step(model, state, tokens[:, t:t + 1], t), t)
+        step_fn(decode_step(model, state, tokens[:, t:t + 1], t,
+                            memory=memory), t)
     return state
 
 

@@ -7,7 +7,9 @@ Port of ``repro.serve.engine``.  Two layers live here:
   a ring cache of ``max_len``; a cache shorter than the sequence wraps),
   ``prefill`` (the teacher-forced scan of ``serve.compress``) and
   ``generate`` (greedy, or sampled through an explicit
-  ``torch.Generator``);
+  ``torch.Generator``), each with the ``memory`` a ``vlm`` or ``audio``
+  model's cross attention reads (for ``audio``, the caller runs
+  ``models.encode_memory`` first);
 
 * :class:`BatchEngine`, the request-level continuous-batching engine
   (DESIGN.md §11).  Concurrent compress and decompress requests are
@@ -60,17 +62,18 @@ __all__ = ["BOS", "MODE_IDLE", "MODE_COMPRESS", "MODE_DECOMPRESS",
 
 
 def make_serve_step(model):
-    """Returns ``serve_step(state, token, pos)``: one token (B,1) at ``pos``
-    (an int, or a ``(B,)`` int64 device tensor) -> logits (B, Vpad), the
-    state updated in place."""
+    """Returns ``serve_step(state, token, pos, memory=None)``: one token
+    (B,1) at ``pos`` (an int, or a ``(B,)`` int64 device tensor) -> logits
+    (B, Vpad), the state updated in place."""
 
-    def serve_step(state, token, pos):
-        return decode_step(model, state, token, pos)
+    def serve_step(state, token, pos, memory=None):
+        return decode_step(model, state, token, pos, memory=memory)
 
     return serve_step
 
 
-def prefill(model, tokens: torch.Tensor, max_len: int):
+def prefill(model, tokens: torch.Tensor, max_len: int,
+            memory: torch.Tensor | None = None):
     """Teacher-forced scan of ``decode_step`` over the prompt (B, S).
 
     Returns ``(state, last_logits)``.  Prefilling through the step path
@@ -79,12 +82,13 @@ def prefill(model, tokens: torch.Tensor, max_len: int):
     last = []
     state = teacher_forced_scan(
         model, tokens, max_len,
-        lambda lg, t: last.append(lg) if t == tokens.shape[1] - 1 else None)
+        lambda lg, t: last.append(lg) if t == tokens.shape[1] - 1 else None,
+        memory)
     return state, last[0]
 
 
 def generate(model, prompt: torch.Tensor, n_new: int, max_len: int,
-             temperature: float = 0.0,
+             memory: torch.Tensor | None = None, temperature: float = 0.0,
              generator: torch.Generator | None = None,
              return_logits: bool = False):
     """Greedy (or sampled) generation; returns (B, n_new) int64 tokens.
@@ -97,7 +101,7 @@ def generate(model, prompt: torch.Tensor, n_new: int, max_len: int,
     position ``S``."""
     vocab = model.cfg.vocab_size
     s_len = prompt.shape[1]
-    state, last = prefill(model, prompt, max_len)
+    state, last = prefill(model, prompt, max_len, memory)
 
     def pick(lg):
         lg = lg[:, :vocab]
@@ -108,7 +112,8 @@ def generate(model, prompt: torch.Tensor, n_new: int, max_len: int,
 
     out, lgs = [pick(last)], [last]
     for i in range(n_new - 1):
-        lg = decode_step(model, state, out[-1][:, None], s_len + i)
+        lg = decode_step(model, state, out[-1][:, None], s_len + i,
+                         memory=memory)
         lgs.append(lg)
         out.append(pick(lg))
     out = torch.stack(out, 1)

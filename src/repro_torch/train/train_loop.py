@@ -1,7 +1,7 @@
 """The train step: microbatch gradient accumulation, global-norm clip,
 cosine learning rate and AdamW.
 
-Port of ``repro.train.train_loop`` for the dense model.
+Port of ``repro.train.train_loop``.
 ``make_train_step(cfg)`` returns ``step(state, batch) -> (state,
 metrics)``; the step runs where the model lives (the card, unless the
 model was built on the CPU), moves the batch there, and writes the updated
@@ -40,11 +40,17 @@ def init_train_state(model: LM, moment_dtype=None) -> TrainState:
 
 
 def _on_model(model: LM, batch: dict) -> dict:
-    """The batch's arrays as int64 tensors on the model's device."""
-    dev = model.embedding.device
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-        v, torch.Tensor) else v, device=dev).to(torch.int64)
-        for k, v in batch.items()}
+    """The batch's arrays as tensors on the model's device: ``tokens`` and
+    ``labels`` int64, the float planes (``memory``, ``enc_inputs``) in the
+    model's dtype."""
+    p = model.embedding
+
+    def put(k, v):
+        t = torch.as_tensor(v if isinstance(v, torch.Tensor)
+                            else np.asarray(v), device=p.device)
+        return t.to(torch.int64 if k in ("tokens", "labels") else p.dtype)
+
+    return {k: put(k, v) for k, v in batch.items()}
 
 
 def _value_and_grad(model: LM, batch: dict):
@@ -79,9 +85,10 @@ def _grads(model: LM, batch: dict, n: int):
 
 def grads_fn(model: LM, batch: dict):
     """``(loss, grads)`` by parameter name.  Under ``model.cfg.grad_accum
-    = n > 1`` the batch splits into n equal microbatches along its first
-    axis; loss and gradients are their means (accumulated in float32, the
-    gradients then cast to ``model.cfg.grad_dtype``)."""
+    = n > 1`` the batch (every plane, the memory's too) splits into n
+    equal microbatches along its first axis; loss and gradients are their
+    means (accumulated in float32, the gradients then cast to
+    ``model.cfg.grad_dtype``)."""
     return _grads(model, batch, model.cfg.grad_accum)
 
 

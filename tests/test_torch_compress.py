@@ -37,6 +37,17 @@ from repro_torch.serve import compress
 
 jax.config.update("jax_platforms", "cpu")
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 LANES, T, CHUNK = 4, 40, 16          # ragged: 16 + 16 + 8
 

@@ -28,6 +28,17 @@ from repro_torch.core import u32, update
 
 jax.config.update("jax_platforms", "cpu")
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_vectors")
 
 

@@ -313,7 +313,18 @@ def test_training_scans_are_named_gaps(arch):
 
 @pytest.mark.parametrize("kind", ["cross", "dec"])
 def test_unported_kinds_raise(kind):
+    """The cross-attention kinds (ported since the vlm and audio
+    families) build in a recurrent pattern, and a step without the memory
+    they read raises the named error; with one it steps.
+    ``tests/test_torch_encdec.py`` holds them against JAX."""
     cfg = get_smoke_config("recurrentgemma-2b").with_(
         block_pattern=("rec", kind))
-    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP A2"):
-        init_model(cfg, device="cpu")
+    model = init_model(cfg, device="cpu")
+    state = init_state(model, 2, 8)
+    tok = torch.zeros((2, 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="pass memory="):
+        decode_step(model, state, tok, 0)
+    lg = decode_step(model, state, tok, 0,
+                     memory=torch.zeros((2, 3, cfg.d_model)))
+    assert lg.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(
+        lg).all())

@@ -48,7 +48,11 @@ gradient, the step's metrics).  The dense zoo:
 the four SMOKE models (QKV bias, QK norm, blockwise attention) round-trip
 through the kernel backend (B6, B1, B2) byte-identical to the coder
 backend.  The decode's first-index top-k on the card equals the CPU's on
-built ties.
+built ties.  B6 and B2 also at phi3.5-moe's K = 32,064.  Cross attention
+and the encoder-decoder: the llama-3.2-vision-11b and
+seamless-m4t-large-v2 SMOKE models in float32 on the card against the
+CPU (the encoder's memory, a forward, decode steps with memory,
+``generate`` and a train step).
 """
 
 import copy
@@ -1037,7 +1041,7 @@ def _wide_rows(k: int, case: str) -> np.ndarray:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["dirichlet", "near_uniform", "ties",
                                   "waterfill"])
-@pytest.mark.parametrize("k", [16385, 32768, 50280, 65536])
+@pytest.mark.parametrize("k", [16385, 32064, 32768, 50280, 65536])
 def test_gpu_spc_wide_matches_plain(k, case, dtype):
     """B6's wide layout (16,384 < K <= 65,536) at prob_bits 16, with and
     without the CDF, against the sort-based plain SPC."""
@@ -1055,11 +1059,11 @@ def test_gpu_spc_wide_matches_plain(k, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [32768, 50280])
+@pytest.mark.parametrize("k", [32064, 32768, 50280])
 def test_gpu_decode_step_large_k_rows_match_plain(k):
-    """B2 at the mixtral and mamba2 slices' shapes: 16 lanes of per-lane
-    rows of K = 32,768 or 50,280 at prob_bits 16 with top-4 candidates
-    (the device-memory row pass)."""
+    """B2 at the phi, mixtral and mamba2 slices' shapes: 16 lanes of
+    per-lane rows of K = 32,064, 32,768 or 50,280 at prob_bits 16 with
+    top-4 candidates (the device-memory row pass)."""
     dev = _cuda()
     lanes, t = 16, 6
     tt, syms = _case("lane", seed=9, k=k, lanes=lanes, t=t, prob_bits=16)
@@ -1316,3 +1320,69 @@ def test_gpu_topk_matches_cpu_on_ties(k):
     for got, want in zip(predictors.topk_first(probs.to(dev), 2),
                          predictors.topk_first(probs, 2)):
         assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# cross attention and the encoder-decoder (the vlm and audio SMOKE models)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_gpu_encdec_smoke_matches_cpu(arch):
+    """The same float32 weights and inputs on the card and on the CPU:
+    the memory (``train_batch``'s patch embeddings, or ``encode_memory``
+    of its encoder inputs), a 24-token forward's logits, 12 decode steps
+    with memory and greedy ``generate`` (6 new tokens) within 1e-4, the
+    same tokens; one train step with ``grad_accum = 2`` (the memory split
+    with the tokens): loss within rtol 1e-5, every gradient leaf within
+    1e-4 of its largest entry, the step's loss and gradient norm within
+    rtol 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import (decode_step, encode_memory, init_model,
+                                    init_state)
+    from repro_torch.serve.engine import generate
+    from repro_torch.train import train_loop
+    dev = _cuda()
+    cfg = get_smoke_config(arch).with_(grad_accum=2)
+    batch = train_batch(cfg, 2, 24, step=0, seed=3)
+    runs = {}
+    for d in ("cpu", dev):
+        model = init_model(cfg, seed=4, device=d)
+        tok = torch.as_tensor(batch["tokens"], dtype=torch.int64, device=d)
+        with torch.no_grad():
+            mem = (torch.as_tensor(batch["memory"], device=d)
+                   if "memory" in batch else encode_memory(
+                       model, torch.as_tensor(batch["enc_inputs"],
+                                              device=d)))
+            fwd = model._logits(model(tok, memory=mem)[0])
+        state = init_state(model, 2, 12)
+        steps = torch.stack([decode_step(model, state, tok[:, t:t + 1], t,
+                                         memory=mem) for t in range(12)], 1)
+        gen, glg = generate(model, tok[:, :6], 6, max_len=16, memory=mem,
+                            return_logits=True)
+        loss, grads = train_loop.grads_fn(model, batch)
+        st = train_loop.init_train_state(model)
+        st = st._replace(step=torch.full_like(st.step, 100))
+        st, m = train_loop.make_train_step(cfg, base_lr=3e-3)(st, batch)
+        assert all(bool(torch.isfinite(p).all())
+                   for p in st.model.parameters())
+        runs[str(d)] = dict(
+            mem=mem.cpu(), fwd=fwd.cpu(), steps=steps.cpu(), gen=gen.cpu(),
+            glg=glg.cpu(), loss=float(loss),
+            grads={k: g.cpu() for k, g in grads.items()},
+            m={k: float(v) for k, v in m.items()})
+    c, g = runs["cpu"], runs[str(dev)]
+    for k in ("mem", "fwd", "steps", "glg"):
+        assert bool(torch.isfinite(g[k]).all()), k
+        assert float((g[k] - c[k]).abs().max()) <= 1e-4, k
+    assert torch.equal(g["gen"], c["gen"])
+    np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-5)
+    for name, b in c["grads"].items():
+        np.testing.assert_allclose(g["grads"][name].numpy(), b.numpy(),
+                                   rtol=0, atol=1e-4 * float(b.abs().max()),
+                                   err_msg=name)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(g["m"][k], c["m"][k], rtol=1e-4,
+                                   err_msg=k)

@@ -30,6 +30,17 @@ from repro_torch.kernels import spc_quantize as spc_kernel
 jax.config.update("jax_platforms", "cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_tables_equal(got, ref):
     for name in spc.TableSet._fields:
         a = getattr(got, name).numpy()

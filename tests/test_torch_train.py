@@ -44,6 +44,17 @@ from repro_torch.train import optimizer, train_loop
 
 jax.config.update("jax_platforms", "cpu")
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one CPU thread: its ops are small, and beside
+    other busy test processes torch's idle worker threads spin for the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, S = 4, 32
 
 
@@ -87,8 +98,15 @@ def test_train_batch_integer_identical(batch, seq, step, host, seed):
     for k in got:
         assert got[k].dtype == np.int32
         np.testing.assert_array_equal(got[k], ref[k])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipeline.train_batch(SMOKE.with_(family="vlm"), 1, 4)
+    # a vlm config's memory plane too (tests/test_torch_encdec.py holds
+    # the vlm and audio SMOKE configs' planes)
+    vlm = dict(family="vlm", memory_tokens=3)
+    got = pipeline.train_batch(SMOKE.with_(**vlm), batch, seq, step=step,
+                               host=host, seed=seed)
+    ref = jpipeline.train_batch(J_SMOKE.with_(**vlm), batch, seq, step=step,
+                                host=host, seed=seed)
+    assert got["memory"].shape == (batch, 3, SMOKE.d_model)
+    np.testing.assert_array_equal(got["memory"], ref["memory"])
 
 
 @pytest.mark.parametrize("variant", ["plain", "chunked", "padded_vocab"])
@@ -130,9 +148,12 @@ def test_unported_training_options_raise():
         loss_fn(model, batch)
     with pytest.raises(NotImplementedError, match="A4"):
         train_loop.make_train_step(SMOKE, compress_crosspod=True)
-    with pytest.raises(NotImplementedError, match="memory"):
-        loss_fn(init_model(SMOKE, device="cpu"),
-                dict(batch, memory=torch.zeros(1, 2, 64)))
+    # a memory is ported (tests/test_torch_encdec.py); a model without
+    # cross attention ignores it, as the reference does
+    dense = init_model(SMOKE, device="cpu")
+    assert torch.equal(loss_fn(dense, dict(batch, memory=torch.zeros(1, 2,
+                                                                     64))),
+                       loss_fn(dense, batch))
 
 
 def test_to_reference_inverts_from_reference():
