@@ -45,8 +45,9 @@ Phases (any failure raises and exits nonzero):
    truncated and off the packed container, each against its plain version;
 6. a small-input reference check: the model's logits on the card agree
    with the same model's logits on the CPU;
-7. the slice: ``ras-pimc`` at full width, 128 lanes x 1000 tokens, chunk
-   256, through ``lm_compress_chunked(backend="kernel")`` ->
+7. the slice: ``ras-pimc`` at full width, 128 lanes x 600 tokens (1000
+   before the tooling phases came), chunk 256, through
+   ``lm_compress_chunked(backend="kernel")`` ->
    ``pack_chunked`` -> ``parse_chunked`` ->
    ``lm_decompress_chunked(backend="kernel")`` with launch counters reset
    just before and read just after (one B1, T B2 and T + 1 B6 launches:
@@ -135,7 +136,8 @@ per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
 17. the recurrent families (``mamba2_phase``): ``mamba2-130m`` at full
-   width (24 layers, d_model 768, BF16, vocab 50,280) on seeded random
+   width (d_model 768, BF16, vocab 50,280), its depth cut to 12 of 24
+   layers (the whole model before the tooling phases came), on seeded random
    weights, 16 lanes x 256 ``token_stream`` tokens, chunk 128,
    ``prob_bits=16``, top-4: ``lm_compress_chunked`` on the kernel backend
    (one B6 batch of 4,096 x 50,280, one B1) and on the coder backend give
@@ -147,7 +149,7 @@ zero-frequency cases of 5a.
    (16, 50,280), each against its plain version and timed beside its
    bound; the full width in float32 on the card against the CPU (2 rows x
    4 steps, logits within 1e-4); the engine (2 slots x 16 lanes, max_len
-   128) on two 256-token requests, blobs byte-identical to
+   128) on requests of 256 and 128 tokens, blobs byte-identical to
    ``lm_compress_chunked``, decodes exact; and ``recurrentgemma-2b`` SMOKE
    (a (rec, rec, attn) pattern, a (rec,) tail, a 16-slot local window
    wrapping 4 times at 8 lanes x 64): kernel and coder containers
@@ -157,7 +159,8 @@ zero-frequency cases of 5a.
 18. the MoE family (``moe_phase``): ``mixtral-8x22b`` at full width
    (d_model 6,144, 48 heads x 128, 8 kv heads, d_ff 16,384, 8 experts
    top-2, a 4,096-position sliding window, vocab 32,768, BF16, an untied
-   head), its depth cut to 4 of 56 layers, on seeded random weights drawn
+   head), its depth cut to 2 of 56 layers (4 before the tooling phases
+   came), on seeded random weights drawn
    on the card, 16 lanes x 512 ``token_stream`` tokens, chunk 128,
    ``prob_bits=16``, top-4: kernel and coder containers byte-identical,
    the fused decode bit-exact with per-lane probes equal to the coder
@@ -168,7 +171,8 @@ zero-frequency cases of 5a.
    plain version and timed beside its bound; one full-width layer in
    float32 on the card against the CPU (2 rows x 4 steps, logits within
    1e-4); the engine (2 slots x 16 lanes, max_len 512, ``prefill="auto"``)
-   on two 512-token requests, with prefill cycles and no host sync in a
+   on requests of 512 and 128 tokens, with prefill cycles and no host
+   sync in a
    cycle, blobs byte-identical to ``lm_compress_chunked``, decodes exact;
    and ``mixtral-8x22b`` SMOKE at 8 lanes x 64, its 16-slot window
    wrapping: kernel and coder containers byte-identical, decode exact.
@@ -200,9 +204,10 @@ zero-frequency cases of 5a.
    CPU on built ties at 16 x 32,768, timed beside ``torch.topk``;
 23. ``phi3.5-moe-42b-a6.6b`` at full width (``phi_phase``: d_model 4,096,
    32 heads x 128 over 8 kv heads, 16 experts top-2, d_ff 6,400, vocab
-   32,064 padded to 32,256, BF16, untied head), its depth cut to 4 of 32
-   layers, drawn on the card, 16 lanes x 256 ``token_stream`` tokens,
-   chunk 128, ``prob_bits=16``: kernel and coder containers
+   32,064 padded to 32,256, BF16, untied head), its depth cut to 2 of 32
+   layers (4 before the tooling phases came), drawn on the card, 16 lanes
+   x 256 ``token_stream`` tokens, chunk 128, ``prob_bits=16``: kernel and
+   coder containers
    byte-identical, the fused decode bit-exact with equal per-lane probes,
    launches exactly B1 1 / B2 256 / B6 257, B6 fed the 32,064 true
    symbols; a 16-row step and its busy share beside its byte bound; B6
@@ -225,13 +230,39 @@ zero-frequency cases of 5a.
    encoder and one ``dec`` layer in float32 card vs CPU (the encoder's
    output, 4 decode steps and a 64-token forward within 1e-4); 2 BF16
    train steps at full depth.
+20a. (right after 20) the BF16 checkpoint (``bf16_checkpoint_phase``):
+   the ``mamba2-130m`` BF16 train state of phase 20 saved with
+   ``train.checkpoint.save`` and restored into a fresh state on the card,
+   every leaf bitwise; bytes and seconds;
+26. the fault-tolerant trainer (``trainer_phase``), the slice's path:
+   ``examples/train_small_lm.run`` at ``ras-pimc``'s full width, 100 steps
+   of 16 x 128 under the ``RestartManager`` (a checkpoint every 25 steps,
+   one fault before step 30: exactly one restart), bitwise equal to an
+   unbroken run, then held-out 8 x 256 tokens through the kernel
+   backend: launches B1 1 / B2 256 / B6 257 from 0, round trip exact,
+   kernel and coder containers byte-identical, CR above the static
+   histogram's; the full-width state saved and restored bitwise;
+27. the launchers (``launchers_phase``): ``launch.train.main`` (20 steps,
+   a checkpoint every 10) then ``launch.serve.main --ckpt --backend
+   kernel`` in process: ``restored checkpoint step 20``, bit-exact,
+   launches B1 1 / B2 256 / B6 257;
+28. the examples (``examples_phase``): quickstart, compress_images and
+   compress_latents with all their checks, launches counted per example;
+29. ``bench_lanes`` (``lanes_phase``): the coder and B1 byte-identical, B4
+   zero-copy exact, container bytes 8,599 / 33,851 / 138,574 as the
+   committed ``BENCH_lanes.json``; Msym/s per lane count;
+30. ``bench_chunked`` (``chunked_phase``): all nine points' bits/symbol
+   and flush overhead equal to ``BENCH_chunked.json``, B1 byte-identical
+   to the coder on each.
 
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 (``mamba2_launches``), in the mixtral slice (``moe_launches``), in
-the zoo rungs (``zoo_launches``) and in the phi slice
-(``phi_launches``), and B6's and B2's times at K = 50,280, K = 32,768
+the zoo rungs (``zoo_launches``), in the phi slice
+(``phi_launches``) and in phases 26-30 (``trainer_launches``,
+``launchers_launches``, ``examples_launches``, ``lanes_launches``,
+``chunked_launches``), and B6's and B2's times at K = 50,280, K = 32,768
 and K = 32,064.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
@@ -253,6 +284,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 LANES, T, K, CHUNK, TOPK = 128, 1000, 256, 256, 4
+# the slice's main path: two full chunks and a ragged tail (1000 tokens
+# before the tooling phases came, cut for the script's time limit)
+SLICE_T = 600
 FIG4B_LANES, FIG4B_T = 64, 2048                # BENCH_search.json's point
 FIG4B_TOTALS = (1046915, 650352, 552027)       # its committed probe totals
 FIG4A_LANES, FIG4A_T, FIG4A_PY = 128, 2048, 40_000   # bench_speed.run's point
@@ -911,7 +945,10 @@ DECODE_CASES = {
     "static K=256, window wider than the probe tables": (
         "static", 256, 14, False, ("LastValue", 40), {"warp_rows"}),
 }
-CASE_LANES, CASE_T, CASE_CHUNK = 64, 300, 256   # a ragged 44-symbol tail
+# two full chunks and a ragged 44-symbol tail (chunk 256 before the
+# tooling phases came: the plain decodes take one step per symbol of a
+# chunk)
+CASE_LANES, CASE_T, CASE_CHUNK = 64, 300, 128
 
 
 def decode_cases_phase(dev):
@@ -1057,7 +1094,7 @@ def main_path(dev):
     from repro_torch.serve import compress
 
     model = init_model(CONFIG, seed=0, device=dev)
-    tokens = token_stream(CONFIG.vocab_size, (LANES, T), seed=0)
+    tokens = token_stream(CONFIG.vocab_size, (LANES, SLICE_T), seed=0)
     # the sort-based plain SPC must not run on the card on this path
     with _plain_spc_spy() as on_card:
         reset_launches()
@@ -1068,39 +1105,41 @@ def main_path(dev):
         torch.cuda.synchronize()
         t_comp = time.perf_counter() - t0
         blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK,
-                                      n_symbols=T)
+                                      n_symbols=SLICE_T)
         cs = bitstream.parse_chunked(blob)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sym, avg, lane_probes = compress.lm_decompress_chunked(
-            model, cs, T, CHUNK, backend="kernel", lane_probes=True)
+            model, cs, SLICE_T, CHUNK, backend="kernel", lane_probes=True)
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=T,
-                             spc_quantize=T + 1),
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=SLICE_T,
+                             spc_quantize=SLICE_T + 1),
            f"launch counts {launches}")
     _check(not on_card, f"the plain SPC ran on the card {len(on_card)} times"
            " on the kernel backend")
     _branch("rans_decode_step", {"warp_rows"}, "slice B2, last position")
     _check(np.array_equal(sym.cpu().numpy(), tokens), "round trip not exact")
     print(f"slice: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
-          f"{CONFIG.d_model}), {LANES} lanes x {T} tokens, chunk {CHUNK}: "
+          f"{CONFIG.d_model}), {LANES} lanes x {SLICE_T} tokens, chunk "
+          f"{CHUNK}: "
           f"round trip bit-exact; launches {launches}; no plain SPC call on "
           "the card", flush=True)
     print(f"slice: bits/symbol {float(st.bits_per_symbol):.4f}, model xent "
           f"{float(st.model_xent_bits):.4f} bits, avg probes/symbol "
           f"{float(avg):.4f}, container {len(blob)} bytes", flush=True)
-    print(f"slice: compress {LANES * T / t_comp:.1f} symbols/s "
-          f"({t_comp:.3f} s), decompress {LANES * T / t_dec:.1f} symbols/s "
+    print(f"slice: compress {LANES * SLICE_T / t_comp:.1f} symbols/s "
+          f"({t_comp:.3f} s), decompress "
+          f"{LANES * SLICE_T / t_dec:.1f} symbols/s "
           f"({t_dec:.3f} s); idle gaps not measured", flush=True)
 
     st_c = compress.lm_compress_chunked(model, tokens, CHUNK, backend="coder")
     blob_c = bitstream.pack_chunked(*st_c.chunks, chunk_size=CHUNK,
-                                    n_symbols=T)
+                                    n_symbols=SLICE_T)
     _check(blob_c == blob, "coder and kernel containers differ")
     sym_c, avg_c, lane_probes_c = compress.lm_decompress_chunked(
-        model, cs, T, CHUNK, backend="coder", lane_probes=True)
+        model, cs, SLICE_T, CHUNK, backend="coder", lane_probes=True)
     _check(np.array_equal(sym_c.cpu().numpy(), tokens),
            "coder round trip not exact")
     _check(torch.equal(lane_probes_c, lane_probes), "per-lane probes differ")
@@ -1122,8 +1161,8 @@ def two_pass_phase(slice_run):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sym, _, lane_probes = compress.lm_decompress_chunked(
-        slice_run["model"], slice_run["cs"], T, CHUNK, backend="two_pass",
-        lane_probes=True)
+        slice_run["model"], slice_run["cs"], SLICE_T, CHUNK,
+        backend="two_pass", lane_probes=True)
     torch.cuda.synchronize()
     t_two = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1136,8 +1175,9 @@ def two_pass_phase(slice_run):
            "two-pass per-lane probes differ from the fused decode's")
     print(f"two-pass: round trip bit-exact from the ContainerSlab, per-lane "
           f"probes equal the fused decode's; launches {launches}; "
-          f"{LANES * T / t_two:.1f} symbols/s ({t_two:.3f} s) against the "
-          f"fused decode's {LANES * T / slice_run['t_dec']:.1f} symbols/s "
+          f"{LANES * SLICE_T / t_two:.1f} symbols/s ({t_two:.3f} s) against "
+          f"the fused decode's "
+          f"{LANES * SLICE_T / slice_run['t_dec']:.1f} symbols/s "
           "in this run", flush=True)
     return launches
 
@@ -2139,6 +2179,9 @@ def fig4c_phase(dev):
 # 256 tokens keep the whole script well inside its time limit beside the
 # mixtral phase.
 M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 256, 128, 16
+# its depth: 12 of 24 layers (the whole model before the tooling phases
+# came; cut for the script's time limit, the width and the coded K stay)
+M2_LAYERS = 12
 M2_SLOTS, M2_MAX_LEN = 2, 128
 M2_CPU_ROWS, M2_CPU_STEPS = 2, 4
 # B6 beyond the register layouts, against the plain SPC: K and rows
@@ -2329,8 +2372,10 @@ def _zoo_card_vs_cpu(cpu, card, rows: int, steps: int, what: str,
 def _zoo_engine(model, tokens, run, *, chunk: int, bits: int, slots: int,
                 max_len: int, what: str, prefill: bool):
     """``slots`` slots x the slice's lanes at ``max_len``: two compress
-    requests of the slice's length (``tokens`` and a second stream), then
-    their decompress; blobs byte-identical to ``lm_compress_chunked``'s,
+    requests, ``tokens`` and a second stream of one chunk (which retires
+    while the first runs on; both of the slice's length before the
+    tooling phases came, cut for the script's time limit), then their
+    decompress; blobs byte-identical to ``lm_compress_chunked``'s,
     tokens exact, probes equal.  With ``prefill`` the compress cycles must
     run as prefill chunks and every cycle's device half runs under
     ``torch.cuda.set_sync_debug_mode("error")``; without, no cycle may
@@ -2343,11 +2388,11 @@ def _zoo_engine(model, tokens, run, *, chunk: int, bits: int, slots: int,
     from repro_torch.serve.engine import BatchEngine
 
     lanes, t_len = tokens.shape
-    other = token_stream(model.cfg.vocab_size, (lanes, t_len), seed=1)
+    other = token_stream(model.cfg.vocab_size, (lanes, chunk), seed=1)
     st = compress.lm_compress_chunked(model, other, chunk,
                                       prob_bits=bits, backend="kernel")
     blob_other = bitstream.pack_chunked(*st.chunks, chunk_size=chunk,
-                                        n_symbols=t_len, prob_bits=bits)
+                                        n_symbols=chunk, prob_bits=bits)
     del st
     eng = BatchEngine(model, slots=slots, lanes=lanes, chunk_size=chunk,
                       max_len=max_len, prob_bits=bits, step_backend="kernel",
@@ -2380,9 +2425,10 @@ def _zoo_engine(model, tokens, run, *, chunk: int, bits: int, slots: int,
            f"{what} engine probes differ from the single-request decode")
     _check((eng.prefill_cycles > 0) == prefill,
            f"{what} engine ran {eng.prefill_cycles} prefill cycles")
-    n = 2 * lanes * t_len
+    n = lanes * (t_len + chunk)
     print(f"{what} engine: {slots} slots x {lanes} lanes, max_len "
-          f"{max_len}, two {t_len}-token requests: blobs byte-identical "
+          f"{max_len}, requests of {t_len} and {chunk} tokens: blobs "
+          f"byte-identical "
           f"to lm_compress_chunked, decodes exact, probes equal; "
           f"{eng.prefill_cycles} prefill cycles"
           f"{' (no host sync in a cycle)' * prefill}; compress "
@@ -2479,23 +2525,25 @@ def _hybrid(dev):
 
 def mamba2_phase(dev):
     """The recurrent families on the card: ``mamba2-130m`` at full width
-    (BF16, vocab 50,280, ``prob_bits=16``) through the kernel and coder
+    (BF16, vocab 50,280, ``prob_bits=16``; ``M2_LAYERS`` of its 24 layers)
+    through the kernel and coder
     backends, its kernels at K = 50,280, the card against the CPU, the
     engine on streams longer than ``max_len``, and the hybrid's smoke
     round trip and engine.  Returns the slice's launches and the large-K
     kernel records."""
     import torch
-    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.configs.mamba2_130m import CONFIG as FULL
     from repro_torch.data.pipeline import token_stream
     from repro_torch.models import decode_step, init_model, init_state
 
+    cfg = FULL.with_(n_layers=M2_LAYERS)
     t0 = time.perf_counter()
-    model = init_model(CONFIG, seed=0, device=dev)
-    tokens = token_stream(CONFIG.vocab_size, (M2_LANES, M2_T), seed=0)
+    model = init_model(cfg, seed=0, device=dev)
+    tokens = token_stream(cfg.vocab_size, (M2_LANES, M2_T), seed=0)
     run = _zoo_slice(model, tokens, M2_CHUNK, M2_BITS, "mamba2")
     n = M2_LANES * M2_T
-    print(f"mamba2: {CONFIG.name} ({CONFIG.n_layers} layers, d_model "
-          f"{CONFIG.d_model}, vocab {CONFIG.vocab_size}, {CONFIG.dtype}), "
+    print(f"mamba2: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}), "
           f"{M2_LANES} lanes x {M2_T} tokens, chunk {M2_CHUNK}, prob_bits "
           f"{M2_BITS}: round trip bit-exact, kernel and coder containers "
           f"byte-identical, per-lane probes equal; launches "
@@ -2513,7 +2561,7 @@ def mamba2_phase(dev):
           f"({M2_LANES} rows); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
     recs = _zoo_kernels(run, M2_BITS, "mamba2", wide=WIDE_K)
-    _zoo_card_vs_cpu(*(init_model(CONFIG.with_(dtype="float32"), seed=1,
+    _zoo_card_vs_cpu(*(init_model(cfg.with_(dtype="float32"), seed=1,
                                   device=d) for d in ("cpu", dev)),
                      M2_CPU_ROWS, M2_CPU_STEPS,
                      "mamba2: full width in float32")
@@ -2529,12 +2577,12 @@ def mamba2_phase(dev):
 
 # --- the MoE family (slice 7) ----------------------------------------------
 
-# mixtral-8x22b at full width, its depth cut to 4 of 56 layers (5.01 GB of
+# mixtral-8x22b at full width, its depth cut to 2 of 56 layers (5.01 GB of
 # BF16 weights a layer): 16 lanes x 512 token_stream(32768) tokens, chunk
 # 128, prob_bits 16, top-4; the engine: 2 slots x 16 lanes at max_len 512
 # (the requests fit the ring, so prefill="auto" prefills their cycles);
 # MX_STEPS steps timed alone and traced for the device-busy share
-MX_LAYERS = 4
+MX_LAYERS = 2        # of 56 (4 before the tooling phases came)
 MX_LANES, MX_T, MX_CHUNK, MX_BITS = 16, 512, 128, 16
 MX_SLOTS, MX_MAX_LEN, MX_STEPS = 2, 512, 8
 MX_CPU_ROWS, MX_CPU_STEPS = 2, 4
@@ -2735,7 +2783,8 @@ def mamba2_train_phase(dev):
     """``mamba2-130m`` at full width as a trainer: ``ZOO_M2_STEPS`` BF16
     train steps on the card (losses, step time, peak memory), then its
     first step in float32 on the card and on the CPU from the same
-    weights and batch: loss and gradient norm within 1e-4 relative."""
+    weights and batch: loss and gradient norm within 1e-4 relative.
+    Returns the BF16 train state (for :func:`bf16_checkpoint_phase`)."""
     import numpy as np
     import torch
     from repro_torch.configs.mamba2_130m import CONFIG
@@ -2767,7 +2816,7 @@ def mamba2_train_phase(dev):
           f"{1e3 * statistics.median(secs[1:]):.1f} ms (median of steps "
           f"2-{ZOO_M2_STEPS}; the first {1e3 * secs[0]:.1f} ms); peak memory"
           f" {peak / 2**30:.2f} GiB", flush=True)
-    del model, state, step
+    del model, step
     torch.cuda.empty_cache()
     cfg = CONFIG.with_(dtype="float32")
     card = init_model(cfg, seed=1, device=dev, draw="device")
@@ -2787,6 +2836,7 @@ def mamba2_train_phase(dev):
           f"{ZOO_M2_CPU_SEQ}, card vs CPU: loss {got[1][0]:.6f} / "
           f"{got[0][0]:.6f}, grad norm {got[1][1]:.6f} / {got[0][1]:.6f}, "
           f"max relative difference {rel:.3e} (tolerance 1e-4)", flush=True)
+    return state
 
 
 def _dz_perturb(model, seed: int) -> None:
@@ -2921,10 +2971,10 @@ def topk_phase(dev):
 # --- phi3.5-moe at full width, cross attention and the encoder-decoder
 # (slice 9) ----------------------------------------------------------------
 
-# phi3.5-moe-42b-a6.6b at full width, its depth cut to 4 of 32 layers (2.60
+# phi3.5-moe-42b-a6.6b at full width, its depth cut to 2 of 32 layers (2.60
 # GB of BF16 weights a layer): 16 lanes x 256 token_stream(32064) tokens,
 # chunk 128, prob_bits 16, top-4; one float32 layer card vs CPU
-PHI_LAYERS = 4
+PHI_LAYERS = 2       # of 32 (4 before the tooling phases came)
 PHI_LANES, PHI_T, PHI_CHUNK, PHI_BITS = 16, 256, 128, 16
 # llama-3.2-vision-11b whole (40 layers) and seamless-m4t-large-v2 whole
 # (24 + 24 layers) in BF16: greedy generate of 2 rows x a 16-token prompt +
@@ -3218,6 +3268,306 @@ def audio_phase(dev):
     print(f"audio: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# the tooling phases: the fault-tolerant trainer and the launchers, the
+# BF16 checkpoint, the examples and the lane and chunk sweeps
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_FAULT = 100, 25, 30
+LAUNCH_STEPS, LAUNCH_SAVE_EVERY = 20, 10
+
+
+def _quiet(fn, *args, what: str):
+    """``fn(*args)`` with its standard output captured, then printed with
+    ``what`` before each line; returns ``(result, the output)``."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        print(f"{what}: {line}", flush=True)
+    return out, text
+
+
+def _states_equal(a, b) -> bool:
+    """Two port train states hold the same parameters, moments and steps,
+    bit for bit."""
+    import torch
+    return (all(bool(torch.equal(x, y)) for x, y in zip(
+        a.model.parameters(), b.model.parameters()))
+        and all(bool(torch.equal(a.opt.m[k], b.opt.m[k]))
+                and bool(torch.equal(a.opt.v[k], b.opt.v[k]))
+                for k in a.opt.m)
+        and int(a.step) == int(b.step) and int(a.opt.step) == int(b.opt.step))
+
+
+def _checkpoint_round_trip(state, fresh, step: int, what: str) -> dict:
+    """``state`` saved (blocking) and restored into ``fresh`` on the card,
+    which must then equal it bit for bit; the seconds of each and the npz
+    bytes."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(d, step, state)
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "host0.npz"))
+        _check(checkpoint.latest_step(d) == step, f"{what}: latest_step")
+        t0 = time.perf_counter()
+        checkpoint.restore(d, step, fresh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    _check(_states_equal(state, fresh), f"{what}: the restored state "
+           "differs from the saved one")
+    return dict(save_s=t_save, restore_s=t_restore, bytes=nbytes)
+
+
+def trainer_phase(dev):
+    """The slice's path: ``examples/train_small_lm.run`` at ``ras-pimc``'s
+    full width (``CONFIG``), ``TRAINER_STEPS`` steps of 16 x 128 under the
+    ``RestartManager`` (a checkpoint every ``TRAINER_SAVE_EVERY`` steps,
+    one fault injected before step ``TRAINER_FAULT``), then the held-out
+    8 x 256 tokens through the kernel backend with the launch counters set
+    to 0 before the run and read after it (training and the coder backend
+    launch no kernel): exactly B1 1, B2 T, B6 T + 1.  The restart count is
+    1, the final parameters and moments equal an unbroken run's bit for
+    bit, and the full-width state saves and restores bitwise.  Returns the
+    launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.examples import train_small_lm as ex
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = ex.run(CONFIG, TRAINER_STEPS, dev, save_every=TRAINER_SAVE_EVERY,
+                 fault_at=TRAINER_FAULT)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=ex.T,
+                             spc_quantize=ex.T + 1),
+           f"trainer: launch counts {launches}")
+    replayed = TRAINER_FAULT % TRAINER_SAVE_EVERY
+    _check(rec["failures"] == 1, f"trainer: {rec['failures']} restarts, "
+           "one fault injected")
+    _check(len(rec["losses"]) == TRAINER_STEPS + replayed,
+           f"trainer: {len(rec['losses'])} steps run, expected "
+           f"{TRAINER_STEPS} + {replayed} replayed")
+    losses = np.asarray(rec["losses"])
+    _check(np.isfinite(losses).all() and losses[-10:].mean()
+           < losses[:10].mean(), f"trainer: loss did not fall {losses}")
+    state = rec["state"]
+    with tempfile.TemporaryDirectory() as d:
+        clean, mgr, _, _ = ex.train(CONFIG, TRAINER_STEPS, dev, d,
+                                    save_every=TRAINER_SAVE_EVERY)
+    _check(mgr.failures == 0 and int(state.step) == TRAINER_STEPS,
+           f"trainer: step {int(state.step)}")
+    _check(_states_equal(state, clean), "trainer: the run with a fault "
+           "differs from the unbroken run")
+    fresh = train_loop.init_train_state(init_model(
+        CONFIG.with_(grad_accum=1), seed=1, device=dev))
+    ck = _checkpoint_round_trip(state, fresh, TRAINER_STEPS, "trainer")
+    secs = np.asarray(rec["step_s"][1:]) * 1e3
+    print(f"trainer: {CONFIG.name} at full width ({CONFIG.n_layers} layers, "
+          f"d_model {CONFIG.d_model}, {CONFIG.dtype}), {TRAINER_STEPS} "
+          f"steps of {ex.BATCH} x {ex.SEQ} at lr {ex.LR}, a checkpoint "
+          f"every {TRAINER_SAVE_EVERY}, one fault before step "
+          f"{TRAINER_FAULT}: {rec['failures']} restart, {replayed} steps "
+          f"replayed from step {TRAINER_FAULT - replayed}; parameters and "
+          f"moments bitwise equal to the unbroken run", flush=True)
+    print(f"trainer: losses (nats) "
+          f"{', '.join(f'{x:.4f}' for x in losses[::TRAINER_SAVE_EVERY])}"
+          f" ... {losses[-1]:.4f}; step {statistics.median(secs):.2f} ms "
+          f"(median; p90 {np.percentile(secs, 90):.2f} ms; the first "
+          f"{rec['step_s'][0] * 1e3:.1f} ms); run with the held-out coding "
+          f"{t_run:.1f} s", flush=True)
+    print(f"trainer: checkpoint of the full-width state {ck['bytes']} bytes "
+          f"(35 leaves), save {ck['save_s']:.3f} s, restore "
+          f"{ck['restore_s']:.3f} s, bitwise", flush=True)
+    print(f"trainer: held-out {ex.LANES} x {ex.T}: CR {rec['cr_lm']:.4f} "
+          f"against the static histogram's {rec['cr_hist']:.4f}, "
+          f"{rec['bits_per_symbol']:.4f} bits/symbol (model xent "
+          f"{rec['model_xent_bits']:.4f}), {rec['probes']:.2f} probes/symbol;"
+          f" kernel and coder containers byte-identical, decode bit-exact; "
+          f"compress {rec['compress_s']:.2f} s, decompress "
+          f"{rec['decompress_s']:.2f} s; launches {launches}", flush=True)
+    return launches
+
+
+def launchers_phase(dev):
+    """``launch.train.main`` (``LAUNCH_STEPS`` steps, a checkpoint every
+    ``LAUNCH_SAVE_EVERY``) then ``launch.serve.main --ckpt --backend
+    kernel`` on its directory, in process: the server restores the last
+    step, round-trips bit-exactly, and its launches between a counter
+    reset and read are B1 1, B2 256, B6 257 (its 8 x 256 stream).
+    Returns them."""
+    import os
+    import tempfile
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve, train
+    from repro_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        state, _ = _quiet(train.main, ["--ckpt", d, "--steps",
+                                       str(LAUNCH_STEPS), "--save-every",
+                                       str(LAUNCH_SAVE_EVERY)],
+                          what="launch.train")
+        steps = range(LAUNCH_SAVE_EVERY, LAUNCH_STEPS + 1, LAUNCH_SAVE_EVERY)
+        _check(int(state.step) == LAUNCH_STEPS and sorted(os.listdir(d))
+               == [f"step_{s:08d}" for s in steps],
+               f"launch.train: checkpoints {sorted(os.listdir(d))}")
+        _check(checkpoint.latest_step(d) == LAUNCH_STEPS,
+               "launch.train: latest step")
+        reset_launches()
+        _, out = _quiet(serve.main, ["--ckpt", d, "--backend", "kernel"],
+                        what="launch.serve")
+        launches = dict(LAUNCHES)
+    _check(f"restored checkpoint step {LAUNCH_STEPS}" in out,
+           "launch.serve did not restore the checkpoint")
+    _check("bit-exact roundtrip: True" in out, "launch.serve round trip")
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=256,
+                             spc_quantize=257),
+           f"launch.serve: launch counts {launches}")
+    print(f"launchers: launch.train wrote steps {LAUNCH_SAVE_EVERY}.."
+          f"{LAUNCH_STEPS}; launch.serve --ckpt restored step "
+          f"{LAUNCH_STEPS} and round-tripped bit-exactly; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def bf16_checkpoint_phase(dev, state):
+    """The ``mamba2-130m`` full-width BF16 train state of
+    ``mamba2_train_phase`` saved and restored into a fresh state on the
+    card, bitwise.  The restore reads each BF16 parameter from a ``|V2``
+    leaf by bit pattern (it refuses any other dtype for a BF16 tensor)."""
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    cfg = state.model.cfg
+    fresh = train_loop.init_train_state(init_model(cfg, seed=1, device=dev,
+                                                   draw="device"))
+    ck = _checkpoint_round_trip(state, fresh, int(state.step),
+                                "BF16 checkpoint")
+    n = sum(p.numel() for p in state.model.parameters())
+    print(f"BF16 checkpoint: {cfg.name} at full width ({n} parameters, "
+          f"{cfg.dtype}, moments {state.opt.m['embedding'].dtype}), step "
+          f"{int(state.step)}: {ck['bytes']} bytes, save {ck['save_s']:.3f} "
+          f"s, restore {ck['restore_s']:.3f} s; every leaf bitwise, the "
+          f"parameters read from |V2 leaves", flush=True)
+
+
+def examples_phase(dev):
+    """``examples/quickstart``, ``compress_images`` and ``compress_latents``
+    (the Fig. 4(c) VAE's 300 steps, not the example's 600, for the
+    script's time) in process on the card with all their checks, each
+    with the launch counters set to 0 before it and read after: none,
+    B1 1 and B3 1 (the image's encode and decode), and the VAE's B2 pops
+    (2 d_z per kernel ``bb_encode``, 2 d_z + d_x per kernel ``bb_decode``)
+    with B6 4 per ``bb_encode``/``bb_decode`` (its tables, either pop
+    backend).  Returns the phase's launches."""
+    from repro_torch.examples import (compress_images, compress_latents,
+                                      quickstart)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import vae
+
+    vcfg = vae.VAEConfig(d_x=compress_latents.D_X)
+    want = {
+        "quickstart": ((quickstart.run, dev), _only()),
+        "compress_images": ((compress_images.run, dev), _only(
+            rans_encode_lanes=1, rans_decode_lanes=1)),
+        "compress_latents": ((compress_latents.run, FIG4C_VAE_STEPS, dev),
+                             _only(rans_decode_step=4 * vcfg.d_z + vcfg.d_x,
+                                   spc_quantize=16)),
+    }
+    total = _only()
+    for name, ((fn, *args), counts) in want.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        _quiet(fn, *args, what=name)
+        secs = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        _check(got == counts, f"{name}: launch counts {got}")
+        total = {k: total[k] + got[k] for k in total}
+        print(f"examples: {name} passed on the card in {secs:.1f} s; "
+              f"launches {got}", flush=True)
+    return total
+
+
+def lanes_phase(dev):
+    """``benchmarks/bench_lanes.run`` at its defaults (T 1,024, lanes 8 /
+    32 / 128, chunk 256) on the card, one timed call per path: the coder
+    and B1 byte-identical, B4's zero-copy decode exact, the container bytes
+    equal to the committed ``BENCH_lanes.json``; Msym/s per lane count.
+    Returns the launches (B1 and B4 once per lane count)."""
+    from repro_torch.benchmarks import bench_lanes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    committed = json.loads((ROOT / "BENCH_lanes.json").read_text())
+    reset_launches()
+    pts = bench_lanes.run(device=dev, warmup=False)
+    launches = dict(LAUNCHES)
+    _check([p["container_bytes"] for p in pts]
+           == [p["container_bytes"] for p in committed]
+           == [8599, 33851, 138574],
+           "bench_lanes: container bytes "
+           f"{[p['container_bytes'] for p in pts]}")
+    _check(all(p["backends_byte_identical"] for p in pts),
+           "bench_lanes: backends")
+    n = len(pts)
+    _check(launches == _only(rans_encode_lanes=n, rans_decode_slab=n),
+           f"bench_lanes: launch counts {launches}")
+    for p in pts:
+        print(f"lanes={p['lanes']}: coder enc {p['coder_encode_Msym_s']:.4f}"
+              f" / dec {p['coder_decode_Msym_s']:.4f} Msym/s, B1 enc "
+              f"{p['kernel_encode_Msym_s']:.4f} / B4 zero-copy dec "
+              f"{p['kernel_decode_zero_copy_Msym_s']:.4f} Msym/s (host "
+              f"wall per call), container {p['container_bytes']} B (equal "
+              f"to BENCH_lanes.json), coder and B1 byte-identical, B4 exact",
+              flush=True)
+    return launches
+
+
+def chunked_phase(dev):
+    """``benchmarks/bench_chunked.run``'s grid (T 2,048, chunks 128 / 512 /
+    2,048, lanes 8 / 64 / 256) through ``coder.encode_chunked`` /
+    ``decode_chunked`` on the card, one timed call per path: every point's
+    ``bits_per_symbol`` and ``flush_overhead_bits`` equal the committed
+    ``BENCH_chunked.json`` exactly, and B1 gives the coder's chunks byte
+    for byte on each point.  Returns the launches (B1 once a point)."""
+    from repro_torch.benchmarks import bench_chunked
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    ref = {p["name"]: p for p in json.loads(
+        (ROOT / "BENCH_chunked.json").read_text())}
+    reset_launches()
+    pts = bench_chunked.run(device=dev, warmup=False)
+    launches = dict(LAUNCHES)
+    _check([p["name"] for p in pts] == list(ref), "bench_chunked: points")
+    for p in pts:
+        r = ref[p["name"]]
+        _check(p["bits_per_symbol"] == r["bits_per_symbol"]
+               and p["flush_overhead_bits"] == r["flush_overhead_bits"],
+               f"{p['name']}: bits {p['bits_per_symbol']} / "
+               f"{p['flush_overhead_bits']} against the committed "
+               f"{r['bits_per_symbol']} / {r['flush_overhead_bits']}")
+        print(f"{p['name']}: {p['bits_per_symbol']!r} bits/symbol, flush "
+              f"overhead {p['flush_overhead_bits']!r} (both equal "
+              f"BENCH_chunked.json); enc {p['encode_Msym_s']:.4f} / dec "
+              f"{p['decode_Msym_s']:.4f} Msym/s (coder, host wall); B1 "
+              f"byte-identical", flush=True)
+    _check(launches == _only(rans_encode_lanes=len(pts)),
+           f"bench_chunked: launch counts {launches}")
+    return launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3318,7 +3668,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_launches = timed("zoo rungs", zoo_phase, dev, pimc_smoke)
     del pimc_smoke
-    timed("mamba2 trainer", mamba2_train_phase, dev)
+    m2_state = timed("mamba2 trainer", mamba2_train_phase, dev)
+    timed("BF16 checkpoint", bf16_checkpoint_phase, dev, m2_state)
+    del m2_state
     timed("dense zoo", dense_zoo_phase, dev)
     timed("top-k", topk_phase, dev)
     torch.cuda.empty_cache()
@@ -3339,6 +3691,12 @@ def main() -> int:
     timed("vlm", vlm_phase, dev)
     torch.cuda.empty_cache()
     timed("audio", audio_phase, dev)
+    torch.cuda.empty_cache()
+    trainer_launches = timed("trainer", trainer_phase, dev)
+    launcher_launches = timed("launchers", launchers_phase, dev)
+    example_launches = timed("examples", examples_phase, dev)
+    lanes_launches = timed("lanes sweep", lanes_phase, dev)
+    chunked_launches = timed("chunked sweep", chunked_phase, dev)
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -3351,6 +3709,11 @@ def main() -> int:
         rec["moe_launches"] = mx_launches[rec["name"]]
         rec["zoo_launches"] = zoo_launches[rec["name"]]
         rec["phi_launches"] = phi_launches[rec["name"]]
+        rec["trainer_launches"] = trainer_launches[rec["name"]]
+        rec["launchers_launches"] = launcher_launches[rec["name"]]
+        rec["examples_launches"] = example_launches[rec["name"]]
+        rec["lanes_launches"] = lanes_launches[rec["name"]]
+        rec["chunked_launches"] = chunked_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of the RAS neural lossless compression pipeline.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``, ``data/``)
+(``core/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``, ``data/``,
+``train/``, ``launch/``; the reference's ``examples/`` and its lane and
+chunk sweeps under ``examples/`` and ``benchmarks/``)
 and never imports ``jax`` or ``repro``.  Each of the reference's six TPU
 kernels is a hand-written CUDA kernel for ``sm_90a`` under ``csrc/``: the
 fused and the records encode (``rans_encode.cu``), the per-step decode
@@ -17,6 +19,7 @@ explicit device they raise.  A process that runs them on the card calls
 :func:`configure_cuda_numerics` once at its start.
 """
 
-from repro_torch.device import configure_cuda_numerics, resolve_device
+from repro_torch.device import (configure_cuda_numerics, entry_device,
+                                resolve_device)
 
-__all__ = ["configure_cuda_numerics", "resolve_device"]
+__all__ = ["configure_cuda_numerics", "entry_device", "resolve_device"]

@@ -96,22 +96,30 @@ def is_per_position(tbl, t_len: int) -> bool:
     return tbl.x_max.ndim in (2, 3) and tbl.x_max.shape[0] == t_len
 
 
-def encode(symbols: torch.Tensor, tbl: TableSet,
-           cap: int | None = None) -> EncodedLanes:
-    """Encode ``(lanes, T)`` symbols against static ``(K,)`` or
-    per-position ``(T, K)`` / ``(T, lanes, K)`` tables."""
-    lanes, t_len = symbols.shape
-    cap = default_cap(t_len) if cap is None else cap
-    per_position = is_per_position(tbl, t_len)
-    sym = symbols.to(_I64)
-    st = encoder_init(lanes, cap, symbols.device)
-    for t in range(t_len - 1, -1, -1):
-        tbl_t = TableSet(*(a[t] for a in tbl)) if per_position else tbl
-        st = encode_put(st, sym[:, t], tbl_t)
+def _encode_rows(sym: torch.Tensor, rows, cap: int) -> EncodedLanes:
+    """Encode ``(cells, n)`` symbols, one standalone stream per cell, with
+    step ``t``'s table ``rows(t)`` (static ``(K,)`` or per-cell ``(cells,
+    K)`` planes)."""
+    st = encoder_init(sym.shape[0], cap, sym.device)
+    sym = sym.to(_I64)
+    for t in range(sym.shape[1] - 1, -1, -1):
+        st = encode_put(st, sym[:, t], rows(t))
     st = encoder_flush(st)
     return EncodedLanes(buf=st.buf[:, :cap],
                         start=torch.clamp(st.ptr, min=0).to(_I32),
                         length=(cap - st.ptr).to(_I32), overflow=st.ptr < 0)
+
+
+def encode(symbols: torch.Tensor, tbl: TableSet,
+           cap: int | None = None) -> EncodedLanes:
+    """Encode ``(lanes, T)`` symbols against static ``(K,)`` or
+    per-position ``(T, K)`` / ``(T, lanes, K)`` tables."""
+    t_len = symbols.shape[1]
+    cap = default_cap(t_len) if cap is None else cap
+    if is_per_position(tbl, t_len):
+        return _encode_rows(symbols, lambda t: type(tbl)(*(a[t] for a in tbl)),
+                            cap)
+    return _encode_rows(symbols, lambda t: tbl, cap)
 
 
 def encode_record_planes(symbols: torch.Tensor, tbl):
@@ -187,7 +195,9 @@ def chunk_encoded(enc: ChunkedLanes, c: int) -> EncodedLanes:
 def encode_chunked(symbols: torch.Tensor, tbl: TableSet, chunk_size: int,
                    cap: int | None = None) -> ChunkedLanes:
     """Encode ``(lanes, T)`` as independent chunks, each with its own flush;
-    chunk ``c``'s bytes equal :func:`encode` of its symbols alone."""
+    chunk ``c``'s bytes equal :func:`encode` of its symbols alone.  The
+    full chunks encode together as one batch of cells, the ragged tail as
+    another, so a call takes ``chunk_size`` steps, not ``T``."""
     lanes, t_len = symbols.shape
     num_chunks(t_len, chunk_size)
     cap = default_cap(min(chunk_size, t_len)) if cap is None else cap
@@ -200,13 +210,33 @@ def encode_chunked(symbols: torch.Tensor, tbl: TableSet, chunk_size: int,
                             start=z, length=z,
                             overflow=torch.zeros((0, lanes), dtype=torch.bool,
                                                  device=dev))
+    chunk = min(chunk_size, t_len)
+    n_full, tail = divmod(t_len, chunk)
     parts = []
-    for c, n in enumerate(chunk_lengths(t_len, chunk_size)):
-        t0 = c * chunk_size
-        tbl_c = (TableSet(*(a[t0:t0 + n] for a in tbl)) if per_position
-                 else tbl)
-        parts.append(encode(symbols[:, t0:t0 + n], tbl_c, cap=cap))
-    return ChunkedLanes(*(torch.stack(xs) for xs in zip(*parts)))
+    for c0, g, n in ((0, n_full, chunk), (n_full, 1, tail)):
+        if n == 0:
+            continue
+        t0 = c0 * chunk
+        cells = symbols[:, t0:t0 + g * n].reshape(lanes, g, n)
+        first = torch.arange(g, device=dev) * n + t0
+
+        def rows(t, t0=t0, g=g, first=first):
+            if not per_position:
+                return tbl
+            if g == 1:                       # one chunk: rows as they are
+                return type(tbl)(*(a[t0 + t] for a in tbl))
+
+            def cut(a):
+                a = a[first + t]
+                if a.ndim == 2:              # (g, K): one row per chunk
+                    a = a[:, None].expand(g, lanes, a.shape[-1])
+                return a.reshape(g * lanes, a.shape[-1])
+            return type(tbl)(*(cut(a) for a in tbl))
+
+        enc = _encode_rows(cells.transpose(0, 1).reshape(g * lanes, n), rows,
+                           cap)
+        parts.append([a.reshape((g, lanes) + a.shape[1:]) for a in enc])
+    return ChunkedLanes(*(torch.cat(xs) for xs in zip(*parts)))
 
 
 # ---------------------------------------------------------------------------

@@ -64,3 +64,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda":
         _check_cuda_numerics()
     return device
+
+
+def entry_device(name: str | None = None) -> torch.device:
+    """A command line's ``--device``: ``None`` (the card) or a CUDA device
+    first sets :func:`configure_cuda_numerics` for the process, then
+    resolves as :func:`resolve_device`; ``"cpu"`` runs the plain
+    versions."""
+    if torch.device(name or "cuda").type == "cuda":
+        configure_cuda_numerics()
+    return resolve_device(name)

@@ -14,7 +14,9 @@ arrivals (``--arrival-rate`` per virtual tick) continuously batched into
 ``--slots`` slots; every blob is checked byte-identical to the
 single-request ``lm_compress_chunked`` path and per-request latency
 (admission wait included) is reported in ticks.  Like the reference, the
-launcher serves the arch's smoke config on seeded random weights.
+launcher serves the arch's smoke config: on seeded random weights, or with
+``--ckpt <dir>`` on the newest complete step of a checkpoint that either
+package's ``launch.train`` wrote (``restored checkpoint step N``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configure_cuda_numerics, resolve_device
+from repro_torch import entry_device
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core import bitstream
 from repro_torch.data.pipeline import token_stream
@@ -33,6 +35,8 @@ from repro_torch.models import init_model, state_spec
 from repro_torch.serve.compress import (lm_compress, lm_compress_chunked,
                                         lm_decompress)
 from repro_torch.serve.engine import BatchEngine, generate
+from repro_torch.train import checkpoint
+from repro_torch.train.train_loop import init_train_state
 
 
 def _sync(dev: torch.device) -> None:
@@ -89,8 +93,7 @@ def _engine(args, model, cfg, dev) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="ras-pimc", metavar="ARCH",
-                    help="a registered arch id (configs.registry.ARCH_IDS);"
-                         " only ras-pimc is ported")
+                    help="a registered arch id (configs.registry.ARCH_IDS)")
     ap.add_argument("--mode", choices=["compress", "generate", "engine"],
                     default="compress",
                     help="compress = one stream end to end; generate = "
@@ -112,9 +115,10 @@ def main(argv=None):
                     help="[engine] arrival-process seed (schedules are "
                          "deterministic per seed)")
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint restore is not ported yet (it needs "
-                         "the port of train/checkpoint); the launcher "
-                         "serves seeded random weights")
+                    help="a checkpoint directory (either package's "
+                         "launch.train writes one): the newest complete "
+                         "step is served; without one, seeded random "
+                         "weights")
     ap.add_argument("--topk", type=int, default=4)
     ap.add_argument("--backend", choices=["coder", "kernel", "two_pass"],
                     default="coder",
@@ -131,12 +135,7 @@ def main(argv=None):
     if args.arch not in ARCH_IDS:
         ap.error(f"unknown --arch {args.arch!r}; registered ids: "
                  f"{', '.join(ARCH_IDS)}")
-    if args.ckpt:
-        ap.error("--ckpt is not ported yet (checkpoint restore waits for "
-                 "the port of train/checkpoint)")
-    if args.device != "cpu":
-        configure_cuda_numerics()
-    dev = resolve_device(args.device)
+    dev = entry_device(args.device)
     try:
         cfg = get_smoke_config(args.arch)
     except KeyError as e:
@@ -147,6 +146,12 @@ def main(argv=None):
     print(f"arch={args.arch} family={cfg.family} kinds={spec.kinds} "
           f"state={state_kind} device={dev}")
     model = init_model(cfg, seed=0, device=dev)
+    if args.ckpt:
+        step = checkpoint.latest_step(args.ckpt)
+        if step is not None:
+            checkpoint.restore(args.ckpt, step, init_train_state(
+                model, moment_dtype="float32"))
+            print(f"restored checkpoint step {step}")
 
     if args.mode == "engine":
         _engine(args, model, cfg, dev)

@@ -16,7 +16,9 @@ cross attention ``["cross"]["wq"][r]``, a ``dec`` block's also
 tree (numpy's ``bfloat16`` from ``ml_dtypes``) is read by bit pattern.
 ``to_reference(model)`` is the inverse: the model's parameters, or any
 tensors keyed by its parameter names (gradients, updated values), as that
-tree of numpy float32 arrays.
+tree of numpy float32 arrays (or of what its ``host`` makes of each
+tensor: the checkpoint keeps each dtype).  Both directions read one map,
+:func:`leaf_paths`: parameter name -> (reference key path, repeat).
 """
 
 from __future__ import annotations
@@ -80,61 +82,64 @@ def from_reference(tree: dict, cfg: ModelConfig,
                              f"parameter {tuple(param.shape)}")
         param.copy_(t)
 
-    put(model.embedding, _tensor(tree["tok"]["embedding"]))
-    if model.lm_head is not None:
-        put(model.lm_head, _tensor(tree["tok"]["lm_head"]))
-    put(model.final_norm, _tensor(tree["final_norm"]["scale"]))
-    units = [(blk, tree["stages"][f"s{i}"][key], r)
-             for blk, (i, key, r) in zip(model.blocks, model.layout)]
-    if model.encoder is not None:
-        enc = tree["encoder"]
-        put(model.encoder.final_norm, _tensor(enc["final_norm"]["scale"]))
-        units += [(blk, enc["stack"]["b0_attn"], r)
-                  for r, blk in enumerate(model.encoder.blocks)]
-    for blk, sub, r in units:
-        for name, param in blk.named_parameters():
-            top, leaf = _path(name)
-            put(param, _tensor(sub[top][leaf])[r])
+    paths, stacks = leaf_paths(model), {}
+    for name, param in model.named_parameters():
+        path, r = paths[name]
+        if path not in stacks:
+            leaf = tree
+            for key in path:
+                leaf = leaf[key]
+            stacks[path] = _tensor(leaf)
+        put(param, stacks[path] if r is None else stacks[path][r])
     return model.to(dev)
 
 
-def to_reference(model: LM, tensors: dict | None = None) -> dict:
-    """The reference's parameter tree of numpy float32 arrays: one
+def leaf_paths(model: LM) -> dict:
+    """Each parameter name (``named_parameters``) -> ``(path, r)``: the
+    key path of its leaf in the reference's tree and its index ``r`` on
+    that leaf's leading ``reps`` axis (None for an unstacked leaf).
+    ``blocks.3.attn.wq`` of a 4-layer dense model is ``(("stages", "s0",
+    "b0_attn", "attn", "wq"), 3)``."""
+    out = {"embedding": (("tok", "embedding"), None),
+           "final_norm": (("final_norm", "scale"), None)}
+    if model.lm_head is not None:
+        out["lm_head"] = (("tok", "lm_head"), None)
+    units = [(f"blocks.{n}", blk, ("stages", f"s{i}", key), r)
+             for n, (blk, (i, key, r)) in enumerate(zip(model.blocks,
+                                                        model.layout))]
+    if model.encoder is not None:
+        out["encoder.final_norm"] = (("encoder", "final_norm", "scale"),
+                                     None)
+        units += [(f"encoder.blocks.{n}", blk, ("encoder", "stack",
+                                                "b0_attn"), n)
+                  for n, blk in enumerate(model.encoder.blocks)]
+    for prefix, blk, unit, r in units:
+        for name, _ in blk.named_parameters():
+            out[f"{prefix}.{name}"] = (unit + _path(name), r)
+    return out
+
+
+def _f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def to_reference(model: LM, tensors: dict | None = None, host=_f32) -> dict:
+    """The reference's parameter tree of numpy arrays: one
     ``stages/s{i}/b{j}_{kind}`` subtree per block of each stage's pattern,
     stacked over its repeats (and the ``encoder`` tree of an
     encoder-decoder).  ``tensors`` maps the model's parameter names
     (``named_parameters``) to tensors of their shapes, for example
-    gradients; the default is the parameters."""
+    gradients; the default is the parameters.  ``host`` turns one tensor
+    into a numpy array: float32 by default."""
     vals = dict(model.named_parameters()) if tensors is None else tensors
-
-    def np_(name):
-        return vals[name].detach().to("cpu", torch.float32).numpy().copy()
-
-    def stack(blocks, prefix: str, keys) -> dict:
-        """``{group: {key: {top: {leaf: (reps, ...)}}}}`` of ``blocks``,
-        block ``n`` into ``keys[n]`` = (group, key)."""
-        out: dict = {}
-        for n, (blk, (group, key)) in enumerate(zip(blocks, keys)):
-            unit = out.setdefault(group, {}).setdefault(key, {})
-            for name, _ in blk.named_parameters():
-                top, leaf = _path(name)
-                unit.setdefault(top, {}).setdefault(leaf, []).append(
-                    np_(f"{prefix}.{n}.{name}"))
-        return {g: {key: {top: {leaf: np.stack(reps)
-                                for leaf, reps in sub.items()}
-                          for top, sub in unit.items()}
-                    for key, unit in units.items()}
-                for g, units in out.items()}
-
-    tok = {"embedding": np_("embedding")}
-    if model.lm_head is not None:
-        tok["lm_head"] = np_("lm_head")
-    tree = {"tok": tok, "final_norm": {"scale": np_("final_norm")},
-            "stages": stack(model.blocks, "blocks",
-                            [(f"s{i}", key) for i, key, _ in model.layout])}
-    if model.encoder is not None:
-        enc = model.encoder.blocks
-        tree["encoder"] = {
-            **stack(enc, "encoder.blocks", [("stack", "b0_attn")] * len(enc)),
-            "final_norm": {"scale": np_("encoder.final_norm")}}
+    leaves: dict = {}
+    for name, (path, r) in leaf_paths(model).items():
+        leaves.setdefault(path, {})[r] = host(vals[name])
+    tree: dict = {}
+    for path, reps in leaves.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (reps[None] if None in reps
+                          else np.stack([reps[r] for r in range(len(reps))]))
     return tree
