@@ -112,6 +112,31 @@ Phases (any failure raises and exits nonzero):
    retiring alone with ``StreamExhaustedError``, and the coder step
    backend's blobs, tokens and probes equal to the single-request kernel
    path's.
+15a. placement (``placement_phase``), on a world-1 NCCL group started
+   over a ``FileStore`` in a temp directory and destroyed at the end: (1)
+   a chunk mesh at 128 lanes x 1,024 (four chunks of 256) with phase 2's
+   kind of per-lane K = 256 tables: ``parallel.encode_chunked`` (one B1)
+   byte-identical to ``ops.rans_encode_chunked`` and
+   ``coder.encode_chunked``, ``parallel.decode_chunked`` with top-4
+   candidates from dense chunks and from the parsed container (one B3
+   each) equal to the single-device kernel path in symbols and per-lane
+   probes; (2) ranks 0 and 1 of a 2-rank chunk mesh run in turn and
+   stitched, byte-identical; (3) the slice (``ras-pimc`` ``CONFIG``, 128 x
+   600, chunk 256, top-4) on a lane mesh: ``lm_compress_chunked`` gives
+   the slice's container byte for byte (B1 1, B6 1), the fused decode is
+   bit-exact with the slice's per-lane probes (B2 600, B6 600), two-pass
+   pass 2 on the chunk mesh gives the same symbols and probes (B3 2); (4)
+   lanes 0-63 and 64-127 priced and decoded as two ranks would: each
+   round-trips, each kernel container equals its coder container, and the
+   card's row-invariance finding is printed (the stitched containers
+   against the unplaced one, the largest |dlogit| of a row at 64 rows
+   against 128 over 64 positions); (5) phase 14's point through
+   ``BatchEngine(mesh=lane_mesh())``, every blob equal; (6) 5 cross-pod
+   train steps of 16 x 128 at full width on a 1-rank pod mesh: residuals
+   ``x + e - dequant(quant(x + e))`` bitwise, the card's reduce equal to
+   the CPU's (a gloo group) bitwise, the loss falling; (7) that state with
+   its error tree checkpointed and ``remesh``-ed onto the CPU and back,
+   bitwise.
 16. the Fig. 4(c) ratio ladder (``benchmarks/bench_ratio.run``'s
    defaults: a 128 x 256 ``synthetic_image(seed=0)`` as 16 lanes x 2048,
    chunk 512): zlib level 9, the static histogram, ``ras-pimc`` trained
@@ -257,6 +282,7 @@ zero-frequency cases of 5a.
 
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
+placed calls of phase 15a (``placement_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 (``mamba2_launches``), in the mixtral slice (``moe_launches``), in
 the zoo rungs (``zoo_launches``), in the phi slice
@@ -1747,7 +1773,9 @@ def bench_serve_phase(dev, model):
                serial_p99_s=float(np.percentile(s_lat, 99)),
                engine_p50_s=float(np.percentile(e_lat, 50)),
                engine_p99_s=float(np.percentile(e_lat, 99)),
-               prefill_cycles=eng.prefill_cycles)
+               prefill_cycles=eng.prefill_cycles,
+               served=dict(data=data, arrivals=arrivals,
+                           blobs=[res[rid].blob for rid in rids]))
     print(f"bench_serve point ({n} streams x {p['lanes']} lanes x "
           f"{p['n_symbols']} symbols, chunk {p['chunk']}, {p['slots']} slots,"
           f" Poisson {p['rate_hz']:.0f} Hz seed {p['seed']}): all {n} engine "
@@ -3568,6 +3596,358 @@ def chunked_phase(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# placement (slice 11): chunk and lane meshes over torch.distributed
+# ---------------------------------------------------------------------------
+
+PLACE_T = 1024           # four full chunks of 256, no tail
+ROW_T = 64               # positions of the 64-against-128-row logit check
+PLACE_STEPS, PLACE_BATCH, PLACE_SEQ, PLACE_LR = 5, 16, 128, 3e-3
+
+
+def _nccl_world1(dev):
+    """A world-1 NCCL process group over a ``FileStore`` in a temp
+    directory (no TCP store); the caller destroys it."""
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    store = Path(tempfile.mkdtemp()) / "store"
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+        timeout=datetime.timedelta(seconds=120))
+
+
+def _add(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def _placed(fn):
+    """``fn()`` between a launch-counter reset and read: ``(out,
+    launches)``."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def _chunk_mesh_kernels(dev, mesh):
+    """(1) and (2): the chunk mesh's B1 and B3 against the single-device
+    kernels and the coder, and the two-rank emulation on one card."""
+    import torch
+    from repro_torch.core import bitstream, coder, spc
+    from repro_torch.core.spc import FreqCdf
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import chunked as pc
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    logits = torch.randn((PLACE_T, LANES, K), generator=gen,
+                         device=dev) * 3.0
+    tables = spc.tables_from_probs(spc.store_bf16(torch.softmax(logits,
+                                                                -1)))
+    del logits
+    syms = torch.as_tensor(token_stream(K, (LANES, PLACE_T), seed=1),
+                           dtype=torch.int32, device=dev)
+    tbl = FreqCdf(tables.freq, tables.cdf)
+    cands = torch.topk(tables.freq, TOPK, dim=-1).indices.to(torch.int32)
+    placed_enc, enc_l = _placed(lambda: pc.encode_chunked(
+        syms, tables, CHUNK, mesh=mesh, backend="kernel"))
+    _check(enc_l == _only(rans_encode_lanes=1),
+           f"placement: placed encode launches {enc_l}")
+    single = ops.rans_encode_chunked(syms, tables, CHUNK)
+    coded = coder.encode_chunked(syms, tables, CHUNK)
+    for a, b, c in zip(placed_enc, single, coded):
+        _check(torch.equal(a, b) and torch.equal(a, c),
+               "placement: placed encode differs from the single-device "
+               "kernel or the coder")
+    blob = bitstream.pack_chunked(*placed_enc, chunk_size=CHUNK,
+                                  n_symbols=PLACE_T)
+    cs = bitstream.parse_chunked(blob)
+
+    def decode_both():
+        return [pc.decode_chunked(x, PLACE_T, tbl, CHUNK, mesh=mesh,
+                                  backend="kernel", candidates=cands,
+                                  lane_probes=True)
+                for x in (placed_enc, cs)]
+
+    decoded, dec_l = _placed(decode_both)
+    _check(dec_l == _only(rans_decode_lanes=2),
+           f"placement: placed decode launches {dec_l}")
+    _branch("rans_decode_lanes", {"warp_rows"}, "placed B3")
+    sym1, avg1, lp1 = ops.rans_decode_chunked(single, PLACE_T, tbl, CHUNK,
+                                              candidates=cands,
+                                              lane_probes=True)
+    _check(torch.equal(sym1, syms), "placement: single-device decode lost "
+           "a symbol")
+    for what, (sym, avg, lp) in zip(("dense chunks", "container"), decoded):
+        _check(torch.equal(sym, sym1) and torch.equal(lp, lp1)
+               and float(avg) == float(avg1),
+               f"placement: placed decode from the {what} differs from the "
+               "single-device kernel path")
+    ms = _median_ms(lambda: pc.encode_chunked(syms, tables, CHUNK,
+                                              mesh=mesh, backend="kernel"),
+                    repeats=10)
+    ms1 = _median_ms(lambda: ops.rans_encode_chunked(syms, tables, CHUNK),
+                     repeats=10)
+    dms = _median_ms(lambda: pc.decode_chunked(
+        placed_enc, PLACE_T, tbl, CHUNK, mesh=mesh, backend="kernel",
+        candidates=cands), repeats=10)
+    dms1 = _median_ms(lambda: ops.rans_decode_chunked(
+        single, PLACE_T, tbl, CHUNK, candidates=cands), repeats=10)
+    print(f"placement (1): chunk mesh of {mesh.size} rank ({LANES} lanes x "
+          f"{PLACE_T}, chunk {CHUNK}, per-lane K = {K} tables, top-{TOPK}):"
+          f" encode byte-identical to ops.rans_encode_chunked and "
+          f"coder.encode_chunked, decode from dense chunks and from the "
+          f"container equal to the single-device B3 (symbols, per-lane "
+          f"probes, avg {float(avg1):.6f}); launches encode {enc_l}, decode "
+          f"{dec_l}; per call encode {ms:.4f} ms placed vs {ms1:.4f} ms "
+          f"single-device, decode {dms:.4f} vs {dms1:.4f} ms (wrapper "
+          "calls, the gather included)", flush=True)
+    dense = bitstream.ChunkedLanes(*placed_enc[:3])
+    slabs = [pc.encode_slab(syms, tables, CHUNK, r, 2, backend="kernel")
+             for r in (0, 1)]
+    for a, *parts in zip(placed_enc, *slabs):
+        _check(torch.equal(a, torch.cat(parts)), "placement: two-rank "
+               "encode emulation differs from the placed encode")
+    outs = [pc.decode_slab(dense, PLACE_T, tbl, CHUNK, r, 2,
+                           backend="kernel", candidates=cands)
+            for r in (0, 1)]
+    sym = torch.cat([o[0] for o in outs], 1)
+    probes = torch.cat([o[1] for o in outs])
+    under = torch.cat([o[2] for o in outs])
+    _check(torch.equal(sym, syms) and torch.equal(probes.sum(0), lp1)
+           and not bool(under.any()), "placement: two-rank decode "
+           "emulation differs from the placed decode")
+    print("placement (2): ranks 0 and 1 of a 2-rank chunk mesh run in turn "
+          "on the card (encode_slab, decode_slab) and stitched: "
+          "byte-identical streams, equal symbols and per-lane probes",
+          flush=True)
+    return _add(enc_l, dec_l)
+
+
+def _row_logits(model, tokens, rows: slice, n: int):
+    """The teacher-forced logits of ``tokens[rows]``'s first ``n``
+    positions (ring length ``SLICE_T``, as the slice prices them)."""
+    import torch
+    from repro_torch.serve import compress
+    vocab = model.cfg.vocab_size
+    toks = torch.as_tensor(tokens[rows], dtype=torch.int64,
+                           device=next(model.parameters()).device)
+    inputs = torch.cat([torch.full_like(toks[:, :1], compress.BOS),
+                        toks[:, :n - 1]], 1)
+    out = []
+    with torch.no_grad():
+        compress.teacher_forced_scan(
+            model, inputs, SLICE_T,
+            lambda lg, t: out.append(lg[:, :vocab].clone()))
+    return torch.stack(out)
+
+
+def _lane_mesh_slice(dev, lane, chunk_mesh, slice_run):
+    """(3) and (4): the slice on a lane mesh, two-pass pass 2 on the chunk
+    mesh, and the two-slab emulation of a 2-rank lane mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.serve import compress
+
+    model, tokens = slice_run["model"], slice_run["tokens"]
+    st, comp_l = _placed(lambda: compress.lm_compress_chunked(
+        model, tokens, CHUNK, backend="kernel", mesh=lane))
+    blob = bitstream.pack_chunked(*st.chunks, chunk_size=CHUNK,
+                                  n_symbols=SLICE_T)
+    _check(blob == slice_run["blob"], "placement: the lane-mesh container "
+           "differs from the slice's")
+    _check(comp_l == _only(rans_encode_lanes=1, spc_quantize=1),
+           f"placement: lane-mesh compress launches {comp_l}")
+    t0 = time.perf_counter()
+    (sym, avg, lp), dec_l = _placed(lambda: compress.lm_decompress_chunked(
+        model, slice_run["cs"], SLICE_T, CHUNK, backend="kernel", mesh=lane,
+        lane_probes=True))
+    t_dec = time.perf_counter() - t0
+    _check(dec_l == _only(rans_decode_step=SLICE_T, spc_quantize=SLICE_T),
+           f"placement: lane-mesh fused decode launches {dec_l}")
+    _check(np.array_equal(sym.cpu().numpy(), tokens)
+           and torch.equal(lp, slice_run["lane_probes"]),
+           "placement: lane-mesh fused decode differs from the slice's")
+    (sym2, avg2), two_l = _placed(lambda: compress.lm_decompress_chunked(
+        model, slice_run["cs"], SLICE_T, CHUNK, backend="two_pass",
+        mesh=chunk_mesh))
+    _check(two_l == _only(rans_decode_lanes=2),
+           f"placement: two-pass on the chunk mesh launches {two_l}")
+    _check(np.array_equal(sym2.cpu().numpy(), tokens)
+           and float(avg2) == float(avg), "placement: two-pass on the chunk "
+           "mesh differs from the fused decode")
+    print(f"placement (3): {model.cfg.name} at full width, {LANES} x "
+          f"{SLICE_T}, chunk {CHUNK}, top-{TOPK}: lm_compress_chunked on a "
+          f"lane mesh of {lane.size} rank gives the slice's container byte "
+          f"for byte; the fused decode on the lane mesh is bit-exact with "
+          f"the slice's per-lane probes ({LANES * SLICE_T / t_dec:.1f} "
+          f"symbols/s); two-pass with pass 2 on the chunk mesh gives the "
+          f"same symbols and avg probes {float(avg2):.6f}; launches compress "
+          f"{comp_l}, fused {dec_l}, two-pass {two_l}", flush=True)
+    # (4) two ranks of a 2-rank lane mesh, in turn
+    half = LANES // 2
+    stitched = []
+    for r in (0, 1):
+        rows = slice(r * half, (r + 1) * half)
+        st_k = compress.lm_compress_chunked(model, tokens[rows], CHUNK,
+                                            backend="kernel")
+        st_c = compress.lm_compress_chunked(model, tokens[rows], CHUNK,
+                                            backend="coder")
+        _check(all(torch.equal(a, b) for a, b in zip(st_k.chunks,
+                                                     st_c.chunks)),
+               f"placement: slab {r}'s kernel and coder containers differ")
+        got, _ = compress.lm_decompress_chunked(
+            model, st_k.chunks, SLICE_T, CHUNK, backend="kernel")
+        _check(np.array_equal(got.cpu().numpy(), tokens[rows]),
+               f"placement: slab {r} does not round-trip")
+        stitched.append(st_k.chunks)
+    same = all(torch.equal(torch.cat([a, b], 1), c) for a, b, c in
+               zip(*stitched, st.chunks))
+    full = _row_logits(model, tokens, slice(0, LANES), ROW_T)
+    dlogit = max(float((_row_logits(model, tokens,
+                                    slice(r * half, (r + 1) * half), ROW_T)
+                        - full[:, r * half:(r + 1) * half]).abs().max())
+                 for r in (0, 1))
+    print(f"placement (4): lanes 0-{half - 1} and {half}-{LANES - 1} priced "
+          f"and decoded as two ranks would: each round-trips bit-exactly and"
+          f" its kernel container equals its coder container; ROW "
+          f"INVARIANCE on this card: the two slabs' containers stitched "
+          f"{'EQUAL' if same else 'DIFFER FROM'} the unplaced container; "
+          f"largest |dlogit| of a row at {half} rows against {LANES}, over "
+          f"the first {ROW_T} positions: {dlogit:.3e}", flush=True)
+    return _add(_add(comp_l, dec_l), two_l), dict(slabs_equal=same,
+                                                  dlogit=dlogit)
+
+
+def _engine_on_mesh(dev, lane, model, served):
+    """(5): ``bench_serve``'s point through ``BatchEngine(mesh=lane)``."""
+    from repro_torch.serve.engine import BatchEngine
+    p = SERVE_POINT
+
+    def run():
+        eng = BatchEngine(model, slots=p["slots"], lanes=p["lanes"],
+                          chunk_size=p["chunk"], max_len=p["n_symbols"],
+                          step_backend="kernel", mesh=lane)
+        _check(eng.mesh is lane, "placement: the engine did not place its "
+               "slots")
+        rids = [eng.submit_compress(t, arrival=float(a))
+                for t, a in zip(served["data"], served["arrivals"])]
+        return rids, eng.run(clock="wall")
+
+    (rids, res), launches = _placed(run)
+    for rid, blob in zip(rids, served["blobs"]):
+        _check(res[rid].ok and res[rid].blob == blob,
+               f"placement: engine request {rid} on the lane mesh differs")
+    print(f"placement (5): bench_serve's point ({len(rids)} streams) through "
+          f"BatchEngine(mesh=lane_mesh()) under the wall clock: every blob "
+          f"equals the unplaced engine's; launches {launches}", flush=True)
+    return launches
+
+
+def _crosspod(dev, pod, cpu_pod):
+    """(6) and (7): the cross-pod train step, its residuals, the card's
+    reduce against the CPU's, and ``remesh`` through a checkpoint."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.parallel import collectives as col
+    from repro_torch.train import checkpoint, fault_tolerance, train_loop
+
+    cfg = CONFIG.with_(grad_accum=1)
+    model = init_model(cfg, seed=1, device=dev)
+    state = train_loop.init_train_state(model, with_error=True)
+    state = state._replace(step=torch.full_like(state.step, 100))
+    step = train_loop.make_train_step(cfg, base_lr=PLACE_LR,
+                                      compress_crosspod=True, mesh=pod)
+    losses, residual_ok, reduce_ok = [], True, True
+    for i in range(PLACE_STEPS):
+        batch = train_batch(cfg, PLACE_BATCH, PLACE_SEQ, step=i)
+        _, grads = train_loop.grads_fn(copy.deepcopy(state.model), batch)
+        e0 = {k: v.clone() for k, v in state.error.items()}
+        state, m = step(state, batch)
+        for k, g in grads.items():
+            x = g.to(torch.float32) + e0[k]
+            q, s = col.quantize_int8(x)
+            residual_ok &= bool(torch.equal(
+                state.error[k], x - col.dequantize_int8(q, s)))
+        if i == 0:
+            card, _ = col.compressed_psum_tree(grads, pod, e0)
+            host, _ = col.compressed_psum_tree(
+                {k: g.cpu() for k, g in grads.items()}, cpu_pod,
+                {k: e.cpu() for k, e in e0.items()})
+            reduce_ok = all(torch.equal(card[k].cpu(), host[k])
+                            for k in card)
+        losses.append(float(m["loss"]))
+    _check(residual_ok, "placement: a residual is not x + e - "
+           "dequant(quant(x + e))")
+    _check(reduce_ok, "placement: the card's int8 reduce differs from the "
+           "CPU's")
+    _check(np.isfinite(losses).all() and losses[-1] < losses[0],
+           f"placement: the cross-pod loss did not fall {losses}")
+    print(f"placement (6): {cfg.name} at full width, {PLACE_STEPS} cross-pod "
+          f"steps of {PLACE_BATCH} x {PLACE_SEQ} (lr {PLACE_LR}, from step "
+          f"100) over a pod mesh of {pod.size} rank: every residual equals "
+          f"x + e - dequant(quant(x + e)) bitwise, the card's reduce equals "
+          f"the CPU's bitwise, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    snap = {k: v.copy() for k, v in checkpoint._flatten(
+        checkpoint._reference_tree(state))}
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, PLACE_STEPS, state)
+        for placement in ("cpu", pod):
+            state = fault_tolerance.remesh(state, d, PLACE_STEPS, placement)
+            got = dict(checkpoint._flatten(checkpoint._reference_tree(state)))
+            _check(set(got) == set(snap) and all(
+                got[k].tobytes() == snap[k].tobytes() for k in snap),
+                f"placement: remesh onto {placement} is not bitwise")
+    _check(next(state.model.parameters()).device == pod.device,
+           "placement: remesh did not return to the card")
+    print(f"placement (7): the state with its error tree "
+          f"({sum(k.startswith('error') for k in snap)} error leaves) "
+          "checkpointed, remeshed onto the CPU and back onto the card: "
+          "bitwise", flush=True)
+
+
+def placement_phase(dev, slice_run, served):
+    """Slice 11: the chunk and lane meshes, ``mesh=`` through compress,
+    decompress and the engine, the cross-pod int8 reduce and ``remesh``,
+    on a world-1 NCCL group started over a ``FileStore`` and destroyed at
+    the end.  Returns the placed calls' launches (each counted from 0
+    just before its call, the comparisons' launches left out) and the
+    row-invariance finding."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import chunked as pc
+    from repro_torch.parallel import collectives as col
+
+    _nccl_world1(dev)
+    try:
+        chunk, lane = pc.chunk_mesh(device=dev), pc.lane_mesh(device=dev)
+        pod = col.pod_mesh(device=dev)
+        cpu_pod = col.pod_mesh(dist.new_group(backend="gloo"), device="cpu")
+        launches = _chunk_mesh_kernels(dev, chunk)
+        torch.cuda.empty_cache()
+        more, finding = _lane_mesh_slice(dev, lane, chunk, slice_run)
+        launches = _add(launches, more)
+        launches = _add(launches, _engine_on_mesh(dev, lane,
+                                                  slice_run["model"], served))
+        _crosspod(dev, pod, cpu_pod)
+    finally:
+        dist.destroy_process_group()
+    print(f"placement: launches of the placed calls {launches}", flush=True)
+    return launches, finding
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3627,8 +4007,12 @@ def main() -> int:
     model = slice_run["model"]
     timed("C3 row invariance", row_invariance_phase, dev, model)
     timed("C4 prefill", prefill_phase, dev, model)
-    timed("bench_serve point", bench_serve_phase, dev, model)
+    served = timed("bench_serve point", bench_serve_phase, dev,
+                   model)["served"]
     engine_launches, _ = timed("engine", engine_phase, dev, model)
+    placement_launches, _ = timed("placement", placement_phase, dev,
+                                  slice_run, served)
+    del served
     del slice_run, model
     torch.cuda.empty_cache()
     b5.update(timed("Fig. 4(a)", fig4a_phase, dev))
@@ -3704,6 +4088,7 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
     for rec in (b1, b2, b3, b4, b5, b6):
         rec["engine_launches"] = engine_launches[rec["name"]]
+        rec["placement_launches"] = placement_launches[rec["name"]]
         rec["fig4c_launches"] = fig4c_launches[rec["name"]]
         rec["mamba2_launches"] = m2_launches[rec["name"]]
         rec["moe_launches"] = mx_launches[rec["name"]]

@@ -4,15 +4,16 @@
         [--device cpu] [--out chunked.json]
 
 Port of ``benchmarks/bench_chunked.py``: the chunk-size x lane-count grid
-through ``coder.encode_chunked`` / ``coder.decode_chunked`` on one device
-(the reference's path when one device is visible; its mesh placement is
-not ported), reporting Msym/s and the bits/symbol of the chunked streams
+through ``parallel.encode_chunked`` / ``parallel.decode_chunked``, on a
+chunk mesh of every rank when a process group of more than one rank is up
+(the reference's rule: more than one device visible) and on one device
+otherwise, reporting Msym/s and the bits/symbol of the chunked streams
 with the per-chunk flush overhead over one monolithic stream per lane
 (a chunk of T or more is that stream, and is not encoded twice).
 The bits are integer properties of the coder and equal the reference's.
 On every point the encode kernel (B1; its plain version on the CPU) must
-give the coder's chunks byte for byte.  ``--out`` writes the points as JSON; by
-default nothing is written.
+give the coder's chunks byte for byte.  ``devices`` is the mesh's size.
+``--out`` writes the points as JSON; by default nothing is written.
 """
 
 from __future__ import annotations
@@ -22,17 +23,21 @@ import json
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import entry_device
 from repro_torch.benchmarks import device_name, timed
 from repro_torch.core import coder, spc
 from repro_torch.data.pipeline import image_rows
 from repro_torch.kernels import ops
+from repro_torch.parallel import chunked as pchunked
 
 
 def run(t: int = 2048, chunk_sizes=(128, 512, 2048), lane_counts=(8, 64, 256),
         seed: int = 0, device=None, warmup: bool = True) -> list[dict]:
     dev = torch.device("cuda" if device is None else device)
+    mesh = (pchunked.chunk_mesh(device=dev) if dist.is_initialized()
+            and dist.get_world_size() > 1 else None)
     counts = np.bincount(image_rows(8, 4096, seed=seed).ravel(),
                          minlength=256)
     tbl = spc.TableSet(*(a.to(dev) for a in spc.tables_from_counts_np(counts)))
@@ -42,10 +47,12 @@ def run(t: int = 2048, chunk_sizes=(128, 512, 2048), lane_counts=(8, 64, 256),
                                dtype=torch.int32, device=dev)
         first = len(points)
         for cs in chunk_sizes:
-            dt_enc, enc = timed(lambda: coder.encode_chunked(rows, tbl, cs),
-                                dev, warmup)
+            dt_enc, enc = timed(
+                lambda: pchunked.encode_chunked(rows, tbl, cs, mesh=mesh),
+                dev, warmup)
             dt_dec, (dec, _) = timed(
-                lambda: coder.decode_chunked(enc, t, tbl, cs), dev, warmup)
+                lambda: pchunked.decode_chunked(enc, t, tbl, cs, mesh=mesh),
+                dev, warmup)
             if not torch.equal(dec, rows):
                 raise AssertionError(f"l{lanes} c{cs}: round trip diverges")
             kenc = ops.rans_encode_chunked(rows, tbl, cs)
@@ -64,7 +71,7 @@ def run(t: int = 2048, chunk_sizes=(128, 512, 2048), lane_counts=(8, 64, 256),
                 "encode_Msym_s": lanes * t / dt_enc / 1e6,
                 "decode_Msym_s": lanes * t / dt_dec / 1e6,
                 "bits_per_symbol": bits,
-                "devices": 1,
+                "devices": 1 if mesh is None else mesh.size,
                 "device": device_name(dev),
                 "kernel_byte_identical": True,
             })

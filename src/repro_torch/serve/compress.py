@@ -34,8 +34,19 @@ decode it.  Chunking changes only the coder framing: the model state and
 the fed-back token carry across chunk boundaries, the coder state
 re-initializes per chunk.
 
+Placement (``mesh=``, :mod:`repro_torch.parallel`): on a ``("lanes",)``
+mesh each rank prices, encodes or decodes its slab of the lanes as its
+own model call and every rank gathers the whole result; on a
+``("chunks",)`` mesh ``lm_compress_chunked`` encodes through
+``parallel.encode_chunked`` and ``two_pass`` places pass 2 through
+``parallel.decode_chunked``.  A container priced on a lane mesh of ``n``
+ranks decodes bit-exactly on a lane mesh of ``n`` ranks; where a slab's
+rows price as they do inside the whole batch, its bytes are the unplaced
+container's.  Every rank calls with the same arguments.
+
 Entry points run on the card unless ``device`` says otherwise and raise
-without one (:func:`repro_torch.device.resolve_device`).
+without one (:func:`repro_torch.device.resolve_device`); with a mesh they
+run on the mesh's device.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from repro_torch.core.predictors import model_topk_candidates
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, spc_quantize
 from repro_torch.models import decode_step, init_state
+from repro_torch.parallel import chunked as pchunked, gather
 
 BOS = 0
 
@@ -157,20 +169,48 @@ def _on_device(model, device) -> torch.device:
     return have
 
 
+def _mesh_device(mesh, device):
+    """The device of a call: the mesh's when one is given."""
+    if mesh is None:
+        return device
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device!r} but the mesh's rank runs on "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+# what ``parallel.chunked.lane_mesh_usable`` names when it refuses a mesh
+_FUSED, _COMPRESS = "fused decode (backend='kernel')", "lane-placed compress"
+
+
+def _gather_xent(mesh, xent_bits: torch.Tensor) -> torch.Tensor:
+    """The lanes' cross entropy from every rank's slab (equal slabs: the
+    mean of the ranks' means)."""
+    return gather(mesh, xent_bits.reshape(1)).mean()
+
+
 def lm_compress(model, tokens, prob_bits: int = C.PROB_BITS,
-                backend: str = "coder", device=None) -> CompressStats:
+                backend: str = "coder", device=None,
+                mesh=None) -> CompressStats:
     """tokens (lanes, T) -> one monolithic rANS stream per lane + stats.
 
     ``backend="kernel"`` quantizes through the SPC kernel and encodes
     through the encode kernel (one launch each), ``"coder"`` through the
-    plain SPC and the pure-torch coder; the bytes are identical.
+    plain SPC and the pure-torch coder; the bytes are identical.  On a
+    ``("lanes",)`` ``mesh`` each rank prices and encodes its lane slab (the
+    container that ``lm_decompress(mesh=)`` on as many ranks decodes).
     """
-    dev = _on_device(model, device)
+    dev = _on_device(model, _mesh_device(mesh, device))
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
-    tables, xent_bits = collect_tables(model, tokens, prob_bits, backend)
-    enc = (ops.rans_encode(tokens, tables) if backend == "kernel"
-           else coder.encode(tokens, tables))
+    placed = pchunked.lane_mesh_usable(mesh, tokens.shape[0], _COMPRESS)
+    toks = tokens[slice(*mesh.slab(tokens.shape[0]))] if placed else tokens
+    tables, xent_bits = collect_tables(model, toks, prob_bits, backend)
+    enc = (ops.rans_encode(toks, tables) if backend == "kernel"
+           else coder.encode(toks, tables))
+    if placed:
+        enc = bitstream.EncodedLanes(*(gather(mesh, a) for a in enc))
+        xent_bits = _gather_xent(mesh, xent_bits)
     bits = enc.length.to(torch.float32).mean() * 8.0 / tokens.shape[1]
     return CompressStats(enc=enc, bits_per_symbol=bits,
                          model_xent_bits=xent_bits)
@@ -179,7 +219,7 @@ def lm_compress(model, tokens, prob_bits: int = C.PROB_BITS,
 def lm_compress_chunked(model, tokens, chunk_size: int,
                         prob_bits: int = C.PROB_BITS,
                         backend: str = "coder", cap: int | None = None,
-                        device=None) -> ChunkedCompressStats:
+                        device=None, mesh=None) -> ChunkedCompressStats:
     """tokens (lanes, T) -> chunked multi-lane bitstream + stats.
 
     ``backend="kernel"`` quantizes through the SPC kernel and encodes
@@ -187,15 +227,28 @@ def lm_compress_chunked(model, tokens, chunk_size: int,
     runs the plain SPC and the pure-torch lane coder.  ``cap`` bounds
     the per-(chunk, lane) bytes; outgrown cells come back flagged on
     ``chunks.overflow`` and refuse to pack.
+
+    ``mesh``: on a ``("lanes",)`` mesh each rank prices and encodes its
+    lane slab as its own model call and the ranks gather the planes; any
+    other mesh prices every lane on every rank and encodes through
+    ``parallel.encode_chunked`` (the chunk slabs placed on a ``("chunks",)``
+    mesh).
     """
-    dev = _on_device(model, device)
+    dev = _on_device(model, _mesh_device(mesh, device))
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
     lanes, t_len = tokens.shape
-    tables, xent_bits = collect_tables(model, tokens, prob_bits, backend)
-    chunks = (ops.rans_encode_chunked(tokens, tables, chunk_size, cap=cap)
-              if backend == "kernel"
-              else coder.encode_chunked(tokens, tables, chunk_size, cap=cap))
+    placed = (mesh is not None and mesh.axis == "lanes"
+              and pchunked.lane_mesh_usable(mesh, lanes, _COMPRESS))
+    toks = tokens[slice(*mesh.slab(lanes))] if placed else tokens
+    tables, xent_bits = collect_tables(model, toks, prob_bits, backend)
+    chunks = pchunked.encode_chunked(toks, tables, chunk_size,
+                                     mesh=None if placed else mesh, cap=cap,
+                                     backend=backend)
+    if placed:
+        chunks = bitstream.ChunkedLanes(*(gather(mesh, a, 1)
+                                          for a in chunks))
+        xent_bits = _gather_xent(mesh, xent_bits)
     bits = chunks.length.to(torch.float32).sum() * 8.0 / (lanes * t_len)
     return ChunkedCompressStats(chunks=chunks, chunk_size=chunk_size,
                                 n_symbols=t_len, bits_per_symbol=bits,
@@ -259,28 +312,47 @@ def _decoded(sym, lane_sum, lanes: int, n_symbols: int, lane_probes: bool):
     return out + (lane_sum,) if lane_probes else out
 
 
+def _placed_lanes(mesh, sym, lane_sum, under):
+    """Every rank's lane slab of a fused decode's outputs, gathered."""
+    return (gather(mesh, sym), gather(mesh, lane_sum), gather(mesh, under))
+
+
 def lm_decompress(model, enc: bitstream.EncodedLanes, n_symbols: int,
                   prob_bits: int = C.PROB_BITS, topk: int = 4,
                   backend: str = "coder", lane_probes: bool = False,
-                  device=None):
+                  device=None, mesh=None):
     """Monolithic bitstream -> tokens (bit-exact inverse of
     :func:`lm_compress`), with the model's top-k as trial symbols.
 
     ``backend`` is ``"coder"``, ``"kernel"`` (the fused decode) or
     ``"two_pass"`` (the coder scan collects tables and candidates, then
     one full-stream kernel launch re-decodes the stream; its symbols and
-    probes come from that launch only).  Raises
+    probes come from that launch only).  ``mesh``: a ``("lanes",)`` mesh
+    places the fused decode's lanes (``backend="kernel"`` only): each rank
+    decodes its lane slab and the ranks gather symbols, per-lane probes
+    and exhaustion flags.  Raises
     :class:`~repro_torch.core.coder.StreamExhaustedError` on a read past a
-    lane's stream.  Returns ``(tokens (lanes, T) int32, avg_probes[,
-    per-lane probes])``.
+    lane's stream (on every rank alike).  Returns ``(tokens (lanes, T)
+    int32, avg_probes[, per-lane probes])``.
     """
     if backend not in ("coder", "kernel", "two_pass"):
         raise ValueError(f"unknown decode backend {backend!r}")
-    dev = _on_device(model, device)
+    if mesh is not None and backend != "kernel":
+        raise ValueError(
+            "mesh= requires backend='kernel': only the fused program has "
+            "an independent (lane) axis to place — the coder and two-pass "
+            "reference paths are single-device")
+    dev = _on_device(model, _mesh_device(mesh, device))
     enc = bitstream.EncodedLanes(*(a.to(dev) for a in enc[:3]))
     lanes = enc.buf.shape[0]
-    state = init_state(model, lanes, n_symbols)
-    tok = torch.full((lanes, 1), BOS, dtype=torch.int64, device=dev)
+    placed = backend == "kernel" and pchunked.lane_mesh_usable(mesh, lanes,
+                                                               _FUSED)
+    if placed:
+        enc = bitstream.EncodedLanes(*(a[slice(*mesh.slab(lanes))]
+                                       for a in enc[:3]))
+    rows = enc.buf.shape[0]
+    state = init_state(model, rows, n_symbols)
+    tok = torch.full((rows, 1), BOS, dtype=torch.int64, device=dev)
     if backend == "two_pass":
         planes = _plane_buffers(lanes, n_symbols, model.cfg.vocab_size,
                                 topk, dev)
@@ -291,40 +363,20 @@ def lm_decompress(model, enc: bitstream.EncodedLanes, n_symbols: int,
                                lane_probes=lane_probes)
     _, sym, lane_sum, under = _decode_chunk(
         model, enc, state, tok, 0, n_symbols, prob_bits, topk, backend)
+    if placed:
+        sym, lane_sum, under = _placed_lanes(mesh, sym, lane_sum, under)
     coder._check_exhausted(under, "lm_decompress")
     return _decoded(sym, lane_sum, lanes, n_symbols, lane_probes)
 
 
-def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
-                          prob_bits: int = C.PROB_BITS, topk: int = 4,
-                          backend: str = "coder", lane_probes: bool = False,
-                          device=None):
-    """Chunked bitstream -> tokens (bit-exact inverse of
-    :func:`lm_compress_chunked`).
-
-    ``chunks`` is a :class:`~repro_torch.core.bitstream.ChunkedLanes` or a
-    :class:`~repro_torch.core.bitstream.ContainerSlab` from
-    ``parse_chunked``.  The ``coder`` and ``kernel`` backends right-align
-    each chunk's window on the device one chunk at a time.  ``two_pass``
-    walks the chunks with the coder scan collecting every step's tables
-    and top-k candidates (pass 1; its symbols, probes and flags are
-    discarded), then re-decodes the whole stream in ONE launch (pass 2):
-    B4 straight off a ``ContainerSlab``'s payload, B3's chunk grid from
-    ``ChunkedLanes``.  Raises
-    :class:`~repro_torch.core.coder.StreamExhaustedError` when a lane reads
-    past its stream.  Returns ``(tokens (lanes, T) int32, avg_probes[,
-    per-lane probes])``.
-    """
-    if backend not in ("coder", "kernel", "two_pass"):
-        raise ValueError(f"unknown decode backend {backend!r}")
-    dev = _on_device(model, device)
+def _walk_chunks(model, chunks, lanes: int, n_symbols: int, chunk_size: int,
+                 prob_bits: int, topk: int, backend: str, planes, dev):
+    """The sequential decode over the chunks of a ``ChunkedLanes`` or
+    ``ContainerSlab``: the model state and token carry across chunks, the
+    coder state resets per chunk (each chunk's window right-aligned on the
+    device one chunk at a time).  Returns ``(symbols (lanes, T), per-lane
+    probe sums, per-lane exhaustion flags)``."""
     slab_in = isinstance(chunks, bitstream.ContainerSlab)
-    n_have = chunks.offset.shape[0] if slab_in else chunks.buf.shape[0]
-    lanes = chunks.offset.shape[1] if slab_in else chunks.buf.shape[1]
-    coder.check_chunk_count(n_have, n_symbols, chunk_size)
-    two_pass = backend == "two_pass"
-    planes = (_plane_buffers(lanes, n_symbols, model.cfg.vocab_size, topk,
-                             dev) if two_pass else None)
     state = init_state(model, lanes, n_symbols)
     tok = torch.full((lanes, 1), BOS, dtype=torch.int64, device=dev)
     outs = []
@@ -338,24 +390,85 @@ def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
                 *(a.to(dev) for a in coder.chunk_encoded(chunks, c)[:3]))
         tok, sym, probes, und = _decode_chunk(
             model, enc, state, tok, c * chunk_size, n, prob_bits, topk,
-            "coder" if two_pass else backend, planes)
+            backend, planes)
         outs.append(sym)
         lane_sum += probes
         under |= und
-    if two_pass:
-        tables = spc.FreqCdf(*planes[:2])
+    return torch.cat(outs, dim=1), lane_sum, under
+
+
+def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
+                          prob_bits: int = C.PROB_BITS, topk: int = 4,
+                          backend: str = "coder", lane_probes: bool = False,
+                          device=None, mesh=None):
+    """Chunked bitstream -> tokens (bit-exact inverse of
+    :func:`lm_compress_chunked`).
+
+    ``chunks`` is a :class:`~repro_torch.core.bitstream.ChunkedLanes` or a
+    :class:`~repro_torch.core.bitstream.ContainerSlab` from
+    ``parse_chunked``.  The ``coder`` and ``kernel`` backends right-align
+    each chunk's window on the device one chunk at a time.  ``two_pass``
+    walks the chunks with the coder scan collecting every step's tables
+    and top-k candidates (pass 1; its symbols, probes and flags are
+    discarded), then re-decodes the whole stream in ONE launch (pass 2):
+    B4 straight off a ``ContainerSlab``'s payload, B3's chunk grid from
+    ``ChunkedLanes``.
+
+    ``mesh``: for ``backend="kernel"`` a ``("lanes",)`` mesh places the
+    fused decode's lanes (each rank decodes its lane slab of the dense
+    chunks, rebuilt from a ``ContainerSlab`` on the device, and the ranks
+    gather); for ``backend="two_pass"`` a ``("chunks",)`` mesh places pass
+    2 through ``parallel.decode_chunked`` (pass 1 runs on every rank), and
+    ``lane_probes`` there requires ``mesh=None``.  Raises
+    :class:`~repro_torch.core.coder.StreamExhaustedError` when a lane reads
+    past its stream (on every rank alike).  Returns ``(tokens (lanes, T)
+    int32, avg_probes[, per-lane probes])``.
+    """
+    if backend not in ("coder", "kernel", "two_pass"):
+        raise ValueError(f"unknown decode backend {backend!r}")
+    if mesh is not None and backend == "coder":
+        raise ValueError(
+            "mesh= requires backend='kernel' or 'two_pass': the coder "
+            "backend decodes inside the sequential model scan, so there is "
+            "neither a fused program nor a pass 2 to place on a mesh")
+    if mesh is not None and backend == "two_pass" and lane_probes:
+        raise ValueError(
+            "lane_probes requires mesh=None: the sharded decode does not "
+            "aggregate per-lane counters across devices")
+    dev = _on_device(model, _mesh_device(mesh, device))
+    slab_in = isinstance(chunks, bitstream.ContainerSlab)
+    n_have, lanes = (chunks.offset.shape if slab_in
+                     else chunks.buf.shape[:2])
+    coder.check_chunk_count(n_have, n_symbols, chunk_size)
+    if backend == "kernel" and pchunked.lane_mesh_usable(mesh, lanes, _FUSED):
         if slab_in:
-            return ops.rans_decode_chunked(
-                n_symbols=n_symbols, tbl=tables, chunk_size=chunk_size,
-                prob_bits=prob_bits, candidates=planes[2],
-                lane_probes=lane_probes, from_container=chunks)
-        dense = bitstream.ChunkedLanes(*(a.to(dev) for a in chunks[:3]))
-        return ops.rans_decode_chunked(
-            dense, n_symbols, tables, chunk_size, prob_bits=prob_bits,
+            chunks = bitstream.slab_to_chunked(chunks, dev)
+        r0, r1 = mesh.slab(lanes)
+        local = bitstream.ChunkedLanes(*(a[:, r0:r1].to(dev)
+                                         for a in chunks[:3]))
+        out = _walk_chunks(model, local, r1 - r0, n_symbols, chunk_size,
+                           prob_bits, topk, backend, None, dev)
+        sym, lane_sum, under = _placed_lanes(mesh, *out)
+        coder._check_exhausted(under, "lm_decompress_chunked")
+        return _decoded(sym, lane_sum, lanes, n_symbols, lane_probes)
+    if backend == "two_pass":
+        planes = _plane_buffers(lanes, n_symbols, model.cfg.vocab_size, topk,
+                                dev)
+        _walk_chunks(model, chunks, lanes, n_symbols, chunk_size, prob_bits,
+                     topk, "coder", planes, dev)
+        # pass 2: B4 straight off a ContainerSlab, B3 on dense chunks, on
+        # the chunk mesh when given
+        if not slab_in:
+            chunks = bitstream.ChunkedLanes(*(a.to(dev) for a in chunks[:3]))
+        return pchunked.decode_chunked(
+            chunks, n_symbols, spc.FreqCdf(*planes[:2]), chunk_size,
+            mesh=mesh, prob_bits=prob_bits, backend="kernel",
             candidates=planes[2], lane_probes=lane_probes)
+    sym, lane_sum, under = _walk_chunks(model, chunks, lanes, n_symbols,
+                                        chunk_size, prob_bits, topk, backend,
+                                        None, dev)
     coder._check_exhausted(under, "lm_decompress_chunked")
-    return _decoded(torch.cat(outs, dim=1), lane_sum, lanes, n_symbols,
-                    lane_probes)
+    return _decoded(sym, lane_sum, lanes, n_symbols, lane_probes)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,12 @@ inside a larger batch can round differently (``PERF.md`` §7).  The engine
 therefore runs the model per live slot as a
 :class:`~repro_torch.models.RowGroup` at the single-request path's shapes:
 GEMMs of ``lanes`` rows, attention over the request's own ring length.
+
+Placement: on a ``("lanes",)`` mesh (``parallel.chunked.lane_mesh``) each
+rank owns whole slots, slot ``i`` on rank ``i * size // slots``, and holds
+only their rows of the model state; every rank runs the same admission
+and gathers each retiring request's result from its owner, so ``run()``
+returns the same results on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import bitstream, coder, constants as C, spc, u32
 from repro_torch.core.predictors import model_topk_candidates
@@ -53,8 +60,9 @@ from repro_torch.models import (PrefillUnsupportedError, RowGroup,
                                 can_prefill, decode_step, init_state,
                                 prefill_chunk, reset_rows, ring_length,
                                 state_spec, wrap_length)
-from repro_torch.serve.compress import (BOS, _on_device, step_probs,
-                                        teacher_forced_scan)
+from repro_torch.parallel.chunked import lane_mesh_usable
+from repro_torch.serve.compress import (BOS, _mesh_device, _on_device,
+                                        step_probs, teacher_forced_scan)
 
 __all__ = ["BOS", "MODE_IDLE", "MODE_COMPRESS", "MODE_DECOMPRESS",
            "BatchEngine", "EngineQueueFullError", "RequestOverflowError",
@@ -230,9 +238,19 @@ class BatchEngine:
     :class:`~repro_torch.models.PrefillUnsupportedError` at construction
     when the config cannot prefill (the recurrent families: ``"auto"``
     steps down to the step loop there).  ``prefill_cycles`` counts prefill
-    cycles.  The reference's ``mesh`` (lane placement) and ``interpret``
-    (TPU) arguments have no counterpart here; ``device`` is the model's
-    device (the card unless given, raising without one).
+    cycles.  ``device`` is the model's device (the card unless given,
+    raising without one); the reference's ``interpret`` (TPU) has no
+    counterpart here.
+
+    ``mesh``: an optional ``("lanes",)`` mesh placing whole slots over its
+    ranks (slot ``i`` on rank ``i * size // slots``): each rank steps only
+    its slots, in a state of only their rows (``parallel.chunked.
+    state_rows``' pin), on the mesh's device, and the owner of a retiring
+    request sends its result to every rank.  The mesh is used only where
+    ``slots % size == 0`` (the reference's ``rows % size`` would split a
+    slot's lanes, whose GEMMs then price at another row count); otherwise
+    the single-device program runs.  Every rank submits the same requests
+    and calls ``run()``; with ``clock="wall"`` rank 0's clock decides.
     """
 
     def __init__(self, model, *, slots: int = 4, lanes: int = 8,
@@ -240,7 +258,7 @@ class BatchEngine:
                  cap: int | None = None, prob_bits: int = C.PROB_BITS,
                  topk: int = 4, max_queue: int = 64,
                  step_backend: str = "coder", prefill: str = "auto",
-                 device=None):
+                 device=None, mesh=None):
         if step_backend not in ("coder", "kernel"):
             raise ValueError(f"unknown step backend {step_backend!r}")
         if prefill not in ("auto", "off", "force"):
@@ -254,12 +272,21 @@ class BatchEngine:
                 "family carries sequential state and has no block-parallel "
                 "prefill; use prefill='auto' (steps down to the step loop) "
                 "or 'off'")
-        self.device = _on_device(model, device)
+        placed = lane_mesh_usable(
+            mesh, slots * lanes,
+            what="batched engine (its slots x lanes rows)") and \
+            slots % mesh.size == 0
+        self.mesh = mesh if placed else None
+        self.device = _on_device(model, _mesh_device(mesh, device))
         self.model = model
         self.cfg = cfg
         self.slots = slots
         self.lanes = lanes
         self.rows = slots * lanes
+        # this rank's slots [s0, s1) and their rows, the rows of its state
+        self._s0, self._s1 = (self.mesh.slab(slots) if placed
+                              else (0, slots))
+        self.local_rows = (self._s1 - self._s0) * lanes
         self.chunk_size = chunk_size
         self.max_len = 4 * chunk_size if max_len is None else max_len
         # every decompress chunk cell must fit this stream window
@@ -273,8 +300,8 @@ class BatchEngine:
         self.state_spec = state_spec(cfg)
         self.ring_len = ring_length(cfg, self.max_len)
         self._wrap_len = wrap_length(cfg, self.max_len)
-        self._state = init_state(model, self.rows, self.max_len)
-        self._tok = torch.full((self.rows, 1), BOS, dtype=torch.int64,
+        self._state = init_state(model, self.local_rows, self.max_len)
+        self._tok = torch.full((self.local_rows, 1), BOS, dtype=torch.int64,
                                device=self.device)
         self._slots: list[_Req | None] = [None] * slots
         self._queue: list[_Req] = []
@@ -283,6 +310,13 @@ class BatchEngine:
         self.admission_log: list[tuple[int, int, int]] = []
         self.prefill_cycles = 0
         self._prefill = prefill in ("auto", "force") and can_prefill(cfg)
+
+    def _owns(self, s: int) -> bool:
+        return self._s0 <= s < self._s1
+
+    def _row0(self, s: int) -> int:
+        """Slot ``s``'s first row in this rank's state."""
+        return (s - self._s0) * self.lanes
 
     # -- admission --------------------------------------------------------
 
@@ -389,12 +423,13 @@ class BatchEngine:
             self.admission_log.append((pick.rid, s, cycle))
 
     def _build_cycle(self) -> _Cycle | None:
-        """Host half of a cycle: rows-form inputs for every live slot.
+        """Host half of a cycle: rows-form inputs for every live slot this
+        rank owns (every rank advances every live slot's schedule).
 
         Decompress slots right-align the chunk's per-lane spans straight
         out of the parsed payload slab into the stream window.  Returns
         None when no slot has steps to run."""
-        B, S, cap = self.rows, self.chunk_size, self.cap
+        B, S, cap = self.local_rows, self.chunk_size, self.cap
         host = dict(pos0=np.zeros(B, np.int64), mode=np.zeros(B, np.int64),
                     n_valid=np.zeros(B, np.int64),
                     tf=np.zeros((B, S), np.int64),
@@ -410,9 +445,14 @@ class BatchEngine:
             # the chunk: both take the step loop
             if req.kind != "compress" or req.n_symbols > self.ring_len:
                 prefillable = False
-            r0, r1 = s * self.lanes, (s + 1) * self.lanes
             n_c = min(S, req.n_symbols - req.pos)
             c = req.pos // S
+            spec.append((req.rid, s, c, n_c, req.pos + n_c >= req.n_symbols))
+            if not self._owns(s):
+                req.pos += n_c
+                continue
+            r0 = self._row0(s)
+            r1 = r0 + self.lanes
             if req.pos == 0:
                 fresh.append(s)
             groups.append(RowGroup(r0, r1, min(req.n_symbols,
@@ -431,13 +471,13 @@ class BatchEngine:
                     o, n = int(slab.offset[c, lane]), int(slab.length[c, lane])
                     host["buf"][r0 + lane, cap - n:] = payload[o:o + n]
                     host["start"][r0 + lane] = cap - n
-            spec.append((req.rid, s, c, n_c, req.pos + n_c >= req.n_symbols))
             req.pos += n_c
         if not spec:
             return None
         return _Cycle(spec=spec, groups=tuple(groups), fresh=fresh,
                       comp=comp, prefill=prefillable,
-                      steps=max(n for *_, n, _ in spec), host=host)
+                      steps=max((n for _, s, _, n, _ in spec
+                                 if self._owns(s)), default=0), host=host)
 
     def _upload(self, host: dict) -> dict:
         """Host arrays -> device tensors without waiting for the card: from
@@ -452,17 +492,22 @@ class BatchEngine:
         """Device half: enqueue the cycle (the prefill chunk when every live
         slot is an unwrapped compress request, the step loop otherwise),
         then the compress slots' tables and chunk encodes.  Nothing here
-        waits for the card."""
+        waits for the card.  A rank that owns no live slot of the cycle
+        enqueues nothing."""
+        if cyc.prefill:
+            self.prefill_cycles += 1
+        if not cyc.groups:
+            return cyc.spec, None, {}
         dev = self._upload(cyc.host)
         guard = (torch.cuda.set_sync_debug_mode if self.check_sync
                  and self.device.type == "cuda" else None)
         with _sync_debug(guard):
             L = self.lanes
             for s in cyc.fresh:           # a fresh admit is a zero state
-                reset_rows(self._state, s * L, (s + 1) * L)
-                self._tok[s * L:(s + 1) * L] = BOS
+                r0 = self._row0(s)
+                reset_rows(self._state, r0, r0 + L)
+                self._tok[r0:r0 + L] = BOS
             if cyc.prefill:
-                self.prefill_cycles += 1
                 probs, out = self._prefill_body(cyc, dev)
             else:
                 probs, out = self._step_body(cyc, dev)
@@ -487,7 +532,8 @@ class BatchEngine:
         kernel = self.step_backend == "kernel"
         n_valid, pos0, tf = dev["n_valid"], dev["pos0"], dev["tf"]
         has_dec = len(cyc.comp) < len(cyc.spec)
-        probs_buf = (torch.empty((S, self.rows, vocab), dtype=torch.bfloat16,
+        probs_buf = (torch.empty((S, self.local_rows, vocab),
+                                 dtype=torch.bfloat16,
                                  device=self.device) if cyc.comp else None)
         out = None
         if has_dec:
@@ -496,11 +542,12 @@ class BatchEngine:
                 buf, dev["start"], None))
             s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
             is_comp = (dev["mode"] == MODE_COMPRESS)[:, None]
-            syms, probes, unders = (torch.zeros((S, self.rows),
+            syms, probes, unders = (torch.zeros((S, self.local_rows),
                                                 dtype=torch.int32,
                                                 device=self.device)
                                     for _ in range(3))
-        n_of = [n_c for _, _, _, n_c, _ in cyc.spec]     # per group
+        n_of = [n_c for _, s, _, n_c, _ in cyc.spec     # per group
+                if self._owns(s)]
         tok = self._tok
         for t in range(S):
             active = n_valid > t
@@ -556,7 +603,8 @@ class BatchEngine:
             return {}
         L, vocab, pb = self.lanes, self.cfg.vocab_size, self.prob_bits
         kernel = self.step_backend == "kernel"
-        rows = torch.stack([probs[:, s * L:(s + 1) * L] for s in cyc.comp])
+        r0 = {s: self._row0(s) for s in cyc.comp}
+        rows = torch.stack([probs[:, r0[s]:r0[s] + L] for s in cyc.comp])
         flat = rows.reshape(-1, vocab)
         tables = (ops.spc_quantize_tables(flat, pb) if kernel
                   else spc.tables_from_probs(flat, pb))
@@ -566,7 +614,7 @@ class BatchEngine:
         for j, s in enumerate(cyc.comp):
             n_c = n_of[s]
             tbl = spc.TableSet(*(a[j, :n_c] for a in planes))
-            sym = dev["tf"][s * L:(s + 1) * L, :n_c]
+            sym = dev["tf"][r0[s]:r0[s] + L, :n_c]
             cap = self._slots[s].cap
             encs[s] = (ops.rans_encode(sym, tbl, cap=cap) if kernel
                        else coder.encode(sym, tbl, cap=cap))
@@ -577,20 +625,25 @@ class BatchEngine:
         waits for this cycle only).  A cap overflow or a decode over-read
         retires its request with a named error; the slot frees, an
         already-enqueued follow-up chunk of the failed request is dropped
-        at its own finalize, and no other row is touched."""
+        at its own finalize, and no other row is touched.  On a mesh each
+        rank harvests its own slots, then every rank takes every
+        retirement from its owner."""
         spec, out, encs = inflight
         host = None
+        retired: dict[int, RequestResult] = {}
         for rid, s, c, n_c, last in spec:
             req = self._slots[s]
-            if req is None or req.rid != rid or rid in results:
-                continue        # retired mid-flight (failed upstream chunk)
-            r0, r1 = s * self.lanes, (s + 1) * self.lanes
+            if req is None or req.rid != rid or rid in results \
+                    or not self._owns(s):
+                continue        # retired mid-flight, or another rank's slot
+            r0 = self._row0(s)
+            r1 = r0 + self.lanes
             if req.kind == "compress":
                 enc = bitstream.EncodedLanes(
                     *(a.cpu().numpy() for a in encs[s]))
                 if enc.overflow.any():
                     cells = np.nonzero(enc.overflow)[0].tolist()
-                    self._retire(req, now, results, error=RequestOverflowError(
+                    retired[rid] = self._result(req, now, RequestOverflowError(
                         f"request {rid}: encode overflow in chunk {c} "
                         f"(lanes {cells}): the per-request byte budget "
                         f"(cap={req.cap}) truncated the stream; resubmit "
@@ -603,22 +656,29 @@ class BatchEngine:
                 syms, probes, unders, head = host
                 und = unders[:n_c, r0:r1].any(0) | head[r0:r1]
                 if und.any():
-                    self._retire(req, now, results,
-                                 error=coder.StreamExhaustedError(
-                        f"request {rid}: decode over-read in chunk {c} "
-                        f"(lanes {np.nonzero(und)[0].tolist()}): a lane's "
-                        "stream ran out of bytes mid-decode; the container "
-                        "is truncated or was produced with a different "
-                        "geometry"))
+                    retired[rid] = self._result(
+                        req, now, coder.StreamExhaustedError(
+                            f"request {rid}: decode over-read in chunk {c} "
+                            f"(lanes {np.nonzero(und)[0].tolist()}): a "
+                            "lane's stream ran out of bytes mid-decode; the "
+                            "container is truncated or was produced with a "
+                            "different geometry"))
                     continue
                 req.out_syms.append(syms[:n_c, r0:r1].T.astype(np.int32))
                 lp = probes[:n_c, r0:r1].sum(0, dtype=np.int64)
                 req.probes = lp if req.probes is None else req.probes + lp
             if last:
-                self._retire(req, now, results)
+                retired[rid] = self._result(req, now)
+        if self.mesh is not None and self.mesh.size > 1:
+            parts = [None] * self.mesh.size
+            dist.all_gather_object(parts, retired, group=self.mesh.group)
+            retired = {k: v for part in parts for k, v in part.items()}
+        for rid, res in retired.items():
+            results[rid] = res
+            self._slots[res.slot] = None
 
-    def _retire(self, req: _Req, now: float, results: dict,
-                error: Exception | None = None):
+    def _result(self, req: _Req, now: float,
+                error: Exception | None = None) -> RequestResult:
         res = RequestResult(rid=req.rid, kind=req.kind, ok=error is None,
                             error=error, n_symbols=req.n_symbols,
                             probes=0 if req.probes is None
@@ -634,8 +694,20 @@ class BatchEngine:
                     prob_bits=self.prob_bits)
             else:
                 res.tokens = np.concatenate(req.out_syms, axis=1)
-        results[req.rid] = res
-        self._slots[req.slot] = None
+        return res
+
+    def _clock(self, t0: float, wall: bool, vnow: float) -> float:
+        """The cycle's time: the cycle clock, or the wall clock since the
+        run began (rank 0's on a mesh, so every rank admits alike)."""
+        if not wall:
+            return vnow
+        now = time.monotonic() - t0
+        if self.mesh is not None and self.mesh.size > 1:
+            box = [now]
+            dist.broadcast_object_list(box, src=self.mesh.global_rank(0),
+                                       group=self.mesh.group)
+            now = box[0]
+        return now
 
     # -- run loop ---------------------------------------------------------
 
@@ -661,7 +733,7 @@ class BatchEngine:
         vnow, cycle = 0.0, 0
         inflight = None
         while self._queue or any(self._slots) or inflight is not None:
-            now = time.monotonic() - t0 if wall else vnow
+            now = self._clock(t0, wall, vnow)
             if inflight is not None and self._queue \
                     and any(last for *_, last in inflight[0]):
                 self._finalize(inflight, now, results)
@@ -670,7 +742,7 @@ class BatchEngine:
             built = self._build_cycle()
             nxt = self._launch(built) if built is not None else None
             if inflight is not None:
-                now = time.monotonic() - t0 if wall else vnow
+                now = self._clock(t0, wall, vnow)
                 self._finalize(inflight, now, results)
             inflight = nxt
             if nxt is None and inflight is None and self._queue:

@@ -14,7 +14,9 @@ restores in the other:
   scalars), each ``<path>`` a leaf of the reference's parameter tree
   (``params.stages.s0.b0_attn.attn.wq`` of shape ``(reps, D, H, Dh)``),
   mapped from the port's parameter names by
-  :func:`repro_torch.models.convert.leaf_paths`;
+  :func:`repro_torch.models.convert.leaf_paths`; a state with the
+  cross-pod step's residuals (``TrainState.error``) adds
+  ``error.<path>`` (float32), as the reference writes its ``error`` tree;
 * any other tree of tensors or arrays (dicts, tuples, NamedTuples) is
   flattened as the reference flattens it.
 
@@ -49,12 +51,12 @@ _V2 = np.dtype("V2")
 
 
 class _RefState(NamedTuple):
-    """The reference's ``TrainState`` fields that a checkpoint holds
-    (its ``error`` is None and skipped)."""
+    """The reference's ``TrainState``; an ``error`` of None is skipped."""
 
     params: dict
     opt: "_RefOpt"
     step: np.ndarray
+    error: dict | None = None
 
 
 class _RefOpt(NamedTuple):
@@ -101,7 +103,9 @@ def _reference_tree(state) -> _RefState:
         opt=_RefOpt(step=_host(opt.step),
                     m=to_reference(model, opt.m, host=_host),
                     v=to_reference(model, opt.v, host=_host)),
-        step=_host(state.step))
+        step=_host(state.step),
+        error=(None if state.error is None
+               else to_reference(model, state.error, host=_host)))
 
 
 def save(ckpt_dir: str, step: int, tree, *, host_id: int = 0,
@@ -161,10 +165,13 @@ def _targets(like) -> dict:
     model = like.model
     out = {"opt.step": [(like.opt.step, None)], "step": [(like.step, None)]}
     params = dict(model.named_parameters())
+    trees = [("params", params), ("opt.m", like.opt.m),
+             ("opt.v", like.opt.v)]
+    if like.error is not None:
+        trees.append(("error", like.error))
     for name, (path, r) in leaf_paths(model).items():
         leaf = ".".join(path)
-        for prefix, tensors in (("params", params), ("opt.m", like.opt.m),
-                                ("opt.v", like.opt.v)):
+        for prefix, tensors in trees:
             out.setdefault(f"{prefix}.{leaf}", []).append((tensors[name], r))
     return out
 

@@ -15,8 +15,9 @@ flow:
   loss reaches the host (``float(metrics["loss"])``), which waits for the
   card, so the monitor times steps and not kernel launches.
 
-The reference's elastic re-mesh (``remesh``) needs the placement of the
-mesh-sharded paths and raises here.
+* **elastic re-mesh** — ``remesh`` restores a checkpoint onto a new
+  placement: a device, or a :class:`~repro_torch.parallel.Mesh` (this
+  rank's device; every rank of an SPMD run holds the whole state).
 """
 
 from __future__ import annotations
@@ -25,7 +26,12 @@ import logging
 import time
 from dataclasses import dataclass, field
 
+import torch
+
+from repro_torch.parallel import Mesh
 from repro_torch.train import checkpoint
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_loop import TrainState
 
 log = logging.getLogger("repro_torch.ft")
 
@@ -89,10 +95,36 @@ class RestartManager:
         return state
 
 
-def remesh(state, old_dir: str, step: int, new_shardings):
-    """The reference's elastic re-mesh: restore ``step`` re-sharded onto a
-    new mesh.  Not ported: it needs the mesh placement of the sharded
-    paths."""
-    raise NotImplementedError(
-        "remesh (restore onto a new device mesh) is not ported yet: it "
-        "needs the placement of ROADMAP A4")
+def _moved(tree, dev: torch.device):
+    """``tree`` (a tensor, or dicts, tuples and NamedTuples of them) with
+    every tensor on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_moved(v, dev) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(v, dev) for v in tree)
+    return tree
+
+
+def remesh(state, old_dir: str, step: int, placement):
+    """Elastic scaling: restore checkpoint ``step`` onto a new placement.
+
+    ``placement`` is a device or a :class:`~repro_torch.parallel.Mesh`
+    (this rank's device).  The like-state moves there (a ``TrainState``'s
+    model with ``nn.Module.to``, in place) and is filled from the
+    checkpoint by ``checkpoint.restore``; returns it."""
+    dev = (placement.device if isinstance(placement, Mesh)
+           else torch.device(placement))
+    if isinstance(state, TrainState):
+        opt = state.opt
+        state = TrainState(
+            model=state.model.to(dev),
+            opt=AdamWState(step=opt.step.to(dev), m=_moved(opt.m, dev),
+                           v=_moved(opt.v, dev)),
+            step=state.step.to(dev), error=_moved(state.error, dev))
+    else:
+        state = _moved(state, dev)
+    return checkpoint.restore(old_dir, step, state)

@@ -5,8 +5,15 @@ Port of ``repro.train.train_loop``.
 ``make_train_step(cfg)`` returns ``step(state, batch) -> (state,
 metrics)``; the step runs where the model lives (the card, unless the
 model was built on the CPU), moves the batch there, and writes the updated
-parameters into the model in place.  The reference's cross-pod compressed
-gradient reduce (``compress_crosspod=True``) is not ported.
+parameters into the model in place.
+
+``compress_crosspod=True`` with ``mesh=parallel.collectives.pod_mesh()``
+is the cross-pod step, SPMD over the pod ranks: every rank is called with
+the same global batch, computes its pod's gradients on its slab of the
+batch rows, and reduces them with the int8 error-feedback
+``compressed_psum_tree`` (the residuals ride in ``TrainState.error``); the
+loss is the ranks' mean.  Clip, learning rate and AdamW then run as in the
+plain step, on every rank alike.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, loss_fn
+from repro_torch.parallel.collectives import (compressed_psum_tree,
+                                              init_error_tree, pmean)
 from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          adamw_update, as_dtype,
                                          clip_by_global_norm, cosine_lr)
@@ -28,15 +37,20 @@ class TrainState(NamedTuple):
     model: LM               # its parameters are the trained parameters
     opt: AdamWState
     step: torch.Tensor      # () int32
+    error: dict | None = None   # compression error-feedback residuals
 
 
-def init_train_state(model: LM, moment_dtype=None) -> TrainState:
+def init_train_state(model: LM, moment_dtype=None,
+                     with_error: bool = False) -> TrainState:
     """AdamW moments in ``moment_dtype`` (default: the model config's
-    ``moment_dtype``) and step 0."""
+    ``moment_dtype``) and step 0; ``with_error`` adds the cross-pod step's
+    float32 error-feedback residuals (zeros, by parameter name)."""
     if moment_dtype is None:
         moment_dtype = model.cfg.moment_dtype
-    opt = adamw_init(dict(model.named_parameters()), moment_dtype)
-    return TrainState(model=model, opt=opt, step=torch.zeros_like(opt.step))
+    params = dict(model.named_parameters())
+    opt = adamw_init(params, moment_dtype)
+    return TrainState(model=model, opt=opt, step=torch.zeros_like(opt.step),
+                      error=init_error_tree(params) if with_error else None)
 
 
 def _on_model(model: LM, batch: dict) -> dict:
@@ -102,23 +116,49 @@ def _check_step_cfg(cfg: ModelConfig, model_cfg: ModelConfig) -> None:
                          f"{diff}: only grad_accum may differ")
 
 
+def _pod_shard(batch: dict, mesh) -> dict:
+    """This pod's rows of every batch plane (the batch's first axis cut
+    into ``mesh.size`` equal slabs)."""
+    b = next(iter(batch.values())).shape[0]
+    if b % mesh.size:
+        raise ValueError(f"batch {b} does not split over {mesh.size} pods")
+    r0, r1 = mesh.slab(b)
+    return {k: v[r0:r1] for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     max_grad_norm: float = 1.0,
-                    compress_crosspod: bool = False):
+                    compress_crosspod: bool = False, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with
     metrics ``{"loss", "grad_norm", "lr"}`` as device scalars (no host
     sync).  ``cfg`` must be the model's config, its ``grad_accum`` aside
     (the step splits the batch into ``cfg.grad_accum`` microbatches);
     the step raises otherwise.  The learning rate of step ``i`` is
-    ``cosine_lr(i)`` (zero at step 0, the reference's warmup)."""
-    if compress_crosspod:
-        raise NotImplementedError(
-            "compress_crosspod (the cross-pod int8 gradient reduce) is not "
-            "ported yet: it needs the placement of ROADMAP A4")
+    ``cosine_lr(i)`` (zero at step 0, the reference's warmup).
+
+    ``compress_crosspod=True`` needs ``mesh``, a ``("pod",)`` mesh
+    (``parallel.collectives.pod_mesh``), and a state with ``error``
+    (``init_train_state(model, with_error=True)``); the model lives on the
+    mesh's device.  Every pod rank calls the step with the same batch."""
+    if compress_crosspod and (mesh is None or mesh.axis != "pod"):
+        raise ValueError("compress_crosspod requires the multi-pod mesh: "
+                         "pass mesh=parallel.collectives.pod_mesh()")
 
     def train_step(state: TrainState, batch: dict):
         _check_step_cfg(cfg, state.model.cfg)
-        loss, grads = _grads(state.model, batch, cfg.grad_accum)
+        if compress_crosspod:
+            if state.error is None:
+                raise ValueError(
+                    "compress_crosspod keeps error-feedback residuals in "
+                    "TrainState.error: build the state with "
+                    "init_train_state(model, with_error=True)")
+            loss, grads = _grads(state.model, _pod_shard(batch, mesh),
+                                 cfg.grad_accum)
+            grads, error = compressed_psum_tree(grads, mesh, state.error)
+            loss = pmean(loss, mesh)
+        else:
+            loss, grads = _grads(state.model, batch, cfg.grad_accum)
+            error = state.error
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         lr = cosine_lr(state.step, base_lr=base_lr)
         params = dict(state.model.named_parameters())
@@ -126,7 +166,7 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(new_params[k])
-        return (TrainState(state.model, opt, state.step + 1),
+        return (TrainState(state.model, opt, state.step + 1, error),
                 {"loss": loss, "grad_norm": gnorm, "lr": lr})
 
     return train_step

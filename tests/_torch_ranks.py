@@ -1,0 +1,444 @@
+"""Rank workers of the port's multi-rank CPU tests: torch and the port
+only, never JAX.
+
+    python tests/_torch_ranks.py <suite> <rank> <world> <store> <out>
+
+Each rank pins torch to one thread, joins a gloo group of ``world`` ranks
+over the ``FileStore`` at ``store`` (no TCP store: gloo's own pairs run over
+loopback) with a 60 s timeout, runs the suite and writes its results to
+``<out>/rank<rank>.npz``: the arrays every rank returns, and for each case
+that must raise, the error as ``"<type>: <message>"``.  The test files
+spawn the ranks with :class:`RankJob`, which waits with a timeout and kills them all if any rank fails or hangs, then compare the ranks' results
+with each other and with JAX's on the same seeded inputs (built here with
+numpy, so both sides see the same cases).  A suite can also run in the
+test's own process on a world-1 group: call it with ``rank=0, world=1``.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+# the chunked cases: 4 full chunks of 16 and a ragged tail of 6
+K, LANES, T, CHUNK, TOPK = 40, 4, 70, 16, 2
+LAYOUTS = ("static", "perpos", "lane")
+# a small bench_chunked grid: 4 and 2 full chunks, and one ragged chunk
+BENCH_POINT = dict(t=256, chunk_sizes=(64, 128, 512), lane_counts=(8,))
+# the LM cases: ras-pimc SMOKE, 4 lanes x 40 tokens, chunk 16
+LM_LANES, LM_T, LM_CHUNK = 4, 40, 16
+
+
+def chunk_case(layout: str, seed: int, t: int = T):
+    """Seeded ``(probs, symbols (lanes, t), candidates (t, lanes, TOPK))``:
+    probabilities for a static ``(K,)``, per-position ``(t, K)`` or
+    per-lane ``(t, lanes, K)`` table."""
+    from repro_torch.data.pipeline import candidate_planes
+    rng = np.random.default_rng(seed)
+    shape = {"static": (), "perpos": (t,), "lane": (t, LANES)}[layout]
+    probs = rng.dirichlet(np.full(K, 0.5), size=shape or None).astype(
+        np.float32)
+    syms = rng.integers(0, K, (LANES, t)).astype(np.int32)
+    return probs, syms, candidate_planes(syms, K, TOPK, 0.6, seed=seed)
+
+
+def truncate_last_chunk(buf, start, length, d: int):
+    """Drop ``d`` tail bytes from every lane of the last chunk (the bytes
+    its decode reads last), keeping the right-aligned layout."""
+    buf, start, length = (np.array(np.asarray(a)) for a in
+                          (buf, start, length))
+    c, cap = buf.shape[0] - 1, buf.shape[2]
+    for lane in range(buf.shape[1]):
+        row = buf[c, lane].copy()
+        buf[c, lane] = 0
+        buf[c, lane, start[c, lane] + d:] = row[start[c, lane]:cap - d]
+    start[c] += d
+    length[c] -= d
+    return buf, start, length
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _error(fn) -> np.ndarray:
+    """``"<type>: <message>"`` of what ``fn()`` raises, ``""`` if nothing."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the test reads the type
+        return np.array(f"{type(e).__name__}: {e}")
+    return np.array("")
+
+
+def _put(res: dict, key: str, out) -> None:
+    """A decode's ``(symbols, avg[, lane probes])`` or an encode's planes
+    under ``key/<field>``."""
+    names = (out._fields if hasattr(out, "_fields")
+             else ("sym", "avg", "lane_probes")[:len(out)])
+    for name, a in zip(names, out):
+        res[f"{key}/{name}"] = _np(a)
+
+
+# ---------------------------------------------------------------------------
+# suites
+# ---------------------------------------------------------------------------
+
+def chunked_suite(rank: int, world: int) -> dict:
+    """``parallel.encode_chunked`` / ``decode_chunked`` on a chunk mesh of
+    ``world`` ranks: each layout and backend, with candidates, from dense
+    chunks and from a ``ContainerSlab``, a predictor, an indivisible chunk
+    count, an undersized cap and a truncated stream; ``bench_chunked``
+    with a process group up."""
+    import torch
+    from repro_torch.benchmarks import bench_chunked
+    from repro_torch.core import bitstream, predictors, spc
+    from repro_torch.parallel import chunked as pc
+
+    mesh = pc.chunk_mesh(device="cpu")
+    res = {"size": np.array(mesh.size), "rank": np.array(mesh.rank)}
+    for i, layout in enumerate(LAYOUTS):
+        probs, syms, cands = chunk_case(layout, 70 + i)
+        tbl = spc.tables_from_probs(torch.as_tensor(probs))
+        sym_t, cand_t = torch.as_tensor(syms), torch.as_tensor(cands)
+        for be in ("coder", "kernel"):
+            key = f"{layout}/{be}"
+            ch = pc.encode_chunked(sym_t, tbl, CHUNK, mesh=mesh, backend=be)
+            _put(res, f"{key}/enc", ch)
+            _put(res, f"{key}/dec", pc.decode_chunked(
+                ch, T, tbl, CHUNK, mesh=mesh, backend=be,
+                candidates=cand_t, lane_probes=True))
+            blob = bitstream.pack_chunked(*ch, chunk_size=CHUNK,
+                                          n_symbols=T)
+            _put(res, f"{key}/slab", pc.decode_chunked(
+                bitstream.parse_chunked(blob), T, tbl, CHUNK, mesh=mesh,
+                backend=be, candidates=cand_t, lane_probes=True))
+    probs, syms, _ = chunk_case("static", 80)
+    tbl = spc.tables_from_probs(torch.as_tensor(probs))
+    sym_t = torch.as_tensor(syms)
+    for be in ("coder", "kernel"):
+        ch = pc.encode_chunked(sym_t, tbl, CHUNK, mesh=mesh, backend=be)
+        _put(res, f"predictor/{be}/dec", pc.decode_chunked(
+            ch, T, tbl, CHUNK, mesh=mesh, backend=be, lane_probes=True,
+            predictor=predictors.NeighborAverage(2, 4)))
+        # 3 full chunks of 20: placed on one rank only, else the fallback
+        ch = pc.encode_chunked(sym_t, tbl, 20, mesh=mesh, backend=be)
+        _put(res, f"indivisible/{be}/enc", ch)
+        _put(res, f"indivisible/{be}/dec", pc.decode_chunked(
+            ch, T, tbl, 20, mesh=mesh, backend=be, lane_probes=True))
+        _put(res, f"overflow/{be}/enc", pc.encode_chunked(
+            sym_t, tbl, CHUNK, mesh=mesh, cap=12, backend=be))
+    # 4 full chunks, the last one truncated by 2 bytes a lane
+    probs, syms, _ = chunk_case("static", 81, t=64)
+    tbl = spc.tables_from_probs(torch.as_tensor(probs))
+    for be in ("coder", "kernel"):
+        ch = pc.encode_chunked(torch.as_tensor(syms), tbl, CHUNK, mesh=mesh,
+                               backend=be)
+        _put(res, f"truncated/{be}/dec", pc.decode_chunked(
+            ch, 64, tbl, CHUNK, mesh=mesh, backend=be))
+        cut = bitstream.ChunkedLanes(*(torch.as_tensor(a) for a in
+                                       truncate_last_chunk(*ch[:3], 2)))
+        res[f"truncated/{be}/error"] = _error(lambda: pc.decode_chunked(
+            cut, 64, tbl, CHUNK, mesh=mesh, backend=be))
+    for p in bench_chunked.run(**BENCH_POINT, device="cpu", warmup=False):
+        res[f"bench/{p['name']}/devices"] = np.array(p["devices"])
+        res[f"bench/{p['name']}/bits"] = np.array(p["bits_per_symbol"])
+    return res
+
+
+def _smoke_model():
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.models import init_model
+    return init_model(SMOKE, seed=0, device="cpu")
+
+
+def lm_tokens(seed: int = 17) -> np.ndarray:
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.data.pipeline import token_stream
+    return token_stream(SMOKE.vocab_size, (LM_LANES, LM_T), seed=seed)
+
+
+def engine_tokens() -> list[np.ndarray]:
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.data.pipeline import token_stream
+    return [token_stream(SMOKE.vocab_size, (2, t), seed=50 + i)
+            for i, t in enumerate((20, 12, 16))]
+
+
+def lm_suite(rank: int, world: int) -> dict:
+    """The LM paths on a lane mesh and a chunk mesh of ``world`` ranks:
+    compress priced per lane slab (monolithic and chunked), the fused
+    decode of those containers and of the unplaced container, two-pass
+    pass 2 on the chunk mesh, the reference's refusals, a truncated
+    container, and ``BatchEngine(mesh=)`` (placed at ``slots=2``, the
+    fallback at ``slots=1``; the cycle clock and the wall clock)."""
+    import torch
+    from repro_torch.core import bitstream
+    from repro_torch.parallel import chunked as pc
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    model = _smoke_model()
+    lane, chunk = pc.lane_mesh(device="cpu"), pc.chunk_mesh(device="cpu")
+    toks = lm_tokens()
+    res = {}
+    whole = compress.lm_compress_chunked(model, toks, LM_CHUNK,
+                                         backend="kernel", device="cpu")
+    _put(res, "whole", whole.chunks)
+    for be in ("coder", "kernel"):
+        st = compress.lm_compress_chunked(model, toks, LM_CHUNK, backend=be,
+                                          mesh=lane)
+        _put(res, f"placed/{be}", st.chunks)
+        res[f"placed/{be}/bits"] = _np(st.bits_per_symbol)
+    placed = compress.lm_compress_chunked(model, toks, LM_CHUNK,
+                                          backend="kernel", mesh=lane).chunks
+    _put(res, "fused/placed", compress.lm_decompress_chunked(
+        model, placed, LM_T, LM_CHUNK, backend="kernel", mesh=lane,
+        lane_probes=True))
+    blob = bitstream.pack_chunked(*whole.chunks, chunk_size=LM_CHUNK,
+                                  n_symbols=LM_T)
+    _put(res, "fused/whole_slab", compress.lm_decompress_chunked(
+        model, bitstream.parse_chunked(blob), LM_T, LM_CHUNK,
+        backend="kernel", mesh=lane, lane_probes=True))
+    _put(res, "two_pass/chunks", compress.lm_decompress_chunked(
+        model, whole.chunks, LM_T, LM_CHUNK, backend="two_pass", mesh=chunk))
+    mono = compress.lm_compress(model, toks, backend="kernel", mesh=lane)
+    _put(res, "mono/enc", mono.enc)
+    _put(res, "mono/dec", compress.lm_decompress(
+        model, mono.enc, LM_T, backend="kernel", mesh=lane,
+        lane_probes=True))
+    cut = bitstream.ChunkedLanes(*(torch.as_tensor(a) for a in
+                                   truncate_last_chunk(*placed[:3], 3)))
+    res["truncated/error"] = _error(lambda: compress.lm_decompress_chunked(
+        model, cut, LM_T, LM_CHUNK, backend="kernel", mesh=lane))
+    for key, kw in (("lane_probes", dict(backend="two_pass", mesh=chunk,
+                                         lane_probes=True)),
+                    ("chunk_mesh_fused", dict(backend="kernel", mesh=chunk)),
+                    ("coder_mesh", dict(backend="coder", mesh=chunk))):
+        res[f"refuse/{key}"] = _error(lambda: compress.lm_decompress_chunked(
+            model, whole.chunks, LM_T, LM_CHUNK, **kw))
+    res["refuse/mono_coder_mesh"] = _error(lambda: compress.lm_decompress(
+        model, mono.enc, LM_T, backend="coder", mesh=lane))
+    # the engine: two slots of 2 lanes, three compress requests (a ragged
+    # tail among them), then the first blob decompressed
+    for slots, clock in ((2, "virtual"), (2, "wall"), (1, "virtual")):
+        eng = BatchEngine(model, slots=slots, lanes=2, chunk_size=8,
+                          max_len=24, step_backend="kernel", mesh=lane)
+        key = f"engine/s{slots}/{clock}"
+        res[f"{key}/placed"] = np.array(eng.mesh is not None)
+        res[f"{key}/local_rows"] = np.array(eng.local_rows)
+        rids = [eng.submit_compress(t, arrival=float(i))
+                for i, t in enumerate(engine_tokens())]
+        out = eng.run(clock=clock)
+        for i, rid in enumerate(rids):
+            res[f"{key}/blob{i}"] = np.frombuffer(out[rid].blob, np.uint8)
+        dec = eng.submit_decompress(out[rids[0]].blob)
+        got = eng.run()[dec]
+        res[f"{key}/tokens"] = got.tokens
+        res[f"{key}/lane_probes"] = got.lane_probes
+        res[f"{key}/prefill_cycles"] = np.array(eng.prefill_cycles)
+        if clock == "virtual" and slots == 2:
+            st = pc.state_rows(eng._state, 0, eng.local_rows)
+            res[f"{key}/state_k"], res[f"{key}/state_v"] = _np(st.k), _np(
+                st.v)
+    return res
+
+
+def collectives_suite(rank: int, world: int) -> dict:
+    """``compressed_psum`` / ``compressed_psum_tree`` with this rank's
+    seeded inputs, ``pmean``, and (4 ranks) ``hierarchical_psum`` over
+    2 x 2 groups."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives as col, make_mesh
+
+    pod = col.pod_mesh(device="cpu")
+    res = {}
+    x, err = psum_inputs(rank)
+    out, new_err = col.compressed_psum(torch.as_tensor(x), pod,
+                                       torch.as_tensor(err))
+    res["psum/out"], res["psum/err"] = _np(out), _np(new_err)
+    tree, etree = tree_inputs(rank)
+    out, errs = col.compressed_psum_tree(
+        {k: torch.as_tensor(v) for k, v in tree.items()}, pod,
+        {k: torch.as_tensor(v) for k, v in etree.items()})
+    for k in tree:
+        res[f"tree/out/{k}"], res[f"tree/err/{k}"] = _np(out[k]), _np(
+            errs[k])
+    res["pmean"] = _np(col.pmean(torch.tensor(float(rank) + 0.5), pod))
+    if world == 4:
+        inner = [dist.new_group([0, 1]), dist.new_group([2, 3])][rank // 2]
+        outer = [dist.new_group([0, 2]), dist.new_group([1, 3])][rank % 2]
+        h = col.hierarchical_psum(
+            torch.arange(6, dtype=torch.float32) * (rank + 1),
+            make_mesh("data", inner, "cpu"), make_mesh("pod", outer, "cpu"))
+        res["hier"] = _np(h)
+    return res
+
+
+def psum_inputs(rank: int):
+    rng = np.random.default_rng(300 + rank)
+    return (rng.normal(size=(257,)).astype(np.float32),
+            (rng.normal(size=(257,)) * 1e-2).astype(np.float32))
+
+
+def tree_inputs(rank: int):
+    rng = np.random.default_rng(400 + rank)
+    shapes = {"a": (3, 5), "b": (17,), "c": (2, 2, 3)}
+    tree = {k: (rng.normal(size=s) * 10.0 ** -i).astype(np.float32)
+            for i, (k, s) in enumerate(shapes.items())}
+    err = {k: (rng.normal(size=s) * 1e-3).astype(np.float32)
+           for k, s in shapes.items()}
+    return tree, err
+
+
+def train_suite(rank: int, world: int) -> dict:
+    """The cross-pod train step on a pod mesh of ``world`` ranks: three
+    steps of ras-pimc SMOKE; this rank's parameters, residuals and losses,
+    its first step's pod gradients and their reduce, and whether the step
+    equals its composition (grads on the pod's rows, the reduce, clip,
+    lr, AdamW) bitwise."""
+    import torch
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.parallel import collectives as col
+    from repro_torch.train import optimizer, train_loop
+
+    pod = col.pod_mesh(device="cpu")
+    cfg = SMOKE.with_(grad_accum=1)
+    model = _smoke_model()
+    ref = _smoke_model()
+    state = train_loop.init_train_state(model, with_error=True)
+    step = train_loop.make_train_step(cfg, base_lr=1e-2,
+                                      compress_crosspod=True, mesh=pod)
+    res = {}
+    batch = train_batch(cfg, 4, 16)
+    # the composition, on a twin model
+    r0, r1 = pod.slab(4)
+    shard = {k: v[r0:r1] for k, v in batch.items()}
+    loss, grads = train_loop.grads_fn(ref, shard)
+    for k, g in grads.items():
+        res[f"grads/{k}"] = _np(g)
+    red, err = col.compressed_psum_tree(
+        grads, pod, col.init_error_tree(grads))
+    for k, g in red.items():
+        res[f"reduced/{k}"] = _np(g)
+    clipped, _ = optimizer.clip_by_global_norm(red, 1.0)
+    params = dict(ref.named_parameters())
+    ref_state = train_loop.init_train_state(ref)
+    want, _ = optimizer.adamw_update(
+        clipped, ref_state.opt, params,
+        optimizer.cosine_lr(ref_state.step, base_lr=1e-2))
+    state, m = step(state, batch)
+    got = dict(model.named_parameters())
+    res["composition_equal"] = np.array(
+        all(torch.equal(got[k], want[k]) for k in want)
+        and all(torch.equal(state.error[k], err[k]) for k in err)
+        and bool(m["loss"] == col.pmean(loss, pod)))
+    losses = [float(m["loss"])]
+    for i in (1, 2):
+        state, m = step(state, train_batch(cfg, 4, 16, step=i))
+        losses.append(float(m["loss"]))
+    res["losses"] = np.array(losses)
+    for k, p in model.named_parameters():
+        res[f"params/{k}"] = _np(p)
+        res[f"error/{k}"] = _np(state.error[k])
+    return res
+
+
+SUITES = {"chunked": chunked_suite, "lm": lm_suite,
+          "collectives": collectives_suite, "train": train_suite}
+
+
+# ---------------------------------------------------------------------------
+# launcher
+# ---------------------------------------------------------------------------
+
+class RankJob:
+    """``world`` ranks of ``suite`` running as child processes."""
+
+    def __init__(self, suite: str, world: int, tmp: Path):
+        self.suite, self.world = suite, world
+        self.out = Path(tmp) / f"{suite}{world}"
+        self.out.mkdir(parents=True)
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                     if p]))
+        self._logs = [open(self.out / f"rank{r}.log", "w")
+                      for r in range(world)]
+        self._procs = [subprocess.Popen(
+            [sys.executable, __file__, suite, str(r), str(world),
+             str(self.out / "store"), str(self.out)], env=env,
+            stdout=self._logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+
+    def results(self, timeout: float = 150.0) -> list[dict]:
+        """Wait for every rank (killing them all if one fails or the time
+        runs out) and return each rank's results."""
+        import time
+        procs = self._procs
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(
+                        p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in self._logs:
+                f.close()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            text = "\n".join(f"--- rank {r} (rc {procs[r].returncode})\n"
+                             + (self.out / f"rank{r}.log").read_text()[-3000:]
+                             for r in bad)
+            raise RuntimeError(
+                f"{self.suite} on {self.world} ranks failed:\n{text}")
+        results = []
+        for r in range(self.world):
+            with np.load(self.out / f"rank{r}.npz") as z:
+                results.append({k: z[k] for k in z.files})
+        return results
+
+
+def in_process(suite: str, tmp: Path) -> dict:
+    """``suite`` on a world-1 gloo group in this process (destroyed after)."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / f"{suite}.store"), 1),
+        rank=0, world_size=1, timeout=timedelta(seconds=60))
+    try:
+        return SUITES[suite](0, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: list[str]) -> int:
+    suite, rank, world, store, out = argv
+    rank, world = int(rank), int(world)
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=60))
+    try:
+        res = SUITES[suite](rank, world)
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

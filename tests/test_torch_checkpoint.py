@@ -367,6 +367,72 @@ def test_restart_manager_recovers_bitwise(tmp_path):
     assert checkpoint.latest_step(str(tmp_path / "fault")) == 10
 
 
-def test_remesh_waits_for_placement():
-    with pytest.raises(NotImplementedError, match="remesh"):
-        fault_tolerance.remesh(None, "", 0, None)
+def test_remesh_waits_for_placement(jstates, tmp_path):
+    """``remesh`` restores a JAX-written float32 checkpoint onto a new
+    placement (the reference's ``test_elastic_remesh``): a device, and a
+    world-1 gloo mesh (this rank's device), bitwise."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.parallel.collectives import pod_mesh
+    jstate = jstates["float32"]
+    jcheckpoint.save(str(tmp_path), 3, jstate)
+    ref, _, _ = _files(str(tmp_path), 3)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        for placement in ("cpu", pod_mesh(device="cpu")):
+            state = fault_tolerance.remesh(_fresh_port_state("float32"),
+                                           str(tmp_path), 3, placement)
+            got = {k.replace("/", "."): v for k, v in _bits(state).items()}
+            assert set(got) == set(ref)
+            for k, g in got.items():
+                assert g.tobytes() == ref[k].tobytes(), k
+            assert next(state.model.parameters()).device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
+
+
+def _with_error(jstate, seed: int):
+    """JAX's state with a seeded float32 error-feedback tree."""
+    rng = np.random.default_rng(seed)
+    err = jax.tree.map(lambda p: jnp.asarray(
+        rng.normal(size=p.shape).astype(np.float32)), jstate.params)
+    return jstate._replace(error=err)
+
+
+def test_error_tree_checkpoint_crosses_packages(jstates, tmp_path):
+    """A state with the cross-pod residuals writes ``error.<path>`` as the
+    reference does (skipped when None), and such checkpoints cross between
+    the packages in both directions bitwise; a state with residuals refuses
+    a checkpoint without them, and the reverse."""
+    jstate = _with_error(jstates["float32"], 11)
+    jcheckpoint.save(str(tmp_path / "jax"), 5, jstate)
+    ref, _, _ = _files(str(tmp_path / "jax"), 5)
+    assert sorted(k[6:] for k in ref if k.startswith("error.")) == sorted(
+        k[7:] for k in ref if k.startswith("params."))
+    model = init_model(SMOKE, seed=5, device="cpu")
+    state = train_loop.init_train_state(model, moment_dtype=torch.float32,
+                                        with_error=True)
+    checkpoint.restore(str(tmp_path / "jax"), 5, state)
+    got = {k.replace("/", "."): v for k, v in _bits(state).items()}
+    assert set(got) == set(ref)
+    for k, g in got.items():
+        assert g.tobytes() == ref[k].tobytes(), k
+    # port -> JAX: the residuals changed, so the restore must change JAX's
+    for k in state.error:
+        state.error[k].mul_(-2.0)
+    checkpoint.save(str(tmp_path / "port"), 6, state)
+    back = jcheckpoint.restore(str(tmp_path / "port"), 6, jstate)
+    want = to_reference(model, state.error)
+    for (kp, a), (_, b) in zip(
+            jax.tree_util.tree_flatten_with_path(back.error)[0],
+            jax.tree_util.tree_flatten_with_path(want)[0]):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(kp))
+    plain = _fresh_port_state("float32")
+    with pytest.raises(KeyError, match="unexpected.*error"):
+        checkpoint.restore(str(tmp_path / "port"), 6, plain)
+    checkpoint.save(str(tmp_path / "plain"), 1, plain)
+    with pytest.raises(KeyError, match="missing.*error"):
+        checkpoint.restore(str(tmp_path / "plain"), 1, state)

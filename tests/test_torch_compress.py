@@ -8,7 +8,9 @@
 * with JAX-converted params the port's cross entropy is within 1e-4 bits
   of JAX's and its payload within 1%;
 * a guard keeps ``jax`` and ``repro`` out of the port, ``chip_smoke.py``,
-  ``tools/`` and the JAX-free ``gpu`` tier ``tests/test_torch_gpu.py``.
+  ``tools/``, the JAX-free ``gpu`` tier ``tests/test_torch_gpu.py`` and
+  the multi-rank workers ``tests/_torch_ranks.py`` (``parallel/``
+  included by name).
 """
 
 import pathlib
@@ -171,9 +173,12 @@ _FORBIDDEN = re.compile(
 def test_port_never_imports_jax_or_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "tools").glob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+              ROOT / "tests" / "_torch_ranks.py"]
     assert len(files) > 10
     assert ROOT / "src" / "repro_torch" / "kernels" / "rans_decode.py" in files
+    for name in ("__init__.py", "chunked.py", "collectives.py"):
+        assert ROOT / "src" / "repro_torch" / "parallel" / name in files
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

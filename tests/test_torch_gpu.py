@@ -56,7 +56,12 @@ CPU (the encoder's memory, a forward, decode steps with memory,
 through ``train.checkpoint`` and back bitwise (float32 and bfloat16), a
 non-blocking save holding the values of its call, and the
 ``RestartManager`` recovering from an injected fault bitwise equal to an
-unbroken run.
+unbroken run.  Placement, on a world-1 NCCL group over a ``FileStore``:
+the chunk mesh's encode and decode against the single-device kernels (one
+B1 and one B3 per slab and per tail), the two-rank chunk emulation
+(``encode_slab``/``decode_slab`` in turn, stitched), the card's int8
+cross-pod reduce against a gloo CPU group's, and ``ras-pimc`` SMOKE on a
+lane mesh and a chunk mesh.
 """
 
 import copy
@@ -1483,3 +1488,154 @@ def test_gpu_restart_manager_recovers_bitwise(tmp_path):
     for k in broken.opt.m:
         assert torch.equal(broken.opt.m[k], clean.opt.m[k])
         assert torch.equal(broken.opt.v[k], clean.opt.v[k])
+
+
+# ---------------------------------------------------------------------------
+# placement: chunk and lane meshes over torch.distributed (NCCL, world 1)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl1(tmp_path):
+    """The card as a world-1 NCCL group over a ``FileStore`` (no TCP
+    store), destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+    dev = _cuda()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+        timeout=datetime.timedelta(seconds=60))
+    yield dev
+    dist.destroy_process_group()
+
+
+def _launches(fn):
+    from repro_torch.kernels import reset_launches
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in LAUNCHES.items() if v}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["static", "perpos", "lane"])
+def test_gpu_chunk_mesh_matches_single_device_kernels(nccl1, layout):
+    """``parallel.encode_chunked`` / ``decode_chunked`` on a world-1 chunk
+    mesh (4 full chunks of 128 and a tail of 40, top-4 candidates): one
+    B1 for the slab and one for the tail, byte-identical to
+    ``ops.rans_encode_chunked`` and the coder; the decode from dense
+    chunks and from the parsed container equal to the single-device B3
+    in symbols and per-lane probes."""
+    from repro_torch.parallel import chunked as pc
+    dev = nccl1
+    tt, syms = _case(layout, seed=8, k=256, lanes=128, t=4 * 128 + 40)
+    tbl = spc.TableSet(*(a.to(dev) for a in tt))
+    sym = torch.as_tensor(syms, device=dev)
+    t = sym.shape[1]
+    cands = torch.as_tensor(candidate_planes(syms, 256, 4, 0.6, seed=8),
+                            device=dev)
+    mesh = pc.chunk_mesh(device=dev)
+    enc, n = _launches(lambda: pc.encode_chunked(sym, tbl, 128, mesh=mesh,
+                                                 backend="kernel"))
+    assert n == {"rans_encode_lanes": 2}
+    _assert_planes_equal(enc, ops.rans_encode_chunked(sym, tbl, 128))
+    _assert_planes_equal(enc, coder.encode_chunked(sym, tbl, 128))
+    want = ops.rans_decode_chunked(enc, t, tbl, 128, candidates=cands,
+                                   lane_probes=True)
+    assert torch.equal(want[0], sym.to(torch.int32))
+    cs = bitstream.parse_chunked(bitstream.pack_chunked(
+        *enc, chunk_size=128, n_symbols=t))
+    for src in (enc, cs):
+        got, n = _launches(lambda: pc.decode_chunked(
+            src, t, tbl, 128, mesh=mesh, backend="kernel",
+            candidates=cands, lane_probes=True))
+        assert n == {"rans_decode_lanes": 2}
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[2], want[2])
+        assert float(got[1]) == float(want[1])
+
+
+@pytest.mark.gpu
+def test_gpu_two_rank_chunk_emulation():
+    """Ranks 0 and 1 of a 2-rank chunk mesh run in turn on the card
+    (``encode_slab``, ``decode_slab``: functions of the rank and size
+    alone) and stitched equal the single-device kernels on the full
+    chunks."""
+    from repro_torch.parallel import chunked as pc
+    dev = _cuda()
+    tt, syms = _case("lane", seed=9, k=256, lanes=128, t=512)
+    tbl = spc.TableSet(*(a.to(dev) for a in tt))
+    sym = torch.as_tensor(syms, device=dev)
+    whole = ops.rans_encode_chunked(sym, tbl, 128)
+    slabs = [pc.encode_slab(sym, tbl, 128, r, 2, backend="kernel")
+             for r in (0, 1)]
+    for a, *parts in zip(whole, *slabs):
+        assert torch.equal(a, torch.cat(parts))
+    want = ops.rans_decode_chunked(whole, 512, tbl, 128, chunk_probes=True)
+    outs = [pc.decode_slab(bitstream.ChunkedLanes(*whole[:3]), 512, tbl,
+                           128, r, 2, backend="kernel") for r in (0, 1)]
+    assert torch.equal(torch.cat([o[0] for o in outs], 1), want[0])
+    assert torch.equal(torch.cat([o[1] for o in outs]),
+                       want[2].to(torch.int64))
+    assert not bool(torch.cat([o[2] for o in outs]).any())
+
+
+@pytest.mark.gpu
+def test_gpu_int8_reduce_matches_cpu(nccl1):
+    """``compressed_psum_tree`` on the card's pod mesh equals the same
+    reduce on a gloo CPU group, bitwise (means and residuals)."""
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives as col
+    dev = nccl1
+    rng = np.random.default_rng(12)
+    grads = {k: torch.as_tensor((rng.normal(size=s) * 10.0 ** -i)
+                                .astype(np.float32))
+             for i, (k, s) in enumerate((("a", (256, 64)), ("b", (1000,)),
+                                         ("c", (3, 5, 7))))}
+    errs = {k: torch.as_tensor((rng.normal(size=g.shape) * 1e-3)
+                               .astype(np.float32)) for k, g in grads.items()}
+    card = col.compressed_psum_tree(
+        {k: g.to(dev) for k, g in grads.items()}, col.pod_mesh(device=dev),
+        {k: e.to(dev) for k, e in errs.items()})
+    host = col.compressed_psum_tree(
+        grads, col.pod_mesh(dist.new_group(backend="gloo"), device="cpu"),
+        errs)
+    for a, b in zip(card, host):
+        for k in grads:
+            assert torch.equal(a[k].cpu(), b[k]), k
+
+
+@pytest.mark.gpu
+def test_gpu_lane_mesh_smoke_roundtrip(nccl1):
+    """``ras-pimc`` SMOKE on the card on a world-1 lane mesh: the compress
+    priced per lane slab gives the unplaced container, the fused decode on
+    the mesh round-trips with the unplaced per-lane probes, two-pass pass 2
+    on a chunk mesh gives the same symbols; a chunk mesh given to the fused
+    path raises."""
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.models import init_model
+    from repro_torch.parallel import chunked as pc
+    from repro_torch.serve import compress
+    dev = nccl1
+    model = init_model(SMOKE, seed=0, device=dev)
+    toks = token_stream(SMOKE.vocab_size, (8, 48), seed=3)
+    lane, chunk = pc.lane_mesh(device=dev), pc.chunk_mesh(device=dev)
+    st = compress.lm_compress_chunked(model, toks, 16, backend="kernel")
+    placed = compress.lm_compress_chunked(model, toks, 16, backend="kernel",
+                                          mesh=lane)
+    _assert_planes_equal(placed.chunks, st.chunks)
+    want = compress.lm_decompress_chunked(model, st.chunks, 48, 16,
+                                          backend="kernel", lane_probes=True)
+    got = compress.lm_decompress_chunked(model, st.chunks, 48, 16,
+                                         backend="kernel", mesh=lane,
+                                         lane_probes=True)
+    assert np.array_equal(got[0].cpu().numpy(), toks)
+    assert torch.equal(got[2], want[2])
+    two = compress.lm_decompress_chunked(model, st.chunks, 48, 16,
+                                         backend="two_pass", mesh=chunk)
+    assert torch.equal(two[0], got[0]) and float(two[1]) == float(got[1])
+    with pytest.raises(ValueError, match="lanes"):
+        compress.lm_decompress_chunked(model, st.chunks, 48, 16,
+                                       backend="kernel", mesh=chunk)
