@@ -278,7 +278,21 @@ zero-frequency cases of 5a.
    committed ``BENCH_lanes.json``; Msym/s per lane count;
 30. ``bench_chunked`` (``chunked_phase``): all nine points' bits/symbol
    and flush overhead equal to ``BENCH_chunked.json``, B1 byte-identical
-   to the coder on each.
+   to the coder on each;
+31. the production mesh and the dry-run (``mesh_dryrun_phase``), on a
+   world-1 NCCL group: (a) ``launch.mesh.make_mesh_for(1)`` is a (1, 1)
+   ``DeviceMesh`` and ``parallel.sharding.shard_params``/``unshard`` of
+   the ``ras-pimc`` ``CONFIG`` parameters round-trip bitwise; (b)
+   ``launch.dryrun.run_cell`` of the mamba2 trainer (BF16 4 x 512), the
+   vlm trainer (5 layers, 2 x 256, two microbatches) and a ``ras-pimc``
+   trainer run here (16 x 128) on the 1 x 1 mesh gives the card's
+   parameter, gradient and AdamW-moment bytes exactly, its total printed
+   beside ``max_memory_allocated``; (c) the ``ras-pimc`` step's traced
+   FLOPs over its measured step time as a share of the 67 TFLOP/s float32
+   peak, with the card's name and power limit; (d) B3 and B4 (K = 256,
+   1,000, 4,096, 5,000) and B2 (K = 256, 32,064, 32,768, 50,280) report
+   the code path ``kernels.autotune``'s plan gives them, with and without
+   zero frequencies.  The dry-run launches no kernel (counted).
 
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
@@ -288,7 +302,8 @@ Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 the zoo rungs (``zoo_launches``), in the phi slice
 (``phi_launches``) and in phases 26-30 (``trainer_launches``,
 ``launchers_launches``, ``examples_launches``, ``lanes_launches``,
-``chunked_launches``), and B6's and B2's times at K = 50,280, K = 32,768
+``chunked_launches``), in the dry-run of phase 31 (``dryrun_launches``,
+0), and B6's and B2's times at K = 50,280, K = 32,768
 and K = 32,064.  The last
 two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits nonzero without CUDA or outside
@@ -331,20 +346,15 @@ FIG4C_VAE_STEPS, FIG4C_VAE_LR, FIG4C_VAE_CAP = 300, 1e-2, 1024
 # lane's first chunk; all 2,048 symbols cost it about 100 s of the script's
 # time limit, each position a host-bound model step
 FIG4C_FULL_T = FIG4C_CHUNK
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-# H100 SXM 32-bit integer rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
-# (the coders do integer work; the 67 TFLOP/s float32 rate counts an FMA
-# as two operations and runs on twice the lanes)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def _bound(moved: int, ops: int) -> tuple[float, str]:
     """The least time for the work, in ms, and what bounds it: the bytes
     moved over the memory rate or the integer operations over the INT32
-    rate, whichever is larger."""
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    rate, whichever is larger (``repro_torch.analysis.roofline``, the
+    port's one source of the card's published peaks)."""
+    from repro_torch.analysis.roofline import kernel_bound
+    return kernel_bound(moved, ops)
 
 
 def _median_ms(fn, repeats: int, warmup: int = 2) -> float:
@@ -2643,6 +2653,7 @@ def _mx_step(dev, model, rows: int, max_len: int, what: str):
                          repeats=20)
     _, wall_ms, busy_ms = _busy_share(lambda: [
         decode_step(model, state, tok, t) for t in range(MX_STEPS)])
+    from repro_torch.analysis.roofline import HBM_BYTES_PER_S
     moved = _step_bytes(model, rows)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     print(f"{what}: model step {step_ms:.3f} ms ({rows} rows), bound "
@@ -2812,7 +2823,8 @@ def mamba2_train_phase(dev):
     train steps on the card (losses, step time, peak memory), then its
     first step in float32 on the card and on the CPU from the same
     weights and batch: loss and gradient norm within 1e-4 relative.
-    Returns the BF16 train state (for :func:`bf16_checkpoint_phase`)."""
+    Returns the BF16 train state (for :func:`bf16_checkpoint_phase`) and
+    the trainer's cell record (:func:`_train_record`)."""
     import numpy as np
     import torch
     from repro_torch.configs.mamba2_130m import CONFIG
@@ -2827,14 +2839,18 @@ def mamba2_train_phase(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
-    for i in range(ZOO_M2_STEPS):
-        batch = train_batch(CONFIG, ZOO_M2_BATCH, ZOO_M2_SEQ, step=i)
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
+    with _grad_bytes() as grads:
+        for i in range(ZOO_M2_STEPS):
+            batch = train_batch(CONFIG, ZOO_M2_BATCH, ZOO_M2_SEQ, step=i)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
+    record = _train_record("mamba2-130m", "mamba2 trainer", ZOO_M2_BATCH,
+                           ZOO_M2_SEQ, {"grad_accum": CONFIG.grad_accum},
+                           state, grads, peak)
     _check(np.isfinite(losses).all(), f"mamba2 trainer losses {losses}")
     print(f"mamba2 trainer: {CONFIG.name} at full width ({CONFIG.n_layers} "
           f"layers, d_model {CONFIG.d_model}, vocab {CONFIG.vocab_size}, "
@@ -2864,7 +2880,7 @@ def mamba2_train_phase(dev):
           f"{ZOO_M2_CPU_SEQ}, card vs CPU: loss {got[1][0]:.6f} / "
           f"{got[0][0]:.6f}, grad norm {got[1][1]:.6f} / {got[0][1]:.6f}, "
           f"max relative difference {rel:.3e} (tolerance 1e-4)", flush=True)
-    return state
+    return state, record
 
 
 def _dz_perturb(model, seed: int) -> None:
@@ -3020,7 +3036,6 @@ ED_TRAIN_STEPS, ED_TRAIN_BATCH, ED_TRAIN_SEQ = 2, 2, 256
 # in one step (NVIDIA H100 80GB HBM3)
 ED_TRAIN_LR = 3e-4
 VLM_TRAIN_LAYERS = 5
-BF16_FLOPS_PER_S = 989e12        # H100 SXM dense BF16 tensor-core rate
 
 
 def phi_phase(dev):
@@ -3122,9 +3137,11 @@ def _ed_serve(model, prompt, memory, what: str, cross_flops: float):
     tok = prompt[:, :1]
     step_ms = _median_ms(lambda: decode_step(model, state, tok, 0,
                                              memory=memory), repeats=10)
+    from repro_torch.analysis.roofline import HBM_BYTES_PER_S, PEAK_FLOPS
+    bf16_flops_per_s = PEAK_FLOPS["bfloat16"]
     moved = _step_bytes(model, rows) + memory.numel() * memory.element_size()
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_flops = cross_flops / BF16_FLOPS_PER_S * 1e3
+    t_flops = cross_flops / bf16_flops_per_s * 1e3
     n_steps = prompt.shape[1] + ED_NEW - 1
     print(f"{what}: generate {rows} rows x {prompt.shape[1]} prompt + "
           f"{ED_NEW} new tokens (max_len {ED_MAX_LEN}) in {t_gen:.3f} s "
@@ -3133,7 +3150,7 @@ def _ed_serve(model, prompt, memory, what: str, cross_flops: float):
           f"{step_ms:.3f} ms ({rows} rows) against a byte bound of "
           f"{t_bytes:.3f} ms ({moved} B: the weights and the memory) and "
           f"{t_flops:.3f} ms for the {cross_flops:.4g} FLOP of the memory's "
-          f"K/V projections at {BF16_FLOPS_PER_S:.4g} FLOP/s", flush=True)
+          f"K/V projections at {bf16_flops_per_s:.4g} FLOP/s", flush=True)
     return out
 
 
@@ -3175,12 +3192,13 @@ def _ed_card_vs_cpu(cfg, dev, memory_cpu, what: str):
           f"diff {err:.3e} (tolerance 1e-4)", flush=True)
 
 
-def _ed_train(cfg, dev, what: str):
+def _ed_train(cfg, dev, what: str, arch: str):
     """``ED_TRAIN_STEPS`` BF16 train steps of ``ED_TRAIN_BATCH`` x
     ``ED_TRAIN_SEQ`` tokens and their memory planes (``train_batch``'s
     float32 draws, which the step casts to BF16) from the end of the lr
     warmup, two microbatches a step: finite losses, the step time and the
-    peak memory."""
+    peak memory.  Returns the trainer's cell record
+    (:func:`_train_record`)."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import train_batch
@@ -3195,15 +3213,19 @@ def _ed_train(cfg, dev, what: str):
     step = train_loop.make_train_step(cfg.with_(grad_accum=2),
                                       base_lr=ED_TRAIN_LR)
     losses, secs = [], []
-    for i in range(ED_TRAIN_STEPS):
-        batch = train_batch(cfg, ED_TRAIN_BATCH, ED_TRAIN_SEQ, step=i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
+    with _grad_bytes() as grads:
+        for i in range(ED_TRAIN_STEPS):
+            batch = train_batch(cfg, ED_TRAIN_BATCH, ED_TRAIN_SEQ, step=i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
+    record = _train_record(
+        arch, what, ED_TRAIN_BATCH, ED_TRAIN_SEQ,
+        {"grad_accum": 2, "n_layers": cfg.n_layers}, state, grads, peak)
     _check(np.isfinite(losses).all(), f"{what} losses {losses}")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{what}: {cfg.n_layers} layers ({n_params} parameters, "
@@ -3215,6 +3237,7 @@ def _ed_train(cfg, dev, what: str):
           f"{peak / 2**30:.2f} GiB", flush=True)
     del model, state, step
     torch.cuda.empty_cache()
+    return record
 
 
 def vlm_phase(dev):
@@ -3223,7 +3246,8 @@ def vlm_phase(dev):
     memory: greedy generation twice (identical tokens), a step's time
     beside its bounds; one (attn, cross) pattern at full width in float32
     against the CPU (memory cut to ``VLM_CPU_MEMORY`` tokens); BF16 train
-    steps at ``VLM_TRAIN_LAYERS`` layers."""
+    steps at ``VLM_TRAIN_LAYERS`` layers (their cell record is returned,
+    :func:`_train_record`)."""
     import torch
     from repro_torch.configs.llama_3_2_vision_11b import CONFIG
     from repro_torch.models import init_model
@@ -3250,8 +3274,10 @@ def vlm_phase(dev):
                       generator=torch.Generator().manual_seed(2)) * 0.02
     _ed_card_vs_cpu(cut, dev, mem, "vlm: one (attn, cross) pattern at full "
                     f"width in float32, memory {VLM_CPU_MEMORY} tokens")
-    _ed_train(CONFIG.with_(n_layers=VLM_TRAIN_LAYERS), dev, "vlm trainer")
+    record = _ed_train(CONFIG.with_(n_layers=VLM_TRAIN_LAYERS), dev,
+                       "vlm trainer", "llama-3.2-vision-11b")
     print(f"vlm: {time.perf_counter() - t0:.1f} s", flush=True)
+    return record
 
 
 def audio_phase(dev):
@@ -3292,7 +3318,7 @@ def audio_phase(dev):
                           generator=torch.Generator().manual_seed(2)) * 0.02
     _ed_card_vs_cpu(cut, dev, enc_cpu, "audio: one encoder and one dec "
                     "layer at full width in float32")
-    _ed_train(CONFIG, dev, "audio trainer")
+    _ed_train(CONFIG, dev, "audio trainer", "seamless-m4t-large-v2")
     print(f"audio: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3948,6 +3974,250 @@ def placement_phase(dev, slice_run, served):
     return launches, finding
 
 
+# the production mesh and the dry-run: the ras-pimc trainer's timed steps
+# (16 x 128, the tooling trainer's batch) after warm-up steps; B3/B4's and
+# B2's K on this script's decode paths, each launched on small tables
+DRY_STEPS, DRY_WARM = 20, 3
+PLAN_DECODE_KS = (256, 1000, 4096, 5000)
+PLAN_STEP_KS = (256, 32064, 32768, 50280)
+PLAN_LANES, PLAN_T, PLAN_CHUNK = 8, 32, 16
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def _grad_bytes():
+    """The bytes of the gradient tree each train step hands to its global
+    clip (the step's own tensors), one entry a step."""
+    from repro_torch.train import train_loop
+    seen = []
+    clip = train_loop.clip_by_global_norm
+
+    def spy(tree, max_norm):
+        seen.append(_nbytes(tree.values()))
+        return clip(tree, max_norm)
+
+    train_loop.clip_by_global_norm = spy
+    try:
+        yield seen
+    finally:
+        train_loop.clip_by_global_norm = clip
+
+
+def _train_record(arch: str, what: str, batch: int, seq: int,
+                  overrides: dict, state, grads: list, peak: int) -> dict:
+    """A trainer run on the card as a dry-run cell: the arch, the batch
+    and the config overrides the dry-run traces, and the card's bytes of
+    the parameters, of the last step's gradients and of the AdamW moments,
+    with the run's peak memory."""
+    return dict(arch=arch, what=what, batch=batch, seq=seq,
+                overrides=overrides, param=_nbytes(state.model.parameters()),
+                grad=grads[-1], moments=_nbytes(
+                    list(state.opt.m.values()) + list(state.opt.v.values())),
+                peak=peak)
+
+
+def _pimc_trainer(dev) -> tuple[dict, float]:
+    """``ras-pimc`` ``CONFIG`` trained on the card at the tooling
+    trainer's 16 x 128: its cell record and the median step time (s)."""
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.examples import train_small_lm as ex
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(CONFIG, seed=0, device=dev, draw="device")
+    state = train_loop.init_train_state(model)
+    step = train_loop.make_train_step(CONFIG, base_lr=ex.LR)
+    batches = [train_batch(CONFIG, ex.BATCH, ex.SEQ, step=i)
+               for i in range(DRY_WARM + DRY_STEPS)]
+    secs = []
+    with _grad_bytes() as grads:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= DRY_WARM:
+                secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    rec = _train_record("ras-pimc", "ras-pimc trainer", ex.BATCH, ex.SEQ,
+                        {"grad_accum": CONFIG.grad_accum}, state, grads, peak)
+    return rec, statistics.median(secs)
+
+
+def _plan_case(dev, k: int, bits: int, layout: str, zero: bool, t: int):
+    """Tables of K symbols (static, or per-lane rows for ``t`` positions)
+    and symbols that avoid the zero frequencies (``zero``: symbols 3 and 4
+    of every row, inside the first pass of every search)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spc
+
+    rng = np.random.default_rng(k + 2 * zero)
+    shape = None if layout == "static" else (t, PLAN_LANES)
+    probs = rng.dirichlet(np.full(k, 0.5), size=shape).astype(np.float32)
+    tt = spc.tables_from_probs(torch.as_tensor(probs, device=dev), bits)
+    syms = rng.integers(0, k, (PLAN_LANES, t))
+    if zero:
+        freq = tt.freq.clone().reshape(-1, k)
+        freq[:, k // 2] += freq[:, 3:5].sum(-1)
+        freq[:, 3:5] = 0
+        tt = spc.build_tables(freq.reshape(tt.freq.shape), bits)
+        syms[(syms == 3) | (syms == 4)] += 2
+    return tt, torch.as_tensor(syms.astype(np.int32), device=dev)
+
+
+def _plan_branches(dev) -> int:
+    """(d): every B3, B4 and B2 launch at the K this script's decodes run
+    reports the code path ``kernels.autotune``'s plan gives it, with and
+    without zero frequencies.  Returns the launches checked."""
+    import torch
+    from repro_torch.core import bitstream, coder, u32
+    from repro_torch.core.bitstream import ChunkedLanes
+    from repro_torch.kernels import autotune, ops, rans_decode
+
+    n = 0
+    for k in PLAN_DECODE_KS:
+        for layout in ("static", "lane"):
+            for zero in (False, True):
+                tt, syms = _plan_case(dev, k, 14, layout, zero, PLAN_T)
+                ch = ops.rans_encode_chunked(syms, tt, PLAN_CHUNK)
+                cells = ch.buf.shape[0] * PLAN_LANES
+                what = f"plan K={k} {layout}{' zero' if zero else ''}"
+                rans_decode.rans_decode_lanes(ch.buf, ch.start, tt.freq,
+                                              tt.cdf, PLAN_T, PLAN_CHUNK,
+                                              prob_bits=14)
+                plan = autotune.decode_plan(k, cells, layout, 14)
+                _branch("rans_decode_lanes", plan.branches(zero),
+                        f"{what}: B3 ({plan.path})")
+                cs = bitstream.parse_chunked(bitstream.pack_chunked(
+                    *ChunkedLanes(*ch), chunk_size=PLAN_CHUNK,
+                    n_symbols=PLAN_T))
+                planes, cap = ops.slab_planes(cs, dev)
+                rans_decode.rans_decode_slab(
+                    *planes, tt.freq, tt.cdf, cap=cap, t_len=PLAN_T,
+                    chunk_size=PLAN_CHUNK, prob_bits=14)
+                plan = autotune.decode_plan(k, cells, layout, 14,
+                                            kernel="rans_decode_slab")
+                _branch("rans_decode_slab", plan.branches(zero),
+                        f"{what}: B4 ({plan.path})")
+                n += 2
+    for k in PLAN_STEP_KS:
+        bits = 16 if k > 4096 else 14
+        for zero in (False, True):
+            tt, syms = _plan_case(dev, k, bits, "lane", zero, 1)
+            enc = coder.chunk_encoded(ChunkedLanes(*ops.rans_encode_chunked(
+                syms, tt, 1)), 0)
+            dec = coder.decoder_init(enc)
+            rans_decode.rans_decode_step(
+                enc.buf.contiguous(), u32.bits(dec.s), dec.ptr.to(
+                    torch.int32), tt.freq[0], tt.cdf[0], bits)
+            plan = autotune.decode_step_plan(k, PLAN_LANES)
+            _branch("rans_decode_step", plan.branches(zero),
+                    f"plan K={k}{' zero' if zero else ''}: B2 ({plan.path})")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def mesh_dryrun_phase(dev, cells: list) -> dict:
+    """The production mesh and the dry-run, on a world-1 NCCL group:
+    (a) ``make_mesh_for(1)`` is a (1, 1) ``DeviceMesh`` and
+    ``shard_params``/``unshard`` of the ``ras-pimc`` ``CONFIG`` parameters
+    round-trip bitwise on the card; (b) for each trainer run in ``cells``
+    (the mamba2 and vlm trainers' records) and the ``ras-pimc`` trainer
+    run here, the dry-run of that cell on the (1, 1) mesh gives the card's
+    parameter, gradient and moment bytes exactly, its total printed beside
+    the run's peak; (c) the ``ras-pimc`` step's traced FLOPs over its
+    measured time, as a share of the float32 peak; (d) the launch plan
+    against the code paths B2, B3 and B4 report.  The dry-run launches no
+    kernel (counted).  Returns the dry-run's launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (make_mesh_for, mesh_shape_for,
+                                         mesh_shape_of)
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1)
+        _check(mesh_shape_of(dm) == mesh_shape_for(1)
+               and tuple(dm.shape) == (1, 1),
+               f"make_mesh_for(1) gave {mesh_shape_of(dm)}")
+        model = init_model(CONFIG, seed=0, device=dev, draw="device")
+        full = {k: p.detach() for k, p in model.named_parameters()}
+        specs = sharding.param_specs(model, mesh_shape_of(dm))
+        back = sharding.unshard(sharding.shard_params(full, specs, dm),
+                                specs, dm)
+        _check(all(torch.equal(back[k], full[k]) for k in full),
+               "shard_params/unshard did not round-trip bitwise")
+        print(f"mesh: make_mesh_for(1) is a {dict(mesh_shape_of(dm).shape)} "
+              f"DeviceMesh on {dm.device_type}; shard_params/unshard of the "
+              f"{len(full)} {CONFIG.name} CONFIG parameters round-trip "
+              "bitwise on the card", flush=True)
+        del model, full, back
+    finally:
+        dist.destroy_process_group()
+
+    pimc, step_s = _pimc_trainer(dev)
+    mesh = mesh_shape_for(1)
+    reset_launches()
+    recs = []
+    for cell in [*cells, pimc]:
+        shape = ShapeSpec(f"{cell['batch']}x{cell['seq']}", cell["seq"],
+                          cell["batch"], "train")
+        rec = dryrun.run_cell(cell["arch"], shape, mesh=mesh,
+                              overrides=cell["overrides"], verbose=False)
+        _check(rec["status"] == "OK", f"dry-run of the {cell['what']}: "
+               f"{rec.get('error')}")
+        m = rec["memory"]
+        got = (m["param_bytes"], m["grad_bytes"], m["optimizer_bytes"])
+        want = (cell["param"], cell["grad"], cell["moments"])
+        _check(got == want, f"dry-run of the {cell['what']}: parameter, "
+               f"gradient and moment bytes {got}, the card's {want}")
+        print(f"dry-run {cell['what']} ({cell['arch']} "
+              f"{cell['overrides']}, {cell['batch']} x {cell['seq']}, mesh "
+              f"1x1): parameters {got[0]} B, gradients {got[1]} B, moments "
+              f"{got[2]} B, each equal to the card's tensors; total "
+              f"{m['total_bytes']} B (activations {m['activation_bytes']} "
+              f"B saved for backward) against max_memory_allocated "
+              f"{cell['peak']} B: ratio {m['total_bytes'] / cell['peak']:.3f}"
+              f" ({smi})", flush=True)
+        recs.append(rec)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _check(not any(launches.values()), f"the dry-run launched {launches}")
+    flops = recs[-1]["trace"]["flops"]
+    share = flops / step_s / PEAK_FLOPS["float32"]
+    print(f"dry-run ras-pimc trainer: traced {flops:.6g} FLOP a step "
+          f"({pimc['batch']} x {pimc['seq']}), measured step {1e3 * step_s:.3f} ms (median "
+          f"of {DRY_STEPS}): {flops / step_s / 1e12:.3f} TFLOP/s, "
+          f"{100 * share:.2f}% of the float32 peak "
+          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s ({smi})", flush=True)
+    n = _plan_branches(dev)
+    print(f"launch plan: {n} B2/B3/B4 launches at K in {PLAN_DECODE_KS} "
+          f"(B3/B4) and {PLAN_STEP_KS} (B2), static and per-lane, with and "
+          "without zero frequencies, each reporting the plan's code path",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4052,7 +4322,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_launches = timed("zoo rungs", zoo_phase, dev, pimc_smoke)
     del pimc_smoke
-    m2_state = timed("mamba2 trainer", mamba2_train_phase, dev)
+    m2_state, m2_cell = timed("mamba2 trainer", mamba2_train_phase, dev)
     timed("BF16 checkpoint", bf16_checkpoint_phase, dev, m2_state)
     del m2_state
     timed("dense zoo", dense_zoo_phase, dev)
@@ -4072,7 +4342,7 @@ def main() -> int:
               phi_bound_by=phi["b2"]["bound_by"])
     b2["max_abs_err"] = max(b2["max_abs_err"], phi["b2"]["err"])
     torch.cuda.empty_cache()
-    timed("vlm", vlm_phase, dev)
+    vlm_cell = timed("vlm", vlm_phase, dev)
     torch.cuda.empty_cache()
     timed("audio", audio_phase, dev)
     torch.cuda.empty_cache()
@@ -4081,6 +4351,8 @@ def main() -> int:
     example_launches = timed("examples", examples_phase, dev)
     lanes_launches = timed("lanes sweep", lanes_phase, dev)
     chunked_launches = timed("chunked sweep", chunked_phase, dev)
+    dryrun_launches = timed("production mesh and dry-run",
+                            mesh_dryrun_phase, dev, [m2_cell, vlm_cell])
     # each kernel's launches on the main path that runs it
     for rec, launches in ((b1, slice_launches), (b2, slice_launches),
                           (b3, image_launches), (b4, two_pass_launches),
@@ -4099,6 +4371,7 @@ def main() -> int:
         rec["examples_launches"] = example_launches[rec["name"]]
         rec["lanes_launches"] = lanes_launches[rec["name"]]
         rec["chunked_launches"] = chunked_launches[rec["name"]]
+        rec["dryrun_launches"] = dryrun_launches[rec["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)

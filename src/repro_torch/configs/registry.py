@@ -1,14 +1,17 @@
 """Architecture registry: the reference's ids and their configs.
 
-Port of ``repro.configs.registry``'s lookup surface.  Every id the
-reference registers is listed in :data:`ARCH_IDS` and ported
-(:data:`PORTED`), each resolving from its own module here; an unknown id
-raises the reference's unknown-arch ``KeyError``.
+Port of ``repro.configs.registry``.  Every id the reference registers
+is listed in :data:`ARCH_IDS` and ported (:data:`PORTED`), each resolving
+from its own module here; an unknown id raises the reference's
+unknown-arch ``KeyError``.  :data:`SHAPES` is the reference's table of
+input shapes and :func:`grid` its (arch x shape) cells of the dry-run
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
 
 from repro_torch.models.config import ModelConfig
 
@@ -48,6 +51,22 @@ def _module(arch: str) -> str:
     return mod
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_module(arch)}")
     return mod.CONFIG
@@ -62,3 +81,25 @@ def get_protocol(arch: str):
     """The arch's :class:`repro_torch.models.protocol.ModelProtocol`."""
     from repro_torch.models import get_protocol as _by_cfg
     return _by_cfg(get_config(arch))
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runnable, reason-if-skipped): full quadratic attention does not
+    take the 524k-token context."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full quadratic attention at 524k context; "
+                       "sub-quadratic archs only (DESIGN.md "
+                       "§Arch-applicability)")
+    return True, ""
+
+
+def grid():
+    """All 40 (arch, shape, runnable, reason) cells: every id but
+    ``ras-pimc`` against every shape."""
+    for arch in ARCH_IDS:
+        if arch == "ras-pimc":
+            continue
+        cfg = get_config(arch)
+        for sname, sh in SHAPES.items():
+            ok, why = shape_applicable(cfg, sh)
+            yield arch, sname, ok, why

@@ -59,10 +59,11 @@ from repro_torch.core import coder, search, u32
 from repro_torch.core.predictors import (LastValue, NeighborAverage,
                                          ZeroPredictor)
 from repro_torch.core.spc import FreqCdf
-from repro_torch.kernels import BRANCHES, LAUNCHES
+from repro_torch.kernels import BRANCHES, LAUNCHES, autotune
 
-MAX_WINDOW = 16     # kMaxWindow in csrc/rans_decode_lanes.cu
-MAX_K = 1 << 24     # the kernel's 32-bit NeighborAverage mean is exact below
+# the kernels' window and K limits (kernels/autotune.py, the launch plan)
+MAX_WINDOW = autotune.MAX_WINDOW
+MAX_K = autotune.DECODE_MAX_K
 # the Branch bits of csrc/rans_decode_lanes.cu (B2's rans_decode_step.cu
 # uses the last two): the slot-table path, the exact bisection on a static
 # table in shared memory, the warp row search and the warp path's exact

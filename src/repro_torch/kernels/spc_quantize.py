@@ -36,11 +36,11 @@ import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core import spc
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, autotune
 
 # the wide layout's shared-memory row holds up to 65,536 BF16 entries
-# (kMaxK in csrc/spc_quantize.cu): every K that 2**prob_bits admits
-MAX_K = 1 << 16
+# (kernels/autotune.py, the launch plan): every K that 2**prob_bits admits
+MAX_K = autotune.SPC_MAX_K
 
 _FN = []          # the resolved ctypes launcher, once loaded
 

@@ -1,0 +1,193 @@
+"""Dry-run cells: (arch x shape x mesh) -> the step one rank runs,
+on the meta device, with every tensor's per-rank placement.
+
+Port of ``repro.launch.specs``.  Nothing here allocates: the model, the
+optimizer state, the batch and the decode state are meta tensors at the
+width the rank computes, and the placement says what each rank stores.
+The reference lowers the whole (GSPMD-sharded) program; the port places
+the reference's rules as storage (``parallel/sharding.py``), so a rank
+runs the whole-width model on its data-parallel slab of the batch:
+
+  * train   — ``train_loop.make_train_step(cfg)`` on the slab's
+              ``global_batch / dp`` rows (``cfg.grad_accum`` microbatches),
+              AdamW moments in ``cfg.moment_dtype``;
+  * prefill — ``LM.forward`` and the logits (BF16), the compression
+              direction's per-position distributions;
+  * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.registry import SHAPES, ShapeSpec, get_config
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import meta_model
+from repro_torch.models.transformer import LM, torch_dtype
+from repro_torch.parallel.sharding import (batch_spec, param_specs,
+                                           shard_shape)
+from repro_torch.train import train_loop
+from repro_torch.train.optimizer import as_dtype
+
+
+def tune_for_shape(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
+    """Shape-dependent framework defaults (fit requirements, not tuning),
+    the reference's."""
+    if shape.kind == "prefill" and shape.seq_len >= 32_768 \
+            and cfg.attn_impl == "naive":
+        # a naive (B,H,32k,32k) score tensor cannot exist on any chip
+        cfg = cfg.with_(attn_impl="blockwise", attn_block=2048)
+    if shape.kind != "train":
+        cfg = cfg.with_(grad_accum=1)
+    elif cfg.grad_accum < 8:
+        # the saved activations scale with the local microbatch;
+        # microbatch 32 divides both the 16-way and 32-way DP extents
+        cfg = cfg.with_(grad_accum=8)
+    return cfg
+
+
+def _dp_parts(mesh, global_batch: int) -> int:
+    axes = batch_spec(mesh, global_batch, ndim=1)[0] or ()
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec, mesh):
+    """The training batch's planes: name -> ((shape), dtype) of the global
+    batch, and name -> placement per dim."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg)
+    specs = {"tokens": ((b, s), torch.int64), "labels": ((b, s), torch.int64)}
+    if cfg.family == "vlm":
+        specs["memory"] = ((b, cfg.memory_tokens, cfg.d_model), dt)
+    if cfg.is_encdec:
+        specs["enc_inputs"] = ((b, cfg.memory_tokens, cfg.d_model), dt)
+    place = {k: batch_spec(mesh, b, len(sh)) for k, (sh, _) in specs.items()}
+    return specs, place
+
+
+def cache_specs(cfg: ModelConfig, mesh, leaves: dict,
+                global_batch: int) -> dict:
+    """Name-aware state placement (leaves by shape, ``(layers, B, ...)``):
+    batch over DP; the KV rings' heads over model when divisible, else
+    their *slot* dim over model (decode context parallelism, the
+    reference's llama3-405b 32k fit lever); a recurrent leaf's feature dim
+    over model when it divides."""
+    model_n = mesh.shape["model"]
+    b_axes = batch_spec(mesh, global_batch, ndim=1)[0]
+
+    def spec(name, shape):
+        dims: list = [None] * len(shape)
+        if len(shape) >= 2:
+            dims[1] = b_axes           # (layer_stack, batch, ...)
+        if name in ("k", "v") and len(shape) == 5:
+            if cfg.kv_sharded:
+                dims[3] = "model"
+            elif shape[2] % model_n == 0:
+                dims[2] = "model"      # context-parallel cache
+        elif name.rsplit(".", 1)[-1] in ("h", "conv"):
+            if shape[-1] % model_n == 0:
+                dims[-1] = "model"
+        return tuple(dims)
+
+    return {k: spec(k, tuple(s)) for k, s in leaves.items()}
+
+
+@dataclass
+class Cell:
+    """One dry-run cell as a rank runs it.  ``run()`` runs the step on the
+    meta device and returns what it returns; ``params``/``optimizer``/
+    ``state``/``batch`` map names to ``(shape, dtype, placement)`` with
+    the global shape, and ``rows`` is the rank's batch slab."""
+
+    arch: str
+    shape: ShapeSpec
+    mesh: MeshShape
+    cfg: ModelConfig
+    fsdp: bool
+    model: LM
+    rows: int
+    params: dict
+    optimizer: dict
+    state: dict
+    batch: dict
+    run: object
+
+    def local_bytes(self, records: dict) -> int:
+        """Per-rank bytes of ``records`` under their placements."""
+        return sum(math.prod(shard_shape(sh, spec, self.mesh)) * dt.itemsize
+                   for sh, dt, spec in records.values())
+
+
+def _meta(shape, dtype):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
+               overrides: dict | None = None) -> Cell:
+    """The cell of ``arch`` at ``shape`` (a :data:`SHAPES` name or a
+    :class:`ShapeSpec`) on ``mesh``; ``overrides`` replace config fields
+    after :func:`tune_for_shape`."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    cfg = tune_for_shape(get_config(arch), shape)
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    model = meta_model(cfg)
+    pspec = param_specs(model, mesh, fsdp=fsdp)
+    params = {k: (tuple(p.shape), p.dtype, pspec[k])
+              for k, p in model.named_parameters()}
+    b, s = shape.global_batch, shape.seq_len
+    rows = b // _dp_parts(mesh, b)
+    dt = torch_dtype(cfg)
+    planes, place = batch_specs(cfg, shape, mesh)
+    batch = {k: (sh, d, place[k]) for k, (sh, d) in planes.items()}
+    local = {k: _meta((rows,) + sh[1:], d) for k, (sh, d) in planes.items()}
+    optimizer, state = {}, {}
+
+    if shape.kind == "train":
+        mdt = as_dtype(cfg.moment_dtype)
+        optimizer = {f"{m}.{k}": (sh, mdt, spec)
+                     for m in ("m", "v")
+                     for k, (sh, _, spec) in params.items()}
+        step = train_loop.make_train_step(cfg)
+
+        def run():
+            st = train_loop.init_train_state(model)
+            return step(st, local)
+    elif shape.kind == "prefill":
+        local.pop("labels")
+        batch.pop("labels")
+
+        def run():
+            with torch.no_grad():
+                x, _ = model(local["tokens"], memory=local.get("memory"),
+                             enc_inputs=local.get("enc_inputs"))
+                return model._logits(x).to(torch.bfloat16)
+    else:
+        with torch.device("meta"):
+            st0 = model.init_state(rows, s)
+        glob = {k: (t.shape[0], b) + tuple(t.shape[2:])
+                for k, t in st0.leaves().items()}
+        cspec = cache_specs(cfg, mesh, glob, b)
+        state = {k: (glob[k], t.dtype, cspec[k])
+                 for k, t in st0.leaves().items()}
+        token = _meta((rows, 1), torch.int64)
+        memory = None
+        if cfg.family == "vlm" or cfg.is_encdec:
+            memory = _meta((rows, cfg.memory_tokens, cfg.d_model), dt)
+            batch = {"memory": ((b, cfg.memory_tokens, cfg.d_model), dt,
+                                batch_spec(mesh, b, 3))}
+        else:
+            batch = {}
+
+        def run():
+            with torch.no_grad():
+                return model.decode_step(st0, token, s - 1, memory=memory)
+
+    return Cell(arch=arch, shape=shape, mesh=mesh, cfg=cfg, fsdp=fsdp,
+                model=model, rows=rows, params=params, optimizer=optimizer,
+                state=state, batch=batch, run=run)
+

@@ -80,6 +80,16 @@ class Attention(nn.Module):
 
     INIT = {"bq": 0.0, "bk": 0.0, "bv": 0.0}    # the norms' scales: 1
 
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """Each leaf's logical axes (``make_attn_defs``); the KV heads
+        replicate over the model axis unless ``cfg.kv_sharded``."""
+        kv = "kv_heads" if cfg.kv_sharded else "kv_heads_repl"
+        return {"wq": ("embed", "heads", None), "wk": ("embed", kv, None),
+                "wv": ("embed", kv, None), "wo": ("heads", None, "embed"),
+                "bq": ("heads", None), "bk": (kv, None), "bv": (kv, None),
+                "q_norm": (None,), "k_norm": (None,)}
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, hp, kv, dh = (cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads,

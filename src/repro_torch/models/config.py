@@ -102,12 +102,22 @@ class ModelConfig:
         return math.ceil(self.n_heads / self.tp) * self.tp
 
     @property
+    def kv_sharded(self) -> bool:
+        """Whether the KV heads divide over the model axis (``tp``);
+        otherwise they replicate there (``parallel/sharding.py``)."""
+        return self.n_kv_heads > 0 and self.n_kv_heads % self.tp == 0
+
+    @property
     def vocab_padded(self) -> int:
         return math.ceil(self.vocab_size / 256) * 256
 
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def supports_long_context(self) -> bool:
@@ -141,3 +151,43 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+    def param_count_estimate(self) -> int:
+        """The reference's rough parameter count, the N of the model
+        FLOPs (``analysis/roofline.model_flops``)."""
+        d, dh = self.d_model, self.head_dim_
+        h, kv = self.n_heads, self.n_kv_heads
+        attn = d * dh * (h + 2 * kv) + h * dh * d
+        if self.qkv_bias:
+            attn += dh * (h + 2 * kv)
+        mlp = 3 * d * self.d_ff
+        moe = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+        ssm_inner = self.ssm_expand * d
+        ssm = (d * (2 * ssm_inner + 2 * self.ssm_state
+                    + ssm_inner // max(self.ssm_headdim, 1))
+               + ssm_inner * d) if self.family == "ssm" else 0
+        per_kind = {
+            "attn": attn + mlp,
+            "attn_moe": attn + moe,
+            "cross": 2 * attn + mlp,
+            "ssm": ssm,
+            "rec": (d * 3 * ssm_inner + ssm_inner * d) + mlp,
+        }
+        total = 0
+        for pat, reps in self.stages:
+            total += reps * sum(per_kind.get(k, attn + mlp) for k in pat)
+        if self.is_encdec:
+            total += self.encoder_layers * (attn + mlp)
+        total += self.vocab_padded * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    def active_param_count_estimate(self) -> int:
+        """MoE: experts count only at topk/n_experts duty cycle."""
+        if self.n_experts == 0:
+            return self.param_count_estimate()
+        full = self.param_count_estimate()
+        moe_part = (self.n_layers * self.n_experts * 3 * self.d_model
+                    * self.d_ff)
+        active_part = (self.n_layers * self.topk_experts * 3 * self.d_model
+                       * self.d_ff)
+        return full - moe_part + active_part

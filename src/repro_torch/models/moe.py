@@ -50,6 +50,14 @@ from repro_torch.models.config import ModelConfig
 class MoE(nn.Module):
     """The expert FFN's parameters."""
 
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """Each leaf's logical axes (``make_moe_defs``)."""
+        return {"router": ("embed", None),
+                "wi_gate": ("experts", "embed", "mlp"),
+                "wi_up": ("experts", "embed", "mlp"),
+                "wo": ("experts", "mlp", "embed")}
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts

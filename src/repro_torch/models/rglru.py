@@ -38,6 +38,15 @@ class RGLRU(nn.Module):
 
     INIT = {"conv_b": 0.0, "gate_a_b": 0.0, "gate_i_b": 0.0, "lam": 1.0}
 
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """Each leaf's logical axes (``make_rglru_defs``)."""
+        vec = ("ssm_inner",)
+        return {"w_x": ("embed", "ssm_inner"), "w_y": ("embed", "ssm_inner"),
+                "conv_w": (None, "ssm_inner"), "conv_b": vec,
+                "gate_a_w": vec, "gate_a_b": vec, "gate_i_w": vec,
+                "gate_i_b": vec, "lam": vec, "w_out": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, w = cfg.d_model, rglru_width(cfg)

@@ -49,6 +49,19 @@ class SSM(nn.Module):
     INIT = {"conv_x_b": 0.0, "conv_b_b": 0.0, "conv_c_b": 0.0, "A_log": 0.0,
             "D": 1.0, "dt_bias": 0.0, "norm_scale": 1.0}
 
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """Each leaf's logical axes (``make_ssm_defs``)."""
+        inner, state = ("embed", "ssm_inner"), ("embed", "ssm_state")
+        return {"wz": inner, "wx": inner, "wb": state, "wc": state,
+                "wdt": ("embed", None),
+                "conv_x_w": (None, "ssm_inner"), "conv_x_b": ("ssm_inner",),
+                "conv_b_w": (None, "ssm_state"), "conv_b_b": ("ssm_state",),
+                "conv_c_w": (None, "ssm_state"), "conv_c_b": ("ssm_state",),
+                "A_log": (None,), "D": (None,), "dt_bias": (None,),
+                "norm_scale": ("ssm_inner",),
+                "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, w = cfg.d_model, cfg.conv_width

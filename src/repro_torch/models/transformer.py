@@ -135,7 +135,16 @@ class RowGroup(NamedTuple):
     length: int
 
 
+_NORM = ("embed",)      # an RMSNorm scale's logical axes (make_rmsnorm)
+
+
 class MLP(nn.Module):
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """Each leaf's logical axes (``make_mlp``)."""
+        return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+                "wo": ("mlp", "embed")}
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
@@ -148,6 +157,12 @@ class Block(nn.Module):
     """An ``attn`` block: self-attention and the gated MLP (``attn_moe``:
     the MoE FFN)."""
 
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """The norms' logical axes (``make_block_defs``; the submodules
+        declare their own)."""
+        return {"ln1": _NORM, "ln_cross": _NORM, "ln2": _NORM}
+
     def __init__(self, cfg: ModelConfig, ffn=MLP):
         super().__init__()
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
@@ -159,6 +174,8 @@ class Block(nn.Module):
 class SSMBlock(nn.Module):
     """An ``ssm`` block: the Mamba2 mixer, no FFN."""
 
+    axes = staticmethod(Block.axes)
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
@@ -167,6 +184,8 @@ class SSMBlock(nn.Module):
 
 class RecBlock(nn.Module):
     """A ``rec`` block: the RG-LRU recurrent block and the gated MLP."""
+
+    axes = staticmethod(Block.axes)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -180,6 +199,8 @@ class CrossBlock(nn.Module):
     """A ``cross`` block: cross attention over the memory and the gated
     MLP."""
 
+    axes = staticmethod(Block.axes)
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.ln1 = nn.Parameter(torch.ones(cfg.d_model))
@@ -191,6 +212,8 @@ class CrossBlock(nn.Module):
 class DecBlock(nn.Module):
     """A ``dec`` block: self-attention, cross attention over the memory
     (after its own norm ``ln_cross``) and the gated MLP."""
+
+    axes = staticmethod(Block.axes)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -205,6 +228,10 @@ class DecBlock(nn.Module):
 class Encoder(nn.Module):
     """The encoder-decoder's encoder: ``encoder_layers`` ``attn`` blocks
     (run bidirectionally by :func:`encode_memory`) and their final norm."""
+
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        return {"final_norm": _NORM}
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -228,6 +255,13 @@ class LM(nn.Module):
     depth order, the final norm and (untied) ``lm_head``, and for an
     encoder-decoder the :class:`Encoder`, the parameters in
     ``cfg.dtype``."""
+
+    @staticmethod
+    def axes(cfg: ModelConfig) -> dict:
+        """The embedding's, head's and final norm's logical axes
+        (``make_embedding``)."""
+        return {"embedding": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+                "final_norm": _NORM}
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()

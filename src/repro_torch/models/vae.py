@@ -48,6 +48,16 @@ from repro_torch.train import optimizer
 
 NETS = ("enc1", "enc2", "dec2", "dec1")
 _LEAVES = ("win", "core.wi_gate", "core.wi_up", "core.wo", "wout", "bout")
+# each net leaf's logical axes (the reference's ``_net_defs``)
+_AXES = {"win": ("embed", "mlp"), "core.wi_gate": ("embed", "mlp"),
+         "core.wi_up": ("embed", "mlp"), "core.wo": ("mlp", "embed"),
+         "wout": ("mlp", "embed"), "bout": ("embed",)}
+
+
+def param_axes() -> dict:
+    """Each parameter's logical axes, keyed as the parameters are
+    (``vae_defs``)."""
+    return {f"{net}.{leaf}": _AXES[leaf] for net in NETS for leaf in _LEAVES}
 
 
 class VAEConfig(NamedTuple):

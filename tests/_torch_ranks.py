@@ -351,8 +351,58 @@ def train_suite(rank: int, world: int) -> dict:
     return res
 
 
+def mesh_suite(rank: int, world: int) -> dict:
+    """The production mesh's machinery on 4 ranks: a ``("data",
+    "model")`` mesh from ``make_mesh_for`` with ``shard_params`` then
+    ``unshard`` of the SMOKE models in ``MESH_ARCHS`` (each rank's shard
+    shapes and whether the round trip is bitwise); a ``("pod", "data")``
+    device mesh whose ``"pod"`` group carries ``compressed_psum`` (this
+    rank's inputs by its pod index) and whose ``"data"`` group a chunk
+    mesh's static-table encode."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import spc
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_of
+    from repro_torch.models import init_model
+    from repro_torch.parallel import chunked as pc, collectives as col
+    from repro_torch.parallel import sharding
+
+    dm = make_mesh_for(world, model_parallel=2, device="cpu")
+    res = {"mesh": np.array(mesh_shape_of(dm).sizes)}
+    for arch in MESH_ARCHS:
+        model = init_model(get_smoke_config(arch), seed=5, device="cpu")
+        full = {k: p.detach() for k, p in model.named_parameters()}
+        specs = sharding.param_specs(model, mesh_shape_of(dm))
+        local = sharding.shard_params(full, specs, dm)
+        back = sharding.unshard(local, specs, dm)
+        res[f"{arch}/bitwise"] = np.array(all(
+            torch.equal(back[k], full[k]) for k in full))
+        for k, t in local.items():
+            res[f"{arch}/shard/{k}"] = np.array(t.shape)
+    pd = init_device_mesh("cpu", (2, world // 2),
+                          mesh_dim_names=("pod", "data"))
+    pod = col.pod_mesh(group=pd.get_group("pod"), device="cpu")
+    res["pod"] = np.array([pod.rank, pod.size])
+    x, err = psum_inputs(pod.rank)
+    out, new_err = col.compressed_psum(torch.as_tensor(x), pod,
+                                       torch.as_tensor(err))
+    res["psum/out"], res["psum/err"] = _np(out), _np(new_err)
+    chunks = pc.chunk_mesh(group=pd.get_group("data"), device="cpu")
+    probs, syms, _ = chunk_case("static", 70)
+    tbl = spc.tables_from_probs(torch.as_tensor(probs))
+    _put(res, "chunks/enc", pc.encode_chunked(
+        torch.as_tensor(syms), tbl, CHUNK, mesh=chunks, backend="kernel"))
+    return res
+
+
+# the SMOKE models the mesh suite places: a dense one, and experts placed
+# on the model axis
+MESH_ARCHS = ("ras-pimc", "phi3.5-moe-42b-a6.6b")
+
 SUITES = {"chunked": chunked_suite, "lm": lm_suite,
-          "collectives": collectives_suite, "train": train_suite}
+          "collectives": collectives_suite, "train": train_suite,
+          "mesh": mesh_suite}
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,11 @@ def test_port_never_imports_jax_or_reference():
     assert ROOT / "src" / "repro_torch" / "kernels" / "rans_decode.py" in files
     for name in ("__init__.py", "chunked.py", "collectives.py"):
         assert ROOT / "src" / "repro_torch" / "parallel" / name in files
+    for name in ("launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+                 "models/param.py", "parallel/sharding.py",
+                 "analysis/hlo.py", "analysis/roofline.py",
+                 "analysis/report.py", "kernels/autotune.py"):
+        assert ROOT / "src" / "repro_torch" / name in files
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

@@ -61,7 +61,9 @@ the chunk mesh's encode and decode against the single-device kernels (one
 B1 and one B3 per slab and per tail), the two-rank chunk emulation
 (``encode_slab``/``decode_slab`` in turn, stitched), the card's int8
 cross-pod reduce against a gloo CPU group's, and ``ras-pimc`` SMOKE on a
-lane mesh and a chunk mesh.
+lane mesh and a chunk mesh.  The production mesh: ``make_mesh_for(1)``
+on that group is a (1, 1) ``DeviceMesh``, and ``shard_params``/``unshard``
+of the ``ras-pimc`` ``CONFIG`` parameters round-trip bitwise on the card.
 """
 
 import copy
@@ -1509,6 +1511,30 @@ def nccl1(tmp_path):
         timeout=datetime.timedelta(seconds=60))
     yield dev
     dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gpu_production_mesh_round_trip(nccl1):
+    """``launch.mesh.make_mesh_for(1)`` on a world-1 NCCL group is a
+    (1, 1) ``("data", "model")`` device mesh on the card, and
+    ``parallel.sharding.shard_params`` then ``unshard`` of the full-width
+    ``ras-pimc`` parameters gives them back bitwise."""
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_of
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+
+    dm = make_mesh_for(1)
+    shape = mesh_shape_of(dm)
+    assert (shape.axis_names, shape.sizes) == (("data", "model"), (1, 1))
+    assert dm.device_type == "cuda"
+    model = init_model(CONFIG, seed=0, device=nccl1, draw="device")
+    full = {k: p.detach() for k, p in model.named_parameters()}
+    specs = sharding.param_specs(model, shape)
+    local = sharding.shard_params(full, specs, dm)
+    assert all(local[k].is_cuda for k in full)
+    back = sharding.unshard(local, specs, dm)
+    assert all(torch.equal(back[k], full[k]) for k in full)
 
 
 def _launches(fn):
