@@ -211,10 +211,11 @@ zero-frequency cases of 5a.
    phase's launches counted from 0 (B1 3, B2 768, B6 771); every CR,
    bits/symbol and model entropy beside ``BENCH_ratio.json``'s;
 20. ``mamba2-130m`` at full width as a trainer (``mamba2_train_phase``):
-   4 BF16 train steps of 4 x 512 ``token_stream`` tokens (losses, step
-   time, peak memory), then its first step in float32 on the card and on
-   the CPU from the same weights at 2 x 256 (loss and gradient norm
-   within 1e-4 relative);
+   3 BF16 train steps of 4 x 512 ``token_stream`` tokens with its
+   config's activation checkpointing (losses, step time, peak memory),
+   then 2 more without it (the step time and peak printed beside), then
+   its first step in float32 on the card and on the CPU from the same
+   weights at 2 x 256 (loss and gradient norm within 1e-4 relative);
 21. the dense zoo (``dense_zoo_phase``): ``qwen3-4b`` (QK norm, 32 x 128
    heads over d_model 2,560) and ``qwen1.5-4b`` (QKV bias, 20 heads padded
    to 32 over 20 kv heads) at full width cut to one float32 layer, the
@@ -225,6 +226,17 @@ zero-frequency cases of 5a.
    the card (within 1e-4, both timed); the four dense SMOKE models at 8
    lanes x 64 through the kernel backend (launches counted, containers
    byte-identical to the coder's, decode exact);
+21a. activation checkpointing (``remat_phase``): ``qwen3-4b``'s
+   ``train_4k`` config (BF16, naive attention) at full width cut to 8 of
+   36 layers, one batch of 1 x 4,096 ``train_batch`` tokens, from the same
+   seeded weights with ``remat=False``, ``remat=True`` and ``remat=False``
+   again: losses bitwise equal, each gradient leaf of the checkpointed run
+   bitwise equal to the plain one or no farther from it than the plain
+   repeat (both printed), the forward and backward's peaks; one train
+   step of each, timed, the checkpointed step's peak memory below both
+   plain steps'; each beside the dry-run's reckoned total on the 1 x 1
+   mesh (parameter, gradient and moment bytes equal to the card's) and
+   the card's name and power limit;
 22. the decode's first-index top-k (``topk_phase``): card equal to the
    CPU on built ties at 16 x 32,768, timed beside ``torch.topk``;
 23. ``phi3.5-moe-42b-a6.6b`` at full width (``phi_phase``: d_model 4,096,
@@ -247,29 +259,31 @@ zero-frequency cases of 5a.
    memory and the FLOPs of its memory projections; one (attn, cross)
    pattern at full width in float32 card vs CPU (memory cut to 512
    tokens; 4 decode steps and a 64-token forward within 1e-4); 2 BF16
-   train steps of 2 x 256 tokens at 5 of 40 layers (finite losses, step
-   time, peak memory);
+   train steps of 2 x 256 tokens at 5 of 40 layers with the config's
+   activation checkpointing (finite losses, step time, peak memory), then
+   2 without it (step time and peak printed beside);
 25. the encoder-decoder (``audio_phase``): ``seamless-m4t-large-v2`` whole
    (24 encoder + 24 ``dec`` layers, BF16): 2 x 1,024 x 1,024 encoder
    inputs through ``encode_memory``, then ``generate`` as in 24; one
    encoder and one ``dec`` layer in float32 card vs CPU (the encoder's
    output, 4 decode steps and a 64-token forward within 1e-4); 2 BF16
-   train steps at full depth.
+   train steps at full depth, with and without activation checkpointing,
+   as in 24.
 20a. (right after 20) the BF16 checkpoint (``bf16_checkpoint_phase``):
    the ``mamba2-130m`` BF16 train state of phase 20 saved with
    ``train.checkpoint.save`` and restored into a fresh state on the card,
    every leaf bitwise; bytes and seconds;
 26. the fault-tolerant trainer (``trainer_phase``), the slice's path:
-   ``examples/train_small_lm.run`` at ``ras-pimc``'s full width, 100 steps
+   ``examples/train_small_lm.run`` at ``ras-pimc``'s full width, 50 steps
    of 16 x 128 under the ``RestartManager`` (a checkpoint every 25 steps,
    one fault before step 30: exactly one restart), bitwise equal to an
    unbroken run, then held-out 8 x 256 tokens through the kernel
    backend: launches B1 1 / B2 256 / B6 257 from 0, round trip exact,
    kernel and coder containers byte-identical, CR above the static
    histogram's; the full-width state saved and restored bitwise;
-27. the launchers (``launchers_phase``): ``launch.train.main`` (20 steps,
-   a checkpoint every 10) then ``launch.serve.main --ckpt --backend
-   kernel`` in process: ``restored checkpoint step 20``, bit-exact,
+27. the launchers (``launchers_phase``): ``launch.train.main`` (10 steps,
+   a checkpoint every 5) then ``launch.serve.main --ckpt --backend
+   kernel`` in process: ``restored checkpoint step 10``, bit-exact,
    launches B1 1 / B2 256 / B6 257;
 28. the examples (``examples_phase``): quickstart, compress_images and
    compress_latents with all their checks, launches counted per example;
@@ -287,7 +301,8 @@ zero-frequency cases of 5a.
    vlm trainer (5 layers, 2 x 256, two microbatches) and a ``ras-pimc``
    trainer run here (16 x 128) on the 1 x 1 mesh gives the card's
    parameter, gradient and AdamW-moment bytes exactly, its total printed
-   beside ``max_memory_allocated``; (c) the ``ras-pimc`` step's traced
+   beside ``max_memory_allocated`` (the mamba2 and vlm trainers run and
+   are reckoned with their configs' activation checkpointing); (c) the ``ras-pimc`` step's traced
    FLOPs over its measured step time as a share of the 67 TFLOP/s float32
    peak, with the card's name and power limit; (d) B3 and B4 (K = 256,
    1,000, 4,096, 5,000) and B2 (K = 256, 32,064, 32,768, 50,280) report
@@ -395,6 +410,14 @@ def _check(ok, what: str) -> None:
     """Fail the run (kept under ``python -O``, unlike ``assert``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def _branch(name: str, want: set, what: str) -> None:
@@ -2751,9 +2774,10 @@ def moe_phase(dev):
 # phase's smoke model (120 steps over the whole image, as the reference's)
 ZOO_T, ZOO_CHUNK, ZOO_STEPS = 256, 128, 60
 # mamba2-130m at full width as a trainer: ZOO_M2_STEPS BF16 steps of 4 x 512
-# token_stream tokens from the end of the lr warmup, then its first step in
-# float32 on the card and on the CPU at 2 x 256 (the CPU side stays short)
-ZOO_M2_STEPS, ZOO_M2_BATCH, ZOO_M2_SEQ, ZOO_M2_WARM = 4, 4, 512, 100
+# token_stream tokens from the end of the lr warmup (4 before the remat
+# phase came), then its first step in float32 on the card and on the CPU
+# at 2 x 256 (the CPU side stays short)
+ZOO_M2_STEPS, ZOO_M2_BATCH, ZOO_M2_SEQ, ZOO_M2_WARM = 3, 4, 512, 100
 ZOO_M2_CPU_BATCH, ZOO_M2_CPU_SEQ = 2, 256
 # the dense zoo: one full-width float32 layer, card vs CPU (decode steps and
 # a 256-token forward); blockwise attention at S 2,048, attn_block 1,024
@@ -2763,6 +2787,11 @@ DZ_BLOCK_T, DZ_BLOCK = 2048, 1024
 DZS_LANES, DZS_T, DZS_CHUNK = 8, 64, 16
 # the decode's top-k at the mixtral slice's rows
 TOPK_ROWS, TOPK_K = 16, 32768
+# activation checkpointing: qwen3-4b's train_4k config cut to 8 of 36
+# layers, one row of the cell's 4,096 tokens; each trainer's extra steps
+# without its recompute
+REMAT_ARCH, REMAT_LAYERS, REMAT_ROWS = "qwen3-4b", 8, 1
+REMAT_PLAIN_STEPS = 2
 
 
 def zoo_phase(dev, pimc):
@@ -2818,6 +2847,47 @@ def zoo_phase(dev, pimc):
     return launches
 
 
+def _without_remat(state, cfg, batch, base_lr: float, what: str,
+                   remat_ms: float, remat_peak: int):
+    """``REMAT_PLAIN_STEPS`` more train steps of a trainer's ``state`` on
+    ``batch`` with ``remat=False`` (its model's config swapped for them and
+    put back), the last one timed, printed beside the trainer's step with
+    its recompute (``remat_ms``, ``remat_peak``).  Returns the new state;
+    ``state`` is spent (its moments are freed)."""
+    import torch
+    from repro_torch.train import train_loop
+
+    model = state.model
+    remat_cfg = model.cfg
+    _check(remat_cfg.remat, f"{what}: its config does not checkpoint")
+    step = train_loop.make_train_step(cfg.with_(remat=False),
+                                      base_lr=base_lr)
+    model.cfg = remat_cfg.with_(remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(REMAT_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            # the caller's state holds the moments the step replaced: free
+            # them, as a trainer's loop does when it rebinds its state
+            state.opt.m.clear()
+            state.opt.v.clear()
+            state = new
+    finally:
+        model.cfg = remat_cfg
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    _check(math.isfinite(loss), f"{what} without remat: loss {loss}")
+    print(f"{what}: step with its recompute (remat=True) {remat_ms:.1f} ms, "
+          f"peak {remat_peak / 2**30:.2f} GiB; without (remat=False, "
+          f"{REMAT_PLAIN_STEPS} steps, the last timed) {1e3 * secs:.1f} ms, "
+          f"peak {peak / 2**30:.2f} GiB", flush=True)
+    return state
+
+
 def mamba2_train_phase(dev):
     """``mamba2-130m`` at full width as a trainer: ``ZOO_M2_STEPS`` BF16
     train steps on the card (losses, step time, peak memory), then its
@@ -2860,6 +2930,8 @@ def mamba2_train_phase(dev):
           f"{1e3 * statistics.median(secs[1:]):.1f} ms (median of steps "
           f"2-{ZOO_M2_STEPS}; the first {1e3 * secs[0]:.1f} ms); peak memory"
           f" {peak / 2**30:.2f} GiB", flush=True)
+    state = _without_remat(state, CONFIG, batch, FIG4C_LR, "mamba2 trainer",
+                           1e3 * statistics.median(secs[1:]), peak)
     del model, step
     torch.cuda.empty_cache()
     cfg = CONFIG.with_(dtype="float32")
@@ -2966,6 +3038,126 @@ def dense_zoo_phase(dev):
         print(f"{arch} SMOKE: {DZS_LANES} lanes x {DZS_T}, chunk "
               f"{DZS_CHUNK}: kernel and coder containers byte-identical, "
               f"fused decode exact, launches {launches}", flush=True)
+
+
+def _leaf_diffs(grads: dict, ref: dict) -> dict:
+    """Each gradient leaf's largest |difference| from ``ref`` (on the
+    host), in float32."""
+    return {k: float((g.float() - ref[k].to(g.device).float()).abs().max())
+            for k, g in grads.items()}
+
+
+def remat_phase(dev):
+    """Activation checkpointing at full width: ``qwen3-4b``'s ``train_4k``
+    config (BF16, naive attention, after ``tune_for_shape``) cut to
+    ``REMAT_LAYERS`` of 36 layers, ``grad_accum`` 1, one batch of
+    ``REMAT_ROWS`` x 4,096 ``train_batch`` tokens.  From the same seeded
+    weights, ``remat=False``, ``remat=True`` and ``remat=False`` again
+    (the card's own repeat), each run ``grads_fn`` (the forward and
+    backward's peak), then one train step, timed, with its peak: the
+    losses bitwise equal; each gradient leaf of the checkpointed run
+    bitwise equal to the first run's, or no farther from it than the
+    repeat's; the checkpointed step's peak below both plain steps'; each
+    beside the dry-run's reckoned total on the 1 x 1 mesh, whose
+    parameter, gradient and moment bytes equal the card's."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_shape_for
+    from repro_torch.launch.specs import tune_for_shape
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    smi = _smi()
+    shape = SHAPES["train_4k"]
+    over = {"n_layers": REMAT_LAYERS, "grad_accum": 1}
+    base = tune_for_shape(get_config(REMAT_ARCH), shape).with_(**over)
+    _check(base.dtype == "bfloat16" and base.attn_impl == "naive",
+           f"{REMAT_ARCH} train_4k config {base.dtype}, {base.attn_impl}")
+    batch = train_batch(base, REMAT_ROWS, shape.seq_len, step=0)
+    what = (f"remat: {REMAT_ARCH} train_4k at full width, {REMAT_LAYERS} of "
+            f"36 layers ({base.dtype}, {base.attn_impl} attention), "
+            f"{REMAT_ROWS} x {shape.seq_len} tokens")
+    ref = None      # the first run's loss and gradients, on the host
+    out = []
+    for remat in (False, True, False):
+        cfg = base.with_(remat=remat)
+        model = init_model(cfg, seed=0, device=dev, draw="device")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = train_loop.grads_fn(model, batch)
+        torch.cuda.synchronize()
+        o = dict(remat=remat, loss=loss.cpu(), param=_nbytes(
+            model.parameters()), grad=_nbytes(grads.values()),
+            bwd_peak=torch.cuda.max_memory_allocated())
+        if ref is None:
+            ref = (o["loss"], {k: g.cpu() for k, g in grads.items()})
+            o["diffs"] = dict.fromkeys(grads, 0.0)
+        else:
+            o["diffs"] = _leaf_diffs(grads, ref[1])
+        del loss, grads
+        state = train_loop.init_train_state(model)
+        step = train_loop.make_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        o["ms"] = 1e3 * (time.perf_counter() - t0)
+        o["peak"] = torch.cuda.max_memory_allocated()
+        o["moments"] = _nbytes(list(state.opt.m.values())
+                               + list(state.opt.v.values()))
+        o["step_loss"] = m["loss"].cpu()
+        out.append(o)
+        del model, state, step, m
+        torch.cuda.empty_cache()
+    for o in out:
+        _check(torch.equal(o["loss"], ref[0])
+               and torch.equal(o["step_loss"], ref[0])
+               and bool(torch.isfinite(o["loss"])), f"{what}: losses "
+               f"{[(float(x['loss']), float(x['step_loss'])) for x in out]}"
+               " differ")
+    ck, rep = out[1]["diffs"], out[2]["diffs"]
+    bad = [k for k in ck if ck[k] and ck[k] > rep[k]]
+    _check(not bad, f"{what}: the checkpointed gradients {bad[:4]} differ "
+           f"from the plain run's beyond the card's repeat: "
+           f"{[(ck[k], rep[k]) for k in bad[:4]]}")
+    _check(out[1]["peak"] < min(out[0]["peak"], out[2]["peak"]),
+           f"{what}: peak with remat {out[1]['peak']} B, without "
+           f"{out[0]['peak']} / {out[2]['peak']} B")
+    print(f"{what}: loss {float(ref[0]):.6f} nats bitwise equal in all 3 "
+          f"runs; gradients: {sum(v == 0 for v in ck.values())} of "
+          f"{len(ck)} leaves bitwise equal with remat, max |dg| "
+          f"{max(ck.values()):.3e}; the plain repeat "
+          f"{sum(v == 0 for v in rep.values())} of {len(rep)}, max |dg| "
+          f"{max(rep.values()):.3e}; forward + backward peak "
+          f"{out[0]['bwd_peak'] / 2**30:.2f} / "
+          f"{out[1]['bwd_peak'] / 2**30:.2f} / "
+          f"{out[2]['bwd_peak'] / 2**30:.2f} GiB (plain / remat / plain)",
+          flush=True)
+
+    cell = ShapeSpec(f"{REMAT_ROWS}x{shape.seq_len}", shape.seq_len,
+                     REMAT_ROWS, "train")
+    recs = {r: dryrun.run_cell(REMAT_ARCH, cell, mesh=mesh_shape_for(1),
+                               overrides={**over, "remat": r}, verbose=False)
+            for r in (False, True)}
+    for o in out:
+        rec = recs[o["remat"]]
+        _check(rec["status"] == "OK", f"{what}: dry-run {rec.get('error')}")
+        mem = rec["memory"]
+        got = (mem["param_bytes"], mem["grad_bytes"], mem["optimizer_bytes"])
+        want = (o["param"], o["grad"], o["moments"])
+        _check(got == want, f"{what}: dry-run parameter, gradient and "
+               f"moment bytes {got}, the card's {want}")
+        print(f"{what}, remat={o['remat']}: step {o['ms']:.1f} ms; peak "
+              f"{o['peak'] / 2**30:.2f} GiB ({o['peak']} B); dry-run on "
+              f"the 1x1 mesh {mem['total_bytes'] / 2**30:.2f} GiB "
+              f"({mem['total_bytes']} B: activations "
+              f"{mem['activation_bytes']} B, of them "
+              f"{mem['recompute_bytes']} B a unit's recompute; parameter, "
+              f"gradient and moment bytes equal to the card's), ratio "
+              f"{mem['total_bytes'] / o['peak']:.3f} ({smi})", flush=True)
 
 
 def topk_phase(dev):
@@ -3235,6 +3427,8 @@ def _ed_train(cfg, dev, what: str, arch: str):
           f"{math.log(cfg.vocab_size):.4f}); step {1e3 * secs[-1]:.1f} ms "
           f"(the first {1e3 * secs[0]:.1f} ms); peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
+    state = _without_remat(state, cfg.with_(grad_accum=2), batch,
+                           ED_TRAIN_LR, what, 1e3 * secs[-1], peak)
     del model, state, step
     torch.cuda.empty_cache()
     return record
@@ -3324,8 +3518,10 @@ def audio_phase(dev):
 
 # the tooling phases: the fault-tolerant trainer and the launchers, the
 # BF16 checkpoint, the examples and the lane and chunk sweeps
-TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_FAULT = 100, 25, 30
-LAUNCH_STEPS, LAUNCH_SAVE_EVERY = 20, 10
+# (100 and 20 steps before the remat phase came, cut for the script's time
+# limit)
+TRAINER_STEPS, TRAINER_SAVE_EVERY, TRAINER_FAULT = 50, 25, 30
+LAUNCH_STEPS, LAUNCH_SAVE_EVERY = 10, 5
 
 
 def _quiet(fn, *args, what: str):
@@ -4150,10 +4346,7 @@ def mesh_dryrun_phase(dev, cells: list) -> dict:
     from repro_torch.models import init_model
     from repro_torch.parallel import sharding
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     _nccl_world1(dev)
     try:
         dm = make_mesh_for(1)
@@ -4196,7 +4389,8 @@ def mesh_dryrun_phase(dev, cells: list) -> dict:
               f"1x1): parameters {got[0]} B, gradients {got[1]} B, moments "
               f"{got[2]} B, each equal to the card's tensors; total "
               f"{m['total_bytes']} B (activations {m['activation_bytes']} "
-              f"B saved for backward) against max_memory_allocated "
+              f"B saved for backward, {m['recompute_bytes']} B of them a "
+              f"checkpointed unit's recompute) against max_memory_allocated "
               f"{cell['peak']} B: ratio {m['total_bytes'] / cell['peak']:.3f}"
               f" ({smi})", flush=True)
         recs.append(rec)
@@ -4232,10 +4426,7 @@ def main() -> int:
     t_start = time.perf_counter()
     configure_cuda_numerics()
     dev = resolve_device(None)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -4326,6 +4517,7 @@ def main() -> int:
     timed("BF16 checkpoint", bf16_checkpoint_phase, dev, m2_state)
     del m2_state
     timed("dense zoo", dense_zoo_phase, dev)
+    timed("remat", remat_phase, dev)
     timed("top-k", topk_phase, dev)
     torch.cuda.empty_cache()
     phi_launches, phi = timed("phi slice", phi_phase, dev)

@@ -46,4 +46,5 @@ SMOKE = ModelConfig(
     logits_chunk=8,
     attn_impl="blockwise",
     attn_block=8,
+    remat=False,
 )

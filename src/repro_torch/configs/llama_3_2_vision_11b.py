@@ -46,4 +46,5 @@ SMOKE = ModelConfig(
     memory_dim=64,
     tp=1,
     dtype="float32",
+    remat=False,
 )

@@ -47,4 +47,5 @@ SMOKE = ModelConfig(
     sliding_window=16,
     tp=1,
     dtype="float32",
+    remat=False,
 )

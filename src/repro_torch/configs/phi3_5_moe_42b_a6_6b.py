@@ -42,4 +42,5 @@ SMOKE = ModelConfig(
     topk_experts=2,
     tp=1,
     dtype="float32",
+    remat=False,
 )

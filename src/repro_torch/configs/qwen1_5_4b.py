@@ -39,4 +39,5 @@ SMOKE = ModelConfig(
     qkv_bias=True,
     tp=1,
     dtype="float32",
+    remat=False,
 )

@@ -37,4 +37,5 @@ SMOKE = ModelConfig(
     qk_norm=True,
     tp=1,
     dtype="float32",
+    remat=False,
 )

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     head_dim=64,
     tie_embeddings=True,
     tp=1,
+    remat=False,
 )
 
 SMOKE = CONFIG.with_(name="ras-pimc-smoke", n_layers=2, d_model=64,

@@ -44,4 +44,5 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
     tp=1,
     dtype="float32",
+    remat=False,
 )

@@ -47,4 +47,5 @@ SMOKE = ModelConfig(
     block_pattern=("dec",),
     tp=1,
     dtype="float32",
+    remat=False,
 )

@@ -335,6 +335,16 @@ def pop(buf: torch.Tensor, s: torch.Tensor, ptr: torch.Tensor,
     return s, ptr, x, probes, under
 
 
+def find_symbol(tbl, slot: torch.Tensor, mu=None, delta=None,
+                candidates: torch.Tensor | None = None):
+    """State-to-symbol inversion over ``tbl``'s CDF (``(K+1,)`` or
+    ``(lanes, K+1)``) for ``slot`` ``(lanes,)``: :func:`repro_torch.core.
+    search.find_symbol` with its predictor bracket and candidates.
+    Returns int64 ``(symbol, probes)``, the Fig. 4(b) probe count."""
+    return search.find_symbol(tbl.cdf, tbl.alphabet_size, slot.to(_I64),
+                              candidates=candidates, mu=mu, delta=delta)
+
+
 def decode_get(st: DecState, buf: torch.Tensor, tbl,
                prob_bits: int = C.PROB_BITS, mu=None, delta=None,
                candidates: torch.Tensor | None = None,

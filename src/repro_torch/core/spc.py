@@ -174,6 +174,14 @@ def tables_from_probs(probs: torch.Tensor,
     return build_tables(quantize_probs(probs, prob_bits), prob_bits)
 
 
+def tables_from_logits(logits: torch.Tensor,
+                       prob_bits: int = C.PROB_BITS) -> TableSet:
+    """Model logits ``(..., K)`` -> coding tables: softmax in float32,
+    stored as BF16, then the SPC."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    return tables_from_probs(store_bf16(probs), prob_bits)
+
+
 class FreqCdf(NamedTuple):
     """The two planes a decoder reads (a :class:`TableSet` without the
     encoder's Barrett planes)."""

@@ -43,7 +43,8 @@ import torch
 from repro_torch.core import constants as C
 from repro_torch.core import search, spc, u32, update
 from repro_torch.core.bitstream import EncodedLanes
-from repro_torch.core.coder import _read_byte
+from repro_torch.core.coder import (StreamExhaustedError,  # noqa: F401
+                                    _read_byte)
 from repro_torch.core.search import take_gather as _gather
 from repro_torch.device import resolve_device
 from repro_torch.kernels import rans_decode, spc_quantize

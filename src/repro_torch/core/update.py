@@ -52,13 +52,17 @@ def encode_planes(tbl) -> EncTables:
                      cmpl=tbl.cmpl, x_max=tbl.x_max)
 
 
-def gather_encode_entry(tbl, x: torch.Tensor, gather=take_gather) -> EncTables:
+# the reference's name for the planes gathered at each lane's symbol
+EncEntry = EncTables
+
+
+def gather_encode_entry(tbl, x: torch.Tensor, gather=take_gather) -> EncEntry:
     """Per-lane encode entries for symbols ``x``, as int64 uint32 values."""
-    return EncTables(*(u32.value(gather(getattr(tbl, name), x))
-                       for name in EncTables._fields))
+    return EncEntry(*(u32.value(gather(getattr(tbl, name), x))
+                      for name in EncEntry._fields))
 
 
-def encode_step(s: torch.Tensor, e: EncTables):
+def encode_step(s: torch.Tensor, e: EncEntry):
     """Push one symbol per lane.  ``s``: int64 uint32 values; ``e``: int64
     entries.  Returns ``(s', records)`` with ``MAX_RENORM_STEPS`` records of
     ``(byte int64, emitted bool)`` in emission order."""

@@ -14,7 +14,9 @@ data-parallel slab of the batch at full width.
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under
 ``grad_accum``), AdamW moments, activations (train: the tensors saved for
-backward, the largest microbatch's; prefill: the forward's peak of live
+backward, the largest microbatch's, and under ``cfg.remat`` the largest
+checkpointed unit's saved tensors when backward recomputes it, apart in
+``recompute_bytes``; prefill: the forward's peak of live
 tensors; decode: the placed state), the largest layer's gathered shards
 (twice in a train cell: weights and gradients), their total and ``fits``
 against the card's 80 GB.  A cell that does not fit is a finding, not a
@@ -79,8 +81,14 @@ def memory(cell, rec: hlo.StepTrace) -> dict:
             accum = cell.local_bytes({k: (sh, torch.float32, sp) for k, (
                 sh, _, sp) in cell.params.items()})
         opt = cell.local_bytes(cell.optimizer)
+    recompute = 0
     if train:
-        act = rec.saved_bytes
+        # a checkpointed unit saves its tensors again when backward runs
+        # it, through checkpoint's own hooks: the largest unit's set
+        # rides on the stash the trace saw
+        recompute = max((hlo.trace(u)[1].saved_bytes for u in cell.units),
+                        default=0)
+        act = rec.saved_bytes + recompute
     elif cell.shape.kind == "prefill":
         act = rec.peak_live_bytes
     else:
@@ -96,7 +104,8 @@ def memory(cell, rec: hlo.StepTrace) -> dict:
     total = param + grad + accum + opt + act + gather
     return {"param_bytes": param, "grad_bytes": grad,
             "grad_accum_bytes": accum, "optimizer_bytes": opt,
-            "activation_bytes": act, "gathered_layer_bytes": gather,
+            "activation_bytes": act, "recompute_bytes": recompute,
+            "gathered_layer_bytes": gather,
             "total_bytes": total,
             "total_per_chip_gb": round(total / 1e9, 3),
             "hbm_bytes": roofline.HBM_BYTES,

@@ -10,7 +10,8 @@ runs the whole-width model on its data-parallel slab of the batch:
 
   * train   — ``train_loop.make_train_step(cfg)`` on the slab's
               ``global_batch / dp`` rows (``cfg.grad_accum`` microbatches),
-              AdamW moments in ``cfg.moment_dtype``;
+              AdamW moments in ``cfg.moment_dtype``, checkpointed units
+              under ``cfg.remat``;
   * prefill — ``LM.forward`` and the logits (BF16), the compression
               direction's per-position distributions;
   * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state.
@@ -18,6 +19,7 @@ runs the whole-width model on its data-parallel slab of the batch:
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -27,7 +29,7 @@ from repro_torch.configs.registry import SHAPES, ShapeSpec, get_config
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import meta_model
-from repro_torch.models.transformer import LM, torch_dtype
+from repro_torch.models.transformer import LM, encoder_block, torch_dtype
 from repro_torch.parallel.sharding import (batch_spec, param_specs,
                                            shard_shape)
 from repro_torch.train import train_loop
@@ -44,8 +46,9 @@ def tune_for_shape(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
     if shape.kind != "train":
         cfg = cfg.with_(grad_accum=1)
     elif cfg.grad_accum < 8:
-        # the saved activations scale with the local microbatch;
-        # microbatch 32 divides both the 16-way and 32-way DP extents
+        # fit requirement, not tuning: the remat stash (each checkpointed
+        # unit's input) scales with the local microbatch; microbatch 32
+        # divides both the 16-way and 32-way DP extents
         cfg = cfg.with_(grad_accum=8)
     return cfg
 
@@ -101,7 +104,10 @@ class Cell:
     """One dry-run cell as a rank runs it.  ``run()`` runs the step on the
     meta device and returns what it returns; ``params``/``optimizer``/
     ``state``/``batch`` map names to ``(shape, dtype, placement)`` with
-    the global shape, and ``rows`` is the rank's batch slab."""
+    the global shape, and ``rows`` is the rank's batch slab.  A train
+    cell under ``cfg.remat`` holds in ``units`` one call for each
+    distinct checkpointed unit: its forward at a microbatch's shapes,
+    which backward runs again."""
 
     arch: str
     shape: ShapeSpec
@@ -115,6 +121,7 @@ class Cell:
     state: dict
     batch: dict
     run: object
+    units: tuple = ()
 
     def local_bytes(self, records: dict) -> int:
         """Per-rank bytes of ``records`` under their placements."""
@@ -124,6 +131,26 @@ class Cell:
 
 def _meta(shape, dtype):
     return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+def _unit_runs(model: LM, rows: int, seq: int) -> tuple:
+    """The forward of each distinct checkpointed unit on ``rows`` rows of
+    meta inputs: each stage's first pattern repetition over ``seq``
+    positions, and an encoder block over the memory's."""
+    cfg, dt = model.cfg, model.embedding.dtype
+    x = _meta((rows, seq, cfg.d_model), dt)
+    mem = None
+    if cfg.memory_tokens:
+        mem = _meta((rows, cfg.memory_tokens, cfg.d_model), dt)
+    firsts: dict = {}
+    for unit in model.units:
+        firsts.setdefault(model.layout[unit[0]][0], unit)
+    runs = [functools.partial(model.unit_forward, u, x, mem)
+            for u in firsts.values()]
+    if model.encoder is not None:
+        runs.append(functools.partial(encoder_block, model.encoder.blocks[0],
+                                      mem, cfg))
+    return tuple(runs)
 
 
 def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
@@ -145,7 +172,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     planes, place = batch_specs(cfg, shape, mesh)
     batch = {k: (sh, d, place[k]) for k, (sh, d) in planes.items()}
     local = {k: _meta((rows,) + sh[1:], d) for k, (sh, d) in planes.items()}
-    optimizer, state = {}, {}
+    optimizer, state, units = {}, {}, ()
 
     if shape.kind == "train":
         mdt = as_dtype(cfg.moment_dtype)
@@ -153,6 +180,8 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
                      for m in ("m", "v")
                      for k, (sh, _, spec) in params.items()}
         step = train_loop.make_train_step(cfg)
+        if cfg.remat:
+            units = _unit_runs(model, rows // cfg.grad_accum, s)
 
         def run():
             st = train_loop.init_train_state(model)
@@ -189,5 +218,5 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
 
     return Cell(arch=arch, shape=shape, mesh=mesh, cfg=cfg, fsdp=fsdp,
                 model=model, rows=rows, params=params, optimizer=optimizer,
-                state=state, batch=batch, run=run)
+                state=state, batch=batch, run=run, units=units)
 

@@ -19,9 +19,12 @@ parameters' and
 activations' type (``"float32"`` or ``"bfloat16"``).  ``qkv_bias`` and
 ``qk_norm`` (the Qwen models) add the attention's biases and its per-head
 q/k norms.  The training fields (``attn_impl``: ``"naive"`` or
-``"blockwise"`` over ``attn_block`` keys, ``logits_chunk``,
+``"blockwise"`` over ``attn_block`` keys, ``remat``, ``logits_chunk``,
 ``grad_accum``, ``moment_dtype``, ``grad_dtype``) carry the reference's
-defaults.
+defaults.  ``remat`` (activation checkpointing, the reference's
+``jax.checkpoint``) keeps only each pattern repetition's input, and each
+encoder block's, for backward and recomputes the rest there
+(``models.transformer``).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class ModelConfig:
     # training
     attn_impl: str = "naive"         # naive | blockwise
     attn_block: int = 1024           # kv-chunk for blockwise attention
+    remat: bool = True               # checkpoint each pattern repetition
     logits_chunk: int = 0            # 0 = unchunked loss
     grad_accum: int = 1
     moment_dtype: str = "float32"    # AdamW moments

@@ -49,7 +49,13 @@ sequence scans) and :func:`loss_fn`.  As in the reference, training
 attention masks by ``cfg.sliding_window`` only: the hybrid's attention
 blocks train with full causal attention and serve through their
 ``local_window`` ring, so its ``forward`` is not its own step scan past
-the window.
+the window.  Under ``cfg.remat`` (the reference's default), while
+autograd records, the forward runs each repetition of a stage's pattern
+(:attr:`LM.units`) and each encoder block as one checkpointed unit
+(:func:`remat`): backward keeps each unit's input, runs the unit again
+and reads the tensors it saves then.  The graph is the same, and so are
+the loss and every gradient, bit for bit; decoding and ``prefill_chunk``
+record no graph and never checkpoint.
 
 Both serving calls take optional :class:`RowGroup` s, the batching
 engine's slots: each group runs as the single-request step of the same
@@ -69,6 +75,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, attn_cross,
@@ -286,6 +293,12 @@ class LM(nn.Module):
         states = [_STATE[k] for k in kinds]
         self._index = tuple(states[:i].count(st)
                             for i, st in enumerate(states))
+        # the blocks of each repetition of a stage's pattern, in depth
+        # order: the reference's checkpointed unit
+        units: dict = {}
+        for b, (i, _, r) in enumerate(self.layout):
+            units.setdefault((i, r), []).append(b)
+        self.units = tuple(map(tuple, units.values()))
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_padded,
                                                   cfg.d_model))
         self.blocks = nn.ModuleList(_BLOCKS[k](cfg) for k in kinds)
@@ -351,14 +364,29 @@ class LM(nn.Module):
         the sum of the MoE blocks' load-balance losses (0.0 without
         one).  ``memory`` (B,M,D) feeds the ``cross``/``dec`` blocks; an
         encoder-decoder given ``enc_inputs`` (B,M,D) encodes them into the
-        memory first (:func:`encode_memory`)."""
+        memory first (:func:`encode_memory`).  Under ``cfg.remat``, while
+        autograd records, each of :attr:`units` runs checkpointed
+        (:func:`remat`)."""
         cfg = self.cfg
         if cfg.is_encdec and enc_inputs is not None:
             memory = encode_memory(self, enc_inputs)
         x = embed(self.embedding, tokens)
         memory = self._memory(memory, x.shape[0])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, blk in zip(self.kinds, self.blocks):
+        for unit in self.units:
+            x, a = remat(cfg, self.unit_forward, unit, x, memory)
+            aux = aux + a
+        return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
+
+    def unit_forward(self, unit: tuple, x: torch.Tensor,
+                     memory: torch.Tensor | None = None):
+        """The blocks ``unit`` (indices into :attr:`blocks`, one of
+        :attr:`units`) over x (B,S,D) -> (x, the unit's summed aux loss),
+        the reference's ``stage_forward`` unit."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for b in unit:
+            kind, blk = self.kinds[b], self.blocks[b]
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
             if kind == "ssm":
                 x = x + ssm_forward(blk.ssm, h, cfg)
@@ -380,7 +408,7 @@ class LM(nn.Module):
                 f = blk.ffn
                 h = mlp(f.wi_gate, f.wi_up, f.wo, h)
             x = x + h
-        return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
+        return x, aux
 
     def init_state(self, batch: int, max_len: int) -> ModelState:
         """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
@@ -558,7 +586,8 @@ def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:
     cast to the model's dtype as the reference casts them: each block's
     self-attention is bidirectional, without RoPE (the reference's cross
     attention of the sequence against itself), then the final norm ->
-    the memory (B,M,D)."""
+    the memory (B,M,D).  Under ``cfg.remat``, while autograd records,
+    each block runs checkpointed (:func:`remat`)."""
     cfg = model.cfg
     if model.encoder is None:
         raise ValueError(f"config {cfg.name!r} has no encoder "
@@ -568,12 +597,33 @@ def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:
                          f"do not fit (B, M, {cfg.d_model})")
     x = enc_inputs.to(model.embedding.dtype)
     for blk in model.encoder.blocks:
-        h = rmsnorm(blk.ln1, x, cfg.norm_eps)
-        x = x + attn_forward(blk.attn, h, cfg, mem=h)
-        h = rmsnorm(blk.ln2, x, cfg.norm_eps)
-        f = blk.ffn
-        x = x + mlp(f.wi_gate, f.wi_up, f.wo, h)
+        x = remat(cfg, encoder_block, blk, x, cfg)
     return rmsnorm(model.encoder.final_norm, x, cfg.norm_eps)
+
+
+def encoder_block(blk: Block, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block over x (B,M,D): bidirectional self-attention
+    without RoPE, then the MLP; the reference's checkpointed encoder
+    unit."""
+    h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+    x = x + attn_forward(blk.attn, h, cfg, mem=h)
+    h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+    f = blk.ffn
+    return x + mlp(f.wi_gate, f.wi_up, f.wo, h)
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; under ``cfg.remat``, while autograd records, as one
+    checkpointed unit, the reference's ``jax.checkpoint``: autograd keeps
+    only the arguments for backward and runs ``fn`` again there for the
+    tensors its backward reads.  The forward draws no random numbers, so
+    the RNG state is not saved, and the recomputation gives the same
+    tensors."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def loss_fn(model: LM, batch: dict) -> torch.Tensor:
