@@ -237,6 +237,22 @@ zero-frequency cases of 5a.
    plain steps'; each beside the dry-run's reckoned total on the 1 x 1
    mesh (parameter, gradient and moment bytes equal to the card's) and
    the card's name and power limit;
+21b. tensor-parallel compute (``tensor_parallel_phase``), on a world-1
+   NCCL group and ``launch.mesh.make_mesh_for(1)``, a (1, 1)
+   ``DeviceMesh``: ``qwen3-4b`` ``CONFIG`` at full width (32 heads at
+   ``tp=16``, 8 replicated kv heads, d_ff 9,728, vocab 151,936) cut to 2
+   of 36 layers, float32, naive attention, no remat, 2 x 1,024
+   ``train_batch`` tokens, drawn on the card; the plain model against
+   ``parallel.sharding.place_model`` of the same weights with
+   ``act_pspec`` None and sequence-parallel: ``grads_fn``'s loss and
+   every gradient leaf, the prefill logits, and every parameter after
+   two ``make_train_step`` steps (the first at the warmup's zero learning
+   rate) within 1e-5 of the leaf's largest entry (the largest seen
+   printed); the second step's time and the steps' peak memory of each;
+   the dry-run of each placed cell on the 1 x 1 mesh (``"model_axis":
+   "compute"``) gives the card's parameter, gradient and moment bytes,
+   its total printed beside the peak, with the card's name and power
+   limit.  No rANS kernel runs (counted);
 22. the decode's first-index top-k (``topk_phase``): card equal to the
    CPU on built ties at 16 x 32,768, timed beside ``torch.topk``;
 23. ``phi3.5-moe-42b-a6.6b`` at full width (``phi_phase``: d_model 4,096,
@@ -315,7 +331,8 @@ placed calls of phase 15a (``placement_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 (``mamba2_launches``), in the mixtral slice (``moe_launches``), in
 the zoo rungs (``zoo_launches``), in the phi slice
-(``phi_launches``) and in phases 26-30 (``trainer_launches``,
+(``phi_launches``), in phase 21b (``tensor_parallel_launches``, 0) and
+in phases 26-30 (``trainer_launches``,
 ``launchers_launches``, ``examples_launches``, ``lanes_launches``,
 ``chunked_launches``), in the dry-run of phase 31 (``dryrun_launches``,
 0), and B6's and B2's times at K = 50,280, K = 32,768
@@ -3160,6 +3177,165 @@ def remat_phase(dev):
               f"{mem['total_bytes'] / o['peak']:.3f} ({smi})", flush=True)
 
 
+TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ, TP_LR = "qwen3-4b", 2, 2, 1024, 3e-3
+TP_SP = (("data",), "model", None)
+
+
+def _tp_run(model, batch: dict, steps: list, device_mesh=None) -> dict:
+    """One model's loss and gradients (``grads_fn``), its prefill logits
+    and two train steps (``TP_LR``): the outputs on the card, the second
+    step's time, the steps' peak memory above what was allocated before
+    them plus the model's parameters (``own``: the step's peak without
+    the other models the phase holds), and the bytes of its parameters,
+    last gradients and moments (the rank's, when placed)."""
+    import torch
+    from repro_torch.train import train_loop
+    pl = model.placement
+    loss, grads = train_loop.grads_fn(model, batch)
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64,
+                             device=model.embedding.device)
+    with torch.no_grad():
+        x, _ = model(tokens if pl is None else pl.rows(tokens))
+        lg = model._logits(x)
+    del x
+    state = train_loop.init_train_state(model)
+    step = train_loop.make_train_step(model.cfg, base_lr=TP_LR,
+                                      device_mesh=device_mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _grad_bytes() as seen:
+        for b in steps:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    _check(bool(torch.isfinite(m["loss"])), f"step loss {m['loss']}")
+    param_bytes = _nbytes(model.parameters())
+    return dict(loss=loss, grads=grads, logits=lg, ms=ms,
+                own=torch.cuda.max_memory_allocated() - base + param_bytes,
+                params={k: p.detach() for k, p in model.named_parameters()},
+                param_bytes=param_bytes, grad_bytes=seen[-1],
+                moment_bytes=_nbytes(list(state.opt.m.values())
+                                     + list(state.opt.v.values())))
+
+
+def _tp_worst(got: dict, ref: dict, what: str) -> float:
+    """The largest |difference| over every leaf of ``got`` from ``ref``,
+    each over the leaf's largest |entry|; fails above 1e-5."""
+    import torch
+    rel = torch.stack([(got[k].float() - ref[k].float()).abs().max()
+                       / ref[k].float().abs().max().clamp(min=1e-30)
+                       for k in ref])
+    worst = float(rel.max())
+    _check(worst <= 1e-5 and bool(torch.isfinite(rel).all()),
+           f"{what}: {worst:.3e} of the leaf's largest entry, over 1e-5")
+    return worst
+
+
+def tensor_parallel_phase(dev):
+    """Slice 14: the dense family's compute placement at full width on a
+    world-1 NCCL group (``make_mesh_for(1)``, a (1, 1) ``DeviceMesh``):
+    ``qwen3-4b`` ``CONFIG`` cut to ``TP_LAYERS`` of 36 layers in float32,
+    ``TP_ROWS`` x ``TP_SEQ`` tokens; the plain model against its placement
+    with ``act_pspec`` None and sequence-parallel (loss, every gradient
+    leaf, the prefill logits, every parameter after two steps, each within
+    1e-5 of the leaf's largest entry); step times and peaks; the dry-run
+    of each placed cell on the 1 x 1 mesh against the card's bytes.
+    Returns the phase's rANS kernel launches (none)."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (make_mesh_for, mesh_shape_for,
+                                         mesh_shape_of)
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+
+    smi = _smi()
+    over = dict(n_layers=TP_LAYERS, dtype="float32", attn_impl="naive",
+                remat=False, grad_accum=1)
+    base = get_config(TP_ARCH).with_(**over)
+    _check(base.n_heads_padded == 32 and not base.kv_sharded
+           and base.vocab_size == 151936, f"{TP_ARCH} geometry {base}")
+    batch = train_batch(base, TP_ROWS, TP_SEQ, step=0)
+    steps = [train_batch(base, TP_ROWS, TP_SEQ, step=i) for i in (1, 2)]
+    what = (f"tensor parallel: {TP_ARCH} at full width, {TP_LAYERS} of 36 "
+            f"layers (float32, naive attention), {TP_ROWS} x {TP_SEQ} "
+            "tokens, mesh 1x1")
+    reset_launches()
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        _check(tuple(dm.shape) == (1, 1)
+               and mesh_shape_of(dm) == mesh_shape_for(1),
+               f"make_mesh_for(1) gave {mesh_shape_of(dm)}")
+        whole = init_model(base, seed=0, device=dev, draw="device")
+        ref = _tp_run(copy.deepcopy(whole), batch, steps)
+        out = {}
+        for pspec in (None, TP_SP):
+            whole.cfg = base.with_(act_pspec=pspec)
+            try:
+                placed = sharding.place_model(whole, dm)
+            finally:
+                whole.cfg = base
+            o = _tp_run(placed, batch, steps, device_mesh=dm)
+            del placed
+            tag = f"act_pspec={pspec}"
+            o["worst"] = {
+                "loss": _tp_worst({"l": o["loss"]}, {"l": ref["loss"]},
+                                  f"{what}, {tag}: loss"),
+                "grads": _tp_worst(o["grads"], ref["grads"],
+                                   f"{what}, {tag}: gradients"),
+                "logits": _tp_worst({"l": o["logits"]},
+                                    {"l": ref["logits"]},
+                                    f"{what}, {tag}: prefill logits"),
+                "params": _tp_worst(o["params"], ref["params"],
+                                    f"{what}, {tag}: parameters after 2 "
+                                    "steps")}
+            for k in ("grads", "logits", "params"):
+                o[k] = None
+            out[pspec] = o
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"{what}: plain step {ref['ms']:.1f} ms, the step's own peak "
+          f"{ref['own'] / 2**30:.2f} GiB ({ref['own']} B); loss "
+          f"{float(ref['loss']):.6f} ({smi})", flush=True)
+    shape = ShapeSpec(f"{TP_ROWS}x{TP_SEQ}", TP_SEQ, TP_ROWS, "train")
+    for pspec, o in out.items():
+        rec = dryrun.run_cell(TP_ARCH, shape, mesh=mesh_shape_for(1),
+                              overrides={**over, "act_pspec": pspec},
+                              verbose=False)
+        _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
+               f"{what}: dry-run {rec.get('model_axis')} "
+               f"{rec.get('error')}")
+        mem = rec["memory"]
+        got = (mem["param_bytes"], mem["grad_bytes"], mem["optimizer_bytes"])
+        want = (o["param_bytes"], o["grad_bytes"], o["moment_bytes"])
+        _check(got == want, f"{what}: dry-run parameter, gradient and "
+               f"moment bytes {got}, the card's {want}")
+        w = o["worst"]
+        print(f"{what}, placed with act_pspec={pspec}: loss, gradients, "
+              f"prefill logits and parameters after 2 steps within "
+              f"{w['loss']:.3e} / {w['grads']:.3e} / {w['logits']:.3e} / "
+              f"{w['params']:.3e} of each leaf's largest entry of the "
+              f"plain model's (limit 1e-5); step {o['ms']:.1f} ms, the "
+              f"step's own peak {o['own'] / 2**30:.2f} GiB ({o['own']} B); "
+              f"dry-run on the 1x1 mesh (compute) "
+              f"{mem['total_bytes'] / 2**30:.2f} GiB ({mem['total_bytes']}"
+              f" B; parameter, gradient and moment bytes equal to the "
+              f"card's), ratio {mem['total_bytes'] / o['own']:.3f} ({smi})",
+              flush=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _check(not any(launches.values()), f"{what}: launched {launches}")
+    return launches
+
+
 def topk_phase(dev):
     """The decode's first-index top-k (``predictors.model_topk_candidates``
     over ``topk_first``, a stable descending sort) on the card at the
@@ -4191,9 +4367,9 @@ def _grad_bytes():
     seen = []
     clip = train_loop.clip_by_global_norm
 
-    def spy(tree, max_norm):
+    def spy(tree, max_norm, **kw):
         seen.append(_nbytes(tree.values()))
-        return clip(tree, max_norm)
+        return clip(tree, max_norm, **kw)
 
     train_loop.clip_by_global_norm = spy
     try:
@@ -4518,6 +4694,7 @@ def main() -> int:
     del m2_state
     timed("dense zoo", dense_zoo_phase, dev)
     timed("remat", remat_phase, dev)
+    tp_launches = timed("tensor parallel", tensor_parallel_phase, dev)
     timed("top-k", topk_phase, dev)
     torch.cuda.empty_cache()
     phi_launches, phi = timed("phi slice", phi_phase, dev)
@@ -4558,6 +4735,7 @@ def main() -> int:
         rec["moe_launches"] = mx_launches[rec["name"]]
         rec["zoo_launches"] = zoo_launches[rec["name"]]
         rec["phi_launches"] = phi_launches[rec["name"]]
+        rec["tensor_parallel_launches"] = tp_launches[rec["name"]]
         rec["trainer_launches"] = trainer_launches[rec["name"]]
         rec["launchers_launches"] = launcher_launches[rec["name"]]
         rec["examples_launches"] = example_launches[rec["name"]]

@@ -22,12 +22,17 @@ The trace runs every layer and every microbatch of the step (the port
 unrolls depth in Python), so its counts need no loop-trip correction.
 
 :func:`collective_stats` is the reference's third roofline term: the
-bytes a rank receives per step under the storage placement
+bytes a rank receives per step under its placement
 (``parallel/sharding.py``) — the all-gather of each placed parameter
-before its layer runs (again in the backward), the decode state's
-gathers, and the gradient reduce over the data-parallel axes — split into
-``entry_bytes`` (embedding, head, final norms) and ``body_bytes`` (the
-layers), as the reference splits entry and loop-body collectives.
+before its layer runs (again in the backward; under the compute placement
+only the FSDP gather over ``data``), the decode state's gathers, and the
+gradient reduce over the data-parallel axes; under the compute placement
+also the model-axis collectives the cell's step recorded
+(``parallel.tensor.RecordingComm``: the tensor- and sequence-parallel
+all-reduces, gathers and reduce-scatters, the vocabulary-parallel loss's
+reductions) — split into ``entry_bytes`` (embedding, head, final norms,
+the loss) and ``body_bytes`` (the layers), as the reference splits entry
+and loop-body collectives.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from repro_torch.parallel.sharding import batch_spec, shard_shape, spec_axes
+from repro_torch.parallel.sharding import (batch_spec, model_shard_spec,
+                                           shard_shape, spec_axes)
 
 
 @dataclass
@@ -136,6 +142,15 @@ def _is_layer(name: str) -> bool:
     return name.startswith(("blocks.", "encoder.blocks."))
 
 
+def gathered_shape(cell, shape, spec) -> tuple:
+    """The shape a rank gathers a parameter to before its layer runs: the
+    whole tensor under the storage placement, its model shard under the
+    compute placement."""
+    if cell.comm is None:
+        return tuple(shape)
+    return shard_shape(shape, model_shard_spec(spec), cell.mesh)
+
+
 def collective_stats(cell) -> dict:
     """The bytes one rank receives per step of ``cell``
     (``launch.specs.Cell``) under its placement: ``{op: {"count",
@@ -159,10 +174,12 @@ def collective_stats(cell) -> dict:
         split["body_bytes" if _is_layer(name) else "entry_bytes"] += nbytes
 
     for name, (shape, dt, spec) in cell.params.items():
-        whole = math.prod(shape) * dt.itemsize
+        whole = math.prod(gathered_shape(cell, shape, spec)) * dt.itemsize
         local = math.prod(shard_shape(shape, spec, mesh)) * dt.itemsize
         placed = tuple(a for e in spec for a in spec_axes(e))
-        add("all-gather", name, placed, (whole - local) * passes, passes)
+        gathered = tuple(a for a in placed
+                         if cell.comm is None or a != "model")
+        add("all-gather", name, gathered, (whole - local) * passes, passes)
         if not train:
             continue
         dp = batch_spec(mesh, cell.shape.global_batch, 1)[0] or ()
@@ -185,6 +202,9 @@ def collective_stats(cell) -> dict:
         placed = tuple(a for e in spec[2:] for a in spec_axes(e))
         # the rank gathers its rows' state over the non-batch placements
         add("all-gather", "blocks.state", placed, rows - local, shape[0])
+    for op, axis, nbytes, scope in cell.recorded or ():
+        if axis == "model":
+            add(op, "blocks." if scope == "body" else "", ("model",), nbytes)
     out = {k: dict(v) for k, v in stats.items()}
     out["by_axes"] = dict(by_axes)
     out["total_bytes"] = sum(v["bytes"] for v in stats.values())

@@ -31,7 +31,9 @@ XLA:CPU's cost analysis, which counts a loop body once) is kept for the
 reference's numbers and not applied here.  MODEL_FLOPS is 6·N·D (train),
 2·N·D (prefill), 2·N·B (decode), N the active parameters; the ranks of one
 ``model`` row compute the same slab under the storage placement, so the
-useful share of a rank's FLOPs is at most 1 / model.
+useful share of a rank's FLOPs is at most 1 / model there, while under the
+compute placement (the ``dense`` train and prefill cells) each computes
+its own share.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ Trained with gradient accumulation, BF16 moments and gradients, and
 blockwise attention (an online softmax over ``attn_block`` keys); its
 ``SMOKE`` also chunks the loss.  [arXiv:2407.21783; unverified]
 
-Same values as ``repro.configs.llama3_405b`` (the reference's sharding
-fields aside).  Its vocabulary exceeds the SPC's ceiling of 2**16, so
-only ``SMOKE`` can be coded.
+Same values as ``repro.configs.llama3_405b``, its sequence-parallel
+``act_pspec`` included (``scan_layers`` has no port counterpart).  Its
+vocabulary exceeds the SPC's ceiling of 2**16, so only ``SMOKE`` can be
+coded.
 """
 
 from repro_torch.models.config import ModelConfig
@@ -28,6 +29,7 @@ CONFIG = ModelConfig(
     moment_dtype="bfloat16",
     grad_dtype="bfloat16",
     attn_impl="blockwise",
+    act_pspec=(("pod", "data"), "model", None),  # SP residuals
 )
 
 SMOKE = ModelConfig(

@@ -6,10 +6,12 @@ devices and lowers and compiles each cell with GSPMD.  The port runs one
 rank's step on the meta device (``launch/specs.build_cell``,
 ``analysis/hlo.trace``): no card, no process group and no allocation, so
 nothing here runs on the CPU in the card's place.  The mesh is a shape
-(``launch/mesh.production_mesh_shape``), and the reference's rules place
-storage (``"model_axis": "storage"`` in every record): a rank holds its
-shard of every parameter, gradient and moment and computes its
-data-parallel slab of the batch at full width.
+(``launch/mesh.production_mesh_shape``).  A rank holds its shard of
+every parameter, gradient and moment under the reference's rules; what it
+computes is the record's ``"model_axis"``: ``"compute"`` for a ``dense``
+arch's train and prefill cells (its data slab with its shares of the
+heads, MLP columns and vocabulary, ``launch/specs.py``), ``"storage"``
+for every other cell (its data slab at full width).
 
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under
@@ -18,7 +20,8 @@ backward, the largest microbatch's, and under ``cfg.remat`` the largest
 checkpointed unit's saved tensors when backward recomputes it, apart in
 ``recompute_bytes``; prefill: the forward's peak of live
 tensors; decode: the placed state), the largest layer's gathered shards
-(twice in a train cell: weights and gradients), their total and ``fits``
+(twice in a train cell: weights and gradients; under the compute
+placement its FSDP gather over ``data`` only), their total and ``fits``
 against the card's 80 GB.  A cell that does not fit is a finding, not a
 failure.  The roofline terms are reckoned at the H100's published peaks
 (``analysis/roofline.py``); they are not measurements.
@@ -98,8 +101,8 @@ def memory(cell, rec: hlo.StepTrace) -> dict:
         layer = _layer(name)
         if layer is not None:
             gathered[layer] = gathered.get(layer, 0) + (
-                math.prod(shape) - math.prod(shard_shape(shape, spec, mesh))
-            ) * dt.itemsize
+                math.prod(hlo.gathered_shape(cell, shape, spec))
+                - math.prod(shard_shape(shape, spec, mesh))) * dt.itemsize
     gather = max(gathered.values(), default=0) * (2 if train else 1)
     total = param + grad + accum + opt + act + gather
     return {"param_bytes": param, "grad_bytes": grad,
@@ -142,7 +145,8 @@ def run_cell(arch: str, shape_name, multi_pod: bool = False,
             "arch": arch, "shape": shape.name, "mesh": mesh_name,
             "status": "OK", "tag": tag,
             "fsdp": fsdp, "overrides": overrides,
-            "model_axis": "storage", "rows_per_rank": cell.rows,
+            "model_axis": "storage" if cell.comm is None else "compute",
+            "act_pspec": cell.cfg.act_pspec, "rows_per_rank": cell.rows,
             "grad_accum": cell.cfg.grad_accum,
             "trace_s": round(t_trace, 2),
             "memory": mem,

@@ -8,9 +8,11 @@ process group as :func:`repro_torch.parallel.make_mesh` builds the 1-D
 meshes (NCCL for ranks on the card, gloo on the CPU): a constructor without a
 group, or with a world of another size, raises :class:`MeshError`.
 
-The port computes no tensor parallelism, so the mesh places storage
-(``parallel/sharding.py``): each rank holds the reference's shard of every
-parameter and computes its data-parallel slab of the batch at full width.
+Each rank holds the reference's shard of every parameter
+(``parallel/sharding.py``); a ``dense`` model placed on the mesh
+(``sharding.place_model``) computes its share of the heads, MLP columns
+and vocabulary on its data slab, every other family its data slab at
+full width.
 Each axis's group (``device_mesh.get_group(axis)``) builds the port's
 existing 1-D meshes: ``pod_mesh(group=...)`` on ``"pod"``,
 ``chunk_mesh``/``lane_mesh`` on ``"data"``, so the placement code runs on

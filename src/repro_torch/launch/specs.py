@@ -4,14 +4,27 @@ on the meta device, with every tensor's per-rank placement.
 Port of ``repro.launch.specs``.  Nothing here allocates: the model, the
 optimizer state, the batch and the decode state are meta tensors at the
 width the rank computes, and the placement says what each rank stores.
-The reference lowers the whole (GSPMD-sharded) program; the port places
-the reference's rules as storage (``parallel/sharding.py``), so a rank
-runs the whole-width model on its data-parallel slab of the batch:
+The reference lowers the whole (GSPMD-sharded) program.  The port runs
+one rank's program, under one of two placements (``parallel/
+sharding.py``):
+
+  * **compute** — a ``dense`` arch's train and prefill cells: the rank's
+    placed model (``sharding.place_model`` on a
+    ``parallel.tensor.RecordingComm``, the stand-in that records each
+    collective instead of running it), its data slab of the batch, its
+    shares of the heads, MLP columns and vocabulary, residuals under
+    ``cfg.act_pspec`` (the reference's default ``(batch axes, None,
+    None)`` when none is set);
+  * **storage** — every other cell: the whole-width model on the rank's
+    data-parallel slab, its placed shards gathered before each layer.
+
+The steps:
 
   * train   — ``train_loop.make_train_step(cfg)`` on the slab's
               ``global_batch / dp`` rows (``cfg.grad_accum`` microbatches),
               AdamW moments in ``cfg.moment_dtype``, checkpointed units
-              under ``cfg.remat``;
+              under ``cfg.remat``; placed, ``make_train_step(cfg,
+              device_mesh=...)`` on the global batch;
   * prefill — ``LM.forward`` and the logits (BF16), the compression
               direction's per-position distributions;
   * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state.
@@ -31,7 +44,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import meta_model
 from repro_torch.models.transformer import LM, encoder_block, torch_dtype
 from repro_torch.parallel.sharding import (batch_spec, param_specs,
-                                           shard_shape)
+                                           place_model, shard_shape)
+from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.train import train_loop
 from repro_torch.train.optimizer import as_dtype
 
@@ -107,7 +121,9 @@ class Cell:
     the global shape, and ``rows`` is the rank's batch slab.  A train
     cell under ``cfg.remat`` holds in ``units`` one call for each
     distinct checkpointed unit: its forward at a microbatch's shapes,
-    which backward runs again."""
+    which backward runs again.  A compute-placed cell has its ``comm``
+    (the recording stand-in), and ``recorded`` holds the collectives of
+    the last ``run()``; a storage cell has neither."""
 
     arch: str
     shape: ShapeSpec
@@ -122,6 +138,8 @@ class Cell:
     batch: dict
     run: object
     units: tuple = ()
+    comm: RecordingComm | None = None
+    recorded: list = None
 
     def local_bytes(self, records: dict) -> int:
         """Per-rank bytes of ``records`` under their placements."""
@@ -136,8 +154,12 @@ def _meta(shape, dtype):
 def _unit_runs(model: LM, rows: int, seq: int) -> tuple:
     """The forward of each distinct checkpointed unit on ``rows`` rows of
     meta inputs: each stage's first pattern repetition over ``seq``
-    positions, and an encoder block over the memory's."""
+    positions (a placed rank's sequence slab under sequence
+    parallelism), and an encoder block over the memory's."""
     cfg, dt = model.cfg, model.embedding.dtype
+    pl = model.placement
+    if pl is not None and pl.sp:
+        seq //= pl.tp
     x = _meta((rows, seq, cfg.d_model), dt)
     mem = None
     if cfg.memory_tokens:
@@ -162,34 +184,56 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     cfg = tune_for_shape(get_config(arch), shape)
     if overrides:
         cfg = cfg.with_(**overrides)
+    b, s = shape.global_batch, shape.seq_len
+    compute = cfg.family == "dense" and shape.kind != "decode"
+    if compute:
+        cfg = _placed_pspec(cfg, mesh, b)
     model = meta_model(cfg)
     pspec = param_specs(model, mesh, fsdp=fsdp)
     params = {k: (tuple(p.shape), p.dtype, pspec[k])
               for k, p in model.named_parameters()}
-    b, s = shape.global_batch, shape.seq_len
     rows = b // _dp_parts(mesh, b)
     dt = torch_dtype(cfg)
     planes, place = batch_specs(cfg, shape, mesh)
     batch = {k: (sh, d, place[k]) for k, (sh, d) in planes.items()}
     local = {k: _meta((rows,) + sh[1:], d) for k, (sh, d) in planes.items()}
     optimizer, state, units = {}, {}, ()
+    comm, recorded = None, []
+    if compute:
+        comm = RecordingComm(mesh)
+        model = place_model(model, comm, fsdp=fsdp)
+        whole = {k: _meta(sh, d) for k, (sh, d) in planes.items()}
+
+    def recording(fn):
+        """``fn`` with the collectives it records kept in ``recorded``."""
+        if comm is None:
+            return fn
+
+        def run():
+            comm.records.clear()
+            out = fn()
+            recorded[:] = comm.records
+            return out
+        return run
 
     if shape.kind == "train":
         mdt = as_dtype(cfg.moment_dtype)
         optimizer = {f"{m}.{k}": (sh, mdt, spec)
                      for m in ("m", "v")
                      for k, (sh, _, spec) in params.items()}
-        step = train_loop.make_train_step(cfg)
+        step = train_loop.make_train_step(cfg, device_mesh=comm)
         if cfg.remat:
             units = _unit_runs(model, rows // cfg.grad_accum, s)
 
+        @recording
         def run():
             st = train_loop.init_train_state(model)
-            return step(st, local)
+            return step(st, whole if compute else local)
     elif shape.kind == "prefill":
         local.pop("labels")
         batch.pop("labels")
 
+        @recording
         def run():
             with torch.no_grad():
                 x, _ = model(local["tokens"], memory=local.get("memory"),
@@ -218,5 +262,20 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
 
     return Cell(arch=arch, shape=shape, mesh=mesh, cfg=cfg, fsdp=fsdp,
                 model=model, rows=rows, params=params, optimizer=optimizer,
-                state=state, batch=batch, run=run, units=units)
+                state=state, batch=batch, run=run, units=units, comm=comm,
+                recorded=recorded if compute else None)
+
+
+def _placed_pspec(cfg: ModelConfig, mesh, global_batch: int) -> ModelConfig:
+    """The reference's ``act_pspec`` for a compute-placed cell: the
+    config's own without the ``pod`` axis on a single pod, else
+    ``(batch axes, None, None)``."""
+    if cfg.act_pspec is not None:
+        if "pod" in mesh.axis_names:
+            return cfg
+        return cfg.with_(act_pspec=tuple(
+            tuple(a for a in ax if a != "pod") if isinstance(ax, tuple)
+            else ax for ax in cfg.act_pspec))
+    return cfg.with_(act_pspec=(batch_spec(mesh, global_batch, 1)[0], None,
+                                None))
 

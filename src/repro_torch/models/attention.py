@@ -55,6 +55,13 @@ head reads its :func:`kv_head_map` kv head, as on the self path.
 schedule with no window, the memory's K and V projected anew at every
 step (nothing is cached).  The encoder's self-attention is cross
 attention against its own input (the reference's ``mem=h``).
+
+Under the dense family's compute placement (``parallel/sharding.
+place_model``) :func:`attn_forward` takes the rank's ``place``: its
+query heads are the rank's share, their kv heads its shard or, where the
+kv heads replicate over ``model``, picked from the whole K/V by
+:func:`kv_head_map` (``Placement.kv_index``), and ``wo`` is
+row-parallel.
 """
 
 from __future__ import annotations
@@ -123,18 +130,24 @@ def _grouped(cfg: ModelConfig) -> bool:
             and cfg.n_heads % cfg.n_kv_heads == 0)
 
 
-def _heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+def _heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+           place=None):
     """K/V with the head axis 2 in the layout the attend contracts: as
     they are when grouped, else gathered to the query heads by
-    :func:`kv_head_map`.  Returns (k, v, kv heads, queries per kv
-    head)."""
-    if _grouped(cfg):
-        kv = cfg.n_kv_heads
+    :func:`kv_head_map`.  Returns (k, v, kv heads, queries per kv head).
+    Placed, the query heads are this rank's ``place.heads`` and
+    ``place.kv_index`` maps them into the K/V heads it computed (None
+    when grouped)."""
+    if place is None:
+        hp = cfg.n_heads_padded
+        idx = None if _grouped(cfg) else kv_head_map(cfg, k.device)
     else:
-        idx = kv_head_map(cfg, k.device)
-        k, v, kv = k.index_select(2, idx), v.index_select(2, idx), \
-            cfg.n_heads_padded
-    return k, v, kv, cfg.n_heads_padded // kv
+        hp, idx = place.heads, place.kv_index
+    if idx is None:
+        kv = k.shape[2]
+    else:
+        k, v, kv = k.index_select(2, idx), v.index_select(2, idx), hp
+    return k, v, kv, hp // kv
 
 
 def ring_slots(max_len: int) -> int:
@@ -192,11 +205,12 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D) -> q (B,S,Hp,Dh), k and v (B,M,KV,Dh): the projections
     (K and V of ``mem`` (B,M,D) when given, else of ``x``), the biases
     (``qkv_bias``) and the per-head norms (``qk_norm``), as the
-    reference's ``_project_qkv``."""
+    reference's ``_project_qkv``.  The head counts are the weights'
+    (a placed rank's shards)."""
     b, s, d = x.shape
     src = x if mem is None else mem
     m = src.shape[1]
-    hp, kv, dh = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+    hp, kv, dh = p.wq.shape[1], p.wk.shape[1], cfg.head_dim_
     q = (x @ p.wq.reshape(d, hp * dh)).view(b, s, hp, dh)
     k = (src @ p.wk.reshape(d, kv * dh)).view(b, m, kv, dh)
     v = (src @ p.wv.reshape(d, kv * dh)).view(b, m, kv, dh)
@@ -342,7 +356,7 @@ def _blockwise_attn(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attend(p: Attention, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, cfg: ModelConfig, causal: bool, window: int,
-            blockwise: bool) -> torch.Tensor:
+            blockwise: bool, place=None) -> torch.Tensor:
     """Queries (B,S,Hp,Dh) against keys and values (B,M,KV,Dh), each query
     head reading its :func:`kv_head_map` kv head, then the output
     projection -> (B,S,D).  The naive schedule (the reference's
@@ -351,8 +365,8 @@ def _attend(p: Attention, q: torch.Tensor, k: torch.Tensor,
     or before the query (``causal``) and, with a ``window``, keys less
     than ``window`` positions behind it."""
     b, s = q.shape[:2]
-    hp, dh = cfg.n_heads_padded, cfg.head_dim_
-    k, v, kv, g = _heads(k, v, cfg)
+    hp, dh = q.shape[2], cfg.head_dim_
+    k, v, kv, g = _heads(k, v, cfg, place)
     qg = q.view(b, s, kv, g, dh).permute(0, 2, 3, 1, 4)   # (B,KV,g,S,Dh)
     if blockwise:
         out = _blockwise_attn(qg, k, v, causal, window, cfg.attn_block)
@@ -374,7 +388,8 @@ def _attend(p: Attention, q: torch.Tensor, k: torch.Tensor,
 
 
 def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 mem: torch.Tensor | None = None) -> torch.Tensor:
+                 mem: torch.Tensor | None = None,
+                 place=None) -> torch.Tensor:
     """Attention over a whole sequence (training, the encoder): x (B,S,D)
     -> (B,S,D).  Without ``mem``: causal self-attention, RoPE at positions
     ``arange(S)``.  With ``mem`` (B,M,D): cross attention, K and V from
@@ -382,18 +397,28 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     ``window`` or more positions behind the query (the reference's
     ``kv_idx > q_idx - window``) on both.  ``cfg.attn_impl``: ``"naive"``
     (the whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn`
-    over ``cfg.attn_block`` keys at a time)."""
+    over ``cfg.attn_block`` keys at a time).
+
+    Placed (``place``, self-attention of the dense family's compute
+    placement): ``p`` holds this rank's query heads ``[r Hp/tp, (r+1)
+    Hp/tp)`` and their ``wo`` rows, and its kv heads' shard (or all kv
+    heads, when they replicate over ``model``); the residual stream enters
+    whole (``place.enter``) and ``wo``'s partial sums leave reduced over
+    ``model`` (``place.exit``)."""
     if cfg.attn_impl not in ("naive", "blockwise"):
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected 'naive' "
                          "or 'blockwise'")
+    if place is not None:
+        x = place.enter(x)
     q, k, v = _qkv(p, x, cfg, mem)
     if mem is None:
         pos = torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    return _attend(p, q, k, v, cfg, causal=mem is None,
-                   window=cfg.sliding_window,
-                   blockwise=cfg.attn_impl == "blockwise")
+    out = _attend(p, q, k, v, cfg, causal=mem is None,
+                  window=cfg.sliding_window,
+                  blockwise=cfg.attn_impl == "blockwise", place=place)
+    return out if place is None else place.exit(out)
 
 
 def attn_cross(p: Attention, x1: torch.Tensor, mem: torch.Tensor,

@@ -24,7 +24,11 @@ q/k norms.  The training fields (``attn_impl``: ``"naive"`` or
 defaults.  ``remat`` (activation checkpointing, the reference's
 ``jax.checkpoint``) keeps only each pattern repetition's input, and each
 encoder block's, for backward and recomputes the rest there
-(``models.transformer``).
+(``models.transformer``).  ``act_pspec`` is the reference's placement
+of the residual stream on the ``(data, model)`` mesh: ``(batch axes,
+"model", None)`` keeps the residuals sequence-parallel over ``model``
+(``llama3-405b``'s fit lever); unplaced paths never read it
+(``parallel/sharding.place_model``).
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ class ModelConfig:
     grad_accum: int = 1
     moment_dtype: str = "float32"    # AdamW moments
     grad_dtype: str = "float32"      # accumulated gradients (grad_accum > 1)
+    act_pspec: tuple | None = None   # residual stream placement (batch,
+                                     # sequence, feature): "model" on the
+                                     # sequence = sequence parallelism
 
     @property
     def head_dim_(self) -> int:

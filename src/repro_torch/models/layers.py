@@ -6,6 +6,16 @@ Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
 ``wo (ff, d)``, ``embedding (Vpad, d)``).  In a bfloat16 model the norm
 and the RoPE rotation compute in float32 and round once to bfloat16, as
 the reference does; in a float32 model every cast below is the identity.
+
+Under the dense family's compute placement (``parallel/sharding.
+place_model``) :func:`mlp`, :func:`embed`, :func:`xent_loss` and
+:func:`chunked_xent_loss` take the rank's ``place`` (a
+``sharding.Placement``): the MLP is column-parallel into ``wi_gate``/
+``wi_up`` and row-parallel out of ``wo``; the embedding and the logits
+are vocabulary-parallel, each rank holding rows ``[vocab_start,
+vocab_start + Vpad / tp)``; the cross entropy reduces its row max, its
+sum of exponentials and the gold logit over ``model``.  Without
+``place`` every function is the unplaced one, op for op.
 """
 
 from __future__ import annotations
@@ -80,12 +90,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp(wi_gate: torch.Tensor, wi_up: torch.Tensor, wo: torch.Tensor,
-        x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+        x: torch.Tensor, place=None) -> torch.Tensor:
+    """The gated MLP; placed, on this rank's columns of ``d_ff``: the
+    residual stream enters whole and the partial sums of ``wo`` leave
+    reduced over ``model`` (``place.enter``/``place.exit``)."""
+    if place is None:
+        return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+    x = place.enter(x)
+    return place.exit((F.silu(x @ wi_gate) * (x @ wi_up)) @ wo)
 
 
-def embed(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embedding[tokens]
+def embed(embedding: torch.Tensor, tokens: torch.Tensor,
+          place=None) -> torch.Tensor:
+    """The rows of ``tokens``; placed, ``embedding`` is this rank's
+    vocabulary rows: ids outside them give zero rows, and the sum over
+    ``model`` (one nonzero term, so exact) is the lookup, this rank's
+    sequence slab of it under sequence parallelism."""
+    if place is None:
+        return embedding[tokens]
+    local = tokens - place.vocab_start
+    ok = (local >= 0) & (local < embedding.shape[0])
+    x = embedding[local.clamp(0, embedding.shape[0] - 1)]
+    return place.exit(torch.where(ok[..., None], x, torch.zeros_like(x)))
 
 
 def logits(embedding: torch.Tensor, x: torch.Tensor,
@@ -96,24 +122,41 @@ def logits(embedding: torch.Tensor, x: torch.Tensor,
 
 
 def xent_loss(lg: torch.Tensor, labels: torch.Tensor,
-              vocab_size: int) -> torch.Tensor:
+              vocab_size: int, place=None) -> torch.Tensor:
     """Mean token cross entropy in float32; the padded vocabulary tail is
-    pushed to -1e30 so it takes no mass."""
+    pushed to -1e30 so it takes no mass.  Placed, ``lg`` is this rank's
+    vocabulary shard: the tail is found by global index, the row max and
+    the sum of exponentials are reduced over ``model``, and the gold logit
+    comes from the one shard that holds the label."""
     lg = lg.to(torch.float32)
-    if lg.shape[-1] > vocab_size:
-        lg = torch.cat([lg[..., :vocab_size], lg[..., vocab_size:] - 1e30],
-                       -1)
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+    if place is None:
+        if lg.shape[-1] > vocab_size:
+            lg = torch.cat([lg[..., :vocab_size],
+                            lg[..., vocab_size:] - 1e30], -1)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+        return (lse - gold).mean()
+    n = lg.shape[-1]
+    idx = place.vocab_start + torch.arange(n, device=lg.device)
+    lg = torch.where(idx >= vocab_size, lg - 1e30, lg)
+    m = place.model_max(lg.amax(-1))
+    sumexp = place.model_sum(torch.exp(lg - m[..., None]).sum(-1))
+    lse = m + torch.log(sumexp)
+    local = labels.to(torch.int64) - place.vocab_start
+    ok = (local >= 0) & (local < n)
+    gold = lg.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = place.model_sum(torch.where(ok, gold, torch.zeros_like(gold)))
     return (lse - gold).mean()
 
 
 def chunked_xent_loss(embedding: torch.Tensor, x: torch.Tensor,
                       labels: torch.Tensor, vocab_size: int, chunk: int,
-                      lm_head: torch.Tensor | None = None) -> torch.Tensor:
+                      lm_head: torch.Tensor | None = None,
+                      place=None) -> torch.Tensor:
     """:func:`xent_loss` of the :func:`logits` over ``chunk``-position
     slices of the sequence, averaged over the slices: never holds the
-    whole ``(B, S, V)`` logits."""
+    whole ``(B, S, V)`` logits.  Placed, ``x`` is the whole sequence on
+    every model rank and the heads are this rank's vocabulary shard."""
     s = x.shape[1]
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of "
@@ -122,5 +165,5 @@ def chunked_xent_loss(embedding: torch.Tensor, x: torch.Tensor,
     for c in range(0, s, chunk):
         total = total + xent_loss(logits(embedding, x[:, c:c + chunk],
                                          lm_head),
-                                  labels[:, c:c + chunk], vocab_size)
+                                  labels[:, c:c + chunk], vocab_size, place)
     return total / (s // chunk)

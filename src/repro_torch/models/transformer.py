@@ -66,6 +66,15 @@ their thread layout from the row count, so the same rows inside a larger
 batch can round differently on the card; a group is the unit at which
 the engine's floats are the single-request path's by construction
 (``PERF.md`` §7).
+
+A ``dense`` model placed for compute on a ``(data, model)`` mesh
+(``parallel/sharding.place_model``: its parameters are one rank's shards,
+:attr:`LM.placement` set) trains and prefills on its rank's share: the
+forward takes the rank's rows, each checkpointed unit gathers its
+blocks' FSDP shards over ``data`` (:meth:`LM._placed_unit`), the
+attention and MLP run column- then row-parallel over ``model``, the
+residuals follow ``cfg.act_pspec`` and the logits and the loss are
+vocabulary-parallel; it does not decode.
 """
 
 from __future__ import annotations
@@ -306,9 +315,26 @@ class LM(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_padded))
         self.encoder = Encoder(cfg) if cfg.is_encdec else None
+        # a rank's parallel.sharding.Placement when its parameters are
+        # shards of a compute-placed model (sharding.place_model)
+        self.placement = None
+
+    def _head(self, x: torch.Tensor):
+        """``(embedding, lm_head, x)`` as the logits read them: placed, the
+        vocabulary shards gathered over ``data`` and the whole sequence of
+        ``x`` on every model rank."""
+        pl = self.placement
+        if pl is None:
+            return self.embedding, self.lm_head, x
+        head = None if self.lm_head is None else pl.gather(self.lm_head,
+                                                            "lm_head")
+        return pl.gather(self.embedding, "embedding"), head, pl.enter(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return logits(self.embedding, x, self.lm_head)
+        """Logits over the padded vocabulary (placed: this rank's shard,
+        (B, S, Vpad / tp), of the whole sequence)."""
+        emb, head, x = self._head(x)
+        return logits(emb, x, head)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
@@ -366,17 +392,27 @@ class LM(nn.Module):
         encoder-decoder given ``enc_inputs`` (B,M,D) encodes them into the
         memory first (:func:`encode_memory`).  Under ``cfg.remat``, while
         autograd records, each of :attr:`units` runs checkpointed
-        (:func:`remat`)."""
-        cfg = self.cfg
+        (:func:`remat`).
+
+        A placed model (:attr:`placement`) takes its rank's rows of the
+        batch (``placement.rows``) and returns the residual stream as it
+        lies on the rank: (B/dp, S/tp, D) under sequence parallelism,
+        else (B/dp, S, D)."""
+        cfg, pl = self.cfg, self.placement
         if cfg.is_encdec and enc_inputs is not None:
             memory = encode_memory(self, enc_inputs)
-        x = embed(self.embedding, tokens)
+        if pl is None:
+            x = embed(self.embedding, tokens)
+            final_norm = self.final_norm
+        else:
+            x = embed(pl.gather(self.embedding, "embedding"), tokens, pl)
+            final_norm = pl.gather(self.final_norm, "final_norm")
         memory = self._memory(memory, x.shape[0])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for unit in self.units:
             x, a = remat(cfg, self.unit_forward, unit, x, memory)
             aux = aux + a
-        return rmsnorm(self.final_norm, x, cfg.norm_eps), aux
+        return rmsnorm(final_norm, x, cfg.norm_eps), aux
 
     def unit_forward(self, unit: tuple, x: torch.Tensor,
                      memory: torch.Tensor | None = None):
@@ -384,6 +420,8 @@ class LM(nn.Module):
         :attr:`units`) over x (B,S,D) -> (x, the unit's summed aux loss),
         the reference's ``stage_forward`` unit."""
         cfg = self.cfg
+        if self.placement is not None:
+            return self._placed_unit(unit, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for b in unit:
             kind, blk = self.kinds[b], self.blocks[b]
@@ -409,6 +447,33 @@ class LM(nn.Module):
                 h = mlp(f.wi_gate, f.wi_up, f.wo, h)
             x = x + h
         return x, aux
+
+    def _placed_unit(self, unit: tuple, x: torch.Tensor):
+        """:meth:`unit_forward` of a placed dense model: each block's
+        FSDP shards gathered over ``data`` here, inside the checkpointed
+        unit (so that backward gathers them again), then the norms on the
+        residual stream as it lies and the attention and MLP on this
+        rank's heads and columns; the aux loss is 0."""
+        cfg, pl = self.cfg, self.placement
+        pl.comm.scope = "body"
+        try:
+            for b in unit:
+                w = pl.gathered(self.blocks[b], f"blocks.{b}")
+                x = x + attn_forward(w.attn, rmsnorm(w.ln1, x, cfg.norm_eps),
+                                     cfg, place=pl)
+                f = w.ffn
+                x = x + mlp(f.wi_gate, f.wi_up, f.wo,
+                            rmsnorm(w.ln2, x, cfg.norm_eps), place=pl)
+        finally:
+            pl.comm.scope = "entry"
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _unplaced(self, what: str) -> None:
+        if self.placement is not None:
+            raise NotImplementedError(
+                f"{what} under the compute placement is not ported "
+                "(ROADMAP A: decode under a kv-head-sharded state); serve "
+                "the whole model")
 
     def init_state(self, batch: int, max_len: int) -> ModelState:
         """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
@@ -503,6 +568,7 @@ class LM(nn.Module):
         ``memory``; rows outside every group get zero logits and leave the
         state unchanged.  ``memory`` (B,M,D): what the ``cross``/``dec``
         blocks attend (required there)."""
+        self._unplaced("decode_step")
         groups = self._groups(state, token.shape[0], groups)
         memory = self._memory(memory, token.shape[0])
         if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
@@ -561,6 +627,7 @@ class LM(nn.Module):
         if not set(self.kinds) <= {"attn", "attn_moe"}:
             raise ValueError(f"prefill_chunk runs attention blocks only; "
                              f"this model has {sorted(set(self.kinds))}")
+        self._unplaced("prefill_chunk")
         b = tokens.shape[0]
         groups = self._groups(state, b, groups)
         pos0, n_valid = pos0.to(torch.int64), n_valid.to(torch.int64)
@@ -630,16 +697,20 @@ def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     """Next-token cross entropy of ``batch`` (``tokens``/``labels`` (B,S)
     tensors on the model's device, and the ``memory`` or ``enc_inputs``
     (B,M,D) of a model that reads one) plus 0.01 x the aux loss.
-    ``model.cfg.logits_chunk`` > 0 runs the chunked loss."""
-    cfg = model.cfg
+    ``model.cfg.logits_chunk`` > 0 runs the chunked loss.  A placed model
+    takes its rank's rows and gives their mean: the vocabulary-parallel
+    cross entropy of the whole sequence, gathered once after the final
+    norm under sequence parallelism."""
+    cfg, pl = model.cfg, model.placement
     x, aux = model(batch["tokens"], memory=batch.get("memory"),
                    enc_inputs=batch.get("enc_inputs"))
+    emb, head, x = model._head(x)
     if cfg.logits_chunk:
-        ce = chunked_xent_loss(model.embedding, x, batch["labels"],
-                               cfg.vocab_size, cfg.logits_chunk,
-                               model.lm_head)
+        ce = chunked_xent_loss(emb, x, batch["labels"], cfg.vocab_size,
+                               cfg.logits_chunk, head, pl)
     else:
-        ce = xent_loss(model._logits(x), batch["labels"], cfg.vocab_size)
+        ce = xent_loss(logits(emb, x, head), batch["labels"],
+                       cfg.vocab_size, pl)
     return ce + 0.01 * aux
 
 

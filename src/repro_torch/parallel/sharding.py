@@ -1,4 +1,5 @@
-"""Logical-axis -> mesh-axis placement rules (DP / FSDP storage).
+"""Logical-axis -> mesh-axis placement rules, and the dense family's
+placed model: tensor-parallel compute over ``model``, FSDP over ``data``.
 
 Port of ``repro.parallel.sharding``.  The reference places the model by
 GSPMD on the ``(data=16, model=16)`` mesh a pod (a leading ``pod`` axis
@@ -12,28 +13,48 @@ across pods):
   * embed           -> data under FSDP (the default), None otherwise
   * layers          -> never sharded
 
-The port has no tensor-parallel compute, so it places the same rules as
-**storage**: each rank holds exactly the reference's shard of every
-parameter (:func:`shard_params`, a ``narrow`` at the rank's mesh
-coordinates), computes its data-parallel slab of the batch
-(:func:`batch_spec`) at full width, and gathers each layer's shards
-before the layer runs (:func:`unshard`: an ``all_gather`` per placed
-axis, bitwise the whole tensor).  The ranks of one ``model`` row hold one
-batch slab and compute the same slab: the model axis divides memory, not
-work.  A mesh here is anything with ``axis_names`` and a ``shape``
-mapping (``launch.mesh.MeshShape``, or a JAX mesh in the tests); the
-placement functions take the ``torch.distributed`` ``DeviceMesh``.
+Each rank holds exactly the reference's shard of every parameter
+(:func:`shard_params`, a ``narrow`` at the rank's mesh coordinates;
+:func:`unshard` is the way back, an ``all_gather`` per placed axis,
+bitwise the whole tensor).  What a rank computes depends on the family:
+
+* ``dense`` (:func:`place_model`): the reference's **compute** placement.
+  A rank computes its data slab of the batch (:meth:`Placement.rows`)
+  with its share of the query heads, of the MLP's columns and of the
+  vocabulary, Megatron's column- and row-parallel pairs over ``model``
+  (``parallel/tensor.py``), and gathers each layer's FSDP shards over
+  ``data`` inside the layer's checkpointed unit.  Residuals follow
+  ``cfg.act_pspec``: sequence-parallel over ``model`` when its sequence
+  entry is ``"model"``, else whole on every rank of a ``model`` row.
+  Parameters replicated over ``model`` whose gradient is each rank's
+  part (the q/k norms, K/V projections replicated over ``kv_heads_repl``,
+  the norms under sequence parallelism) are all-reduced over ``model``
+  once a step (:meth:`Placement.reduce_grads`).
+* every other family: **storage** only (``launch/specs.py``): a rank
+  gathers each layer's shards and computes its data slab at full width,
+  so the model axis divides memory, not work.  Their rules (expert
+  parallelism, the SSM and RG-LRU axes, cross attention) are ROADMAP A.
+
+A mesh here is anything with ``axis_names`` and a ``shape`` mapping
+(``launch.mesh.MeshShape``, or a JAX mesh in the tests); the placement
+functions take the ``torch.distributed`` ``DeviceMesh`` (or the dry-run's
+``parallel.tensor.RecordingComm``).
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
+from repro_torch.models.attention import kv_head_map
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import param_axes, pspec_tree
+from repro_torch.models.transformer import LM
+from repro_torch.parallel import tensor as tpc
 
 
 def dp_axes(multi_pod: bool):
@@ -95,10 +116,11 @@ def shard_shape(shape, spec, mesh) -> tuple:
 def _coord(device_mesh, axes: tuple) -> tuple[int, int]:
     """This rank's index and the part count of a dim placed on ``axes``
     (major first, as JAX orders a tuple of axes)."""
+    comm = tpc.comm_of(device_mesh)
     idx, parts = 0, 1
     for a in axes:
-        n = device_mesh.size(device_mesh.mesh_dim_names.index(a))
-        idx, parts = idx * n + device_mesh.get_local_rank(a), parts * n
+        n = comm.size(a)
+        idx, parts = idx * n + comm.rank(a), parts * n
     return idx, parts
 
 
@@ -173,3 +195,219 @@ def cache_specs(cfg: ModelConfig, mesh, leaves: dict,
 
 def count_collective_free(mesh) -> int:
     return int(math.prod(mesh.shape.values()))
+
+
+# ---------------------------------------------------------------------------
+# the placed model (dense family): tensor-parallel compute
+# ---------------------------------------------------------------------------
+
+def model_shard_spec(spec: tuple) -> tuple:
+    """``spec`` with only its ``model`` placements: the tensor a rank
+    computes with once it has gathered its FSDP shards over ``data``."""
+    return tuple("model" if "model" in spec_axes(e) else None for e in spec)
+
+
+def _placed_axes(spec: tuple) -> set:
+    return {a for e in spec for a in spec_axes(e)}
+
+
+class Placement:
+    """What one rank of a placed model needs beside its parameter shards:
+    the comm over the mesh's axes, the parameters' specs, its coordinates
+    and the layout of the residual stream.  Built by :func:`place_model`;
+    the model code calls its methods where a collective belongs."""
+
+    def __init__(self, cfg: ModelConfig, mesh, specs: dict, device):
+        comm = tpc.comm_of(mesh)
+        self.mesh, self.comm, self.specs = mesh, comm, specs
+        self.batch_axes = tuple(a for a in ("pod", "data")
+                                if a in comm.axis_names)
+        self.dp = math.prod(comm.size(a) for a in self.batch_axes)
+        self.dp_rank = _coord(comm, self.batch_axes)[0]
+        self.tp, self.tp_rank = comm.size("model"), comm.rank("model")
+        pspec = cfg.act_pspec
+        self.sp = pspec is not None and len(pspec) > 1 and \
+            pspec[1] == "model"
+        self.vocab_start = self.tp_rank * cfg.vocab_padded // self.tp
+        hp = cfg.n_heads_padded // self.tp
+        self.heads = hp
+        # the kv head each of this rank's query heads reads, as an index
+        # into the K/V heads the rank computes (its shard when the kv heads
+        # are placed on model, else all of them); None when that is the
+        # grouping j // (heads / kv), whose attend needs no gather
+        gmap = kv_head_map(cfg)[self.tp_rank * hp:(self.tp_rank + 1) * hp]
+        kv = cfg.n_kv_heads
+        kv_placed = "model" in spec_axes(specs["blocks.0.attn.wk"][1])
+        if kv_placed:
+            kv //= self.tp
+            gmap = gmap - self.tp_rank * kv
+            if bool(((gmap < 0) | (gmap >= kv)).any()):
+                raise ValueError(
+                    f"{cfg.name}: query heads of model rank {self.tp_rank} "
+                    "read kv heads of another rank's shard")
+        grouped = hp % kv == 0 and torch.equal(
+            gmap, torch.arange(hp) // (hp // kv))
+        self.kv_index = None if grouped else gmap.to(device)
+        # gradients that are each model rank's part: replicated over model,
+        # applied to this rank's heads or to its slab of the sequence
+        partial = ("q_norm", "k_norm")
+        if not kv_placed:
+            partial += ("wk", "wv", "bk", "bv")
+        if self.sp:
+            partial += ("ln1", "ln2", "final_norm")
+        self.partial = {k for k in specs
+                        if k.rsplit(".", 1)[-1] in partial}
+
+    # -- the batch and the residual stream ---------------------------------
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's data slab of a global batch plane (dim 0)."""
+        b = t.shape[0]
+        if b % self.dp:
+            raise ValueError(f"batch {b} does not divide over the {self.dp} "
+                             f"ranks of {self.batch_axes}")
+        n = b // self.dp
+        return t[self.dp_rank * n:(self.dp_rank + 1) * n]
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream (B, S|S/tp, D) into a column-parallel
+        product: the whole sequence on every model rank."""
+        if self.sp:
+            return tpc.gather_from(x, self.comm, "model", 1)
+        return tpc.copy_to(x, self.comm, "model")
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums (B, S, D) back into the
+        residual stream: summed over model, this rank's sequence slab
+        under sequence parallelism."""
+        if self.sp:
+            return tpc.scatter_to(y, self.comm, "model", 1)
+        return tpc.reduce_from(y, self.comm, "model")
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return tpc.reduce_from(t, self.comm, "model")
+
+    def model_max(self, t: torch.Tensor) -> torch.Tensor:
+        return tpc.all_reduce(t.detach(), self.comm, ("model",), "max")
+
+    # -- parameters and gradients -----------------------------------------
+
+    def gather(self, p: torch.Tensor, name: str) -> torch.Tensor:
+        """Parameter ``name``'s FSDP shards gathered over ``data``."""
+        for d, entry in enumerate(self.specs[name]):
+            if "data" in spec_axes(entry):
+                p = tpc.gather_from(p, self.comm, "data", d)
+        return p
+
+    def gathered(self, module: nn.Module, prefix: str):
+        """``module``'s parameters gathered over ``data``, as attributes
+        of nested namespaces (``.attn.wq``, ``.ffn.wo``, ``.ln1``)."""
+        root = SimpleNamespace()
+        for name, p in module.named_parameters():
+            *path, leaf = name.split(".")
+            node = root
+            for key in path:
+                if not hasattr(node, key):
+                    setattr(node, key, SimpleNamespace())
+                node = getattr(node, key)
+            setattr(node, leaf, self.gather(p, f"{prefix}.{name}"))
+        return root
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """Each gradient summed over the batch axes it is not placed on
+        (those it is placed on were reduce-scattered by its FSDP gather's
+        backward) and, once, over ``model`` where it is each rank's part;
+        one all-reduce per set of axes, of the flattened gradients."""
+        buckets: dict = {}
+        for k, g in grads.items():
+            placed = _placed_axes(self.specs[k])
+            axes = tuple(a for a in self.batch_axes if a not in placed)
+            if k in self.partial:
+                axes += ("model",)
+            if any(self.comm.size(a) > 1 for a in axes):
+                buckets.setdefault((axes, g.dtype), []).append(k)
+        out = dict(grads)
+        for (axes, _), names in buckets.items():
+            flat = tpc.all_reduce(torch.cat([grads[k].reshape(-1)
+                                             for k in names]),
+                                  self.comm, axes)
+            for k, part in zip(names, flat.split(
+                    [grads[k].numel() for k in names])):
+                out[k] = part.view_as(grads[k])
+        return out
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the data slabs of a per-slab scalar."""
+        if self.dp == 1:
+            return t
+        return tpc.all_reduce(t, self.comm, self.batch_axes) / self.dp
+
+    def sum_squares(self, sq: dict) -> torch.Tensor:
+        """The global sum of per-shard sums of squares ``sq`` (by name):
+        each distinct entry of the mesh counted once, by summing every
+        parameter over the axes it is placed on and no other."""
+        groups: dict = {}
+        for k, v in sq.items():
+            axes = tuple(a for a in self.comm.axis_names
+                         if a in _placed_axes(self.specs[k]))
+            groups.setdefault(axes, []).append(v)
+        return sum(tpc.all_reduce(torch.sum(torch.stack(vs)), self.comm,
+                                  axes)
+                   for axes, vs in sorted(groups.items()))
+
+
+def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
+    """Rank-local copy of the whole ``model`` placed for compute on
+    ``mesh``, a ``DeviceMesh`` with ``data`` and ``model`` axes (and
+    optionally ``pod``): an :class:`LM` whose parameters are this rank's
+    shards (:func:`shard_params` at its coordinates) and whose
+    ``placement`` (:class:`Placement`) its forward, ``loss_fn`` and
+    ``make_train_step(cfg, device_mesh=mesh)`` read.  Every rank calls it
+    with the same whole model (``unshard`` gives the whole tensors back).
+
+    A ``model`` size that does not divide the padded query heads, the
+    padded vocabulary, ``d_ff`` or (when ``cfg.kv_sharded``) the kv heads,
+    or a ``data`` size that does not divide ``d_model`` under FSDP, raises
+    a ``ValueError`` naming the dim, as JAX does; a family other than
+    ``dense`` raises ``NotImplementedError``."""
+    cfg = model.cfg
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"compute placement of the {cfg.family!r} family ({cfg.name}) "
+            "is not ported (ROADMAP A: expert parallelism, the SSM and "
+            "RG-LRU axes, cross attention); its mesh places storage only")
+    if model.placement is not None:
+        raise ValueError("the model is placed already: place the whole "
+                         "model")
+    comm = tpc.comm_of(mesh)
+    if not {"data", "model"} <= set(comm.axis_names):
+        raise ValueError(f"a compute placement needs a mesh with 'data' and "
+                         f"'model' axes; this one has {comm.axis_names}")
+    pspec = cfg.act_pspec
+    if pspec is not None and len(pspec) > 2 and pspec[2] is not None:
+        raise NotImplementedError(f"act_pspec {pspec}: only the batch and "
+                                  "sequence of the residuals are placed")
+    tp, dp = comm.size("model"), comm.size("data")
+    dims = {"n_heads_padded": cfg.n_heads_padded,
+            "vocab_padded": cfg.vocab_padded, "d_ff": cfg.d_ff}
+    if cfg.kv_sharded:
+        dims["n_kv_heads"] = cfg.n_kv_heads
+    for name, n in dims.items():
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {name} = {n} does not divide "
+                             f"over the mesh's model axis of {tp}")
+    if fsdp and cfg.d_model % dp:
+        raise ValueError(f"{cfg.name}: d_model = {cfg.d_model} does not "
+                         f"divide over the mesh's data axis of {dp}")
+    specs = param_specs(model, comm, fsdp=fsdp)
+    local = shard_params({k: p.detach() for k, p in
+                          model.named_parameters()}, specs, comm)
+    with torch.device("meta"):
+        placed = LM(cfg)
+    for name, t in local.items():
+        prefix, _, leaf = name.rpartition(".")
+        mod = placed.get_submodule(prefix) if prefix else placed
+        setattr(mod, leaf, nn.Parameter(t.clone()))
+    placed.placement = Placement(cfg, mesh, specs,
+                                 model.embedding.device)
+    return placed

@@ -43,16 +43,22 @@ def adamw_init(params: dict, moment_dtype=_F32) -> AdamWState:
 
 
 @torch.no_grad()
-def global_norm(tree: dict) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.to(_F32))) for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree: dict, total=None) -> torch.Tensor:
+    """The L2 norm of every leaf.  ``total`` maps the leaves' sums of
+    squares (by name) to the global sum: a placed rank's
+    (``sharding.Placement.sum_squares``) counts each entry of the mesh
+    once."""
+    sq = {k: torch.sum(torch.square(x.to(_F32))) for k, x in tree.items()}
+    if total is not None:
+        return torch.sqrt(total(sq))
+    return torch.sqrt(torch.sum(torch.stack(list(sq.values()))))
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree: dict, max_norm: float):
+def clip_by_global_norm(tree: dict, max_norm: float, total=None):
     """Scale every leaf by ``min(1, max_norm / norm)``; returns the scaled
-    tree and the norm before scaling."""
-    norm = global_norm(tree)
+    tree and the norm before scaling (``total``: :func:`global_norm`)."""
+    norm = global_norm(tree, total)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: (g.to(_F32) * scale).to(g.dtype)
             for k, g in tree.items()}, norm

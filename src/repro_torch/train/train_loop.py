@@ -14,6 +14,19 @@ batch rows, and reduces them with the int8 error-feedback
 ``compressed_psum_tree`` (the residuals ride in ``TrainState.error``); the
 loss is the ranks' mean.  Clip, learning rate and AdamW then run as in the
 plain step, on every rank alike.
+
+``make_train_step(cfg, device_mesh=mesh)`` is the dense family's step
+under the compute placement (``parallel/sharding.place_model``), SPMD
+over the mesh's ranks, each called with the same global batch and the
+state of its placed model: the rank computes its data slab's loss and
+gradients on its heads, MLP columns and vocabulary shard; the gradients of
+parameters placed on ``data`` are reduce-scattered by their FSDP
+gathers' backward, every other gradient is summed over the batch axes,
+and the gradients that are each model rank's part are summed over
+``model`` once (``Placement.reduce_grads``), all before the
+``grad_dtype`` cast; the clip's norm counts each entry of the mesh once
+and AdamW updates the rank's shards.  The loss is the global mean on every
+rank.
 """
 
 from __future__ import annotations
@@ -68,17 +81,29 @@ def _on_model(model: LM, batch: dict) -> dict:
 
 
 def _value_and_grad(model: LM, batch: dict):
+    """The loss and its gradients; a placed rank's are those of its data
+    slab's share of the global mean (``1 / dp`` of its loss), before
+    the reduces."""
     params = dict(model.named_parameters())
     loss = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    seed = None if model.placement is None else torch.full_like(
+        loss, 1.0 / model.placement.dp)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                grad_outputs=seed)
     return loss.detach(), dict(zip(params, grads))
 
 
 def _grads(model: LM, batch: dict, n: int):
     """:func:`grads_fn` over ``n`` microbatches."""
     batch = _on_model(model, batch)
+    pl = model.placement
+    if pl is not None:
+        batch = {k: pl.rows(v) for k, v in batch.items()}
     if n <= 1:
-        return _value_and_grad(model, batch)
+        loss, grads = _value_and_grad(model, batch)
+        if pl is None:
+            return loss, grads
+        return pl.batch_mean(loss), pl.reduce_grads(grads)
     b = next(iter(batch.values())).shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into grad_accum={n} "
@@ -92,6 +117,8 @@ def _grads(model: LM, batch: dict, n: int):
         total = total + loss
         gsum = ({k: x.to(torch.float32) for k, x in g.items()} if gsum is None
                 else {k: gsum[k] + x for k, x in g.items()})
+    if pl is not None:
+        total, gsum = pl.batch_mean(total), pl.reduce_grads(gsum)
     scale = 1.0 / n
     gdt = as_dtype(model.cfg.grad_dtype)
     return total * scale, {k: (g * scale).to(gdt) for k, g in gsum.items()}
@@ -102,7 +129,9 @@ def grads_fn(model: LM, batch: dict):
     = n > 1`` the batch (every plane, the memory's too) splits into n
     equal microbatches along its first axis; loss and gradients are their
     means (accumulated in float32, the gradients then cast to
-    ``model.cfg.grad_dtype``)."""
+    ``model.cfg.grad_dtype``).  A placed model (``sharding.place_model``)
+    takes the global batch, and gives the global mean loss and this rank's
+    shards of its gradients."""
     return _grads(model, batch, model.cfg.grad_accum)
 
 
@@ -128,7 +157,8 @@ def _pod_shard(batch: dict, mesh) -> dict:
 
 def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     max_grad_norm: float = 1.0,
-                    compress_crosspod: bool = False, mesh=None):
+                    compress_crosspod: bool = False, mesh=None,
+                    device_mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with
     metrics ``{"loss", "grad_norm", "lr"}`` as device scalars (no host
     sync).  ``cfg`` must be the model's config, its ``grad_accum`` aside
@@ -139,13 +169,29 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     ``compress_crosspod=True`` needs ``mesh``, a ``("pod",)`` mesh
     (``parallel.collectives.pod_mesh``), and a state with ``error``
     (``init_train_state(model, with_error=True)``); the model lives on the
-    mesh's device.  Every pod rank calls the step with the same batch."""
+    mesh's device.  Every pod rank calls the step with the same batch.
+
+    ``device_mesh`` (a ``(data, model)`` ``DeviceMesh``) is the compute
+    placement's step: the state's model must be placed on that mesh
+    (``parallel.sharding.place_model``), and every rank calls the step
+    with the same global batch."""
     if compress_crosspod and (mesh is None or mesh.axis != "pod"):
         raise ValueError("compress_crosspod requires the multi-pod mesh: "
                          "pass mesh=parallel.collectives.pod_mesh()")
+    if compress_crosspod and device_mesh is not None:
+        raise NotImplementedError(
+            "compress_crosspod under the compute placement is not ported "
+            "(ROADMAP A)")
 
     def train_step(state: TrainState, batch: dict):
         _check_step_cfg(cfg, state.model.cfg)
+        pl = state.model.placement
+        if (pl is None) != (device_mesh is None) or (
+                pl is not None and pl.mesh is not device_mesh):
+            raise ValueError(
+                "the step's device_mesh and the model's placement differ: "
+                "place the model with parallel.sharding.place_model(model, "
+                "device_mesh) and pass the same mesh to make_train_step")
         if compress_crosspod:
             if state.error is None:
                 raise ValueError(
@@ -159,7 +205,9 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
         else:
             loss, grads = _grads(state.model, batch, cfg.grad_accum)
             error = state.error
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm(
+            grads, max_grad_norm, total=None if pl is None
+            else pl.sum_squares)
         lr = cosine_lr(state.step, base_lr=base_lr)
         params = dict(state.model.named_parameters())
         new_params, opt = adamw_update(grads, state.opt, params, lr)

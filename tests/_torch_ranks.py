@@ -400,9 +400,123 @@ def mesh_suite(rank: int, world: int) -> dict:
 # on the model axis
 MESH_ARCHS = ("ras-pimc", "phi3.5-moe-42b-a6.6b")
 
+# the compute placement's cases: name -> (SMOKE arch, config overrides,
+# (data, model) mesh); every case runs a 4 x 16 batch on 4 ranks
+SP = (("data",), "model", None)
+TP_CASES = {
+    "qwen3_tp2": ("qwen3-4b", {"tp": 2}, (2, 2)),             # kv sharded
+    "qwen3_tp4": ("qwen3-4b", {"tp": 4}, (1, 4)),             # kv replicated
+    "padded": ("qwen1.5-4b", {"n_heads": 6, "n_kv_heads": 3, "tp": 4,
+                              "head_dim": 16, "qkv_bias": True}, (1, 4)),
+    "llama_sp": ("llama3-405b", {"tp": 2, "act_pspec": SP}, (2, 2)),
+    "llama_sp_remat": ("llama3-405b", {"tp": 2, "act_pspec": SP,
+                                       "remat": True}, (2, 2)),
+    "pimc_tp2": ("ras-pimc", {"tp": 2}, (2, 2)),
+}
+TP_BATCH, TP_SEQ, TP_LR = 4, 16, 3e-3
+# leaves moved off their constant inits (zeros and ones), so they matter
+TP_MOVED = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2",
+            "final_norm")
+
+
+def tp_config(name: str):
+    from repro_torch.configs.registry import get_smoke_config
+    arch, over, _ = TP_CASES[name]
+    return get_smoke_config(arch).with_(**over)
+
+
+def tp_model(name: str):
+    """The case's whole model on the CPU: seeded weights, the biases and
+    norm scales moved by normal(0, 0.1) draws."""
+    import torch
+    from repro_torch.models import init_model
+    model = init_model(tp_config(name), seed=11, device="cpu")
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k.rsplit(".", 1)[-1] in TP_MOVED:
+                p.add_(torch.as_tensor(rng.normal(0, 0.1, tuple(p.shape)),
+                                       dtype=p.dtype))
+    return model
+
+
+def tp_batch(name: str, step: int) -> dict:
+    from repro_torch.data.pipeline import train_batch
+    return train_batch(tp_config(name), TP_BATCH, TP_SEQ, step=step)
+
+
+def tp_outputs(model, name: str, device_mesh=None) -> dict:
+    """The case's loss and gradients (``grads_fn``) and prefill logits on
+    batch 0; two train steps' losses and grad norms (batches 1 and 2) and
+    the parameters after them (the first step runs at the warmup's zero
+    learning rate and fills AdamW's moments, the second moves the
+    parameters: Adam's first update ``g / (|g| + eps)`` would turn
+    gradients of eps's size, which float rounding moves by their own size,
+    into steps of any size), of the whole model
+    (``device_mesh`` None) or of its placement on ``device_mesh``, whose
+    gradients, parameters and logits come back whole.  Also the shapes of
+    this rank's parameter shards."""
+    import torch
+    from repro_torch.parallel import sharding
+    from repro_torch.train import train_loop
+    cfg = tp_config(name)
+    batch, *steps = (tp_batch(name, i) for i in range(3))
+    if device_mesh is not None:
+        model = sharding.place_model(model, device_mesh)
+    pl = model.placement
+
+    def back(tensors):
+        if pl is None:
+            return tensors
+        return sharding.unshard(tensors, pl.specs, device_mesh)
+
+    res = {}
+    loss, grads = train_loop.grads_fn(model, batch)
+    res["loss"] = _np(loss)
+    for k, g in back(grads).items():
+        res[f"grads/{k}"] = _np(g)
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64)
+    with torch.no_grad():
+        if pl is None:
+            x, _ = model(tokens)
+            lg = model._logits(x)
+        else:
+            x, _ = model(pl.rows(tokens))
+            lg = model._logits(x)
+            lg = pl.comm.all_gather(lg, "model", 2)
+            lg = pl.comm.all_gather(lg, "data", 0)
+            for k, p in model.named_parameters():
+                res[f"shard/{k}"] = np.array(p.shape)
+    res["logits"] = _np(lg)
+    state = train_loop.init_train_state(model)
+    step = train_loop.make_train_step(cfg, base_lr=TP_LR,
+                                      device_mesh=device_mesh)
+    for i, b in enumerate(steps):
+        state, m = step(state, b)
+        res[f"step{i}/loss"] = _np(m["loss"])
+        res[f"step{i}/grad_norm"] = _np(m["grad_norm"])
+    for k, p in back({k: p.detach() for k, p in
+                      model.named_parameters()}).items():
+        res[f"params/{k}"] = _np(p)
+    return res
+
+
+def tp_suite(rank: int, world: int) -> dict:
+    """Every case of :data:`TP_CASES` placed on its ``(data, model)``
+    mesh of ``world`` ranks (:func:`tp_outputs`)."""
+    from repro_torch.launch.mesh import make_mesh_for
+    res = {}
+    for name, (_, _, (dp, tp)) in TP_CASES.items():
+        dm = make_mesh_for(world, model_parallel=tp, device="cpu")
+        assert tuple(dm.shape) == (dp, tp), dm.shape
+        for k, v in tp_outputs(tp_model(name), name, dm).items():
+            res[f"{name}/{k}"] = v
+    return res
+
+
 SUITES = {"chunked": chunked_suite, "lm": lm_suite,
           "collectives": collectives_suite, "train": train_suite,
-          "mesh": mesh_suite}
+          "mesh": mesh_suite, "tp": tp_suite}
 
 
 # ---------------------------------------------------------------------------

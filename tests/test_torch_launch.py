@@ -291,16 +291,19 @@ def test_traced_matmul_flops_match_hand_count(remat):
     assert dict(hlo.op_histogram(tr, top=100)) == tr.ops
 
 
-@pytest.mark.parametrize("arch", ("ras-pimc", "mixtral-8x22b"))
+@pytest.mark.parametrize("arch", ("ras-pimc", "mixtral-8x22b", "qwen3-4b",
+                                  "llama3-405b"))
 def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
     """At world 1 the dry-run's parameter, gradient and moment bytes are
     those of the CPU tensors of the same step (the card's counterpart runs
-    in chip_smoke.py)."""
+    in chip_smoke.py), under the compute placement (the dense archs) and
+    the storage placement (mixtral)."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     cfg = registry.get_smoke_config(arch).with_(grad_accum=2)
     shape = registry.ShapeSpec("t", 16, 4, "train")
     cell = specs.build_cell(arch, shape, mesh.mesh_shape_for(1),
                             overrides={"grad_accum": 2})
+    assert (cell.comm is not None) == (cfg.family == "dense")
     _, tr = hlo.trace(cell.run)
     mem = dryrun.memory(cell, tr)
     model = init_model(cfg, seed=0, device="cpu")
@@ -327,7 +330,9 @@ def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
 def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     """A SMOKE dry-run of a train, prefill and decode cell on a 2 x 2 and
     a 2 x 2 x 2 mesh and a skipped cell, written to ``tmp_path``, then the
-    report's tables of those records."""
+    report's tables of those records.  The dense ``ras-pimc``'s train and
+    prefill cells are compute-placed, its decode cell and every
+    ``mamba2-130m`` cell storage-placed."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     small = (registry.ShapeSpec("train_4k", 16, 64, "train"),
              registry.ShapeSpec("prefill_32k", 32, 8, "prefill"),
@@ -340,7 +345,9 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
                 rec = dryrun.run_cell(arch, sh, out_dir=str(tmp_path),
                                       verbose=False, mesh=ms)
                 assert rec["status"] == "OK", rec.get("trace")
-                assert (rec["mesh"], rec["model_axis"]) == (name, "storage")
+                axis = ("compute" if arch == "ras-pimc"
+                        and sh.kind != "decode" else "storage")
+                assert (rec["mesh"], rec["model_axis"]) == (name, axis)
                 assert rec["memory"]["fits"]
         rec = dryrun.run_cell("qwen3-4b", "long_500k", out_dir=str(tmp_path),
                               verbose=False, mesh=ms)
@@ -353,17 +360,28 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
         assert len(report.roofline_table(recs, name).splitlines()) == 2 + 6
     ok = [r for r in recs if r["status"] == "OK"]
     # a train cell gathers its placed weights twice a microbatch (forward
-    # and backward) and reduces the gradients over the data axes
-    train = next(r for r in ok if r["shape"] == "train_4k"
-                 and r["mesh"] == "2x2" and r["arch"] == "ras-pimc")
-    coll = train["roofline"]["collectives"]
-    cell = specs.build_cell("ras-pimc", small[0], meshes["2x2"])
-    want = 2 * cell.cfg.grad_accum * sum(
-        (math.prod(sh) - math.prod(sharding.shard_shape(sh, sp, cell.mesh)))
-        * dt.itemsize for sh, dt, sp in cell.params.values())
-    assert coll["all-gather"]["bytes"] == want
-    assert sum(coll.get(op, {}).get("count", 0) for op in (
-        "reduce-scatter", "all-reduce")) == len(cell.params)
+    # and backward: the whole tensors under the storage placement, the
+    # FSDP shards over data under the compute placement) and reduces the
+    # gradients over the data axes; the compute placement adds the
+    # model-axis collectives its step recorded
+    for arch in ("ras-pimc", "mamba2-130m"):
+        train = next(r for r in ok if r["shape"] == "train_4k"
+                     and r["mesh"] == "2x2" and r["arch"] == arch)
+        coll = train["roofline"]["collectives"]
+        cell = specs.build_cell(arch, small[0], meshes["2x2"])
+        cell.run()
+        want = 2 * cell.cfg.grad_accum * sum(
+            (math.prod(hlo.gathered_shape(cell, sh, sp))
+             - math.prod(sharding.shard_shape(sh, sp, cell.mesh)))
+            * dt.itemsize for sh, dt, sp in cell.params.values())
+        assert coll["all-gather"]["bytes"] - sum(
+            b for op, a, b, _ in cell.recorded or ()
+            if op == "all-gather" and a == "model") == want
+        reduces = sum(op in ("reduce-scatter", "all-reduce") and a == "model"
+                      for op, a, _, _ in cell.recorded or ())
+        assert sum(coll.get(op, {}).get("count", 0) for op in (
+            "reduce-scatter", "all-reduce")) == len(cell.params) + reduces
+        assert (reduces > 0) == (arch == "ras-pimc")
     assert coll["body_bytes"] + coll["entry_bytes"] == pytest.approx(
         train["roofline"]["collective_bytes_per_chip"])
     assert all(r["roofline"]["peak_flops"] == roofline.PEAK_FLOPS[

@@ -1,0 +1,331 @@
+"""Tensor-parallel compute over the model axis (the dense family), port
+vs the reference's GSPMD-placed step (CPU, gloo ranks, no card).
+
+The cases are ``_torch_ranks.TP_CASES``, each a SMOKE config on a 4-rank
+``(data, model)`` mesh: ``qwen3-4b`` at ``tp=2`` on (2, 2) (kv heads
+sharded, ``qk_norm``) and at ``tp=4`` on (1, 4) (kv heads replicated); 6
+query heads padded to 8 over 3 replicated kv heads with ``qkv_bias`` on
+(1, 4); ``llama3-405b`` with sequence-parallel residuals, ``grad_accum``
+2, ``logits_chunk`` 8 and blockwise attention on (2, 2), with and
+without ``remat``; tied ``ras-pimc`` on (2, 2).  Both sides take the same
+seeded weights (biases and norm scales moved off their inits) and
+``train_batch`` batches, built here with the port and handed to JAX as
+numpy arrays (``models.convert.to_reference``).
+
+* The port's side: 4 gloo ranks (``tests/_torch_ranks.py``, suite
+  ``tp``), each holding only its shards (``sharding.place_model``): the
+  loss and ``unshard``-ed gradients of ``grads_fn``, two
+  ``make_train_step(device_mesh=)`` steps (the first at the warmup's zero
+  learning rate, the second moving the parameters), the parameters after
+  them, and the prefill logits gathered over both axes.
+* The reference's side: one JAX process with 4 forced CPU devices
+  (``tests/_torch_tp_ref.py``), its placed ``grads_fn``, steps and
+  logits under ``jax.jit`` with ``param_shardings`` and ``batch_pspec``.
+* The port's one-rank (unplaced) step on the same inputs.
+
+Every leaf within 1e-5 of its largest entry of both.  Also: the named
+errors of meshes that do not divide and of families not placed; the
+unplaced step is the composition of the unplaced layers, op for op; the
+dry-run's compute/storage split, a placed cell's traced matmul FLOPs
+against a count by hand, and its recorded model-axis collectives.
+"""
+
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import _torch_ranks as R
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun, mesh, specs
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models import init_model, param
+from repro_torch.models.convert import to_reference
+from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
+from repro_torch.models.attention import attn_forward
+from repro_torch.parallel import sharding
+from repro_torch.parallel.tensor import RecordingComm
+from repro_torch.analysis import hlo
+from repro_torch.train import train_loop
+
+HERE = Path(__file__).resolve().parent
+REL = 1e-5
+# the reference's placed step gives one answer per config: the remat
+# variant is held against the same JAX run
+JAX_CASE = {name: name.removesuffix("_remat") for name in R.TP_CASES}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _flat(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(v, f"{prefix}/{k}", out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def _reference_inputs(path: Path) -> None:
+    inp = {}
+    for name in sorted(set(JAX_CASE.values())):
+        _flat(to_reference(R.tp_model(name)), f"{name}/w", inp)
+        for i in range(3):
+            for plane, a in R.tp_batch(name, i).items():
+                inp[f"{name}/b{i}/{plane}"] = a
+    np.savez(path, **inp)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the ranks' results, JAX's results, the one-rank results by case):
+    the JAX process and the 4 ranks run at once, the one-rank steps here
+    meanwhile."""
+    tmp = tmp_path_factory.mktemp("tp")
+    _reference_inputs(tmp / "in.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               TP_REF_JAX_CACHE=str(HERE.parent / ".pytest_cache" / "jax"),
+               PYTHONPATH=os.pathsep.join(
+                   [str(R.SRC)] + [p for p in [os.environ.get(
+                       "PYTHONPATH")] if p]))
+    log = open(tmp / "jax.log", "w")
+    ref = subprocess.Popen([sys.executable, str(HERE / "_torch_tp_ref.py"),
+                            str(tmp / "in.npz"), str(tmp / "out.npz")],
+                           env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        job = R.RankJob("tp", 4, tmp)
+        one = {name: R.tp_outputs(R.tp_model(name), name)
+               for name in R.TP_CASES}
+        ranks = job.results(timeout=240)
+        ref.wait(timeout=300)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+        log.close()
+    if ref.returncode:
+        raise RuntimeError("the reference's placed steps failed:\n"
+                           + (tmp / "jax.log").read_text()[-4000:])
+    with np.load(tmp / "out.npz") as z:
+        jax_out = {k: z[k] for k in z.files}
+    return ranks, jax_out, one
+
+
+def _as_reference(name: str, res: dict) -> dict:
+    """The port's results of a case keyed as the reference's flattened
+    outputs (gradients and parameters by the reference's tree path)."""
+    model = R.tp_model(name)
+    out = {}
+    for group in ("grads", "params"):
+        tensors = {k[len(group) + 1:]: v for k, v in res.items()
+                   if k.startswith(f"{group}/")}
+        _flat(to_reference(model, tensors, host=np.asarray), group, out)
+    for k, v in res.items():
+        if not k.startswith(("grads/", "params/", "shard/")):
+            out[k] = v
+    return out
+
+
+def _close(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0,
+        atol=REL * max(float(np.abs(want).max()), 1e-12), err_msg=what)
+
+
+@pytest.mark.parametrize("name", list(R.TP_CASES))
+def test_placed_step_matches_reference_and_one_rank(runs, name):
+    ranks, jax_out, one = runs
+    placed = {k[len(name) + 1:]: v for k, v in ranks[0].items()
+              if k.startswith(f"{name}/")}
+    got = _as_reference(name, placed)
+    jname = JAX_CASE[name]
+    want_jax = {k[len(jname) + 1:]: v for k, v in jax_out.items()
+                if k.startswith(f"{jname}/")}
+    want_one = _as_reference(name, one[name])
+    assert set(want_jax) == set(got) == set(want_one)
+    for k in sorted(got):
+        _close(got[k], want_jax[k], f"{name} {k}: placed port vs JAX")
+        _close(got[k], want_one[k], f"{name} {k}: placed vs one rank")
+    for r in range(1, 4):   # every rank returns the same whole results
+        for k in placed:
+            if not k.startswith("shard/"):
+                np.testing.assert_array_equal(ranks[r][f"{name}/{k}"],
+                                              placed[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(R.TP_CASES))
+def test_each_rank_holds_only_its_shards(runs, name):
+    """A rank's parameters have the shapes of its shards, and the ranks'
+    shards together hold each parameter once per rank it replicates
+    on."""
+    ranks = runs[0]
+    _, _, (dp, tp) = R.TP_CASES[name]
+    ms = MeshShape(("data", "model"), (dp, tp))
+    model = R.tp_model(name)
+    spec = sharding.param_specs(model, ms)
+    for k, p in model.named_parameters():
+        want = sharding.shard_shape(tuple(p.shape), spec[k], ms)
+        for r in range(4):
+            assert tuple(ranks[r][f"{name}/shard/{k}"]) == want, (k, r)
+        placed = {a for e in spec[k] for a in sharding.spec_axes(e)}
+        assert math.prod(want) * math.prod(
+            ms.shape[a] for a in placed) == p.numel(), k
+    assert sum(math.prod(ranks[0][f"{name}/shard/{k}"]) for k in spec) < \
+        param.param_count(model)
+
+
+def _comm(dp: int, tp: int) -> RecordingComm:
+    return RecordingComm(MeshShape(("data", "model"), (dp, tp)))
+
+
+@pytest.mark.parametrize("over,dims,dim", [
+    ({"n_heads": 6}, (1, 4), "n_heads_padded"),
+    ({"d_ff": 130}, (1, 4), "d_ff"),
+    ({"tp": 2}, (1, 4), "n_kv_heads"),
+    ({"d_model": 66, "head_dim": 16}, (4, 1), "d_model"),
+])
+def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
+    cfg = registry.get_smoke_config("qwen3-4b").with_(**over)
+    model = init_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match=dim):
+        sharding.place_model(model, _comm(*dims))
+
+
+def test_other_families_and_paths_refuse_by_name():
+    for arch in ("mamba2-130m", "mixtral-8x22b", "recurrentgemma-2b",
+                 "llama-3.2-vision-11b", "seamless-m4t-large-v2"):
+        model = param.meta_model(registry.get_smoke_config(arch))
+        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+            sharding.place_model(model, _comm(1, 1))
+    cfg = registry.get_smoke_config("ras-pimc")
+    whole = init_model(cfg, device="cpu")
+    placed = sharding.place_model(whole, _comm(1, 1))
+    assert whole.placement is None and placed.placement is not None
+    with pytest.raises(ValueError, match="placed already"):
+        sharding.place_model(placed, _comm(1, 1))
+    state = placed.init_state(2, 8)
+    with pytest.raises(NotImplementedError, match="decode"):
+        placed.decode_step(state, torch.zeros(2, 1, dtype=torch.int64), 0)
+    batch = R.tp_batch("pimc_tp2", 0)
+    with pytest.raises(ValueError, match="device_mesh"):
+        train_loop.make_train_step(cfg)(train_loop.init_train_state(placed),
+                                        batch)
+    with pytest.raises(ValueError, match="device_mesh"):
+        train_loop.make_train_step(cfg, device_mesh=_comm(1, 1))(
+            train_loop.init_train_state(placed), batch)
+    with pytest.raises(NotImplementedError, match="compress_crosspod"):
+        train_loop.make_train_step(cfg, compress_crosspod=True,
+                                   mesh=SimpleNamespace(axis="pod"),
+                                   device_mesh=_comm(1, 1))
+
+
+@pytest.mark.parametrize("arch", ("ras-pimc", "qwen1.5-4b"))
+def test_unplaced_loss_is_the_unplaced_layers(arch):
+    """The unplaced forward and loss run the unplaced layer functions op
+    for op: ``loss_fn`` and its gradients are bitwise their composition
+    here (the placed forms never reached without a placement)."""
+    cfg = registry.get_smoke_config(arch)
+    model = init_model(cfg, seed=3, device="cpu")
+    batch = R.tp_batch("pimc_tp2", 1)
+    loss, grads = train_loop.grads_fn(model, batch)
+    params = dict(model.named_parameters())
+    tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64)
+    x = embed(model.embedding, tokens)
+    for blk in model.blocks:
+        x = x + attn_forward(blk.attn, rmsnorm(blk.ln1, x, cfg.norm_eps),
+                             cfg)
+        f = blk.ffn
+        x = x + mlp(f.wi_gate, f.wi_up, f.wo,
+                    rmsnorm(blk.ln2, x, cfg.norm_eps))
+    x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+    want = xent_loss(logits(model.embedding, x, model.lm_head),
+                     torch.as_tensor(batch["labels"]), cfg.vocab_size)
+    want = want + 0.01 * torch.zeros((), dtype=torch.float32)
+    wgrads = torch.autograd.grad(want, list(params.values()))
+    assert torch.equal(loss, want.detach())
+    for k, g in zip(params, wgrads):
+        assert torch.equal(grads[k], g), k
+
+
+# ---------------------------------------------------------------------------
+# the dry-run under the compute placement
+# ---------------------------------------------------------------------------
+
+def test_dryrun_places_compute_for_dense_train_and_prefill():
+    """Every cell of the grid on the production mesh: a ``dense`` arch's
+    train and prefill cells are compute-placed (a recording stand-in, the
+    rank's shards as its parameters, the reference's ``act_pspec``), every
+    other cell is storage-placed."""
+    ms = mesh.production_mesh_shape()
+    for arch, shape, ok, _ in registry.grid():
+        if not ok:
+            continue
+        cell = specs.build_cell(arch, shape, ms)
+        compute = (registry.get_config(arch).family == "dense"
+                   and registry.SHAPES[shape].kind != "decode")
+        assert (cell.comm is not None) == compute, (arch, shape)
+        if not compute:
+            continue
+        for k, p in cell.model.named_parameters():
+            sh, _, spec = cell.params[k]
+            assert tuple(p.shape) == sharding.shard_shape(sh, spec, ms), k
+        want = ((("data",), "model", None) if arch == "llama3-405b"
+                else (("data",), None, None))
+        assert cell.cfg.act_pspec == want, arch
+    cell = specs.build_cell("llama3-405b", "train_4k",
+                            mesh.production_mesh_shape(multi_pod=True))
+    assert cell.cfg.act_pspec == (("pod", "data"), "model", None)
+
+
+@pytest.mark.parametrize("arch,remat", [("ras-pimc", False),
+                                        ("ras-pimc", True),
+                                        ("llama3-405b", False)])
+def test_placed_cell_flops_match_hand_count(arch, remat, monkeypatch):
+    """A placed SMOKE train cell on a (2, 2) mesh: the traced matmul
+    FLOPs of one rank are its shares, counted by hand: its data slab's
+    tokens through its query heads, kv heads (sharded at ``tp=2``), MLP
+    columns and vocabulary rows; ``llama3-405b`` gathers its
+    sequence-parallel residuals before every product, so its counts are
+    the whole sequence's."""
+    monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
+    ms = MeshShape(("data", "model"), (2, 2))
+    shape = registry.ShapeSpec("t", 16, 8, "train")
+    over = {"tp": 2, "remat": remat, "grad_accum": 2}
+    if arch == "llama3-405b":
+        over["act_pspec"] = R.SP    # CONFIG's, which its SMOKE lacks
+    cell = specs.build_cell(arch, shape, ms, overrides=over)
+    _, tr = hlo.trace(cell.run)
+    cfg = cell.cfg
+    tp, b, s = 2, shape.global_batch // 2, shape.seq_len
+    n, d, dh = b * s, cfg.d_model, cfg.head_dim_
+    hp, kv, ff, v = (cfg.n_heads_padded // tp, cfg.n_kv_heads // tp,
+                     cfg.d_ff // tp, cfg.vocab_padded // tp)
+    layer = (2 * n * d * (hp + 2 * kv) * dh + 2 * n * hp * dh * d
+             + 2 * 2 * b * hp * s * s * dh + 3 * 2 * n * d * ff)
+    forward = cfg.n_layers * layer + 2 * n * d * v
+    recompute = cfg.n_layers * (layer - 2 * n * ff * d) if remat else 0
+    assert tr.flops == 3 * forward + recompute
+    ops = {op for op, axis, _, _ in cell.recorded if axis == "model"}
+    want = {"all-reduce"} | ({"all-gather", "reduce-scatter"}
+                             if arch == "llama3-405b" else set())
+    assert ops == want
+    rec = dryrun.run_cell(arch, shape, mesh=ms, verbose=False,
+                          overrides=over)
+    assert rec["status"] == "OK" and rec["model_axis"] == "compute"
+    coll = rec["roofline"]["collectives"]
+    assert coll["by_axes"]["model"] == pytest.approx(sum(
+        nb for _, axis, nb, _ in cell.recorded if axis == "model"))
+    assert coll["body_bytes"] > 0 and coll["entry_bytes"] > 0

@@ -16,7 +16,12 @@ hashes what it puts out:
   ``max_len`` 32) on both step backends, with prefill and without, over
   three requests of 29, 17 and 32 tokens and their decompress;
 - the logits of 20 ``decode_step`` positions on a ring of 8 slots (it
-  wraps twice), 3 rows.
+  wraps twice), 3 rows;
+- the unplaced training path of the dense SMOKE archs in ``TRAIN_ARCHS``
+  (``qwen3-4b`` also under ``remat``): ``forward``'s hidden states and
+  logits, ``grads_fn``'s loss and gradients, and two ``make_train_step``
+  steps' metrics and parameters, on a 4 x 16 ``train_batch``, torch on
+  one thread.
 
 It prints each checkout's digests and exits nonzero unless every one
 agrees.  Needs no card and no ``nvcc``.
@@ -32,6 +37,8 @@ import sys
 from pathlib import Path
 
 LANES, T, CHUNK = 4, 40, 16
+TRAIN_ARCHS = (("ras-pimc", {}), ("qwen1.5-4b", {}), ("qwen3-4b", {}),
+               ("qwen3-4b", {"remat": True}), ("llama3-405b", {}))
 
 
 def _digest(*arrays) -> str:
@@ -94,7 +101,40 @@ def worker() -> None:
         logits.append(lg.float().numpy())
         tok = lg.argmax(-1, keepdim=True)
     out["wrapped-ring logits"] = _digest(*logits)
+    out.update(train_digests())
     print(json.dumps(out))
+
+
+def train_digests() -> dict:
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import train_loop
+
+    torch.set_num_threads(1)
+    out = {}
+    for arch, over in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch).with_(**over)
+        model = init_model(cfg, seed=0, device="cpu")
+        batch = train_batch(cfg, 4, 16, step=0)
+        with torch.no_grad():
+            x, _ = model(torch.as_tensor(batch["tokens"],
+                                         dtype=torch.int64))
+            lg = model._logits(x)
+        loss, grads = train_loop.grads_fn(model, batch)
+        state = train_loop.init_train_state(model)
+        step = train_loop.make_train_step(cfg, base_lr=3e-3)
+        metrics = []
+        for i in (1, 2):
+            state, m = step(state, train_batch(cfg, 4, 16, step=i))
+            metrics += [m["loss"], m["grad_norm"]]
+        out[f"train {arch} {over}"] = _digest(
+            x.numpy(), lg.numpy(), loss.numpy(),
+            *(g.numpy() for g in grads.values()),
+            *(t.numpy() for t in metrics),
+            *(p.detach().numpy() for p in model.parameters()))
+    return out
 
 
 def main() -> int:
