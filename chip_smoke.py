@@ -3179,6 +3179,10 @@ def remat_phase(dev):
 
 TP_ARCH, TP_LAYERS, TP_ROWS, TP_SEQ, TP_LR = "qwen3-4b", 2, 2, 1024, 3e-3
 TP_SP = (("data",), "model", None)
+# the placed decode: positions stepped into a ring of TP_SEQ, of them the
+# prefilled chunk; the placed ras-pimc compress (lanes x tokens, chunk)
+TP_DEC_T, TP_DEC_PREFILL = 64, 32
+TP_PIMC = (128, 128, 64)
 
 
 def _tp_run(model, batch: dict, steps: list, device_mesh=None) -> dict:
@@ -3233,6 +3237,119 @@ def _tp_worst(got: dict, ref: dict, what: str) -> float:
     return worst
 
 
+def _tp_decode(dev, whole, dm, what: str) -> dict:
+    """The placed decode at full width (checks (a) and (b) of the tensor
+    parallel phase): ``whole`` and its placement on ``dm`` decode
+    ``TP_ROWS`` rows of seeded tokens for ``TP_DEC_T`` positions into a
+    ring of ``TP_SEQ``, each step's logits within 1e-5 of the plain
+    model's largest logit, the final state too; the placed
+    ``prefill_chunk`` of the first ``TP_DEC_PREFILL`` positions into a
+    fresh state bitwise the placed steps (logits and state).  Returns the
+    worst differences, the step times and the rank's tensors' bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.parallel import sharding
+    cfg = whole.cfg
+    placed = sharding.place_model(whole, dm)
+    pl = placed.placement
+    layout = pl.ring_layout(TP_SEQ)
+    _check(layout == "slots", f"{what}: ring layout {layout}, expected the "
+           "slots (kv heads 8 do not divide over tp 16)")
+    rng = np.random.default_rng(28)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (TP_ROWS, TP_DEC_T)), device=dev)
+    out = {}
+    for name, m in (("plain", whole), ("placed", placed)):
+        state = m.init_state(TP_ROWS, TP_SEQ)
+        lgs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(TP_DEC_T):
+            lgs.append(m.decode_step(state, tok[:, t:t + 1], t))
+            if name == "placed" and t + 1 == TP_DEC_PREFILL:
+                snap = (state.k.clone(), state.v.clone())
+        torch.cuda.synchronize()
+        out[name] = dict(ms=1e3 * (time.perf_counter() - t0) / TP_DEC_T,
+                         logits=lgs, state=state)
+    worst = max(_tp_worst({"l": pl.whole_vocab(a)}, {"l": b},
+                          f"{what}: decode step {t} logits")
+                for t, (a, b) in enumerate(zip(out["placed"]["logits"],
+                                               out["plain"]["logits"])))
+    final = pl.unplace_state(out["placed"]["state"])
+    state_worst = _tp_worst({"k": final.k, "v": final.v},
+                            {"k": out["plain"]["state"].k,
+                             "v": out["plain"]["state"].v},
+                            f"{what}: decode state")
+    fresh = placed.init_state(TP_ROWS, TP_SEQ)
+    n = TP_DEC_PREFILL
+    lg = placed.prefill_chunk(fresh, tok[:, :n],
+                              torch.zeros(TP_ROWS, dtype=torch.int64,
+                                          device=dev),
+                              torch.full((TP_ROWS,), n, dtype=torch.int64,
+                                         device=dev))
+    _check(torch.equal(lg, torch.stack(out["placed"]["logits"][:n], 1))
+           and torch.equal(fresh.k, snap[0]) and torch.equal(fresh.v,
+                                                             snap[1]),
+           f"{what}: the placed prefill_chunk of {n} positions is not "
+           "bitwise the placed steps")
+    st = out["placed"]["state"]
+    return dict(worst=worst, state_worst=state_worst, layout=layout,
+                ms=out["placed"]["ms"], plain_ms=out["plain"]["ms"],
+                param_bytes=_nbytes(placed.parameters()),
+                state_bytes=_nbytes([st.k, st.v]))
+
+
+def _tp_compress(dev, dm, what: str) -> dict:
+    """Check (c) of the tensor parallel phase: ``ras-pimc`` ``CONFIG``
+    placed on ``dm`` through ``lm_compress_chunked`` and
+    ``lm_decompress_chunked(backend="kernel")`` (``TP_PIMC``): the
+    container byte-identical to the whole model's, the round trip exact,
+    the per-lane probes the whole model's; the launches of the placed
+    compress and decompress alone."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import compress
+    lanes, t_len, chunk = TP_PIMC
+    model = init_model(CONFIG, seed=0, device=dev)
+    placed = sharding.place_model(model, dm)
+    _check(placed.placement.ring_layout(t_len) == "kv_heads",
+           f"{what}: ring layout {placed.placement.ring_layout(t_len)}")
+    tokens = token_stream(CONFIG.vocab_size, (lanes, t_len), seed=28)
+    want = compress.lm_compress_chunked(model, tokens, chunk,
+                                        backend="kernel")
+    _, _, want_probes = compress.lm_decompress_chunked(
+        model, want.chunks, t_len, chunk, backend="kernel", lane_probes=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compress.lm_compress_chunked(placed, tokens, chunk,
+                                       backend="kernel")
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sym, _, probes = compress.lm_decompress_chunked(
+        placed, got.chunks, t_len, chunk, backend="kernel", lane_probes=True)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{what}: launch counts {launches}")
+    _check(all(torch.equal(a, b) for a, b in zip(got.chunks, want.chunks)),
+           f"{what}: the placed container differs from the whole model's")
+    _check(np.array_equal(sym.cpu().numpy(), tokens),
+           f"{what}: round trip not exact")
+    _check(torch.equal(probes, want_probes),
+           f"{what}: per-lane probes differ from the whole model's")
+    return dict(launches=launches, comp=lanes * t_len / t_comp,
+                dec=lanes * t_len / t_dec)
+
+
 def tensor_parallel_phase(dev):
     """Slice 14: the dense family's compute placement at full width on a
     world-1 NCCL group (``make_mesh_for(1)``, a (1, 1) ``DeviceMesh``):
@@ -3241,8 +3358,12 @@ def tensor_parallel_phase(dev):
     with ``act_pspec`` None and sequence-parallel (loss, every gradient
     leaf, the prefill logits, every parameter after two steps, each within
     1e-5 of the leaf's largest entry); step times and peaks; the dry-run
-    of each placed cell on the 1 x 1 mesh against the card's bytes.
-    Returns the phase's rANS kernel launches (none)."""
+    of each placed cell on the 1 x 1 mesh against the card's bytes.  Slice
+    15, the placed decode on the same mesh: (a) and (b) :func:`_tp_decode`,
+    (c) :func:`_tp_compress` and (d) the dry-run of the placed decode cell
+    (``TP_ROWS`` rows against ``TP_SEQ`` slots), whose parameter and state
+    bytes must be the card's.  Returns the rANS kernel launches of the
+    placed compress and decompress (the training launches none)."""
     import copy
     import torch
     import torch.distributed as dist
@@ -3300,6 +3421,18 @@ def tensor_parallel_phase(dev):
                 o[k] = None
             out[pspec] = o
             torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        _check(not any(launches.values()), f"{what}: launched {launches}")
+        dec_what = (f"placed decode: {TP_ARCH} at full width, {TP_LAYERS} of "
+                    f"36 layers (float32), {TP_ROWS} rows x {TP_DEC_T} "
+                    f"positions into a ring of {TP_SEQ}, mesh 1x1")
+        dec = _tp_decode(dev, whole, dm, dec_what)
+        del whole
+        torch.cuda.empty_cache()
+        cmp_what = (f"placed compress: ras-pimc CONFIG, {TP_PIMC[0]} lanes x "
+                    f"{TP_PIMC[1]} tokens, chunk {TP_PIMC[2]}, mesh 1x1")
+        cmp = _tp_compress(dev, dm, cmp_what)
     finally:
         dist.destroy_process_group()
     print(f"{what}: plain step {ref['ms']:.1f} ms, the step's own peak "
@@ -3330,10 +3463,31 @@ def tensor_parallel_phase(dev):
               f" B; parameter, gradient and moment bytes equal to the "
               f"card's), ratio {mem['total_bytes'] / o['own']:.3f} ({smi})",
               flush=True)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    _check(not any(launches.values()), f"{what}: launched {launches}")
-    return launches
+    rec = dryrun.run_cell(TP_ARCH, ShapeSpec(f"decode {TP_ROWS}x{TP_SEQ}",
+                                             TP_SEQ, TP_ROWS, "decode"),
+                          mesh=mesh_shape_for(1), overrides=over,
+                          verbose=False)
+    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
+           f"{dec_what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    mem = rec["memory"]
+    got = (mem["param_bytes"], mem["activation_bytes"])
+    want = (dec["param_bytes"], dec["state_bytes"])
+    _check(got == want, f"{dec_what}: dry-run parameter and state bytes "
+           f"{got}, the card's {want}")
+    print(f"{dec_what}: ring layout {dec['layout']}; each step's logits "
+          f"within {dec['worst']:.3e} of the plain model's largest logit, "
+          f"the final state within {dec['state_worst']:.3e} (limit 1e-5); "
+          f"the placed prefill_chunk of {TP_DEC_PREFILL} positions bitwise "
+          f"the placed steps; a step {dec['ms']:.3f} ms placed, "
+          f"{dec['plain_ms']:.3f} ms plain (host wall, {TP_ROWS} rows); "
+          f"dry-run of the placed decode cell on the 1x1 mesh (compute): "
+          f"parameter and state bytes {got} equal to the card's, "
+          f"{mem['total_bytes']} B in all ({smi})", flush=True)
+    print(f"{cmp_what}: container byte-identical to the whole model's, "
+          f"round trip exact, per-lane probes equal; compress "
+          f"{cmp['comp']:.1f} / decompress {cmp['dec']:.1f} symbols/s; "
+          f"launches {cmp['launches']} ({smi})", flush=True)
+    return cmp["launches"]
 
 
 def topk_phase(dev):

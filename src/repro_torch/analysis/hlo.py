@@ -195,7 +195,11 @@ def collective_stats(cell) -> dict:
             add("reduce-scatter", name, dp, part * (n - 1) / n)
         else:
             add("all-reduce", name, dp, 2 * part * (n - 1) / n)
-    for name, (shape, dt, spec) in cell.state.items():
+    # under the storage placement a decode rank gathers its rows' state;
+    # under the compute placement it steps its shard (the context-parallel
+    # combine's gathers are among the recorded collectives)
+    for name, (shape, dt, spec) in (cell.state if cell.comm is None
+                                    else {}).items():
         whole = math.prod(shape) * dt.itemsize
         local = math.prod(shard_shape(shape, spec, mesh)) * dt.itemsize
         rows = whole * cell.rows // cell.shape.global_batch

@@ -8,10 +8,11 @@ rank's step on the meta device (``launch/specs.build_cell``,
 nothing here runs on the CPU in the card's place.  The mesh is a shape
 (``launch/mesh.production_mesh_shape``).  A rank holds its shard of
 every parameter, gradient and moment under the reference's rules; what it
-computes is the record's ``"model_axis"``: ``"compute"`` for a ``dense``
-arch's train and prefill cells (its data slab with its shares of the
-heads, MLP columns and vocabulary, ``launch/specs.py``), ``"storage"``
-for every other cell (its data slab at full width).
+computes is the record's ``"model_axis"``: ``"compute"`` for every cell
+of a ``dense`` arch (its data slab with its shares of the heads, MLP
+columns and vocabulary, and in a decode cell its shard of the state,
+``launch/specs.py``), ``"storage"`` for every other cell (its data slab
+at full width).
 
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under
@@ -19,7 +20,7 @@ bytes: parameters, gradients (and their float32 accumulator under
 backward, the largest microbatch's, and under ``cfg.remat`` the largest
 checkpointed unit's saved tensors when backward recomputes it, apart in
 ``recompute_bytes``; prefill: the forward's peak of live
-tensors; decode: the placed state), the largest layer's gathered shards
+tensors; decode: the rank's state), the largest layer's gathered shards
 (twice in a train cell: weights and gradients; under the compute
 placement its FSDP gather over ``data`` only), their total and ``fits``
 against the card's 80 GB.  A cell that does not fit is a finding, not a

@@ -8,13 +8,15 @@ The reference lowers the whole (GSPMD-sharded) program.  The port runs
 one rank's program, under one of two placements (``parallel/
 sharding.py``):
 
-  * **compute** — a ``dense`` arch's train and prefill cells: the rank's
-    placed model (``sharding.place_model`` on a
-    ``parallel.tensor.RecordingComm``, the stand-in that records each
-    collective instead of running it), its data slab of the batch, its
-    shares of the heads, MLP columns and vocabulary, residuals under
-    ``cfg.act_pspec`` (the reference's default ``(batch axes, None,
-    None)`` when none is set);
+  * **compute** — a ``dense`` arch's cells: the rank's placed model
+    (``sharding.place_model`` on a ``parallel.tensor.RecordingComm``, the
+    stand-in that records each collective instead of running it), its
+    data slab of the batch, its shares of the heads, MLP columns and
+    vocabulary, residuals under ``cfg.act_pspec`` (the reference's
+    default ``(batch axes, None, None)`` when none is set, but for a
+    decode cell, which the reference leaves unconstrained), and in a
+    decode cell its shard of the state (the KV rings by
+    ``sharding.ring_layout``);
   * **storage** — every other cell: the whole-width model on the rank's
     data-parallel slab, its placed shards gathered before each layer.
 
@@ -27,7 +29,8 @@ The steps:
               device_mesh=...)`` on the global batch;
   * prefill — ``LM.forward`` and the logits (BF16), the compression
               direction's per-position distributions;
-  * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state.
+  * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state
+              (placed: the global batch's token, the rank's state).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import meta_model
 from repro_torch.models.transformer import LM, encoder_block, torch_dtype
 from repro_torch.parallel.sharding import (batch_spec, param_specs,
-                                           place_model, shard_shape)
+                                           place_model, ring_layout,
+                                           shard_shape)
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.train import train_loop
 from repro_torch.train.optimizer import as_dtype
@@ -91,8 +95,8 @@ def cache_specs(cfg: ModelConfig, mesh, leaves: dict,
     """Name-aware state placement (leaves by shape, ``(layers, B, ...)``):
     batch over DP; the KV rings' heads over model when divisible, else
     their *slot* dim over model (decode context parallelism, the
-    reference's llama3-405b 32k fit lever); a recurrent leaf's feature dim
-    over model when it divides."""
+    reference's llama3-405b 32k fit lever; ``sharding.ring_layout``); a
+    recurrent leaf's feature dim over model when it divides."""
     model_n = mesh.shape["model"]
     b_axes = batch_spec(mesh, global_batch, ndim=1)[0]
 
@@ -101,9 +105,10 @@ def cache_specs(cfg: ModelConfig, mesh, leaves: dict,
         if len(shape) >= 2:
             dims[1] = b_axes           # (layer_stack, batch, ...)
         if name in ("k", "v") and len(shape) == 5:
-            if cfg.kv_sharded:
+            layout = ring_layout(cfg, shape[2], model_n)
+            if layout == "kv_heads":
                 dims[3] = "model"
-            elif shape[2] % model_n == 0:
+            elif layout == "slots":
                 dims[2] = "model"      # context-parallel cache
         elif name.rsplit(".", 1)[-1] in ("h", "conv"):
             if shape[-1] % model_n == 0:
@@ -185,9 +190,9 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     if overrides:
         cfg = cfg.with_(**overrides)
     b, s = shape.global_batch, shape.seq_len
-    compute = cfg.family == "dense" and shape.kind != "decode"
+    compute = cfg.family == "dense"
     if compute:
-        cfg = _placed_pspec(cfg, mesh, b)
+        cfg = _placed_pspec(cfg, mesh, b, shape.kind != "decode")
     model = meta_model(cfg)
     pspec = param_specs(model, mesh, fsdp=fsdp)
     params = {k: (tuple(p.shape), p.dtype, pspec[k])
@@ -241,13 +246,16 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
                 return model._logits(x).to(torch.bfloat16)
     else:
         with torch.device("meta"):
-            st0 = model.init_state(rows, s)
+            st0 = model.init_state(b if compute else rows, s)
+            # the state's whole leaves, by the unplaced model's shapes
+            whole_state = meta_model(cfg).init_state(rows, s) if compute \
+                else st0
         glob = {k: (t.shape[0], b) + tuple(t.shape[2:])
-                for k, t in st0.leaves().items()}
+                for k, t in whole_state.leaves().items()}
         cspec = cache_specs(cfg, mesh, glob, b)
         state = {k: (glob[k], t.dtype, cspec[k])
-                 for k, t in st0.leaves().items()}
-        token = _meta((rows, 1), torch.int64)
+                 for k, t in whole_state.leaves().items()}
+        token = _meta((b if compute else rows, 1), torch.int64)
         memory = None
         if cfg.family == "vlm" or cfg.is_encdec:
             memory = _meta((rows, cfg.memory_tokens, cfg.d_model), dt)
@@ -256,6 +264,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
         else:
             batch = {}
 
+        @recording
         def run():
             with torch.no_grad():
                 return model.decode_step(st0, token, s - 1, memory=memory)
@@ -266,16 +275,20 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
                 recorded=recorded if compute else None)
 
 
-def _placed_pspec(cfg: ModelConfig, mesh, global_batch: int) -> ModelConfig:
+def _placed_pspec(cfg: ModelConfig, mesh, global_batch: int,
+                  default: bool = True) -> ModelConfig:
     """The reference's ``act_pspec`` for a compute-placed cell: the
     config's own without the ``pod`` axis on a single pod, else
-    ``(batch axes, None, None)``."""
+    ``(batch axes, None, None)`` (unless not ``default``: the reference
+    constrains no decode cell's residuals)."""
     if cfg.act_pspec is not None:
         if "pod" in mesh.axis_names:
             return cfg
         return cfg.with_(act_pspec=tuple(
             tuple(a for a in ax if a != "pod") if isinstance(ax, tuple)
             else ax for ax in cfg.act_pspec))
+    if not default:
+        return cfg
     return cfg.with_(act_pspec=(batch_spec(mesh, global_batch, 1)[0], None,
                                 None))
 

@@ -57,11 +57,13 @@ step (nothing is cached).  The encoder's self-attention is cross
 attention against its own input (the reference's ``mem=h``).
 
 Under the dense family's compute placement (``parallel/sharding.
-place_model``) :func:`attn_forward` takes the rank's ``place``: its
-query heads are the rank's share, their kv heads its shard or, where the
-kv heads replicate over ``model``, picked from the whole K/V by
-:func:`kv_head_map` (``Placement.kv_index``), and ``wo`` is
-row-parallel.
+place_model``) :func:`attn_forward`, :func:`attn_decode` and
+:func:`attn_prefill` take the rank's ``place``: its query heads are the
+rank's share, their kv heads its shard or, where the kv heads replicate
+over ``model``, picked from the whole K/V by :func:`kv_head_map`
+(``Placement.kv_index``), and ``wo`` is row-parallel.  The serving pair
+reads the rank's shard of the KV ring, its kv heads or its slab of the
+slots (:func:`_ring_step`).
 """
 
 from __future__ import annotations
@@ -165,27 +167,42 @@ def _seq_sum(tiles: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _attend_slots(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                  valid: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Single-position attention: q (B,1,Hp,Dh) against the tile-padded
-    cache (B,Rp,KV,Dh) under a (B|1, Rp) slot mask -> (B,1,Hp,Dh)."""
-    hp, dh = cfg.n_heads_padded, cfg.head_dim_
-    ck, cv, kv, g = _heads(ck, cv, cfg)
+                  valid: torch.Tensor, cfg: ModelConfig, place=None,
+                  partial: bool = False):
+    """Single-position attention: q (B,1,H,Dh) against the cache
+    (B,R,KV,Dh) under a (B|1, R) slot mask -> (B,1,H,Dh).  The slots
+    reduce in tiles of ``_RING_BLOCK``, or of ``gcd(R, _RING_BLOCK)`` on
+    a context-parallel rank's slab that is not whole tiles (a slab of 8
+    slots at ``tp = 4`` on a 32-slot ring): the order within a tile and
+    across tiles is then that slab's, not the whole ring's.  ``place``:
+    the rank's query heads against its K/V heads (:func:`_heads`).
+    ``partial`` returns the unnormalised partials ``(m, l, acc)`` of each
+    head, (B,H,1), (B,H,1) and (B,H,Dh): the row max, the sum of ``exp(s
+    - m)`` and the sum of those weights times the values, for
+    ``parallel.tensor.softmax_combine``."""
+    hp, dh = q.shape[2], cfg.head_dim_
+    ck, cv, kv, g = _heads(ck, cv, cfg, place)
     b, rp = ck.shape[:2]
-    nb = rp // _RING_BLOCK
+    blk = math.gcd(rp, _RING_BLOCK)
+    nb = rp // blk
     scale = 1.0 / math.sqrt(dh)
     qg = q.reshape(b, kv, 1, g, dh)
-    kt = ck.view(b, nb, _RING_BLOCK, kv, dh).permute(0, 3, 1, 4, 2)
+    kt = ck.view(b, nb, blk, kv, dh).permute(0, 3, 1, 4, 2)
     s = torch.matmul(qg.float(), kt.float())       # (B, KV, nb, g, BLOCK)
     s = s.permute(0, 1, 3, 2, 4).reshape(b, kv, g, rp) * scale
     vmask = valid[:, None, None, :]
     s = torch.where(vmask, s, torch.full_like(s, _NEG))
     m = s.amax(-1, keepdim=True)
     e = torch.where(vmask, torch.exp(s - m), torch.zeros_like(s))
-    tiles = e.view(b, kv, g, nb, _RING_BLOCK)
-    prob = e / _seq_sum(tiles.sum(-1), dim=-1)[..., None]
-    pt = prob.to(cv.dtype).view(b, kv, g, nb, _RING_BLOCK).transpose(2, 3)
-    vt = cv.view(b, nb, _RING_BLOCK, kv, dh).permute(0, 3, 1, 2, 4)
+    tiles = e.view(b, kv, g, nb, blk)
+    den = _seq_sum(tiles.sum(-1), dim=-1)[..., None]
+    prob = e if partial else e / den
+    pt = prob.to(cv.dtype).view(b, kv, g, nb, blk).transpose(2, 3)
+    vt = cv.view(b, nb, blk, kv, dh).permute(0, 3, 1, 2, 4)
     out = _seq_sum(torch.matmul(pt, vt), dim=2)    # (B, KV, g, Dh)
+    if partial:
+        return (m.reshape(b, hp, 1), den.reshape(b, hp, 1),
+                out.reshape(b, hp, dh))
     return out.reshape(b, 1, hp, dh)
 
 
@@ -252,9 +269,53 @@ def _valid(pos_b: torch.Tensor, slot, idx: torch.Tensor,
     return valid & (age < window) if window else valid
 
 
+def _ring_step(q, k, v, ck, cv, pos, pos_b, slot, cache_len: int,
+               cfg: ModelConfig, place=None, write=None) -> torch.Tensor:
+    """One position's K/V into the ring and its attend: q (B,1,H,Dh) of
+    the rank's query heads -> (B,1,H,Dh).
+
+    Unplaced, and placed under the ``"kv_heads"`` and ``"replicated"``
+    ring layouts (``place.ring``, ``parallel/sharding.ring_layout``), the
+    rank holds every slot of its K/V heads: the write and the attend are
+    the unplaced ones over the rank's heads.  Under ``"slots"`` (decode
+    context parallelism) the rank holds every K/V head of its slab
+    ``[place.slab_start, + ck.shape[1])`` of the slots: the new K/V (whole,
+    as ``wk``/``wv`` replicate there) is written only where its slot falls
+    in the slab, a masked write that leaves the other ranks' slots and the
+    rest of the slab as they are (the reference's masked select,
+    ``src/repro/models/attention.py:335-337``); the queries of every head
+    are gathered over ``model``, each rank attends its slab into
+    unnormalised partials, and ``place.combine``
+    (``parallel.tensor.softmax_combine``) joins them in rank order.  The
+    rank keeps its own heads of the result."""
+    if place is None or place.ring != "slots":
+        _write_kv(ck, cv, k, v, pos, slot, write)
+        idx = torch.arange(ck.shape[1], device=ck.device)
+        return _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len,
+                                               cfg.window), cfg, place)
+    start, n = place.slab_start, ck.shape[1]
+    local = slot - start
+    if isinstance(pos, int):
+        if 0 <= local < n:
+            _write_kv(ck, cv, k, v, pos, local)
+    else:
+        hit = (local >= 0) & (local < n)
+        _write_kv(ck, cv, k, v, pos, local.clamp(0, n - 1),
+                  hit if write is None else hit & write)
+    idx = start + torch.arange(n, device=ck.device)
+    qa = place.model_gather(q, 2)
+    m, den, acc = _attend_slots(qa, ck, cv, _valid(pos_b, slot, idx,
+                                                   cache_len, cfg.window),
+                                cfg, partial=True)
+    out = place.combine(m, den, acc.float())
+    h = q.shape[2]
+    return out[:, None, place.tp_rank * h:(place.tp_rank + 1) * h].to(
+        q.dtype)
+
+
 def attn_decode(p: Attention, x1: torch.Tensor, ck: torch.Tensor,
                 cv: torch.Tensor, cache_len: int, pos,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, place=None) -> torch.Tensor:
     """One-token decode.  ``x1``: (B,1,D); ``ck``/``cv``: this layer's
     (B,Rp,KV,Dh) cache (or a view of it), written in place at ``slot = pos
     % cache_len`` (a cache shorter than the stream rings; entries older
@@ -264,24 +325,28 @@ def attn_decode(p: Attention, x1: torch.Tensor, ck: torch.Tensor,
     tensor of per-row positions (the batching engine's slots): every row
     then writes its own slot and masks its own ring, with no host read.
     An int gives logits bitwise equal to a constant vector: the same ops
-    on the same values, one mask row broadcast over the batch."""
+    on the same values, one mask row broadcast over the batch.
+
+    Placed (``place``: ``sharding.Placement.serving``, the dense family's
+    compute placement): ``p`` holds the rank's query heads and their
+    ``wo`` rows, ``ck``/``cv`` the rank's shard of the ring
+    (:func:`_ring_step`), and ``wo``'s partial sums leave reduced over
+    ``model``."""
     b, _, d = x1.shape
-    hp, dh = cfg.n_heads_padded, cfg.head_dim_
     q, k, v = _qkv(p, x1, cfg)
     pos_b = _positions(pos, b, x1.device)
     q = apply_rope(q, pos_b[:, None], cfg.rope_theta)
     k = apply_rope(k, pos_b[:, None], cfg.rope_theta)
     slot = pos % cache_len if isinstance(pos, int) else pos_b % cache_len
-    _write_kv(ck, cv, k, v, pos, slot)
-    idx = torch.arange(ck.shape[1], device=x1.device)
-    out = _attend_slots(q, ck, cv, _valid(pos_b, slot, idx, cache_len,
-                                          cfg.window), cfg)
-    return out.reshape(b, 1, hp * dh) @ p.wo.reshape(hp * dh, d)
+    out = _ring_step(q, k, v, ck, cv, pos, pos_b, slot, cache_len, cfg,
+                     place)
+    y = out.reshape(b, 1, -1) @ p.wo.reshape(-1, d)
+    return y if place is None else place.exit(y)
 
 
 def attn_prefill(p: Attention, hs, ck: torch.Tensor, cv: torch.Tensor,
                  cache_len: int, pos0: torch.Tensor, n_valid: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, place=None) -> torch.Tensor:
     """Teacher-forced attention over S positions, bitwise the S
     :func:`attn_decode` steps on the live positions.  ``hs``: the S
     positions' normed inputs, each (B,1,D); ``pos0``/``n_valid``: (B,)
@@ -292,27 +357,25 @@ def attn_prefill(p: Attention, hs, ck: torch.Tensor, cv: torch.Tensor,
     Each position runs the step path's exact shapes: its projections are
     GEMMs of B rows (cuBLAS may order a sum otherwise at another row
     count), then the K/V write and the query-extent-1
-    :func:`_attend_slots`.  Only the RoPE runs over all positions at once
-    (elementwise).  Returns (S,B,D)."""
+    :func:`_attend_slots` (placed: :func:`_ring_step` on the rank's shard,
+    and the reduce of ``wo``'s partial sums at the step's size).  Only
+    the RoPE runs over all positions at once (elementwise).  Returns
+    (S,B,D)."""
     s_len, b = len(hs), hs[0].shape[0]
     d = hs[0].shape[-1]
-    hp, dh = cfg.n_heads_padded, cfg.head_dim_
     qkv = [_qkv(p, h, cfg) for h in hs]
     steps = torch.arange(s_len, device=ck.device)
     pq = pos0[None, :] + torch.minimum(steps[:, None], n_valid[None, :])
     q = apply_rope(torch.cat([x[0] for x in qkv], 1), pq.T, cfg.rope_theta)
     k = apply_rope(torch.cat([x[1] for x in qkv], 1), pq.T, cfg.rope_theta)
     v = torch.cat([x[2] for x in qkv], 1)
-    idx = torch.arange(ck.shape[1], device=ck.device)
     outs = []
     for t in range(s_len):
-        slot = pq[t] % cache_len
-        _write_kv(ck, cv, k[:, t:t + 1], v[:, t:t + 1], pq[t], slot,
-                  write=t < n_valid)
-        out = _attend_slots(q[:, t:t + 1], ck, cv,
-                            _valid(pq[t], slot, idx, cache_len,
-                                   cfg.window), cfg)
-        outs.append(out.reshape(b, hp * dh) @ p.wo.reshape(hp * dh, d))
+        out = _ring_step(q[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], ck, cv,
+                         pq[t], pq[t], pq[t] % cache_len, cache_len, cfg,
+                         place, write=t < n_valid)
+        y = out.reshape(b, -1) @ p.wo.reshape(-1, d)
+        outs.append(y if place is None else place.exit(y))
     return torch.stack(outs)
 
 

@@ -16,6 +16,9 @@ the ``vlm`` caller's patch embeddings, or the ``audio`` caller's
 ``encode_memory`` output.  :func:`recurrent_state_tree` marks a
 state's recurrent leaves (the reference's path classification) and
 :func:`reset_rows` zeroes every leaf of a slot's rows (a fresh admit).
+A ``dense`` model placed for compute (``parallel/sharding.place_model``)
+passes through the same three calls: its state is the rank's shard and
+its logits the rank's vocabulary slab (``LM.decode_step``).
 """
 
 from __future__ import annotations

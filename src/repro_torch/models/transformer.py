@@ -74,7 +74,13 @@ forward takes the rank's rows, each checkpointed unit gathers its
 blocks' FSDP shards over ``data`` (:meth:`LM._placed_unit`), the
 attention and MLP run column- then row-parallel over ``model``, the
 residuals follow ``cfg.act_pspec`` and the logits and the loss are
-vocabulary-parallel; it does not decode.
+vocabulary-parallel.  It serves the same way: :meth:`LM.init_state`
+allocates the rank's shards of the state (its rows, and its kv heads or
+its slab of the ring's slots, ``sharding.ring_layout``), and
+:meth:`LM.decode_step` and :meth:`LM.prefill_chunk` take the global
+batch, run the rank's rows at one position a call (the residual stream
+whole on every model rank), gather each block's FSDP shards over ``data``
+and return the rank's ``(rows / dp, Vpad / tp)`` logits.
 """
 
 from __future__ import annotations
@@ -319,16 +325,21 @@ class LM(nn.Module):
         # shards of a compute-placed model (sharding.place_model)
         self.placement = None
 
+    def _vocab(self, pl):
+        """``(embedding, lm_head)`` as the logits read them: placed (``pl``),
+        the vocabulary shards gathered over ``data``."""
+        if pl is None:
+            return self.embedding, self.lm_head
+        head = None if self.lm_head is None else pl.gather(self.lm_head,
+                                                            "lm_head")
+        return pl.gather(self.embedding, "embedding"), head
+
     def _head(self, x: torch.Tensor):
         """``(embedding, lm_head, x)`` as the logits read them: placed, the
         vocabulary shards gathered over ``data`` and the whole sequence of
         ``x`` on every model rank."""
         pl = self.placement
-        if pl is None:
-            return self.embedding, self.lm_head, x
-        head = None if self.lm_head is None else pl.gather(self.lm_head,
-                                                            "lm_head")
-        return pl.gather(self.embedding, "embedding"), head, pl.enter(x)
+        return *self._vocab(pl), (x if pl is None else pl.enter(x))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Logits over the padded vocabulary (placed: this rank's shard,
@@ -468,18 +479,12 @@ class LM(nn.Module):
             pl.comm.scope = "entry"
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def _unplaced(self, what: str) -> None:
-        if self.placement is not None:
-            raise NotImplementedError(
-                f"{what} under the compute placement is not ported "
-                "(ROADMAP A: decode under a kv-head-sharded state); serve "
-                "the whole model")
-
     def init_state(self, batch: int, max_len: int) -> ModelState:
         """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
         window)`` slots (``max_len`` without a window) and the recurrent
-        blocks' leaves."""
-        cfg = self.cfg
+        blocks' leaves.  A placed model allocates the rank's shards of the
+        state of ``batch`` global rows (``Placement.state_shape``)."""
+        cfg, pl = self.cfg, self.placement
         p = self.embedding
         win = cfg.window
         ring = min(max_len, win) if win else max_len
@@ -488,6 +493,8 @@ class LM(nn.Module):
         if n:
             shape = (n, batch, ring_slots(ring), cfg.n_kv_heads,
                      cfg.head_dim_)
+            if pl is not None:
+                shape = pl.state_shape(shape, ring)
             k, v = (torch.zeros(shape, dtype=p.dtype, device=p.device)
                     for _ in range(2))
         recurrent = {}
@@ -509,24 +516,48 @@ class LM(nn.Module):
                                  f"of a ring of length {state.length}")
         return tuple(groups)
 
-    def _rows(self, state: ModelState, g: RowGroup) -> dict:
+    def _rows(self, state: ModelState, g: RowGroup, pl=None) -> dict:
         """The group's rows of every state leaf (views), the rings cut to
-        its length."""
+        its length (a context-parallel rank's slab of the slots whole: its
+        slots past the group's ring are masked)."""
         out = {name: t[:, g.r0:g.r1]
                for name, t in state.recurrent.items()}
         if state.k is not None:
-            n = ring_slots(g.length)
+            n = (state.k.shape[2] if pl is not None and pl.ring == "slots"
+                 else ring_slots(g.length))
             out["k"] = state.k[:, g.r0:g.r1, :n]
             out["v"] = state.v[:, g.r0:g.r1, :n]
         return out
 
-    def _step(self, st: dict, length: int, token, pos,
-              memory=None) -> torch.Tensor:
+    def _serving(self, state: ModelState):
+        """The placement as the serving steps read it for ``state``
+        (``Placement.serving``), or None unplaced."""
+        pl = self.placement
+        return None if pl is None else pl.serving(state.length)
+
+    def _serving_weights(self, pl):
+        """``(embedding, lm_head, final_norm)`` as a serving step reads
+        them: placed, gathered over ``data``."""
+        if pl is None:
+            return self.embedding, self.lm_head, self.final_norm
+        return *self._vocab(pl), pl.gather(self.final_norm, "final_norm")
+
+    def _block(self, b: int, pl):
+        """Block ``b``'s parameters: placed, its FSDP shards gathered over
+        ``data``."""
+        blk = self.blocks[b]
+        return blk if pl is None else pl.gathered(blk, f"blocks.{b}")
+
+    def _step(self, st: dict, length: int, token, pos, memory=None,
+              pl=None) -> torch.Tensor:
         """The single-request step over the state views ``st`` (:meth:
-        `_rows`) of ring length ``length``, its rows' ``memory``."""
+        `_rows`) of ring length ``length``, its rows' ``memory``; placed
+        (``pl``, :meth:`_serving`), on the rank's shards."""
         cfg = self.cfg
-        x = embed(self.embedding, token)
-        for kind, i, blk in zip(self.kinds, self._index, self.blocks):
+        emb, head, final_norm = self._serving_weights(pl)
+        x = embed(emb, token, pl)
+        for b, (kind, i) in enumerate(zip(self.kinds, self._index)):
+            blk = self._block(b, pl)
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
             if kind == "ssm":
                 x = x + ssm_decode_step(blk.ssm, h, {
@@ -539,23 +570,25 @@ class LM(nn.Module):
                 x = x + attn_cross(blk.cross, h, memory, cfg)
             else:
                 x = x + attn_decode(blk.attn, h, st["k"][i], st["v"][i],
-                                    length, pos, cfg)
+                                    length, pos, cfg, place=pl)
             if kind == "dec":
                 x = x + attn_cross(blk.cross,
                                    rmsnorm(blk.ln_cross, x, cfg.norm_eps),
                                    memory, cfg)
-            x = x + self._ffn(kind, blk, x)
-        x = rmsnorm(self.final_norm, x, cfg.norm_eps)
-        return self._logits(x)[:, 0]
+            x = x + self._ffn(kind, blk, x, pl)
+        x = rmsnorm(final_norm, x, cfg.norm_eps)
+        return logits(emb, x, head)[:, 0]
 
-    def _ffn(self, kind: str, blk, x1: torch.Tensor) -> torch.Tensor:
-        """A block's FFN on one position (B,1,D): the gated MLP, or the MoE
-        FFN in its fixed-shape step form."""
+    def _ffn(self, kind: str, blk, x1: torch.Tensor,
+             pl=None) -> torch.Tensor:
+        """A block's FFN on one position (B,1,D): the gated MLP (placed, on
+        the rank's columns), or the MoE FFN in its fixed-shape step
+        form."""
         h = rmsnorm(blk.ln2, x1, self.cfg.norm_eps)
         if kind == "attn_moe":
             return moe_step(blk.ffn, h, self.cfg)
         f = blk.ffn
-        return mlp(f.wi_gate, f.wi_up, f.wo, h)
+        return mlp(f.wi_gate, f.wi_up, f.wo, h, place=pl)
 
     @torch.no_grad()
     def decode_step(self, state: ModelState, token: torch.Tensor, pos,
@@ -567,41 +600,57 @@ class LM(nn.Module):
         :class:`RowGroup` as its own single-request step, on its rows of
         ``memory``; rows outside every group get zero logits and leave the
         state unchanged.  ``memory`` (B,M,D): what the ``cross``/``dec``
-        blocks attend (required there)."""
-        self._unplaced("decode_step")
+        blocks attend (required there).
+
+        Placed: ``token`` and per-row ``pos`` are the global batch, of
+        which the rank runs its rows (``Placement.rows``) against its
+        shards of ``state`` (:meth:`init_state`); ``groups`` index those
+        rows; the logits are the rank's ``(B / dp, Vpad / tp)``
+        vocabulary slab (``Placement.whole_vocab`` gathers whole
+        rows)."""
+        pl = self._serving(state)
+        if pl is not None:
+            token = pl.rows(token)
+            if not isinstance(pos, int):
+                pos = pl.rows(pos)
         groups = self._groups(state, token.shape[0], groups)
         memory = self._memory(memory, token.shape[0])
         if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
-            return self._step(self._rows(state, groups[0]), groups[0].length,
-                              token, pos, memory)
+            return self._step(self._rows(state, groups[0], pl),
+                              groups[0].length, token, pos, memory, pl)
         out = self.embedding.new_zeros((token.shape[0],
-                                        self.cfg.vocab_padded))
+                                        self.embedding.shape[0]))
         for g in groups:
             p = pos if isinstance(pos, int) else pos[g.r0:g.r1]
             mem = None if memory is None else memory[g.r0:g.r1]
-            out[g.r0:g.r1] = self._step(self._rows(state, g), g.length,
-                                        token[g.r0:g.r1], p, mem)
+            out[g.r0:g.r1] = self._step(self._rows(state, g, pl), g.length,
+                                        token[g.r0:g.r1], p, mem, pl)
         return out
 
-    def _prefill(self, ck, cv, length: int, tokens, pos0, n_valid):
+    def _prefill(self, ck, cv, length: int, tokens, pos0, n_valid,
+                 pl=None):
         """:meth:`prefill_chunk` of one group: (B,S) -> (B,S,Vpad)."""
         cfg = self.cfg
         s_len = tokens.shape[1]
+        emb, head, final_norm = self._serving_weights(pl)
 
         def per_position(fn, xs):
             return torch.stack([fn(xs[t][:, None])[:, 0]
                                 for t in range(s_len)])
 
-        xs = embed(self.embedding, tokens.T)            # (S, B, D)
-        for i, (kind, blk) in enumerate(zip(self.kinds, self.blocks)):
+        xs = embed(emb, tokens.T, pl)                   # (S, B, D)
+        for i, kind in enumerate(self.kinds):
+            blk = self._block(i, pl)
             hs = [rmsnorm(blk.ln1, xs[t][:, None], cfg.norm_eps)
                   for t in range(s_len)]
             xs = xs + attn_prefill(blk.attn, hs, ck[i], cv[i], length, pos0,
-                                   n_valid, cfg)
+                                   n_valid, cfg, place=pl)
             xs = xs + per_position(
-                lambda x1, kind=kind, blk=blk: self._ffn(kind, blk, x1), xs)
-        return per_position(lambda x1: self._logits(
-            rmsnorm(self.final_norm, x1, cfg.norm_eps)), xs).transpose(0, 1)
+                lambda x1, kind=kind, blk=blk: self._ffn(kind, blk, x1, pl),
+                xs)
+        return per_position(lambda x1: logits(
+            emb, rmsnorm(final_norm, x1, cfg.norm_eps), head),
+            xs).transpose(0, 1)
 
     @torch.no_grad()
     def prefill_chunk(self, state: ModelState, tokens: torch.Tensor,
@@ -623,28 +672,34 @@ class LM(nn.Module):
         attend and MoE FFN runs per position at the step path's shapes,
         since cuBLAS's GEMMs and PyTorch's row reductions may order a sum
         otherwise at another row count (and a MoE chunk would drop
-        tokens)."""
+        tokens).  Placed, as :meth:`decode_step`: the global ``tokens``,
+        ``pos0`` and ``n_valid``, the rank's rows, shards and ``(B / dp,
+        S, Vpad / tp)`` logits; each position's collectives run at the
+        step's sizes, so the chunk is bitwise the placed steps."""
         if not set(self.kinds) <= {"attn", "attn_moe"}:
             raise ValueError(f"prefill_chunk runs attention blocks only; "
                              f"this model has {sorted(set(self.kinds))}")
-        self._unplaced("prefill_chunk")
+        pl = self._serving(state)
+        if pl is not None:
+            tokens, pos0, n_valid = (pl.rows(t) for t in (tokens, pos0,
+                                                          n_valid))
         b = tokens.shape[0]
         groups = self._groups(state, b, groups)
         pos0, n_valid = pos0.to(torch.int64), n_valid.to(torch.int64)
 
         def kv(g):
-            st = self._rows(state, g)
+            st = self._rows(state, g, pl)
             return st["k"], st["v"]
 
         if len(groups) == 1 and groups[0][:2] == (0, b):
             return self._prefill(*kv(groups[0]), groups[0].length, tokens,
-                                 pos0, n_valid)
+                                 pos0, n_valid, pl)
         out = self.embedding.new_zeros(tuple(tokens.shape)
-                                       + (self.cfg.vocab_padded,))
+                                       + (self.embedding.shape[0],))
         for g in groups:
             r = slice(g.r0, g.r1)
             out[r] = self._prefill(*kv(g), g.length, tokens[r], pos0[r],
-                                   n_valid[r])
+                                   n_valid[r], pl)
         return out
 
 

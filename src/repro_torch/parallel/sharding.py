@@ -29,7 +29,11 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   Parameters replicated over ``model`` whose gradient is each rank's
   part (the q/k norms, K/V projections replicated over ``kv_heads_repl``,
   the norms under sequence parallelism) are all-reduced over ``model``
-  once a step (:meth:`Placement.reduce_grads`).
+  once a step (:meth:`Placement.reduce_grads`).  It also serves: the
+  decode state is the rank's shard (:meth:`Placement.place_state`), its
+  KV rings laid out by :func:`ring_layout` (the reference's
+  ``cache_shardings``), and a step's logits are the rank's vocabulary
+  slab (:meth:`Placement.whole_vocab` gathers whole rows).
 * every other family: **storage** only (``launch/specs.py``): a rank
   gathers each layer's shards and computes its data slab at full width,
   so the model axis divides memory, not work.  Their rules (expert
@@ -43,6 +47,7 @@ functions take the ``torch.distributed`` ``DeviceMesh`` (or the dry-run's
 
 from __future__ import annotations
 
+import copy
 import math
 from types import SimpleNamespace
 
@@ -50,10 +55,10 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch.models.attention import kv_head_map
+from repro_torch.models.attention import kv_head_map, ring_slots
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import param_axes, pspec_tree
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, ModelState
 from repro_torch.parallel import tensor as tpc
 
 
@@ -193,6 +198,18 @@ def cache_specs(cfg: ModelConfig, mesh, leaves: dict,
     return {k: spec_for(tuple(s)) for k, s in leaves.items()}
 
 
+def ring_layout(cfg: ModelConfig, n_slots: int, model_n: int) -> str:
+    """How a decode state's KV rings of ``n_slots`` (tile-padded) slots
+    lie over a ``model`` axis of ``model_n`` ranks, the reference's rule
+    (``src/repro/launch/specs.py`` ``cache_shardings``): ``"kv_heads"``
+    (the kv heads divided) when ``cfg.kv_sharded``, else ``"slots"`` (each
+    rank a slab of the ring's slots: decode context parallelism) when the
+    slots divide, else ``"replicated"``."""
+    if cfg.kv_sharded:
+        return "kv_heads"
+    return "slots" if n_slots % model_n == 0 else "replicated"
+
+
 def count_collective_free(mesh) -> int:
     return int(math.prod(mesh.shape.values()))
 
@@ -219,7 +236,7 @@ class Placement:
 
     def __init__(self, cfg: ModelConfig, mesh, specs: dict, device):
         comm = tpc.comm_of(mesh)
-        self.mesh, self.comm, self.specs = mesh, comm, specs
+        self.cfg, self.mesh, self.comm, self.specs = cfg, mesh, comm, specs
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in comm.axis_names)
         self.dp = math.prod(comm.size(a) for a in self.batch_axes)
@@ -260,14 +277,15 @@ class Placement:
 
     # -- the batch and the residual stream ---------------------------------
 
-    def rows(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's data slab of a global batch plane (dim 0)."""
-        b = t.shape[0]
+    def rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's data slab of a global batch plane (rows on
+        ``dim``)."""
+        b = t.shape[dim]
         if b % self.dp:
             raise ValueError(f"batch {b} does not divide over the {self.dp} "
                              f"ranks of {self.batch_axes}")
         n = b // self.dp
-        return t[self.dp_rank * n:(self.dp_rank + 1) * n]
+        return t.narrow(dim, self.dp_rank * n, n)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream (B, S|S/tp, D) into a column-parallel
@@ -289,6 +307,107 @@ class Placement:
 
     def model_max(self, t: torch.Tensor) -> torch.Tensor:
         return tpc.all_reduce(t.detach(), self.comm, ("model",), "max")
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's ``t`` concatenated along ``dim`` in rank
+        order."""
+        return tpc.gather_from(t, self.comm, "model", dim)
+
+    def combine(self, m, l, acc) -> torch.Tensor:
+        """The context-parallel softmax partials of every model rank
+        joined in rank order (:func:`parallel.tensor.softmax_combine`)."""
+        return tpc.softmax_combine(m, l, acc, self.comm, "model")
+
+    # -- serving: the decode state and the logits ---------------------------
+
+    def ring_layout(self, length: int) -> str:
+        """The layout of a state's KV rings of ring length ``length``
+        (:func:`ring_layout` over this mesh's ``model`` axis)."""
+        return ring_layout(self.cfg, ring_slots(length), self.tp)
+
+    def _ring_dim(self, length: int):
+        """The dim of a KV leaf ``(A, B, slots, KV, Dh)`` placed on
+        ``model``, or None (replicated)."""
+        return {"kv_heads": 3, "slots": 2}.get(self.ring_layout(length))
+
+    def serving(self, length: int) -> "Placement":
+        """This placement as a serving step reads it, for a state of ring
+        length ``length``: one position a call, so the residual stream is
+        whole on every model rank (no sequence parallelism), and the ring's
+        layout (``ring``) with this rank's slab of the slots (``slab_start``
+        and ``slab``; the whole ring unless ``ring == "slots"``)."""
+        step = copy.copy(self)
+        step.sp = False
+        step.ring = self.ring_layout(length)
+        n = ring_slots(length)
+        step.slab = n // self.tp if step.ring == "slots" else n
+        step.slab_start = self.tp_rank * step.slab if step.ring == "slots" \
+            else 0
+        return step
+
+    def state_shape(self, shape: tuple, length: int) -> tuple:
+        """The rank's shape of a whole state leaf ``shape`` (rows on dim 1)
+        of ring length ``length``: its data slab of the rows and, for a KV
+        leaf, its part of the heads or the slots."""
+        out = list(shape)
+        if out[1] % self.dp:
+            raise ValueError(f"batch {out[1]} does not divide over the "
+                             f"{self.dp} ranks of {self.batch_axes}")
+        out[1] //= self.dp
+        dim = self._ring_dim(length)
+        if len(out) == 5 and dim is not None:
+            out[dim] //= self.tp
+        return tuple(out)
+
+    def place_state(self, state: ModelState) -> ModelState:
+        """This rank's shards of a whole decode ``state`` (a copy): its
+        data slab of the rows and, on the KV rings, its kv heads or its
+        slab of the slots (:meth:`ring_layout`)."""
+        dim = self._ring_dim(state.length)
+
+        def local(t):
+            t = self.rows(t, 1)
+            if dim is not None and t.ndim == 5:
+                n = t.shape[dim] // self.tp
+                t = t.narrow(dim, self.tp_rank * n, n)
+            return t.clone()
+
+        return ModelState(
+            k=None if state.k is None else local(state.k),
+            v=None if state.v is None else local(state.v),
+            length=state.length,
+            recurrent={k: local(t) for k, t in state.recurrent.items()})
+
+    def unplace_state(self, state: ModelState) -> ModelState:
+        """The whole decode state back from every rank's shards
+        (:meth:`place_state`'s inverse, bitwise): all-gathered over
+        ``model`` on the ring's placed dim, then over the data axes on the
+        rows, in rank order."""
+        dim = self._ring_dim(state.length)
+
+        def whole(t):
+            if dim is not None and t.ndim == 5 and self.tp > 1:
+                t = self.comm.all_gather(t, "model", dim)
+            for a in reversed(self.batch_axes):
+                if self.comm.size(a) > 1:
+                    t = self.comm.all_gather(t, a, 1)
+            return t
+
+        return ModelState(
+            k=None if state.k is None else whole(state.k),
+            v=None if state.v is None else whole(state.v),
+            length=state.length,
+            recurrent={k: whole(t) for k, t in state.recurrent.items()})
+
+    def whole_vocab(self, lg: torch.Tensor) -> torch.Tensor:
+        """A serving step's logits, this rank's vocabulary slab ``(...,
+        Vpad / tp)`` from ``vocab_start``, gathered into whole rows
+        ``(..., Vpad)`` over ``model`` in rank order: every rank gets the
+        same bits (a gather moves bits, it sums nothing), as a caller that
+        prices symbols needs."""
+        if self.tp == 1:
+            return lg
+        return self.comm.all_gather(lg, "model", lg.ndim - 1)
 
     # -- parameters and gradients -----------------------------------------
 
@@ -364,6 +483,13 @@ def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
     ``placement`` (:class:`Placement`) its forward, ``loss_fn`` and
     ``make_train_step(cfg, device_mesh=mesh)`` read.  Every rank calls it
     with the same whole model (``unshard`` gives the whole tensors back).
+
+    The placed model trains (``loss_fn``, the train step), prefills
+    (``forward``) and serves: ``init_state`` allocates the rank's shards of
+    the decode state (:meth:`Placement.state_shape`), and ``decode_step``
+    and ``prefill_chunk`` take the global batch, run the rank's rows and
+    return the rank's ``(rows / dp, Vpad / tp)`` logits
+    (:meth:`Placement.whole_vocab` gathers whole rows).
 
     A ``model`` size that does not divide the padded query heads, the
     padded vocabulary, ``d_ff`` or (when ``cfg.kv_sharded``) the kv heads,

@@ -20,6 +20,10 @@ them by hand, in Megatron's pairs:
                        backward: a row-parallel output leaving for
                        sequence-parallel residuals.
 
+Decode runs under ``no_grad``, so its one collective of its own is a
+plain function: :func:`softmax_combine`, the context-parallel combine of
+each rank's softmax partials over its slab of a KV ring's slots.
+
 An axis of size 1 is the identity both ways, with no collective.  The
 collectives run on a *comm*: :class:`MeshComm` over a ``torch.distributed``
 ``DeviceMesh`` (gloo on the CPU, NCCL on the card), or, for the dry-run
@@ -231,3 +235,30 @@ def all_reduce(t: torch.Tensor, comm, axes, op: str = "sum") -> torch.Tensor:
         if comm.size(a) > 1:
             t = comm.all_reduce(t, a, op)
     return t
+
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                    comm, axis: str) -> torch.Tensor:
+    """A softmax-weighted sum over keys split between the ranks of
+    ``axis``, from each rank's partials over its keys (float32): the row
+    max ``m`` (..., 1), the sum of ``exp(score - m)`` ``l`` (..., 1) and
+    the sum of those weights times the values ``acc`` (..., Dh).  One
+    all-gather of the packed partials, then, in rank order, the largest
+    max and each rank's partials rescaled by ``exp(m_r - max)`` and summed
+    from zero: every rank computes the same ops on the same gathered bits,
+    so every rank gets the same result.  Returns ``acc / l`` (..., Dh)."""
+    n = comm.size(axis)
+    part = torch.cat([m, l, acc], -1)[None]
+    if n > 1:
+        part = comm.all_gather(part, axis, 0)
+    ms, ls, accs = part[..., :1], part[..., 1:2], part[..., 2:]
+    top = ms[0]
+    for r in range(1, n):
+        top = torch.maximum(top, ms[r])
+    den = torch.zeros_like(ls[0])
+    num = torch.zeros_like(accs[0])
+    for r in range(n):
+        w = torch.exp(ms[r] - top)
+        den = den + ls[r] * w
+        num = num + accs[r] * w
+    return num / den

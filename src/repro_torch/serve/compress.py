@@ -44,6 +44,17 @@ ranks decodes bit-exactly on a lane mesh of ``n`` ranks; where a slab's
 rows price as they do inside the whole batch, its bytes are the unplaced
 container's.  Every rank calls with the same arguments.
 
+A ``dense`` model placed for compute (``parallel/sharding.place_model``)
+on a mesh whose ``data`` axis is 1 goes through every entry point as it
+is: each step runs on the rank's heads, columns and shard of the state,
+its vocabulary slab of logits is gathered into whole rows in rank order
+(``Placement.whole_vocab``), and the SPC and the coder run on those rows,
+so every rank gets the same tables and the same container.  A container
+priced under a placement decodes bit-exactly on the same placement (the
+same mesh and config): another placement may round a logit otherwise.  A
+placed model with ``data`` > 1 (its rows spread over ranks; the lane mesh
+spreads lanes) or beside ``mesh=`` raises by name.
+
 Entry points run on the card unless ``device`` says otherwise and raise
 without one (:func:`repro_torch.device.resolve_device`); with a mesh they
 run on the mesh's device.
@@ -87,16 +98,44 @@ def _step_freq_cdf(logits: torch.Tensor, vocab: int, prob_bits: int):
     return spc_quantize.spc_freq_cdf(step_probs(logits, vocab), prob_bits)
 
 
+def _step_logits(model, state, token, pos, memory=None) -> torch.Tensor:
+    """One ``decode_step``'s logits as whole rows (B, Vpad): a placed
+    model's vocabulary slabs gathered in rank order."""
+    lg = decode_step(model, state, token, pos, memory=memory)
+    pl = getattr(model, "placement", None)
+    return lg if pl is None else pl.whole_vocab(lg)
+
+
+def _check_placed(model, mesh) -> None:
+    """Refuse what a compute-placed model cannot price here: ``mesh=``
+    beside it, or rows spread over a ``data`` axis."""
+    pl = getattr(model, "placement", None)
+    if pl is None:
+        return
+    if mesh is not None:
+        raise ValueError(
+            "mesh= with a placed model (parallel.sharding.place_model): the "
+            "model's own mesh places the step; pass mesh=None, or a whole "
+            "model with a lane or chunk mesh")
+    if pl.dp > 1:
+        raise NotImplementedError(
+            f"compress with a model placed over a data axis of {pl.dp} "
+            "ranks is not ported (ROADMAP A: the rows of a placed step "
+            "spread over data); place on a mesh whose data axis is 1, or "
+            "spread lanes with a lane mesh")
+
+
 def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn,
                         memory: torch.Tensor | None = None):
     """Run ``decode_step`` over ``tokens`` (B, S) teacher-forced (against
     ``memory`` (B, M, D) for a model with cross attention), handing each
-    step's logits to ``step_fn(logits, t)``; returns the state."""
+    step's logits (whole rows) to ``step_fn(logits, t)``; returns the
+    state."""
     b, s = tokens.shape
     state = init_state(model, b, max_len)
     for t in range(s):
-        step_fn(decode_step(model, state, tokens[:, t:t + 1], t,
-                            memory=memory), t)
+        step_fn(_step_logits(model, state, tokens[:, t:t + 1], t,
+                             memory=memory), t)
     return state
 
 
@@ -200,6 +239,7 @@ def lm_compress(model, tokens, prob_bits: int = C.PROB_BITS,
     ``("lanes",)`` ``mesh`` each rank prices and encodes its lane slab (the
     container that ``lm_decompress(mesh=)`` on as many ranks decodes).
     """
+    _check_placed(model, mesh)
     dev = _on_device(model, _mesh_device(mesh, device))
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
@@ -234,6 +274,7 @@ def lm_compress_chunked(model, tokens, chunk_size: int,
     ``parallel.encode_chunked`` (the chunk slabs placed on a ``("chunks",)``
     mesh).
     """
+    _check_placed(model, mesh)
     dev = _on_device(model, _mesh_device(mesh, device))
     tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                              device=dev)
@@ -274,7 +315,7 @@ def _decode_chunk(model, enc: bitstream.EncodedLanes, state, tok, t0: int,
         buf = enc.buf.contiguous()
         s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
     for i in range(n):
-        lg = decode_step(model, state, tok, t0 + i)
+        lg = _step_logits(model, state, tok, t0 + i)
         cands = model_topk_candidates(lg[:, :vocab], topk)
         if backend == "kernel":
             freq, cdf = _step_freq_cdf(lg, vocab, prob_bits)
@@ -342,6 +383,7 @@ def lm_decompress(model, enc: bitstream.EncodedLanes, n_symbols: int,
             "mesh= requires backend='kernel': only the fused program has "
             "an independent (lane) axis to place — the coder and two-pass "
             "reference paths are single-device")
+    _check_placed(model, mesh)
     dev = _on_device(model, _mesh_device(mesh, device))
     enc = bitstream.EncodedLanes(*(a.to(dev) for a in enc[:3]))
     lanes = enc.buf.shape[0]
@@ -435,6 +477,7 @@ def lm_decompress_chunked(model, chunks, n_symbols: int, chunk_size: int,
         raise ValueError(
             "lane_probes requires mesh=None: the sharded decode does not "
             "aggregate per-lane counters across devices")
+    _check_placed(model, mesh)
     dev = _on_device(model, _mesh_device(mesh, device))
     slab_in = isinstance(chunks, bitstream.ContainerSlab)
     n_have, lanes = (chunks.offset.shape if slab_in

@@ -265,6 +265,12 @@ class BatchEngine:
             raise ValueError(f"unknown prefill policy {prefill!r} "
                              "(expected 'auto', 'off' or 'force')")
         cfg = model.cfg
+        if getattr(model, "placement", None) is not None:
+            raise NotImplementedError(
+                "BatchEngine with a compute-placed model "
+                "(parallel.sharding.place_model) is not ported (ROADMAP A); "
+                "serve a placed model through lm_compress_chunked / "
+                "lm_decompress_chunked, or the whole model with mesh=")
         if prefill == "force" and not can_prefill(cfg):
             raise PrefillUnsupportedError(
                 f"prefill='force' on config {cfg.name!r} (family "

@@ -514,9 +514,146 @@ def tp_suite(rank: int, world: int) -> dict:
     return res
 
 
+# the placed decode's cases: name -> (TP_CASES geometry, per-row
+# positions, ring length, steps); each decodes TP_BATCH rows of seeded
+# tokens, and prefills the first TP_PREFILL of them into a fresh state
+TP_DECODE = {
+    "qwen3_tp2": ("qwen3_tp2", False, 32, 24),          # kv heads sharded
+    "qwen3_tp4": ("qwen3_tp4", False, 32, 24),          # slots sharded
+    "padded": ("padded", False, 32, 24),                # padded heads
+    "pimc_tp2": ("pimc_tp2", False, 32, 24),
+    "qwen3_tp4_rows": ("qwen3_tp4", True, 24, 30),      # per-row; wraps
+}
+TP_PREFILL = 8
+TP_ROW_OFFSETS = (0, 5, 2, 7)
+
+
+def tp_decode_inputs(name: str):
+    """The case's ``(tokens (B, steps) int64, each step's positions: an
+    int or a (B,) int64 array, prefill pos0 (B,))``."""
+    tp_name, rows, _, steps = TP_DECODE[name]
+    vocab = tp_config(tp_name).vocab_size
+    rng = np.random.default_rng(21)
+    tokens = rng.integers(0, vocab, (TP_BATCH, steps)).astype(np.int64)
+    off = np.array(TP_ROW_OFFSETS if rows else (0,) * TP_BATCH, np.int64)
+    pos = [off + t if rows else t for t in range(steps)]
+    return tokens, pos, off
+
+
+def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
+    """The case's step scan (each step's logits, whole rows of the global
+    batch; the final state, whole) and its prefill: ``prefill_chunk`` of
+    the first ``TP_PREFILL`` tokens at ``pos0`` into a fresh state (the
+    logits, whole, and whether the rank's logits and state shards are
+    bitwise the step scan's after as many steps), of the whole model or
+    of its placement on ``device_mesh``; placed, also this rank's state
+    shape and ring layout, and whether ``place_state`` of the whole final
+    state gives back the rank's shards bitwise."""
+    import torch
+    from repro_torch.parallel import sharding
+    _, _, length, steps = TP_DECODE[name]
+    tokens, pos, pos0 = tp_decode_inputs(name)
+    if device_mesh is not None:
+        model = sharding.place_model(model, device_mesh)
+    pl = model.placement
+
+    def whole(lg):
+        if pl is None:
+            return lg
+        lg = pl.whole_vocab(lg)
+        return pl.comm.all_gather(lg, "data", 0) if pl.dp > 1 else lg
+
+    tok = torch.as_tensor(tokens)
+    state = model.init_state(TP_BATCH, length)
+    res, local, snap = {}, [], None
+    for t in range(steps):
+        p = pos[t] if isinstance(pos[t], int) else torch.as_tensor(pos[t])
+        local.append(model.decode_step(state, tok[:, t:t + 1], p))
+        if t + 1 == TP_PREFILL:
+            snap = (state.k.clone(), state.v.clone())
+    res["logits"] = _np(torch.stack([whole(lg) for lg in local]))
+    final = state if pl is None else pl.unplace_state(state)
+    res["k"], res["v"] = _np(final.k), _np(final.v)
+    fresh = model.init_state(TP_BATCH, length)
+    n_valid = torch.full((TP_BATCH,), TP_PREFILL, dtype=torch.int64)
+    lg = model.prefill_chunk(fresh, tok[:, :TP_PREFILL],
+                             torch.as_tensor(pos0), n_valid)
+    res["prefill_logits"] = _np(whole(lg))
+    res["prefill_bitwise"] = np.array(
+        torch.equal(lg, torch.stack(local[:TP_PREFILL], 1))
+        and torch.equal(fresh.k, snap[0]) and torch.equal(fresh.v, snap[1]))
+    if pl is not None:
+        res["shard/k"] = np.array(state.k.shape)
+        res["layout"] = np.array(pl.ring_layout(length))
+        back = pl.place_state(final)
+        res["place_state_bitwise"] = np.array(
+            torch.equal(back.k, state.k) and torch.equal(back.v, state.v))
+    return res
+
+
+def tp_decode_suite(rank: int, world: int) -> dict:
+    """Every case of :data:`TP_DECODE` placed on its geometry's ``(data,
+    model)`` mesh of ``world`` ranks (:func:`tp_decode_outputs`), and the
+    placed compress's refusal of a ``data`` axis over 1."""
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import compress
+    res, meshes = {}, {}
+    for name, (tp_name, *_) in TP_DECODE.items():
+        dims = TP_CASES[tp_name][2]
+        if dims not in meshes:
+            meshes[dims] = make_mesh_for(world, model_parallel=dims[1],
+                                         device="cpu")
+        for k, v in tp_decode_outputs(tp_model(tp_name), name,
+                                      meshes[dims]).items():
+            res[f"{name}/{k}"] = v
+    placed = sharding.place_model(tp_model("pimc_tp2"), meshes[2, 2])
+    res["refuse/data"] = _error(lambda: compress.lm_compress_chunked(
+        placed, lm_tokens()[:, :8], 4, device="cpu"))
+    return res
+
+
+# the placed compress: name -> ras-pimc SMOKE overrides, on a (1, world)
+# mesh: LM_LANES lanes of TP_COMPRESS_T tokens, chunk LM_CHUNK
+TP_COMPRESS = {"kv_heads": {"tp": 2}, "slots": {"tp": 8}}
+TP_COMPRESS_T = 24
+
+
+def tp_compress_suite(rank: int, world: int) -> dict:
+    """``lm_compress_chunked`` and ``lm_decompress_chunked`` of a placed
+    ``ras-pimc`` SMOKE on a ``(1, world)`` mesh, its KV rings
+    kv-head-sharded and slot-sharded: each backend's container, decoded
+    tokens and per-lane probes; the refusal of ``mesh=`` beside a placed
+    model."""
+    from repro_torch.configs.ras_pimc import SMOKE
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_model
+    from repro_torch.parallel import chunked as pc, sharding
+    from repro_torch.serve import compress
+    dm = make_mesh_for(world, model_parallel=world, device="cpu")
+    toks = lm_tokens()[:, :TP_COMPRESS_T]
+    res = {}
+    for name, over in TP_COMPRESS.items():
+        model = sharding.place_model(
+            init_model(SMOKE.with_(**over), seed=0, device="cpu"), dm)
+        res[f"{name}/layout"] = np.array(
+            model.placement.ring_layout(TP_COMPRESS_T))
+        for be in ("coder", "kernel"):
+            st = compress.lm_compress_chunked(model, toks, LM_CHUNK,
+                                              backend=be, device="cpu")
+            _put(res, f"{name}/{be}/enc", st.chunks)
+            _put(res, f"{name}/{be}/dec", compress.lm_decompress_chunked(
+                model, st.chunks, TP_COMPRESS_T, LM_CHUNK, backend=be,
+                lane_probes=True, device="cpu"))
+    res["refuse/mesh"] = _error(lambda: compress.lm_compress_chunked(
+        model, toks, LM_CHUNK, mesh=pc.lane_mesh(device="cpu")))
+    return res
+
+
 SUITES = {"chunked": chunked_suite, "lm": lm_suite,
           "collectives": collectives_suite, "train": train_suite,
-          "mesh": mesh_suite, "tp": tp_suite}
+          "mesh": mesh_suite, "tp": tp_suite, "tp_decode": tp_decode_suite,
+          "tp_compress": tp_compress_suite}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The reference's side of ``tests/test_torch_tensor_parallel.py``: JAX's
 GSPMD-placed steps on 4 forced CPU devices, in a process of their own.
 
-    python tests/_torch_tp_ref.py <in.npz> <out.npz>
+    python tests/_torch_tp_ref.py <in.npz> <out.npz> [decode]
 
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` must be set before
 JAX starts, so the test runs this file as a subprocess (its own process
@@ -18,6 +18,18 @@ batches 1 and 2 (their losses and grad norms, and the parameters after
 them).  The residual stream is constrained by the case's ``act_pspec``,
 or by the reference's default ``(("data",), None, None)`` as its
 ``launch/specs.build_cell`` sets it.
+
+With ``decode``, ``<in.npz>`` holds for each case of
+``_torch_ranks.TP_DECODE`` its geometry's weights (``<case>/w/<path>``),
+its tokens and, for per-row positions, each step's positions, and this
+process runs the reference's serving cell as ``launch/specs.build_cell``
+builds it (``serve_step``): ``decode_step`` jitted with the parameters by
+``param_shardings``, the cache by ``repro.launch.specs.cache_shardings``
+(the kv heads over ``model`` when ``cfg.kv_sharded``, else the ring's
+slots), the tokens by ``batch_pspec`` and the logits left
+``(batch, "model")``; it writes each step's logits, the final cache's K
+and V and the logits of ``prefill_chunk`` (placed the same way) over the
+first ``TP_PREFILL`` tokens of a fresh cache.
 
 On JAX 0.9 ``jax.make_mesh`` defaults to ``Explicit`` axes, under which
 ``with_sharding_constraint`` fails an assert; the mesh is built with
@@ -105,8 +117,63 @@ def run_case(name: str, inp: dict) -> dict:
     return res
 
 
+def run_decode(name: str, inp: dict) -> dict:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.launch.specs import cache_shardings
+    from repro.models.transformer import (decode_step, init_cache,
+                                          make_model_defs, prefill_chunk)
+    from repro.parallel.sharding import batch_pspec, param_shardings
+
+    tp_name, rows, length, steps = R.TP_DECODE[name]
+    arch, over, (dp, tp) = R.TP_CASES[tp_name]
+    cfg = get_smoke_config(arch).with_(**over)
+    b = R.TP_BATCH
+    mesh = jax.make_mesh((dp, tp), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    params = jax.tree.map(jnp.asarray, _tree(
+        {k[len(name) + 3:]: v for k, v in inp.items()
+         if k.startswith(f"{name}/w/")}))
+    tokens = np.asarray(inp[f"{name}/tokens"], np.int32)
+    pos0 = np.asarray(inp[f"{name}/pos0"], np.int32)
+    p_shard = param_shardings(cfg, mesh, make_model_defs(cfg))
+    c_shard = cache_shardings(cfg, mesh, jax.eval_shape(
+        lambda: init_cache(cfg, b, length)), b)
+    t_shard = NamedSharding(mesh, batch_pspec(mesh, b, 2))
+    rep = NamedSharding(mesh, P())
+    lg_shard = NamedSharding(mesh, P(batch_pspec(mesh, b, 1)[0], "model"))
+    step = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg),
+                   in_shardings=(p_shard, c_shard, t_shard, rep),
+                   out_shardings=(lg_shard, c_shard))
+    chunk = jax.jit(lambda p, c, t, p0, nv: prefill_chunk(p, c, t, p0, nv,
+                                                          cfg),
+                    in_shardings=(p_shard, c_shard, t_shard, rep, rep))
+    res, lgs = {}, []
+    fresh = jax.tree.map(np.asarray, init_cache(cfg, b, length))
+    with jax.set_mesh(mesh):
+        cache = fresh
+        for t in range(steps):
+            pos = (np.asarray(inp[f"{name}/pos"][t], np.int32) if rows
+                   else np.int32(t))
+            lg, cache = step(params, cache, tokens[:, t:t + 1], pos)
+            lgs.append(np.asarray(lg, np.float32))
+        kv = jax.device_get(cache)["s0"]["b0_attn"]["kv"]
+        lg, _ = chunk(params, fresh,
+                      tokens[:, :R.TP_PREFILL], pos0,
+                      np.full((b,), R.TP_PREFILL, np.int32))
+    res["logits"] = np.stack(lgs)
+    res["k"] = np.asarray(kv["k"], np.float32)
+    res["v"] = np.asarray(kv["v"], np.float32)
+    res["prefill_logits"] = np.asarray(lg, np.float32)
+    return res
+
+
 def main(argv: list[str]) -> int:
-    src, dst = argv
+    src, dst, *mode = argv
+    run = run_decode if mode == ["decode"] else run_case
     import jax
     jax.config.update("jax_platforms", "cpu")
     cache = os.environ.get("TP_REF_JAX_CACHE")
@@ -122,7 +189,7 @@ def main(argv: list[str]) -> int:
     cases = sorted({k.split("/")[0] for k in inp})
     res = {}
     for name in cases:
-        for k, v in run_case(name, inp).items():
+        for k, v in run(name, inp).items():
             res[f"{name}/{k}"] = v
     np.savez(dst, **res)
     return 0

@@ -330,9 +330,9 @@ def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
 def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     """A SMOKE dry-run of a train, prefill and decode cell on a 2 x 2 and
     a 2 x 2 x 2 mesh and a skipped cell, written to ``tmp_path``, then the
-    report's tables of those records.  The dense ``ras-pimc``'s train and
-    prefill cells are compute-placed, its decode cell and every
-    ``mamba2-130m`` cell storage-placed."""
+    report's tables of those records.  The dense ``ras-pimc``'s train,
+    prefill and decode cells are compute-placed, every ``mamba2-130m``
+    cell storage-placed."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     small = (registry.ShapeSpec("train_4k", 16, 64, "train"),
              registry.ShapeSpec("prefill_32k", 32, 8, "prefill"),
@@ -345,8 +345,7 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
                 rec = dryrun.run_cell(arch, sh, out_dir=str(tmp_path),
                                       verbose=False, mesh=ms)
                 assert rec["status"] == "OK", rec.get("trace")
-                axis = ("compute" if arch == "ras-pimc"
-                        and sh.kind != "decode" else "storage")
+                axis = "compute" if arch == "ras-pimc" else "storage"
                 assert (rec["mesh"], rec["model_axis"]) == (name, axis)
                 assert rec["memory"]["fits"]
         rec = dryrun.run_cell("qwen3-4b", "long_500k", out_dir=str(tmp_path),

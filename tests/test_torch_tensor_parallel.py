@@ -28,6 +28,20 @@ errors of meshes that do not divide and of families not placed; the
 unplaced step is the composition of the unplaced layers, op for op; the
 dry-run's compute/storage split, a placed cell's traced matmul FLOPs
 against a count by hand, and its recorded model-axis collectives.
+
+The placed decode (``-k decode``): the cases of ``_torch_ranks.
+TP_DECODE`` (kv-head-sharded, slot-sharded, padded heads, ``ras-pimc``,
+and per-row positions on a ring shorter than the stream) on the same 4
+gloo ranks (suite ``tp_decode``), against JAX's ``decode_step`` and
+``prefill_chunk`` jitted with ``param_shardings`` and
+``repro.launch.specs.cache_shardings`` (``_torch_tp_ref.py decode``) and
+against the port's one-rank step: each step's logits, gathered whole,
+and the final state within 1e-5 of the largest entry; each rank's state
+shards; the placed ``prefill_chunk`` bitwise the placed steps.  The
+placed compress (suite ``tp_compress``, 2 ranks, a ``(1, 2)`` mesh):
+the same container on both ranks, decoded exactly on the same
+placement; a ``data`` axis over 1 and ``mesh=`` beside a placed model
+refused by name.
 """
 
 import math
@@ -49,9 +63,10 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import init_model, param
 from repro_torch.models.convert import to_reference
 from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
-from repro_torch.models.attention import attn_forward
+from repro_torch.models.attention import attn_forward, ring_slots
 from repro_torch.parallel import sharding
 from repro_torch.parallel.tensor import RecordingComm
+from repro_torch.serve.engine import BatchEngine
 from repro_torch.analysis import hlo
 from repro_torch.train import train_loop
 
@@ -204,6 +219,156 @@ def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
         sharding.place_model(model, _comm(*dims))
 
 
+# ---------------------------------------------------------------------------
+# the placed decode
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(path: Path) -> None:
+    inp = {}
+    for name, (tp_name, rows, _, _) in R.TP_DECODE.items():
+        _flat(to_reference(R.tp_model(tp_name)), f"{name}/w", inp)
+        tokens, pos, pos0 = R.tp_decode_inputs(name)
+        inp[f"{name}/tokens"], inp[f"{name}/pos0"] = tokens, pos0
+        if rows:
+            inp[f"{name}/pos"] = np.stack(pos)
+    np.savez(path, **inp)
+
+
+@pytest.fixture(scope="module")
+def decode_runs(tmp_path_factory):
+    """(the ranks' results, JAX's results, the one-rank results by case)
+    of the placed decode: the JAX process and the 4 ranks at once, the
+    one-rank steps here meanwhile."""
+    tmp = tmp_path_factory.mktemp("tp_decode")
+    _decode_inputs(tmp / "in.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               TP_REF_JAX_CACHE=str(HERE.parent / ".pytest_cache" / "jax"),
+               PYTHONPATH=os.pathsep.join(
+                   [str(R.SRC)] + [p for p in [os.environ.get(
+                       "PYTHONPATH")] if p]))
+    log = open(tmp / "jax.log", "w")
+    ref = subprocess.Popen([sys.executable, str(HERE / "_torch_tp_ref.py"),
+                            str(tmp / "in.npz"), str(tmp / "out.npz"),
+                            "decode"],
+                           env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        job = R.RankJob("tp_decode", 4, tmp)
+        one = {name: R.tp_decode_outputs(R.tp_model(tp_name), name)
+               for name, (tp_name, *_) in R.TP_DECODE.items()}
+        ranks = job.results(timeout=240)
+        ref.wait(timeout=300)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+        log.close()
+    if ref.returncode:
+        raise RuntimeError("the reference's placed decode failed:\n"
+                           + (tmp / "jax.log").read_text()[-4000:])
+    with np.load(tmp / "out.npz") as z:
+        jax_out = {k: z[k] for k in z.files}
+    return ranks, jax_out, one
+
+
+@pytest.mark.parametrize("name", list(R.TP_DECODE))
+def test_placed_decode_matches_reference_and_one_rank(decode_runs, name):
+    """Each step's logits (whole rows of the global batch) and the
+    prefill's within 1e-5 of the largest entry of JAX's GSPMD-placed
+    serving step and of the port's one-rank step; the final state
+    (unplaced, the ring's tile padding cut to JAX's slots) within 1e-5 of
+    each leaf's largest entry; every rank returns the same whole
+    results."""
+    ranks, jax_out, one = decode_runs
+    got = {k[len(name) + 1:]: v for k, v in ranks[0].items()
+           if k.startswith(f"{name}/")}
+    want = {k[len(name) + 1:]: v for k, v in jax_out.items()
+            if k.startswith(f"{name}/")}
+    length = R.TP_DECODE[name][2]
+    for t in range(len(got["logits"])):
+        _close(got["logits"][t], want["logits"][t],
+               f"{name} step {t}: placed port vs JAX")
+        _close(got["logits"][t], one[name]["logits"][t],
+               f"{name} step {t}: placed vs one rank")
+    _close(got["prefill_logits"], want["prefill_logits"],
+           f"{name} prefill: placed port vs JAX")
+    _close(got["prefill_logits"], one[name]["prefill_logits"],
+           f"{name} prefill: placed vs one rank")
+    for leaf in ("k", "v"):
+        _close(got[leaf][:, :, :length], want[leaf],
+               f"{name} state {leaf}: placed port vs JAX")
+        _close(got[leaf], one[name][leaf],
+               f"{name} state {leaf}: placed vs one rank")
+    for r in range(1, 4):
+        for k in ("logits", "prefill_logits", "k", "v"):
+            np.testing.assert_array_equal(ranks[r][f"{name}/{k}"], got[k],
+                                          err_msg=f"{name} rank {r} {k}")
+
+
+@pytest.mark.parametrize("name", list(R.TP_DECODE))
+def test_placed_decode_state_shards_and_prefill(decode_runs, name):
+    """Each rank holds only its shard of the state, in the reference's
+    ring layout (``kv_heads`` when ``cfg.kv_sharded``, else the slots),
+    ``place_state`` of the whole state gives it back bitwise, and the
+    placed ``prefill_chunk`` is bitwise the placed step scan (its logits
+    and the rank's state shards after as many positions)."""
+    ranks = decode_runs[0]
+    tp_name, _, length, _ = R.TP_DECODE[name]
+    cfg = R.tp_config(tp_name)
+    dp, tp = R.TP_CASES[tp_name][2]
+    layout = "kv_heads" if cfg.kv_sharded else "slots"
+    n, slots = cfg.n_layers, ring_slots(length)
+    want = ((n, R.TP_BATCH // dp, slots, cfg.n_kv_heads // tp, cfg.head_dim_)
+            if layout == "kv_heads" else
+            (n, R.TP_BATCH // dp, slots // tp, cfg.n_kv_heads, cfg.head_dim_))
+    for r in range(4):
+        res = ranks[r]
+        assert str(res[f"{name}/layout"]) == layout
+        assert tuple(res[f"{name}/shard/k"]) == want, r
+        assert bool(res[f"{name}/place_state_bitwise"]), r
+        assert bool(res[f"{name}/prefill_bitwise"]), r
+
+
+@pytest.fixture(scope="module")
+def compress_runs(tmp_path_factory):
+    return R.RankJob("tp_compress", 2,
+                     tmp_path_factory.mktemp("tp_compress")).results()
+
+
+@pytest.mark.parametrize("name", list(R.TP_COMPRESS))
+def test_placed_compress_round_trip(compress_runs, name):
+    """A placed ``ras-pimc`` SMOKE on a ``(1, 2)`` mesh, its rings
+    kv-head-sharded (``tp = 2``) and slot-sharded (``tp = 8``, 4 heads
+    padded to 8): both ranks write the same container, the coder and
+    kernel backends the same bytes, and the decode on the same placement
+    returns the tokens exactly, with the same per-lane probes on both
+    backends and ranks."""
+    a, b = compress_runs
+    assert str(a[f"{name}/layout"]) == name
+    toks = R.lm_tokens()[:, :R.TP_COMPRESS_T]
+    for k in a:
+        if k.startswith(f"{name}/"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for field in ("buf", "start", "length", "overflow"):
+        np.testing.assert_array_equal(a[f"{name}/coder/enc/{field}"],
+                                      a[f"{name}/kernel/enc/{field}"])
+    for be in ("coder", "kernel"):
+        np.testing.assert_array_equal(a[f"{name}/{be}/dec/sym"], toks)
+    np.testing.assert_array_equal(a[f"{name}/coder/dec/lane_probes"],
+                                  a[f"{name}/kernel/dec/lane_probes"])
+
+
+def test_placed_compress_refuses_data_axis_and_mesh(decode_runs,
+                                                    compress_runs):
+    """A placed model on a ``data`` axis of 2 raises a named
+    ``NotImplementedError`` (ROADMAP A); ``mesh=`` beside a placed model a
+    named ``ValueError``."""
+    err = str(decode_runs[0][0]["refuse/data"])
+    assert err.startswith("NotImplementedError") and "ROADMAP A" in err
+    err = str(compress_runs[0]["refuse/mesh"])
+    assert err.startswith("ValueError") and "mesh=" in err
+
+
 def test_other_families_and_paths_refuse_by_name():
     for arch in ("mamba2-130m", "mixtral-8x22b", "recurrentgemma-2b",
                  "llama-3.2-vision-11b", "seamless-m4t-large-v2"):
@@ -216,9 +381,17 @@ def test_other_families_and_paths_refuse_by_name():
     assert whole.placement is None and placed.placement is not None
     with pytest.raises(ValueError, match="placed already"):
         sharding.place_model(placed, _comm(1, 1))
-    state = placed.init_state(2, 8)
-    with pytest.raises(NotImplementedError, match="decode"):
-        placed.decode_step(state, torch.zeros(2, 1, dtype=torch.int64), 0)
+    # a placed dense model serves: at a (1, 1) mesh every collective is
+    # the identity and ras-pimc's rings are kv-head-sharded, so its steps
+    # are the whole model's, bit for bit
+    state, wstate = placed.init_state(2, 8), whole.init_state(2, 8)
+    for t in range(10):
+        tok = torch.full((2, 1), 3 * t + 1, dtype=torch.int64)
+        assert torch.equal(placed.decode_step(state, tok, t),
+                           whole.decode_step(wstate, tok, t)), t
+    assert torch.equal(state.k, wstate.k) and torch.equal(state.v, wstate.v)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        BatchEngine(placed, slots=1, lanes=2, device="cpu")
     batch = R.tp_batch("pimc_tp2", 0)
     with pytest.raises(ValueError, match="device_mesh"):
         train_loop.make_train_step(cfg)(train_loop.init_train_state(placed),
@@ -266,25 +439,44 @@ def test_unplaced_loss_is_the_unplaced_layers(arch):
 
 def test_dryrun_places_compute_for_dense_train_and_prefill():
     """Every cell of the grid on the production mesh: a ``dense`` arch's
-    train and prefill cells are compute-placed (a recording stand-in, the
-    rank's shards as its parameters, the reference's ``act_pspec``), every
-    other cell is storage-placed."""
+    train, prefill and decode cells are compute-placed (a recording
+    stand-in, the rank's shards as its parameters and its decode state,
+    the reference's ``act_pspec``: none on a decode cell but the config's
+    own), every other cell is storage-placed; a decode cell's ring layout
+    is the reference's (``kv_heads`` for ``ras-pimc``, the ring's slots
+    at ``tp = 16`` elsewhere) and it records the context-parallel
+    combine's gathers over ``model``."""
     ms = mesh.production_mesh_shape()
     for arch, shape, ok, _ in registry.grid():
         if not ok:
             continue
         cell = specs.build_cell(arch, shape, ms)
-        compute = (registry.get_config(arch).family == "dense"
-                   and registry.SHAPES[shape].kind != "decode")
+        compute = registry.get_config(arch).family == "dense"
         assert (cell.comm is not None) == compute, (arch, shape)
         if not compute:
             continue
         for k, p in cell.model.named_parameters():
             sh, _, spec = cell.params[k]
             assert tuple(p.shape) == sharding.shard_shape(sh, spec, ms), k
+        decode = registry.SHAPES[shape].kind == "decode"
         want = ((("data",), "model", None) if arch == "llama3-405b"
-                else (("data",), None, None))
+                else None if decode else (("data",), None, None))
         assert cell.cfg.act_pspec == want, arch
+        if not decode:
+            continue
+        pl = cell.model.placement
+        sh = registry.SHAPES[shape]
+        with torch.device("meta"):
+            st = cell.model.init_state(sh.global_batch, sh.seq_len)
+        for k, t in st.leaves().items():
+            gsh, _, spec = cell.state[k]
+            assert tuple(t.shape) == sharding.shard_shape(gsh, spec, ms), k
+        layout = pl.ring_layout(sh.seq_len)
+        assert layout == ("kv_heads" if arch == "ras-pimc" else "slots")
+        cell.run()
+        ops = {(op, axis) for op, axis, _, _ in cell.recorded}
+        assert ("all-reduce", "model") in ops
+        assert (("all-gather", "model") in ops) == (layout == "slots")
     cell = specs.build_cell("llama3-405b", "train_4k",
                             mesh.production_mesh_shape(multi_pod=True))
     assert cell.cfg.act_pspec == (("pod", "data"), "model", None)
