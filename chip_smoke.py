@@ -126,10 +126,11 @@ Phases (any failure raises and exits nonzero):
    the slice's container byte for byte (B1 1, B6 1), the fused decode is
    bit-exact with the slice's per-lane probes (B2 600, B6 600), two-pass
    pass 2 on the chunk mesh gives the same symbols and probes (B3 2); (4)
-   lanes 0-63 and 64-127 priced and decoded as two ranks would: each
-   round-trips, each kernel container equals its coder container, and the
-   card's row-invariance finding is printed (the stitched containers
-   against the unplaced one, the largest |dlogit| of a row at 64 rows
+   lanes 0-63 and 64-127 of the first 256 tokens priced and decoded as
+   two ranks would: each round-trips, each kernel container equals its
+   coder container, and the card's row-invariance finding is printed (the
+   stitched containers against the unplaced one of those tokens, the
+   largest |dlogit| of a row at 64 rows
    against 128 over 64 positions); (5) phase 14's point through
    ``BatchEngine(mesh=lane_mesh())``, every blob equal; (6) 5 cross-pod
    train steps of 16 x 128 at full width on a 1-rank pod mesh: residuals
@@ -161,9 +162,10 @@ per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
 17. the recurrent families (``mamba2_phase``): ``mamba2-130m`` at full
-   width (d_model 768, BF16, vocab 50,280), its depth cut to 12 of 24
-   layers (the whole model before the tooling phases came), on seeded random
-   weights, 16 lanes x 256 ``token_stream`` tokens, chunk 128,
+   width (d_model 768, BF16, vocab 50,280), its depth cut to 6 of 24
+   layers (12 before the MoE placement checks came, the whole model
+   before the tooling phases came), on seeded random weights, 16 lanes
+   x 256 ``token_stream`` tokens, chunk 128,
    ``prob_bits=16``, top-4: ``lm_compress_chunked`` on the kernel backend
    (one B6 batch of 4,096 x 50,280, one B1) and on the coder backend give
    byte-identical containers, the fused decode (B6 and B2 per position)
@@ -201,6 +203,18 @@ zero-frequency cases of 5a.
    cycle, blobs byte-identical to ``lm_compress_chunked``, decodes exact;
    and ``mixtral-8x22b`` SMOKE at 8 lanes x 64, its 16-slot window
    wrapping: kernel and coder containers byte-identical, decode exact.
+   Then the MoE family's compute placement (slice 16,
+   :func:`_moe_placed_serve`), on a world-1 NCCL group and
+   ``make_mesh_for(1)``: the same 2-layer model placed
+   (``parallel.sharding.place_model``; 8 experts do not divide over
+   ``cfg.tp`` 16, so per-expert tensor parallelism), 16 rows decoded for
+   32 positions with each step's logits bitwise the plain model's, then
+   16 lanes x 128 tokens, chunk 64, through ``lm_compress_chunked`` and
+   ``lm_decompress_chunked(backend="kernel")``: the container
+   byte-identical to the whole model's, the round trip exact, the probes
+   equal, launches exactly B1 1 / B2 128 / B6 129 (``moe_placed_launches``)
+   and symbols/s each way; the dry-run of the placed decode cell on the
+   1 x 1 mesh gives the card's parameter and state bytes.
 
 19. the Fig. 4(c) zoo rungs (``zoo_phase``, ``bench_ratio._zoo_frontier``:
    the Fig. 4(c) image's 16 lanes x their first 256 symbols, chunk 128):
@@ -266,7 +280,16 @@ zero-frequency cases of 5a.
    symbols; a 16-row step and its busy share beside its byte bound; B6
    (batch, and per position with the CDF) and B2 at K = 32,064 against
    their plain versions; one float32 layer card vs CPU (logits within
-   1e-4);
+   1e-4).  The compute placement of slice 16: the 2-layer model placed
+   (16 experts over ``cfg.tp`` 16: expert parallelism) through the
+   checks of phase 18's :func:`_moe_placed_serve`; and the float32 layer
+   (the ``CONFIG`` cut to 1 of 32 layers, :func:`_moe_placed_train`)
+   trained plain and then placed on 2 x 512 ``train_batch`` tokens:
+   ``grads_fn``'s loss and every gradient leaf, the prefill logits and
+   every parameter after two steps within 1e-5 of each leaf's largest
+   entry, step times and peaks, the dry-run of the placed train cell on
+   the 1 x 1 mesh giving the card's parameter, gradient and moment
+   bytes;
 24. cross attention (``vlm_phase``): ``llama-3.2-vision-11b`` whole (40
    layers, 8 of them ``cross``, BF16, drawn on the card) against a
    ``train_batch`` memory of 2 x 4,096 x 4,096 in BF16: greedy
@@ -331,7 +354,9 @@ placed calls of phase 15a (``placement_launches``), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 (``mamba2_launches``), in the mixtral slice (``moe_launches``), in
 the zoo rungs (``zoo_launches``), in the phi slice
-(``phi_launches``), in phase 21b (``tensor_parallel_launches``, 0) and
+(``phi_launches``), in the placed MoE compress and decompress of
+phases 18 and 23 (``moe_placed_launches``, both models), in phase 21b
+(``tensor_parallel_launches``) and
 in phases 26-30 (``trainer_launches``,
 ``launchers_launches``, ``examples_launches``, ``lanes_launches``,
 ``chunked_launches``), in the dry-run of phase 31 (``dryrun_launches``,
@@ -2257,9 +2282,10 @@ def fig4c_phase(dev):
 # 256 tokens keep the whole script well inside its time limit beside the
 # mixtral phase.
 M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 256, 128, 16
-# its depth: 12 of 24 layers (the whole model before the tooling phases
-# came; cut for the script's time limit, the width and the coded K stay)
-M2_LAYERS = 12
+# its depth: 6 of 24 layers (12 before the MoE placement checks came, the
+# whole model before the tooling phases came; cut for the script's time
+# limit, the width and the coded K stay)
+M2_LAYERS = 6
 M2_SLOTS, M2_MAX_LEN = 2, 128
 M2_CPU_ROWS, M2_CPU_STEPS = 2, 4
 # B6 beyond the register layouts, against the plain SPC: K and rows
@@ -2724,6 +2750,195 @@ def _mx_smoke(dev):
           f"launches {launches}", flush=True)
 
 
+# the MoE family's compute placement (slice 16) on the world-1 NCCL mesh
+# 1 x 1: the mixtral and phi slices' models decode MOE_DEC_ROWS rows for
+# MOE_DEC_T positions and compress MOE_PLACED (lanes, tokens, chunk)
+# placed; phi's float32 layer trains MOE_TRAIN_ROWS x MOE_TRAIN_SEQ
+MOE_DEC_ROWS, MOE_DEC_T = 16, 32
+MOE_PLACED = (16, 128, 64)
+MOE_TRAIN_ROWS, MOE_TRAIN_SEQ = 2, 512
+
+
+def _moe_placed_serve(dev, model, rule: str, bits: int, what: str) -> dict:
+    """``model`` (a full-width MoE slice's) placed on a world-1 NCCL mesh
+    1 x 1 under the MoE ``rule`` (``"experts"`` or ``"mlp"``): its decode
+    of ``MOE_DEC_ROWS`` rows bitwise the plain model's (logits and
+    state), its placed compress and decompress (``MOE_PLACED``,
+    ``prob_bits=bits``, ``backend="kernel"``) byte-identical to the whole
+    model's container with exact tokens and equal probes, launches B1 1 /
+    B2 T / B6 T + 1
+    counted from 0, and the dry-run of its decode cell on the 1 x 1 mesh
+    at the card's parameter and state bytes.  Returns the launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_for
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import compress
+    cfg = model.cfg
+    lanes, t_len, chunk = MOE_PLACED
+    smi = _smi()
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        placed = sharding.place_model(model, dm)
+        pl = placed.placement
+        _check(pl.moe_rule == rule, f"{what}: MoE rule {pl.moe_rule}, "
+               f"expected {rule}")
+        rng = np.random.default_rng(29)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+            MOE_DEC_ROWS, MOE_DEC_T)), device=dev)
+        out, ms = {}, {}
+        for name, m in (("plain", model), ("placed", placed)):
+            st = m.init_state(MOE_DEC_ROWS, t_len)
+            lgs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(MOE_DEC_T):
+                lgs.append(m.decode_step(st, tok[:, t:t + 1], t))
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / MOE_DEC_T
+            out[name] = (lgs, st)
+        (lp, sp), (lw, sw) = out["placed"], out["plain"]
+        _check(all(torch.equal(pl.whole_vocab(a), b) for a, b in zip(lp, lw))
+               and torch.equal(sp.k, sw.k) and torch.equal(sp.v, sw.v),
+               f"{what}: the placed decode is not bitwise the plain "
+               "model's")
+        param_bytes = _nbytes(placed.parameters())
+        state_bytes = _nbytes([sp.k, sp.v])
+        del out, lp, sp, lw, sw
+        tokens = token_stream(cfg.vocab_size, (lanes, t_len), seed=29)
+        want = compress.lm_compress_chunked(model, tokens, chunk, bits,
+                                            backend="kernel")
+        _, _, want_probes = compress.lm_decompress_chunked(
+            model, want.chunks, t_len, chunk, bits, backend="kernel",
+            lane_probes=True)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compress.lm_compress_chunked(placed, tokens, chunk, bits,
+                                           backend="kernel")
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sym, _, probes = compress.lm_decompress_chunked(
+            placed, got.chunks, t_len, chunk, bits, backend="kernel",
+            lane_probes=True)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        del placed
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    _check(launches == _only(rans_encode_lanes=1, rans_decode_step=t_len,
+                             spc_quantize=t_len + 1),
+           f"{what}: launch counts {launches}")
+    _check(all(torch.equal(a, b) for a, b in zip(got.chunks, want.chunks)),
+           f"{what}: the placed container differs from the whole model's")
+    _check(np.array_equal(sym.cpu().numpy(), tokens),
+           f"{what}: round trip not exact")
+    _check(torch.equal(probes, want_probes),
+           f"{what}: per-lane probes differ from the whole model's")
+    rec = dryrun.run_cell(cfg.name, ShapeSpec(
+        f"decode {MOE_DEC_ROWS}x{t_len}", t_len, MOE_DEC_ROWS, "decode"),
+        mesh=mesh_shape_for(1), overrides={"n_layers": cfg.n_layers},
+        verbose=False)
+    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
+           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    mem = rec["memory"]
+    got_b = (mem["param_bytes"], mem["activation_bytes"])
+    _check(got_b == (param_bytes, state_bytes), f"{what}: dry-run "
+           f"parameter and state bytes {got_b}, the card's "
+           f"{(param_bytes, state_bytes)}")
+    n = lanes * t_len
+    print(f"{what}: placed on the 1x1 mesh (MoE rule {rule!r}); "
+          f"{MOE_DEC_ROWS} rows x {MOE_DEC_T} positions decoded, each "
+          f"step's logits and the state bitwise the plain model's (a step "
+          f"{ms['placed']:.3f} ms placed, {ms['plain']:.3f} ms plain, host "
+          f"wall); {lanes} lanes x {t_len} tokens, chunk {chunk}, "
+          f"prob_bits {bits}: the "
+          f"placed container byte-identical to the whole model's, round "
+          f"trip exact, per-lane probes equal, compress {n / t_comp:.1f} / "
+          f"decompress {n / t_dec:.1f} symbols/s, launches {launches}; "
+          f"dry-run of the placed decode cell (compute): parameter and "
+          f"state bytes {got_b} equal to the card's ({smi})", flush=True)
+    return launches
+
+
+def _moe_placed_train(dev, model, what: str) -> None:
+    """Check (a) of the MoE placement: ``model`` (a full-width float32
+    layer) trained plain, in place, and placed on a world-1 NCCL mesh 1 x
+    1 from the same weights (``_tp_run``: ``grads_fn``'s loss and
+    gradients, the prefill logits, two steps of ``MOE_TRAIN_ROWS`` x
+    ``MOE_TRAIN_SEQ`` ``train_batch`` tokens), each leaf within 1e-5 of
+    its largest entry; step times and peaks; the dry-run of the placed
+    train cell on the 1 x 1 mesh at the card's parameter, gradient and
+    moment bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_for
+    from repro_torch.parallel import sharding
+    smi = _smi()
+    cfg = model.cfg = model.cfg.with_(grad_accum=1)
+    rows, seq = MOE_TRAIN_ROWS, MOE_TRAIN_SEQ
+    batch = train_batch(cfg, rows, seq, step=0)
+    steps = [train_batch(cfg, rows, seq, step=i) for i in (1, 2)]
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        placed = sharding.place_model(model, dm)
+        _check(placed.placement.moe_rule == "experts",
+               f"{what}: MoE rule {placed.placement.moe_rule}")
+        ref = _tp_run(model, batch, steps)
+        torch.cuda.empty_cache()
+        o = _tp_run(placed, batch, steps, device_mesh=dm)
+        worst = {
+            "loss": _tp_worst({"l": o["loss"]}, {"l": ref["loss"]},
+                              f"{what}: loss"),
+            "grads": _tp_worst(o["grads"], ref["grads"],
+                               f"{what}: gradients"),
+            "logits": _tp_worst({"l": o["logits"]}, {"l": ref["logits"]},
+                                f"{what}: prefill logits"),
+            "params": _tp_worst(o["params"], ref["params"],
+                                f"{what}: parameters after 2 steps")}
+        del placed, ref["grads"], o["grads"], o["params"]
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    over = dict(n_layers=cfg.n_layers, dtype=cfg.dtype, grad_accum=1)
+    rec = dryrun.run_cell(cfg.name, ShapeSpec(f"{rows}x{seq}", seq, rows,
+                                              "train"),
+                          mesh=mesh_shape_for(1), overrides=over,
+                          verbose=False)
+    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
+           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    mem = rec["memory"]
+    got = (mem["param_bytes"], mem["grad_bytes"], mem["optimizer_bytes"])
+    want = (o["param_bytes"], o["grad_bytes"], o["moment_bytes"])
+    _check(got == want, f"{what}: dry-run parameter, gradient and moment "
+           f"bytes {got}, the card's {want}")
+    print(f"{what}: placed on the 1x1 mesh (MoE rule 'experts'): loss, "
+          f"gradients, prefill logits and parameters after 2 steps within "
+          f"{worst['loss']:.3e} / {worst['grads']:.3e} / "
+          f"{worst['logits']:.3e} / {worst['params']:.3e} of each leaf's "
+          f"largest entry of the plain model's (limit 1e-5); step "
+          f"{ref['ms']:.1f} ms plain, {o['ms']:.1f} ms placed; the step's "
+          f"own peak {ref['own'] / 2**30:.2f} GiB plain, "
+          f"{o['own'] / 2**30:.2f} GiB placed ({o['own']} B); loss "
+          f"{float(ref['loss']):.6f}; dry-run of the placed train cell on "
+          f"the 1x1 mesh (compute) {mem['total_bytes'] / 2**30:.2f} GiB "
+          f"({mem['total_bytes']} B; parameter, gradient and moment bytes "
+          f"equal to the card's) ({smi})", flush=True)
+
+
 def moe_phase(dev):
     """The MoE family on the card: ``mixtral-8x22b`` at full width, cut to
     ``MX_LAYERS`` layers (BF16, vocab 32,768, ``prob_bits=16``), through
@@ -2776,11 +2991,18 @@ def moe_phase(dev):
     _zoo_engine(model, tokens, run, chunk=MX_CHUNK, bits=MX_BITS,
                 slots=MX_SLOTS, max_len=MX_MAX_LEN, what="mixtral",
                 prefill=True)
-    del run["b6_batch"], run["b6_pos"], run["b2_pop"], model
+    del run["b6_batch"], run["b6_pos"], run["b2_pop"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    placed = _moe_placed_serve(dev, model, "mlp", MX_BITS,
+                               f"mixtral placed: {cfg.n_layers} of "
+                               f"{CONFIG.n_layers} layers ({cfg.dtype})")
+    print(f"mixtral placed: {time.perf_counter() - t1:.1f} s", flush=True)
+    del model
     torch.cuda.empty_cache()
     _mx_smoke(dev)
     print(f"mixtral slice: {time.perf_counter() - t0:.1f} s", flush=True)
-    return run["launches"], recs
+    return run["launches"], recs, placed
 
 
 # --- training of the recurrent families and the dense zoo (slice 8) --------
@@ -3244,17 +3466,22 @@ def _tp_decode(dev, whole, dm, what: str) -> dict:
     ring of ``TP_SEQ``, each step's logits within 1e-5 of the plain
     model's largest logit, the final state too; the placed
     ``prefill_chunk`` of the first ``TP_DEC_PREFILL`` positions into a
-    fresh state bitwise the placed steps (logits and state).  Returns the
-    worst differences, the step times and the rank's tensors' bytes."""
+    fresh state bitwise the placed steps (logits and state).  The ring's
+    layout is the reference's ``slots``, and the placement keeps its
+    context-parallel step on this mesh's one model rank
+    (``place_model(slots_at_one=True)``: the masked slab write, the
+    slab's softmax partials and ``softmax_combine``), so the logits are
+    the plain model's within rounding.  Returns the worst differences,
+    the step times and the rank's tensors' bytes."""
     import numpy as np
     import torch
     from repro_torch.parallel import sharding
     cfg = whole.cfg
-    placed = sharding.place_model(whole, dm)
+    placed = sharding.place_model(whole, dm, slots_at_one=True)
     pl = placed.placement
-    layout = pl.ring_layout(TP_SEQ)
-    _check(layout == "slots", f"{what}: ring layout {layout}, expected the "
-           "slots (kv heads 8 do not divide over tp 16)")
+    layout = pl.serving(TP_SEQ).ring
+    _check(layout == "slots", f"{what}: the step's ring layout {layout}, "
+           "expected the slots (kv heads 8 do not divide over tp 16)")
     rng = np.random.default_rng(28)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                        (TP_ROWS, TP_DEC_T)), device=dev)
@@ -3474,9 +3701,10 @@ def tensor_parallel_phase(dev):
     want = (dec["param_bytes"], dec["state_bytes"])
     _check(got == want, f"{dec_what}: dry-run parameter and state bytes "
            f"{got}, the card's {want}")
-    print(f"{dec_what}: ring layout {dec['layout']}; each step's logits "
-          f"within {dec['worst']:.3e} of the plain model's largest logit, "
-          f"the final state within {dec['state_worst']:.3e} (limit 1e-5); "
+    print(f"{dec_what}: the step's ring layout {dec['layout']}; each "
+          f"step's logits within {dec['worst']:.3e} of the plain model's "
+          f"largest logit, the final state within "
+          f"{dec['state_worst']:.3e} (limit 1e-5); "
           f"the placed prefill_chunk of {TP_DEC_PREFILL} positions bitwise "
           f"the placed steps; a step {dec['ms']:.3f} ms placed, "
           f"{dec['plain_ms']:.3f} ms plain (host wall, {TP_ROWS} rows); "
@@ -3604,18 +3832,32 @@ def phi_phase(dev):
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
     _mx_step(dev, model, PHI_LANES, PHI_T, "phi")
     recs = _zoo_kernels(run, PHI_BITS, "phi")
-    del run["b6_batch"], run["b6_pos"], run["b2_pop"], model
+    del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    placed = _moe_placed_serve(dev, model, "experts", PHI_BITS,
+                               f"phi placed: {cfg.n_layers} of "
+                               f"{CONFIG.n_layers} layers ({cfg.dtype})")
+    del model
+    torch.cuda.empty_cache()
+    t_placed = time.perf_counter() - t1
     one = CONFIG.with_(n_layers=1, dtype="float32")
     card = init_model(one, seed=1, device=dev, draw="device")
     cpu = LM(one)
     cpu.load_state_dict(card.state_dict())
     _zoo_card_vs_cpu(cpu, card, ED_ROWS, ED_CPU_STEPS,
                      "phi: one full-width layer in float32")
-    del cpu, card
+    del cpu
+    t1 = time.perf_counter()
+    _moe_placed_train(dev, card, f"phi placed trainer: 1 of "
+                      f"{CONFIG.n_layers} layers (float32), "
+                      f"{MOE_TRAIN_ROWS} x {MOE_TRAIN_SEQ} tokens")
+    del card
     torch.cuda.empty_cache()
+    t_placed += time.perf_counter() - t1
+    print(f"phi placed: {t_placed:.1f} s", flush=True)
     print(f"phi slice: {time.perf_counter() - t0:.1f} s", flush=True)
-    return run["launches"], recs
+    return run["launches"], recs, placed
 
 
 def _ed_inputs(cfg, rows: int, seq: int, dev, seed: int = 0):
@@ -4154,6 +4396,9 @@ def chunked_phase(dev):
 
 PLACE_T = 1024           # four full chunks of 256, no tail
 ROW_T = 64               # positions of the 64-against-128-row logit check
+SLAB_T = 256             # tokens of the two-slab emulation (the slice's
+                         # 600 before the MoE placement checks; cut for
+                         # the time limit)
 PLACE_STEPS, PLACE_BATCH, PLACE_SEQ, PLACE_LR = 5, 16, 128, 3e-3
 
 
@@ -4342,32 +4587,37 @@ def _lane_mesh_slice(dev, lane, chunk_mesh, slice_run):
           f"symbols/s); two-pass with pass 2 on the chunk mesh gives the "
           f"same symbols and avg probes {float(avg2):.6f}; launches compress "
           f"{comp_l}, fused {dec_l}, two-pass {two_l}", flush=True)
-    # (4) two ranks of a 2-rank lane mesh, in turn
+    # (4) two ranks of a 2-rank lane mesh, in turn, over the stream's
+    # first SLAB_T tokens, against the whole batch's container of them
     half = LANES // 2
+    toks = tokens[:, :SLAB_T]
+    whole = compress.lm_compress_chunked(model, toks, CHUNK,
+                                         backend="kernel")
     stitched = []
     for r in (0, 1):
         rows = slice(r * half, (r + 1) * half)
-        st_k = compress.lm_compress_chunked(model, tokens[rows], CHUNK,
+        st_k = compress.lm_compress_chunked(model, toks[rows], CHUNK,
                                             backend="kernel")
-        st_c = compress.lm_compress_chunked(model, tokens[rows], CHUNK,
+        st_c = compress.lm_compress_chunked(model, toks[rows], CHUNK,
                                             backend="coder")
         _check(all(torch.equal(a, b) for a, b in zip(st_k.chunks,
                                                      st_c.chunks)),
                f"placement: slab {r}'s kernel and coder containers differ")
         got, _ = compress.lm_decompress_chunked(
-            model, st_k.chunks, SLICE_T, CHUNK, backend="kernel")
-        _check(np.array_equal(got.cpu().numpy(), tokens[rows]),
+            model, st_k.chunks, SLAB_T, CHUNK, backend="kernel")
+        _check(np.array_equal(got.cpu().numpy(), toks[rows]),
                f"placement: slab {r} does not round-trip")
         stitched.append(st_k.chunks)
     same = all(torch.equal(torch.cat([a, b], 1), c) for a, b, c in
-               zip(*stitched, st.chunks))
+               zip(*stitched, whole.chunks))
     full = _row_logits(model, tokens, slice(0, LANES), ROW_T)
     dlogit = max(float((_row_logits(model, tokens,
                                     slice(r * half, (r + 1) * half), ROW_T)
                         - full[:, r * half:(r + 1) * half]).abs().max())
                  for r in (0, 1))
-    print(f"placement (4): lanes 0-{half - 1} and {half}-{LANES - 1} priced "
-          f"and decoded as two ranks would: each round-trips bit-exactly and"
+    print(f"placement (4): lanes 0-{half - 1} and {half}-{LANES - 1} of the "
+          f"first {SLAB_T} tokens priced and decoded as two ranks would: "
+          f"each round-trips bit-exactly and"
           f" its kernel container equals its coder container; ROW "
           f"INVARIANCE on this card: the two slabs' containers stitched "
           f"{'EQUAL' if same else 'DIFFER FROM'} the unplaced container; "
@@ -4827,7 +5077,7 @@ def main() -> int:
               mamba2_bound_by=m2["b2"]["bound_by"])
     b2["max_abs_err"] = max(b2["max_abs_err"], m2["b2"]["err"])
     torch.cuda.empty_cache()
-    mx_launches, mx = timed("mixtral slice", moe_phase, dev)
+    mx_launches, mx, mx_placed = timed("mixtral slice", moe_phase, dev)
     b6.update(moe_batch_ms=mx["batch"]["ms"],
               moe_batch_plain_ms=mx["batch"]["plain_ms"],
               moe_batch_bound_ms=mx["batch"]["bound_ms"],
@@ -4851,7 +5101,8 @@ def main() -> int:
     tp_launches = timed("tensor parallel", tensor_parallel_phase, dev)
     timed("top-k", topk_phase, dev)
     torch.cuda.empty_cache()
-    phi_launches, phi = timed("phi slice", phi_phase, dev)
+    phi_launches, phi, phi_placed = timed("phi slice", phi_phase, dev)
+    moe_placed_launches = _add(mx_placed, phi_placed)
     b6.update(phi_batch_ms=phi["batch"]["ms"],
               phi_batch_plain_ms=phi["batch"]["plain_ms"],
               phi_batch_bound_ms=phi["batch"]["bound_ms"],
@@ -4889,6 +5140,7 @@ def main() -> int:
         rec["moe_launches"] = mx_launches[rec["name"]]
         rec["zoo_launches"] = zoo_launches[rec["name"]]
         rec["phi_launches"] = phi_launches[rec["name"]]
+        rec["moe_placed_launches"] = moe_placed_launches[rec["name"]]
         rec["tensor_parallel_launches"] = tp_launches[rec["name"]]
         rec["trainer_launches"] = trainer_launches[rec["name"]]
         rec["launchers_launches"] = launcher_launches[rec["name"]]

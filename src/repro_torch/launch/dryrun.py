@@ -9,10 +9,10 @@ nothing here runs on the CPU in the card's place.  The mesh is a shape
 (``launch/mesh.production_mesh_shape``).  A rank holds its shard of
 every parameter, gradient and moment under the reference's rules; what it
 computes is the record's ``"model_axis"``: ``"compute"`` for every cell
-of a ``dense`` arch (its data slab with its shares of the heads, MLP
-columns and vocabulary, and in a decode cell its shard of the state,
-``launch/specs.py``), ``"storage"`` for every other cell (its data slab
-at full width).
+of a ``dense`` or ``moe`` arch (its data slab with its shares of the
+heads, MLP columns, experts or expert columns and vocabulary, and in a
+decode cell its shard of the state, ``launch/specs.py``), ``"storage"``
+for every other cell (its data slab at full width).
 
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under
@@ -29,7 +29,10 @@ failure.  The roofline terms are reckoned at the H100's published peaks
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k --mesh pod
+  python -m repro_torch.launch.dryrun --arch mixtral-8x22b --mesh both
   python -m repro_torch.launch.dryrun --all --mesh both --out experiments/dryrun
+
+``--arch`` without ``--shape`` runs every shape of the arch.
 """
 
 from __future__ import annotations
@@ -233,13 +236,15 @@ def main(argv=None):
                                overrides=overrides or None, tag=args.tag)
                 fails += rec["status"] == "FAIL"
     else:
-        if not (args.arch and args.shape):
-            ap.error("--arch and --shape, or --all")
+        if not args.arch:
+            ap.error("--arch [--shape], or --all")
+        shapes = [args.shape] if args.shape else list(SHAPES)
         for multi in meshes:
-            rec = run_cell(args.arch, args.shape, multi, args.out,
-                           fsdp=not args.no_fsdp,
-                           overrides=overrides or None, tag=args.tag)
-            fails += rec["status"] == "FAIL"
+            for shape_name in shapes:
+                rec = run_cell(args.arch, shape_name, multi, args.out,
+                               fsdp=not args.no_fsdp,
+                               overrides=overrides or None, tag=args.tag)
+                fails += rec["status"] == "FAIL"
     sys.exit(1 if fails else 0)
 
 

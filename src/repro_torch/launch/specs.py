@@ -8,11 +8,13 @@ The reference lowers the whole (GSPMD-sharded) program.  The port runs
 one rank's program, under one of two placements (``parallel/
 sharding.py``):
 
-  * **compute** — a ``dense`` arch's cells: the rank's placed model
-    (``sharding.place_model`` on a ``parallel.tensor.RecordingComm``, the
-    stand-in that records each collective instead of running it), its
-    data slab of the batch, its shares of the heads, MLP columns and
-    vocabulary, residuals under ``cfg.act_pspec`` (the reference's
+  * **compute** — a ``dense`` or ``moe`` arch's cells: the rank's placed
+    model (``sharding.place_model`` on a ``parallel.tensor.RecordingComm``,
+    the stand-in that records each collective instead of running it), its
+    data slab of the batch, its shares of the heads, MLP columns, experts
+    (or every expert's columns) and vocabulary, the expert fold's sums
+    over ``model`` among its records, residuals under ``cfg.act_pspec``
+    (the reference's
     default ``(batch axes, None, None)`` when none is set, but for a
     decode cell, which the reference leaves unconstrained), and in a
     decode cell its shard of the state (the KV rings by
@@ -190,7 +192,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     if overrides:
         cfg = cfg.with_(**overrides)
     b, s = shape.global_batch, shape.seq_len
-    compute = cfg.family == "dense"
+    compute = cfg.family in ("dense", "moe")
     if compute:
         cfg = _placed_pspec(cfg, mesh, b, shape.kind != "decode")
     model = meta_model(cfg)

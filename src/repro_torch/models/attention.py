@@ -56,7 +56,7 @@ schedule with no window, the memory's K and V projected anew at every
 step (nothing is cached).  The encoder's self-attention is cross
 attention against its own input (the reference's ``mem=h``).
 
-Under the dense family's compute placement (``parallel/sharding.
+Under the dense and MoE families' compute placement (``parallel/sharding.
 place_model``) :func:`attn_forward`, :func:`attn_decode` and
 :func:`attn_prefill` take the rank's ``place``: its query heads are the
 rank's share, their kv heads its shard or, where the kv heads replicate
@@ -327,9 +327,9 @@ def attn_decode(p: Attention, x1: torch.Tensor, ck: torch.Tensor,
     An int gives logits bitwise equal to a constant vector: the same ops
     on the same values, one mask row broadcast over the batch.
 
-    Placed (``place``: ``sharding.Placement.serving``, the dense family's
-    compute placement): ``p`` holds the rank's query heads and their
-    ``wo`` rows, ``ck``/``cv`` the rank's shard of the ring
+    Placed (``place``: ``sharding.Placement.serving``, the dense and MoE
+    families' compute placement): ``p`` holds the rank's query heads and
+    their ``wo`` rows, ``ck``/``cv`` the rank's shard of the ring
     (:func:`_ring_step`), and ``wo``'s partial sums leave reduced over
     ``model``."""
     b, _, d = x1.shape
@@ -462,9 +462,9 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     (the whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn`
     over ``cfg.attn_block`` keys at a time).
 
-    Placed (``place``, self-attention of the dense family's compute
-    placement): ``p`` holds this rank's query heads ``[r Hp/tp, (r+1)
-    Hp/tp)`` and their ``wo`` rows, and its kv heads' shard (or all kv
+    Placed (``place``, self-attention of the dense and MoE families'
+    compute placement): ``p`` holds this rank's query heads ``[r Hp/tp,
+    (r+1) Hp/tp)`` and their ``wo`` rows, and its kv heads' shard (or all kv
     heads, when they replicate over ``model``); the residual stream enters
     whole (``place.enter``) and ``wo``'s partial sums leave reduced over
     ``model`` (``place.exit``)."""

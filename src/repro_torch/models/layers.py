@@ -7,7 +7,7 @@ Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
 and the RoPE rotation compute in float32 and round once to bfloat16, as
 the reference does; in a float32 model every cast below is the identity.
 
-Under the dense family's compute placement (``parallel/sharding.
+Under the dense and MoE families' compute placement (``parallel/sharding.
 place_model``) :func:`mlp`, :func:`embed`, :func:`xent_loss` and
 :func:`chunked_xent_loss` take the rank's ``place`` (a
 ``sharding.Placement``): the MLP is column-parallel into ``wi_gate``/

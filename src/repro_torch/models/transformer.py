@@ -67,20 +67,25 @@ batch can round differently on the card; a group is the unit at which
 the engine's floats are the single-request path's by construction
 (``PERF.md`` §7).
 
-A ``dense`` model placed for compute on a ``(data, model)`` mesh
-(``parallel/sharding.place_model``: its parameters are one rank's shards,
-:attr:`LM.placement` set) trains and prefills on its rank's share: the
-forward takes the rank's rows, each checkpointed unit gathers its
-blocks' FSDP shards over ``data`` (:meth:`LM._placed_unit`), the
-attention and MLP run column- then row-parallel over ``model``, the
-residuals follow ``cfg.act_pspec`` and the logits and the loss are
-vocabulary-parallel.  It serves the same way: :meth:`LM.init_state`
+A ``dense`` or ``moe`` model placed for compute on a ``(data, model)``
+mesh (``parallel/sharding.place_model``: its parameters are one rank's
+shards, :attr:`LM.placement` set) trains and prefills on its rank's
+share: the forward takes the rank's rows, each checkpointed unit gathers
+its blocks' FSDP shards over ``data`` (:meth:`LM._placed_unit`), the
+attention and MLP run column- then row-parallel over ``model``, the MoE
+FFN on the rank's experts (expert parallelism) or on every expert's
+columns (per-expert tensor parallelism) after routing the whole sequence
+alike on every model rank (``models/moe.py``), the residuals follow
+``cfg.act_pspec`` and the logits and the loss are vocabulary-parallel;
+the aux loss is the reference's global one, its expert shares averaged
+over the data slabs.  It serves the same way: :meth:`LM.init_state`
 allocates the rank's shards of the state (its rows, and its kv heads or
 its slab of the ring's slots, ``sharding.ring_layout``), and
 :meth:`LM.decode_step` and :meth:`LM.prefill_chunk` take the global
 batch, run the rank's rows at one position a call (the residual stream
-whole on every model rank), gather each block's FSDP shards over ``data``
-and return the rank's ``(rows / dp, Vpad / tp)`` logits.
+whole on every model rank; the MoE step on the rank's experts or
+columns), gather each block's FSDP shards over ``data`` and return the
+rank's ``(rows / dp, Vpad / tp)`` logits.
 """
 
 from __future__ import annotations
@@ -460,24 +465,31 @@ class LM(nn.Module):
         return x, aux
 
     def _placed_unit(self, unit: tuple, x: torch.Tensor):
-        """:meth:`unit_forward` of a placed dense model: each block's
-        FSDP shards gathered over ``data`` here, inside the checkpointed
-        unit (so that backward gathers them again), then the norms on the
-        residual stream as it lies and the attention and MLP on this
-        rank's heads and columns; the aux loss is 0."""
+        """:meth:`unit_forward` of a placed dense or MoE model: each
+        block's FSDP shards gathered over ``data`` here, inside the
+        checkpointed unit (so that backward gathers them again), then the
+        norms on the residual stream as it lies and the attention, MLP
+        and MoE FFN on this rank's heads, columns and experts; the unit's
+        summed aux loss, the same on every rank."""
         cfg, pl = self.cfg, self.placement
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         pl.comm.scope = "body"
         try:
             for b in unit:
                 w = pl.gathered(self.blocks[b], f"blocks.{b}")
                 x = x + attn_forward(w.attn, rmsnorm(w.ln1, x, cfg.norm_eps),
                                      cfg, place=pl)
+                h = rmsnorm(w.ln2, x, cfg.norm_eps)
                 f = w.ffn
-                x = x + mlp(f.wi_gate, f.wi_up, f.wo,
-                            rmsnorm(w.ln2, x, cfg.norm_eps), place=pl)
+                if self.kinds[b] == "attn_moe":
+                    h, a = moe(f, h, cfg, place=pl)
+                    aux = aux + a
+                else:
+                    h = mlp(f.wi_gate, f.wi_up, f.wo, h, place=pl)
+                x = x + h
         finally:
             pl.comm.scope = "entry"
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     def init_state(self, batch: int, max_len: int) -> ModelState:
         """All-zero state for ``batch`` rows: KV rings of ``min(max_len,
@@ -581,12 +593,12 @@ class LM(nn.Module):
 
     def _ffn(self, kind: str, blk, x1: torch.Tensor,
              pl=None) -> torch.Tensor:
-        """A block's FFN on one position (B,1,D): the gated MLP (placed, on
-        the rank's columns), or the MoE FFN in its fixed-shape step
-        form."""
+        """A block's FFN on one position (B,1,D): the gated MLP, or the
+        MoE FFN in its fixed-shape step form (placed, on the rank's
+        columns or experts)."""
         h = rmsnorm(blk.ln2, x1, self.cfg.norm_eps)
         if kind == "attn_moe":
-            return moe_step(blk.ffn, h, self.cfg)
+            return moe_step(blk.ffn, h, self.cfg, place=pl)
         f = blk.ffn
         return mlp(f.wi_gate, f.wi_up, f.wo, h, place=pl)
 
@@ -755,7 +767,8 @@ def loss_fn(model: LM, batch: dict) -> torch.Tensor:
     ``model.cfg.logits_chunk`` > 0 runs the chunked loss.  A placed model
     takes its rank's rows and gives their mean: the vocabulary-parallel
     cross entropy of the whole sequence, gathered once after the final
-    norm under sequence parallelism."""
+    norm under sequence parallelism, plus 0.01 x the global aux loss (the
+    same on every rank)."""
     cfg, pl = model.cfg, model.placement
     x, aux = model(batch["tokens"], memory=batch.get("memory"),
                    enc_inputs=batch.get("enc_inputs"))

@@ -1,5 +1,6 @@
-"""Logical-axis -> mesh-axis placement rules, and the dense family's
-placed model: tensor-parallel compute over ``model``, FSDP over ``data``.
+"""Logical-axis -> mesh-axis placement rules, and the dense and MoE
+families' placed model: tensor-parallel compute over ``model`` (expert
+parallelism, or per-expert tensor parallelism), FSDP over ``data``.
 
 Port of ``repro.parallel.sharding``.  The reference places the model by
 GSPMD on the ``(data=16, model=16)`` mesh a pod (a leading ``pod`` axis
@@ -34,10 +35,21 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   KV rings laid out by :func:`ring_layout` (the reference's
   ``cache_shardings``), and a step's logits are the rank's vocabulary
   slab (:meth:`Placement.whole_vocab` gathers whole rows).
+* ``moe`` (:func:`place_model` too): the same placement of the
+  attention, the vocabulary and the residuals, and the expert FFN by the
+  reference's rule (:func:`logical_rules`): expert parallelism when
+  ``n_experts % cfg.tp == 0`` (phi3.5-moe: a rank runs its
+  ``n_experts / tp`` experts from ``Placement.expert_start``,
+  ``Placement.moe_rule == "experts"``), else per-expert
+  tensor parallelism (mixtral: every expert on the rank's ``d_ff / tp``
+  columns).  Every model rank of a data row routes the same tokens to
+  the same experts, so no all-to-all is needed: the rank's experts (or
+  columns) run on the whole sequence and their fold is summed over
+  ``model`` (``models/moe.py``).
 * every other family: **storage** only (``launch/specs.py``): a rank
   gathers each layer's shards and computes its data slab at full width,
-  so the model axis divides memory, not work.  Their rules (expert
-  parallelism, the SSM and RG-LRU axes, cross attention) are ROADMAP A.
+  so the model axis divides memory, not work.  Their rules (the SSM and
+  RG-LRU axes, cross attention) are ROADMAP A.
 
 A mesh here is anything with ``axis_names`` and a ``shape`` mapping
 (``launch.mesh.MeshShape``, or a JAX mesh in the tests); the placement
@@ -215,7 +227,7 @@ def count_collective_free(mesh) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the placed model (dense family): tensor-parallel compute
+# the placed model (dense and moe families): tensor-parallel compute
 # ---------------------------------------------------------------------------
 
 def model_shard_spec(spec: tuple) -> tuple:
@@ -234,9 +246,11 @@ class Placement:
     and the layout of the residual stream.  Built by :func:`place_model`;
     the model code calls its methods where a collective belongs."""
 
-    def __init__(self, cfg: ModelConfig, mesh, specs: dict, device):
+    def __init__(self, cfg: ModelConfig, mesh, specs: dict, device, *,
+                 slots_at_one: bool = False):
         comm = tpc.comm_of(mesh)
         self.cfg, self.mesh, self.comm, self.specs = cfg, mesh, comm, specs
+        self.slots_at_one = slots_at_one
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in comm.axis_names)
         self.dp = math.prod(comm.size(a) for a in self.batch_axes)
@@ -265,13 +279,23 @@ class Placement:
         grouped = hp % kv == 0 and torch.equal(
             gmap, torch.arange(hp) // (hp // kv))
         self.kv_index = None if grouped else gmap.to(device)
+        # the MoE FFN's rule: "experts" (EP: this rank's experts
+        # [expert_start, + n_experts / tp)) or "mlp" (per-expert TP: every
+        # expert on this rank's columns); None without experts
+        self.moe_rule, self.expert_start = None, 0
+        if cfg.n_experts:
+            ep = "model" in spec_axes(specs["blocks.0.ffn.wi_gate"][0])
+            self.moe_rule = "experts" if ep else "mlp"
+            if ep:
+                self.expert_start = self.tp_rank * cfg.n_experts // self.tp
         # gradients that are each model rank's part: replicated over model,
-        # applied to this rank's heads or to its slab of the sequence
+        # applied to this rank's heads or to its slab of the sequence (the
+        # router routes the rank's slab under sequence parallelism)
         partial = ("q_norm", "k_norm")
         if not kv_placed:
             partial += ("wk", "wv", "bk", "bv")
         if self.sp:
-            partial += ("ln1", "ln2", "final_norm")
+            partial += ("ln1", "ln2", "final_norm", "router")
         self.partial = {k for k in specs
                         if k.rsplit(".", 1)[-1] in partial}
 
@@ -301,6 +325,27 @@ class Placement:
         if self.sp:
             return tpc.scatter_to(y, self.comm, "model", 1)
         return tpc.reduce_from(y, self.comm, "model")
+
+    def whole_sequence(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-token tensor (B, S|S/tp, ...) of the residual stream as it
+        lies, whole over the sequence on every model rank: under sequence
+        parallelism every rank's slab gathered in rank order.  What reads
+        the whole (the MoE routing) computes the same on every model rank,
+        so each rank's gradient of it is the whole gradient, not a part:
+        the other ranks' slabs are spliced in without a gradient, and the
+        backward keeps this rank's slab of it alone, with no collective."""
+        if not self.sp or self.tp == 1:
+            return t
+        n, r = t.shape[1], self.tp_rank
+        whole = self.comm.all_gather(t.detach(), "model", 1)
+        return torch.cat([whole[:, :r * n], t, whole[:, (r + 1) * n:]], 1)
+
+    def fold(self, w: torch.Tensor) -> torch.Tensor:
+        """The MoE router's weights (N, k) as they enter the fold of this
+        rank's experts' (or columns') outputs: each rank's gradient of
+        them is its part (its own picks, or its partial products), so
+        the backward sums them over ``model`` (``copy_to``)."""
+        return tpc.copy_to(w, self.comm, "model")
 
     def model_sum(self, t: torch.Tensor) -> torch.Tensor:
         return tpc.reduce_from(t, self.comm, "model")
@@ -335,10 +380,17 @@ class Placement:
         length ``length``: one position a call, so the residual stream is
         whole on every model rank (no sequence parallelism), and the ring's
         layout (``ring``) with this rank's slab of the slots (``slab_start``
-        and ``slab``; the whole ring unless ``ring == "slots"``)."""
+        and ``slab``; the whole ring unless ``ring == "slots"``).  On a
+        ``model`` axis of 1 the one rank's slab is the whole ring, so its
+        step attends as the unplaced step does, op for op (``ring`` is
+        ``"replicated"`` there): a placed model's containers are then the
+        whole model's, byte for byte.  A placement made with
+        ``slots_at_one`` keeps the ``slots`` step there instead."""
         step = copy.copy(self)
         step.sp = False
         step.ring = self.ring_layout(length)
+        if step.ring == "slots" and self.tp == 1 and not self.slots_at_one:
+            step.ring = "replicated"
         n = ring_slots(length)
         step.slab = n // self.tp if step.ring == "slots" else n
         step.slab_start = self.tp_rank * step.slab if step.ring == "slots" \
@@ -456,10 +508,16 @@ class Placement:
         return out
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over the data slabs of a per-slab scalar."""
+        """The mean over the data slabs of a per-slab mean ``t`` (the loss,
+        or the MoE load-balance loss's expert shares), differentiable: an
+        all-reduce over the batch axes forward and backward, so that each
+        slab's gradient holds every rank's share of the one global term
+        (the reference's means span the ``data`` axis)."""
         if self.dp == 1:
             return t
-        return tpc.all_reduce(t, self.comm, self.batch_axes) / self.dp
+        for a in self.batch_axes:
+            t = tpc.reduce_from(tpc.copy_to(t, self.comm, a), self.comm, a)
+        return t / self.dp
 
     def sum_squares(self, sq: dict) -> torch.Tensor:
         """The global sum of per-shard sums of squares ``sq`` (by name):
@@ -475,7 +533,8 @@ class Placement:
                    for axes, vs in sorted(groups.items()))
 
 
-def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
+def place_model(model: LM, mesh, *, fsdp: bool = True,
+                slots_at_one: bool = False) -> LM:
     """Rank-local copy of the whole ``model`` placed for compute on
     ``mesh``, a ``DeviceMesh`` with ``data`` and ``model`` axes (and
     optionally ``pod``): an :class:`LM` whose parameters are this rank's
@@ -491,17 +550,32 @@ def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
     return the rank's ``(rows / dp, Vpad / tp)`` logits
     (:meth:`Placement.whole_vocab` gathers whole rows).
 
+    A ``moe`` model places its experts by the reference's rule
+    (:func:`logical_rules` of ``cfg.tp``): over ``model`` when ``cfg.tp``
+    divides ``n_experts`` (expert parallelism), else each expert's
+    ``d_ff`` columns (per-expert tensor parallelism).
+
+    On a ``model`` axis of 1 a ``slots`` ring's one slab is the whole
+    ring, and the serving steps attend it as the unplaced steps do, op for
+    op (:meth:`Placement.serving`), so their containers are the whole
+    model's.  ``slots_at_one`` keeps the context-parallel step there (the
+    masked slab write, the slab's softmax partials, the combine over
+    ``model``): the only way one card runs that path, its logits within
+    rounding of the whole model's, not bitwise.
+
     A ``model`` size that does not divide the padded query heads, the
-    padded vocabulary, ``d_ff`` or (when ``cfg.kv_sharded``) the kv heads,
-    or a ``data`` size that does not divide ``d_model`` under FSDP, raises
-    a ``ValueError`` naming the dim, as JAX does; a family other than
-    ``dense`` raises ``NotImplementedError``."""
+    padded vocabulary, ``d_ff`` (where ``mlp`` is placed on ``model``),
+    ``n_experts`` (under expert parallelism) or (when ``cfg.kv_sharded``)
+    the kv heads, or a ``data`` size that does not divide ``d_model``
+    under FSDP, raises a ``ValueError`` naming the dim, as JAX does; a
+    family other than ``dense`` and ``moe`` raises
+    ``NotImplementedError``."""
     cfg = model.cfg
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"compute placement of the {cfg.family!r} family ({cfg.name}) "
-            "is not ported (ROADMAP A: expert parallelism, the SSM and "
-            "RG-LRU axes, cross attention); its mesh places storage only")
+            "is not ported (ROADMAP A: the SSM and RG-LRU axes, cross "
+            "attention); its mesh places storage only")
     if model.placement is not None:
         raise ValueError("the model is placed already: place the whole "
                          "model")
@@ -515,7 +589,12 @@ def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
                                   "sequence of the residuals are placed")
     tp, dp = comm.size("model"), comm.size("data")
     dims = {"n_heads_padded": cfg.n_heads_padded,
-            "vocab_padded": cfg.vocab_padded, "d_ff": cfg.d_ff}
+            "vocab_padded": cfg.vocab_padded}
+    rules = logical_rules(cfg)
+    if rules["mlp"] == "model":
+        dims["d_ff"] = cfg.d_ff
+    if rules["experts"] == "model":
+        dims["n_experts"] = cfg.n_experts
     if cfg.kv_sharded:
         dims["n_kv_heads"] = cfg.n_kv_heads
     for name, n in dims.items():
@@ -534,6 +613,6 @@ def place_model(model: LM, mesh, *, fsdp: bool = True) -> LM:
         prefix, _, leaf = name.rpartition(".")
         mod = placed.get_submodule(prefix) if prefix else placed
         setattr(mod, leaf, nn.Parameter(t.clone()))
-    placed.placement = Placement(cfg, mesh, specs,
-                                 model.embedding.device)
+    placed.placement = Placement(cfg, mesh, specs, model.embedding.device,
+                                 slots_at_one=slots_at_one)
     return placed

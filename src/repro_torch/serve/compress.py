@@ -44,9 +44,10 @@ ranks decodes bit-exactly on a lane mesh of ``n`` ranks; where a slab's
 rows price as they do inside the whole batch, its bytes are the unplaced
 container's.  Every rank calls with the same arguments.
 
-A ``dense`` model placed for compute (``parallel/sharding.place_model``)
-on a mesh whose ``data`` axis is 1 goes through every entry point as it
-is: each step runs on the rank's heads, columns and shard of the state,
+A ``dense`` or ``moe`` model placed for compute
+(``parallel/sharding.place_model``) on a mesh whose ``data`` axis is 1
+goes through every entry point as it is: each step runs on the rank's
+heads, columns, experts and shard of the state,
 its vocabulary slab of logits is gathered into whole rows in rank order
 (``Placement.whole_vocab``), and the SPC and the coder run on those rows,
 so every rank gets the same tables and the same container.  A container

@@ -15,11 +15,12 @@ batch rows, and reduces them with the int8 error-feedback
 loss is the ranks' mean.  Clip, learning rate and AdamW then run as in the
 plain step, on every rank alike.
 
-``make_train_step(cfg, device_mesh=mesh)`` is the dense family's step
-under the compute placement (``parallel/sharding.place_model``), SPMD
-over the mesh's ranks, each called with the same global batch and the
-state of its placed model: the rank computes its data slab's loss and
-gradients on its heads, MLP columns and vocabulary shard; the gradients of
+``make_train_step(cfg, device_mesh=mesh)`` is the dense and MoE
+families' step under the compute placement (``parallel/sharding.
+place_model``), SPMD over the mesh's ranks, each called with the same
+global batch and the state of its placed model: the rank computes its
+data slab of each microbatch's loss and gradients on its heads, MLP
+columns, experts (or expert columns) and vocabulary shard; the gradients of
 parameters placed on ``data`` are reduce-scattered by their FSDP
 gathers' backward, every other gradient is summed over the batch axes,
 and the gradients that are each model rank's part are summed over
@@ -94,13 +95,18 @@ def _value_and_grad(model: LM, batch: dict):
 
 
 def _grads(model: LM, batch: dict, n: int):
-    """:func:`grads_fn` over ``n`` microbatches."""
+    """:func:`grads_fn` over ``n`` microbatches.  A placed rank takes its
+    rows of each microbatch of the global batch, the reference's split:
+    a microbatch's MoE load-balance loss spans its rows on every data
+    rank."""
     batch = _on_model(model, batch)
     pl = model.placement
-    if pl is not None:
-        batch = {k: pl.rows(v) for k, v in batch.items()}
+
+    def local(mb):
+        return mb if pl is None else {k: pl.rows(v) for k, v in mb.items()}
+
     if n <= 1:
-        loss, grads = _value_and_grad(model, batch)
+        loss, grads = _value_and_grad(model, local(batch))
         if pl is None:
             return loss, grads
         return pl.batch_mean(loss), pl.reduce_grads(grads)
@@ -113,7 +119,7 @@ def _grads(model: LM, batch: dict, n: int):
     gsum = None
     for i in range(n):
         mb = {k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
-        loss, g = _value_and_grad(model, mb)
+        loss, g = _value_and_grad(model, local(mb))
         total = total + loss
         gsum = ({k: x.to(torch.float32) for k, x in g.items()} if gsum is None
                 else {k: gsum[k] + x for k, x in g.items()})

@@ -412,6 +412,16 @@ TP_CASES = {
     "llama_sp_remat": ("llama3-405b", {"tp": 2, "act_pspec": SP,
                                        "remat": True}, (2, 2)),
     "pimc_tp2": ("ras-pimc", {"tp": 2}, (2, 2)),
+    # the MoE family: expert parallelism where cfg.tp divides n_experts,
+    # else every expert's d_ff columns over model (per-expert TP)
+    "phi_ep2": ("phi3.5-moe-42b-a6.6b", {"tp": 2}, (2, 2)),
+    "phi_ep4": ("phi3.5-moe-42b-a6.6b", {"tp": 4}, (1, 4)),
+    "mixtral_etp": ("mixtral-8x22b", {"tp": 2, "n_experts": 3}, (2, 2)),
+    "mixtral_etp_sp": ("mixtral-8x22b", {"tp": 4, "n_experts": 6,
+                                         "act_pspec": SP, "remat": True},
+                       (1, 4)),
+    "phi_dense": ("phi3.5-moe-42b-a6.6b", {"tp": 2, "moe_impl": "dense"},
+                  (2, 2)),
 }
 TP_BATCH, TP_SEQ, TP_LR = 4, 16, 3e-3
 # leaves moved off their constant inits (zeros and ones), so they matter
@@ -455,7 +465,9 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
     into steps of any size), of the whole model
     (``device_mesh`` None) or of its placement on ``device_mesh``, whose
     gradients, parameters and logits come back whole.  Also the shapes of
-    this rank's parameter shards."""
+    this rank's parameter shards and, for a MoE model, the expert ids each
+    block routed batch 0's tokens to in the prefill forward (whole: every
+    data slab's, ``(blocks, B x S, k)``)."""
     import torch
     from repro_torch.parallel import sharding
     from repro_torch.train import train_loop
@@ -476,7 +488,7 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
     for k, g in back(grads).items():
         res[f"grads/{k}"] = _np(g)
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64)
-    with torch.no_grad():
+    with torch.no_grad(), routed() as ids:
         if pl is None:
             x, _ = model(tokens)
             lg = model._logits(x)
@@ -487,7 +499,11 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
             lg = pl.comm.all_gather(lg, "data", 0)
             for k, p in model.named_parameters():
                 res[f"shard/{k}"] = np.array(p.shape)
+            if pl.dp > 1:
+                ids = [pl.comm.all_gather(i, "data", 0) for i in ids]
     res["logits"] = _np(lg)
+    if ids:
+        res["ids"] = _np(torch.stack(ids))
     state = train_loop.init_train_state(model)
     step = train_loop.make_train_step(cfg, base_lr=TP_LR,
                                       device_mesh=device_mesh)
@@ -499,6 +515,27 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
                       model.named_parameters()}).items():
         res[f"params/{k}"] = _np(p)
     return res
+
+
+class routed:
+    """A context that records the expert ids of every MoE routing call
+    (``models.moe._pick``) made inside it, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.ids, self._pick = [], moe._pick
+
+        def pick(logits, cfg, dtype):
+            out = self._pick(logits, cfg, dtype)
+            self.ids.append(out[2])
+            return out
+
+        moe._pick = pick
+        return self.ids
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._pick = self._pick
 
 
 def tp_suite(rank: int, world: int) -> dict:
@@ -523,7 +560,9 @@ TP_DECODE = {
     "padded": ("padded", False, 32, 24),                # padded heads
     "pimc_tp2": ("pimc_tp2", False, 32, 24),
     "qwen3_tp4_rows": ("qwen3_tp4", True, 24, 30),      # per-row; wraps
-}
+    "phi_ep4": ("phi_ep4", False, 32, 24),              # EP; slots
+    "mixtral_etp": ("mixtral_etp", False, 32, 24),      # kv heads; its
+}                                                       # window wraps
 TP_PREFILL = 8
 TP_ROW_OFFSETS = (0, 5, 2, 7)
 
@@ -613,19 +652,28 @@ def tp_decode_suite(rank: int, world: int) -> dict:
     return res
 
 
-# the placed compress: name -> ras-pimc SMOKE overrides, on a (1, world)
-# mesh: LM_LANES lanes of TP_COMPRESS_T tokens, chunk LM_CHUNK
-TP_COMPRESS = {"kv_heads": {"tp": 2}, "slots": {"tp": 8}}
+# the placed compress: name -> (SMOKE arch, overrides, the rings' layout,
+# the MoE rule), on a (1, world) mesh: LM_LANES lanes of TP_COMPRESS_T
+# tokens, chunk LM_CHUNK; phi's 8 experts divide over model 2, mixtral's 3
+# do not (and its 16-slot window wraps)
+TP_COMPRESS = {
+    "kv_heads": ("ras-pimc", {"tp": 2}, "kv_heads", None),
+    "slots": ("ras-pimc", {"tp": 8}, "slots", None),
+    "phi_ep": ("phi3.5-moe-42b-a6.6b", {"tp": 2}, "kv_heads", "experts"),
+    "mixtral_etp": ("mixtral-8x22b", {"tp": 2, "n_experts": 3}, "kv_heads",
+                    "mlp"),
+}
 TP_COMPRESS_T = 24
 
 
 def tp_compress_suite(rank: int, world: int) -> dict:
-    """``lm_compress_chunked`` and ``lm_decompress_chunked`` of a placed
-    ``ras-pimc`` SMOKE on a ``(1, world)`` mesh, its KV rings
-    kv-head-sharded and slot-sharded: each backend's container, decoded
-    tokens and per-lane probes; the refusal of ``mesh=`` beside a placed
-    model."""
-    from repro_torch.configs.ras_pimc import SMOKE
+    """``lm_compress_chunked`` and ``lm_decompress_chunked`` of the
+    placed SMOKE models of :data:`TP_COMPRESS` on a ``(1, world)`` mesh
+    (``ras-pimc`` with its KV rings kv-head-sharded and slot-sharded, and
+    the MoE family under either rule): each backend's container, decoded
+    tokens and per-lane probes, the ring layout and the MoE rule; the
+    refusal of ``mesh=`` beside a placed model."""
+    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import init_model
     from repro_torch.parallel import chunked as pc, sharding
@@ -633,11 +681,12 @@ def tp_compress_suite(rank: int, world: int) -> dict:
     dm = make_mesh_for(world, model_parallel=world, device="cpu")
     toks = lm_tokens()[:, :TP_COMPRESS_T]
     res = {}
-    for name, over in TP_COMPRESS.items():
-        model = sharding.place_model(
-            init_model(SMOKE.with_(**over), seed=0, device="cpu"), dm)
+    for name, (arch, over, _, _) in TP_COMPRESS.items():
+        model = sharding.place_model(init_model(
+            get_smoke_config(arch).with_(**over), seed=0, device="cpu"), dm)
         res[f"{name}/layout"] = np.array(
             model.placement.ring_layout(TP_COMPRESS_T))
+        res[f"{name}/rule"] = np.array(str(model.placement.moe_rule))
         for be in ("coder", "kernel"):
             st = compress.lm_compress_chunked(model, toks, LM_CHUNK,
                                               backend=be, device="cpu")

@@ -28,8 +28,11 @@ builds it (``serve_step``): ``decode_step`` jitted with the parameters by
 (the kv heads over ``model`` when ``cfg.kv_sharded``, else the ring's
 slots), the tokens by ``batch_pspec`` and the logits left
 ``(batch, "model")``; it writes each step's logits, the final cache's K
-and V and the logits of ``prefill_chunk`` (placed the same way) over the
-first ``TP_PREFILL`` tokens of a fresh cache.
+and V and, but for a MoE model, the logits of ``prefill_chunk`` (placed
+the same way) over the first ``TP_PREFILL`` tokens of a fresh cache (the
+reference's MoE prefill runs the capacity dispatch over the chunk and
+drops tokens; the port's runs the steps' FFN per position and drops
+none, so the port holds it to its own steps instead).
 
 On JAX 0.9 ``jax.make_mesh`` defaults to ``Explicit`` axes, under which
 ``with_sharding_constraint`` fails an assert; the mesh is built with
@@ -160,14 +163,16 @@ def run_decode(name: str, inp: dict) -> dict:
                    else np.int32(t))
             lg, cache = step(params, cache, tokens[:, t:t + 1], pos)
             lgs.append(np.asarray(lg, np.float32))
-        kv = jax.device_get(cache)["s0"]["b0_attn"]["kv"]
-        lg, _ = chunk(params, fresh,
-                      tokens[:, :R.TP_PREFILL], pos0,
-                      np.full((b,), R.TP_PREFILL, np.int32))
+        kind = "attn_moe" if cfg.family == "moe" else "attn"
+        kv = jax.device_get(cache)["s0"][f"b0_{kind}"]["kv"]
+        if cfg.family != "moe":
+            lg, _ = chunk(params, fresh,
+                          tokens[:, :R.TP_PREFILL], pos0,
+                          np.full((b,), R.TP_PREFILL, np.int32))
+            res["prefill_logits"] = np.asarray(lg, np.float32)
     res["logits"] = np.stack(lgs)
     res["k"] = np.asarray(kv["k"], np.float32)
     res["v"] = np.asarray(kv["v"], np.float32)
-    res["prefill_logits"] = np.asarray(lg, np.float32)
     return res
 
 

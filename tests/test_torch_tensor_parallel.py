@@ -60,7 +60,7 @@ import _torch_ranks as R
 from repro_torch.configs import registry
 from repro_torch.launch import dryrun, mesh, specs
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models import init_model, param
+from repro_torch.models import init_model, moe, param
 from repro_torch.models.convert import to_reference
 from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
 from repro_torch.models.attention import attn_forward, ring_slots
@@ -170,6 +170,10 @@ def test_placed_step_matches_reference_and_one_rank(runs, name):
     want_jax = {k[len(jname) + 1:]: v for k, v in jax_out.items()
                 if k.startswith(f"{jname}/")}
     want_one = _as_reference(name, one[name])
+    if "ids" in want_one:       # the routing first: a differing pick is a
+        np.testing.assert_array_equal(   # routing difference
+            got.pop("ids"), want_one.pop("ids"),
+            err_msg=f"{name}: placed routing differs from one rank's")
     assert set(want_jax) == set(got) == set(want_one)
     for k in sorted(got):
         _close(got[k], want_jax[k], f"{name} {k}: placed port vs JAX")
@@ -202,6 +206,41 @@ def test_each_rank_holds_only_its_shards(runs, name):
         param.param_count(model)
 
 
+def _drops(name: str, ids: np.ndarray) -> int:
+    """The picks the capacity dispatch drops, from each block's expert ids
+    ``(blocks, B x S, k)`` of a case's batch: ranked within their batch
+    row token-major, beyond ``moe_capacity``'s capacity."""
+    cfg = R.tp_config(name)
+    if cfg.moe_impl == "dense":
+        return 0
+    e, k, s = cfg.n_experts, cfg.topk_experts, R.TP_SEQ
+    cap = int(math.ceil(k * s / e * cfg.capacity_factor))
+    cap = max(4, -(-cap // 4) * 4)
+    eid = ids.reshape(ids.shape[0], R.TP_BATCH, s * k)
+    onehot = np.eye(e, dtype=np.int64)[eid]
+    rank = ((np.cumsum(onehot, 2) - onehot) * onehot).sum(-1)
+    return int((rank >= cap).sum())
+
+
+MOE_CASES = [n for n in R.TP_CASES if R.tp_config(n).family == "moe"]
+
+
+def test_moe_cases_route_alike_and_drop_tokens(runs):
+    """Every rank of a MoE case routes batch 0 as the one-rank model does
+    (the same ids), and the capacity dispatch drops picks in at least one
+    case, so the drop path runs placed; the dense schedule drops none."""
+    ranks, _, one = runs
+    drops = {}
+    for name in MOE_CASES:
+        for r in range(4):
+            np.testing.assert_array_equal(ranks[r][f"{name}/ids"],
+                                          one[name]["ids"], err_msg=name)
+        drops[name] = _drops(name, one[name]["ids"])
+    print("dropped picks by case:", drops)
+    assert drops["phi_dense"] == 0
+    assert sum(drops.values()) > 0, drops
+
+
 def _comm(dp: int, tp: int) -> RecordingComm:
     return RecordingComm(MeshShape(("data", "model"), (dp, tp)))
 
@@ -211,9 +250,17 @@ def _comm(dp: int, tp: int) -> RecordingComm:
     ({"d_ff": 130}, (1, 4), "d_ff"),
     ({"tp": 2}, (1, 4), "n_kv_heads"),
     ({"d_model": 66, "head_dim": 16}, (4, 1), "d_model"),
+    # expert parallelism (6 experts over cfg.tp 2) on a model axis of 4
+    ({"arch": "phi3.5-moe-42b-a6.6b", "n_experts": 6, "tp": 2}, (1, 4),
+     "n_experts"),
+    # per-expert TP (3 experts over cfg.tp 2): every expert's d_ff
+    ({"arch": "mixtral-8x22b", "n_experts": 3, "tp": 2, "d_ff": 129},
+     (1, 2), "d_ff"),
 ])
 def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
-    cfg = registry.get_smoke_config("qwen3-4b").with_(**over)
+    over = dict(over)
+    arch = over.pop("arch", "qwen3-4b")
+    cfg = registry.get_smoke_config(arch).with_(**over)
     model = init_model(cfg, device="cpu")
     with pytest.raises(ValueError, match=dim):
         sharding.place_model(model, _comm(*dims))
@@ -284,18 +331,21 @@ def test_placed_decode_matches_reference_and_one_rank(decode_runs, name):
            if k.startswith(f"{name}/")}
     want = {k[len(name) + 1:]: v for k, v in jax_out.items()
             if k.startswith(f"{name}/")}
-    length = R.TP_DECODE[name][2]
+    tp_name, _, length, _ = R.TP_DECODE[name]
+    cfg = R.tp_config(tp_name)
+    ring = min(length, cfg.window) if cfg.window else length
     for t in range(len(got["logits"])):
         _close(got["logits"][t], want["logits"][t],
                f"{name} step {t}: placed port vs JAX")
         _close(got["logits"][t], one[name]["logits"][t],
                f"{name} step {t}: placed vs one rank")
-    _close(got["prefill_logits"], want["prefill_logits"],
-           f"{name} prefill: placed port vs JAX")
+    if cfg.family != "moe":     # JAX's MoE prefill drops tokens by design
+        _close(got["prefill_logits"], want["prefill_logits"],
+               f"{name} prefill: placed port vs JAX")
     _close(got["prefill_logits"], one[name]["prefill_logits"],
            f"{name} prefill: placed vs one rank")
     for leaf in ("k", "v"):
-        _close(got[leaf][:, :, :length], want[leaf],
+        _close(got[leaf][:, :, :ring], want[leaf],
                f"{name} state {leaf}: placed port vs JAX")
         _close(got[leaf], one[name][leaf],
                f"{name} state {leaf}: placed vs one rank")
@@ -317,7 +367,8 @@ def test_placed_decode_state_shards_and_prefill(decode_runs, name):
     cfg = R.tp_config(tp_name)
     dp, tp = R.TP_CASES[tp_name][2]
     layout = "kv_heads" if cfg.kv_sharded else "slots"
-    n, slots = cfg.n_layers, ring_slots(length)
+    n = cfg.n_layers
+    slots = ring_slots(min(length, cfg.window) if cfg.window else length)
     want = ((n, R.TP_BATCH // dp, slots, cfg.n_kv_heads // tp, cfg.head_dim_)
             if layout == "kv_heads" else
             (n, R.TP_BATCH // dp, slots // tp, cfg.n_kv_heads, cfg.head_dim_))
@@ -337,14 +388,18 @@ def compress_runs(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(R.TP_COMPRESS))
 def test_placed_compress_round_trip(compress_runs, name):
-    """A placed ``ras-pimc`` SMOKE on a ``(1, 2)`` mesh, its rings
+    """A placed SMOKE on a ``(1, 2)`` mesh: ``ras-pimc`` with its rings
     kv-head-sharded (``tp = 2``) and slot-sharded (``tp = 8``, 4 heads
-    padded to 8): both ranks write the same container, the coder and
-    kernel backends the same bytes, and the decode on the same placement
-    returns the tokens exactly, with the same per-lane probes on both
-    backends and ranks."""
+    padded to 8), phi3.5-moe under expert parallelism (8 experts over 2
+    ranks) and mixtral under per-expert tensor parallelism (3 experts,
+    its window wrapping): both ranks write the same container, the coder
+    and kernel backends the same bytes, and the decode on the same
+    placement returns the tokens exactly, with the same per-lane probes
+    on both backends and ranks."""
     a, b = compress_runs
-    assert str(a[f"{name}/layout"]) == name
+    _, _, layout, rule = R.TP_COMPRESS[name]
+    assert str(a[f"{name}/layout"]) == layout
+    assert str(a[f"{name}/rule"]) == str(rule)
     toks = R.lm_tokens()[:, :R.TP_COMPRESS_T]
     for k in a:
         if k.startswith(f"{name}/"):
@@ -370,7 +425,7 @@ def test_placed_compress_refuses_data_axis_and_mesh(decode_runs,
 
 
 def test_other_families_and_paths_refuse_by_name():
-    for arch in ("mamba2-130m", "mixtral-8x22b", "recurrentgemma-2b",
+    for arch in ("mamba2-130m", "recurrentgemma-2b",
                  "llama-3.2-vision-11b", "seamless-m4t-large-v2"):
         model = param.meta_model(registry.get_smoke_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -403,6 +458,77 @@ def test_other_families_and_paths_refuse_by_name():
         train_loop.make_train_step(cfg, compress_crosspod=True,
                                    mesh=SimpleNamespace(axis="pod"),
                                    device_mesh=_comm(1, 1))
+
+
+@pytest.mark.parametrize("arch,over,rule", [
+    ("phi3.5-moe-42b-a6.6b", {"tp": 4}, "experts"),     # the slots layout
+    ("phi3.5-moe-42b-a6.6b", {"moe_impl": "dense"}, "experts"),
+    ("mixtral-8x22b", {"n_experts": 3, "tp": 2}, "mlp"),
+])
+def test_moe_placed_at_one_rank_is_the_unplaced_op_for_op(arch, over, rule):
+    """On a (1, 1) mesh a placed MoE block's FFN is the unplaced one op
+    for op: the training schedule's output, aux loss and gradients, and
+    the serving step's output, bitwise; so are the placed model's decode
+    steps and state (what makes its containers the whole model's), its
+    ring kv-head-sharded or, at ``tp = 4``, slot-sharded (one rank's slab
+    is the whole ring)."""
+    cfg = registry.get_smoke_config(arch).with_(**over)
+    whole = init_model(cfg, seed=4, device="cpu")
+    placed = sharding.place_model(whole, _comm(1, 1))
+    pl = placed.placement
+    assert (pl.moe_rule, pl.expert_start) == (rule, 0)
+    assert pl.ring_layout(8) == ("kv_heads" if cfg.kv_sharded else "slots")
+    p = whole.blocks[0].ffn
+    x = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(2, 16, cfg.d_model)), dtype=torch.float32)
+    outs = []
+    for place in (None, pl):
+        xi = x.clone().requires_grad_()
+        y, aux = moe.moe(p, xi, cfg, place=place)
+        grads = torch.autograd.grad((y * y).sum() + aux,
+                                    [xi] + list(p.parameters()))
+        outs.append((y, aux, *grads, moe.moe_step(p, x[:, :1], cfg, place)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    state, wstate = placed.init_state(2, 8), whole.init_state(2, 8)
+    for t in range(10):
+        tok = torch.full((2, 1), 5 * t + 2, dtype=torch.int64)
+        assert torch.equal(placed.decode_step(state, tok, t),
+                           whole.decode_step(wstate, tok, t)), t
+    assert torch.equal(state.k, wstate.k) and torch.equal(state.v, wstate.v)
+
+
+@pytest.mark.parametrize("slots_at_one", (False, True))
+@pytest.mark.parametrize("arch", ("qwen3-4b", "phi3.5-moe-42b-a6.6b"))
+def test_slots_ring_on_one_model_rank(arch, slots_at_one):
+    """A ``slots`` ring on a (1, 1) mesh: by default the serving step
+    attends the one slab, the whole ring, as the unplaced step does,
+    bitwise; ``slots_at_one`` keeps the context-parallel step (the masked
+    slab write, the slab's partials, the combine), its logits and state
+    within 1e-5 of the whole model's largest entry."""
+    cfg = registry.get_smoke_config(arch).with_(tp=4)
+    whole = init_model(cfg, seed=6, device="cpu")
+    placed = sharding.place_model(whole, _comm(1, 1),
+                                  slots_at_one=slots_at_one)
+    pl = placed.placement
+    assert pl.ring_layout(8) == "slots"
+    step = pl.serving(8)
+    assert step.ring == ("slots" if slots_at_one else "replicated")
+    state, wstate = placed.init_state(2, 8), whole.init_state(2, 8)
+    assert (step.slab_start, step.slab) == (0, wstate.k.shape[2])
+    for t in range(12):
+        tok = torch.full((2, 1), 7 * t + 3, dtype=torch.int64)
+        got, want = (placed.decode_step(state, tok, t),
+                     whole.decode_step(wstate, tok, t))
+        if slots_at_one:
+            _close(got.numpy(), want.numpy(), f"{arch} step {t}")
+        else:
+            assert torch.equal(got, want), t
+    for got, want in ((state.k, wstate.k), (state.v, wstate.v)):
+        if slots_at_one:
+            _close(got.numpy(), want.numpy(), f"{arch} state")
+        else:
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("arch", ("ras-pimc", "qwen1.5-4b"))
@@ -438,20 +564,28 @@ def test_unplaced_loss_is_the_unplaced_layers(arch):
 # ---------------------------------------------------------------------------
 
 def test_dryrun_places_compute_for_dense_train_and_prefill():
-    """Every cell of the grid on the production mesh: a ``dense`` arch's
-    train, prefill and decode cells are compute-placed (a recording
-    stand-in, the rank's shards as its parameters and its decode state,
-    the reference's ``act_pspec``: none on a decode cell but the config's
-    own), every other cell is storage-placed; a decode cell's ring layout
-    is the reference's (``kv_heads`` for ``ras-pimc``, the ring's slots
-    at ``tp = 16`` elsewhere) and it records the context-parallel
-    combine's gathers over ``model``."""
+    """Every cell of the grid on the production mesh: a ``dense`` or
+    ``moe`` arch's train, prefill and decode cells are compute-placed (a
+    recording stand-in, the rank's shards as its parameters and its
+    decode state, the reference's ``act_pspec``: none on a decode cell
+    but the config's own; phi3.5-moe's 16 experts one a rank, mixtral's 8
+    each on 1/16 of ``d_ff``), every other cell is storage-placed; a
+    decode cell's ring layout is the reference's (``kv_heads`` for
+    ``ras-pimc``, the ring's slots at ``tp = 16`` elsewhere) and it
+    records the context-parallel combine's gathers over ``model``."""
     ms = mesh.production_mesh_shape()
     for arch, shape, ok, _ in registry.grid():
         if not ok:
             continue
         cell = specs.build_cell(arch, shape, ms)
-        compute = registry.get_config(arch).family == "dense"
+        family = registry.get_config(arch).family
+        compute = family in ("dense", "moe")
+        if family == "moe":
+            pl, ffn = cell.model.placement, cell.model.blocks[0].ffn
+            ep = arch == "phi3.5-moe-42b-a6.6b"
+            assert pl.moe_rule == ("experts" if ep else "mlp"), arch
+            assert tuple(ffn.wi_gate.shape[::2]) == (
+                (1, cell.cfg.d_ff) if ep else (8, cell.cfg.d_ff // 16))
         assert (cell.comm is not None) == compute, (arch, shape)
         if not compute:
             continue
@@ -484,20 +618,28 @@ def test_dryrun_places_compute_for_dense_train_and_prefill():
 
 @pytest.mark.parametrize("arch,remat", [("ras-pimc", False),
                                         ("ras-pimc", True),
-                                        ("llama3-405b", False)])
+                                        ("llama3-405b", False),
+                                        ("phi3.5-moe-42b-a6.6b", False),
+                                        ("mixtral-8x22b", False)])
 def test_placed_cell_flops_match_hand_count(arch, remat, monkeypatch):
     """A placed SMOKE train cell on a (2, 2) mesh: the traced matmul
     FLOPs of one rank are its shares, counted by hand: its data slab's
     tokens through its query heads, kv heads (sharded at ``tp=2``), MLP
     columns and vocabulary rows; ``llama3-405b`` gathers its
     sequence-parallel residuals before every product, so its counts are
-    the whole sequence's."""
+    the whole sequence's.  A MoE cell: the router over every expert, then
+    the capacity dispatch's slots (``cap`` a batch row and expert) of the
+    rank's 4 of phi's 8 experts at full ``d_ff`` (expert parallelism), or
+    of mixtral's 3 experts on half of ``d_ff`` (per-expert tensor
+    parallelism)."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     ms = MeshShape(("data", "model"), (2, 2))
     shape = registry.ShapeSpec("t", 16, 8, "train")
     over = {"tp": 2, "remat": remat, "grad_accum": 2}
     if arch == "llama3-405b":
         over["act_pspec"] = R.SP    # CONFIG's, which its SMOKE lacks
+    if arch == "mixtral-8x22b":
+        over["n_experts"] = 3       # 3 % 2: per-expert TP
     cell = specs.build_cell(arch, shape, ms, overrides=over)
     _, tr = hlo.trace(cell.run)
     cfg = cell.cfg
@@ -505,8 +647,16 @@ def test_placed_cell_flops_match_hand_count(arch, remat, monkeypatch):
     n, d, dh = b * s, cfg.d_model, cfg.head_dim_
     hp, kv, ff, v = (cfg.n_heads_padded // tp, cfg.n_kv_heads // tp,
                      cfg.d_ff // tp, cfg.vocab_padded // tp)
+    ffn = 3 * 2 * n * d * ff
+    if cfg.family == "moe":
+        e, k = cfg.n_experts, cfg.topk_experts
+        cap = max(4, -(-math.ceil(k * s / e * cfg.capacity_factor) // 4) * 4)
+        ep = cell.model.placement.moe_rule == "experts"
+        assert ep == (arch == "phi3.5-moe-42b-a6.6b")
+        el, fl = (e // tp, cfg.d_ff) if ep else (e, cfg.d_ff // tp)
+        ffn = 2 * n * d * e + 3 * 2 * b * el * cap * d * fl
     layer = (2 * n * d * (hp + 2 * kv) * dh + 2 * n * hp * dh * d
-             + 2 * 2 * b * hp * s * s * dh + 3 * 2 * n * d * ff)
+             + 2 * 2 * b * hp * s * s * dh + ffn)
     forward = cfg.n_layers * layer + 2 * n * d * v
     recompute = cfg.n_layers * (layer - 2 * n * ff * d) if remat else 0
     assert tr.flops == 3 * forward + recompute
