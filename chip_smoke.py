@@ -142,7 +142,7 @@ Phases (any failure raises and exits nonzero):
    defaults: a 128 x 256 ``synthetic_image(seed=0)`` as 16 lanes x 2048,
    chunk 512): zlib level 9, the static histogram, ``ras-pimc`` trained
    120 steps (8 x 128, lr 3e-3) at full width and at the smoke width, each
-   (the full width on each lane's first chunk only) through
+   (the full width on each lane's first 256 symbols only) through
    ``lm_compress_chunked(backend="kernel")`` (byte-identical to the coder
    backend's container) and the fused kernel decode (bit-exact; one B1,
    T B2 and T + 1 B6 launches), and the bits-back VAE trained
@@ -162,9 +162,10 @@ per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
 
 17. the recurrent families (``mamba2_phase``): ``mamba2-130m`` at full
-   width (d_model 768, BF16, vocab 50,280), its depth cut to 6 of 24
-   layers (12 before the MoE placement checks came, the whole model
-   before the tooling phases came), on seeded random weights, 16 lanes
+   width (d_model 768, BF16, vocab 50,280), its depth cut to 4 of 24
+   layers (6 before the recurrent placement checks came, 12 before the
+   MoE placement checks came, the whole model before the tooling phases
+   came), on seeded random weights, 16 lanes
    x 256 ``token_stream`` tokens, chunk 128,
    ``prob_bits=16``, top-4: ``lm_compress_chunked`` on the kernel backend
    (one B6 batch of 4,096 x 50,280, one B1) and on the coder backend give
@@ -181,7 +182,19 @@ zero-frequency cases of 5a.
    (a (rec, rec, attn) pattern, a (rec,) tail, a 16-slot local window
    wrapping 4 times at 8 lanes x 64): kernel and coder containers
    byte-identical, fused decode exact, and an engine run whose short
-   last chunk freezes a slot, ``prefill="auto"`` stepping down.
+   last chunk freezes a slot, ``prefill="auto"`` stepping down.  Then the
+   SSM family's compute placement (slice 17, :func:`_placed_serve`) on a
+   world-1 NCCL group and ``make_mesh_for(1)``: the same 4-layer model
+   placed (its 1,536 SSM channels, 128-wide state and conv state over
+   ``model``), 16 rows decoded for 32 positions with each step's logits
+   and every state leaf bitwise the plain model's, then 16 lanes x 128
+   tokens, chunk 64, through ``lm_compress_chunked`` and
+   ``lm_decompress_chunked(backend="kernel")``: the container
+   byte-identical to the whole model's, the round trip exact, the probes
+   equal, launches exactly B1 1 / B2 128 / B6 129
+   (``recurrent_placed_launches``) and symbols/s each way; the dry-run of
+   the placed decode cell on the 1 x 1 mesh gives the card's parameter
+   and state bytes.
 
 18. the MoE family (``moe_phase``): ``mixtral-8x22b`` at full width
    (d_model 6,144, 48 heads x 128, 8 kv heads, d_ff 16,384, 8 experts
@@ -204,7 +217,7 @@ zero-frequency cases of 5a.
    and ``mixtral-8x22b`` SMOKE at 8 lanes x 64, its 16-slot window
    wrapping: kernel and coder containers byte-identical, decode exact.
    Then the MoE family's compute placement (slice 16,
-   :func:`_moe_placed_serve`), on a world-1 NCCL group and
+   :func:`_placed_serve`), on a world-1 NCCL group and
    ``make_mesh_for(1)``: the same 2-layer model placed
    (``parallel.sharding.place_model``; 8 experts do not divide over
    ``cfg.tp`` 16, so per-expert tensor parallelism), 16 rows decoded for
@@ -267,6 +280,23 @@ zero-frequency cases of 5a.
    "compute"``) gives the card's parameter, gradient and moment bytes,
    its total printed beside the peak, with the card's name and power
    limit.  No rANS kernel runs (counted);
+21c. the recurrent families' compute placement
+   (``recurrent_placed_phase``) on the same world-1 mesh: ``mamba2-130m``
+   ``CONFIG`` cut to 2 of 24 layers in float32 (2 x 1,024 tokens) and
+   ``recurrentgemma-2b`` ``CONFIG`` cut to one (rec, rec, attn) pattern,
+   3 of 26 layers, in float32 (1 x 2,048), their SSM and RG-LRU leaves of
+   constant init moved off by seeded draws (every head's ``A_log``,
+   ``dt_bias`` and ``D`` alike would hide a rank reading another head's,
+   and a leaf of zeros moves by the learning rate alone in two steps),
+   each trained plain and then placed (:func:`_placed_train`: loss,
+   gradients, prefill logits and parameters after two steps within 1e-5
+   of each leaf's largest entry,
+   step times and peaks, the train cell's dry-run bytes); the hybrid
+   decoding 2 rows x 32 positions into its 2,048-slot ring placed
+   (bitwise the plain model's) and with ``slots_at_one`` (the
+   context-parallel ``slots`` step on one rank: logits and state within
+   1e-5), the layout each step ran printed, and the decode cell's
+   dry-run bytes.  No rANS kernel runs (counted);
 22. the decode's first-index top-k (``topk_phase``): card equal to the
    CPU on built ties at 16 x 32,768, timed beside ``torch.topk``;
 23. ``phi3.5-moe-42b-a6.6b`` at full width (``phi_phase``: d_model 4,096,
@@ -282,8 +312,8 @@ zero-frequency cases of 5a.
    their plain versions; one float32 layer card vs CPU (logits within
    1e-4).  The compute placement of slice 16: the 2-layer model placed
    (16 experts over ``cfg.tp`` 16: expert parallelism) through the
-   checks of phase 18's :func:`_moe_placed_serve`; and the float32 layer
-   (the ``CONFIG`` cut to 1 of 32 layers, :func:`_moe_placed_train`)
+   checks of phase 18's :func:`_placed_serve`; and the float32 layer
+   (the ``CONFIG`` cut to 1 of 32 layers, :func:`_placed_train`)
    trained plain and then placed on 2 x 512 ``train_batch`` tokens:
    ``grads_fn``'s loss and every gradient leaf, the prefill logits and
    every parameter after two steps within 1e-5 of each leaf's largest
@@ -400,9 +430,10 @@ FIG4C_H, FIG4C_W, FIG4C_LANES, FIG4C_CHUNK = 128, 256, 16, 512
 FIG4C_STEPS, FIG4C_BATCH, FIG4C_SEQ, FIG4C_LR = 120, 8, 128, 3e-3
 FIG4C_VAE_STEPS, FIG4C_VAE_LR, FIG4C_VAE_CAP = 300, 1e-2, 1024
 # the full-width ras-pimc rung (not on the reference's ladder) codes each
-# lane's first chunk; all 2,048 symbols cost it about 100 s of the script's
-# time limit, each position a host-bound model step
-FIG4C_FULL_T = FIG4C_CHUNK
+# lane's first 256 symbols, half a chunk (the first chunk until the
+# recurrent placement checks came); all 2,048 symbols cost it about 100 s
+# of the script's time limit, each position a host-bound model step
+FIG4C_FULL_T = FIG4C_CHUNK // 2
 
 
 def _bound(moved: int, ops: int) -> tuple[float, str]:
@@ -2282,10 +2313,11 @@ def fig4c_phase(dev):
 # 256 tokens keep the whole script well inside its time limit beside the
 # mixtral phase.
 M2_LANES, M2_T, M2_CHUNK, M2_BITS = 16, 256, 128, 16
-# its depth: 6 of 24 layers (12 before the MoE placement checks came, the
-# whole model before the tooling phases came; cut for the script's time
-# limit, the width and the coded K stay)
-M2_LAYERS = 6
+# its depth: 4 of 24 layers (6 before the recurrent placement checks
+# came, 12 before the MoE placement checks came, the whole model before
+# the tooling phases came; cut for the script's time limit, the width and
+# the coded K stay)
+M2_LAYERS = 4
 M2_SLOTS, M2_MAX_LEN = 2, 128
 M2_CPU_ROWS, M2_CPU_STEPS = 2, 4
 # B6 beyond the register layouts, against the plain SPC: K and rows
@@ -2632,9 +2664,10 @@ def mamba2_phase(dev):
     (BF16, vocab 50,280, ``prob_bits=16``; ``M2_LAYERS`` of its 24 layers)
     through the kernel and coder
     backends, its kernels at K = 50,280, the card against the CPU, the
-    engine on streams longer than ``max_len``, and the hybrid's smoke
-    round trip and engine.  Returns the slice's launches and the large-K
-    kernel records."""
+    engine on streams longer than ``max_len``, the same model placed for
+    compute (:func:`_placed_serve`), and the hybrid's smoke round trip
+    and engine.  Returns the slice's launches, the large-K kernel records
+    and the placed compress's launches."""
     import torch
     from repro_torch.configs.mamba2_130m import CONFIG as FULL
     from repro_torch.data.pipeline import token_stream
@@ -2674,9 +2707,14 @@ def mamba2_phase(dev):
                 prefill=False)
     del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
+    placed = _placed_serve(dev, model, None, M2_BITS,
+                           f"mamba2 placed: {cfg.name} ({cfg.n_layers} "
+                           "layers, BF16)")
+    del model
+    torch.cuda.empty_cache()
     _hybrid(dev)
     print(f"mamba2 slice: {time.perf_counter() - t0:.1f} s", flush=True)
-    return run["launches"], recs
+    return run["launches"], recs, placed
 
 
 # --- the MoE family (slice 7) ----------------------------------------------
@@ -2759,11 +2797,12 @@ MOE_PLACED = (16, 128, 64)
 MOE_TRAIN_ROWS, MOE_TRAIN_SEQ = 2, 512
 
 
-def _moe_placed_serve(dev, model, rule: str, bits: int, what: str) -> dict:
-    """``model`` (a full-width MoE slice's) placed on a world-1 NCCL mesh
-    1 x 1 under the MoE ``rule`` (``"experts"`` or ``"mlp"``): its decode
-    of ``MOE_DEC_ROWS`` rows bitwise the plain model's (logits and
-    state), its placed compress and decompress (``MOE_PLACED``,
+def _placed_serve(dev, model, rule, bits: int, what: str) -> dict:
+    """``model`` (a full-width slice's) placed on a world-1 NCCL mesh 1 x
+    1, a MoE model under the MoE ``rule`` (``"experts"`` or ``"mlp"``;
+    None without experts): its decode of ``MOE_DEC_ROWS`` rows bitwise
+    the plain model's (logits and every state leaf), its placed compress
+    and decompress (``MOE_PLACED``,
     ``prob_bits=bits``, ``backend="kernel"``) byte-identical to the whole
     model's container with exact tokens and equal probes, launches B1 1 /
     B2 T / B6 T + 1
@@ -2805,11 +2844,12 @@ def _moe_placed_serve(dev, model, rule: str, bits: int, what: str) -> dict:
             out[name] = (lgs, st)
         (lp, sp), (lw, sw) = out["placed"], out["plain"]
         _check(all(torch.equal(pl.whole_vocab(a), b) for a, b in zip(lp, lw))
-               and torch.equal(sp.k, sw.k) and torch.equal(sp.v, sw.v),
+               and all(torch.equal(t, sw.leaves()[k])
+                       for k, t in sp.leaves().items()),
                f"{what}: the placed decode is not bitwise the plain "
                "model's")
         param_bytes = _nbytes(placed.parameters())
-        state_bytes = _nbytes([sp.k, sp.v])
+        state_bytes = _nbytes(sp.leaves().values())
         del out, lp, sp, lw, sw
         tokens = token_stream(cfg.vocab_size, (lanes, t_len), seed=29)
         want = compress.lm_compress_chunked(model, tokens, chunk, bits,
@@ -2856,7 +2896,8 @@ def _moe_placed_serve(dev, model, rule: str, bits: int, what: str) -> dict:
            f"parameter and state bytes {got_b}, the card's "
            f"{(param_bytes, state_bytes)}")
     n = lanes * t_len
-    print(f"{what}: placed on the 1x1 mesh (MoE rule {rule!r}); "
+    how = f" (MoE rule {rule!r})" if rule else ""
+    print(f"{what}: placed on the 1x1 mesh{how}; "
           f"{MOE_DEC_ROWS} rows x {MOE_DEC_T} positions decoded, each "
           f"step's logits and the state bitwise the plain model's (a step "
           f"{ms['placed']:.3f} ms placed, {ms['plain']:.3f} ms plain, host "
@@ -2870,15 +2911,17 @@ def _moe_placed_serve(dev, model, rule: str, bits: int, what: str) -> dict:
     return launches
 
 
-def _moe_placed_train(dev, model, what: str) -> None:
-    """Check (a) of the MoE placement: ``model`` (a full-width float32
-    layer) trained plain, in place, and placed on a world-1 NCCL mesh 1 x
-    1 from the same weights (``_tp_run``: ``grads_fn``'s loss and
-    gradients, the prefill logits, two steps of ``MOE_TRAIN_ROWS`` x
-    ``MOE_TRAIN_SEQ`` ``train_batch`` tokens), each leaf within 1e-5 of
-    its largest entry; step times and peaks; the dry-run of the placed
-    train cell on the 1 x 1 mesh at the card's parameter, gradient and
-    moment bytes."""
+def _placed_train(dev, model, what: str, rows: int = MOE_TRAIN_ROWS,
+                  seq: int = MOE_TRAIN_SEQ, rule="experts") -> dict:
+    """``model`` (full-width float32 layers) trained plain, in place, and
+    placed on a world-1 NCCL mesh 1 x 1 from the same weights
+    (``_tp_run``: ``grads_fn``'s loss and gradients, the prefill logits,
+    two steps of ``rows`` x ``seq`` ``train_batch`` tokens), each leaf
+    within 1e-5 of its largest entry, a MoE model under the MoE ``rule``
+    (None without experts); step times and peaks; the dry-run of the
+    placed train cell on the 1 x 1 mesh at the card's parameter, gradient
+    and moment bytes.  Returns the step times and the largest
+    differences."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import ShapeSpec
@@ -2888,14 +2931,13 @@ def _moe_placed_train(dev, model, what: str) -> None:
     from repro_torch.parallel import sharding
     smi = _smi()
     cfg = model.cfg = model.cfg.with_(grad_accum=1)
-    rows, seq = MOE_TRAIN_ROWS, MOE_TRAIN_SEQ
     batch = train_batch(cfg, rows, seq, step=0)
     steps = [train_batch(cfg, rows, seq, step=i) for i in (1, 2)]
     _nccl_world1(dev)
     try:
         dm = make_mesh_for(1, device=dev)
         placed = sharding.place_model(model, dm)
-        _check(placed.placement.moe_rule == "experts",
+        _check(placed.placement.moe_rule == rule,
                f"{what}: MoE rule {placed.placement.moe_rule}")
         ref = _tp_run(model, batch, steps)
         torch.cuda.empty_cache()
@@ -2913,7 +2955,8 @@ def _moe_placed_train(dev, model, what: str) -> None:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    over = dict(n_layers=cfg.n_layers, dtype=cfg.dtype, grad_accum=1)
+    over = dict(n_layers=cfg.n_layers, dtype=cfg.dtype, grad_accum=1,
+                remat=cfg.remat)
     rec = dryrun.run_cell(cfg.name, ShapeSpec(f"{rows}x{seq}", seq, rows,
                                               "train"),
                           mesh=mesh_shape_for(1), overrides=over,
@@ -2925,7 +2968,8 @@ def _moe_placed_train(dev, model, what: str) -> None:
     want = (o["param_bytes"], o["grad_bytes"], o["moment_bytes"])
     _check(got == want, f"{what}: dry-run parameter, gradient and moment "
            f"bytes {got}, the card's {want}")
-    print(f"{what}: placed on the 1x1 mesh (MoE rule 'experts'): loss, "
+    how = f" (MoE rule {rule!r})" if rule else ""
+    print(f"{what}: placed on the 1x1 mesh{how}: loss, "
           f"gradients, prefill logits and parameters after 2 steps within "
           f"{worst['loss']:.3e} / {worst['grads']:.3e} / "
           f"{worst['logits']:.3e} / {worst['params']:.3e} of each leaf's "
@@ -2937,6 +2981,7 @@ def _moe_placed_train(dev, model, what: str) -> None:
           f"the 1x1 mesh (compute) {mem['total_bytes'] / 2**30:.2f} GiB "
           f"({mem['total_bytes']} B; parameter, gradient and moment bytes "
           f"equal to the card's) ({smi})", flush=True)
+    return dict(ms=o["ms"], plain_ms=ref["ms"], worst=worst)
 
 
 def moe_phase(dev):
@@ -2994,7 +3039,7 @@ def moe_phase(dev):
     del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    placed = _moe_placed_serve(dev, model, "mlp", MX_BITS,
+    placed = _placed_serve(dev, model, "mlp", MX_BITS,
                                f"mixtral placed: {cfg.n_layers} of "
                                f"{CONFIG.n_layers} layers ({cfg.dtype})")
     print(f"mixtral placed: {time.perf_counter() - t1:.1f} s", flush=True)
@@ -3450,12 +3495,14 @@ def _tp_worst(got: dict, ref: dict, what: str) -> float:
     """The largest |difference| over every leaf of ``got`` from ``ref``,
     each over the leaf's largest |entry|; fails above 1e-5."""
     import torch
+    keys = list(ref)
     rel = torch.stack([(got[k].float() - ref[k].float()).abs().max()
                        / ref[k].float().abs().max().clamp(min=1e-30)
-                       for k in ref])
+                       for k in keys])
     worst = float(rel.max())
     _check(worst <= 1e-5 and bool(torch.isfinite(rel).all()),
-           f"{what}: {worst:.3e} of the leaf's largest entry, over 1e-5")
+           f"{what}: {worst:.3e} of the leaf's largest entry, over 1e-5 "
+           f"(leaf {keys[int(rel.argmax())]})")
     return worst
 
 
@@ -3718,6 +3765,166 @@ def tensor_parallel_phase(dev):
     return cmp["launches"]
 
 
+# the recurrent families' compute placement: mamba2-130m CONFIG cut to
+# RP_M2_LAYERS of 24 layers and recurrentgemma-2b CONFIG to one (rec, rec,
+# attn) pattern, both in float32, trained rows x seq; the hybrid decodes
+# RP_DEC_ROWS rows for RP_DEC_T positions into its 2,048-slot ring
+RP_M2_LAYERS, RP_M2_ROWS, RP_M2_SEQ = 2, 2, 1024
+RP_RG_LAYERS, RP_RG_ROWS, RP_RG_SEQ = 3, 1, 2048
+RP_DEC_ROWS, RP_DEC_T = 2, 32
+
+
+# the recurrent mixers' leaves of constant init (zeros and ones): every
+# SSM head alike, every RG-LRU channel's gate biases alike
+RECURRENT_CONSTANT = ("A_log", "D", "dt_bias", "norm_scale", "conv_x_b",
+                      "conv_b_b", "conv_c_b", "conv_b", "gate_a_b",
+                      "gate_i_b", "lam")
+
+
+def _recurrent_perturb(model, seed: int) -> None:
+    """Move the recurrent mixers' constant-init leaves
+    (:data:`RECURRENT_CONSTANT`) off their inits by seeded draws of 0.1 x
+    normal on the model's device: each head and channel then differs, so
+    a placed rank that read another head's ``dt``, decay or ``D`` shows,
+    and no leaf is a constant that two steps move by the learning rate
+    alone."""
+    import torch
+    g = torch.Generator(device=model.embedding.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in RECURRENT_CONSTANT:
+                p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                         device=p.device))
+
+
+def _hybrid_placed_decode(dev, whole, what: str) -> None:
+    """``whole`` (a full-width hybrid) and its placements on a world-1
+    NCCL mesh 1 x 1 decode ``RP_DEC_ROWS`` rows of seeded tokens for
+    ``RP_DEC_T`` positions into a ring of its ``local_window``: by default
+    each step's logits and every state leaf bitwise the plain model's
+    (the one rank's slab of the slots is the whole ring, attended as the
+    unplaced step attends it); with ``slots_at_one`` the context-parallel
+    ``slots`` step (the masked slab write, the slab's partials,
+    ``softmax_combine``), within 1e-5 of the largest entry; the layout
+    each step ran; the dry-run of the placed decode cell on the 1 x 1
+    mesh at the card's parameter and state bytes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_for
+    from repro_torch.parallel import sharding
+    cfg, ring = whole.cfg, whole.cfg.local_window
+    smi = _smi()
+    rng = np.random.default_rng(30)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (RP_DEC_ROWS, RP_DEC_T)), device=dev)
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        models = {"plain": whole, "placed": sharding.place_model(whole, dm),
+                  "slots": sharding.place_model(whole, dm,
+                                                slots_at_one=True)}
+        out = {}
+        for name, m in models.items():
+            st = m.init_state(RP_DEC_ROWS, ring)
+            lgs = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(RP_DEC_T):
+                lgs.append(m.decode_step(st, tok[:, t:t + 1], t))
+            torch.cuda.synchronize()
+            out[name] = dict(ms=1e3 * (time.perf_counter() - t0) / RP_DEC_T,
+                             logits=lgs, state=st)
+        layouts = {k: models[k].placement.serving(ring).ring
+                   for k in ("placed", "slots")}
+        _check(layouts == {"placed": "replicated", "slots": "slots"},
+               f"{what}: the steps' ring layouts {layouts}")
+        plain = out["plain"]
+        _check(all(torch.equal(a, b) for a, b in zip(
+            out["placed"]["logits"], plain["logits"])) and all(
+            torch.equal(t, plain["state"].leaves()[k])
+            for k, t in out["placed"]["state"].leaves().items()),
+            f"{what}: the placed decode is not bitwise the plain model's")
+        pl = models["slots"].placement
+        worst = max(_tp_worst({"l": pl.whole_vocab(a)}, {"l": b},
+                              f"{what}: slots step {t} logits")
+                    for t, (a, b) in enumerate(zip(out["slots"]["logits"],
+                                                   plain["logits"])))
+        state_worst = _tp_worst(
+            pl.unplace_state(out["slots"]["state"]).leaves(),
+            plain["state"].leaves(), f"{what}: slots state")
+        param_bytes = _nbytes(models["placed"].parameters())
+        state_bytes = _nbytes(out["placed"]["state"].leaves().values())
+        ms = {k: o["ms"] for k, o in out.items()}
+        del models, out, plain
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rec = dryrun.run_cell(cfg.name, ShapeSpec(
+        f"decode {RP_DEC_ROWS}x{ring}", ring, RP_DEC_ROWS, "decode"),
+        mesh=mesh_shape_for(1), overrides={"n_layers": cfg.n_layers,
+                                           "dtype": cfg.dtype},
+        verbose=False)
+    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
+           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    mem = rec["memory"]
+    got = (mem["param_bytes"], mem["activation_bytes"])
+    _check(got == (param_bytes, state_bytes), f"{what}: dry-run parameter "
+           f"and state bytes {got}, the card's {(param_bytes, state_bytes)}")
+    print(f"{what}: {RP_DEC_ROWS} rows x {RP_DEC_T} positions into a ring "
+          f"of {ring}; placed (the step's ring layout "
+          f"{layouts['placed']!r}) each step's logits and every state leaf "
+          f"bitwise the plain model's; with slots_at_one (layout "
+          f"{layouts['slots']!r}) logits within {worst:.3e} and state "
+          f"within {state_worst:.3e} of the largest entry (limit 1e-5); a "
+          f"step {ms['plain']:.3f} / {ms['placed']:.3f} / {ms['slots']:.3f}"
+          f" ms plain / placed / slots (host wall); dry-run of the placed "
+          f"decode cell on the 1x1 mesh (compute): parameter and state "
+          f"bytes {got} equal to the card's ({smi})", flush=True)
+
+
+def recurrent_placed_phase(dev):
+    """Slice 17: the recurrent families' compute placement at full width
+    on a world-1 NCCL mesh 1 x 1.  ``mamba2-130m`` ``CONFIG`` cut to
+    ``RP_M2_LAYERS`` of 24 layers and ``recurrentgemma-2b`` ``CONFIG`` cut
+    to ``RP_RG_LAYERS`` of 26 (one (rec, rec, attn) pattern), in float32,
+    drawn on the card, their constant-init leaves moved off
+    (:func:`_recurrent_perturb`): each trained plain and then placed
+    (:func:`_placed_train`), the hybrid's placed decode
+    (:func:`_hybrid_placed_decode`).  No rANS kernel runs (counted)."""
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG as M2
+    from repro_torch.configs.recurrentgemma_2b import CONFIG as RG
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    reset_launches()
+    m2 = init_model(M2.with_(n_layers=RP_M2_LAYERS, dtype="float32"),
+                    seed=0, device=dev, draw="device")
+    _recurrent_perturb(m2, 1)
+    _placed_train(dev, m2, f"mamba2 placed trainer: {RP_M2_LAYERS} of 24 "
+                  f"layers (float32), {RP_M2_ROWS} x {RP_M2_SEQ} tokens",
+                  rows=RP_M2_ROWS, seq=RP_M2_SEQ, rule=None)
+    del m2
+    torch.cuda.empty_cache()
+    rg = init_model(RG.with_(n_layers=RP_RG_LAYERS, dtype="float32"),
+                    seed=0, device=dev, draw="device")
+    _recurrent_perturb(rg, 2)
+    _placed_train(dev, rg, f"hybrid placed trainer: {RG.name} "
+                  f"{RP_RG_LAYERS} of 26 layers (float32), {RP_RG_ROWS} x "
+                  f"{RP_RG_SEQ} tokens", rows=RP_RG_ROWS, seq=RP_RG_SEQ,
+                  rule=None)
+    _hybrid_placed_decode(dev, rg, f"hybrid placed decode: {RG.name} "
+                          f"{RP_RG_LAYERS} of 26 layers (float32)")
+    del rg
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _check(not any(launches.values()),
+           f"recurrent placed: launched {launches}")
+
+
 def topk_phase(dev):
     """The decode's first-index top-k (``predictors.model_topk_candidates``
     over ``topk_first``, a stable descending sort) on the card at the
@@ -3835,7 +4042,7 @@ def phi_phase(dev):
     del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    placed = _moe_placed_serve(dev, model, "experts", PHI_BITS,
+    placed = _placed_serve(dev, model, "experts", PHI_BITS,
                                f"phi placed: {cfg.n_layers} of "
                                f"{CONFIG.n_layers} layers ({cfg.dtype})")
     del model
@@ -3849,7 +4056,7 @@ def phi_phase(dev):
                      "phi: one full-width layer in float32")
     del cpu
     t1 = time.perf_counter()
-    _moe_placed_train(dev, card, f"phi placed trainer: 1 of "
+    _placed_train(dev, card, f"phi placed trainer: 1 of "
                       f"{CONFIG.n_layers} layers (float32), "
                       f"{MOE_TRAIN_ROWS} x {MOE_TRAIN_SEQ} tokens")
     del card
@@ -4396,9 +4603,10 @@ def chunked_phase(dev):
 
 PLACE_T = 1024           # four full chunks of 256, no tail
 ROW_T = 64               # positions of the 64-against-128-row logit check
-SLAB_T = 256             # tokens of the two-slab emulation (the slice's
-                         # 600 before the MoE placement checks; cut for
-                         # the time limit)
+SLAB_T = 128             # tokens of the two-slab emulation (256 before
+                         # the recurrent placement checks, the slice's 600
+                         # before the MoE placement checks; cut for the
+                         # time limit)
 PLACE_STEPS, PLACE_BATCH, PLACE_SEQ, PLACE_LR = 5, 16, 128, 3e-3
 
 
@@ -5063,7 +5271,7 @@ def main() -> int:
     b6 = timed("B6 SPC", spc_phase, dev)
     fig4c_launches, pimc_smoke = timed("Fig. 4(c)", fig4c_phase, dev)
     torch.cuda.empty_cache()
-    m2_launches, m2 = timed("mamba2 slice", mamba2_phase, dev)
+    m2_launches, m2, m2_placed = timed("mamba2 slice", mamba2_phase, dev)
     b6.update(mamba2_batch_ms=m2["batch"]["ms"],
               mamba2_batch_plain_ms=m2["batch"]["plain_ms"],
               mamba2_batch_bound_ms=m2["batch"]["bound_ms"],
@@ -5099,6 +5307,7 @@ def main() -> int:
     timed("dense zoo", dense_zoo_phase, dev)
     timed("remat", remat_phase, dev)
     tp_launches = timed("tensor parallel", tensor_parallel_phase, dev)
+    timed("recurrent placed", recurrent_placed_phase, dev)
     timed("top-k", topk_phase, dev)
     torch.cuda.empty_cache()
     phi_launches, phi, phi_placed = timed("phi slice", phi_phase, dev)
@@ -5141,6 +5350,7 @@ def main() -> int:
         rec["zoo_launches"] = zoo_launches[rec["name"]]
         rec["phi_launches"] = phi_launches[rec["name"]]
         rec["moe_placed_launches"] = moe_placed_launches[rec["name"]]
+        rec["recurrent_placed_launches"] = m2_placed[rec["name"]]
         rec["tensor_parallel_launches"] = tp_launches[rec["name"]]
         rec["trainer_launches"] = trainer_launches[rec["name"]]
         rec["launchers_launches"] = launcher_launches[rec["name"]]

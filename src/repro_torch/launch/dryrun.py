@@ -9,10 +9,11 @@ nothing here runs on the CPU in the card's place.  The mesh is a shape
 (``launch/mesh.production_mesh_shape``).  A rank holds its shard of
 every parameter, gradient and moment under the reference's rules; what it
 computes is the record's ``"model_axis"``: ``"compute"`` for every cell
-of a ``dense`` or ``moe`` arch (its data slab with its shares of the
-heads, MLP columns, experts or expert columns and vocabulary, and in a
-decode cell its shard of the state, ``launch/specs.py``), ``"storage"``
-for every other cell (its data slab at full width).
+of a ``dense``, ``moe``, ``ssm`` or ``hybrid`` arch (its data slab with
+its shares of the heads, SSM and RG-LRU channels, MLP columns, experts
+or expert columns and vocabulary, and in a decode cell its shard of the
+state, ``launch/specs.py``), ``"storage"`` for every ``vlm`` and
+``audio`` cell (its data slab at full width).
 
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under

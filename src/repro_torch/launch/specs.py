@@ -8,7 +8,8 @@ The reference lowers the whole (GSPMD-sharded) program.  The port runs
 one rank's program, under one of two placements (``parallel/
 sharding.py``):
 
-  * **compute** — a ``dense`` or ``moe`` arch's cells: the rank's placed
+  * **compute** — a ``dense``, ``moe``, ``ssm`` or ``hybrid`` arch's
+    cells: the rank's placed
     model (``sharding.place_model`` on a ``parallel.tensor.RecordingComm``,
     the stand-in that records each collective instead of running it), its
     data slab of the batch, its shares of the heads, MLP columns, experts
@@ -18,9 +19,12 @@ sharding.py``):
     default ``(batch axes, None, None)`` when none is set, but for a
     decode cell, which the reference leaves unconstrained), and in a
     decode cell its shard of the state (the KV rings by
-    ``sharding.ring_layout``);
-  * **storage** — every other cell: the whole-width model on the rank's
-    data-parallel slab, its placed shards gathered before each layer.
+    ``sharding.ring_layout``, the recurrent leaves' last dim over
+    ``model``; a batch the data axes do not divide, ``long_500k``'s one
+    row, on every data rank);
+  * **storage** — a ``vlm`` or ``audio`` arch's cells: the whole-width
+    model on the rank's data-parallel slab, its placed shards gathered
+    before each layer.
 
 The steps:
 
@@ -48,9 +52,9 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import meta_model
 from repro_torch.models.transformer import LM, encoder_block, torch_dtype
-from repro_torch.parallel.sharding import (batch_spec, param_specs,
-                                           place_model, ring_layout,
-                                           shard_shape)
+from repro_torch.parallel.sharding import (COMPUTE_FAMILIES, batch_spec,
+                                           param_specs, place_model,
+                                           ring_layout, shard_shape)
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.train import train_loop
 from repro_torch.train.optimizer import as_dtype
@@ -192,7 +196,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     if overrides:
         cfg = cfg.with_(**overrides)
     b, s = shape.global_batch, shape.seq_len
-    compute = cfg.family in ("dense", "moe")
+    compute = cfg.family in COMPUTE_FAMILIES
     if compute:
         cfg = _placed_pspec(cfg, mesh, b, shape.kind != "decode")
     model = meta_model(cfg)

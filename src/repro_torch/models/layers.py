@@ -7,9 +7,9 @@ Ports of ``repro.models.layers``, same weight layouts (``wi_gate (d, ff)``,
 and the RoPE rotation compute in float32 and round once to bfloat16, as
 the reference does; in a float32 model every cast below is the identity.
 
-Under the dense and MoE families' compute placement (``parallel/sharding.
-place_model``) :func:`mlp`, :func:`embed`, :func:`xent_loss` and
-:func:`chunked_xent_loss` take the rank's ``place`` (a
+Under the compute placement (``parallel/sharding.place_model``)
+:func:`mlp`, :func:`embed`, :func:`xent_loss`, :func:`chunked_xent_loss`
+and :func:`rmsnorm` take the rank's ``place`` (a
 ``sharding.Placement``): the MLP is column-parallel into ``wi_gate``/
 ``wi_up`` and row-parallel out of ``wo``; the embedding and the logits
 are vocabulary-parallel, each rank holding rows ``[vocab_start,
@@ -26,11 +26,17 @@ import torch.nn.functional as F
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+            eps: float = 1e-5, place=None) -> torch.Tensor:
     """Second moment and scaling in float32 (bfloat16 squares are exact
-    there), the result in ``x``'s type."""
+    there), the result in ``x``'s type.  Placed (``place``), ``x`` and
+    ``scale`` are this rank's slab of the normed dim (the SSM's gated
+    norm over its channels): the sum of squares is summed over ``model``
+    both ways (``place.model_total``) and divided by the whole width."""
     xf = x.float()
-    var = (xf * xf).sum(-1, keepdim=True) / x.shape[-1]
+    sq, n = (xf * xf).sum(-1, keepdim=True), x.shape[-1]
+    if place is not None:
+        sq, n = place.model_total(sq), n * place.tp
+    var = sq / n
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 

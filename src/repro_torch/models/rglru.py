@@ -16,6 +16,13 @@ runs the recurrence over the sequence as a doubling scan in float32
 each combining every position with the one ``d`` behind it.  A closed
 form ``exp(cumsum(log a))`` would divide by products that underflow
 within a few steps (``log a_t`` reaches ``-c * softplus(Lambda)`` a step).
+
+Placed (``parallel/sharding.place_model``: every leaf but ``w_out`` on
+``ssm_inner -> model``), the recurrence is per channel, so a rank's slab
+is self-contained: ``w_x``/``w_y`` column-parallel, the convolution,
+gates and scan on its channels, ``w_out`` row-parallel; its decode state
+(``h`` (B, w) and ``conv`` (B, W-1, w), the last dim over ``model``) is
+exactly its channels.
 """
 
 from __future__ import annotations
@@ -87,9 +94,13 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device,
 
 
 def rglru_decode_step(p: RGLRU, x1: torch.Tensor, cache: dict,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, place=None) -> torch.Tensor:
     """x1 (B,1,D) -> y (B,1,D); ``cache["conv"]`` (B,W-1,w) and
-    ``cache["h"]`` (B,w) advance in place."""
+    ``cache["h"]`` (B,w) advance in place.  Placed (``place``), on the
+    rank's channels and their state slab, the output summed over
+    ``model``."""
+    if place is not None:
+        x1 = place.enter(x1)
     u1 = x1 @ p.w_x
     gy = F.gelu(x1 @ p.w_y, approximate="tanh")
     hist = torch.cat([cache["conv"], u1], 1)
@@ -99,7 +110,8 @@ def rglru_decode_step(p: RGLRU, x1: torch.Tensor, cache: dict,
     out = h[:, None, :].to(x1.dtype) * gy
     cache["conv"].copy_(hist[:, 1:])
     cache["h"].copy_(h)
-    return out @ p.w_out
+    out = out @ p.w_out
+    return out if place is None else place.exit(out)
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,12 +126,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_forward(p: RGLRU, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+                  place=None) -> torch.Tensor:
     """The full-sequence block of training, x (B,S,D) -> (B,S,D): ``w_x``,
     the causal convolution (no activation), the gates, the recurrence in
-    float32, times ``gelu_tanh(x @ w_y)``, then ``w_out``."""
+    float32, times ``gelu_tanh(x @ w_y)``, then ``w_out``.  Placed
+    (``place``), on the rank's channels: x enters whole (``place.enter``)
+    and the output of the row-parallel ``w_out`` leaves summed over
+    ``model`` (``place.exit``)."""
+    if place is not None:
+        x = place.enter(x)
     u = causal_conv(x @ p.w_x, p.conv_w, p.conv_b)
     gy = F.gelu(x @ p.w_y, approximate="tanh")
     a, b = _rglru_gates(p, u, cfg)
-    return (linear_scan(a, b).to(x.dtype) * gy) @ p.w_out
+    out = (linear_scan(a, b).to(x.dtype) * gy) @ p.w_out
+    return out if place is None else place.exit(out)

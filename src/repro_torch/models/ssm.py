@@ -22,9 +22,34 @@ with a lower-triangular matrix (a float ``cumsum`` has no deterministic
 CUDA kernel), and the decay's upper triangle is masked before the
 ``exp`` (``exp`` of it overflows, and ``inf * 0`` is NaN in the backward
 pass).
+
+Placed (``place``, ``parallel/sharding.place_model``: the reference's
+``ssm_inner -> model`` and ``ssm_state -> model``), a rank holds its
+``d_in / tp`` channels of ``wz wx conv_x_* norm_scale out_proj`` and its
+``N / tp`` slab of ``wb wc conv_b_* conv_c_*``; ``wdt A_log D dt_bias``
+are whole.  The recurrence is independent per channel given whole
+``B``, ``C`` and ``dt``, so training (:func:`ssm_forward`) gathers the
+rank's ``B``/``C`` slabs over ``model`` (the backward reduce-scatters
+their gradients), runs :func:`ssd_chunked` on its channels cut into
+sub-heads of ``gcd(headdim, d_in / tp)`` channels (a head may span two
+ranks: each sub-head reads its head's ``dt``, decay and ``D``), sums the
+gated norm's squares over ``model`` and leaves ``out_proj``
+row-parallel.  Decode (:func:`ssm_decode_step`) runs on the reference's
+serving state, whose shards do not line up with the channel slabs:
+``h`` (B, H, P, N) holds the rank's ``N`` slab of every head, and
+``conv`` (B, W-1, d_in + 2N) a contiguous slab of the concatenated ``[x
+| B | C]`` dim.  The step gathers the projected ``[x | B | C]`` and the
+convolution taps over ``model``, convolves the rank's conv slab, gathers
+the convolved vector whole, updates ``h`` on the rank's ``N`` slab,
+reduce-scatters ``y`` (summed over ``N``) onto the rank's channels, then
+the ``D`` skip, the gated norm and ``out_proj`` as in training.  At a
+``model`` axis of 1 every collective is the identity and each placed
+function is the unplaced one op for op.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -98,38 +123,82 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device,
     }
 
 
+def _expand(t: torch.Tensor, k: int) -> torch.Tensor:
+    """Each entry of ``t``'s last dim repeated ``k`` times in place
+    (``repeat_interleave`` without a host sync)."""
+    return t[..., None].expand(*t.shape, k).flatten(-2)
+
+
+def _xbc(t: torch.Tensor, tp: int, w: int, n: int) -> torch.Tensor:
+    """A last dim gathered over ``model`` in rank order, ``[x_r | B_r |
+    C_r]`` of ``w``, ``n`` and ``n`` entries a rank, as the concatenated
+    ``[x | B | C]`` of the conv state."""
+    t = t.unflatten(-1, (tp, w + 2 * n))
+    return torch.cat([t[..., :w].flatten(-2), t[..., w:w + n].flatten(-2),
+                      t[..., w + n:].flatten(-2)], -1)
+
+
 def ssm_decode_step(p: SSM, x1: torch.Tensor, cache: dict,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, place=None) -> torch.Tensor:
     """x1 (B,1,D) -> y (B,1,D); ``cache["conv"]`` (B,W-1,C) and
     ``cache["h"]`` (B,H,P,N) (views into the serving state) advance in
-    place."""
+    place.  Placed (``place``), the cache holds the rank's shards (the
+    module's docstring): collectives over ``model`` gather ``[x | B |
+    C]``, the taps and the convolved vector, and reduce-scatter ``y``; the
+    gated norm all-reduces its squares and ``out_proj`` its partial
+    sums."""
     b = x1.shape[0]
     d_in, heads, groups = ssm_dims(cfg)
-    gn = groups * cfg.ssm_state
-    z, xs, bm, cm, dt = (x1 @ w for w in (p.wz, p.wx, p.wb, p.wc, p.wdt))
-    hist = torch.cat([cache["conv"], torch.cat([xs, bm, cm], -1)], 1)
+    n, hd = cfg.ssm_state, cfg.ssm_headdim
+    gn = groups * n
+    tp, r = (1, 0) if place is None else (place.tp, place.tp_rank)
+    w = d_in // tp
+    if place is not None:
+        x1 = place.enter(x1)
+    z, xs, bm, cm, dt = (x1 @ wt for wt in (p.wz, p.wx, p.wb, p.wc, p.wdt))
+    new = torch.cat([xs, bm, cm], -1)
     conv_w = torch.cat([p.conv_x_w, p.conv_b_w, p.conv_c_w], 1)
     conv_b = torch.cat([p.conv_x_b, p.conv_b_b, p.conv_c_b], 0)
-    xs, bm, cm = F.silu(conv_step(hist, conv_w, conv_b)).split(
-        [d_in, gn, gn], -1)
+    if place is not None:
+        # the rank's slab of the conv state's [x | B | C] dim
+        cw = cache["conv"].shape[-1]
+        c0 = r * cw
+        new = _xbc(place.model_gather(new, 2), tp, w, gn // tp)[
+            ..., c0:c0 + cw]
+        taps = _xbc(place.model_gather(torch.cat([conv_w, conv_b[None]]),
+                                       1), tp, w, gn // tp)[:, c0:c0 + cw]
+        conv_w, conv_b = taps[:-1], taps[-1]
+    hist = torch.cat([cache["conv"], new], 1)
+    u = F.silu(conv_step(hist, conv_w, conv_b))
+    if place is not None:
+        u = place.model_gather(u, 1)
+    xs, bm, cm = u.split([d_in, gn, gn], -1)
+    # the rank's slab of h's N
+    nh = cache["h"].shape[-1]
+    n0 = r * nh
     rep = heads // groups
-    xh = xs.reshape(b, heads, cfg.ssm_headdim).float()
-    bmh = bm.reshape(b, groups, cfg.ssm_state).repeat_interleave(
-        rep, 1).float()
-    cmh = cm.reshape(b, groups, cfg.ssm_state).repeat_interleave(
-        rep, 1).float()
+    xh = xs.reshape(b, heads, hd).float()
+    bmh = bm.reshape(b, groups, n).repeat_interleave(rep, 1).float()[
+        ..., n0:n0 + nh]
+    cmh = cm.reshape(b, groups, n).repeat_interleave(rep, 1).float()[
+        ..., n0:n0 + nh]
     dtv = F.softplus(dt.float() + p.dt_bias.float())[:, 0]       # (B, H)
     a_head = -torch.exp(p.A_log.float())
     decay = torch.exp(dtv * a_head)[..., None, None]
     h = decay * cache["h"] + (xh * dtv[..., None])[..., None] \
         * bmh[:, :, None, :]
-    y = torch.matmul(h, cmh[..., None])[..., 0]                  # (B,H,P)
-    y = y + xh * p.D.float()[:, None]
-    y = y.reshape(b, 1, d_in).to(x1.dtype)
-    y = rmsnorm(p.norm_scale, y * F.silu(z), cfg.norm_eps)
+    y = torch.matmul(h, cmh[..., None])[..., 0].reshape(b, d_in)
+    if place is not None:
+        # each rank's part of the sum over N, summed onto its channels
+        y = place.model_scatter(y, 1)
+    x0 = r * w
+    y = y + xs[:, x0:x0 + w].float() * _expand(p.D.float(), hd)[x0:x0 + w]
+    y = y.reshape(b, 1, w).to(x1.dtype)
+    y = rmsnorm(p.norm_scale, y * F.silu(z), cfg.norm_eps, place)
     cache["conv"].copy_(hist[:, 1:])
     cache["h"].copy_(h)
-    return y @ p.out_proj
+    y = y @ p.out_proj
+    return y if place is None else place.exit(y)
 
 
 def ssd_chunked(x, dt, a_head, bm, cm, chunk: int) -> torch.Tensor:
@@ -206,23 +275,44 @@ def ssd_sequential(x, dt, a_head, bm, cm) -> torch.Tensor:
     return torch.stack(ys, 1).to(x.dtype)
 
 
-def ssm_forward(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ssm_forward(p: SSM, x: torch.Tensor, cfg: ModelConfig,
+                place=None) -> torch.Tensor:
     """The full-sequence mixer of training, x (B,S,D) -> (B,S,D):
     projections, the three causal convolutions with SiLU, softplus ``dt``,
-    :func:`ssd_chunked`, the D skip, the gated RMSNorm and ``out_proj``."""
+    :func:`ssd_chunked`, the D skip, the gated RMSNorm and ``out_proj``.
+    Placed (``place``), on the rank's ``d_in / tp`` channels, cut into
+    sub-heads of ``q = gcd(headdim, d_in / tp)`` channels, each inside
+    one head: every sub-head takes its head's ``dt``, decay and ``D``;
+    ``B`` and ``C`` are the rank's convolved slabs gathered whole over
+    ``model``; x enters whole (``place.enter``) and the output leaves
+    summed over ``model`` (``place.exit``)."""
     b, s, _ = x.shape
     d_in, heads, groups = ssm_dims(cfg)
-    z, xs, bm, cm, dt = (x @ w for w in (p.wz, p.wx, p.wb, p.wc, p.wdt))
+    n, hd = cfg.ssm_state, cfg.ssm_headdim
+    tp, r = (1, 0) if place is None else (place.tp, place.tp_rank)
+    w = d_in // tp
+    q = math.gcd(hd, w)
+    j0, nq = r * w // q, w // q                    # the rank's sub-heads
+    if place is not None:
+        x = place.enter(x)
+    z, xs, bm, cm, dt = (x @ wt for wt in (p.wz, p.wx, p.wb, p.wc, p.wdt))
     xs = F.silu(causal_conv(xs, p.conv_x_w, p.conv_x_b))
     bm = F.silu(causal_conv(bm, p.conv_b_w, p.conv_b_b))
     cm = F.silu(causal_conv(cm, p.conv_c_w, p.conv_c_b))
-    xh = xs.reshape(b, s, heads, cfg.ssm_headdim)
+    if place is not None:
+        bm, cm = place.model_gather(bm, 2), place.model_gather(cm, 2)
+    xh = xs.reshape(b, s, nq, q)
     dtv = F.softplus(dt.float() + p.dt_bias.float())
     a_head = -torch.exp(p.A_log.float())
-    y = ssd_chunked(xh, dtv, a_head,
-                    bm.reshape(b, s, groups, cfg.ssm_state),
-                    cm.reshape(b, s, groups, cfg.ssm_state), cfg.ssm_chunk)
-    y = y + xh * p.D[:, None].to(y.dtype)
-    y = rmsnorm(p.norm_scale, y.reshape(b, s, d_in) * F.silu(z),
-                cfg.norm_eps)
-    return y @ p.out_proj
+
+    def sub(t):                     # per head -> the rank's sub-heads
+        return t if tp == 1 else _expand(t, hd // q)[..., j0:j0 + nq]
+
+    y = ssd_chunked(xh, sub(dtv), sub(a_head),
+                    bm.reshape(b, s, groups, n), cm.reshape(b, s, groups, n),
+                    cfg.ssm_chunk)
+    y = y + xh * sub(p.D)[:, None].to(y.dtype)
+    y = rmsnorm(p.norm_scale, y.reshape(b, s, w) * F.silu(z), cfg.norm_eps,
+                place)
+    y = y @ p.out_proj
+    return y if place is None else place.exit(y)

@@ -67,20 +67,23 @@ batch can round differently on the card; a group is the unit at which
 the engine's floats are the single-request path's by construction
 (``PERF.md`` §7).
 
-A ``dense`` or ``moe`` model placed for compute on a ``(data, model)``
-mesh (``parallel/sharding.place_model``: its parameters are one rank's
-shards, :attr:`LM.placement` set) trains and prefills on its rank's
-share: the forward takes the rank's rows, each checkpointed unit gathers
-its blocks' FSDP shards over ``data`` (:meth:`LM._placed_unit`), the
-attention and MLP run column- then row-parallel over ``model``, the MoE
+A ``dense``, ``moe``, ``ssm`` or ``hybrid`` model placed for compute on
+a ``(data, model)`` mesh (``parallel/sharding.place_model``: its
+parameters are one rank's shards, :attr:`LM.placement` set) trains and
+prefills on its rank's share: the forward takes the rank's rows, each
+checkpointed unit gathers its blocks' FSDP shards over ``data``
+(:meth:`LM._placed_unit`), the attention, the SSM and RG-LRU mixers
+(``models/ssm.py``, ``models/rglru.py``: the rank's channels) and the MLP
+run column- then row-parallel over ``model``, the MoE
 FFN on the rank's experts (expert parallelism) or on every expert's
 columns (per-expert tensor parallelism) after routing the whole sequence
 alike on every model rank (``models/moe.py``), the residuals follow
 ``cfg.act_pspec`` and the logits and the loss are vocabulary-parallel;
 the aux loss is the reference's global one, its expert shares averaged
 over the data slabs.  It serves the same way: :meth:`LM.init_state`
-allocates the rank's shards of the state (its rows, and its kv heads or
-its slab of the ring's slots, ``sharding.ring_layout``), and
+allocates the rank's shards of the state (its rows, its kv heads or
+its slab of the ring's slots, ``sharding.ring_layout``, and its slab of
+each recurrent leaf's last dim), and
 :meth:`LM.decode_step` and :meth:`LM.prefill_chunk` take the global
 batch, run the rank's rows at one position a call (the residual stream
 whole on every model rank; the MoE step on the rank's experts or
@@ -465,23 +468,32 @@ class LM(nn.Module):
         return x, aux
 
     def _placed_unit(self, unit: tuple, x: torch.Tensor):
-        """:meth:`unit_forward` of a placed dense or MoE model: each
-        block's FSDP shards gathered over ``data`` here, inside the
-        checkpointed unit (so that backward gathers them again), then the
-        norms on the residual stream as it lies and the attention, MLP
-        and MoE FFN on this rank's heads, columns and experts; the unit's
-        summed aux loss, the same on every rank."""
+        """:meth:`unit_forward` of a placed model: each block's FSDP
+        shards gathered over ``data`` here, inside the checkpointed unit
+        (so that backward gathers them again), then the norms on the
+        residual stream as it lies and the attention, SSM and RG-LRU
+        mixers, MLP and MoE FFN on this rank's heads, channels, columns
+        and experts (each mixer enters the whole sequence and leaves as
+        the stream lies); the unit's summed aux loss, the same on every
+        rank."""
         cfg, pl = self.cfg, self.placement
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         pl.comm.scope = "body"
         try:
             for b in unit:
+                kind = self.kinds[b]
                 w = pl.gathered(self.blocks[b], f"blocks.{b}")
-                x = x + attn_forward(w.attn, rmsnorm(w.ln1, x, cfg.norm_eps),
-                                     cfg, place=pl)
+                h = rmsnorm(w.ln1, x, cfg.norm_eps)
+                if kind == "ssm":
+                    x = x + ssm_forward(w.ssm, h, cfg, place=pl)
+                    continue
+                if kind == "rec":
+                    x = x + rglru_forward(w.rec, h, cfg, place=pl)
+                else:
+                    x = x + attn_forward(w.attn, h, cfg, place=pl)
                 h = rmsnorm(w.ln2, x, cfg.norm_eps)
                 f = w.ffn
-                if self.kinds[b] == "attn_moe":
+                if kind == "attn_moe":
                     h, a = moe(f, h, cfg, place=pl)
                     aux = aux + a
                 else:
@@ -506,16 +518,23 @@ class LM(nn.Module):
             shape = (n, batch, ring_slots(ring), cfg.n_kv_heads,
                      cfg.head_dim_)
             if pl is not None:
-                shape = pl.state_shape(shape, ring)
+                shape = pl.state_shape("k", shape, ring)
             k, v = (torch.zeros(shape, dtype=p.dtype, device=p.device)
                     for _ in range(2))
         recurrent = {}
         for kind, init in (("ssm", init_ssm_cache), ("rec", init_rglru_cache)):
             n = self.kinds.count(kind)
-            if n:
-                leaves = init(cfg, batch, p.dtype, p.device, layers=n)
-                recurrent.update({f"{kind}.{leaf}": t
-                                  for leaf, t in leaves.items()})
+            if not n:
+                continue
+            leaves = init(cfg, batch, p.dtype,
+                          p.device if pl is None else "meta", layers=n)
+            if pl is not None:
+                leaves = {leaf: torch.zeros(
+                    pl.state_shape(f"{kind}.{leaf}", t.shape, ring),
+                    dtype=t.dtype, device=p.device)
+                    for leaf, t in leaves.items()}
+            recurrent.update({f"{kind}.{leaf}": t
+                              for leaf, t in leaves.items()})
         return ModelState(k=k, v=v, length=ring, recurrent=recurrent)
 
     def _groups(self, state: ModelState, rows: int, groups):
@@ -573,11 +592,13 @@ class LM(nn.Module):
             h = rmsnorm(blk.ln1, x, cfg.norm_eps)
             if kind == "ssm":
                 x = x + ssm_decode_step(blk.ssm, h, {
-                    "conv": st["ssm.conv"][i], "h": st["ssm.h"][i]}, cfg)
+                    "conv": st["ssm.conv"][i], "h": st["ssm.h"][i]}, cfg,
+                    place=pl)
                 continue
             if kind == "rec":
                 x = x + rglru_decode_step(blk.rec, h, {
-                    "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg)
+                    "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg,
+                    place=pl)
             elif kind == "cross":
                 x = x + attn_cross(blk.cross, h, memory, cfg)
             else:

@@ -1,6 +1,7 @@
-"""Logical-axis -> mesh-axis placement rules, and the dense and MoE
-families' placed model: tensor-parallel compute over ``model`` (expert
-parallelism, or per-expert tensor parallelism), FSDP over ``data``.
+"""Logical-axis -> mesh-axis placement rules, and the dense, MoE, SSM
+and hybrid families' placed model: tensor-parallel compute over
+``model`` (expert parallelism, or per-expert tensor parallelism; the SSM
+and RG-LRU channels), FSDP over ``data``.
 
 Port of ``repro.parallel.sharding``.  The reference places the model by
 GSPMD on the ``(data=16, model=16)`` mesh a pod (a leading ``pod`` axis
@@ -46,10 +47,26 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   the same experts, so no all-to-all is needed: the rank's experts (or
   columns) run on the whole sequence and their fold is summed over
   ``model`` (``models/moe.py``).
-* every other family: **storage** only (``launch/specs.py``): a rank
+* ``ssm`` and ``hybrid`` (:func:`place_model` too): the reference's
+  rules ``ssm_inner -> model`` and ``ssm_state -> model``.  The Mamba2
+  mixer (``models/ssm.py``) runs the rank's ``ssm_inner`` channels after
+  gathering the small ``B``/``C`` planes of its ``ssm_state`` slab over
+  ``model``, its gated norm summing its squares over ``model`` and
+  ``out_proj`` row-parallel; the per-head ``wdt``, ``A_log``, ``D`` and
+  ``dt_bias`` are whole on every rank, each rank's gradient of them its
+  channels' part.  The RG-LRU block (``models/rglru.py``) is
+  self-contained on the rank's channels: ``w_x``/``w_y`` column-parallel,
+  the convolution, gates and scan local, ``w_out`` row-parallel.  The
+  hybrid's local-attention blocks and MLPs are the dense family's.  The
+  serving state is the reference's serving cell's
+  (``launch/specs.cache_shardings``): the last dim of every ``h`` and
+  ``conv`` leaf over ``model`` (the reference's rule wherever it divides,
+  which :func:`place_model`'s checks make every case); the SSM step runs
+  on that layout (``ssm.ssm_decode_step``).
+* ``vlm`` and ``audio``: **storage** only (``launch/specs.py``): a rank
   gathers each layer's shards and computes its data slab at full width,
-  so the model axis divides memory, not work.  Their rules (the SSM and
-  RG-LRU axes, cross attention) are ROADMAP A.
+  so the model axis divides memory, not work.  Their rule (cross
+  attention) is ROADMAP A.
 
 A mesh here is anything with ``axis_names`` and a ``shape`` mapping
 (``launch.mesh.MeshShape``, or a JAX mesh in the tests); the placement
@@ -70,6 +87,8 @@ from torch import nn
 from repro_torch.models.attention import kv_head_map, ring_slots
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import param_axes, pspec_tree
+from repro_torch.models.rglru import rglru_width
+from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.transformer import LM, ModelState
 from repro_torch.parallel import tensor as tpc
 
@@ -227,7 +246,7 @@ def count_collective_free(mesh) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the placed model (dense and moe families): tensor-parallel compute
+# the placed model (dense, moe, ssm, hybrid): tensor-parallel compute
 # ---------------------------------------------------------------------------
 
 def model_shard_spec(spec: tuple) -> tuple:
@@ -238,6 +257,15 @@ def model_shard_spec(spec: tuple) -> tuple:
 
 def _placed_axes(spec: tuple) -> set:
     return {a for e in spec for a in spec_axes(e)}
+
+
+def _state_map(state: ModelState, fn) -> ModelState:
+    """``state`` with ``fn(name, leaf)`` applied to every leaf."""
+    return ModelState(
+        k=None if state.k is None else fn("k", state.k),
+        v=None if state.v is None else fn("v", state.v),
+        length=state.length,
+        recurrent={k: fn(k, t) for k, t in state.recurrent.items()})
 
 
 class Placement:
@@ -254,7 +282,6 @@ class Placement:
         self.batch_axes = tuple(a for a in ("pod", "data")
                                 if a in comm.axis_names)
         self.dp = math.prod(comm.size(a) for a in self.batch_axes)
-        self.dp_rank = _coord(comm, self.batch_axes)[0]
         self.tp, self.tp_rank = comm.size("model"), comm.rank("model")
         pspec = cfg.act_pspec
         self.sp = pspec is not None and len(pspec) > 1 and \
@@ -265,20 +292,33 @@ class Placement:
         # the kv head each of this rank's query heads reads, as an index
         # into the K/V heads the rank computes (its shard when the kv heads
         # are placed on model, else all of them); None when that is the
-        # grouping j // (heads / kv), whose attend needs no gather
-        gmap = kv_head_map(cfg)[self.tp_rank * hp:(self.tp_rank + 1) * hp]
-        kv = cfg.n_kv_heads
-        kv_placed = "model" in spec_axes(specs["blocks.0.attn.wk"][1])
-        if kv_placed:
-            kv //= self.tp
-            gmap = gmap - self.tp_rank * kv
-            if bool(((gmap < 0) | (gmap >= kv)).any()):
-                raise ValueError(
-                    f"{cfg.name}: query heads of model rank {self.tp_rank} "
-                    "read kv heads of another rank's shard")
-        grouped = hp % kv == 0 and torch.equal(
-            gmap, torch.arange(hp) // (hp // kv))
-        self.kv_index = None if grouped else gmap.to(device)
+        # grouping j // (heads / kv) and the unplaced attend reads the
+        # config as grouped too (no padded heads: attention._heads), so
+        # that on one model rank the attend is the unplaced one op for op;
+        # None without attention.  The first attention block's K
+        # projection says how the kv heads lie (a hybrid's is not block 0)
+        wk = sorted((k for k in specs if k.startswith("blocks.")
+                     and k.endswith(".attn.wk")),
+                    key=lambda k: int(k.split(".")[1]))
+        kv_placed = bool(wk) and "model" in spec_axes(specs[wk[0]][1])
+        self.kv_index = None
+        if wk:
+            gmap = kv_head_map(cfg)[self.tp_rank * hp:(self.tp_rank + 1)
+                                    * hp]
+            kv = cfg.n_kv_heads
+            if kv_placed:
+                kv //= self.tp
+                gmap = gmap - self.tp_rank * kv
+                if bool(((gmap < 0) | (gmap >= kv)).any()):
+                    raise ValueError(
+                        f"{cfg.name}: query heads of model rank "
+                        f"{self.tp_rank} read kv heads of another rank's "
+                        "shard")
+            unplaced = (cfg.n_heads_padded == cfg.n_heads
+                        and cfg.n_heads % cfg.n_kv_heads == 0)
+            grouped = unplaced and hp % kv == 0 and torch.equal(
+                gmap, torch.arange(hp) // (hp // kv))
+            self.kv_index = None if grouped else gmap.to(device)
         # the MoE FFN's rule: "experts" (EP: this rank's experts
         # [expert_start, + n_experts / tp)) or "mlp" (per-expert TP: every
         # expert on this rank's columns); None without experts
@@ -289,9 +329,10 @@ class Placement:
             if ep:
                 self.expert_start = self.tp_rank * cfg.n_experts // self.tp
         # gradients that are each model rank's part: replicated over model,
-        # applied to this rank's heads or to its slab of the sequence (the
-        # router routes the rank's slab under sequence parallelism)
-        partial = ("q_norm", "k_norm")
+        # applied to this rank's heads or channels or to its slab of the
+        # sequence (the router routes the rank's slab under sequence
+        # parallelism; the SSM's per-head leaves act on its channels)
+        partial = ("q_norm", "k_norm", "wdt", "A_log", "D", "dt_bias")
         if not kv_placed:
             partial += ("wk", "wv", "bk", "bv")
         if self.sp:
@@ -301,15 +342,24 @@ class Placement:
 
     # -- the batch and the residual stream ---------------------------------
 
+    def _slab(self, b: int) -> tuple:
+        """``(index, parts)`` of this rank's data slab of a global batch of
+        ``b`` rows, the reference's ``batch_pspec``: over as many batch
+        axes as divide it (major first), replicated over the rest
+        (``long_500k``'s one row on every rank)."""
+        use, n = [], 1
+        for a in self.batch_axes:
+            if b % (n * self.comm.size(a)) == 0:
+                use.append(a)
+                n *= self.comm.size(a)
+        return _coord(self.comm, tuple(use))
+
     def rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's data slab of a global batch plane (rows on
-        ``dim``)."""
-        b = t.shape[dim]
-        if b % self.dp:
-            raise ValueError(f"batch {b} does not divide over the {self.dp} "
-                             f"ranks of {self.batch_axes}")
-        n = b // self.dp
-        return t.narrow(dim, self.dp_rank * n, n)
+        ``dim``; :meth:`_slab`)."""
+        idx, parts = self._slab(t.shape[dim])
+        n = t.shape[dim] // parts
+        return t.narrow(dim, idx * n, n)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream (B, S|S/tp, D) into a column-parallel
@@ -350,6 +400,14 @@ class Placement:
     def model_sum(self, t: torch.Tensor) -> torch.Tensor:
         return tpc.reduce_from(t, self.comm, "model")
 
+    def model_total(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of every rank's ``t``, all-reduced both
+        ways (``copy_to`` then ``reduce_from``): a sum each rank reads for
+        its own part, so its gradient is summed too (the SSM's gated
+        norm's sum of squares over its channels)."""
+        return tpc.reduce_from(tpc.copy_to(t, self.comm, "model"),
+                               self.comm, "model")
+
     def model_max(self, t: torch.Tensor) -> torch.Tensor:
         return tpc.all_reduce(t.detach(), self.comm, ("model",), "max")
 
@@ -357,6 +415,11 @@ class Placement:
         """Every model rank's ``t`` concatenated along ``dim`` in rank
         order."""
         return tpc.gather_from(t, self.comm, "model", dim)
+
+    def model_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over ``model`` of every rank's ``t``, this rank's slab
+        of it along ``dim``."""
+        return tpc.scatter_to(t, self.comm, "model", dim)
 
     def combine(self, m, l, acc) -> torch.Tensor:
         """The context-parallel softmax partials of every model rank
@@ -374,6 +437,17 @@ class Placement:
         """The dim of a KV leaf ``(A, B, slots, KV, Dh)`` placed on
         ``model``, or None (replicated)."""
         return {"kv_heads": 3, "slots": 2}.get(self.ring_layout(length))
+
+    def _leaf_dim(self, name: str, ndim: int, length: int):
+        """The dim of the ``ndim``-dim state leaf ``name`` (ring length
+        ``length``) placed on ``model``, or None: a KV ring's
+        (:meth:`_ring_dim`), or a recurrent leaf's last dim (the
+        reference's ``cache_shardings`` places it where it divides, and
+        :func:`place_model` holds ``d_in``, ``ssm_state`` and the RG-LRU
+        width to dividing)."""
+        if name in ("k", "v"):
+            return self._ring_dim(length)
+        return ndim - 1
 
     def serving(self, length: int) -> "Placement":
         """This placement as a serving step reads it, for a state of ring
@@ -397,59 +471,48 @@ class Placement:
             else 0
         return step
 
-    def state_shape(self, shape: tuple, length: int) -> tuple:
-        """The rank's shape of a whole state leaf ``shape`` (rows on dim 1)
-        of ring length ``length``: its data slab of the rows and, for a KV
-        leaf, its part of the heads or the slots."""
+    def state_shape(self, name: str, shape: tuple, length: int) -> tuple:
+        """The rank's shape of the whole state leaf ``name`` of ``shape``
+        (rows on dim 1) and ring length ``length``: its data slab of the
+        rows and its part of the leaf's dim on ``model``
+        (:meth:`_leaf_dim`)."""
         out = list(shape)
-        if out[1] % self.dp:
-            raise ValueError(f"batch {out[1]} does not divide over the "
-                             f"{self.dp} ranks of {self.batch_axes}")
-        out[1] //= self.dp
-        dim = self._ring_dim(length)
-        if len(out) == 5 and dim is not None:
+        out[1] //= self._slab(out[1])[1]
+        dim = self._leaf_dim(name, len(shape), length)
+        if dim is not None:
             out[dim] //= self.tp
         return tuple(out)
 
     def place_state(self, state: ModelState) -> ModelState:
         """This rank's shards of a whole decode ``state`` (a copy): its
         data slab of the rows and, on the KV rings, its kv heads or its
-        slab of the slots (:meth:`ring_layout`)."""
-        dim = self._ring_dim(state.length)
-
-        def local(t):
+        slab of the slots (:meth:`ring_layout`), on a recurrent leaf its
+        slab of the last dim (:meth:`_leaf_dim`)."""
+        def local(name, t):
+            dim = self._leaf_dim(name, t.ndim, state.length)
             t = self.rows(t, 1)
-            if dim is not None and t.ndim == 5:
+            if dim is not None:
                 n = t.shape[dim] // self.tp
                 t = t.narrow(dim, self.tp_rank * n, n)
             return t.clone()
 
-        return ModelState(
-            k=None if state.k is None else local(state.k),
-            v=None if state.v is None else local(state.v),
-            length=state.length,
-            recurrent={k: local(t) for k, t in state.recurrent.items()})
+        return _state_map(state, local)
 
     def unplace_state(self, state: ModelState) -> ModelState:
-        """The whole decode state back from every rank's shards
-        (:meth:`place_state`'s inverse, bitwise): all-gathered over
-        ``model`` on the ring's placed dim, then over the data axes on the
-        rows, in rank order."""
-        dim = self._ring_dim(state.length)
-
-        def whole(t):
-            if dim is not None and t.ndim == 5 and self.tp > 1:
+        """The whole decode state back from every rank's shards, its rows
+        split over every data axis (:meth:`place_state`'s inverse,
+        bitwise): all-gathered over ``model`` on the leaf's placed dim,
+        then over the data axes on the rows, in rank order."""
+        def whole(name, t):
+            dim = self._leaf_dim(name, t.ndim, state.length)
+            if dim is not None and self.tp > 1:
                 t = self.comm.all_gather(t, "model", dim)
             for a in reversed(self.batch_axes):
                 if self.comm.size(a) > 1:
                     t = self.comm.all_gather(t, a, 1)
             return t
 
-        return ModelState(
-            k=None if state.k is None else whole(state.k),
-            v=None if state.v is None else whole(state.v),
-            length=state.length,
-            recurrent={k: whole(t) for k, t in state.recurrent.items()})
+        return _state_map(state, whole)
 
     def whole_vocab(self, lg: torch.Tensor) -> torch.Tensor:
         """A serving step's logits, this rank's vocabulary slab ``(...,
@@ -533,6 +596,10 @@ class Placement:
                    for axes, vs in sorted(groups.items()))
 
 
+# the families whose compute place_model places
+COMPUTE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def place_model(model: LM, mesh, *, fsdp: bool = True,
                 slots_at_one: bool = False) -> LM:
     """Rank-local copy of the whole ``model`` placed for compute on
@@ -553,7 +620,10 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
     A ``moe`` model places its experts by the reference's rule
     (:func:`logical_rules` of ``cfg.tp``): over ``model`` when ``cfg.tp``
     divides ``n_experts`` (expert parallelism), else each expert's
-    ``d_ff`` columns (per-expert tensor parallelism).
+    ``d_ff`` columns (per-expert tensor parallelism).  An ``ssm`` or
+    ``hybrid`` model places its SSM channels, SSM state and RG-LRU
+    channels over ``model`` (``ssm_inner`` and ``ssm_state``), its
+    recurrent state leaves by their last dim.
 
     On a ``model`` axis of 1 a ``slots`` ring's one slab is the whole
     ring, and the serving steps attend it as the unplaced steps do, op for
@@ -565,17 +635,17 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
 
     A ``model`` size that does not divide the padded query heads, the
     padded vocabulary, ``d_ff`` (where ``mlp`` is placed on ``model``),
-    ``n_experts`` (under expert parallelism) or (when ``cfg.kv_sharded``)
-    the kv heads, or a ``data`` size that does not divide ``d_model``
-    under FSDP, raises a ``ValueError`` naming the dim, as JAX does; a
-    family other than ``dense`` and ``moe`` raises
-    ``NotImplementedError``."""
+    ``n_experts`` (under expert parallelism), (when ``cfg.kv_sharded``)
+    the kv heads, the SSM's ``d_in`` or ``ssm_state`` or the RG-LRU
+    width, or a ``data`` size that does not divide ``d_model`` under
+    FSDP, raises a ``ValueError`` naming the dim, as JAX does; the
+    ``vlm`` and ``audio`` families raise ``NotImplementedError``."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in COMPUTE_FAMILIES:
         raise NotImplementedError(
             f"compute placement of the {cfg.family!r} family ({cfg.name}) "
-            "is not ported (ROADMAP A: the SSM and RG-LRU axes, cross "
-            "attention); its mesh places storage only")
+            "is not ported (ROADMAP A: cross attention); its mesh places "
+            "storage only")
     if model.placement is not None:
         raise ValueError("the model is placed already: place the whole "
                          "model")
@@ -593,6 +663,12 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
     rules = logical_rules(cfg)
     if rules["mlp"] == "model":
         dims["d_ff"] = cfg.d_ff
+    if "ssm" in model.kinds:
+        d_in, _, groups = ssm_dims(cfg)
+        dims["d_in (ssm_expand * d_model)"] = d_in
+        dims["ssm_state (groups * ssm_state)"] = groups * cfg.ssm_state
+    if "rec" in model.kinds:
+        dims["lru_width"] = rglru_width(cfg)
     if rules["experts"] == "model":
         dims["n_experts"] = cfg.n_experts
     if cfg.kv_sharded:

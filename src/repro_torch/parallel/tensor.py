@@ -14,15 +14,20 @@ them by hand, in Megatron's pairs:
                        sum), and the vocabulary-parallel lookup;
   :func:`gather_from`  all-gather along ``dim`` forward, reduce-scatter
                        backward: sequence-parallel residuals entering a
-                       column-parallel product, and FSDP's gather of a
-                       parameter placed on ``data`` before its layer runs;
+                       column-parallel product, FSDP's gather of a
+                       parameter placed on ``data`` before its layer runs,
+                       and the SSM's ``B``/``C`` slabs, whole for every
+                       rank's channels;
   :func:`scatter_to`   reduce-scatter along ``dim`` forward, all-gather
                        backward: a row-parallel output leaving for
                        sequence-parallel residuals.
 
-Decode runs under ``no_grad``, so its one collective of its own is a
-plain function: :func:`softmax_combine`, the context-parallel combine of
-each rank's softmax partials over its slab of a KV ring's slots.
+``reduce_from(copy_to(x))`` all-reduces both ways: a sum every rank
+reads for its own part (the data slabs' loss mean, the SSM's gated norm
+over its channels).  Decode runs under ``no_grad``, so its one collective
+of its own is a plain function: :func:`softmax_combine`, the
+context-parallel combine of each rank's softmax partials over its slab
+of a KV ring's slots.
 
 An axis of size 1 is the identity both ways, with no collective.  The
 collectives run on a *comm*: :class:`MeshComm` over a ``torch.distributed``

@@ -44,10 +44,11 @@ ranks decodes bit-exactly on a lane mesh of ``n`` ranks; where a slab's
 rows price as they do inside the whole batch, its bytes are the unplaced
 container's.  Every rank calls with the same arguments.
 
-A ``dense`` or ``moe`` model placed for compute
+A ``dense``, ``moe``, ``ssm`` or ``hybrid`` model placed for compute
 (``parallel/sharding.place_model``) on a mesh whose ``data`` axis is 1
 goes through every entry point as it is: each step runs on the rank's
-heads, columns, experts and shard of the state,
+heads, channels, columns, experts and shard of the state (the recurrent
+leaves carried across chunks on the rank's shards),
 its vocabulary slab of logits is gathered into whole rows in rank order
 (``Placement.whole_vocab``), and the SPC and the coder run on those rows,
 so every rank gets the same tables and the same container.  A container

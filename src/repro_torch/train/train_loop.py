@@ -103,7 +103,15 @@ def _grads(model: LM, batch: dict, n: int):
     pl = model.placement
 
     def local(mb):
-        return mb if pl is None else {k: pl.rows(v) for k, v in mb.items()}
+        if pl is None:
+            return mb
+        # the step splits each microbatch over every data axis (a batch
+        # they do not divide would run whole on every data rank)
+        rows = next(iter(mb.values())).shape[0]
+        if rows % pl.dp:
+            raise ValueError(f"batch {rows} does not divide over the "
+                             f"{pl.dp} ranks of {pl.batch_axes}")
+        return {k: pl.rows(v) for k, v in mb.items()}
 
     if n <= 1:
         loss, grads = _value_and_grad(model, local(batch))

@@ -422,11 +422,22 @@ TP_CASES = {
                        (1, 4)),
     "phi_dense": ("phi3.5-moe-42b-a6.6b", {"tp": 2, "moe_impl": "dense"},
                   (2, 2)),
+    # the recurrent families: the SSM's channels and state and the RG-LRU's
+    # channels over model; mamba2_split's 32 channels a rank are half of a
+    # 64-wide head (mamba2-130m's 96 a rank at tp 16 are 1.5 heads)
+    "mamba2_tp2": ("mamba2-130m", {"tp": 2}, (2, 2)),
+    "mamba2_split": ("mamba2-130m", {"tp": 4, "ssm_headdim": 64}, (1, 4)),
+    "rgemma_tp2": ("recurrentgemma-2b", {"tp": 2}, (2, 2)),
+    "rgemma_sp_remat": ("recurrentgemma-2b", {"tp": 4, "act_pspec": SP,
+                                              "remat": True}, (1, 4)),
 }
 TP_BATCH, TP_SEQ, TP_LR = 4, 16, 3e-3
-# leaves moved off their constant inits (zeros and ones), so they matter
+# leaves moved off their constant inits (zeros and ones), so they matter:
+# the SSM's per-head leaves differ between heads, so a channel reading
+# another head's dt, decay or D shows
 TP_MOVED = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2",
-            "final_norm")
+            "final_norm", "A_log", "D", "dt_bias", "norm_scale", "conv_x_b",
+            "conv_b_b", "conv_c_b", "conv_b", "gate_a_b", "gate_i_b", "lam")
 
 
 def tp_config(name: str):
@@ -562,7 +573,11 @@ TP_DECODE = {
     "qwen3_tp4_rows": ("qwen3_tp4", True, 24, 30),      # per-row; wraps
     "phi_ep4": ("phi_ep4", False, 32, 24),              # EP; slots
     "mixtral_etp": ("mixtral_etp", False, 32, 24),      # kv heads; its
-}                                                       # window wraps
+                                                        # window wraps
+    "mamba2_tp2": ("mamba2_tp2", False, 32, 24),        # h, conv sharded
+    "mamba2_split": ("mamba2_split", True, 24, 30),     # half a head a rank
+    "rgemma": ("rgemma_tp2", False, 32, 24),            # its 16-slot window
+}                                                       # wraps
 TP_PREFILL = 8
 TP_ROW_OFFSETS = (0, 5, 2, 7)
 
@@ -581,13 +596,15 @@ def tp_decode_inputs(name: str):
 
 def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
     """The case's step scan (each step's logits, whole rows of the global
-    batch; the final state, whole) and its prefill: ``prefill_chunk`` of
-    the first ``TP_PREFILL`` tokens at ``pos0`` into a fresh state (the
-    logits, whole, and whether the rank's logits and state shards are
-    bitwise the step scan's after as many steps), of the whole model or
-    of its placement on ``device_mesh``; placed, also this rank's state
-    shape and ring layout, and whether ``place_state`` of the whole final
-    state gives back the rank's shards bitwise."""
+    batch; every leaf of the final state, whole) and, for a model of
+    attention blocks, its prefill: ``prefill_chunk`` of the first
+    ``TP_PREFILL`` tokens at ``pos0`` into a fresh state (the logits,
+    whole, and whether the rank's logits and state shards are bitwise the
+    step scan's after as many steps), of the whole model or of its
+    placement on ``device_mesh``; placed, also the shape of this rank's
+    shard of every state leaf, the ring layout (``"none"`` without
+    attention), and whether ``place_state`` of the whole final state
+    gives back the rank's shards bitwise."""
     import torch
     from repro_torch.parallel import sharding
     _, _, length, steps = TP_DECODE[name]
@@ -608,26 +625,39 @@ def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
     for t in range(steps):
         p = pos[t] if isinstance(pos[t], int) else torch.as_tensor(pos[t])
         local.append(model.decode_step(state, tok[:, t:t + 1], p))
-        if t + 1 == TP_PREFILL:
+        if t + 1 == TP_PREFILL and state.k is not None:
             snap = (state.k.clone(), state.v.clone())
     res["logits"] = _np(torch.stack([whole(lg) for lg in local]))
     final = state if pl is None else pl.unplace_state(state)
-    res["k"], res["v"] = _np(final.k), _np(final.v)
-    fresh = model.init_state(TP_BATCH, length)
-    n_valid = torch.full((TP_BATCH,), TP_PREFILL, dtype=torch.int64)
-    lg = model.prefill_chunk(fresh, tok[:, :TP_PREFILL],
-                             torch.as_tensor(pos0), n_valid)
-    res["prefill_logits"] = _np(whole(lg))
-    res["prefill_bitwise"] = np.array(
-        torch.equal(lg, torch.stack(local[:TP_PREFILL], 1))
-        and torch.equal(fresh.k, snap[0]) and torch.equal(fresh.v, snap[1]))
+    for k, t in final.leaves().items():
+        res[f"state/{k}"] = _np(t)
+    if tp_prefills(name):
+        fresh = model.init_state(TP_BATCH, length)
+        n_valid = torch.full((TP_BATCH,), TP_PREFILL, dtype=torch.int64)
+        lg = model.prefill_chunk(fresh, tok[:, :TP_PREFILL],
+                                 torch.as_tensor(pos0), n_valid)
+        res["prefill_logits"] = _np(whole(lg))
+        res["prefill_bitwise"] = np.array(
+            torch.equal(lg, torch.stack(local[:TP_PREFILL], 1))
+            and torch.equal(fresh.k, snap[0])
+            and torch.equal(fresh.v, snap[1]))
     if pl is not None:
-        res["shard/k"] = np.array(state.k.shape)
-        res["layout"] = np.array(pl.ring_layout(length))
+        for k, t in state.leaves().items():
+            res[f"shard/{k}"] = np.array(t.shape)
+        res["layout"] = np.array("none" if model.cfg.is_attention_free
+                                 else pl.ring_layout(length))
         back = pl.place_state(final)
-        res["place_state_bitwise"] = np.array(
-            torch.equal(back.k, state.k) and torch.equal(back.v, state.v))
+        res["place_state_bitwise"] = np.array(all(
+            torch.equal(back.leaves()[k], t)
+            for k, t in state.leaves().items()))
     return res
+
+
+def tp_prefills(name: str) -> bool:
+    """Whether a :data:`TP_DECODE` case's model runs ``prefill_chunk``
+    (attention blocks only, the protocol's ``can_prefill``)."""
+    cfg = tp_config(TP_DECODE[name][0])
+    return cfg.family not in ("ssm", "hybrid")
 
 
 def tp_decode_suite(rank: int, world: int) -> dict:
@@ -662,6 +692,8 @@ TP_COMPRESS = {
     "phi_ep": ("phi3.5-moe-42b-a6.6b", {"tp": 2}, "kv_heads", "experts"),
     "mixtral_etp": ("mixtral-8x22b", {"tp": 2, "n_experts": 3}, "kv_heads",
                     "mlp"),
+    # no rings: the SSM state's h and conv leaves carried across chunks
+    "mamba2": ("mamba2-130m", {"tp": 2}, "none", None),
 }
 TP_COMPRESS_T = 24
 
@@ -669,10 +701,11 @@ TP_COMPRESS_T = 24
 def tp_compress_suite(rank: int, world: int) -> dict:
     """``lm_compress_chunked`` and ``lm_decompress_chunked`` of the
     placed SMOKE models of :data:`TP_COMPRESS` on a ``(1, world)`` mesh
-    (``ras-pimc`` with its KV rings kv-head-sharded and slot-sharded, and
-    the MoE family under either rule): each backend's container, decoded
-    tokens and per-lane probes, the ring layout and the MoE rule; the
-    refusal of ``mesh=`` beside a placed model."""
+    (``ras-pimc`` with its KV rings kv-head-sharded and slot-sharded, the
+    MoE family under either rule, and mamba2's SSM state): each backend's
+    container, decoded tokens and per-lane probes, the monolithic pair's
+    on the kernel backend, the ring layout and the MoE rule; the refusal
+    of ``mesh=`` beside a placed model."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.models import init_model
@@ -685,7 +718,8 @@ def tp_compress_suite(rank: int, world: int) -> dict:
         model = sharding.place_model(init_model(
             get_smoke_config(arch).with_(**over), seed=0, device="cpu"), dm)
         res[f"{name}/layout"] = np.array(
-            model.placement.ring_layout(TP_COMPRESS_T))
+            "none" if model.cfg.is_attention_free
+            else model.placement.ring_layout(TP_COMPRESS_T))
         res[f"{name}/rule"] = np.array(str(model.placement.moe_rule))
         for be in ("coder", "kernel"):
             st = compress.lm_compress_chunked(model, toks, LM_CHUNK,
@@ -694,6 +728,12 @@ def tp_compress_suite(rank: int, world: int) -> dict:
             _put(res, f"{name}/{be}/dec", compress.lm_decompress_chunked(
                 model, st.chunks, TP_COMPRESS_T, LM_CHUNK, backend=be,
                 lane_probes=True, device="cpu"))
+        mono = compress.lm_compress(model, toks, backend="kernel",
+                                    device="cpu")
+        _put(res, f"{name}/mono/enc", mono.enc)
+        _put(res, f"{name}/mono/dec", compress.lm_decompress(
+            model, mono.enc, TP_COMPRESS_T, backend="kernel",
+            lane_probes=True, device="cpu"))
     res["refuse/mesh"] = _error(lambda: compress.lm_compress_chunked(
         model, toks, LM_CHUNK, mesh=pc.lane_mesh(device="cpu")))
     return res

@@ -27,12 +27,15 @@ builds it (``serve_step``): ``decode_step`` jitted with the parameters by
 ``param_shardings``, the cache by ``repro.launch.specs.cache_shardings``
 (the kv heads over ``model`` when ``cfg.kv_sharded``, else the ring's
 slots), the tokens by ``batch_pspec`` and the logits left
-``(batch, "model")``; it writes each step's logits, the final cache's K
-and V and, but for a MoE model, the logits of ``prefill_chunk`` (placed
-the same way) over the first ``TP_PREFILL`` tokens of a fresh cache (the
-reference's MoE prefill runs the capacity dispatch over the chunk and
-drops tokens; the port's runs the steps' FFN per position and drops
-none, so the port holds it to its own steps instead).
+``(batch, "model")``; it writes each step's logits, the final cache's
+leaves as the port's state leaves (``state/k``, ``state/v`` and the
+recurrent ``state/ssm.h``, ``state/ssm.conv``, ``state/rec.h``,
+``state/rec.conv``, each stacked by kind in depth order) and, for a
+dense model, the logits of ``prefill_chunk`` (placed the same way) over
+the first ``TP_PREFILL`` tokens of a fresh cache (the reference's MoE
+prefill runs the capacity dispatch over the chunk and drops tokens; the
+port's runs the steps' FFN per position and drops none, so the port
+holds it to its own steps instead; a recurrent model does not prefill).
 
 On JAX 0.9 ``jax.make_mesh`` defaults to ``Explicit`` axes, under which
 ``with_sharding_constraint`` fails an assert; the mesh is built with
@@ -163,17 +166,35 @@ def run_decode(name: str, inp: dict) -> dict:
                    else np.int32(t))
             lg, cache = step(params, cache, tokens[:, t:t + 1], pos)
             lgs.append(np.asarray(lg, np.float32))
-        kind = "attn_moe" if cfg.family == "moe" else "attn"
-        kv = jax.device_get(cache)["s0"][f"b0_{kind}"]["kv"]
-        if cfg.family != "moe":
+        if cfg.family not in ("moe", "ssm", "hybrid"):
             lg, _ = chunk(params, fresh,
                           tokens[:, :R.TP_PREFILL], pos0,
                           np.full((b,), R.TP_PREFILL, np.int32))
             res["prefill_logits"] = np.asarray(lg, np.float32)
     res["logits"] = np.stack(lgs)
-    res["k"] = np.asarray(kv["k"], np.float32)
-    res["v"] = np.asarray(kv["v"], np.float32)
+    for k, a in _state_leaves(cfg, jax.device_get(cache)).items():
+        res[f"state/{k}"] = a
     return res
+
+
+def _state_leaves(cfg, cache) -> dict:
+    """The reference's cache as the port's state leaves: every block's
+    leaves stacked by kind in depth order (``k``/``v`` of the attention
+    kinds, ``<kind>.<leaf>`` of the recurrent ones), the reference's tree
+    holding each stage block's leaves with a leading repetition axis."""
+    out: dict = {}
+    for i, (pat, reps) in enumerate(cfg.stages):
+        for r in range(reps):
+            for j, kind in enumerate(pat):
+                c = cache[f"s{i}"][f"b{j}_{kind}"]
+                if kind in ("ssm", "rec"):
+                    leaves = {f"{kind}.{k}": c[kind][k][r]
+                              for k in ("conv", "h")}
+                else:
+                    leaves = {k: c["kv"][k][r] for k in ("k", "v")}
+                for k, a in leaves.items():
+                    out.setdefault(k, []).append(np.asarray(a, np.float32))
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def main(argv: list[str]) -> int:

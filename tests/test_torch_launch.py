@@ -292,18 +292,20 @@ def test_traced_matmul_flops_match_hand_count(remat):
 
 
 @pytest.mark.parametrize("arch", ("ras-pimc", "mixtral-8x22b", "qwen3-4b",
-                                  "llama3-405b"))
+                                  "llama3-405b", "mamba2-130m",
+                                  "recurrentgemma-2b"))
 def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
     """At world 1 the dry-run's parameter, gradient and moment bytes are
     those of the CPU tensors of the same step (the card's counterpart runs
-    in chip_smoke.py), under the compute placement (the dense archs and
-    mixtral, whose experts run on 1/1 of their columns)."""
+    in chip_smoke.py), under the compute placement (the dense archs,
+    mixtral, whose experts run on 1/1 of their columns, and the recurrent
+    families, on 1/1 of their channels)."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     cfg = registry.get_smoke_config(arch).with_(grad_accum=2)
     shape = registry.ShapeSpec("t", 16, 4, "train")
     cell = specs.build_cell(arch, shape, mesh.mesh_shape_for(1),
                             overrides={"grad_accum": 2})
-    assert (cell.comm is not None) == (cfg.family in ("dense", "moe"))
+    assert cell.comm is not None
     _, tr = hlo.trace(cell.run)
     mem = dryrun.memory(cell, tr)
     model = init_model(cfg, seed=0, device="cpu")
@@ -327,12 +329,17 @@ def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
                          "optimizer_bytes", "activation_bytes"))
 
 
+# an arch whose cells the dry-run places for storage (cross attention's
+# compute placement is not ported)
+STORAGE_ARCH = "llama-3.2-vision-11b"
+
+
 def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     """A SMOKE dry-run of a train, prefill and decode cell on a 2 x 2 and
     a 2 x 2 x 2 mesh and a skipped cell, written to ``tmp_path``, then the
     report's tables of those records.  The dense ``ras-pimc``'s train,
-    prefill and decode cells are compute-placed, every ``mamba2-130m``
-    cell storage-placed."""
+    prefill and decode cells are compute-placed, every
+    ``llama-3.2-vision-11b`` cell storage-placed."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     small = (registry.ShapeSpec("train_4k", 16, 64, "train"),
              registry.ShapeSpec("prefill_32k", 32, 8, "prefill"),
@@ -340,7 +347,7 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     meshes = {"2x2": mesh.MeshShape(("data", "model"), (2, 2)),
               "2x2x2": mesh.MeshShape(("pod", "data", "model"), (2, 2, 2))}
     for name, ms in meshes.items():
-        for arch in ("ras-pimc", "mamba2-130m"):
+        for arch in ("ras-pimc", STORAGE_ARCH):
             for sh in small:
                 rec = dryrun.run_cell(arch, sh, out_dir=str(tmp_path),
                                       verbose=False, mesh=ms)
@@ -363,7 +370,7 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     # FSDP shards over data under the compute placement) and reduces the
     # gradients over the data axes; the compute placement adds the
     # model-axis collectives its step recorded
-    for arch in ("ras-pimc", "mamba2-130m"):
+    for arch in ("ras-pimc", STORAGE_ARCH):
         train = next(r for r in ok if r["shape"] == "train_4k"
                      and r["mesh"] == "2x2" and r["arch"] == arch)
         coll = train["roofline"]["collectives"]

@@ -1,5 +1,6 @@
-"""Tensor-parallel compute over the model axis (the dense family), port
-vs the reference's GSPMD-placed step (CPU, gloo ranks, no card).
+"""Tensor-parallel compute over the model axis (the dense, MoE, SSM and
+hybrid families), port vs the reference's GSPMD-placed step (CPU, gloo
+ranks, no card).
 
 The cases are ``_torch_ranks.TP_CASES``, each a SMOKE config on a 4-rank
 ``(data, model)`` mesh: ``qwen3-4b`` at ``tp=2`` on (2, 2) (kv heads
@@ -7,7 +8,10 @@ sharded, ``qk_norm``) and at ``tp=4`` on (1, 4) (kv heads replicated); 6
 query heads padded to 8 over 3 replicated kv heads with ``qkv_bias`` on
 (1, 4); ``llama3-405b`` with sequence-parallel residuals, ``grad_accum``
 2, ``logits_chunk`` 8 and blockwise attention on (2, 2), with and
-without ``remat``; tied ``ras-pimc`` on (2, 2).  Both sides take the same
+without ``remat``; tied ``ras-pimc`` on (2, 2); the MoE family under
+expert parallelism and per-expert TP; ``mamba2-130m`` on (2, 2) and with
+half a 64-wide head a rank on (1, 4); ``recurrentgemma-2b`` on (2, 2)
+and sequence-parallel with ``remat`` on (1, 4).  Both sides take the same
 seeded weights (biases and norm scales moved off their inits) and
 ``train_batch`` batches, built here with the port and handed to JAX as
 numpy arrays (``models.convert.to_reference``).
@@ -31,13 +35,16 @@ against a count by hand, and its recorded model-axis collectives.
 
 The placed decode (``-k decode``): the cases of ``_torch_ranks.
 TP_DECODE`` (kv-head-sharded, slot-sharded, padded heads, ``ras-pimc``,
-and per-row positions on a ring shorter than the stream) on the same 4
+per-row positions on a ring shorter than the stream, the MoE rules, the
+SSM on the reference's state shards, the hybrid's window wrapping) on
+the same 4
 gloo ranks (suite ``tp_decode``), against JAX's ``decode_step`` and
 ``prefill_chunk`` jitted with ``param_shardings`` and
 ``repro.launch.specs.cache_shardings`` (``_torch_tp_ref.py decode``) and
 against the port's one-rank step: each step's logits, gathered whole,
-and the final state within 1e-5 of the largest entry; each rank's state
-shards; the placed ``prefill_chunk`` bitwise the placed steps.  The
+and every leaf of the final state within 1e-5 of the largest entry;
+each rank's state shards; the placed ``prefill_chunk`` of an attention
+model bitwise the placed steps.  The
 placed compress (suite ``tp_compress``, 2 ranks, a ``(1, 2)`` mesh):
 the same container on both ranks, decoded exactly on the same
 placement; a ``data`` axis over 1 and ``mesh=`` beside a placed model
@@ -60,10 +67,10 @@ import _torch_ranks as R
 from repro_torch.configs import registry
 from repro_torch.launch import dryrun, mesh, specs
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models import init_model, moe, param
+from repro_torch.models import init_model, moe, param, rglru, ssm
 from repro_torch.models.convert import to_reference
 from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
-from repro_torch.models.attention import attn_forward, ring_slots
+from repro_torch.models.attention import attn_forward
 from repro_torch.parallel import sharding
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.serve.engine import BatchEngine
@@ -72,9 +79,11 @@ from repro_torch.train import train_loop
 
 HERE = Path(__file__).resolve().parent
 REL = 1e-5
-# the reference's placed step gives one answer per config: the remat
-# variant is held against the same JAX run
-JAX_CASE = {name: name.removesuffix("_remat") for name in R.TP_CASES}
+# the reference's placed step gives one answer per config: a remat
+# variant is held against the same JAX run, where the plain case exists
+JAX_CASE = {name: name.removesuffix("_remat")
+            if name.removesuffix("_remat") in R.TP_CASES else name
+            for name in R.TP_CASES}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -256,6 +265,13 @@ def _comm(dp: int, tp: int) -> RecordingComm:
     # per-expert TP (3 experts over cfg.tp 2): every expert's d_ff
     ({"arch": "mixtral-8x22b", "n_experts": 3, "tp": 2, "d_ff": 129},
      (1, 2), "d_ff"),
+    # the SSM's channels (d_in 192 over 128) and state (24 over 16)
+    ({"arch": "mamba2-130m", "d_model": 96}, (1, 128), "d_in"),
+    ({"arch": "mamba2-130m", "ssm_state": 24}, (1, 16), "ssm_state"),
+    # the RG-LRU's channels (d_model 96 over 64)
+    ({"arch": "recurrentgemma-2b", "d_model": 96, "n_heads": 64,
+      "head_dim": 4, "d_ff": 64, "vocab_size": 256, "tp": 64}, (1, 64),
+     "lru_width"),
 ])
 def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
     over = dict(over)
@@ -264,6 +280,19 @@ def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
     model = init_model(cfg, device="cpu")
     with pytest.raises(ValueError, match=dim):
         sharding.place_model(model, _comm(*dims))
+
+
+@pytest.mark.parametrize("arch,batch", [("qwen3-4b", 3),
+                                        ("mamba2-130m", 1)])
+def test_placed_train_step_refuses_a_batch_the_data_axis_does_not_divide(
+        arch, batch):
+    """A decode state's rows replicate over data axes that do not divide
+    them (``long_500k``); a train step's batch does not."""
+    cfg = registry.get_smoke_config(arch).with_(tp=2)
+    model = sharding.place_model(init_model(cfg, device="cpu"), _comm(2, 2))
+    tokens = torch.zeros((batch, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match=f"batch {batch} does not divide"):
+        train_loop.grads_fn(model, {"tokens": tokens, "labels": tokens})
 
 
 # ---------------------------------------------------------------------------
@@ -339,45 +368,62 @@ def test_placed_decode_matches_reference_and_one_rank(decode_runs, name):
                f"{name} step {t}: placed port vs JAX")
         _close(got["logits"][t], one[name]["logits"][t],
                f"{name} step {t}: placed vs one rank")
-    if cfg.family != "moe":     # JAX's MoE prefill drops tokens by design
-        _close(got["prefill_logits"], want["prefill_logits"],
-               f"{name} prefill: placed port vs JAX")
-    _close(got["prefill_logits"], one[name]["prefill_logits"],
-           f"{name} prefill: placed vs one rank")
-    for leaf in ("k", "v"):
-        _close(got[leaf][:, :, :ring], want[leaf],
-               f"{name} state {leaf}: placed port vs JAX")
-        _close(got[leaf], one[name][leaf],
-               f"{name} state {leaf}: placed vs one rank")
+    shared = ["logits"]
+    if R.tp_prefills(name):
+        if cfg.family != "moe":     # JAX's MoE prefill drops tokens
+            _close(got["prefill_logits"], want["prefill_logits"],
+                   f"{name} prefill: placed port vs JAX")
+        _close(got["prefill_logits"], one[name]["prefill_logits"],
+               f"{name} prefill: placed vs one rank")
+        shared.append("prefill_logits")
+    leaves = sorted(k for k in want if k.startswith("state/"))
+    assert leaves == sorted(k for k in got if k.startswith("state/"))
+    for k in leaves:
+        cut = got[k][:, :, :ring] if k in ("state/k", "state/v") else got[k]
+        _close(cut, want[k], f"{name} {k}: placed port vs JAX")
+        _close(got[k], one[name][k], f"{name} {k}: placed vs one rank")
     for r in range(1, 4):
-        for k in ("logits", "prefill_logits", "k", "v"):
+        for k in shared + leaves:
             np.testing.assert_array_equal(ranks[r][f"{name}/{k}"], got[k],
                                           err_msg=f"{name} rank {r} {k}")
 
 
 @pytest.mark.parametrize("name", list(R.TP_DECODE))
 def test_placed_decode_state_shards_and_prefill(decode_runs, name):
-    """Each rank holds only its shard of the state, in the reference's
-    ring layout (``kv_heads`` when ``cfg.kv_sharded``, else the slots),
-    ``place_state`` of the whole state gives it back bitwise, and the
-    placed ``prefill_chunk`` is bitwise the placed step scan (its logits
-    and the rank's state shards after as many positions)."""
+    """Each rank holds only its shard of every state leaf, the
+    reference's (``launch/specs.cache_specs``: the ring's kv heads when
+    ``cfg.kv_sharded``, else its slots; a recurrent ``h`` or ``conv``
+    leaf's last dim), ``place_state`` of the whole state gives it back
+    bitwise, and the placed ``prefill_chunk`` of an attention model is
+    bitwise the placed step scan (its logits and the rank's state shards
+    after as many positions)."""
     ranks = decode_runs[0]
     tp_name, _, length, _ = R.TP_DECODE[name]
     cfg = R.tp_config(tp_name)
     dp, tp = R.TP_CASES[tp_name][2]
-    layout = "kv_heads" if cfg.kv_sharded else "slots"
-    n = cfg.n_layers
-    slots = ring_slots(min(length, cfg.window) if cfg.window else length)
-    want = ((n, R.TP_BATCH // dp, slots, cfg.n_kv_heads // tp, cfg.head_dim_)
-            if layout == "kv_heads" else
-            (n, R.TP_BATCH // dp, slots // tp, cfg.n_kv_heads, cfg.head_dim_))
+    layout = ("none" if cfg.is_attention_free
+              else "kv_heads" if cfg.kv_sharded else "slots")
+    ms = MeshShape(("data", "model"), (dp, tp))
+    with torch.device("meta"):
+        whole = param.meta_model(cfg).init_state(R.TP_BATCH, length)
+    leaves = {k: tuple(t.shape) for k, t in whole.leaves().items()}
+    spec = specs.cache_specs(cfg, ms, leaves, R.TP_BATCH)
+    if layout == "kv_heads":
+        assert spec["k"][3] == "model"
+    elif layout == "slots":
+        assert spec["k"][2] == "model"
+    for k in leaves:
+        if k not in ("k", "v"):
+            assert spec[k][-1] == "model", k
     for r in range(4):
         res = ranks[r]
         assert str(res[f"{name}/layout"]) == layout
-        assert tuple(res[f"{name}/shard/k"]) == want, r
+        for k, sh in leaves.items():
+            assert tuple(res[f"{name}/shard/{k}"]) == sharding.shard_shape(
+                sh, spec[k], ms), (k, r)
         assert bool(res[f"{name}/place_state_bitwise"]), r
-        assert bool(res[f"{name}/prefill_bitwise"]), r
+        if R.tp_prefills(name):
+            assert bool(res[f"{name}/prefill_bitwise"]), r
 
 
 @pytest.fixture(scope="module")
@@ -391,11 +437,13 @@ def test_placed_compress_round_trip(compress_runs, name):
     """A placed SMOKE on a ``(1, 2)`` mesh: ``ras-pimc`` with its rings
     kv-head-sharded (``tp = 2``) and slot-sharded (``tp = 8``, 4 heads
     padded to 8), phi3.5-moe under expert parallelism (8 experts over 2
-    ranks) and mixtral under per-expert tensor parallelism (3 experts,
-    its window wrapping): both ranks write the same container, the coder
-    and kernel backends the same bytes, and the decode on the same
-    placement returns the tokens exactly, with the same per-lane probes
-    on both backends and ranks."""
+    ranks), mixtral under per-expert tensor parallelism (3 experts, its
+    window wrapping) and mamba2 (its SSM channels, state and conv state
+    over model, carried across chunks): both ranks write the same
+    container, the coder and kernel backends the same bytes, and the
+    decode on the same placement returns the tokens exactly, with the
+    same per-lane probes on both backends and ranks; the monolithic
+    ``lm_compress``/``lm_decompress`` pair round-trips too."""
     a, b = compress_runs
     _, _, layout, rule = R.TP_COMPRESS[name]
     assert str(a[f"{name}/layout"]) == layout
@@ -407,7 +455,7 @@ def test_placed_compress_round_trip(compress_runs, name):
     for field in ("buf", "start", "length", "overflow"):
         np.testing.assert_array_equal(a[f"{name}/coder/enc/{field}"],
                                       a[f"{name}/kernel/enc/{field}"])
-    for be in ("coder", "kernel"):
+    for be in ("coder", "kernel", "mono"):
         np.testing.assert_array_equal(a[f"{name}/{be}/dec/sym"], toks)
     np.testing.assert_array_equal(a[f"{name}/coder/dec/lane_probes"],
                                   a[f"{name}/kernel/dec/lane_probes"])
@@ -425,8 +473,7 @@ def test_placed_compress_refuses_data_axis_and_mesh(decode_runs,
 
 
 def test_other_families_and_paths_refuse_by_name():
-    for arch in ("mamba2-130m", "recurrentgemma-2b",
-                 "llama-3.2-vision-11b", "seamless-m4t-large-v2"):
+    for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
         model = param.meta_model(registry.get_smoke_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             sharding.place_model(model, _comm(1, 1))
@@ -498,6 +545,52 @@ def test_moe_placed_at_one_rank_is_the_unplaced_op_for_op(arch, over, rule):
     assert torch.equal(state.k, wstate.k) and torch.equal(state.v, wstate.v)
 
 
+@pytest.mark.parametrize("arch,over,attr", [
+    ("mamba2-130m", {}, "ssm"),
+    ("mamba2-130m", {"ssm_headdim": 64, "ssm_chunk": 4}, "ssm"),
+    ("recurrentgemma-2b", {}, "rec"),
+    ("recurrentgemma-2b", {"tp": 4}, "rec"),            # the slots layout
+])
+def test_recurrent_placed_at_one_rank_is_the_unplaced_op_for_op(arch, over,
+                                                                attr):
+    """On a (1, 1) mesh a placed SSM or RG-LRU mixer is the unplaced one
+    op for op: the training mixer's output and gradients and the serving
+    step's output and state, bitwise; so are the placed model's decode
+    steps and every state leaf (what makes its containers the whole
+    model's), the hybrid's ring kv-head-sharded or, at ``tp = 4``,
+    slot-sharded (one rank's slab is the whole ring)."""
+    cfg = registry.get_smoke_config(arch).with_(**over)
+    whole = init_model(cfg, seed=4, device="cpu")
+    placed = sharding.place_model(whole, _comm(1, 1))
+    pl = placed.placement
+    fwd, step = ((ssm.ssm_forward, ssm.ssm_decode_step) if attr == "ssm"
+                 else (rglru.rglru_forward, rglru.rglru_decode_step))
+    p = getattr(whole.blocks[0], attr)
+    x = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(2, 16, cfg.d_model)), dtype=torch.float32)
+    outs = []
+    for place in (None, pl.serving(8)):
+        xi = x.clone().requires_grad_()
+        y = fwd(p, xi, cfg, place=place)
+        grads = torch.autograd.grad((y * y).sum(), [xi] + list(p.parameters()))
+        st = placed.init_state(2, 8) if place else whole.init_state(2, 8)
+        cache = {k.split(".")[1]: t[0] for k, t in st.recurrent.items()
+                 if k.startswith(attr)}
+        with torch.no_grad():
+            y1 = [step(p, x[:, t:t + 1], cache, cfg, place=place)
+                  for t in range(3)]
+        outs.append((y, *grads, *y1, *cache.values()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    state, wstate = placed.init_state(2, 8), whole.init_state(2, 8)
+    for t in range(10):
+        tok = torch.full((2, 1), 5 * t + 2, dtype=torch.int64)
+        assert torch.equal(placed.decode_step(state, tok, t),
+                           whole.decode_step(wstate, tok, t)), t
+    for k, t in wstate.leaves().items():
+        assert torch.equal(state.leaves()[k], t), k
+
+
 @pytest.mark.parametrize("slots_at_one", (False, True))
 @pytest.mark.parametrize("arch", ("qwen3-4b", "phi3.5-moe-42b-a6.6b"))
 def test_slots_ring_on_one_model_rank(arch, slots_at_one):
@@ -564,22 +657,25 @@ def test_unplaced_loss_is_the_unplaced_layers(arch):
 # ---------------------------------------------------------------------------
 
 def test_dryrun_places_compute_for_dense_train_and_prefill():
-    """Every cell of the grid on the production mesh: a ``dense`` or
-    ``moe`` arch's train, prefill and decode cells are compute-placed (a
-    recording stand-in, the rank's shards as its parameters and its
-    decode state, the reference's ``act_pspec``: none on a decode cell
-    but the config's own; phi3.5-moe's 16 experts one a rank, mixtral's 8
-    each on 1/16 of ``d_ff``), every other cell is storage-placed; a
-    decode cell's ring layout is the reference's (``kv_heads`` for
-    ``ras-pimc``, the ring's slots at ``tp = 16`` elsewhere) and it
-    records the context-parallel combine's gathers over ``model``."""
+    """Every cell of the grid on the production mesh: a ``dense``,
+    ``moe``, ``ssm`` or ``hybrid`` arch's train, prefill and decode cells
+    are compute-placed (a recording stand-in, the rank's shards as its
+    parameters and its decode state, the reference's ``act_pspec``: none
+    on a decode cell but the config's own; phi3.5-moe's 16 experts one a
+    rank, mixtral's 8 each on 1/16 of ``d_ff``), every ``vlm`` and
+    ``audio`` cell is storage-placed; a decode cell's recurrent leaves
+    have their last dim on ``model`` and its ring layout is the
+    reference's (``kv_heads`` for ``ras-pimc``, the ring's slots at ``tp
+    = 16`` elsewhere), and it records the context-parallel combine's
+    gathers over ``model``, or the SSM step's gathers and
+    reduce-scatter."""
     ms = mesh.production_mesh_shape()
     for arch, shape, ok, _ in registry.grid():
         if not ok:
             continue
         cell = specs.build_cell(arch, shape, ms)
         family = registry.get_config(arch).family
-        compute = family in ("dense", "moe")
+        compute = family in ("dense", "moe", "ssm", "hybrid")
         if family == "moe":
             pl, ffn = cell.model.placement, cell.model.blocks[0].ffn
             ep = arch == "phi3.5-moe-42b-a6.6b"
@@ -605,11 +701,18 @@ def test_dryrun_places_compute_for_dense_train_and_prefill():
         for k, t in st.leaves().items():
             gsh, _, spec = cell.state[k]
             assert tuple(t.shape) == sharding.shard_shape(gsh, spec, ms), k
-        layout = pl.ring_layout(sh.seq_len)
-        assert layout == ("kv_heads" if arch == "ras-pimc" else "slots")
+        for k, (gsh, _, spec) in cell.state.items():
+            if k not in ("k", "v"):     # a recurrent leaf's last dim
+                assert spec[-1] == "model", (arch, k)
         cell.run()
         ops = {(op, axis) for op, axis, _, _ in cell.recorded}
         assert ("all-reduce", "model") in ops
+        if family == "ssm":     # the step gathers [x | B | C], the taps and
+            assert {("all-gather", "model"),        # the convolved vector,
+                    ("reduce-scatter", "model")} <= ops  # scatters y
+            continue
+        layout = pl.ring_layout(sh.seq_len)
+        assert layout == ("kv_heads" if arch == "ras-pimc" else "slots")
         assert (("all-gather", "model") in ops) == (layout == "slots")
     cell = specs.build_cell("llama3-405b", "train_4k",
                             mesh.production_mesh_shape(multi_pod=True))

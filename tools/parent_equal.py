@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""The dense and MoE families' unplaced outputs of two checkouts, byte
-for byte, on the CPU.
+"""The unplaced outputs of two checkouts, byte for byte, on the CPU.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/parent_equal.py build/parent .
@@ -18,13 +17,14 @@ hashes what it puts out:
   three requests of 29, 17 and 32 tokens and their decompress;
 - the logits of 20 ``decode_step`` positions on a ring of 8 slots (it
   wraps twice), 3 rows;
-- the unplaced training path of the dense and MoE SMOKE archs in
-  ``TRAIN_ARCHS`` (``qwen3-4b`` also under ``remat``, phi3.5-moe also
-  with the dense schedule): ``forward``'s hidden states and logits,
-  ``grads_fn``'s loss and gradients, and two ``make_train_step`` steps'
-  metrics and parameters, on a 4 x 16 ``train_batch``, torch on one
-  thread; for a MoE arch also the logits of 20 ``decode_step`` positions
-  of 3 rows on a ring of 8 slots.
+- the unplaced training path of the dense, MoE, SSM and hybrid SMOKE
+  archs in ``TRAIN_ARCHS`` (``qwen3-4b`` and ``recurrentgemma-2b`` also
+  under ``remat``, phi3.5-moe also with the dense schedule):
+  ``forward``'s hidden states and logits, ``grads_fn``'s loss and
+  gradients, and two ``make_train_step`` steps' metrics and parameters,
+  on a 4 x 16 ``train_batch``, torch on one thread; for a MoE, SSM or
+  hybrid arch also the logits of 20 ``decode_step`` positions of 3 rows
+  on a ring of 8 slots and the final state's leaves.
 
 It prints each checkout's digests and exits nonzero unless every one
 agrees.  Needs no card and no ``nvcc``.
@@ -43,7 +43,9 @@ LANES, T, CHUNK = 4, 40, 16
 TRAIN_ARCHS = (("ras-pimc", {}), ("qwen1.5-4b", {}), ("qwen3-4b", {}),
                ("qwen3-4b", {"remat": True}), ("llama3-405b", {}),
                ("mixtral-8x22b", {}), ("phi3.5-moe-42b-a6.6b", {}),
-               ("phi3.5-moe-42b-a6.6b", {"moe_impl": "dense"}))
+               ("phi3.5-moe-42b-a6.6b", {"moe_impl": "dense"}),
+               ("mamba2-130m", {}), ("recurrentgemma-2b", {}),
+               ("recurrentgemma-2b", {"remat": True}))
 
 
 def _digest(*arrays) -> str:
@@ -139,7 +141,7 @@ def train_digests() -> dict:
             *(g.numpy() for g in grads.values()),
             *(t.numpy() for t in metrics),
             *(p.detach().numpy() for p in model.parameters()))
-        if cfg.family == "moe":
+        if cfg.family in ("moe", "ssm", "hybrid"):
             st = model.init_state(3, 8)
             tok = torch.ones((3, 1), dtype=torch.int64)
             logits = []
@@ -147,7 +149,8 @@ def train_digests() -> dict:
                 lg = model.decode_step(st, tok, pos)
                 logits.append(lg.numpy())
                 tok = lg.argmax(-1, keepdim=True)
-            out[f"decode {arch} {over}"] = _digest(*logits)
+            out[f"decode {arch} {over}"] = _digest(
+                *logits, *(t.numpy() for t in st.leaves().values()))
     return out
 
 
