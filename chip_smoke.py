@@ -1,9 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the RAS pipeline on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the parent and its workers
+    python3 chip_smoke.py --one-process    # every phase in this process
+    python3 chip_smoke.py --worker heavy   # one worker's phases alone
 
-Phases (any failure raises and exits nonzero):
+The parent prints the card's name and power limit, builds every kernel,
+and runs the timed kernel comparisons (phases 2-6, 5a and 9-11 below,
+``PLAN["parent"]``) alone on the card.  Then it starts the workers
+(``WORKERS``: ``serve``, ``heavy``, ``ladder``), each ``python3
+chip_smoke.py --worker <name> --child``, which run the other phases on
+the same card at once, each its list of ``PLAN`` in order; the phases
+that pass objects stay in one worker, and the phases whose peaks the
+card could not hold twice (mixtral, remat, tensor parallel, recurrent
+placed, phi, vlm, audio) take turns in ``heavy``.  A phase starts when
+its recorded peak (``PEAK_GIB``) fits beside the running phases' on the
+card.  A worker loads the built kernels, prefixes its lines with its
+name (``[heavy] ...``), holds the mamba2, mixtral and phi slices' B6 and
+B2 timings until every other worker is done (then it has the card
+alone), and hands the parent its records (launch counts, kernel times,
+trainer cells) as one JSON line; the parent merges them into the one
+``kernels`` line, after the dry-run phase (``PLAN["after"]``) has read
+the trainers' cells.  A worker that exits nonzero, dies or sends no
+record stops the others and the script (exit 1), with its name and last
+lines on standard error.  Each phase prints its seconds and its peak of
+memory reserved on the card; the parent prints each worker's wall time
+and the whole script's.  ``--one-process`` runs every phase in
+``PHASES``' order in one process, with the same checks and records;
+``--worker <name>`` runs one worker's list alone (its held timings at
+once), for debugging.
+
+Phases (any failure raises and exits nonzero; the numbers name them,
+``PHASES`` gives their one-process order and ``PLAN`` their processes):
 
 1. print the card's name and power limit (``nvidia-smi``) and build every
    kernel from ``src/repro_torch/csrc/*.cu`` (one ``nvcc`` per source, in
@@ -153,8 +181,9 @@ Phases (any failure raises and exits nonzero):
    on the card on any of these kernel paths.  Every ratio is printed
    beside the reference's ``BENCH_ratio.json`` figure; the phase's
    launches are counted from 0.
-Each phase prints its seconds and the script's running total, on standard
-output and on standard error.  Every B2/B3/B4 launch is also held to the
+Each phase prints its seconds, its peak of reserved memory and its
+process's running total, on standard output and on standard error.  Every
+B2/B3/B4 launch is also held to the
 code path it must run (``rans_decode.last_branches``): B2's warp row path
 on the slice's rows, the slot-table path
 on the static tables of phases 4, 5 and 10, the warp row search on the
@@ -276,8 +305,8 @@ zero-frequency cases of 5a.
    two ``make_train_step`` steps (the first at the warmup's zero learning
    rate) within 1e-5 of the leaf's largest entry (the largest seen
    printed); the second step's time and the steps' peak memory of each;
-   the dry-run of each placed cell on the 1 x 1 mesh (``"model_axis":
-   "compute"``) gives the card's parameter, gradient and moment bytes,
+   the dry-run of each placed cell on the 1 x 1 mesh gives the card's
+   parameter, gradient and moment bytes,
    its total printed beside the peak, with the card's name and power
    limit.  No rANS kernel runs (counted);
 21c. the recurrent families' compute placement
@@ -330,14 +359,25 @@ zero-frequency cases of 5a.
    tokens; 4 decode steps and a 64-token forward within 1e-4); 2 BF16
    train steps of 2 x 256 tokens at 5 of 40 layers with the config's
    activation checkpointing (finite losses, step time, peak memory), then
-   2 without it (step time and peak printed beside);
+   2 without it (step time and peak printed beside).  The float32 cut,
+   its norm scales moved off their ones, placed for compute on the
+   world-1 mesh 1 x 1 (:func:`_ed_placed`; 8 kv heads replicated over
+   ``cfg.tp`` 16): trained plain and placed on 2 x 256 tokens and their
+   4,096-token memory (loss, gradients, prefill logits and parameters
+   after two steps within 1e-5 of each leaf's largest entry), a greedy
+   decode of 2 rows x 32 positions against a memory (placed: logits,
+   state and tokens bitwise the plain model's; with ``slots_at_one`` the
+   ``slots`` ring step within 1e-5, the tokens equal), and the dry-run of
+   the placed train and decode cells at the card's bytes;
 25. the encoder-decoder (``audio_phase``): ``seamless-m4t-large-v2`` whole
    (24 encoder + 24 ``dec`` layers, BF16): 2 x 1,024 x 1,024 encoder
    inputs through ``encode_memory``, then ``generate`` as in 24; one
    encoder and one ``dec`` layer in float32 card vs CPU (the encoder's
    output, 4 decode steps and a 64-token forward within 1e-4); 2 BF16
    train steps at full depth, with and without activation checkpointing,
-   as in 24.
+   as in 24; the float32 cut placed as in 24 (16 kv heads sharded over
+   ``cfg.tp`` 16; its encoder placed too, the decode's memory each
+   model's ``encode_memory`` of the same inputs, bitwise).
 20a. (right after 20) the BF16 checkpoint (``bf16_checkpoint_phase``):
    the ``mamba2-130m`` BF16 train state of phase 20 saved with
    ``train.checkpoint.save`` and restored into a fresh state on the card,
@@ -400,6 +440,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -2697,7 +2738,8 @@ def mamba2_phase(dev):
           f"symbols/s ({run['t_dec']:.3f} s); model step {step_ms:.3f} ms "
           f"({M2_LANES} rows); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
-    recs = _zoo_kernels(run, M2_BITS, "mamba2", wide=WIDE_K)
+    recs = _alone(functools.partial(_zoo_kernels, dict(run), M2_BITS,
+                                    "mamba2", wide=WIDE_K))
     _zoo_card_vs_cpu(*(init_model(cfg.with_(dtype="float32"), seed=1,
                                   device=d) for d in ("cpu", dev)),
                      M2_CPU_ROWS, M2_CPU_STEPS,
@@ -2888,8 +2930,7 @@ def _placed_serve(dev, model, rule, bits: int, what: str) -> dict:
         f"decode {MOE_DEC_ROWS}x{t_len}", t_len, MOE_DEC_ROWS, "decode"),
         mesh=mesh_shape_for(1), overrides={"n_layers": cfg.n_layers},
         verbose=False)
-    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
-           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    _check(rec["status"] == "OK", f"{what}: dry-run {rec.get('error')}")
     mem = rec["memory"]
     got_b = (mem["param_bytes"], mem["activation_bytes"])
     _check(got_b == (param_bytes, state_bytes), f"{what}: dry-run "
@@ -2912,7 +2953,8 @@ def _placed_serve(dev, model, rule, bits: int, what: str) -> dict:
 
 
 def _placed_train(dev, model, what: str, rows: int = MOE_TRAIN_ROWS,
-                  seq: int = MOE_TRAIN_SEQ, rule="experts") -> dict:
+                  seq: int = MOE_TRAIN_SEQ, rule="experts",
+                  overrides: dict | None = None) -> dict:
     """``model`` (full-width float32 layers) trained plain, in place, and
     placed on a world-1 NCCL mesh 1 x 1 from the same weights
     (``_tp_run``: ``grads_fn``'s loss and gradients, the prefill logits,
@@ -2920,8 +2962,9 @@ def _placed_train(dev, model, what: str, rows: int = MOE_TRAIN_ROWS,
     within 1e-5 of its largest entry, a MoE model under the MoE ``rule``
     (None without experts); step times and peaks; the dry-run of the
     placed train cell on the 1 x 1 mesh at the card's parameter, gradient
-    and moment bytes.  Returns the step times and the largest
-    differences."""
+    and moment bytes (the cut's ``overrides`` of its registry config
+    beside its depth, dtype and ``remat``).  Returns the step times and
+    the largest differences."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import ShapeSpec
@@ -2956,13 +2999,12 @@ def _placed_train(dev, model, what: str, rows: int = MOE_TRAIN_ROWS,
     finally:
         dist.destroy_process_group()
     over = dict(n_layers=cfg.n_layers, dtype=cfg.dtype, grad_accum=1,
-                remat=cfg.remat)
+                remat=cfg.remat, **(overrides or {}))
     rec = dryrun.run_cell(cfg.name, ShapeSpec(f"{rows}x{seq}", seq, rows,
                                               "train"),
                           mesh=mesh_shape_for(1), overrides=over,
                           verbose=False)
-    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
-           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    _check(rec["status"] == "OK", f"{what}: dry-run {rec.get('error')}")
     mem = rec["memory"]
     got = (mem["param_bytes"], mem["grad_bytes"], mem["optimizer_bytes"])
     want = (o["param_bytes"], o["grad_bytes"], o["moment_bytes"])
@@ -3023,7 +3065,8 @@ def moe_phase(dev):
           f"symbols/s ({run['t_dec']:.3f} s); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
     _mx_step(dev, model, MX_LANES, MX_T, "mixtral")
-    recs = _zoo_kernels(run, MX_BITS, "mixtral")
+    recs = _alone(functools.partial(_zoo_kernels, dict(run), MX_BITS,
+                                    "mixtral"))
     # one float32 layer drawn on the card, its weights copied to the CPU
     one = CONFIG.with_(n_layers=1, dtype="float32")
     card = init_model(one, seed=1, device=dev, draw="device")
@@ -3463,10 +3506,17 @@ def _tp_run(model, batch: dict, steps: list, device_mesh=None) -> dict:
     from repro_torch.train import train_loop
     pl = model.placement
     loss, grads = train_loop.grads_fn(model, batch)
+    p = model.embedding
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64,
-                             device=model.embedding.device)
+                             device=p.device)
+    mem = {k: torch.as_tensor(batch[k], device=p.device).to(p.dtype)
+           for k in ("memory", "enc_inputs") if k in batch}
     with torch.no_grad():
-        x, _ = model(tokens if pl is None else pl.rows(tokens))
+        if pl is None:
+            x, _ = model(tokens, **mem)
+        else:
+            x, _ = model(pl.rows(tokens),
+                         **{k: pl.rows(v) for k, v in mem.items()})
         lg = model._logits(x)
     del x
     state = train_loop.init_train_state(model)
@@ -3717,8 +3767,7 @@ def tensor_parallel_phase(dev):
         rec = dryrun.run_cell(TP_ARCH, shape, mesh=mesh_shape_for(1),
                               overrides={**over, "act_pspec": pspec},
                               verbose=False)
-        _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
-               f"{what}: dry-run {rec.get('model_axis')} "
+        _check(rec["status"] == "OK", f"{what}: dry-run "
                f"{rec.get('error')}")
         mem = rec["memory"]
         got = (mem["param_bytes"], mem["grad_bytes"], mem["optimizer_bytes"])
@@ -3741,8 +3790,8 @@ def tensor_parallel_phase(dev):
                                              TP_SEQ, TP_ROWS, "decode"),
                           mesh=mesh_shape_for(1), overrides=over,
                           verbose=False)
-    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
-           f"{dec_what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    _check(rec["status"] == "OK",
+           f"{dec_what}: dry-run {rec.get('error')}")
     mem = rec["memory"]
     got = (mem["param_bytes"], mem["activation_bytes"])
     want = (dec["param_bytes"], dec["state_bytes"])
@@ -3867,8 +3916,7 @@ def _hybrid_placed_decode(dev, whole, what: str) -> None:
         mesh=mesh_shape_for(1), overrides={"n_layers": cfg.n_layers,
                                            "dtype": cfg.dtype},
         verbose=False)
-    _check(rec["status"] == "OK" and rec["model_axis"] == "compute",
-           f"{what}: dry-run {rec.get('model_axis')} {rec.get('error')}")
+    _check(rec["status"] == "OK", f"{what}: dry-run {rec.get('error')}")
     mem = rec["memory"]
     got = (mem["param_bytes"], mem["activation_bytes"])
     _check(got == (param_bytes, state_bytes), f"{what}: dry-run parameter "
@@ -4038,7 +4086,8 @@ def phi_phase(dev):
           f"symbols/s ({run['t_dec']:.3f} s); peak memory "
           f"{run['peak'] / 2**30:.2f} GiB", flush=True)
     _mx_step(dev, model, PHI_LANES, PHI_T, "phi")
-    recs = _zoo_kernels(run, PHI_BITS, "phi")
+    recs = _alone(functools.partial(_zoo_kernels, dict(run), PHI_BITS,
+                                    "phi"))
     del run["b6_batch"], run["b6_pos"], run["b2_pop"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -4130,7 +4179,7 @@ def _ed_card_vs_cpu(cfg, dev, memory_cpu, what: str):
     ``ED_CPU_STEPS`` decode steps of 2 rows and an ``ED_FWD_T``-token
     forward against ``memory_cpu`` (or, for an encoder-decoder, the
     memory each side encodes from the same inputs), logits within 1e-4;
-    the encoder's output too."""
+    the encoder's output too.  Returns the card's model."""
     import torch
     from repro_torch.models import LM, encode_memory, init_model
 
@@ -4161,6 +4210,7 @@ def _ed_card_vs_cpu(cfg, dev, memory_cpu, what: str):
            f"{what}: forward logits differ from the CPU's by {err}")
     print(f"{what}: {ED_FWD_T}-token forward, card vs CPU: max abs logit "
           f"diff {err:.3e} (tolerance 1e-4)", flush=True)
+    return card
 
 
 def _ed_train(cfg, dev, what: str, arch: str):
@@ -4213,6 +4263,140 @@ def _ed_train(cfg, dev, what: str, arch: str):
     return record
 
 
+# cross attention's and the encoder-decoder's compute placement on the
+# world-1 NCCL mesh 1 x 1, with the card-vs-CPU cuts: trained plain and
+# placed on ED_PLACED_ROWS x ED_PLACED_SEQ train_batch tokens (and their
+# memory or encoder-input plane), and a greedy decode of ED_ROWS rows for
+# ED_PLACED_T positions against a memory
+ED_PLACED_ROWS, ED_PLACED_SEQ, ED_PLACED_T = 2, 256, 32
+ED_CONSTANT = ("ln1", "ln2", "ln_cross", "final_norm")
+
+
+def _ed_placed(dev, model, what: str, overrides: dict) -> None:
+    """``model`` (a vlm or audio float32 cut on the card, its norm
+    scales moved off their ones by seeded draws) placed for compute on
+    the world-1 mesh: trained plain and then placed
+    (:func:`_placed_train`, the dry-run of the train cell at the cut's
+    ``overrides``), then the placed greedy decode
+    (:func:`_ed_placed_decode`)."""
+    import torch
+    g = torch.Generator(device=model.embedding.device).manual_seed(3)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ED_CONSTANT:
+                p.add_(0.1 * torch.randn(p.shape, generator=g,
+                                         device=p.device))
+    _placed_train(dev, model, f"{what} trainer, {ED_PLACED_ROWS} x "
+                  f"{ED_PLACED_SEQ} tokens", rows=ED_PLACED_ROWS,
+                  seq=ED_PLACED_SEQ, rule=None, overrides=overrides)
+    torch.cuda.empty_cache()
+    _ed_placed_decode(dev, model, f"{what} decode", overrides)
+
+
+def _ed_placed_decode(dev, whole, what: str, overrides: dict) -> None:
+    """``whole`` and its placements on a world-1 NCCL mesh 1 x 1 each
+    decode ``ED_ROWS`` rows greedily for ``ED_PLACED_T`` positions from
+    seeded first tokens against a ``train_batch`` memory (an
+    encoder-decoder's: each model's ``encode_memory`` of the same encoder
+    inputs, the placed encoder's bitwise the plain one's): by default
+    each step's logits, the memory and every state leaf bitwise the plain
+    model's; with ``slots_at_one`` (the context-parallel ``slots`` step
+    where the ring's slots are placed) within 1e-5 of the largest entry;
+    the generated tokens equal; the layout each step ran; the dry-run of
+    the placed decode cell on the 1 x 1 mesh at the card's parameter and
+    state bytes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for, mesh_shape_for
+    from repro_torch.models import encode_memory
+    from repro_torch.parallel import sharding
+    cfg, n = whole.cfg, ED_PLACED_T
+    smi = _smi()
+    rng = np.random.default_rng(31)
+    first = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ED_ROWS, 1)),
+                            device=dev)
+    _, memory, enc = _ed_inputs(cfg, ED_ROWS, n, dev, seed=3)
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        models = {"plain": whole, "placed": sharding.place_model(whole, dm),
+                  "slots": sharding.place_model(whole, dm,
+                                                slots_at_one=True)}
+        out = {}
+        for name, m in models.items():
+            pl = m.placement
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mem = memory
+            if enc is not None:
+                with torch.no_grad():
+                    mem = encode_memory(m, enc)
+            st = m.init_state(ED_ROWS, n)
+            tok, lgs, toks = first, [], []
+            for t in range(n):
+                lg = m.decode_step(st, tok, t, memory=mem)
+                lg = lg if pl is None else pl.whole_vocab(lg)
+                tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+                lgs.append(lg)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            out[name] = dict(ms=1e3 * (time.perf_counter() - t0) / n,
+                             logits=lgs, tokens=torch.cat(toks, 1),
+                             memory=mem, state=st)
+        layouts = {k: models[k].placement.serving(n).ring
+                   for k in ("placed", "slots")}
+        plain, placed = out["plain"], out["placed"]
+        _check(torch.equal(placed["memory"], plain["memory"])
+               and all(torch.equal(a, b) for a, b in zip(placed["logits"],
+                                                         plain["logits"]))
+               and all(torch.equal(t, plain["state"].leaves()[k])
+                       for k, t in placed["state"].leaves().items()),
+               f"{what}: the placed decode is not bitwise the plain "
+               "model's")
+        pl = models["slots"].placement
+        worst = max(_tp_worst({"l": a}, {"l": b},
+                              f"{what}: slots_at_one step {t} logits")
+                    for t, (a, b) in enumerate(zip(out["slots"]["logits"],
+                                                   plain["logits"])))
+        state_worst = _tp_worst(
+            pl.unplace_state(out["slots"]["state"]).leaves(),
+            plain["state"].leaves(), f"{what}: slots_at_one state")
+        _check(all(torch.equal(o["tokens"], plain["tokens"])
+                   for o in out.values()),
+               f"{what}: the greedy tokens differ between the placements")
+        param_bytes = _nbytes(models["placed"].parameters())
+        state_bytes = _nbytes(placed["state"].leaves().values())
+        ms = {k: o["ms"] for k, o in out.items()}
+        del models, out, plain, placed
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rec = dryrun.run_cell(cfg.name, ShapeSpec(f"decode {ED_ROWS}x{n}", n,
+                                              ED_ROWS, "decode"),
+                          mesh=mesh_shape_for(1), overrides={
+                              "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                              **overrides}, verbose=False)
+    _check(rec["status"] == "OK", f"{what}: dry-run {rec.get('error')}")
+    mem = rec["memory"]
+    got = (mem["param_bytes"], mem["activation_bytes"])
+    _check(got == (param_bytes, state_bytes), f"{what}: dry-run parameter "
+           f"and state bytes {got}, the card's {(param_bytes, state_bytes)}")
+    print(f"{what}: {ED_ROWS} rows x {n} positions greedy against the "
+          f"memory; placed (the step's ring layout {layouts['placed']!r}) "
+          f"each step's logits, the memory and every state leaf bitwise "
+          f"the plain model's; with slots_at_one (layout "
+          f"{layouts['slots']!r}) logits within {worst:.3e} and state "
+          f"within {state_worst:.3e} of the largest entry (limit 1e-5); "
+          f"the generated tokens equal; a step {ms['plain']:.3f} / "
+          f"{ms['placed']:.3f} / {ms['slots']:.3f} ms plain / placed / "
+          f"slots (host wall, the memory's encoding included); dry-run of "
+          f"the placed decode cell on the 1x1 mesh: parameter and state "
+          f"bytes {got} equal to the card's ({smi})", flush=True)
+
+
 def vlm_phase(dev):
     """``llama-3.2-vision-11b`` whole (40 layers: 8 x (4 ``attn`` + 1
     ``cross``), BF16, drawn on the card) against a (2, 4,096, 4,096) BF16
@@ -4245,8 +4429,15 @@ def vlm_phase(dev):
     cut = CONFIG.with_(n_layers=2, cross_attn_every=2, dtype="float32")
     mem = torch.randn((ED_ROWS, VLM_CPU_MEMORY, CONFIG.d_model),
                       generator=torch.Generator().manual_seed(2)) * 0.02
-    _ed_card_vs_cpu(cut, dev, mem, "vlm: one (attn, cross) pattern at full "
-                    f"width in float32, memory {VLM_CPU_MEMORY} tokens")
+    card = _ed_card_vs_cpu(cut, dev, mem, "vlm: one (attn, cross) pattern "
+                           f"at full width in float32, memory "
+                           f"{VLM_CPU_MEMORY} tokens")
+    t1 = time.perf_counter()
+    _ed_placed(dev, card, "vlm placed: one (attn, cross) pattern (float32)",
+               {"cross_attn_every": 2})
+    del card
+    torch.cuda.empty_cache()
+    print(f"vlm placed: {time.perf_counter() - t1:.1f} s", flush=True)
     record = _ed_train(CONFIG.with_(n_layers=VLM_TRAIN_LAYERS), dev,
                        "vlm trainer", "llama-3.2-vision-11b")
     print(f"vlm: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4289,8 +4480,14 @@ def audio_phase(dev):
     cut = CONFIG.with_(n_layers=1, encoder_layers=1, dtype="float32")
     enc_cpu = torch.randn((ED_ROWS, CONFIG.memory_tokens, CONFIG.d_model),
                           generator=torch.Generator().manual_seed(2)) * 0.02
-    _ed_card_vs_cpu(cut, dev, enc_cpu, "audio: one encoder and one dec "
-                    "layer at full width in float32")
+    card = _ed_card_vs_cpu(cut, dev, enc_cpu, "audio: one encoder and one "
+                           "dec layer at full width in float32")
+    t1 = time.perf_counter()
+    _ed_placed(dev, card, "audio placed: one encoder and one dec layer "
+               "(float32)", {"encoder_layers": 1})
+    del card
+    torch.cuda.empty_cache()
+    print(f"audio placed: {time.perf_counter() - t1:.1f} s", flush=True)
     _ed_train(CONFIG, dev, "audio trainer", "seamless-m4t-large-v2")
     print(f"audio: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -5200,20 +5397,426 @@ def mesh_dryrun_phase(dev, cells: list) -> dict:
     return launches
 
 
-def main() -> int:
+# --- driving the phases: the parent and its workers on the one card ---------
+
+# Every phase in the order one process runs them (``--one-process``): name
+# -> (the function, the names of the objects it reads, the names of the
+# objects it makes, in the order it returns them).  ``dev`` is the card.
+PHASES = {
+    "B1 encode": (encode_phase, ("dev",), ("b1", "encoded")),
+    "B2 decode step": (decode_phase, ("dev", "encoded"), ("b2",)),
+    "B3/B4 chunked decode": (chunked_decode_phase, ("dev", "encoded"),
+                             ("b4",)),
+    "B5 records": (records_phase, ("dev", "encoded"), ("b5",)),
+    "Fig. 4(b)": (fig4b_phase, ("dev",), ("fig4b",)),
+    "image": (image_phase, ("dev",), ("b3", "image_launches", "b1_image")),
+    "B3/B4 cases": (decode_cases_phase, ("dev",), ("cases",)),
+    "reference check": (reference_check, ("dev",), ()),
+    "slice": (main_path, ("dev",), ("slice_launches", "slice_run")),
+    "two-pass": (two_pass_phase, ("slice_run",), ("two_pass_launches",)),
+    "C3 row invariance": (
+        lambda dev, run: row_invariance_phase(dev, run["model"]),
+        ("dev", "slice_run"), ()),
+    "C4 prefill": (lambda dev, run: prefill_phase(dev, run["model"]),
+                   ("dev", "slice_run"), ()),
+    "bench_serve point": (
+        lambda dev, run: bench_serve_phase(dev, run["model"])["served"],
+        ("dev", "slice_run"), ("served",)),
+    "engine": (lambda dev, run: engine_phase(dev, run["model"])[0],
+               ("dev", "slice_run"), ("engine_launches",)),
+    "placement": (lambda dev, run, served: placement_phase(
+        dev, run, served)[0], ("dev", "slice_run", "served"),
+        ("placement_launches",)),
+    "Fig. 4(a)": (fig4a_phase, ("dev",), ("fig4a",)),
+    "B6 SPC": (spc_phase, ("dev",), ("b6",)),
+    "Fig. 4(c)": (fig4c_phase, ("dev",), ("fig4c_launches", "pimc_smoke")),
+    "mamba2 slice": (mamba2_phase, ("dev",),
+                     ("m2_launches", "m2", "m2_placed")),
+    "mixtral slice": (moe_phase, ("dev",), ("mx_launches", "mx",
+                                            "mx_placed")),
+    "zoo rungs": (zoo_phase, ("dev", "pimc_smoke"), ("zoo_launches",)),
+    "mamba2 trainer": (mamba2_train_phase, ("dev",), ("m2_state",
+                                                      "m2_cell")),
+    "BF16 checkpoint": (bf16_checkpoint_phase, ("dev", "m2_state"), ()),
+    "dense zoo": (dense_zoo_phase, ("dev",), ()),
+    "tensor parallel": (tensor_parallel_phase, ("dev",), ("tp_launches",)),
+    "recurrent placed": (recurrent_placed_phase, ("dev",), ()),
+    "audio": (audio_phase, ("dev",), ()),
+    "top-k": (topk_phase, ("dev",), ()),
+    "lanes sweep": (lanes_phase, ("dev",), ("lanes_launches",)),
+    "remat": (remat_phase, ("dev",), ()),
+    "phi slice": (phi_phase, ("dev",), ("phi_launches", "phi",
+                                        "phi_placed")),
+    "vlm": (vlm_phase, ("dev",), ("vlm_cell",)),
+    "trainer": (trainer_phase, ("dev",), ("trainer_launches",)),
+    "launchers": (launchers_phase, ("dev",), ("launcher_launches",)),
+    "examples": (examples_phase, ("dev",), ("example_launches",)),
+    "chunked sweep": (chunked_phase, ("dev",), ("chunked_launches",)),
+    "production mesh and dry-run": (
+        lambda dev, m2_cell, vlm_cell: mesh_dryrun_phase(
+            dev, [m2_cell, vlm_cell]),
+        ("dev", "m2_cell", "vlm_cell"), ("dryrun_launches",)),
+}
+
+# The timed kernel comparisons, which the parent runs alone before any
+# worker starts (their CUDA-event medians are PERF.md's kernel times), the
+# phases of each worker, in order, and the phase the parent runs after
+# the workers, on their records.  The phases whose peaks the card could
+# not hold twice share the "heavy" worker, in turn; each phase that
+# reads another's object runs in its producer's process, after it (the
+# dry-run reads two workers' trainer records).  The mamba2, mixtral and
+# phi slices' B2 and B6 timings wait in that worker until every other
+# worker is done (``_alone``).
+PLAN = {
+    "parent": ("B1 encode", "B2 decode step", "B3/B4 chunked decode",
+               "B5 records", "Fig. 4(b)", "image", "B3/B4 cases",
+               "reference check", "Fig. 4(a)", "B6 SPC"),
+    "serve": ("slice", "two-pass", "C3 row invariance", "C4 prefill",
+              "bench_serve point", "engine", "placement"),
+    # the largest peaks (remat, phi, vlm) last: beside the placement
+    # phase's, not the engine's
+    "heavy": ("mamba2 slice", "mixtral slice", "dense zoo",
+              "tensor parallel", "recurrent placed", "audio", "top-k",
+              "lanes sweep", "remat", "phi slice", "vlm"),
+    "ladder": ("Fig. 4(c)", "zoo rungs", "mamba2 trainer",
+               "BF16 checkpoint", "trainer", "launchers", "examples",
+               "chunked sweep"),
+    "after": ("production mesh and dry-run",),
+}
+WORKERS = ("serve", "heavy", "ladder")
+# what the parent's merge and its last phase read: the kernels' records,
+# every path's launch counts and the trainers' cells (the rest of a
+# phase's objects stay in its process)
+RECORDS = ("b1", "b2", "b3", "b4", "b5", "b6", "b1_image", "fig4b", "cases",
+           "fig4a", "image_launches", "slice_launches",
+           "two_pass_launches", "engine_launches", "placement_launches",
+           "fig4c_launches", "m2_launches", "m2", "m2_placed",
+           "mx_launches", "mx", "mx_placed", "zoo_launches", "tp_launches",
+           "phi_launches", "phi", "phi_placed", "trainer_launches",
+           "launcher_launches", "example_launches", "lanes_launches",
+           "chunked_launches", "dryrun_launches", "m2_cell", "vlm_cell")
+
+# Each phase's peak of memory reserved on the card (GiB; NVIDIA H100 80GB
+# HBM3, 700 W: a worker run's, the heavy worker's with the held timings'
+# inputs, or a one-process run's where that is larger).  A worker starts
+# a phase when the peaks of the phases running in every worker, each
+# plus PEAK_MARGIN_GIB, leave room for its own under CARD_BUDGET_GIB (the
+# card's 79.2 GiB less the processes' CUDA contexts); a phase of at most
+# SMALL_GIB may pass one that waits.  A phase missing here runs with the
+# card's memory to itself.
+PEAK_GIB = {
+    "slice": 2.53, "two-pass": 0.88, "C3 row invariance": 16.69,
+    "C4 prefill": 6.90, "bench_serve point": 0.07, "engine": 13.22,
+    "placement": 5.60, "Fig. 4(c)": 1.48, "mamba2 slice": 27.48,
+    "mixtral slice": 55.04, "zoo rungs": 0.40, "mamba2 trainer": 11.64,
+    "BF16 checkpoint": 2.65, "dense zoo": 8.47, "remat": 61.09,
+    "tensor parallel": 48.87, "recurrent placed": 46.40, "top-k": 3.21,
+    "phi slice": 67.04, "vlm": 62.77, "audio": 51.06, "trainer": 0.36,
+    "launchers": 0.20, "examples": 0.18, "lanes sweep": 3.71,
+    "chunked sweep": 0.18,
+}
+PEAK_MARGIN_GIB, CARD_BUDGET_GIB, SMALL_GIB = 0.5, 76.0, 4.0
+
+
+def _budget(phase: str) -> float:
+    return PEAK_GIB.get(phase, CARD_BUDGET_GIB) + PEAK_MARGIN_GIB
+
+
+# the kernel timings a worker of the parent holds until the card is its
+# own (``_alone``); None in a process that runs them at once
+_DEFERRED: list | None = None
+
+
+def _alone(fn) -> dict:
+    """``fn()``, a dict of timed kernel comparisons.  In a worker of the
+    parent the call is held until every other worker is done, and the
+    dict returned now is filled then (the worker's last step, with the
+    card to itself); elsewhere it runs at once."""
+    out: dict = {}
+    if _DEFERRED is None:
+        out.update(fn())
+    else:
+        _DEFERRED.append((out, fn))
+    return out
+
+
+def _timed(name: str, fn, *args, t0: float):
+    """``fn(*args)`` as one phase: the allocator's cache emptied first,
+    then the phase's seconds and its peak of memory reserved on the card
+    (``max_memory_reserved``, kept across the resets the phase makes
+    itself) printed on standard output and standard error."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = [0]
+    reset = torch.cuda.reset_peak_memory_stats
+
+    def keep(*a, **kw):
+        seen[0] = max(seen[0], torch.cuda.max_memory_reserved())
+        return reset(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats = keep
+    reset()
+    t1 = time.perf_counter()
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.reset_peak_memory_stats = reset
+    peak = max(seen[0], torch.cuda.max_memory_reserved()) / 2**30
+    line = (f"phase {name}: {time.perf_counter() - t1:.1f} s, peak "
+            f"{peak:.2f} GiB ({time.perf_counter() - t0:.1f} s in all)")
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    return out
+
+
+def _run_phases(names, ctx: dict, t0: float, child: bool = False) -> None:
+    """Run the phases ``names`` in order in this process, each reading
+    its objects from ``ctx`` and putting what it makes there; an object
+    that is not a record is dropped after the last of ``names`` that
+    reads it.  In a worker of the parent (``child``) each phase starts
+    when the parent gives it the card's memory (``@@phase <name>``, then
+    ``go`` on standard input) and gives it back when the phase's memory
+    is freed (``@@done``)."""
+    import gc
+    import torch
+    last = {a: i for i, n in enumerate(names) for a in PHASES[n][1]}
+    for i, name in enumerate(names):
+        fn, reads, makes = PHASES[name]
+        if child:
+            t1 = time.perf_counter()
+            print(f"@@phase {name}", flush=True)
+            if sys.stdin.readline().strip() != "go":
+                raise RuntimeError(f"the parent did not start {name}")
+            print(f"{name}: waited {time.perf_counter() - t1:.1f} s for "
+                  "the card's memory", flush=True)
+        out = _timed(name, fn, *(ctx[a] for a in reads), t0=t0)
+        if len(makes) == 1:
+            out = (out,)
+        if makes:
+            ctx.update(zip(makes, out))
+        for a in reads:
+            if last[a] == i and a != "dev" and a not in RECORDS:
+                del ctx[a]
+        if child:
+            del out
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            print("@@done", flush=True)
+
+
+def _run_deferred(t0: float) -> None:
+    """The kernel timings held by :func:`_alone`, once the parent has
+    given this worker the card."""
+    print("@@alone", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        raise RuntimeError("the parent did not give the card")
+    _timed("large-K kernels, alone on the card",
+           lambda: [out.update(fn()) for out, fn in _DEFERRED], t0=t0)
+
+
+def _worker(name: str, child: bool) -> int:
+    """Run worker ``name``'s phases (:data:`PLAN`) on the card and hand
+    its records to the parent as one JSON line (``child``), or print them
+    (a worker run alone, for debugging: ``python3 chip_smoke.py --worker
+    <name>``; its held kernel timings then run at once)."""
+    global _DEFERRED
+    from repro_torch.device import configure_cuda_numerics, resolve_device
+    t0 = time.perf_counter()
+    configure_cuda_numerics()
+    ctx = {"dev": resolve_device(None)}
+    if child:
+        _DEFERRED = []
+    _run_phases(PLAN[name], ctx, t0, child)
+    if _DEFERRED:
+        _run_deferred(t0)
+    records = {k: ctx[k] for k in RECORDS if k in ctx}
+    print(("@@records " if child else "") + json.dumps(records), flush=True)
+    return 0
+
+
+class _Workers:
+    """The worker processes of the parent on the one card: each runs
+    ``python3 chip_smoke.py --worker <name> --child`` (or ``command(name)``);
+    their lines are relayed with the worker's name in front.  A worker
+    asks before each phase (``@@phase <name>``): the phase starts (``go``
+    on its standard input) when its peak (:data:`PEAK_GIB`) fits beside
+    the running phases' under :data:`CARD_BUDGET_GIB`, in the order
+    asked, a phase of at most :data:`SMALL_GIB` passing one that waits;
+    ``@@done`` gives the memory back.  A worker that asks for the card
+    alone (``@@alone``) gets it once every other worker is done or asking
+    for it too, one at a time."""
+
+    def __init__(self, names, t0: float, command=None, budget=_budget):
+        import collections
+        import os
+        import queue
+        import threading
+        self.t0, self.events, self.budget = t0, queue.Queue(), budget
+        self.procs, self.tails, self.records, self.secs = {}, {}, {}, {}
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        command = command or (lambda name: [
+            sys.executable, str(Path(__file__).resolve()), "--worker", name,
+            "--child"])
+        for name in names:
+            proc = subprocess.Popen(
+                command(name), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                bufsize=1, env=env)
+            self.procs[name] = (proc, time.perf_counter())
+            self.tails[name] = collections.deque(maxlen=40)
+            for stream in ("stdout", "stderr"):
+                threading.Thread(target=self._relay, daemon=True, args=(
+                    name, stream, getattr(proc, stream))).start()
+
+    def _relay(self, name: str, stream: str, pipe) -> None:
+        for line in pipe:
+            line = line.rstrip("\n")
+            if stream == "stdout" and line in ("@@alone", "@@done"):
+                self.events.put((line[2:], name, None))
+            elif stream == "stdout" and line.startswith("@@phase "):
+                self.events.put(("phase", name, line[len("@@phase "):]))
+            elif stream == "stdout" and line.startswith("@@records "):
+                self.records[name] = json.loads(line[len("@@records "):])
+            else:
+                self.tails[name].append(f"{stream}: {line}")
+                print(f"[{name}] {line}", flush=True,
+                      file=sys.stdout if stream == "stdout" else sys.stderr)
+        self.events.put(("eof", name, None))
+
+    def _fail(self, name: str, why: str) -> None:
+        tail = "\n".join(self.tails[name])
+        print(f"chip_smoke: worker {name} {why}; its last lines:\n{tail}",
+              file=sys.stderr, flush=True)
+        raise SystemExit(1)
+
+    def _go(self, name: str) -> None:
+        self.procs[name][0].stdin.write("go\n")
+        self.procs[name][0].stdin.flush()
+
+    def run(self) -> dict:
+        """Wait for every worker; returns the records by worker.  A worker
+        that exits nonzero, dies or sends no record stops the others and
+        the script (exit 1), its name and last lines on standard
+        error."""
+        eofs = dict.fromkeys(self.procs, 0)
+        live, running, asked, alone, given = set(self.procs), {}, [], [], None
+        try:
+            while live:
+                kind, name, phase = self.events.get()
+                if kind == "phase":
+                    asked.append((name, self.budget(phase)))
+                elif kind == "done":
+                    running.pop(name)
+                elif kind == "alone":
+                    alone.append(name)
+                elif eofs[name] == 0:
+                    eofs[name] = 1
+                else:
+                    proc, start = self.procs[name]
+                    rc = proc.wait()
+                    self.secs[name] = time.perf_counter() - start
+                    live.discard(name)
+                    running.pop(name, None)
+                    if rc:
+                        self._fail(name, f"exited with {rc}")
+                    if name not in self.records:
+                        self._fail(name, "sent no record")
+                    print(f"worker {name}: {self.secs[name]:.1f} s "
+                          f"({time.perf_counter() - self.t0:.1f} s in "
+                          "all)", flush=True)
+                if given not in live and alone and live <= set(alone):
+                    given = alone.pop(0)
+                    self._go(given)
+                used, blocked = sum(running.values()), False
+                for req in list(asked):
+                    w, gib = req
+                    if (not blocked or gib <= SMALL_GIB) and (
+                            not running or used + gib <= CARD_BUDGET_GIB):
+                        asked.remove(req)
+                        running[w] = gib
+                        used += gib
+                        self._go(w)
+                    else:
+                        blocked = True
+        finally:
+            for proc, _ in self.procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return self.records
+
+
+def _kernel_records(r: dict) -> list:
+    """The six kernels' records from every phase's (``r``): their device
+    times at each shape, their largest differences from the plain
+    versions, and each path's launch counts."""
+    b1, b2, b3, b4, b5, b6 = (dict(r[k]) for k in ("b1", "b2", "b3", "b4",
+                                                   "b5", "b6"))
+    b1.update(r["b1_image"])
+    b3_err, b3_fig4b_ms, b3_fig4b_call_ms = r["fig4b"]
+    b3_cases_err, b4_cases_err = r["cases"]
+    b3["max_abs_err"] = max(b3["max_abs_err"], b3_err, b3_cases_err)
+    b4["max_abs_err"] = max(b4["max_abs_err"], b4_cases_err)
+    b3.update(b3_fig4b_ms=b3_fig4b_ms, b3_fig4b_call_ms=b3_fig4b_call_ms,
+              b3_slice_ms=b4["b3_chunked_ms"],
+              b3_slice_call_ms=b4["b3_chunked_call_ms"])
+    b5.update(r["fig4a"])
+    b1.update(b1_fig4a_ms=b5["b1_fig4a_ms"])
+    b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
+              b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
+    # B6 and B2 at the large-K slices' shapes
+    for tag, k in (("mamba2", "m2"), ("moe", "mx"), ("phi", "phi")):
+        big = r[k]
+        b6.update({f"{tag}_{shape}_{f}": big[shape][f]
+                   for shape in ("batch", "position")
+                   for f in ("ms", "plain_ms", "bound_ms")})
+        b6["max_abs_err"] = max(b6["max_abs_err"], big["batch"]["err"],
+                                big["position"]["err"])
+        b2.update({f"{tag}_{f}": big["b2"][f]
+                   for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        b2["max_abs_err"] = max(b2["max_abs_err"], big["b2"]["err"])
+    # each kernel's launches on the main path that runs it
+    for rec, launches in ((b1, "slice"), (b2, "slice"), (b3, "image"),
+                          (b4, "two_pass"), (b6, "slice")):
+        rec["launches"] = r[f"{launches}_launches"][rec["name"]]
+    moe_placed = _add(r["mx_placed"], r["phi_placed"])
+    paths = (("engine", "engine"), ("placement", "placement"),
+             ("fig4c", "fig4c"), ("mamba2", "m2"), ("moe", "mx"),
+             ("zoo", "zoo"), ("phi", "phi"), ("moe_placed", None),
+             ("recurrent_placed", None), ("tensor_parallel", "tp"),
+             ("trainer", "trainer"), ("launchers", "launcher"),
+             ("examples", "example"), ("lanes", "lanes"),
+             ("chunked", "chunked"), ("dryrun", "dryrun"))
+    for rec in (b1, b2, b3, b4, b5, b6):
+        for field, key in paths:
+            launches = (moe_placed if field == "moe_placed"
+                        else r["m2_placed"] if field == "recurrent_placed"
+                        else r[f"{key}_launches"])
+            rec[f"{field}_launches"] = launches[rec["name"]]
+    return [b1, b2, b3, b4, b5, b6]
+
+
+def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from repro_torch.device import configure_cuda_numerics, resolve_device
+        import repro_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    if argv[:1] == ["--worker"]:
+        return _worker(argv[1], "--child" in argv)
+    from repro_torch.device import configure_cuda_numerics, resolve_device
+    one = "--one-process" in argv
+    t0 = time.perf_counter()
     configure_cuda_numerics()
-    dev = resolve_device(None)
+    ctx = {"dev": resolve_device(None)}
     smi = _smi()
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5223,144 +5826,21 @@ def main() -> int:
     secs = _build.build_all(verbose=True)
     print(f"build: {secs:.2f} s for {len(list(_build.CSRC.glob('*.cu')))} "
           "sources", flush=True)
-
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        line = (f"phase {name}: {time.perf_counter() - t0:.1f} s "
-                f"({time.perf_counter() - t_start:.1f} s in all)")
-        print(line, flush=True)
-        print(line, file=sys.stderr, flush=True)
-        return out
-
-    b1, encoded = timed("B1 encode", encode_phase, dev)
-    b2 = timed("B2 decode step", decode_phase, dev, encoded)
-    b4 = timed("B3/B4 chunked decode", chunked_decode_phase, dev, encoded)
-    b5 = timed("B5 records", records_phase, dev, encoded)
-    del encoded
-    torch.cuda.empty_cache()
-    b3_err, b3_fig4b_ms, b3_fig4b_call_ms = timed("Fig. 4(b)", fig4b_phase,
-                                                  dev)
-    b3, image_launches, b1_image = timed("image", image_phase, dev)
-    b1.update(b1_image)
-    b3_cases_err, b4_cases_err = timed("B3/B4 cases", decode_cases_phase,
-                                       dev)
-    b3["max_abs_err"] = max(b3["max_abs_err"], b3_err, b3_cases_err)
-    b4["max_abs_err"] = max(b4["max_abs_err"], b4_cases_err)
-    b3.update(b3_fig4b_ms=b3_fig4b_ms, b3_fig4b_call_ms=b3_fig4b_call_ms,
-              b3_slice_ms=b4["b3_chunked_ms"],
-              b3_slice_call_ms=b4["b3_chunked_call_ms"])
-    timed("reference check", reference_check, dev)
-    slice_launches, slice_run = timed("slice", main_path, dev)
-    two_pass_launches = timed("two-pass", two_pass_phase, slice_run)
-    model = slice_run["model"]
-    timed("C3 row invariance", row_invariance_phase, dev, model)
-    timed("C4 prefill", prefill_phase, dev, model)
-    served = timed("bench_serve point", bench_serve_phase, dev,
-                   model)["served"]
-    engine_launches, _ = timed("engine", engine_phase, dev, model)
-    placement_launches, _ = timed("placement", placement_phase, dev,
-                                  slice_run, served)
-    del served
-    del slice_run, model
-    torch.cuda.empty_cache()
-    b5.update(timed("Fig. 4(a)", fig4a_phase, dev))
-    b1.update(b1_fig4a_ms=b5["b1_fig4a_ms"])
-    b3.update(b3_fig4a_ms=b5["b3_fig4a_ms"],
-              b3_fig4a_call_ms=b5["b3_fig4a_call_ms"])
-    b6 = timed("B6 SPC", spc_phase, dev)
-    fig4c_launches, pimc_smoke = timed("Fig. 4(c)", fig4c_phase, dev)
-    torch.cuda.empty_cache()
-    m2_launches, m2, m2_placed = timed("mamba2 slice", mamba2_phase, dev)
-    b6.update(mamba2_batch_ms=m2["batch"]["ms"],
-              mamba2_batch_plain_ms=m2["batch"]["plain_ms"],
-              mamba2_batch_bound_ms=m2["batch"]["bound_ms"],
-              mamba2_position_ms=m2["position"]["ms"],
-              mamba2_position_plain_ms=m2["position"]["plain_ms"],
-              mamba2_position_bound_ms=m2["position"]["bound_ms"])
-    b6["max_abs_err"] = max(b6["max_abs_err"], m2["batch"]["err"],
-                            m2["position"]["err"])
-    b2.update(mamba2_ms=m2["b2"]["ms"], mamba2_plain_ms=m2["b2"]["plain_ms"],
-              mamba2_bound_ms=m2["b2"]["bound_ms"],
-              mamba2_bound_by=m2["b2"]["bound_by"])
-    b2["max_abs_err"] = max(b2["max_abs_err"], m2["b2"]["err"])
-    torch.cuda.empty_cache()
-    mx_launches, mx, mx_placed = timed("mixtral slice", moe_phase, dev)
-    b6.update(moe_batch_ms=mx["batch"]["ms"],
-              moe_batch_plain_ms=mx["batch"]["plain_ms"],
-              moe_batch_bound_ms=mx["batch"]["bound_ms"],
-              moe_position_ms=mx["position"]["ms"],
-              moe_position_plain_ms=mx["position"]["plain_ms"],
-              moe_position_bound_ms=mx["position"]["bound_ms"])
-    b6["max_abs_err"] = max(b6["max_abs_err"], mx["batch"]["err"],
-                            mx["position"]["err"])
-    b2.update(moe_ms=mx["b2"]["ms"], moe_plain_ms=mx["b2"]["plain_ms"],
-              moe_bound_ms=mx["b2"]["bound_ms"],
-              moe_bound_by=mx["b2"]["bound_by"])
-    b2["max_abs_err"] = max(b2["max_abs_err"], mx["b2"]["err"])
-    torch.cuda.empty_cache()
-    zoo_launches = timed("zoo rungs", zoo_phase, dev, pimc_smoke)
-    del pimc_smoke
-    m2_state, m2_cell = timed("mamba2 trainer", mamba2_train_phase, dev)
-    timed("BF16 checkpoint", bf16_checkpoint_phase, dev, m2_state)
-    del m2_state
-    timed("dense zoo", dense_zoo_phase, dev)
-    timed("remat", remat_phase, dev)
-    tp_launches = timed("tensor parallel", tensor_parallel_phase, dev)
-    timed("recurrent placed", recurrent_placed_phase, dev)
-    timed("top-k", topk_phase, dev)
-    torch.cuda.empty_cache()
-    phi_launches, phi, phi_placed = timed("phi slice", phi_phase, dev)
-    moe_placed_launches = _add(mx_placed, phi_placed)
-    b6.update(phi_batch_ms=phi["batch"]["ms"],
-              phi_batch_plain_ms=phi["batch"]["plain_ms"],
-              phi_batch_bound_ms=phi["batch"]["bound_ms"],
-              phi_position_ms=phi["position"]["ms"],
-              phi_position_plain_ms=phi["position"]["plain_ms"],
-              phi_position_bound_ms=phi["position"]["bound_ms"])
-    b6["max_abs_err"] = max(b6["max_abs_err"], phi["batch"]["err"],
-                            phi["position"]["err"])
-    b2.update(phi_ms=phi["b2"]["ms"], phi_plain_ms=phi["b2"]["plain_ms"],
-              phi_bound_ms=phi["b2"]["bound_ms"],
-              phi_bound_by=phi["b2"]["bound_by"])
-    b2["max_abs_err"] = max(b2["max_abs_err"], phi["b2"]["err"])
-    torch.cuda.empty_cache()
-    vlm_cell = timed("vlm", vlm_phase, dev)
-    torch.cuda.empty_cache()
-    timed("audio", audio_phase, dev)
-    torch.cuda.empty_cache()
-    trainer_launches = timed("trainer", trainer_phase, dev)
-    launcher_launches = timed("launchers", launchers_phase, dev)
-    example_launches = timed("examples", examples_phase, dev)
-    lanes_launches = timed("lanes sweep", lanes_phase, dev)
-    chunked_launches = timed("chunked sweep", chunked_phase, dev)
-    dryrun_launches = timed("production mesh and dry-run",
-                            mesh_dryrun_phase, dev, [m2_cell, vlm_cell])
-    # each kernel's launches on the main path that runs it
-    for rec, launches in ((b1, slice_launches), (b2, slice_launches),
-                          (b3, image_launches), (b4, two_pass_launches),
-                          (b6, slice_launches)):
-        rec["launches"] = launches[rec["name"]]
-    for rec in (b1, b2, b3, b4, b5, b6):
-        rec["engine_launches"] = engine_launches[rec["name"]]
-        rec["placement_launches"] = placement_launches[rec["name"]]
-        rec["fig4c_launches"] = fig4c_launches[rec["name"]]
-        rec["mamba2_launches"] = m2_launches[rec["name"]]
-        rec["moe_launches"] = mx_launches[rec["name"]]
-        rec["zoo_launches"] = zoo_launches[rec["name"]]
-        rec["phi_launches"] = phi_launches[rec["name"]]
-        rec["moe_placed_launches"] = moe_placed_launches[rec["name"]]
-        rec["recurrent_placed_launches"] = m2_placed[rec["name"]]
-        rec["tensor_parallel_launches"] = tp_launches[rec["name"]]
-        rec["trainer_launches"] = trainer_launches[rec["name"]]
-        rec["launchers_launches"] = launcher_launches[rec["name"]]
-        rec["examples_launches"] = example_launches[rec["name"]]
-        rec["lanes_launches"] = lanes_launches[rec["name"]]
-        rec["chunked_launches"] = chunked_launches[rec["name"]]
-        rec["dryrun_launches"] = dryrun_launches[rec["name"]]
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+    if one:
+        _run_phases(tuple(PHASES), ctx, t0)
+    else:
+        _run_phases(PLAN["parent"], ctx, t0)
+        ctx = {k: v for k, v in ctx.items() if k in RECORDS or k == "dev"}
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        for records in _Workers(WORKERS, t0).run().values():
+            ctx.update(records)
+        _run_phases(PLAN["after"], ctx, t0)
+    kernels = _kernel_records(ctx)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all",
           flush=True)
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5368,4 +5848,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

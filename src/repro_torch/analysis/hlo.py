@@ -23,11 +23,10 @@ unrolls depth in Python), so its counts need no loop-trip correction.
 
 :func:`collective_stats` is the reference's third roofline term: the
 bytes a rank receives per step under its placement
-(``parallel/sharding.py``) — the all-gather of each placed parameter
-before its layer runs (again in the backward; under the compute placement
-only the FSDP gather over ``data``), the decode state's gathers, and the
-gradient reduce over the data-parallel axes; under the compute placement
-also the model-axis collectives the cell's step recorded
+(``parallel/sharding.py``) — the FSDP all-gather over ``data`` of each
+placed parameter before its layer runs (again in the backward), the
+gradient reduce over the data-parallel axes, and the model-axis
+collectives the cell's step recorded
 (``parallel.tensor.RecordingComm``: the tensor- and sequence-parallel
 all-reduces, gathers and reduce-scatters, the vocabulary-parallel loss's
 reductions) — split into ``entry_bytes`` (embedding, head, final norms,
@@ -143,11 +142,8 @@ def _is_layer(name: str) -> bool:
 
 
 def gathered_shape(cell, shape, spec) -> tuple:
-    """The shape a rank gathers a parameter to before its layer runs: the
-    whole tensor under the storage placement, its model shard under the
-    compute placement."""
-    if cell.comm is None:
-        return tuple(shape)
+    """The shape a rank gathers a parameter to before its layer runs: its
+    model shard (the FSDP shards gathered over ``data``)."""
     return shard_shape(shape, model_shard_spec(spec), cell.mesh)
 
 
@@ -177,8 +173,7 @@ def collective_stats(cell) -> dict:
         whole = math.prod(gathered_shape(cell, shape, spec)) * dt.itemsize
         local = math.prod(shard_shape(shape, spec, mesh)) * dt.itemsize
         placed = tuple(a for e in spec for a in spec_axes(e))
-        gathered = tuple(a for a in placed
-                         if cell.comm is None or a != "model")
+        gathered = tuple(a for a in placed if a != "model")
         add("all-gather", name, gathered, (whole - local) * passes, passes)
         if not train:
             continue
@@ -195,18 +190,9 @@ def collective_stats(cell) -> dict:
             add("reduce-scatter", name, dp, part * (n - 1) / n)
         else:
             add("all-reduce", name, dp, 2 * part * (n - 1) / n)
-    # under the storage placement a decode rank gathers its rows' state;
-    # under the compute placement it steps its shard (the context-parallel
+    # a decode rank steps its shard of the state (the context-parallel
     # combine's gathers are among the recorded collectives)
-    for name, (shape, dt, spec) in (cell.state if cell.comm is None
-                                    else {}).items():
-        whole = math.prod(shape) * dt.itemsize
-        local = math.prod(shard_shape(shape, spec, mesh)) * dt.itemsize
-        rows = whole * cell.rows // cell.shape.global_batch
-        placed = tuple(a for e in spec[2:] for a in spec_axes(e))
-        # the rank gathers its rows' state over the non-batch placements
-        add("all-gather", "blocks.state", placed, rows - local, shape[0])
-    for op, axis, nbytes, scope in cell.recorded or ():
+    for op, axis, nbytes, scope in cell.recorded:
         if axis == "model":
             add(op, "blocks." if scope == "body" else "", ("model",), nbytes)
     out = {k: dict(v) for k, v in stats.items()}

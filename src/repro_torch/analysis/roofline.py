@@ -29,11 +29,8 @@ These are reckonings at published peaks, not measurements.  The trace
 :func:`scan_multiplier` (the reference's loop-trip correction for
 XLA:CPU's cost analysis, which counts a loop body once) is kept for the
 reference's numbers and not applied here.  MODEL_FLOPS is 6·N·D (train),
-2·N·D (prefill), 2·N·B (decode), N the active parameters; the ranks of one
-``model`` row compute the same slab under the storage placement, so the
-useful share of a rank's FLOPs is at most 1 / model there, while under the
-compute placement (the ``dense`` train and prefill cells) each computes
-its own share.
+2·N·D (prefill), 2·N·B (decode), N the active parameters; under the
+compute placement each rank computes its own share of them.
 """
 
 from __future__ import annotations

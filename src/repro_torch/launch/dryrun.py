@@ -7,13 +7,11 @@ rank's step on the meta device (``launch/specs.build_cell``,
 ``analysis/hlo.trace``): no card, no process group and no allocation, so
 nothing here runs on the CPU in the card's place.  The mesh is a shape
 (``launch/mesh.production_mesh_shape``).  A rank holds its shard of
-every parameter, gradient and moment under the reference's rules; what it
-computes is the record's ``"model_axis"``: ``"compute"`` for every cell
-of a ``dense``, ``moe``, ``ssm`` or ``hybrid`` arch (its data slab with
-its shares of the heads, SSM and RG-LRU channels, MLP columns, experts
-or expert columns and vocabulary, and in a decode cell its shard of the
-state, ``launch/specs.py``), ``"storage"`` for every ``vlm`` and
-``audio`` cell (its data slab at full width).
+every parameter, gradient and moment under the reference's rules, and
+computes under the compute placement (``launch/specs.py``): its data
+slab with its shares of the heads (self and cross attention, the
+encoder's), SSM and RG-LRU channels, MLP columns, experts or expert
+columns and vocabulary, and in a decode cell its shard of the state.
 
 In place of the compiler's ``memory_analysis`` a record holds per-rank
 bytes: parameters, gradients (and their float32 accumulator under
@@ -21,9 +19,8 @@ bytes: parameters, gradients (and their float32 accumulator under
 backward, the largest microbatch's, and under ``cfg.remat`` the largest
 checkpointed unit's saved tensors when backward recomputes it, apart in
 ``recompute_bytes``; prefill: the forward's peak of live
-tensors; decode: the rank's state), the largest layer's gathered shards
-(twice in a train cell: weights and gradients; under the compute
-placement its FSDP gather over ``data`` only), their total and ``fits``
+tensors; decode: the rank's state), the largest layer's FSDP gather over ``data``
+(twice in a train cell: weights and gradients), their total and ``fits``
 against the card's 80 GB.  A cell that does not fit is a finding, not a
 failure.  The roofline terms are reckoned at the H100's published peaks
 (``analysis/roofline.py``); they are not measurements.
@@ -150,7 +147,6 @@ def run_cell(arch: str, shape_name, multi_pod: bool = False,
             "arch": arch, "shape": shape.name, "mesh": mesh_name,
             "status": "OK", "tag": tag,
             "fsdp": fsdp, "overrides": overrides,
-            "model_axis": "storage" if cell.comm is None else "compute",
             "act_pspec": cell.cfg.act_pspec, "rows_per_rank": cell.rows,
             "grad_accum": cell.cfg.grad_accum,
             "trace_s": round(t_trace, 2),

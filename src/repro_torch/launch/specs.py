@@ -5,38 +5,32 @@ Port of ``repro.launch.specs``.  Nothing here allocates: the model, the
 optimizer state, the batch and the decode state are meta tensors at the
 width the rank computes, and the placement says what each rank stores.
 The reference lowers the whole (GSPMD-sharded) program.  The port runs
-one rank's program, under one of two placements (``parallel/
-sharding.py``):
-
-  * **compute** — a ``dense``, ``moe``, ``ssm`` or ``hybrid`` arch's
-    cells: the rank's placed
-    model (``sharding.place_model`` on a ``parallel.tensor.RecordingComm``,
-    the stand-in that records each collective instead of running it), its
-    data slab of the batch, its shares of the heads, MLP columns, experts
-    (or every expert's columns) and vocabulary, the expert fold's sums
-    over ``model`` among its records, residuals under ``cfg.act_pspec``
-    (the reference's
-    default ``(batch axes, None, None)`` when none is set, but for a
-    decode cell, which the reference leaves unconstrained), and in a
-    decode cell its shard of the state (the KV rings by
-    ``sharding.ring_layout``, the recurrent leaves' last dim over
-    ``model``; a batch the data axes do not divide, ``long_500k``'s one
-    row, on every data rank);
-  * **storage** — a ``vlm`` or ``audio`` arch's cells: the whole-width
-    model on the rank's data-parallel slab, its placed shards gathered
-    before each layer.
+one rank's program under the compute placement (``parallel/
+sharding.py``): the rank's placed model (``sharding.place_model`` on a
+``parallel.tensor.RecordingComm``, the stand-in that records each
+collective instead of running it), its data slab of the batch (and of a
+memory or encoder inputs), its shares of the heads (self and cross
+attention, the encoder's), MLP columns, experts (or every expert's
+columns), SSM and RG-LRU channels and vocabulary, the expert fold's sums
+over ``model`` among its records, residuals under ``cfg.act_pspec`` (the
+reference's default ``(batch axes, None, None)`` when none is set, but
+for a decode cell, which the reference leaves unconstrained), and in a
+decode cell its shard of the state (the KV rings by
+``sharding.ring_layout``, the recurrent leaves' last dim over ``model``;
+a batch the data axes do not divide, ``long_500k``'s one row, on every
+data rank).
 
 The steps:
 
   * train   — ``train_loop.make_train_step(cfg)`` on the slab's
               ``global_batch / dp`` rows (``cfg.grad_accum`` microbatches),
               AdamW moments in ``cfg.moment_dtype``, checkpointed units
-              under ``cfg.remat``; placed, ``make_train_step(cfg,
+              under ``cfg.remat``: ``make_train_step(cfg,
               device_mesh=...)`` on the global batch;
   * prefill — ``LM.forward`` and the logits (BF16), the compression
               direction's per-position distributions;
   * decode  — ``LM.decode_step`` of one token against a ``seq_len`` state
-              (placed: the global batch's token, the rank's state).
+              (the global batch's token and memory, the rank's state).
 """
 
 from __future__ import annotations
@@ -52,9 +46,9 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import meta_model
 from repro_torch.models.transformer import LM, encoder_block, torch_dtype
-from repro_torch.parallel.sharding import (COMPUTE_FAMILIES, batch_spec,
-                                           param_specs, place_model,
-                                           ring_layout, shard_shape)
+from repro_torch.parallel.sharding import (batch_spec, param_specs,
+                                           place_model, ring_layout,
+                                           shard_shape)
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.train import train_loop
 from repro_torch.train.optimizer import as_dtype
@@ -132,9 +126,8 @@ class Cell:
     the global shape, and ``rows`` is the rank's batch slab.  A train
     cell under ``cfg.remat`` holds in ``units`` one call for each
     distinct checkpointed unit: its forward at a microbatch's shapes,
-    which backward runs again.  A compute-placed cell has its ``comm``
-    (the recording stand-in), and ``recorded`` holds the collectives of
-    the last ``run()``; a storage cell has neither."""
+    which backward runs again.  ``comm`` is the recording stand-in, and
+    ``recorded`` holds the collectives of the last ``run()``."""
 
     arch: str
     shape: ShapeSpec
@@ -150,7 +143,7 @@ class Cell:
     run: object
     units: tuple = ()
     comm: RecordingComm | None = None
-    recorded: list = None
+    recorded: list | None = None
 
     def local_bytes(self, records: dict) -> int:
         """Per-rank bytes of ``records`` under their placements."""
@@ -181,8 +174,7 @@ def _unit_runs(model: LM, rows: int, seq: int) -> tuple:
     runs = [functools.partial(model.unit_forward, u, x, mem)
             for u in firsts.values()]
     if model.encoder is not None:
-        runs.append(functools.partial(encoder_block, model.encoder.blocks[0],
-                                      mem, cfg))
+        runs.append(functools.partial(encoder_block, model, 0, mem))
     return tuple(runs)
 
 
@@ -196,9 +188,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     if overrides:
         cfg = cfg.with_(**overrides)
     b, s = shape.global_batch, shape.seq_len
-    compute = cfg.family in COMPUTE_FAMILIES
-    if compute:
-        cfg = _placed_pspec(cfg, mesh, b, shape.kind != "decode")
+    cfg = _placed_pspec(cfg, mesh, b, shape.kind != "decode")
     model = meta_model(cfg)
     pspec = param_specs(model, mesh, fsdp=fsdp)
     params = {k: (tuple(p.shape), p.dtype, pspec[k])
@@ -208,18 +198,13 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     planes, place = batch_specs(cfg, shape, mesh)
     batch = {k: (sh, d, place[k]) for k, (sh, d) in planes.items()}
     local = {k: _meta((rows,) + sh[1:], d) for k, (sh, d) in planes.items()}
+    whole = {k: _meta(sh, d) for k, (sh, d) in planes.items()}
     optimizer, state, units = {}, {}, ()
-    comm, recorded = None, []
-    if compute:
-        comm = RecordingComm(mesh)
-        model = place_model(model, comm, fsdp=fsdp)
-        whole = {k: _meta(sh, d) for k, (sh, d) in planes.items()}
+    comm, recorded = RecordingComm(mesh), []
+    model = place_model(model, comm, fsdp=fsdp)
 
     def recording(fn):
         """``fn`` with the collectives it records kept in ``recorded``."""
-        if comm is None:
-            return fn
-
         def run():
             comm.records.clear()
             out = fn()
@@ -239,7 +224,7 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
         @recording
         def run():
             st = train_loop.init_train_state(model)
-            return step(st, whole if compute else local)
+            return step(st, whole)
     elif shape.kind == "prefill":
         local.pop("labels")
         batch.pop("labels")
@@ -252,23 +237,21 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
                 return model._logits(x).to(torch.bfloat16)
     else:
         with torch.device("meta"):
-            st0 = model.init_state(b if compute else rows, s)
+            st0 = model.init_state(b, s)
             # the state's whole leaves, by the unplaced model's shapes
-            whole_state = meta_model(cfg).init_state(rows, s) if compute \
-                else st0
+            whole_state = meta_model(cfg).init_state(rows, s)
         glob = {k: (t.shape[0], b) + tuple(t.shape[2:])
                 for k, t in whole_state.leaves().items()}
         cspec = cache_specs(cfg, mesh, glob, b)
         state = {k: (glob[k], t.dtype, cspec[k])
                  for k, t in whole_state.leaves().items()}
-        token = _meta((b if compute else rows, 1), torch.int64)
+        token = _meta((b, 1), torch.int64)
         memory = None
+        batch = {}
         if cfg.family == "vlm" or cfg.is_encdec:
-            memory = _meta((rows, cfg.memory_tokens, cfg.d_model), dt)
+            memory = _meta((b, cfg.memory_tokens, cfg.d_model), dt)
             batch = {"memory": ((b, cfg.memory_tokens, cfg.d_model), dt,
                                 batch_spec(mesh, b, 3))}
-        else:
-            batch = {}
 
         @recording
         def run():
@@ -278,12 +261,12 @@ def build_cell(arch: str, shape, mesh: MeshShape, *, fsdp: bool = True,
     return Cell(arch=arch, shape=shape, mesh=mesh, cfg=cfg, fsdp=fsdp,
                 model=model, rows=rows, params=params, optimizer=optimizer,
                 state=state, batch=batch, run=run, units=units, comm=comm,
-                recorded=recorded if compute else None)
+                recorded=recorded)
 
 
 def _placed_pspec(cfg: ModelConfig, mesh, global_batch: int,
                   default: bool = True) -> ModelConfig:
-    """The reference's ``act_pspec`` for a compute-placed cell: the
+    """The reference's ``act_pspec`` for a cell: the
     config's own without the ``pod`` axis on a single pod, else
     ``(batch axes, None, None)`` (unless not ``default``: the reference
     constrains no decode cell's residuals)."""

@@ -56,9 +56,9 @@ schedule with no window, the memory's K and V projected anew at every
 step (nothing is cached).  The encoder's self-attention is cross
 attention against its own input (the reference's ``mem=h``).
 
-Under the dense and MoE families' compute placement (``parallel/sharding.
-place_model``) :func:`attn_forward`, :func:`attn_decode` and
-:func:`attn_prefill` take the rank's ``place``: its query heads are the
+Under the compute placement (``parallel/sharding.place_model``)
+:func:`attn_forward`, :func:`attn_decode`, :func:`attn_prefill` and
+:func:`attn_cross` take the rank's ``place``: its query heads are the
 rank's share, their kv heads its shard or, where the kv heads replicate
 over ``model``, picked from the whole K/V by :func:`kv_head_map`
 (``Placement.kv_index``), and ``wo`` is row-parallel.  The serving pair
@@ -462,17 +462,22 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     (the whole score matrix) or ``"blockwise"`` (:func:`_blockwise_attn`
     over ``cfg.attn_block`` keys at a time).
 
-    Placed (``place``, self-attention of the dense and MoE families'
-    compute placement): ``p`` holds this rank's query heads ``[r Hp/tp,
-    (r+1) Hp/tp)`` and their ``wo`` rows, and its kv heads' shard (or all kv
-    heads, when they replicate over ``model``); the residual stream enters
-    whole (``place.enter``) and ``wo``'s partial sums leave reduced over
-    ``model`` (``place.exit``)."""
+    Placed (``place``, the compute placement): ``p`` holds this rank's
+    query heads ``[r Hp/tp, (r+1) Hp/tp)`` and their ``wo`` rows, and its
+    kv heads' shard (or all kv heads, when they replicate over
+    ``model``); the residual stream enters whole (``place.enter``) and
+    ``wo``'s partial sums leave reduced over ``model`` (``place.exit``).
+    A memory is whole along M on every model rank and enters as it lies
+    (``place.enter_memory``: identity forward, its gradient summed over
+    ``model`` backward); the encoder's ``mem=h``, the residual stream
+    itself, enters once."""
     if cfg.attn_impl not in ("naive", "blockwise"):
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected 'naive' "
                          "or 'blockwise'")
     if place is not None:
-        x = place.enter(x)
+        x_in, x = x, place.enter(x)
+        if mem is not None:
+            mem = x if mem is x_in else place.enter_memory(mem)
     q, k, v = _qkv(p, x, cfg, mem)
     if mem is None:
         pos = torch.arange(x.shape[1], device=x.device)
@@ -485,9 +490,14 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 
 
 def attn_cross(p: Attention, x1: torch.Tensor, mem: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, place=None) -> torch.Tensor:
     """The decode step's cross attention, the reference's
     ``attn_decode(mem=)``: x1 (B,1,D) against the whole memory (B,M,D),
-    its K and V projected at this step, naive, no mask -> (B,1,D)."""
+    its K and V projected at this step, naive, no mask -> (B,1,D).
+    Placed (``place``, ``Placement.serving``): the rank's query heads
+    against the K/V of its kv heads, ``wo``'s partial sums reduced over
+    ``model``."""
     q, k, v = _qkv(p, x1, cfg, mem)
-    return _attend(p, q, k, v, cfg, causal=False, window=0, blockwise=False)
+    out = _attend(p, q, k, v, cfg, causal=False, window=0, blockwise=False,
+                  place=place)
+    return out if place is None else place.exit(out)

@@ -67,32 +67,37 @@ batch can round differently on the card; a group is the unit at which
 the engine's floats are the single-request path's by construction
 (``PERF.md`` §7).
 
-A ``dense``, ``moe``, ``ssm`` or ``hybrid`` model placed for compute on
-a ``(data, model)`` mesh (``parallel/sharding.place_model``: its
-parameters are one rank's shards, :attr:`LM.placement` set) trains and
-prefills on its rank's share: the forward takes the rank's rows, each
-checkpointed unit gathers its blocks' FSDP shards over ``data``
-(:meth:`LM._placed_unit`), the attention, the SSM and RG-LRU mixers
-(``models/ssm.py``, ``models/rglru.py``: the rank's channels) and the MLP
-run column- then row-parallel over ``model``, the MoE
-FFN on the rank's experts (expert parallelism) or on every expert's
-columns (per-expert tensor parallelism) after routing the whole sequence
-alike on every model rank (``models/moe.py``), the residuals follow
+A model of any family placed for compute on a ``(data, model)`` mesh
+(``parallel/sharding.place_model``: its parameters are one rank's
+shards, :attr:`LM.placement` set) trains and prefills on its rank's
+share: the forward takes the rank's rows (of the tokens and of the
+memory or encoder inputs), each checkpointed unit gathers its blocks'
+FSDP shards over ``data`` (:meth:`LM.unit_forward`, one body with the
+unplaced forward), the attention (self and cross), the SSM and RG-LRU
+mixers (``models/ssm.py``, ``models/rglru.py``: the rank's channels) and
+the MLP run column- then row-parallel over ``model``, the MoE FFN on the
+rank's experts (expert parallelism) or on every expert's columns
+(per-expert tensor parallelism) after routing the whole sequence alike
+on every model rank (``models/moe.py``), the residuals follow
 ``cfg.act_pspec`` and the logits and the loss are vocabulary-parallel;
 the aux loss is the reference's global one, its expert shares averaged
-over the data slabs.  It serves the same way: :meth:`LM.init_state`
+over the data slabs.  Cross attention's queries are the rank's heads of
+the residual stream, its K/V the rank's kv heads of the memory, which is
+whole along M on every model rank (the encoder's residuals too:
+:func:`encode_memory`).  It serves the same way: :meth:`LM.init_state`
 allocates the rank's shards of the state (its rows, its kv heads or
 its slab of the ring's slots, ``sharding.ring_layout``, and its slab of
 each recurrent leaf's last dim), and
 :meth:`LM.decode_step` and :meth:`LM.prefill_chunk` take the global
-batch, run the rank's rows at one position a call (the residual stream
-whole on every model rank; the MoE step on the rank's experts or
-columns), gather each block's FSDP shards over ``data`` and return the
-rank's ``(rows / dp, Vpad / tp)`` logits.
+batch (and memory), run the rank's rows at one position a call (the
+residual stream whole on every model rank; the MoE step on the rank's
+experts or columns), gather each block's FSDP shards over ``data`` and
+return the rank's ``(rows / dp, Vpad / tp)`` logits.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -414,7 +419,8 @@ class LM(nn.Module):
         (:func:`remat`).
 
         A placed model (:attr:`placement`) takes its rank's rows of the
-        batch (``placement.rows``) and returns the residual stream as it
+        batch (``placement.rows`` of the tokens and of ``memory`` or
+        ``enc_inputs``) and returns the residual stream as it
         lies on the rank: (B/dp, S/tp, D) under sequence parallelism,
         else (B/dp, S, D)."""
         cfg, pl = self.cfg, self.placement
@@ -437,60 +443,36 @@ class LM(nn.Module):
                      memory: torch.Tensor | None = None):
         """The blocks ``unit`` (indices into :attr:`blocks`, one of
         :attr:`units`) over x (B,S,D) -> (x, the unit's summed aux loss),
-        the reference's ``stage_forward`` unit."""
-        cfg = self.cfg
-        if self.placement is not None:
-            return self._placed_unit(unit, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for b in unit:
-            kind, blk = self.kinds[b], self.blocks[b]
-            h = rmsnorm(blk.ln1, x, cfg.norm_eps)
-            if kind == "ssm":
-                x = x + ssm_forward(blk.ssm, h, cfg)
-                continue
-            if kind == "rec":
-                x = x + rglru_forward(blk.rec, h, cfg)
-            elif kind == "cross":
-                x = x + attn_forward(blk.cross, h, cfg, mem=memory)
-            else:
-                x = x + attn_forward(blk.attn, h, cfg)
-            if kind == "dec":
-                h = rmsnorm(blk.ln_cross, x, cfg.norm_eps)
-                x = x + attn_forward(blk.cross, h, cfg, mem=memory)
-            h = rmsnorm(blk.ln2, x, cfg.norm_eps)
-            if kind == "attn_moe":
-                h, a = moe(blk.ffn, h, cfg)
-                aux = aux + a
-            else:
-                f = blk.ffn
-                h = mlp(f.wi_gate, f.wi_up, f.wo, h)
-            x = x + h
-        return x, aux
+        the reference's ``stage_forward`` unit.
 
-    def _placed_unit(self, unit: tuple, x: torch.Tensor):
-        """:meth:`unit_forward` of a placed model: each block's FSDP
-        shards gathered over ``data`` here, inside the checkpointed unit
-        (so that backward gathers them again), then the norms on the
-        residual stream as it lies and the attention, SSM and RG-LRU
-        mixers, MLP and MoE FFN on this rank's heads, channels, columns
-        and experts (each mixer enters the whole sequence and leaves as
-        the stream lies); the unit's summed aux loss, the same on every
-        rank."""
+        Placed (:attr:`placement`), each block's FSDP shards are gathered
+        over ``data`` here, inside the checkpointed unit (so that backward
+        gathers them again), the norms run on the residual stream as it
+        lies and the attention (self and cross), SSM and RG-LRU mixers,
+        MLP and MoE FFN on this rank's heads, channels, columns and
+        experts (each mixer enters the whole sequence and leaves as the
+        stream lies; the memory enters whole, ``Placement.enter_memory``);
+        the aux loss is the same on every rank."""
         cfg, pl = self.cfg, self.placement
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        pl.comm.scope = "body"
-        try:
+        with contextlib.nullcontext() if pl is None else pl.body():
             for b in unit:
-                kind = self.kinds[b]
-                w = pl.gathered(self.blocks[b], f"blocks.{b}")
+                kind, w = self.kinds[b], self._block(b, pl)
                 h = rmsnorm(w.ln1, x, cfg.norm_eps)
                 if kind == "ssm":
                     x = x + ssm_forward(w.ssm, h, cfg, place=pl)
                     continue
                 if kind == "rec":
                     x = x + rglru_forward(w.rec, h, cfg, place=pl)
+                elif kind == "cross":
+                    x = x + attn_forward(w.cross, h, cfg, mem=memory,
+                                         place=pl)
                 else:
                     x = x + attn_forward(w.attn, h, cfg, place=pl)
+                if kind == "dec":
+                    h = rmsnorm(w.ln_cross, x, cfg.norm_eps)
+                    x = x + attn_forward(w.cross, h, cfg, mem=memory,
+                                         place=pl)
                 h = rmsnorm(w.ln2, x, cfg.norm_eps)
                 f = w.ffn
                 if kind == "attn_moe":
@@ -499,8 +481,6 @@ class LM(nn.Module):
                 else:
                     h = mlp(f.wi_gate, f.wi_up, f.wo, h, place=pl)
                 x = x + h
-        finally:
-            pl.comm.scope = "entry"
         return x, aux
 
     def init_state(self, batch: int, max_len: int) -> ModelState:
@@ -600,14 +580,14 @@ class LM(nn.Module):
                     "conv": st["rec.conv"][i], "h": st["rec.h"][i]}, cfg,
                     place=pl)
             elif kind == "cross":
-                x = x + attn_cross(blk.cross, h, memory, cfg)
+                x = x + attn_cross(blk.cross, h, memory, cfg, place=pl)
             else:
                 x = x + attn_decode(blk.attn, h, st["k"][i], st["v"][i],
                                     length, pos, cfg, place=pl)
             if kind == "dec":
                 x = x + attn_cross(blk.cross,
                                    rmsnorm(blk.ln_cross, x, cfg.norm_eps),
-                                   memory, cfg)
+                                   memory, cfg, place=pl)
             x = x + self._ffn(kind, blk, x, pl)
         x = rmsnorm(final_norm, x, cfg.norm_eps)
         return logits(emb, x, head)[:, 0]
@@ -635,10 +615,10 @@ class LM(nn.Module):
         state unchanged.  ``memory`` (B,M,D): what the ``cross``/``dec``
         blocks attend (required there).
 
-        Placed: ``token`` and per-row ``pos`` are the global batch, of
-        which the rank runs its rows (``Placement.rows``) against its
-        shards of ``state`` (:meth:`init_state`); ``groups`` index those
-        rows; the logits are the rank's ``(B / dp, Vpad / tp)``
+        Placed: ``token``, per-row ``pos`` and ``memory`` are the global
+        batch, of which the rank runs its rows (``Placement.rows``) against
+        its shards of ``state`` (:meth:`init_state`); ``groups`` index
+        those rows; the logits are the rank's ``(B / dp, Vpad / tp)``
         vocabulary slab (``Placement.whole_vocab`` gathers whole
         rows)."""
         pl = self._serving(state)
@@ -646,6 +626,8 @@ class LM(nn.Module):
             token = pl.rows(token)
             if not isinstance(pos, int):
                 pos = pl.rows(pos)
+            if memory is not None:
+                memory = pl.rows(memory)
         groups = self._groups(state, token.shape[0], groups)
         memory = self._memory(memory, token.shape[0])
         if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
@@ -742,8 +724,14 @@ def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:
     self-attention is bidirectional, without RoPE (the reference's cross
     attention of the sequence against itself), then the final norm ->
     the memory (B,M,D).  Under ``cfg.remat``, while autograd records,
-    each block runs checkpointed (:func:`remat`)."""
-    cfg = model.cfg
+    each block runs checkpointed (:func:`remat`).
+
+    Placed, ``enc_inputs`` are the rank's rows and so is the memory,
+    whole along M on every model rank (the reference constrains no
+    encoder activation): each block runs on the rank's heads and columns
+    (:func:`encoder_block`) and the final norm is gathered over
+    ``data``."""
+    cfg, pl = model.cfg, model.placement
     if model.encoder is None:
         raise ValueError(f"config {cfg.name!r} has no encoder "
                          "(encoder_layers = 0)")
@@ -751,21 +739,34 @@ def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"enc_inputs of shape {tuple(enc_inputs.shape)} "
                          f"do not fit (B, M, {cfg.d_model})")
     x = enc_inputs.to(model.embedding.dtype)
-    for blk in model.encoder.blocks:
-        x = remat(cfg, encoder_block, blk, x, cfg)
-    return rmsnorm(model.encoder.final_norm, x, cfg.norm_eps)
+    for i in range(len(model.encoder.blocks)):
+        x = remat(cfg, encoder_block, model, i, x)
+    norm = model.encoder.final_norm
+    if pl is not None:
+        norm = pl.gather(norm, "encoder.final_norm")
+    return rmsnorm(norm, x, cfg.norm_eps)
 
 
-def encoder_block(blk: Block, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """One encoder block over x (B,M,D): bidirectional self-attention
-    without RoPE, then the MLP; the reference's checkpointed encoder
-    unit."""
-    h = rmsnorm(blk.ln1, x, cfg.norm_eps)
-    x = x + attn_forward(blk.attn, h, cfg, mem=h)
-    h = rmsnorm(blk.ln2, x, cfg.norm_eps)
-    f = blk.ffn
-    return x + mlp(f.wi_gate, f.wi_up, f.wo, h)
+def encoder_block(model: LM, i: int, x: torch.Tensor) -> torch.Tensor:
+    """Encoder block ``i`` of ``model`` over x (B,M,D): bidirectional
+    self-attention without RoPE, then the MLP; the reference's
+    checkpointed encoder unit.  Placed, the block's FSDP shards are
+    gathered over ``data`` here (inside the checkpointed unit), and the
+    attention and MLP run on the rank's heads and columns with the
+    residual stream whole along M on every model rank
+    (``Placement.whole_stream``)."""
+    cfg, pl = model.cfg, model.placement
+    blk = model.encoder.blocks[i]
+    if pl is not None:
+        pl = pl.whole_stream()
+    with contextlib.nullcontext() if pl is None else pl.body():
+        if pl is not None:
+            blk = pl.gathered(blk, f"encoder.blocks.{i}")
+        h = rmsnorm(blk.ln1, x, cfg.norm_eps)
+        x = x + attn_forward(blk.attn, h, cfg, mem=h, place=pl)
+        h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+        f = blk.ffn
+        return x + mlp(f.wi_gate, f.wi_up, f.wo, h, place=pl)
 
 
 def remat(cfg: ModelConfig, fn, *args):

@@ -1,7 +1,7 @@
-"""Logical-axis -> mesh-axis placement rules, and the dense, MoE, SSM
-and hybrid families' placed model: tensor-parallel compute over
-``model`` (expert parallelism, or per-expert tensor parallelism; the SSM
-and RG-LRU channels), FSDP over ``data``.
+"""Logical-axis -> mesh-axis placement rules, and every family's placed
+model: tensor-parallel compute over ``model`` (expert parallelism, or
+per-expert tensor parallelism; the SSM and RG-LRU channels; cross
+attention and the encoder), FSDP over ``data``.
 
 Port of ``repro.parallel.sharding``.  The reference places the model by
 GSPMD on the ``(data=16, model=16)`` mesh a pod (a leading ``pod`` axis
@@ -63,10 +63,13 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   ``conv`` leaf over ``model`` (the reference's rule wherever it divides,
   which :func:`place_model`'s checks make every case); the SSM step runs
   on that layout (``ssm.ssm_decode_step``).
-* ``vlm`` and ``audio``: **storage** only (``launch/specs.py``): a rank
-  gathers each layer's shards and computes its data slab at full width,
-  so the model axis divides memory, not work.  Their rule (cross
-  attention) is ROADMAP A.
+* ``vlm`` and ``audio`` (:func:`place_model` too): cross attention's
+  weights by the same ``heads`` rules as self attention's, its queries
+  on the rank's heads of the residual stream and its K/V on the rank's
+  kv heads of the memory (the memory's rows are the rank's data slab,
+  whole along M on every model rank, :meth:`Placement.enter_memory`);
+  the encoder's blocks placed as the decoder's, its residual stream
+  whole along M (the reference constrains no encoder activation).
 
 A mesh here is anything with ``axis_names`` and a ``shape`` mapping
 (``launch.mesh.MeshShape``, or a JAX mesh in the tests); the placement
@@ -335,10 +338,14 @@ class Placement:
         partial = ("q_norm", "k_norm", "wdt", "A_log", "D", "dt_bias")
         if not kv_placed:
             partial += ("wk", "wv", "bk", "bv")
-        if self.sp:
-            partial += ("ln1", "ln2", "final_norm", "router")
+        # the norms and the router under sequence parallelism (the
+        # encoder's residual stream is whole on every rank, never split)
+        seq = ("ln1", "ln_cross", "ln2", "final_norm", "router") \
+            if self.sp else ()
         self.partial = {k for k in specs
-                        if k.rsplit(".", 1)[-1] in partial}
+                        if k.rsplit(".", 1)[-1] in partial
+                        or (k.rsplit(".", 1)[-1] in seq
+                            and not k.startswith("encoder."))}
 
     # -- the batch and the residual stream ---------------------------------
 
@@ -368,6 +375,14 @@ class Placement:
             return tpc.gather_from(x, self.comm, "model", 1)
         return tpc.copy_to(x, self.comm, "model")
 
+    def enter_memory(self, mem: torch.Tensor) -> torch.Tensor:
+        """A memory (B, M, D) into a column-parallel product (cross
+        attention's K/V): it lies whole along M on every model rank, so
+        it enters as it is, and each rank's gradient of it, its kv heads'
+        part, is summed over ``model`` backward (``copy_to``; never the
+        sequence gather of :meth:`enter`)."""
+        return tpc.copy_to(mem, self.comm, "model")
+
     def exit(self, y: torch.Tensor) -> torch.Tensor:
         """A row-parallel product's partial sums (B, S, D) back into the
         residual stream: summed over model, this rank's sequence slab
@@ -375,6 +390,20 @@ class Placement:
         if self.sp:
             return tpc.scatter_to(y, self.comm, "model", 1)
         return tpc.reduce_from(y, self.comm, "model")
+
+    def whole_stream(self) -> "Placement":
+        """This placement with the residual stream whole along the
+        sequence on every model rank (no sequence parallelism): the
+        encoder's, whose activations the reference leaves unconstrained,
+        and a serving step's (:meth:`serving`)."""
+        view = copy.copy(self)
+        view.sp = False
+        return view
+
+    def body(self) -> "tpc.Scoped":
+        """A context in which the collectives are a layer's (``comm.scope
+        = "body"``, the dry-run's records)."""
+        return tpc.Scoped(self.comm, "body")
 
     def whole_sequence(self, t: torch.Tensor) -> torch.Tensor:
         """A per-token tensor (B, S|S/tp, ...) of the residual stream as it
@@ -460,8 +489,7 @@ class Placement:
         ``"replicated"`` there): a placed model's containers are then the
         whole model's, byte for byte.  A placement made with
         ``slots_at_one`` keeps the ``slots`` step there instead."""
-        step = copy.copy(self)
-        step.sp = False
+        step = self.whole_stream()
         step.ring = self.ring_layout(length)
         if step.ring == "slots" and self.tp == 1 and not self.slots_at_one:
             step.ring = "replicated"
@@ -596,10 +624,6 @@ class Placement:
                    for axes, vs in sorted(groups.items()))
 
 
-# the families whose compute place_model places
-COMPUTE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
 def place_model(model: LM, mesh, *, fsdp: bool = True,
                 slots_at_one: bool = False) -> LM:
     """Rank-local copy of the whole ``model`` placed for compute on
@@ -623,7 +647,12 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
     ``d_ff`` columns (per-expert tensor parallelism).  An ``ssm`` or
     ``hybrid`` model places its SSM channels, SSM state and RG-LRU
     channels over ``model`` (``ssm_inner`` and ``ssm_state``), its
-    recurrent state leaves by their last dim.
+    recurrent state leaves by their last dim.  A ``vlm`` or ``audio``
+    model places its cross attention's and its encoder's heads by the
+    same rules as self attention's (the reference's ``make_attn_defs(cfg,
+    cross=True)``): the memory, whole along M on every model rank, feeds
+    the rank's kv heads, and the encoder's residual stream is whole along
+    M (``models.transformer.encode_memory``).
 
     On a ``model`` axis of 1 a ``slots`` ring's one slab is the whole
     ring, and the serving steps attend it as the unplaced steps do, op for
@@ -638,14 +667,8 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
     ``n_experts`` (under expert parallelism), (when ``cfg.kv_sharded``)
     the kv heads, the SSM's ``d_in`` or ``ssm_state`` or the RG-LRU
     width, or a ``data`` size that does not divide ``d_model`` under
-    FSDP, raises a ``ValueError`` naming the dim, as JAX does; the
-    ``vlm`` and ``audio`` families raise ``NotImplementedError``."""
+    FSDP, raises a ``ValueError`` naming the dim, as JAX does."""
     cfg = model.cfg
-    if cfg.family not in COMPUTE_FAMILIES:
-        raise NotImplementedError(
-            f"compute placement of the {cfg.family!r} family ({cfg.name}) "
-            "is not ported (ROADMAP A: cross attention); its mesh places "
-            "storage only")
     if model.placement is not None:
         raise ValueError("the model is placed already: place the whole "
                          "model")

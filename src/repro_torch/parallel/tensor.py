@@ -150,8 +150,10 @@ def comm_of(mesh):
     return MeshComm(mesh)
 
 
-class _Scoped:
-    """Run a backward's collective under the scope of its forward."""
+class Scoped:
+    """A context in which ``comm``'s collectives carry ``scope``: a
+    backward's collective under the scope of its forward, a placed
+    layer's under ``"body"``."""
 
     def __init__(self, comm, scope: str):
         self.comm, self.scope = comm, scope
@@ -171,7 +173,7 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with _Scoped(ctx.comm, ctx.scope):
+        with Scoped(ctx.comm, ctx.scope):
             return ctx.comm.all_reduce(g, ctx.axis), None, None
 
 
@@ -193,7 +195,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with _Scoped(ctx.comm, ctx.scope):
+        with Scoped(ctx.comm, ctx.scope):
             return (ctx.comm.reduce_scatter(g, ctx.axis, ctx.dim), None,
                     None, None)
 
@@ -206,7 +208,7 @@ class _Scatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with _Scoped(ctx.comm, ctx.scope):
+        with Scoped(ctx.comm, ctx.scope):
             return (ctx.comm.all_gather(g, ctx.axis, ctx.dim), None, None,
                     None)
 

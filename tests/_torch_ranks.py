@@ -430,13 +430,20 @@ TP_CASES = {
     "rgemma_tp2": ("recurrentgemma-2b", {"tp": 2}, (2, 2)),
     "rgemma_sp_remat": ("recurrentgemma-2b", {"tp": 4, "act_pspec": SP,
                                               "remat": True}, (1, 4)),
+    # cross attention and the encoder-decoder: the memory's rows over data,
+    # whole along M on every model rank; the vlm's 2 kv heads sharded at
+    # tp 2 and replicated at tp 4, the audio model's 4 sharded at tp 4
+    "vlm_tp2": ("llama-3.2-vision-11b", {"tp": 2}, (2, 2)),
+    "audio_tp4": ("seamless-m4t-large-v2", {"tp": 4}, (1, 4)),
+    "vlm_sp_remat": ("llama-3.2-vision-11b", {"tp": 4, "act_pspec": SP,
+                                              "remat": True}, (1, 4)),
 }
 TP_BATCH, TP_SEQ, TP_LR = 4, 16, 3e-3
 # leaves moved off their constant inits (zeros and ones), so they matter:
 # the SSM's per-head leaves differ between heads, so a channel reading
 # another head's dt, decay or D shows
 TP_MOVED = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2",
-            "final_norm", "A_log", "D", "dt_bias", "norm_scale", "conv_x_b",
+            "ln_cross", "final_norm", "A_log", "D", "dt_bias", "norm_scale", "conv_x_b",
             "conv_b_b", "conv_c_b", "conv_b", "gate_a_b", "gate_i_b", "lam")
 
 
@@ -499,12 +506,15 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
     for k, g in back(grads).items():
         res[f"grads/{k}"] = _np(g)
     tokens = torch.as_tensor(batch["tokens"], dtype=torch.int64)
+    mem = {k: torch.as_tensor(batch[k]) for k in ("memory", "enc_inputs")
+           if k in batch}
     with torch.no_grad(), routed() as ids:
         if pl is None:
-            x, _ = model(tokens)
+            x, _ = model(tokens, **mem)
             lg = model._logits(x)
         else:
-            x, _ = model(pl.rows(tokens))
+            x, _ = model(pl.rows(tokens),
+                         **{k: pl.rows(v) for k, v in mem.items()})
             lg = model._logits(x)
             lg = pl.comm.all_gather(lg, "model", 2)
             lg = pl.comm.all_gather(lg, "data", 0)
@@ -577,6 +587,10 @@ TP_DECODE = {
     "mamba2_tp2": ("mamba2_tp2", False, 32, 24),        # h, conv sharded
     "mamba2_split": ("mamba2_split", True, 24, 30),     # half a head a rank
     "rgemma": ("rgemma_tp2", False, 32, 24),            # its 16-slot window
+                                                        # wraps
+    "vlm": ("vlm_tp2", False, 32, 24),                  # the memory's
+                                                        # rows over data
+    "audio": ("audio_tp4", True, 24, 30),               # dec; per-row;
 }                                                       # wraps
 TP_PREFILL = 8
 TP_ROW_OFFSETS = (0, 5, 2, 7)
@@ -584,14 +598,21 @@ TP_ROW_OFFSETS = (0, 5, 2, 7)
 
 def tp_decode_inputs(name: str):
     """The case's ``(tokens (B, steps) int64, each step's positions: an
-    int or a (B,) int64 array, prefill pos0 (B,))``."""
+    int or a (B,) int64 array, prefill pos0 (B,), the memory (B, M, D)
+    float32 of a model with cross attention, else None)``."""
     tp_name, rows, _, steps = TP_DECODE[name]
-    vocab = tp_config(tp_name).vocab_size
+    cfg = tp_config(tp_name)
     rng = np.random.default_rng(21)
-    tokens = rng.integers(0, vocab, (TP_BATCH, steps)).astype(np.int64)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (TP_BATCH, steps)).astype(np.int64)
     off = np.array(TP_ROW_OFFSETS if rows else (0,) * TP_BATCH, np.int64)
     pos = [off + t if rows else t for t in range(steps)]
-    return tokens, pos, off
+    memory = None
+    if cfg.memory_tokens:
+        memory = (rng.standard_normal((TP_BATCH, cfg.memory_tokens,
+                                       cfg.d_model)) * 0.5).astype(
+                                           np.float32)
+    return tokens, pos, off, memory
 
 
 def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
@@ -608,7 +629,9 @@ def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
     import torch
     from repro_torch.parallel import sharding
     _, _, length, steps = TP_DECODE[name]
-    tokens, pos, pos0 = tp_decode_inputs(name)
+    tokens, pos, pos0, memory = tp_decode_inputs(name)
+    if memory is not None:
+        memory = torch.as_tensor(memory)
     if device_mesh is not None:
         model = sharding.place_model(model, device_mesh)
     pl = model.placement
@@ -624,7 +647,8 @@ def tp_decode_outputs(model, name: str, device_mesh=None) -> dict:
     res, local, snap = {}, [], None
     for t in range(steps):
         p = pos[t] if isinstance(pos[t], int) else torch.as_tensor(pos[t])
-        local.append(model.decode_step(state, tok[:, t:t + 1], p))
+        local.append(model.decode_step(state, tok[:, t:t + 1], p,
+                                       memory=memory))
         if t + 1 == TP_PREFILL and state.k is not None:
             snap = (state.k.clone(), state.v.clone())
     res["logits"] = _np(torch.stack([whole(lg) for lg in local]))
@@ -657,7 +681,7 @@ def tp_prefills(name: str) -> bool:
     """Whether a :data:`TP_DECODE` case's model runs ``prefill_chunk``
     (attention blocks only, the protocol's ``can_prefill``)."""
     cfg = tp_config(TP_DECODE[name][0])
-    return cfg.family not in ("ssm", "hybrid")
+    return cfg.family not in ("ssm", "hybrid", "vlm", "audio")
 
 
 def tp_decode_suite(rank: int, world: int) -> dict:

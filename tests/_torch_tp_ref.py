@@ -9,7 +9,9 @@ keeps its single device).  ``<in.npz>`` holds, for each case of
 ``_torch_ranks.TP_CASES`` that the reference runs, the seeded weights as
 the reference's tree (``<case>/w/<path>``) and the batches
 (``<case>/b<i>/<plane>``); this process places them by
-``repro.parallel.sharding.param_shardings`` and ``batch_pspec`` on a
+``repro.parallel.sharding.param_shardings`` and ``batch_pspec`` (every
+plane of the batch: a ``vlm`` case's memory, an ``audio`` case's encoder
+inputs) on a
 ``("data", "model")`` mesh of the case's shape, and writes to
 ``<out.npz>`` what one jitted function of the reference computes there:
 ``grads_fn``'s loss and gradients on batch 0, the prefill logits of batch
@@ -21,12 +23,13 @@ or by the reference's default ``(("data",), None, None)`` as its
 
 With ``decode``, ``<in.npz>`` holds for each case of
 ``_torch_ranks.TP_DECODE`` its geometry's weights (``<case>/w/<path>``),
-its tokens and, for per-row positions, each step's positions, and this
+its tokens, for per-row positions each step's positions and, for a
+model with cross attention, its memory (``<case>/memory``), and this
 process runs the reference's serving cell as ``launch/specs.build_cell``
 builds it (``serve_step``): ``decode_step`` jitted with the parameters by
 ``param_shardings``, the cache by ``repro.launch.specs.cache_shardings``
 (the kv heads over ``model`` when ``cfg.kv_sharded``, else the ring's
-slots), the tokens by ``batch_pspec`` and the logits left
+slots), the tokens and the memory by ``batch_pspec`` and the logits left
 ``(batch, "model")``; it writes each step's logits, the final cache's
 leaves as the port's state leaves (``state/k``, ``state/v`` and the
 recurrent ``state/ssm.h``, ``state/ssm.conv``, ``state/rec.h``,
@@ -35,7 +38,8 @@ dense model, the logits of ``prefill_chunk`` (placed the same way) over
 the first ``TP_PREFILL`` tokens of a fresh cache (the reference's MoE
 prefill runs the capacity dispatch over the chunk and drops tokens; the
 port's runs the steps' FFN per position and drops none, so the port
-holds it to its own steps instead; a recurrent model does not prefill).
+holds it to its own steps instead; a recurrent or cross-attention model
+does not prefill).
 
 On JAX 0.9 ``jax.make_mesh`` defaults to ``Explicit`` axes, under which
 ``with_sharding_constraint`` fails an assert; the mesh is built with
@@ -92,16 +96,20 @@ def run_case(name: str, inp: dict) -> dict:
     params = jax.tree.map(jnp.asarray, _tree(
         {k[len(name) + 3:]: v for k, v in inp.items()
          if k.startswith(f"{name}/w/")}))
-    batches = [{p: jnp.asarray(inp[f"{name}/b{i}/{p}"])
-                for p in ("tokens", "labels")} for i in range(3)]
+    planes = sorted(k.split("/")[-1] for k in inp
+                    if k.startswith(f"{name}/b0/"))
+    batches = [{p: jnp.asarray(inp[f"{name}/b{i}/{p}"]) for p in planes}
+               for i in range(3)]
     p_shard = param_shardings(cfg, mesh, make_model_defs(cfg))
-    b_shard = {p: NamedSharding(mesh, batch_pspec(mesh, R.TP_BATCH, 2))
-               for p in ("tokens", "labels")}
+    b_shard = {p: NamedSharding(mesh, batch_pspec(mesh, R.TP_BATCH,
+                                                  batches[0][p].ndim))
+               for p in planes}
     step = train_loop.make_train_step(cfg, base_lr=R.TP_LR)
 
     def fn(params, b0, b1, b2):
         loss, grads = train_loop.grads_fn(params, b0, cfg)
-        x, _ = forward(params, b0["tokens"], cfg)
+        x, _ = forward(params, b0["tokens"], cfg, memory=b0.get("memory"),
+                       enc_inputs=b0.get("enc_inputs"))
         lg = j_logits(params["tok"], x, cfg)
         state = train_loop.init_train_state(params)
         metrics = []
@@ -151,9 +159,14 @@ def run_decode(name: str, inp: dict) -> dict:
     t_shard = NamedSharding(mesh, batch_pspec(mesh, b, 2))
     rep = NamedSharding(mesh, P())
     lg_shard = NamedSharding(mesh, P(batch_pspec(mesh, b, 1)[0], "model"))
-    step = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg),
-                   in_shardings=(p_shard, c_shard, t_shard, rep),
-                   out_shardings=(lg_shard, c_shard))
+    shards = (p_shard, c_shard, t_shard, rep)
+    mem = ()
+    if f"{name}/memory" in inp:
+        mem = (inp[f"{name}/memory"],)
+        shards += (NamedSharding(mesh, batch_pspec(mesh, b, 3)),)
+    step = jax.jit(lambda p, c, t, pos, *m: decode_step(p, c, t, pos, cfg,
+                                                        *m),
+                   in_shardings=shards, out_shardings=(lg_shard, c_shard))
     chunk = jax.jit(lambda p, c, t, p0, nv: prefill_chunk(p, c, t, p0, nv,
                                                           cfg),
                     in_shardings=(p_shard, c_shard, t_shard, rep, rep))
@@ -164,9 +177,9 @@ def run_decode(name: str, inp: dict) -> dict:
         for t in range(steps):
             pos = (np.asarray(inp[f"{name}/pos"][t], np.int32) if rows
                    else np.int32(t))
-            lg, cache = step(params, cache, tokens[:, t:t + 1], pos)
+            lg, cache = step(params, cache, tokens[:, t:t + 1], pos, *mem)
             lgs.append(np.asarray(lg, np.float32))
-        if cfg.family not in ("moe", "ssm", "hybrid"):
+        if R.tp_prefills(name) and cfg.family != "moe":
             lg, _ = chunk(params, fresh,
                           tokens[:, :R.TP_PREFILL], pos0,
                           np.full((b,), R.TP_PREFILL, np.int32))
@@ -187,6 +200,8 @@ def _state_leaves(cfg, cache) -> dict:
         for r in range(reps):
             for j, kind in enumerate(pat):
                 c = cache[f"s{i}"][f"b{j}_{kind}"]
+                if kind == "cross":         # attends the memory, no state
+                    continue
                 if kind in ("ssm", "rec"):
                     leaves = {f"{kind}.{k}": c[kind][k][r]
                               for k in ("conv", "h")}

@@ -52,6 +52,7 @@ from repro.core import spc as jspc
 from repro.train.train_loop import init_train_state as j_init_train_state
 from repro_torch.analysis import hlo, report, roofline
 from repro_torch.configs import registry
+from repro_torch.data.pipeline import train_batch
 from repro_torch.kernels import autotune, rans_decode, spc_quantize
 from repro_torch.launch import dryrun, mesh, specs
 from repro_torch.models import convert, init_model, param
@@ -293,13 +294,16 @@ def test_traced_matmul_flops_match_hand_count(remat):
 
 @pytest.mark.parametrize("arch", ("ras-pimc", "mixtral-8x22b", "qwen3-4b",
                                   "llama3-405b", "mamba2-130m",
-                                  "recurrentgemma-2b"))
+                                  "recurrentgemma-2b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"))
 def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
     """At world 1 the dry-run's parameter, gradient and moment bytes are
     those of the CPU tensors of the same step (the card's counterpart runs
     in chip_smoke.py), under the compute placement (the dense archs,
-    mixtral, whose experts run on 1/1 of their columns, and the recurrent
-    families, on 1/1 of their channels)."""
+    mixtral, whose experts run on 1/1 of their columns, the recurrent
+    families, on 1/1 of their channels, and the vlm and audio models, their
+    cross attention and encoder on 1/1 of their heads)."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     cfg = registry.get_smoke_config(arch).with_(grad_accum=2)
     shape = registry.ShapeSpec("t", 16, 4, "train")
@@ -312,7 +316,10 @@ def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
     state = train_loop.init_train_state(model)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, (4, 16))
-    _, grads = train_loop.grads_fn(model, {"tokens": toks, "labels": toks})
+    batch = {k: v for k, v in train_batch(cfg, 4, 16).items()
+             if k in ("memory", "enc_inputs")}
+    _, grads = train_loop.grads_fn(model, {"tokens": toks, "labels": toks,
+                                           **batch})
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -329,17 +336,16 @@ def test_world1_bytes_are_the_tensors_bytes(arch, monkeypatch):
                          "optimizer_bytes", "activation_bytes"))
 
 
-# an arch whose cells the dry-run places for storage (cross attention's
-# compute placement is not ported)
-STORAGE_ARCH = "llama-3.2-vision-11b"
+# an arch with cross attention over a memory
+CROSS_ARCH = "llama-3.2-vision-11b"
 
 
 def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     """A SMOKE dry-run of a train, prefill and decode cell on a 2 x 2 and
     a 2 x 2 x 2 mesh and a skipped cell, written to ``tmp_path``, then the
-    report's tables of those records.  The dense ``ras-pimc``'s train,
-    prefill and decode cells are compute-placed, every
-    ``llama-3.2-vision-11b`` cell storage-placed."""
+    report's tables of those records.  The dense ``ras-pimc``'s and the
+    ``llama-3.2-vision-11b``'s train, prefill and decode cells are all
+    compute-placed: each records its model-axis collectives."""
     monkeypatch.setattr(specs, "get_config", registry.get_smoke_config)
     small = (registry.ShapeSpec("train_4k", 16, 64, "train"),
              registry.ShapeSpec("prefill_32k", 32, 8, "prefill"),
@@ -347,13 +353,13 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     meshes = {"2x2": mesh.MeshShape(("data", "model"), (2, 2)),
               "2x2x2": mesh.MeshShape(("pod", "data", "model"), (2, 2, 2))}
     for name, ms in meshes.items():
-        for arch in ("ras-pimc", STORAGE_ARCH):
+        for arch in ("ras-pimc", CROSS_ARCH):
             for sh in small:
                 rec = dryrun.run_cell(arch, sh, out_dir=str(tmp_path),
                                       verbose=False, mesh=ms)
                 assert rec["status"] == "OK", rec.get("trace")
-                axis = "compute" if arch == "ras-pimc" else "storage"
-                assert (rec["mesh"], rec["model_axis"]) == (name, axis)
+                assert rec["mesh"] == name
+                assert rec["roofline"]["collectives"]["by_axes"]["model"] > 0
                 assert rec["memory"]["fits"]
         rec = dryrun.run_cell("qwen3-4b", "long_500k", out_dir=str(tmp_path),
                               verbose=False, mesh=ms)
@@ -365,12 +371,10 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
     for name in meshes:
         assert len(report.roofline_table(recs, name).splitlines()) == 2 + 6
     ok = [r for r in recs if r["status"] == "OK"]
-    # a train cell gathers its placed weights twice a microbatch (forward
-    # and backward: the whole tensors under the storage placement, the
-    # FSDP shards over data under the compute placement) and reduces the
-    # gradients over the data axes; the compute placement adds the
-    # model-axis collectives its step recorded
-    for arch in ("ras-pimc", STORAGE_ARCH):
+    # a train cell gathers its placed weights' FSDP shards over data twice
+    # a microbatch (forward and backward), reduces the gradients over the
+    # data axes and adds the model-axis collectives its step recorded
+    for arch in ("ras-pimc", CROSS_ARCH):
         train = next(r for r in ok if r["shape"] == "train_4k"
                      and r["mesh"] == "2x2" and r["arch"] == arch)
         coll = train["roofline"]["collectives"]
@@ -381,13 +385,13 @@ def test_dryrun_records_and_report_tables(tmp_path, monkeypatch, capsys):
              - math.prod(sharding.shard_shape(sh, sp, cell.mesh)))
             * dt.itemsize for sh, dt, sp in cell.params.values())
         assert coll["all-gather"]["bytes"] - sum(
-            b for op, a, b, _ in cell.recorded or ()
+            b for op, a, b, _ in cell.recorded
             if op == "all-gather" and a == "model") == want
         reduces = sum(op in ("reduce-scatter", "all-reduce") and a == "model"
-                      for op, a, _, _ in cell.recorded or ())
+                      for op, a, _, _ in cell.recorded)
         assert sum(coll.get(op, {}).get("count", 0) for op in (
             "reduce-scatter", "all-reduce")) == len(cell.params) + reduces
-        assert (reduces > 0) == (arch == "ras-pimc")
+        assert reduces > 0
     assert coll["body_bytes"] + coll["entry_bytes"] == pytest.approx(
         train["roofline"]["collective_bytes_per_chip"])
     assert all(r["roofline"]["peak_flops"] == roofline.PEAK_FLOPS[

@@ -1,6 +1,5 @@
-"""Tensor-parallel compute over the model axis (the dense, MoE, SSM and
-hybrid families), port vs the reference's GSPMD-placed step (CPU, gloo
-ranks, no card).
+"""Tensor-parallel compute over the model axis (every family), port vs
+the reference's GSPMD-placed step (CPU, gloo ranks, no card).
 
 The cases are ``_torch_ranks.TP_CASES``, each a SMOKE config on a 4-rank
 ``(data, model)`` mesh: ``qwen3-4b`` at ``tp=2`` on (2, 2) (kv heads
@@ -11,7 +10,10 @@ query heads padded to 8 over 3 replicated kv heads with ``qkv_bias`` on
 without ``remat``; tied ``ras-pimc`` on (2, 2); the MoE family under
 expert parallelism and per-expert TP; ``mamba2-130m`` on (2, 2) and with
 half a 64-wide head a rank on (1, 4); ``recurrentgemma-2b`` on (2, 2)
-and sequence-parallel with ``remat`` on (1, 4).  Both sides take the same
+and sequence-parallel with ``remat`` on (1, 4); ``llama-3.2-vision-11b``
+(cross attention over a memory) on (2, 2) and sequence-parallel with
+``remat`` on (1, 4), and ``seamless-m4t-large-v2`` (the encoder and the
+``dec`` blocks) on (1, 4).  Both sides take the same
 seeded weights (biases and norm scales moved off their inits) and
 ``train_batch`` batches, built here with the port and handed to JAX as
 numpy arrays (``models.convert.to_reference``).
@@ -28,16 +30,18 @@ numpy arrays (``models.convert.to_reference``).
 * The port's one-rank (unplaced) step on the same inputs.
 
 Every leaf within 1e-5 of its largest entry of both.  Also: the named
-errors of meshes that do not divide and of families not placed; the
-unplaced step is the composition of the unplaced layers, op for op; the
-dry-run's compute/storage split, a placed cell's traced matmul FLOPs
-against a count by hand, and its recorded model-axis collectives.
+errors of meshes that do not divide and of paths not placed; at a (1, 1)
+mesh the placed blocks and steps of every family are the unplaced ones
+op for op; the unplaced step is the composition of the unplaced layers,
+op for op; every dry-run cell compute-placed, a placed cell's traced
+matmul FLOPs against a count by hand, and its recorded model-axis
+collectives.
 
 The placed decode (``-k decode``): the cases of ``_torch_ranks.
 TP_DECODE`` (kv-head-sharded, slot-sharded, padded heads, ``ras-pimc``,
 per-row positions on a ring shorter than the stream, the MoE rules, the
-SSM on the reference's state shards, the hybrid's window wrapping) on
-the same 4
+SSM on the reference's state shards, the hybrid's window wrapping, the
+vlm's and the audio model's cross attention over a memory) on the same 4
 gloo ranks (suite ``tp_decode``), against JAX's ``decode_step`` and
 ``prefill_chunk`` jitted with ``param_shardings`` and
 ``repro.launch.specs.cache_shardings`` (``_torch_tp_ref.py decode``) and
@@ -67,10 +71,12 @@ import _torch_ranks as R
 from repro_torch.configs import registry
 from repro_torch.launch import dryrun, mesh, specs
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models import init_model, moe, param, rglru, ssm
+from repro_torch.models import encode_memory, init_model, moe, param, \
+    rglru, ssm
 from repro_torch.models.convert import to_reference
 from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
-from repro_torch.models.attention import attn_forward
+from repro_torch.models.attention import attn_cross, attn_forward
+from repro_torch.models.transformer import remat
 from repro_torch.parallel import sharding
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.serve.engine import BatchEngine
@@ -303,10 +309,12 @@ def _decode_inputs(path: Path) -> None:
     inp = {}
     for name, (tp_name, rows, _, _) in R.TP_DECODE.items():
         _flat(to_reference(R.tp_model(tp_name)), f"{name}/w", inp)
-        tokens, pos, pos0 = R.tp_decode_inputs(name)
+        tokens, pos, pos0, memory = R.tp_decode_inputs(name)
         inp[f"{name}/tokens"], inp[f"{name}/pos0"] = tokens, pos0
         if rows:
             inp[f"{name}/pos"] = np.stack(pos)
+        if memory is not None:
+            inp[f"{name}/memory"] = memory
     np.savez(path, **inp)
 
 
@@ -473,10 +481,20 @@ def test_placed_compress_refuses_data_axis_and_mesh(decode_runs,
 
 
 def test_other_families_and_paths_refuse_by_name():
+    # every family is placed: the vlm and audio models too, their decode
+    # at a (1, 1) mesh the whole model's, bit for bit
     for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2"):
-        model = param.meta_model(registry.get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            sharding.place_model(model, _comm(1, 1))
+        cfg = registry.get_smoke_config(arch)
+        whole = init_model(cfg, seed=2, device="cpu")
+        placed = sharding.place_model(whole, _comm(1, 1))
+        memory = torch.as_tensor(np.random.default_rng(3).normal(
+            size=(2, cfg.memory_tokens, cfg.d_model)), dtype=torch.float32)
+        state, wstate = placed.init_state(2, 8), whole.init_state(2, 8)
+        for t in range(10):
+            tok = torch.full((2, 1), 3 * t + 1, dtype=torch.int64)
+            assert torch.equal(
+                placed.decode_step(state, tok, t, memory=memory),
+                whole.decode_step(wstate, tok, t, memory=memory)), (arch, t)
     cfg = registry.get_smoke_config("ras-pimc")
     whole = init_model(cfg, device="cpu")
     placed = sharding.place_model(whole, _comm(1, 1))
@@ -591,6 +609,47 @@ def test_recurrent_placed_at_one_rank_is_the_unplaced_op_for_op(arch, over,
         assert torch.equal(state.leaves()[k], t), k
 
 
+@pytest.mark.parametrize("arch,over", [
+    ("llama-3.2-vision-11b", {}),
+    ("llama-3.2-vision-11b", {"tp": 4, "remat": True}),   # kv replicated
+    ("seamless-m4t-large-v2", {}),
+    ("seamless-m4t-large-v2", {"tp": 4, "remat": True}),  # kv sharded
+])
+def test_cross_placed_at_one_rank_is_the_unplaced_op_for_op(arch, over):
+    """On a (1, 1) mesh a placed model's training unit with cross
+    attention (the vlm's (attn x 4, cross) pattern, the audio model's
+    ``dec`` block) and its encoder are the unplaced ones op for op: the
+    unit's output and the gradients of its input, of the memory (or the
+    encoder inputs it was encoded from) and of every parameter, bitwise;
+    so is the serving step's cross attention (``attn_cross``)."""
+    cfg = registry.get_smoke_config(arch).with_(**over)
+    whole = init_model(cfg, seed=4, device="cpu")
+    placed = sharding.place_model(whole, _comm(1, 1))
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(2, 16, cfg.d_model)),
+                        dtype=torch.float32)
+    m = torch.as_tensor(rng.normal(size=(2, cfg.memory_tokens,
+                                         cfg.d_model)), dtype=torch.float32)
+    outs = []
+    for model in (whole, placed):
+        xi, mi = x.clone().requires_grad_(), m.clone().requires_grad_()
+        mem = encode_memory(model, mi) if cfg.is_encdec else mi
+        y, _ = remat(cfg, model.unit_forward, model.units[0], xi, mem)
+        ps = list(model.parameters())
+        grads = torch.autograd.grad((y * y).sum(), [xi, mi] + ps,
+                                    allow_unused=True)
+        b = model.kinds.index("cross" if arch.startswith("llama")
+                              else "dec")
+        pl = model.placement
+        with torch.no_grad():
+            step = attn_cross(model.blocks[b].cross, x[:, :1], m, cfg,
+                              place=None if pl is None else pl.serving(8))
+        outs.append((y, step, *grads))
+    assert outs[0][3] is not None     # the memory's gradient
+    for a, b in zip(*outs):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
 @pytest.mark.parametrize("slots_at_one", (False, True))
 @pytest.mark.parametrize("arch", ("qwen3-4b", "phi3.5-moe-42b-a6.6b"))
 def test_slots_ring_on_one_model_rank(arch, slots_at_one):
@@ -657,16 +716,16 @@ def test_unplaced_loss_is_the_unplaced_layers(arch):
 # ---------------------------------------------------------------------------
 
 def test_dryrun_places_compute_for_dense_train_and_prefill():
-    """Every cell of the grid on the production mesh: a ``dense``,
-    ``moe``, ``ssm`` or ``hybrid`` arch's train, prefill and decode cells
-    are compute-placed (a recording stand-in, the rank's shards as its
-    parameters and its decode state, the reference's ``act_pspec``: none
-    on a decode cell but the config's own; phi3.5-moe's 16 experts one a
-    rank, mixtral's 8 each on 1/16 of ``d_ff``), every ``vlm`` and
-    ``audio`` cell is storage-placed; a decode cell's recurrent leaves
-    have their last dim on ``model`` and its ring layout is the
-    reference's (``kv_heads`` for ``ras-pimc``, the ring's slots at ``tp
-    = 16`` elsewhere), and it records the context-parallel combine's
+    """Every cell of the grid on the production mesh is compute-placed
+    (a recording stand-in, the rank's shards as its parameters and its
+    decode state, the reference's ``act_pspec``: none on a decode cell
+    but the config's own; phi3.5-moe's 16 experts one a rank, mixtral's 8
+    each on 1/16 of ``d_ff``; the vlm's and audio model's cross attention
+    and encoder on the rank's heads, their memory the rank's rows); a
+    decode cell's recurrent leaves have their last dim on ``model`` and
+    its ring layout is the reference's (the kv heads where ``tp = 16``
+    divides them, ``ras-pimc``'s and ``seamless-m4t-large-v2``'s, else
+    the ring's slots), and it records the context-parallel combine's
     gathers over ``model``, or the SSM step's gathers and
     reduce-scatter."""
     ms = mesh.production_mesh_shape()
@@ -675,16 +734,13 @@ def test_dryrun_places_compute_for_dense_train_and_prefill():
             continue
         cell = specs.build_cell(arch, shape, ms)
         family = registry.get_config(arch).family
-        compute = family in ("dense", "moe", "ssm", "hybrid")
         if family == "moe":
             pl, ffn = cell.model.placement, cell.model.blocks[0].ffn
             ep = arch == "phi3.5-moe-42b-a6.6b"
             assert pl.moe_rule == ("experts" if ep else "mlp"), arch
             assert tuple(ffn.wi_gate.shape[::2]) == (
                 (1, cell.cfg.d_ff) if ep else (8, cell.cfg.d_ff // 16))
-        assert (cell.comm is not None) == compute, (arch, shape)
-        if not compute:
-            continue
+        assert cell.comm is not None, (arch, shape)
         for k, p in cell.model.named_parameters():
             sh, _, spec = cell.params[k]
             assert tuple(p.shape) == sharding.shard_shape(sh, spec, ms), k
@@ -704,6 +760,8 @@ def test_dryrun_places_compute_for_dense_train_and_prefill():
         for k, (gsh, _, spec) in cell.state.items():
             if k not in ("k", "v"):     # a recurrent leaf's last dim
                 assert spec[-1] == "model", (arch, k)
+        if family in ("vlm", "audio"):
+            assert cell.batch["memory"][0][0] == sh.global_batch, arch
         cell.run()
         ops = {(op, axis) for op, axis, _, _ in cell.recorded}
         assert ("all-reduce", "model") in ops
@@ -712,7 +770,8 @@ def test_dryrun_places_compute_for_dense_train_and_prefill():
                     ("reduce-scatter", "model")} <= ops  # scatters y
             continue
         layout = pl.ring_layout(sh.seq_len)
-        assert layout == ("kv_heads" if arch == "ras-pimc" else "slots")
+        assert layout == ("kv_heads" if arch in (
+            "ras-pimc", "seamless-m4t-large-v2") else "slots"), arch
         assert (("all-gather", "model") in ops) == (layout == "slots")
     cell = specs.build_cell("llama3-405b", "train_4k",
                             mesh.production_mesh_shape(multi_pod=True))
@@ -769,7 +828,7 @@ def test_placed_cell_flops_match_hand_count(arch, remat, monkeypatch):
     assert ops == want
     rec = dryrun.run_cell(arch, shape, mesh=ms, verbose=False,
                           overrides=over)
-    assert rec["status"] == "OK" and rec["model_axis"] == "compute"
+    assert rec["status"] == "OK"
     coll = rec["roofline"]["collectives"]
     assert coll["by_axes"]["model"] == pytest.approx(sum(
         nb for _, axis, nb, _ in cell.recorded if axis == "model"))

@@ -17,14 +17,16 @@ hashes what it puts out:
   three requests of 29, 17 and 32 tokens and their decompress;
 - the logits of 20 ``decode_step`` positions on a ring of 8 slots (it
   wraps twice), 3 rows;
-- the unplaced training path of the dense, MoE, SSM and hybrid SMOKE
-  archs in ``TRAIN_ARCHS`` (``qwen3-4b`` and ``recurrentgemma-2b`` also
-  under ``remat``, phi3.5-moe also with the dense schedule):
-  ``forward``'s hidden states and logits, ``grads_fn``'s loss and
-  gradients, and two ``make_train_step`` steps' metrics and parameters,
-  on a 4 x 16 ``train_batch``, torch on one thread; for a MoE, SSM or
-  hybrid arch also the logits of 20 ``decode_step`` positions of 3 rows
-  on a ring of 8 slots and the final state's leaves.
+- the unplaced training path of the SMOKE archs of every family in
+  ``TRAIN_ARCHS`` (``qwen3-4b``, ``recurrentgemma-2b`` and the vlm and
+  audio archs also under ``remat``, phi3.5-moe also with the dense
+  schedule): ``forward``'s hidden states and logits, ``grads_fn``'s loss
+  and gradients, and two ``make_train_step`` steps' metrics and
+  parameters, on a 4 x 16 ``train_batch`` (with its memory or encoder
+  inputs), torch on one thread; for an arch of another family than
+  ``dense`` also the logits of 20 ``decode_step`` positions of 3 rows on
+  a ring of 8 slots (against the batch's memory, or the memory encoded
+  from its encoder inputs) and the final state's leaves.
 
 It prints each checkout's digests and exits nonzero unless every one
 agrees.  Needs no card and no ``nvcc``.
@@ -45,7 +47,11 @@ TRAIN_ARCHS = (("ras-pimc", {}), ("qwen1.5-4b", {}), ("qwen3-4b", {}),
                ("mixtral-8x22b", {}), ("phi3.5-moe-42b-a6.6b", {}),
                ("phi3.5-moe-42b-a6.6b", {"moe_impl": "dense"}),
                ("mamba2-130m", {}), ("recurrentgemma-2b", {}),
-               ("recurrentgemma-2b", {"remat": True}))
+               ("recurrentgemma-2b", {"remat": True}),
+               ("llama-3.2-vision-11b", {}),
+               ("llama-3.2-vision-11b", {"remat": True}),
+               ("seamless-m4t-large-v2", {}),
+               ("seamless-m4t-large-v2", {"remat": True}))
 
 
 def _digest(*arrays) -> str:
@@ -116,7 +122,7 @@ def train_digests() -> dict:
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import train_batch
-    from repro_torch.models import init_model
+    from repro_torch.models import encode_memory, init_model
     from repro_torch.train import train_loop
 
     torch.set_num_threads(1)
@@ -125,9 +131,11 @@ def train_digests() -> dict:
         cfg = get_smoke_config(arch).with_(**over)
         model = init_model(cfg, seed=0, device="cpu")
         batch = train_batch(cfg, 4, 16, step=0)
+        mem = {k: torch.as_tensor(batch[k]) for k in ("memory", "enc_inputs")
+               if k in batch}
         with torch.no_grad():
             x, _ = model(torch.as_tensor(batch["tokens"],
-                                         dtype=torch.int64))
+                                         dtype=torch.int64), **mem)
             lg = model._logits(x)
         loss, grads = train_loop.grads_fn(model, batch)
         state = train_loop.init_train_state(model)
@@ -141,12 +149,18 @@ def train_digests() -> dict:
             *(g.numpy() for g in grads.values()),
             *(t.numpy() for t in metrics),
             *(p.detach().numpy() for p in model.parameters()))
-        if cfg.family in ("moe", "ssm", "hybrid"):
+        if cfg.family != "dense":
+            memory = None
+            if "memory" in mem:
+                memory = mem["memory"][:3]
+            elif "enc_inputs" in mem:
+                with torch.no_grad():
+                    memory = encode_memory(model, mem["enc_inputs"][:3])
             st = model.init_state(3, 8)
             tok = torch.ones((3, 1), dtype=torch.int64)
             logits = []
             for pos in range(20):
-                lg = model.decode_step(st, tok, pos)
+                lg = model.decode_step(st, tok, pos, memory=memory)
                 logits.append(lg.numpy())
                 tok = lg.argmax(-1, keepdim=True)
             out[f"decode {arch} {over}"] = _digest(
