@@ -111,13 +111,14 @@ Phases (any failure raises and exits nonzero; the numbers name them,
    ``ops.spc_quantize_tables`` == ``tables_from_probs`` (on the card, and
    on the CPU at the first point) on every plane with
    one B6 launch between counters reset and read;
-12. row invariance (C3), before any scheduler code runs: at full width, 128
-   rows alone against the same rows inside the engine's 512 (4 slots as
-   row groups) over 8 steps, at an int and at per-row positions: logits
-   and KV rows bitwise equal (the plain 512-row call's difference is
-   printed beside it);
+12. row invariance (C3), before any scheduler code runs: why the engine
+   calls the model once per slot, on a state of the request's own ring:
+   at full width, 4 slots of 128 rows each stepped alone over 8 steps
+   against the same rows inside one plain 512-row call, a batched GEMM of
+   the 4 slots and 128 rows under a shorter ring, each difference printed
+   (every logit finite);
 13. prefill against step (C4): ``prefill_chunk`` over a 256-position chunk
-   of two slots' 256 rows (pos0 > 0, one ragged row) bitwise equal to 256
+   of 256 rows (pos0 > 0, one ragged row) bitwise equal to 256
    ``decode_step`` calls on every live logit and on the cache (a GEMM over
    all positions' rows is printed beside it);
 14. ``benchmarks/bench_serve.py``'s point (16 streams x 2 lanes x 64
@@ -166,6 +167,16 @@ Phases (any failure raises and exits nonzero; the numbers name them,
    the CPU's (a gloo group) bitwise, the loss falling; (7) that state with
    its error tree checkpointed and ``remesh``-ed onto the CPU and back,
    bitwise.
+15b. the placed engine (``placed_engine_phase``), on a world-1 NCCL
+   group: the slice's ``ras-pimc`` model placed for compute on
+   ``make_mesh_for(1)`` served by ``BatchEngine`` at phase 15's point
+   (4 slots x 128 lanes x 300 tokens): every blob byte-identical to phase
+   15's unplaced engine's and to the placed ``lm_compress_chunked``'s,
+   two of them decompressed exactly side by side, launches B1 8 / B2 300
+   / B6 302 from 0; then
+   ``mamba2-130m`` ``CONFIG`` cut to 4 layers (K = 50,280, prob_bits 16),
+   2 slots x 16 lanes x 64 tokens, alike against its unplaced engine
+   (B1 4 / B2 64 / B6 66).
 16. the Fig. 4(c) ratio ladder (``benchmarks/bench_ratio.run``'s
    defaults: a 128 x 256 ``synthetic_image(seed=0)`` as 16 lanes x 2048,
    chunk 512): zlib level 9, the static histogram, ``ras-pimc`` trained
@@ -390,6 +401,15 @@ zero-frequency cases of 5a.
    backend: launches B1 1 / B2 256 / B6 257 from 0, round trip exact,
    kernel and coder containers byte-identical, CR above the static
    histogram's; the full-width state saved and restored bitwise;
+26a. the placed cross-pod step (``crosspod_placed_phase``), on a world-1
+   NCCL group: ``ras-pimc`` ``CONFIG`` in float32 placed on a ``(pod 1,
+   data 1, model 1)`` device mesh, the int8 ring on its ``pod`` group, 6
+   steps of 16 x 128 from step 100: the first bitwise its composition
+   (placed gradients, the ring with each whole leaf's scale, the clip,
+   AdamW, the residuals, the loss); against the unplaced cross-pod step
+   on the same pod mesh the gradients and losses within 1e-5 and the
+   reduces equal but for counted one-code differences at rounding
+   boundaries; step ms of both beside the card's name and power limit;
 27. the launchers (``launchers_phase``): ``launch.train.main`` (10 steps,
    a checkpoint every 5) then ``launch.serve.main --ckpt --backend
    kernel`` in process: ``restored checkpoint step 10``, bit-exact,
@@ -420,7 +440,9 @@ zero-frequency cases of 5a.
 
 The kernels' JSON record gives each kernel's launches on its main path
 (``launches``), in the engine phase (``engine_launches``), in the
-placed calls of phase 15a (``placement_launches``), in the
+placed calls of phase 15a (``placement_launches``), in the placed
+engine of phase 15b (``placed_engine_launches``), in phase 26a
+(``crosspod_placed_launches``, 0), in the
 Fig. 4(c) phase (``fig4c_launches``), in the mamba2 slice
 (``mamba2_launches``), in the mixtral slice (``moe_launches``), in
 the zoo rungs (``zoo_launches``), in the phi slice
@@ -1704,62 +1726,34 @@ def _clone_state(st):
 
 
 def row_invariance_phase(dev, model):
-    """C3 at full width, before any scheduler code runs: 128 rows alone
-    against the same rows inside the engine's 512 (4 slots x 128) over
-    ``C3_STEPS`` steps, at an int position and at per-row positions (slot
-    s starts s steps late, so the slots sit at different positions and a
-    not-yet-started slot is left out of the call).  The engine's call runs
-    each slot as a row group; logits and KV rows must be bitwise equal.
-    The plain 512-row call (one GEMM over all rows), a batched GEMM of the
-    4 slots and the same rows under a shorter ring are printed beside it:
-    that is what the groups work around."""
+    """C3 at full width, before any scheduler code runs: why the engine
+    calls the model once per slot, on a state of the request's own ring
+    (``serve/engine.py``).  ``ENGINE_SLOTS`` slots of 128 rows, each
+    stepped alone over ``C3_STEPS`` steps (the engine's call), against the
+    same rows inside one plain 512-row call; beside it a batched GEMM of
+    the slots against each 128-row GEMM, and 128 rows under a ring of
+    ``C3_STEPS`` against the same under a ring of ``T``.  Each difference
+    is printed; every logit must be finite."""
     import torch
     from repro_torch.data.pipeline import token_stream
-    from repro_torch.models import RowGroup, decode_step, init_state
-    from repro_torch.models.attention import ring_slots
+    from repro_torch.models import decode_step, init_state
 
     t0 = time.perf_counter()
     rows = ENGINE_SLOTS * LANES
     toks = torch.as_tensor(token_stream(K, (rows, C3_STEPS), seed=5),
                            device=dev)
+    plain = init_state(model, rows, T)
+    alone = [init_state(model, LANES, T) for _ in range(ENGINE_SLOTS)]
     plain_diff = 0.0
-    for per_row in (False, True):
-        offs = [s if per_row else 0 for s in range(ENGINE_SLOTS)]
-        big = init_state(model, rows, ENGINE_MAX_LEN)
-        alone = [init_state(model, LANES, T) for _ in range(ENGINE_SLOTS)]
-        plain = None if per_row else init_state(model, rows, T)
-        for t in range(C3_STEPS + max(offs)):
-            live = [s for s in range(ENGINE_SLOTS)
-                    if 0 <= t - offs[s] < C3_STEPS]
-            groups = tuple(RowGroup(s * LANES, (s + 1) * LANES, T)
-                           for s in live)
-            pos = torch.zeros(rows, dtype=torch.int64, device=dev)
-            tok = torch.zeros((rows, 1), dtype=torch.int64, device=dev)
-            for s in live:
-                pos[s * LANES:(s + 1) * LANES] = t - offs[s]
-                tok[s * LANES:(s + 1) * LANES, 0] = toks[
-                    s * LANES:(s + 1) * LANES, t - offs[s]]
-            lg = decode_step(model, big, tok, t if not per_row else pos,
-                             groups)
-            if plain is not None:
-                lg_plain = decode_step(model, plain, tok, t)
-            for s in live:
-                r = slice(s * LANES, (s + 1) * LANES)
-                want = decode_step(model, alone[s], tok[r], t - offs[s])
-                _check(torch.equal(lg[r], want),
-                       f"C3: slot {s} logits differ inside 512 rows at step "
-                       f"{t} ({'per-row' if per_row else 'int'} positions)")
-                if plain is not None:
-                    plain_diff = max(plain_diff, float(
-                        (lg_plain[r] - want).abs().max()))
-        n = ring_slots(T)
+    for t in range(C3_STEPS):
+        lg_plain = decode_step(model, plain, toks[:, t:t + 1], t)
         for s in range(ENGINE_SLOTS):
             r = slice(s * LANES, (s + 1) * LANES)
-            _check(torch.equal(big.k[:, r, :n], alone[s].k)
-                   and torch.equal(big.v[:, r, :n], alone[s].v),
-                   f"C3: slot {s} KV rows differ")
-    # what the groups work around, beside the checks: a batched GEMM of the
-    # 4 slots, and the same 128 rows under a shorter ring
+            lg = decode_step(model, alone[s], toks[r, t:t + 1], t)
+            _check(bool(torch.isfinite(lg).all()),
+                   f"C3: slot {s} logits not finite at step {t}")
+            plain_diff = max(plain_diff, float(
+                (lg_plain[r] - lg).abs().max()))
     with torch.no_grad():
         x = model.embedding[toks[:, 0]]
         w = model.blocks[0].attn.wq.reshape(x.shape[1], -1)
@@ -1774,22 +1768,25 @@ def row_invariance_phase(dev, model):
         b = decode_step(model, long_, toks[:LANES, t:t + 1], t)
         ring_diff = max(ring_diff, float((a - b).abs().max()))
     torch.cuda.synchronize()
-    print(f"C3 row invariance: {LANES} rows alone == the same rows inside "
-          f"{rows} (4 slots as row groups, ring {T} of {ENGINE_MAX_LEN}), "
-          f"logits and KV bitwise over {C3_STEPS} steps at int and per-row "
-          f"positions; the plain {rows}-row call differs from {LANES} alone "
+    for name, d in (("plain", plain_diff), ("bmm", bmm_diff),
+                    ("ring", ring_diff)):
+        _check(math.isfinite(d), f"C3: the {name} difference is not finite")
+    print(f"C3 row invariance: over {C3_STEPS} steps the plain {rows}-row "
+          f"call differs from {ENGINE_SLOTS} x {LANES} rows stepped alone "
           f"by up to {plain_diff:.3e} (cuBLAS's kernel for M={rows} orders "
           f"the sums otherwise), a torch.bmm of {ENGINE_SLOTS} x {LANES} "
           f"rows differs from each {LANES}-row GEMM by up to "
           f"{bmm_diff:.3e}, and {LANES} rows under a ring of {C3_STEPS} "
           f"differ from the same under a ring of {T} by up to "
-          f"{ring_diff:.3e}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{ring_diff:.3e}: the engine calls each slot alone on a state of "
+          f"its request's ring; {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return plain_diff
 
 
 def prefill_phase(dev, model):
     """C4 at full width: one ``prefill_chunk`` over a CHUNK-position chunk
-    (pos0 = C4_WARM > 0, one ragged row) of C4_SLOTS slots' rows against
+    (pos0 = C4_WARM > 0, one ragged row) of C4_SLOTS x 128 rows against
     CHUNK ``decode_step`` calls: bitwise on every live logit and on the
     whole cache but the ragged row's clamped slot (which the step path
     writes and the next chunk's first step overwrites).  A GEMM over all
@@ -1797,18 +1794,15 @@ def prefill_phase(dev, model):
     GEMMs replace."""
     import torch
     from repro_torch.data.pipeline import token_stream
-    from repro_torch.models import (RowGroup, decode_step, init_state,
-                                    prefill_chunk)
+    from repro_torch.models import decode_step, init_state, prefill_chunk
 
     t0 = time.perf_counter()
     rows = C4_SLOTS * LANES
     toks = torch.as_tensor(token_stream(K, (rows, C4_WARM + CHUNK), seed=6),
                            device=dev)
-    groups = tuple(RowGroup(s * LANES, (s + 1) * LANES, T)
-                   for s in range(C4_SLOTS))
-    step = init_state(model, rows, ENGINE_MAX_LEN)
+    step = init_state(model, rows, T)
     for t in range(C4_WARM):
-        decode_step(model, step, toks[:, t:t + 1], t, groups)
+        decode_step(model, step, toks[:, t:t + 1], t)
     pf = _clone_state(step)
     nv = torch.full((rows,), CHUNK, dtype=torch.int64, device=dev)
     row, n_r = C4_RAGGED
@@ -1817,12 +1811,12 @@ def prefill_phase(dev, model):
     t1 = time.perf_counter()
     ref = torch.stack([decode_step(model, step,
                                    toks[:, C4_WARM + t:C4_WARM + t + 1],
-                                   pos0 + torch.clamp(nv, max=t), groups)
+                                   pos0 + torch.clamp(nv, max=t))
                        for t in range(CHUNK)], 1)
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t1
     t1 = time.perf_counter()
-    lg = prefill_chunk(model, pf, toks[:, C4_WARM:], pos0, nv, groups)
+    lg = prefill_chunk(model, pf, toks[:, C4_WARM:], pos0, nv)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t1
     live = torch.arange(CHUNK, device=dev)[None] < nv[:, None]
@@ -1853,9 +1847,11 @@ def prefill_phase(dev, model):
     return dict(prefill_s=t_prefill, steps_s=t_steps, gemm_diff=gemm_diff)
 
 
-def _pack(chunks, chunk, n):
+def _pack(chunks, chunk, n, bits=None):
     from repro_torch.core import bitstream
-    return bitstream.pack_chunked(*chunks, chunk_size=chunk, n_symbols=n)
+    from repro_torch.core import constants as C
+    return bitstream.pack_chunked(*chunks, chunk_size=chunk, n_symbols=n,
+                                  prob_bits=bits or C.PROB_BITS)
 
 
 def bench_serve_phase(dev, model):
@@ -2102,7 +2098,7 @@ def engine_phase(dev, model):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, dict(compress_symbols_per_s=syms / t_comp,
                           decompress_symbols_per_s=syms / t_dec,
-                          busy_share=busy_ms / wall_ms)
+                          busy_share=busy_ms / wall_ms), blobs
 
 
 def _fig4c_train(cfg, rows, dev, steps: int = FIG4C_STEPS):
@@ -5155,6 +5151,294 @@ def placement_phase(dev, slice_run, served):
     return launches, finding
 
 
+# --- a placed model with rows over data (slice 19) ---------------------------
+
+# the placed mamba2 engine: slots x lanes x tokens, chunk (the mamba2
+# slice's depth and prob_bits); the placed cross-pod step: the trainer's
+# 16 x 128 batch (PLACE_BATCH x PLACE_SEQ), XP_STEPS steps from step 100,
+# the first XP_WARM of them untimed
+PE_M2_SLOTS, PE_M2_LANES, PE_M2_T, PE_M2_CHUNK = 2, 16, 64, 32
+XP_STEPS, XP_WARM = 6, 2
+
+
+def _placed_engine(model, toks, want: list, *, slots: int, lanes: int,
+                   chunk: int, max_len: int, bits: int, what: str):
+    """``model`` (placed) served by ``BatchEngine`` (the kernel step
+    backend): ``toks`` compressed, each blob byte-identical to ``want``'s
+    (the unplaced engine's), then the first two blobs decompressed side
+    by side, tokens exact; the launches of both runs counted from 0; then
+    each request through the placed single-request
+    ``lm_compress_chunked``, byte-identical.  Returns ``(launches,
+    compress s, decompress s)``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+
+    def engine():
+        return BatchEngine(model, slots=slots, lanes=lanes, chunk_size=chunk,
+                           max_len=max_len, prob_bits=bits, topk=TOPK,
+                           step_backend="kernel")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    eng = engine()
+    rids = [eng.submit_compress(t) for t in toks]
+    res = eng.run()
+    t_comp = time.perf_counter() - t0
+    got = [res[r].blob for r in rids]
+    t0 = time.perf_counter()
+    eng = engine()
+    dec = [eng.submit_decompress(b) for b in got[:2]]
+    res = eng.run()
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for i, b in enumerate(got):
+        _check(b == want[i], f"{what}: engine blob {i} differs from the "
+               "unplaced engine's")
+    for i, (r, t) in enumerate(zip(dec, toks)):
+        _check(res[r].ok and np.array_equal(res[r].tokens, t),
+               f"{what}: engine decompress {i} not exact")
+    for i, t in enumerate(toks):
+        single = _pack(compress.lm_compress_chunked(
+            model, t, chunk, bits, backend="kernel").chunks, chunk,
+            t.shape[1], bits)
+        _check(single == got[i], f"{what}: engine blob {i} differs from "
+               "the placed lm_compress_chunked's")
+    return launches, t_comp, t_dec
+
+
+def placed_engine_phase(dev, model, blobs):
+    """Slice 19: ``BatchEngine`` with a model placed for compute on
+    ``make_mesh_for(1)`` (world-1 NCCL): ``ras-pimc`` ``CONFIG`` (the
+    slice's model) at the engine phase's point (``ENGINE_SLOTS`` slots x
+    ``LANES`` lanes x ``ENGINE_T`` tokens, chunk ``CHUNK``), its blobs
+    byte-identical to the unplaced engine's (``blobs``, the engine
+    phase's) and to the placed single-request path's, two decompressed
+    exactly side by side (B1 once per slot and cycle, B6 once per prefill
+    cycle and per decode step, B2 per step); ``mamba2-130m`` ``CONFIG`` cut to ``M2_LAYERS``
+    layers (BF16, K = 50,280, prob_bits 16) at ``PE_M2_*`` alike, against
+    its unplaced engine here.  Returns the placed runs' launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.mamba2_130m import CONFIG as M2
+    from repro_torch.core import constants as C
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import BatchEngine
+
+    smi = _smi()
+    toks = [token_stream(K, (LANES, ENGINE_T), seed=s)
+            for s in range(ENGINE_SLOTS)]
+    m2 = init_model(M2.with_(n_layers=M2_LAYERS), seed=0, device=dev)
+    m2_toks = [token_stream(m2.cfg.vocab_size, (PE_M2_LANES, PE_M2_T),
+                            seed=40 + s) for s in range(PE_M2_SLOTS)]
+    eng = BatchEngine(m2, slots=PE_M2_SLOTS, lanes=PE_M2_LANES,
+                      chunk_size=PE_M2_CHUNK, max_len=PE_M2_T,
+                      prob_bits=M2_BITS, topk=TOPK, step_backend="kernel")
+    rids = [eng.submit_compress(t) for t in m2_toks]
+    res = eng.run()
+    m2_want = [res[r].blob for r in rids]
+    _nccl_world1(dev)
+    try:
+        dm = make_mesh_for(1, device=dev)
+        placed = sharding.place_model(model, dm)
+        launches, t_comp, t_dec = _placed_engine(
+            placed, toks, blobs, slots=ENGINE_SLOTS, lanes=LANES,
+            chunk=CHUNK, max_len=ENGINE_MAX_LEN, bits=C.PROB_BITS,
+            what="placed engine")
+        n_cyc = -(-ENGINE_T // CHUNK)
+        want = _only(rans_encode_lanes=ENGINE_SLOTS * n_cyc,
+                     rans_decode_step=ENGINE_T,
+                     spc_quantize=n_cyc + ENGINE_T)
+        _check(launches == want, f"placed engine: launches {launches}, "
+               f"expected {want}")
+        syms = LANES * ENGINE_T
+        print(f"placed engine: {model.cfg.name} placed on the 1x1 mesh, "
+              f"{ENGINE_SLOTS} slots x {LANES} lanes x {ENGINE_T} tokens, "
+              f"chunk {CHUNK}: every blob byte-identical to the unplaced "
+              "engine's and to the placed lm_compress_chunked's, two "
+              "decompressed exactly side by side; launches "
+              f"{launches}; compress {ENGINE_SLOTS * syms / t_comp:.1f} "
+              f"symbols/s ({t_comp:.3f} s), decompress "
+              f"{2 * syms / t_dec:.1f} symbols/s ({t_dec:.3f} s) ({smi})",
+              flush=True)
+        del placed
+        placed = sharding.place_model(m2, dm)
+        more, t_comp, t_dec = _placed_engine(
+            placed, m2_toks, m2_want, slots=PE_M2_SLOTS, lanes=PE_M2_LANES,
+            chunk=PE_M2_CHUNK, max_len=PE_M2_T, bits=M2_BITS,
+            what="placed engine, mamba2")
+        n_cyc = -(-PE_M2_T // PE_M2_CHUNK)
+        want = _only(rans_encode_lanes=PE_M2_SLOTS * n_cyc,
+                     rans_decode_step=PE_M2_T,
+                     spc_quantize=n_cyc + PE_M2_T)
+        _check(more == want, f"placed engine, mamba2: launches {more}, "
+               f"expected {want}")
+        syms = PE_M2_LANES * PE_M2_T
+        print(f"placed engine: {m2.cfg.name} ({m2.cfg.n_layers} layers, "
+              f"{m2.cfg.dtype}, vocab {m2.cfg.vocab_size}, prob_bits "
+              f"{M2_BITS}) placed on the 1x1 mesh, {PE_M2_SLOTS} slots x "
+              f"{PE_M2_LANES} lanes x {PE_M2_T} tokens, chunk "
+              f"{PE_M2_CHUNK}: every blob byte-identical to its unplaced "
+              "engine's and to the placed lm_compress_chunked's, "
+              f"decompressed exactly; launches {more}; compress "
+              f"{PE_M2_SLOTS * syms / t_comp:.1f} symbols/s, decompress "
+              f"{2 * syms / t_dec:.1f} symbols/s", flush=True)
+        del placed, m2
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return _add(launches, more)
+
+
+def _code_flips(got: dict, want: dict, grads: dict, tol: float) -> int:
+    """The entries where two one-rank int8 reduces (``q * scale``, by
+    leaf) differ in their code: each must be one code apart where the
+    pre-quantization value of ``grads`` (``want``'s) lies within ``tol``
+    codes of a rounding boundary.  Returns their count."""
+    import torch
+    from repro_torch.parallel import collectives as col
+    flips = 0
+    for k, g in grads.items():
+        _, scale = col.quantize_int8(g)
+        q_got, q_want = (torch.round(t.float() / scale) for t in (got[k],
+                                                                  want[k]))
+        diff = q_got != q_want
+        if bool(diff.any()):
+            x = (g.float() / scale)[diff].abs()
+            near = ((x - x.floor() - 0.5).abs() <= tol).all()
+            _check(bool(((q_got - q_want)[diff].abs() == 1).all()
+                        and near), f"placed cross-pod step: {k}'s reduce "
+                   "differs from the unplaced one away from a rounding "
+                   "boundary")
+            flips += int(diff.sum())
+    return flips
+
+
+def crosspod_placed_phase(dev):
+    """Slice 19: the cross-pod int8 step under the compute placement on a
+    ``(pod 1, data 1, model 1)`` ``DeviceMesh`` (world-1 NCCL), the pod
+    ring on its ``pod`` group: ``ras-pimc`` ``CONFIG`` (float32) at the
+    trainer's 16 x 128, ``XP_STEPS`` steps from step 100 (a nonzero
+    learning rate).  The first step equals its composition bitwise (the
+    placed gradients, ``compressed_psum_tree`` with each whole leaf's
+    scale, the clip over the shards, lr, AdamW; the residuals and the
+    loss too).  Against the unplaced cross-pod step on the same pod mesh
+    (whose int8 quantization runs too): the first step's gradients within
+    1e-5 of each leaf's largest entry, their reduces equal but for counted
+    one-code differences at rounding boundaries, every step's loss within
+    1e-5; the parameters' largest difference after the last step printed
+    (a code flipped at a boundary moves an Adam update by up to the
+    learning rate); step ms of both.  Launches no kernel (counted)."""
+    import copy
+    import statistics as st
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.ras_pimc import CONFIG
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_model
+    from repro_torch.parallel import collectives as col, sharding
+    from repro_torch.train import optimizer, train_loop
+
+    smi = _smi()
+    cfg = CONFIG.with_(grad_accum=1)
+    model = init_model(cfg, seed=1, device=dev)
+    batches = [train_batch(cfg, PLACE_BATCH, PLACE_SEQ, step=i)
+               for i in range(XP_STEPS)]
+    _nccl_world1(dev)
+    reset_launches()
+    try:
+        dm = init_device_mesh("cuda", (1, 1, 1),
+                              mesh_dim_names=("pod", "data", "model"))
+        pod = col.pod_mesh(group=dm.get_group("pod"), device=dev)
+        placed, twin = (sharding.place_model(model, dm) for _ in range(2))
+        pl = twin.placement
+
+        def start(m):
+            s = train_loop.init_train_state(m, with_error=True)
+            return s._replace(step=torch.full_like(s.step, 100))
+
+        # the first step's parts, placed (on the twin) and unplaced
+        with train_loop.within_pod(twin):
+            loss, grads = train_loop.grads_fn(twin, batches[0])
+        red, err = col.compressed_psum_tree(
+            grads, pod, col.init_error_tree(grads), shard_max=pl.shard_max)
+        _, plain_grads = train_loop.grads_fn(copy.deepcopy(model),
+                                             batches[0])
+        plain_red, _ = col.compressed_psum_tree(
+            plain_grads, pod, col.init_error_tree(plain_grads))
+        g_worst = _tp_worst(grads, plain_grads,
+                            "placed cross-pod step: gradients")
+        flips = _code_flips(red, plain_red, plain_grads,
+                            127 * (g_worst + 1e-6))
+        clipped, _ = optimizer.clip_by_global_norm(red, 1.0,
+                                                   total=pl.sum_squares)
+        s0 = start(twin)
+        want, _ = optimizer.adamw_update(
+            clipped, s0.opt, dict(twin.named_parameters()),
+            optimizer.cosine_lr(s0.step, base_lr=PLACE_LR))
+        del twin, grads, red, clipped, plain_grads, plain_red
+        # the two steps in turns, each first every other step
+        runs = {name: dict(model=m, state=start(m), ms=[], losses=[],
+                           step=train_loop.make_train_step(
+                               cfg, base_lr=PLACE_LR, compress_crosspod=True,
+                               mesh=pod, **kw))
+                for name, m, kw in (("placed", placed, dict(device_mesh=dm)),
+                                    ("plain", copy.deepcopy(model), {}))}
+        for i, b in enumerate(batches):
+            for name in (("placed", "plain") if i % 2 == 0
+                         else ("plain", "placed")):
+                r = runs[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r["state"], met = r["step"](r["state"], b)
+                torch.cuda.synchronize()
+                r["ms"].append(1e3 * (time.perf_counter() - t0))
+                r["losses"].append(met["loss"])
+                if name == "placed" and i == 0:
+                    got = dict(placed.named_parameters())
+                    _check(all(torch.equal(got[k], want[k]) for k in want)
+                           and all(torch.equal(r["state"].error[k], err[k])
+                                   for k in err)
+                           and bool(met["loss"] == loss),
+                           "placed cross-pod step: the first step is not "
+                           "its composition bitwise")
+        launches = dict(LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    (p_ms, p_loss, p_par), (u_ms, u_loss, u_par) = (
+        (st.median(r["ms"][XP_WARM:]), torch.stack(r["losses"]),
+         {k: p.detach() for k, p in r["model"].named_parameters()})
+        for r in (runs["placed"], runs["plain"]))
+    l_worst = _tp_worst({"l": p_loss}, {"l": u_loss},
+                        "placed cross-pod step: losses")
+    par = max(float((p_par[k] - u_par[k]).abs().max()
+                    / u_par[k].abs().max()) for k in u_par)
+    _check(launches == _only(), f"placed cross-pod step: launches "
+           f"{launches}")
+    print(f"placed cross-pod step: {cfg.name} ({cfg.dtype}) on a (pod 1, "
+          f"data 1, model 1) mesh, {XP_STEPS} steps of {PLACE_BATCH} x "
+          f"{PLACE_SEQ} from step 100: the first equal to its composition "
+          "bitwise (placed gradients, the int8 ring with each whole leaf's "
+          "scale, clip, AdamW, residuals, loss); against the unplaced "
+          f"cross-pod step: gradients within {g_worst:.3e}, the reduce "
+          f"equal but for {flips} one-code differences at rounding "
+          f"boundaries, losses within {l_worst:.3e} (limit 1e-5), "
+          f"parameters after {XP_STEPS} steps within {par:.3e} of each "
+          f"leaf's largest entry; losses "
+          f"{', '.join(f'{float(x):.4f}' for x in p_loss)}; step "
+          f"{p_ms:.3f} ms placed, {u_ms:.3f} ms unplaced (medians of "
+          f"{XP_STEPS - XP_WARM}, the two in turns) ({smi})", flush=True)
+    return launches
+
+
 # the production mesh and the dry-run: the ras-pimc trainer's timed steps
 # (16 x 128, the tooling trainer's batch) after warm-up steps; B3/B4's and
 # B2's K on this script's decode paths, each launched on small tables
@@ -5422,11 +5706,14 @@ PHASES = {
     "bench_serve point": (
         lambda dev, run: bench_serve_phase(dev, run["model"])["served"],
         ("dev", "slice_run"), ("served",)),
-    "engine": (lambda dev, run: engine_phase(dev, run["model"])[0],
-               ("dev", "slice_run"), ("engine_launches",)),
+    "engine": (lambda dev, run: engine_phase(dev, run["model"])[::2],
+               ("dev", "slice_run"), ("engine_launches", "engine_blobs")),
     "placement": (lambda dev, run, served: placement_phase(
         dev, run, served)[0], ("dev", "slice_run", "served"),
         ("placement_launches",)),
+    "placed engine": (lambda dev, run, blobs: placed_engine_phase(
+        dev, run["model"], blobs), ("dev", "slice_run", "engine_blobs"),
+        ("placed_engine_launches",)),
     "Fig. 4(a)": (fig4a_phase, ("dev",), ("fig4a",)),
     "B6 SPC": (spc_phase, ("dev",), ("b6",)),
     "Fig. 4(c)": (fig4c_phase, ("dev",), ("fig4c_launches", "pimc_smoke")),
@@ -5449,6 +5736,8 @@ PHASES = {
                                         "phi_placed")),
     "vlm": (vlm_phase, ("dev",), ("vlm_cell",)),
     "trainer": (trainer_phase, ("dev",), ("trainer_launches",)),
+    "placed cross-pod step": (crosspod_placed_phase, ("dev",),
+                              ("crosspod_placed_launches",)),
     "launchers": (launchers_phase, ("dev",), ("launcher_launches",)),
     "examples": (examples_phase, ("dev",), ("example_launches",)),
     "chunked sweep": (chunked_phase, ("dev",), ("chunked_launches",)),
@@ -5472,15 +5761,15 @@ PLAN = {
                "B5 records", "Fig. 4(b)", "image", "B3/B4 cases",
                "reference check", "Fig. 4(a)", "B6 SPC"),
     "serve": ("slice", "two-pass", "C3 row invariance", "C4 prefill",
-              "bench_serve point", "engine", "placement"),
+              "bench_serve point", "engine", "placement", "placed engine"),
     # the largest peaks (remat, phi, vlm) last: beside the placement
     # phase's, not the engine's
     "heavy": ("mamba2 slice", "mixtral slice", "dense zoo",
               "tensor parallel", "recurrent placed", "audio", "top-k",
               "lanes sweep", "remat", "phi slice", "vlm"),
     "ladder": ("Fig. 4(c)", "zoo rungs", "mamba2 trainer",
-               "BF16 checkpoint", "trainer", "launchers", "examples",
-               "chunked sweep"),
+               "BF16 checkpoint", "trainer", "placed cross-pod step",
+               "launchers", "examples", "chunked sweep"),
     "after": ("production mesh and dry-run",),
 }
 WORKERS = ("serve", "heavy", "ladder")
@@ -5490,6 +5779,7 @@ WORKERS = ("serve", "heavy", "ladder")
 RECORDS = ("b1", "b2", "b3", "b4", "b5", "b6", "b1_image", "fig4b", "cases",
            "fig4a", "image_launches", "slice_launches",
            "two_pass_launches", "engine_launches", "placement_launches",
+           "placed_engine_launches", "crosspod_placed_launches",
            "fig4c_launches", "m2_launches", "m2", "m2_placed",
            "mx_launches", "mx", "mx_placed", "zoo_launches", "tp_launches",
            "phi_launches", "phi", "phi_placed", "trainer_launches",
@@ -5505,15 +5795,16 @@ RECORDS = ("b1", "b2", "b3", "b4", "b5", "b6", "b1_image", "fig4b", "cases",
 # SMALL_GIB may pass one that waits.  A phase missing here runs with the
 # card's memory to itself.
 PEAK_GIB = {
-    "slice": 2.53, "two-pass": 0.88, "C3 row invariance": 16.69,
-    "C4 prefill": 6.90, "bench_serve point": 0.07, "engine": 13.22,
+    "slice": 2.53, "two-pass": 0.88, "C3 row invariance": 9.22,
+    "C4 prefill": 7.09, "bench_serve point": 0.07, "engine": 6.53,
     "placement": 5.60, "Fig. 4(c)": 1.48, "mamba2 slice": 27.48,
     "mixtral slice": 55.04, "zoo rungs": 0.40, "mamba2 trainer": 11.64,
     "BF16 checkpoint": 2.65, "dense zoo": 8.47, "remat": 61.09,
     "tensor parallel": 48.87, "recurrent placed": 46.40, "top-k": 3.21,
     "phi slice": 67.04, "vlm": 62.77, "audio": 51.06, "trainer": 0.36,
     "launchers": 0.20, "examples": 0.18, "lanes sweep": 3.71,
-    "chunked sweep": 0.18,
+    "chunked sweep": 0.18, "placed engine": 11.27,
+    "placed cross-pod step": 4.44,
 }
 PEAK_MARGIN_GIB, CARD_BUDGET_GIB, SMALL_GIB = 0.5, 76.0, 4.0
 
@@ -5784,6 +6075,8 @@ def _kernel_records(r: dict) -> list:
         rec["launches"] = r[f"{launches}_launches"][rec["name"]]
     moe_placed = _add(r["mx_placed"], r["phi_placed"])
     paths = (("engine", "engine"), ("placement", "placement"),
+             ("placed_engine", "placed_engine"),
+             ("crosspod_placed", "crosspod_placed"),
              ("fig4c", "fig4c"), ("mamba2", "m2"), ("moe", "mx"),
              ("zoo", "zoo"), ("phi", "phi"), ("moe_placed", None),
              ("recurrent_placed", None), ("tensor_parallel", "tp"),

@@ -14,8 +14,7 @@ its configs hold ``cross`` blocks, so ``can_prefill`` is False for them;
 ``audio`` (the encoder-decoder) has none.  Both step with ``memory=``:
 the ``vlm`` caller's patch embeddings, or the ``audio`` caller's
 ``encode_memory`` output.  :func:`recurrent_state_tree` marks a
-state's recurrent leaves (the reference's path classification) and
-:func:`reset_rows` zeroes every leaf of a slot's rows (a fresh admit).
+state's recurrent leaves (the reference's path classification).
 A ``dense`` model placed for compute (``parallel/sharding.place_model``)
 passes through the same three calls: its state is the rank's shard and
 its logits the rank's vocabulary slab (``LM.decode_step``).
@@ -117,12 +116,12 @@ def _init_state(model: LM, batch: int, max_len: int) -> ModelState:
     return model.init_state(batch, max_len)
 
 
-def _decode_step(model: LM, state, token, pos, groups=None, memory=None):
-    return model.decode_step(state, token, pos, groups, memory)
+def _decode_step(model: LM, state, token, pos, memory=None):
+    return model.decode_step(state, token, pos, memory)
 
 
-def _prefill_chunk(model: LM, state, tokens, pos0, n_valid, groups=None):
-    return model.prefill_chunk(state, tokens, pos0, n_valid, groups)
+def _prefill_chunk(model: LM, state, tokens, pos0, n_valid):
+    return model.prefill_chunk(state, tokens, pos0, n_valid)
 
 
 def _shared(family: str, prefillable: bool) -> ModelProtocol:
@@ -169,18 +168,15 @@ def init_state(model, batch: int, max_len: int) -> ModelState:
     return get_protocol(model.cfg).init_state(model, batch, max_len)
 
 
-def decode_step(model, state: ModelState, token, pos, groups=None,
-                memory=None):
+def decode_step(model, state: ModelState, token, pos, memory=None):
     """One serving step: token (B,1) -> logits (B, Vpad); state in place.
-    ``pos`` is an int or a ``(B,)`` int64 device tensor; ``groups`` the
-    engine's :class:`~repro_torch.models.transformer.RowGroup` s;
-    ``memory`` (B,M,D) what the ``cross``/``dec`` blocks attend."""
+    ``pos`` is an int or a ``(B,)`` int64 device tensor; ``memory``
+    (B,M,D) what the ``cross``/``dec`` blocks attend."""
     return get_protocol(model.cfg).decode_step(model, state, token, pos,
-                                               groups, memory)
+                                               memory)
 
 
-def prefill_chunk(model, state: ModelState, tokens, pos0, n_valid,
-                  groups=None):
+def prefill_chunk(model, state: ModelState, tokens, pos0, n_valid):
     """Teacher-forced chunk (B,S) -> logits (B,S,Vpad); named error when
     the config cannot prefill bitwise."""
     cfg = model.cfg
@@ -191,7 +187,7 @@ def prefill_chunk(model, state: ModelState, tokens, pos0, n_valid,
             "prefill_chunk would not be bitwise the decode_step scan; run "
             "the sequential step program instead")
     return get_protocol(cfg).prefill_chunk(model, state, tokens, pos0,
-                                           n_valid, groups)
+                                           n_valid)
 
 
 def recurrent_state_tree(state: ModelState) -> dict[str, bool]:
@@ -204,10 +200,3 @@ def recurrent_state_tree(state: ModelState) -> dict[str, bool]:
 
 def has_recurrent_state(state: ModelState) -> bool:
     return any(recurrent_state_tree(state).values())
-
-
-def reset_rows(state: ModelState, r0: int, r1: int) -> None:
-    """Zero rows ``[r0, r1)`` of every state leaf in place: the state
-    :func:`init_state` gives a fresh request (the engine's admit)."""
-    for t in state.leaves().values():
-        t[:, r0:r1].zero_()

@@ -57,16 +57,6 @@ and reads the tensors it saves then.  The graph is the same, and so are
 the loss and every gradient, bit for bit; decoding and ``prefill_chunk``
 record no graph and never checkpoint.
 
-Both serving calls take optional :class:`RowGroup` s, the batching
-engine's slots: each group runs as the single-request step of the same
-request would, at the same shapes (``lanes`` rows, the request's own ring
-length).  cuBLAS picks a GEMM's kernel, and with it the order of each
-output's sum, from the GEMM's shape, and PyTorch's row reductions pick
-their thread layout from the row count, so the same rows inside a larger
-batch can round differently on the card; a group is the unit at which
-the engine's floats are the single-request path's by construction
-(``PERF.md`` §7).
-
 A model of any family placed for compute on a ``(data, model)`` mesh
 (``parallel/sharding.place_model``: its parameters are one rank's
 shards, :attr:`LM.placement` set) trains and prefills on its rank's
@@ -99,7 +89,6 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
-from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -157,17 +146,6 @@ class ModelState:
         leaves)."""
         ring = {} if self.k is None else {"k": self.k, "v": self.v}
         return {**ring, **self.recurrent}
-
-
-class RowGroup(NamedTuple):
-    """Rows ``[r0, r1)`` run as one model call: GEMMs of ``r1 - r0`` rows
-    and attention over the ring's first ``ring_slots(length)`` slots with
-    ring length ``length``, the shapes ``init_state(r1 - r0, length)``
-    gives the single-request path."""
-
-    r0: int
-    r1: int
-    length: int
 
 
 _NORM = ("embed",)      # an RMSNorm scale's logical axes (make_rmsnorm)
@@ -517,29 +495,6 @@ class LM(nn.Module):
                               for leaf, t in leaves.items()})
         return ModelState(k=k, v=v, length=ring, recurrent=recurrent)
 
-    def _groups(self, state: ModelState, rows: int, groups):
-        if groups is None:
-            return (RowGroup(0, rows, state.length),)
-        for g in groups:
-            if not (0 <= g.r0 < g.r1 <= rows and 0 < g.length
-                    <= state.length):
-                raise ValueError(f"row group {g} does not fit {rows} rows "
-                                 f"of a ring of length {state.length}")
-        return tuple(groups)
-
-    def _rows(self, state: ModelState, g: RowGroup, pl=None) -> dict:
-        """The group's rows of every state leaf (views), the rings cut to
-        its length (a context-parallel rank's slab of the slots whole: its
-        slots past the group's ring are masked)."""
-        out = {name: t[:, g.r0:g.r1]
-               for name, t in state.recurrent.items()}
-        if state.k is not None:
-            n = (state.k.shape[2] if pl is not None and pl.ring == "slots"
-                 else ring_slots(g.length))
-            out["k"] = state.k[:, g.r0:g.r1, :n]
-            out["v"] = state.v[:, g.r0:g.r1, :n]
-        return out
-
     def _serving(self, state: ModelState):
         """The placement as the serving steps read it for ``state``
         (``Placement.serving``), or None unplaced."""
@@ -559,12 +514,12 @@ class LM(nn.Module):
         blk = self.blocks[b]
         return blk if pl is None else pl.gathered(blk, f"blocks.{b}")
 
-    def _step(self, st: dict, length: int, token, pos, memory=None,
+    def _step(self, state: ModelState, token, pos, memory=None,
               pl=None) -> torch.Tensor:
-        """The single-request step over the state views ``st`` (:meth:
-        `_rows`) of ring length ``length``, its rows' ``memory``; placed
-        (``pl``, :meth:`_serving`), on the rank's shards."""
-        cfg = self.cfg
+        """The step of ``token`` against ``state`` (updated in place), its
+        rows' ``memory``; placed (``pl``, :meth:`_serving`), on the rank's
+        shards."""
+        cfg, st, length = self.cfg, state.leaves(), state.length
         emb, head, final_norm = self._serving_weights(pl)
         x = embed(emb, token, pl)
         for b, (kind, i) in enumerate(zip(self.kinds, self._index)):
@@ -605,22 +560,18 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, state: ModelState, token: torch.Tensor, pos,
-                    groups=None, memory=None) -> torch.Tensor:
+                    memory=None) -> torch.Tensor:
         """token (B,1) int -> logits (B, Vpad); ``state`` advances in
         place.  ``pos`` is an int shared by all rows or a ``(B,)`` int64
         device tensor of per-row positions (only attention reads it).
-        ``groups`` (default: all rows, the state's ring) runs each
-        :class:`RowGroup` as its own single-request step, on its rows of
-        ``memory``; rows outside every group get zero logits and leave the
-        state unchanged.  ``memory`` (B,M,D): what the ``cross``/``dec``
-        blocks attend (required there).
+        ``memory`` (B,M,D): what the ``cross``/``dec`` blocks attend
+        (required there).
 
         Placed: ``token``, per-row ``pos`` and ``memory`` are the global
         batch, of which the rank runs its rows (``Placement.rows``) against
-        its shards of ``state`` (:meth:`init_state`); ``groups`` index
-        those rows; the logits are the rank's ``(B / dp, Vpad / tp)``
-        vocabulary slab (``Placement.whole_vocab`` gathers whole
-        rows)."""
+        its shards of ``state`` (:meth:`init_state`); the logits are the
+        rank's ``(B / dp, Vpad / tp)`` vocabulary slab
+        (``Placement.whole_vocab`` gathers whole rows)."""
         pl = self._serving(state)
         if pl is not None:
             token = pl.rows(token)
@@ -628,24 +579,12 @@ class LM(nn.Module):
                 pos = pl.rows(pos)
             if memory is not None:
                 memory = pl.rows(memory)
-        groups = self._groups(state, token.shape[0], groups)
         memory = self._memory(memory, token.shape[0])
-        if len(groups) == 1 and groups[0][:2] == (0, token.shape[0]):
-            return self._step(self._rows(state, groups[0], pl),
-                              groups[0].length, token, pos, memory, pl)
-        out = self.embedding.new_zeros((token.shape[0],
-                                        self.embedding.shape[0]))
-        for g in groups:
-            p = pos if isinstance(pos, int) else pos[g.r0:g.r1]
-            mem = None if memory is None else memory[g.r0:g.r1]
-            out[g.r0:g.r1] = self._step(self._rows(state, g, pl), g.length,
-                                        token[g.r0:g.r1], p, mem, pl)
-        return out
+        return self._step(state, token, pos, memory, pl)
 
-    def _prefill(self, ck, cv, length: int, tokens, pos0, n_valid,
-                 pl=None):
-        """:meth:`prefill_chunk` of one group: (B,S) -> (B,S,Vpad)."""
-        cfg = self.cfg
+    def _prefill(self, state: ModelState, tokens, pos0, n_valid, pl=None):
+        """:meth:`prefill_chunk` on the rank's rows: (B,S) -> (B,S,Vpad)."""
+        cfg, ck, cv, length = self.cfg, state.k, state.v, state.length
         s_len = tokens.shape[1]
         emb, head, final_norm = self._serving_weights(pl)
 
@@ -669,8 +608,8 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk(self, state: ModelState, tokens: torch.Tensor,
-                      pos0: torch.Tensor, n_valid: torch.Tensor,
-                      groups=None) -> torch.Tensor:
+                      pos0: torch.Tensor,
+                      n_valid: torch.Tensor) -> torch.Tensor:
         """Teacher-forced chunk: tokens (B,S) at per-row positions ``pos0 +
         [0, S)`` -> logits (B,S,Vpad), ``state`` updated in place.  Every
         block must be ``attn`` or ``attn_moe`` (the protocol's
@@ -698,24 +637,8 @@ class LM(nn.Module):
         if pl is not None:
             tokens, pos0, n_valid = (pl.rows(t) for t in (tokens, pos0,
                                                           n_valid))
-        b = tokens.shape[0]
-        groups = self._groups(state, b, groups)
-        pos0, n_valid = pos0.to(torch.int64), n_valid.to(torch.int64)
-
-        def kv(g):
-            st = self._rows(state, g, pl)
-            return st["k"], st["v"]
-
-        if len(groups) == 1 and groups[0][:2] == (0, b):
-            return self._prefill(*kv(groups[0]), groups[0].length, tokens,
-                                 pos0, n_valid, pl)
-        out = self.embedding.new_zeros(tuple(tokens.shape)
-                                       + (self.embedding.shape[0],))
-        for g in groups:
-            r = slice(g.r0, g.r1)
-            out[r] = self._prefill(*kv(g), g.length, tokens[r], pos0[r],
-                                   n_valid[r], pl)
-        return out
+        return self._prefill(state, tokens, pos0.to(torch.int64),
+                             n_valid.to(torch.int64), pl)
 
 
 def encode_memory(model: LM, enc_inputs: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,7 @@ placed path.
 :func:`lane_mesh` is the ``("lanes",)`` mesh of the sequential row-parallel
 programs (the fused serve decode of ``serve.compress`` and the batching
 engine): those are sequential over positions, so their parallel axis is
-the lane, routed by :func:`lane_mesh_usable`.  :func:`state_rows` is the
-protocol's row-axis pin (axis 1 of every state leaf, behind the stage
-``reps`` axis) that lets a rank hold just its rows of any family's state.
+the lane, routed by :func:`lane_mesh_usable`.
 
 Errors raise on every rank alike: exhaustion is decided on the gathered
 flags, and refusals on arguments every rank shares, so no rank is left
@@ -35,11 +33,10 @@ import torch
 from repro_torch.core import bitstream, coder, constants as C
 from repro_torch.core.bitstream import ChunkedLanes, ContainerSlab
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import ModelState
 from repro_torch.parallel import Mesh, gather, make_mesh
 
-__all__ = ["chunk_mesh", "lane_mesh", "lane_mesh_usable", "state_rows",
-           "encode_chunked", "decode_chunked", "encode_slab", "decode_slab"]
+__all__ = ["chunk_mesh", "lane_mesh", "lane_mesh_usable", "encode_chunked",
+           "decode_chunked", "encode_slab", "decode_slab"]
 
 _BACKENDS = ("coder", "kernel")
 
@@ -79,19 +76,6 @@ def lane_mesh_usable(mesh: Mesh | None, rows: int,
             "place the two-pass kernel replay — use backend='two_pass' "
             "with a ('chunks',) mesh instead")
     return rows > 0 and rows % mesh.size == 0
-
-
-def state_rows(state: ModelState, r0: int, r1: int) -> ModelState:
-    """Rows ``[r0, r1)`` of every leaf of a model state (views on axis 1):
-    the protocol pins the row on axis 1 of every leaf, KV rings and
-    recurrent ``(h, conv)`` state alike, so one cut places any family's
-    state.  A rank's own state of ``r1 - r0`` rows is this slab of the
-    whole batch's."""
-    def cut(t):
-        return None if t is None else t[:, r0:r1]
-    return ModelState(k=cut(state.k), v=cut(state.v), length=state.length,
-                      recurrent={k: cut(t) for k, t in
-                                 state.recurrent.items()})
 
 
 def _check_backend(backend: str, what: str) -> None:

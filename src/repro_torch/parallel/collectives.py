@@ -38,10 +38,14 @@ def pod_mesh(group=None, device=None) -> Mesh:
     return make_mesh("pod", group, device)
 
 
-def quantize_int8(x: torch.Tensor):
-    """Symmetric per-tensor int8 quantization (scale in f32)."""
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None):
+    """Symmetric per-tensor int8 quantization (scale in f32).  ``amax``:
+    the largest ``|x|`` of the whole tensor when ``x`` is a shard of it
+    (default: ``x``'s own)."""
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    if amax is None:
+        amax = xf.abs().max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -92,18 +96,31 @@ def compressed_psum(x: torch.Tensor, mesh: Mesh, error: torch.Tensor):
     return _mean(acc, scale_sum[0], mesh.size), new_error
 
 
-def compressed_psum_tree(tree: dict, mesh: Mesh, error_tree: dict):
+def compressed_psum_tree(tree: dict, mesh: Mesh, error_tree: dict,
+                         shard_max=None):
     """:func:`compressed_psum` of every tensor of ``tree`` (a dict by name,
     ``error_tree`` its residuals), each output cast back to its leaf's
     dtype.  The leaves travel together: one ring of ``size - 1`` hops of
     the concatenated int8 payload and the vector of scales, so each leaf's
-    sums are the per-leaf reduce's."""
+    sums are the per-leaf reduce's.
+
+    ``shard_max``: where each leaf is this rank's shard of a placed
+    gradient, a function taking the vector of the leaves' local ``|x|``
+    maxima to the whole leaves' (a max all-reduce of the vector over the
+    pod's axes, ``Placement.shard_max``), so that each shard quantizes
+    with its whole leaf's scale, as the reference's quantizer of the whole
+    leaf does; the ring then runs on the shards, the residuals stay the
+    rank's."""
     names = list(tree)
+    xf = {k: tree[k].to(torch.float32) + error_tree[k] for k in names}
+    amax = dict.fromkeys(names)
+    if shard_max is not None:
+        amax = dict(zip(names, shard_max(torch.stack(
+            [xf[k].abs().max() for k in names]))))
     qs, scales, errs = [], [], {}
     for k in names:
-        xf = tree[k].to(torch.float32) + error_tree[k]
-        q, scale = quantize_int8(xf)
-        errs[k] = xf - dequantize_int8(q, scale)
+        q, scale = quantize_int8(xf[k], amax[k])
+        errs[k] = xf[k] - dequantize_int8(q, scale)
         qs.append(q.reshape(-1))
         scales.append(scale.reshape(1))
     acc, scale_sum = _ring_sum(mesh, torch.cat(qs), torch.cat(scales))

@@ -35,7 +35,13 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   decode state is the rank's shard (:meth:`Placement.place_state`), its
   KV rings laid out by :func:`ring_layout` (the reference's
   ``cache_shardings``), and a step's logits are the rank's vocabulary
-  slab (:meth:`Placement.whole_vocab` gathers whole rows).
+  slab of its rows (:meth:`Placement.whole_vocab` gathers whole rows,
+  :meth:`Placement.whole_rows` every rank's rows).  A batch the batch
+  axes do not divide lies over those that divide it and whole on the
+  ranks of the rest (the reference's ``batch_pspec``), in training and in
+  serving alike.  The cross-pod step sees one pod's placement
+  (:meth:`Placement.within_pod`) and quantizes each shard with its whole
+  leaf's scale (:meth:`Placement.shard_max`).
 * ``moe`` (:func:`place_model` too): the same placement of the
   attention, the vocabulary and the residuals, and the expert FFN by the
   reference's rule (:func:`logical_rules`): expert parallelism when
@@ -349,17 +355,22 @@ class Placement:
 
     # -- the batch and the residual stream ---------------------------------
 
-    def _slab(self, b: int) -> tuple:
-        """``(index, parts)`` of this rank's data slab of a global batch of
-        ``b`` rows, the reference's ``batch_pspec``: over as many batch
-        axes as divide it (major first), replicated over the rest
-        (``long_500k``'s one row on every rank)."""
+    def _slab_axes(self, b: int) -> tuple:
+        """The batch axes a global batch of ``b`` rows lies over, the
+        reference's ``batch_pspec``: as many as divide it (major first);
+        it is replicated over the rest (``long_500k``'s one row on every
+        rank)."""
         use, n = [], 1
         for a in self.batch_axes:
             if b % (n * self.comm.size(a)) == 0:
                 use.append(a)
                 n *= self.comm.size(a)
-        return _coord(self.comm, tuple(use))
+        return tuple(use)
+
+    def _slab(self, b: int) -> tuple:
+        """``(index, parts)`` of this rank's data slab of a global batch of
+        ``b`` rows (:meth:`_slab_axes`)."""
+        return _coord(self.comm, self._slab_axes(b))
 
     def rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's data slab of a global batch plane (rows on
@@ -367,6 +378,43 @@ class Placement:
         idx, parts = self._slab(t.shape[dim])
         n = t.shape[dim] // parts
         return t.narrow(dim, idx * n, n)
+
+    def whole_rows(self, t: torch.Tensor, b: int,
+                   dim: int = 0) -> torch.Tensor:
+        """The global batch of ``b`` rows back from every rank's slab
+        ``t`` (rows on ``dim``; :meth:`rows`' inverse): all-gathered over
+        the axes the slab lies on, the minor first, in rank order; over
+        the axes it is replicated on, nothing moves.  A gather moves bits,
+        so every rank gets the same rows."""
+        for a in reversed(self._slab_axes(b)):
+            if self.comm.size(a) > 1:
+                t = self.comm.all_gather(t, a, dim)
+        return t
+
+    def within_pod(self) -> "Placement":
+        """This placement as one pod of the cross-pod step sees it: the
+        batch over ``data`` alone (the pod's rows are its batch; the
+        gradients' and the loss's reduces stop at the pod, where the int8
+        ring over ``pod`` takes over), the reference's ``pod_step`` with
+        ``pod`` dropped from ``act_pspec``.  Without a ``pod`` axis, this
+        placement itself."""
+        if "pod" not in self.batch_axes:
+            return self
+        view = copy.copy(self)
+        view.batch_axes = tuple(a for a in self.batch_axes if a != "pod")
+        view.dp = math.prod(self.comm.size(a) for a in view.batch_axes)
+        return view
+
+    def shard_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Each entry of ``t`` (the local maxima of this rank's gradient
+        shards, one a leaf) maxed over the ranks of its pod (every axis
+        but ``pod``): the whole leaves' maxima, as the reference's
+        quantizer reads the whole leaf.  A leaf replicated over an axis
+        holds the same bits on each of its ranks there, so the max over
+        every axis of the pod is each leaf's over the axes it is placed
+        on."""
+        return tpc.all_reduce(t, self.comm, tuple(
+            a for a in self.comm.axis_names if a != "pod"), "max")
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream (B, S|S/tp, D) into a column-parallel
@@ -526,19 +574,19 @@ class Placement:
 
         return _state_map(state, local)
 
-    def unplace_state(self, state: ModelState) -> ModelState:
-        """The whole decode state back from every rank's shards, its rows
-        split over every data axis (:meth:`place_state`'s inverse,
-        bitwise): all-gathered over ``model`` on the leaf's placed dim,
-        then over the data axes on the rows, in rank order."""
+    def unplace_state(self, state: ModelState,
+                      rows: int | None = None) -> ModelState:
+        """The whole decode state of ``rows`` global rows back from every
+        rank's shards (:meth:`place_state`'s inverse, bitwise):
+        all-gathered over ``model`` on the leaf's placed dim, then over
+        the batch axes its rows lie on (:meth:`whole_rows`).  ``rows``
+        None: the rows split over every batch axis."""
         def whole(name, t):
             dim = self._leaf_dim(name, t.ndim, state.length)
             if dim is not None and self.tp > 1:
                 t = self.comm.all_gather(t, "model", dim)
-            for a in reversed(self.batch_axes):
-                if self.comm.size(a) > 1:
-                    t = self.comm.all_gather(t, a, 1)
-            return t
+            return self.whole_rows(t, t.shape[1] * self.dp
+                                   if rows is None else rows, 1)
 
         return _state_map(state, whole)
 
@@ -639,7 +687,8 @@ def place_model(model: LM, mesh, *, fsdp: bool = True,
     the decode state (:meth:`Placement.state_shape`), and ``decode_step``
     and ``prefill_chunk`` take the global batch, run the rank's rows and
     return the rank's ``(rows / dp, Vpad / tp)`` logits
-    (:meth:`Placement.whole_vocab` gathers whole rows).
+    (:meth:`Placement.whole_vocab` and :meth:`Placement.whole_rows` gather
+    every rank's).
 
     A ``moe`` model places its experts by the reference's rule
     (:func:`logical_rules` of ``cfg.tp``): over ``model`` when ``cfg.tp``

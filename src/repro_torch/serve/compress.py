@@ -45,17 +45,18 @@ rows price as they do inside the whole batch, its bytes are the unplaced
 container's.  Every rank calls with the same arguments.
 
 A ``dense``, ``moe``, ``ssm`` or ``hybrid`` model placed for compute
-(``parallel/sharding.place_model``) on a mesh whose ``data`` axis is 1
-goes through every entry point as it is: each step runs on the rank's
-heads, channels, columns, experts and shard of the state (the recurrent
-leaves carried across chunks on the rank's shards),
-its vocabulary slab of logits is gathered into whole rows in rank order
-(``Placement.whole_vocab``), and the SPC and the coder run on those rows,
-so every rank gets the same tables and the same container.  A container
-priced under a placement decodes bit-exactly on the same placement (the
-same mesh and config): another placement may round a logit otherwise.  A
-placed model with ``data`` > 1 (its rows spread over ranks; the lane mesh
-spreads lanes) or beside ``mesh=`` raises by name.
+(``parallel/sharding.place_model``) goes through every entry point as it
+is, every backend and two-pass included: each step runs the rank's slab
+of the lanes (``Placement.rows``: over the batch axes that divide them,
+whole on the ranks of the rest) on its heads, channels, columns, experts
+and shard of the state (the recurrent leaves carried across chunks on the
+rank's shards); its logits are gathered into whole rows of every lane in
+rank order (``Placement.whole_vocab``, then ``Placement.whole_rows``),
+and the SPC and the coder run on all lanes on every rank, so every rank
+gets the same tables, writes the same container and decodes the same
+symbols.  A container priced under a placement decodes bit-exactly on the
+same placement (the same mesh and config): another placement may round a
+logit otherwise.  ``mesh=`` beside a placed model raises by name.
 
 Entry points run on the card unless ``device`` says otherwise and raise
 without one (:func:`repro_torch.device.resolve_device`); with a mesh they
@@ -101,30 +102,24 @@ def _step_freq_cdf(logits: torch.Tensor, vocab: int, prob_bits: int):
 
 
 def _step_logits(model, state, token, pos, memory=None) -> torch.Tensor:
-    """One ``decode_step``'s logits as whole rows (B, Vpad): a placed
-    model's vocabulary slabs gathered in rank order."""
+    """One ``decode_step``'s logits as whole rows (B, Vpad) of the global
+    batch ``token`` (B, 1): a placed model's vocabulary slabs gathered
+    over ``model``, then its rows over the batch axes, in rank order."""
     lg = decode_step(model, state, token, pos, memory=memory)
     pl = getattr(model, "placement", None)
-    return lg if pl is None else pl.whole_vocab(lg)
+    if pl is None:
+        return lg
+    return pl.whole_rows(pl.whole_vocab(lg), token.shape[0])
 
 
 def _check_placed(model, mesh) -> None:
-    """Refuse what a compute-placed model cannot price here: ``mesh=``
-    beside it, or rows spread over a ``data`` axis."""
-    pl = getattr(model, "placement", None)
-    if pl is None:
-        return
-    if mesh is not None:
+    """Refuse ``mesh=`` beside a compute-placed model: its own mesh places
+    the step."""
+    if getattr(model, "placement", None) is not None and mesh is not None:
         raise ValueError(
             "mesh= with a placed model (parallel.sharding.place_model): the "
             "model's own mesh places the step; pass mesh=None, or a whole "
             "model with a lane or chunk mesh")
-    if pl.dp > 1:
-        raise NotImplementedError(
-            f"compress with a model placed over a data axis of {pl.dp} "
-            "ranks is not ported (ROADMAP A: the rows of a placed step "
-            "spread over data); place on a mesh whose data axis is 1, or "
-            "spread lanes with a lane mesh")
 
 
 def teacher_forced_scan(model, tokens: torch.Tensor, max_len: int, step_fn,

@@ -13,9 +13,9 @@ Port of ``repro.serve.engine``.  Two layers live here:
 
 * :class:`BatchEngine`, the request-level continuous-batching engine
   (DESIGN.md §11).  Concurrent compress and decompress requests are
-  admitted into ``slots``; the batch is ``slots * lanes`` rows of one
-  shared model state (KV rings and recurrent leaves), each slot with its
-  own per-row positions and per-row rANS state.  Requests join and retire
+  admitted into ``slots``; the batch is ``slots * lanes`` rows, each slot
+  with its own model state (KV rings and recurrent leaves), its own
+  per-row positions and per-row rANS state.  Requests join and retire
   at chunk boundaries.  Every per-request output is byte-identical to the
   single-request ``serve.compress`` paths: the engine is a scheduler, not
   a new coder.
@@ -32,15 +32,21 @@ instead (the single-request ``backend="coder"``), with identical bytes.
 Byte identity on the card: cuBLAS chooses a GEMM's kernel, and with it
 the order of each output's sum, from the GEMM's shape, so the same rows
 inside a larger batch can round differently (``PERF.md`` §7).  The engine
-therefore runs the model per live slot as a
-:class:`~repro_torch.models.RowGroup` at the single-request path's shapes:
-GEMMs of ``lanes`` rows, attention over the request's own ring length.
+therefore runs the model once per live slot, the single-request call
+itself: each slot's state is made at admission as the single-request path
+makes it (``lanes`` rows, a ring of the request's own length), so its
+GEMMs have ``lanes`` rows and its attention runs over that ring.
 
 Placement: on a ``("lanes",)`` mesh (``parallel.chunked.lane_mesh``) each
-rank owns whole slots, slot ``i`` on rank ``i * size // slots``, and holds
-only their rows of the model state; every rank runs the same admission
-and gathers each retiring request's result from its owner, so ``run()``
-returns the same results on every rank.
+rank owns whole slots, slot ``i`` on rank ``i * size // slots``, and
+keeps only their states; every rank runs the same admission and gathers
+each retiring request's result from its owner, so ``run()`` returns the
+same results on every rank.  A model placed for compute
+(``parallel/sharding.place_model``) serves every slot on every rank as
+the placed single-request path runs it: each slot's state is the rank's
+shards of its ``lanes`` rows, its steps run the rank's slab of those
+lanes, and its logits come back whole (every lane, the whole vocabulary)
+before the SPC and the coder, which run on every row on every rank.
 """
 
 from __future__ import annotations
@@ -56,10 +62,9 @@ import torch.distributed as dist
 from repro_torch.core import bitstream, coder, constants as C, spc, u32
 from repro_torch.core.predictors import model_topk_candidates
 from repro_torch.kernels import ops, spc_quantize
-from repro_torch.models import (PrefillUnsupportedError, RowGroup,
-                                can_prefill, decode_step, init_state,
-                                prefill_chunk, reset_rows, ring_length,
-                                state_spec, wrap_length)
+from repro_torch.models import (PrefillUnsupportedError, can_prefill,
+                                decode_step, init_state, prefill_chunk,
+                                ring_length, state_spec, wrap_length)
 from repro_torch.parallel.chunked import lane_mesh_usable
 from repro_torch.serve.compress import (BOS, _mesh_device, _on_device,
                                         step_probs, teacher_forced_scan)
@@ -192,7 +197,7 @@ class _Req:
 class _Cycle:
     """One cycle's inputs (rows-form numpy, then device tensors)."""
     spec: list             # (rid, slot, chunk, n_c, last) per live slot
-    groups: tuple          # RowGroup per live slot
+    mine: tuple            # (slot, n_c) per live slot this rank owns
     fresh: list            # slots admitted at this cycle
     comp: list             # live compress slots
     prefill: bool
@@ -203,10 +208,10 @@ class _Cycle:
 class BatchEngine:
     """Continuous-batching compress/decompress service.
 
-    ``slots`` concurrent requests of ``lanes`` rANS lanes share one model
-    cache of ``slots * lanes`` rows ring-buffered at ``max_len``, with
-    per-row positions and per-row coder state.  Requests join (their rows
-    reset) and retire at chunk boundaries.  The run loop keeps one cycle
+    ``slots`` concurrent requests of ``lanes`` rANS lanes, each slot with
+    its own model state (made at admission, its ring the request's length
+    up to ``max_len``'s ring), per-row positions and per-row coder state.
+    Requests join and retire at chunk boundaries.  The run loop keeps one cycle
     in flight: cycle ``k+1`` is enqueued on the card before cycle ``k``'s
     outputs are read, so the host half (container windows, ``pack``)
     overlaps the device half.  A cycle's device half makes no host
@@ -217,9 +222,9 @@ class BatchEngine:
     output byte-identical to ``lm_compress_chunked`` /
     ``lm_decompress_chunked`` at the same ``chunk_size``/``prob_bits``/
     ``topk`` and the matching backend, whatever traffic it is batched
-    with: its slot runs the single-request path's shapes
-    (:class:`~repro_torch.models.RowGroup`), its rows are independent in
-    every other op, and the per-chunk coder is the same code.  A longer
+    with: its slot runs the single-request path's model call on a state of
+    the single-request path's shape, its rows are independent in every
+    other op, and the per-chunk coder is the same code.  A longer
     request would wrap the ring and is refused with a named error unless
     ``allow_wrap=True`` (it then round-trips through an engine of the same
     geometry); a config whose state never wraps at ``max_len``
@@ -242,11 +247,15 @@ class BatchEngine:
     raising without one); the reference's ``interpret`` (TPU) has no
     counterpart here.
 
+    ``model`` may be placed for compute (``parallel.sharding.
+    place_model``): every rank of its mesh submits the same requests and
+    gets the same results, each slot's blobs those of the placed
+    ``lm_compress_chunked`` on the same placement.
+
     ``mesh``: an optional ``("lanes",)`` mesh placing whole slots over its
     ranks (slot ``i`` on rank ``i * size // slots``): each rank steps only
-    its slots, in a state of only their rows (``parallel.chunked.
-    state_rows``' pin), on the mesh's device, and the owner of a retiring
-    request sends its result to every rank.  The mesh is used only where
+    its slots, keeping only their states, on the mesh's device, and the
+    owner of a retiring request sends its result to every rank.  The mesh is used only where
     ``slots % size == 0`` (the reference's ``rows % size`` would split a
     slot's lanes, whose GEMMs then price at another row count); otherwise
     the single-device program runs.  Every rank submits the same requests
@@ -265,12 +274,13 @@ class BatchEngine:
             raise ValueError(f"unknown prefill policy {prefill!r} "
                              "(expected 'auto', 'off' or 'force')")
         cfg = model.cfg
-        if getattr(model, "placement", None) is not None:
-            raise NotImplementedError(
-                "BatchEngine with a compute-placed model "
-                "(parallel.sharding.place_model) is not ported (ROADMAP A); "
-                "serve a placed model through lm_compress_chunked / "
-                "lm_decompress_chunked, or the whole model with mesh=")
+        # a compute-placed model's placement: every slot on every rank
+        self._pl = getattr(model, "placement", None)
+        if self._pl is not None and mesh is not None:
+            raise ValueError(
+                "mesh= with a placed model (parallel.sharding.place_model): "
+                "the model's own mesh places its steps; pass mesh=None, or "
+                "a whole model with a lane mesh")
         if prefill == "force" and not can_prefill(cfg):
             raise PrefillUnsupportedError(
                 f"prefill='force' on config {cfg.name!r} (family "
@@ -289,7 +299,7 @@ class BatchEngine:
         self.slots = slots
         self.lanes = lanes
         self.rows = slots * lanes
-        # this rank's slots [s0, s1) and their rows, the rows of its state
+        # this rank's slots [s0, s1) and their rows of the cycle's inputs
         self._s0, self._s1 = (self.mesh.slab(slots) if placed
                               else (0, slots))
         self.local_rows = (self._s1 - self._s0) * lanes
@@ -306,7 +316,8 @@ class BatchEngine:
         self.state_spec = state_spec(cfg)
         self.ring_len = ring_length(cfg, self.max_len)
         self._wrap_len = wrap_length(cfg, self.max_len)
-        self._state = init_state(model, self.local_rows, self.max_len)
+        # each slot's model state, made when a request is admitted to it
+        self._states: list = [None] * slots
         self._tok = torch.full((self.local_rows, 1), BOS, dtype=torch.int64,
                                device=self.device)
         self._slots: list[_Req | None] = [None] * slots
@@ -441,7 +452,7 @@ class BatchEngine:
                     tf=np.zeros((B, S), np.int64),
                     buf=np.zeros((B, cap), np.uint8),
                     start=np.zeros(B, np.int32))
-        spec, groups, fresh, comp = [], [], [], []
+        spec, mine, fresh, comp = [], [], [], []
         prefillable = self._prefill
         for s, req in enumerate(self._slots):
             if req is None or req.pos >= req.n_symbols:
@@ -461,8 +472,7 @@ class BatchEngine:
             r1 = r0 + self.lanes
             if req.pos == 0:
                 fresh.append(s)
-            groups.append(RowGroup(r0, r1, min(req.n_symbols,
-                                               self.ring_len)))
+            mine.append((s, n_c))
             host["pos0"][r0:r1] = req.pos
             host["n_valid"][r0:r1] = n_c
             if req.kind == "compress":
@@ -480,10 +490,9 @@ class BatchEngine:
             req.pos += n_c
         if not spec:
             return None
-        return _Cycle(spec=spec, groups=tuple(groups), fresh=fresh,
-                      comp=comp, prefill=prefillable,
-                      steps=max((n for _, s, _, n, _ in spec
-                                 if self._owns(s)), default=0), host=host)
+        return _Cycle(spec=spec, mine=tuple(mine), fresh=fresh, comp=comp,
+                      prefill=prefillable,
+                      steps=max((n for _, n in mine), default=0), host=host)
 
     def _upload(self, host: dict) -> dict:
         """Host arrays -> device tensors without waiting for the card: from
@@ -502,16 +511,17 @@ class BatchEngine:
         enqueues nothing."""
         if cyc.prefill:
             self.prefill_cycles += 1
-        if not cyc.groups:
+        if not cyc.mine:
             return cyc.spec, None, {}
         dev = self._upload(cyc.host)
         guard = (torch.cuda.set_sync_debug_mode if self.check_sync
                  and self.device.type == "cuda" else None)
         with _sync_debug(guard):
             L = self.lanes
-            for s in cyc.fresh:           # a fresh admit is a zero state
+            for s in cyc.fresh:   # a fresh admit: the single-request state
+                self._states[s] = init_state(self.model, L, min(
+                    self._slots[s].n_symbols, self.ring_len))
                 r0 = self._row0(s)
-                reset_rows(self._state, r0, r0 + L)
                 self._tok[r0:r0 + L] = BOS
             if cyc.prefill:
                 probs, out = self._prefill_body(cyc, dev)
@@ -519,6 +529,21 @@ class BatchEngine:
                 probs, out = self._step_body(cyc, dev)
             encs = self._encode(cyc, dev, probs)
         return cyc.spec, out, encs
+
+    def _per_slot(self, cyc: _Cycle, t: int, fn, shape: tuple):
+        """``fn(state, rows)`` for each slot this rank owns whose chunk is
+        longer than ``t``: the slot's own state and its rows of the
+        cycle's inputs.  Each slot's logits (a placed model's gathered
+        whole: every lane, the whole vocabulary) go into its rows of a
+        zero tensor of ``shape``; the other rows stay zero."""
+        pl, out = self._pl, self.model.embedding.new_zeros(shape)
+        for s, n_c in cyc.mine:
+            if t < n_c:
+                r = slice(self._row0(s), self._row0(s) + self.lanes)
+                lg = fn(self._states[s], r)
+                out[r] = lg if pl is None else pl.whole_rows(
+                    pl.whole_vocab(lg), self.lanes)
+        return out
 
     def _step_body(self, cyc: _Cycle, dev: dict):
         """The step loop, as many steps as the cycle's longest chunk: step
@@ -552,13 +577,12 @@ class BatchEngine:
                                                 dtype=torch.int32,
                                                 device=self.device)
                                     for _ in range(3))
-        n_of = [n_c for _, s, _, n_c, _ in cyc.spec     # per group
-                if self._owns(s)]
-        tok = self._tok
+        tok, vpad = self._tok, self.cfg.vocab_padded
         for t in range(S):
             active = n_valid > t
-            live = tuple(g for g, n in zip(cyc.groups, n_of) if t < n)
-            lg = decode_step(self.model, self._state, tok, pos0 + t, live)
+            pos = pos0 + t
+            lg = self._per_slot(cyc, t, lambda st, r: decode_step(
+                self.model, st, tok[r], pos[r]), (self.local_rows, vpad))
             probs = step_probs(lg, vocab)
             if probs_buf is not None:
                 probs_buf[t] = probs
@@ -591,8 +615,10 @@ class BatchEngine:
         S, vocab = cyc.steps, self.cfg.vocab_size
         n_valid, tf = dev["n_valid"], dev["tf"]
         inputs = torch.cat([self._tok, tf[:, :S - 1]], 1)
-        lgs = prefill_chunk(self.model, self._state, inputs, dev["pos0"],
-                            n_valid, cyc.groups)
+        pos0 = dev["pos0"]
+        lgs = self._per_slot(cyc, 0, lambda st, r: prefill_chunk(
+            self.model, st, inputs[r], pos0[r], n_valid[r]),
+            tuple(inputs.shape) + (self.cfg.vocab_padded,))
         # each position's SPC input at the step loop's (B, V) shape
         probs = torch.stack([step_probs(lgs[:, t], vocab) for t in range(S)])
         last = tf.gather(1, torch.clamp(n_valid - 1, 0, S - 1)[:, None])

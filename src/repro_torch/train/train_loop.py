@@ -27,11 +27,16 @@ and the gradients that are each model rank's part are summed over
 ``model`` once (``Placement.reduce_grads``), all before the
 ``grad_dtype`` cast; the clip's norm counts each entry of the mesh once
 and AdamW updates the rank's shards.  The loss is the global mean on every
-rank.
+rank.  A microbatch the batch axes do not divide lies over those that
+divide it and whole on the ranks of the rest (the reference's
+``batch_pspec``).  Both at once, on a ``("pod", "data", "model")`` mesh,
+is the reference's ``pod_step``: each pod's gradients placed within the
+pod, then the int8 ring over ``pod`` on every rank's shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import fields, replace
 from typing import NamedTuple
 
@@ -42,6 +47,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, loss_fn
 from repro_torch.parallel.collectives import (compressed_psum_tree,
                                               init_error_tree, pmean)
+from repro_torch.parallel.tensor import comm_of
 from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          adamw_update, as_dtype,
                                          clip_by_global_norm, cosine_lr)
@@ -103,15 +109,11 @@ def _grads(model: LM, batch: dict, n: int):
     pl = model.placement
 
     def local(mb):
-        if pl is None:
-            return mb
-        # the step splits each microbatch over every data axis (a batch
-        # they do not divide would run whole on every data rank)
-        rows = next(iter(mb.values())).shape[0]
-        if rows % pl.dp:
-            raise ValueError(f"batch {rows} does not divide over the "
-                             f"{pl.dp} ranks of {pl.batch_axes}")
-        return {k: pl.rows(v) for k, v in mb.items()}
+        # a microbatch the batch axes do not divide lies whole on the
+        # ranks of those it replicates over (the reference's batch_pspec);
+        # their gradients, each 1 / dp of the slab's, then sum to one
+        # slab's in reduce_grads, and batch_mean averages equal terms
+        return mb if pl is None else {k: pl.rows(v) for k, v in mb.items()}
 
     if n <= 1:
         loss, grads = _value_and_grad(model, local(batch))
@@ -159,6 +161,20 @@ def _check_step_cfg(cfg: ModelConfig, model_cfg: ModelConfig) -> None:
                          f"{diff}: only grad_accum may differ")
 
 
+@contextlib.contextmanager
+def within_pod(model: LM):
+    """The model's placement, while the block runs, as one pod sees it
+    (``Placement.within_pod``): the pod's rows over ``data``, the reduces
+    stopping at the pod."""
+    pl = model.placement
+    if pl is not None:
+        model.placement = pl.within_pod()
+    try:
+        yield
+    finally:
+        model.placement = pl
+
+
 def _pod_shard(batch: dict, mesh) -> dict:
     """This pod's rows of every batch plane (the batch's first axis cut
     into ``mesh.size`` equal slabs)."""
@@ -188,14 +204,24 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     ``device_mesh`` (a ``(data, model)`` ``DeviceMesh``) is the compute
     placement's step: the state's model must be placed on that mesh
     (``parallel.sharding.place_model``), and every rank calls the step
-    with the same global batch."""
+    with the same global batch.  With ``compress_crosspod`` too, the
+    device mesh is ``("pod", "data", "model")`` and ``mesh`` its ``pod``
+    group's pod mesh: each pod computes its rows' gradients placed over
+    its ``data`` and ``model`` ranks, reduced within the pod alone, then
+    the int8 ring over ``pod`` reduces each rank's shards with the whole
+    leaves' scales (``Placement.shard_max``); the clip's norm counts each
+    entry of a pod once."""
     if compress_crosspod and (mesh is None or mesh.axis != "pod"):
         raise ValueError("compress_crosspod requires the multi-pod mesh: "
                          "pass mesh=parallel.collectives.pod_mesh()")
-    if compress_crosspod and device_mesh is not None:
-        raise NotImplementedError(
-            "compress_crosspod under the compute placement is not ported "
-            "(ROADMAP A)")
+    comm = None if device_mesh is None else comm_of(device_mesh)
+    if compress_crosspod and comm is not None and (
+            "pod" not in comm.axis_names or comm.size("pod") != mesh.size):
+        raise ValueError(
+            "compress_crosspod under the compute placement needs a "
+            "device_mesh with a 'pod' axis of the pod mesh's size: "
+            "pass mesh=parallel.collectives.pod_mesh(group="
+            "device_mesh.get_group('pod'))")
 
     def train_step(state: TrainState, batch: dict):
         _check_step_cfg(cfg, state.model.cfg)
@@ -212,9 +238,12 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                     "compress_crosspod keeps error-feedback residuals in "
                     "TrainState.error: build the state with "
                     "init_train_state(model, with_error=True)")
-            loss, grads = _grads(state.model, _pod_shard(batch, mesh),
-                                 cfg.grad_accum)
-            grads, error = compressed_psum_tree(grads, mesh, state.error)
+            with within_pod(state.model):
+                loss, grads = _grads(state.model, _pod_shard(batch, mesh),
+                                     cfg.grad_accum)
+            grads, error = compressed_psum_tree(
+                grads, mesh, state.error,
+                shard_max=None if pl is None else pl.shard_max)
             loss = pmean(loss, mesh)
         else:
             loss, grads = _grads(state.model, batch, cfg.grad_accum)

@@ -243,7 +243,7 @@ def lm_suite(rank: int, world: int) -> dict:
         res[f"{key}/lane_probes"] = got.lane_probes
         res[f"{key}/prefill_cycles"] = np.array(eng.prefill_cycles)
         if clock == "virtual" and slots == 2:
-            st = pc.state_rows(eng._state, 0, eng.local_rows)
+            st = eng._states[eng._s0]        # the rank's one slot
             res[f"{key}/state_k"], res[f"{key}/state_v"] = _np(st.k), _np(
                 st.v)
     return res
@@ -439,6 +439,21 @@ TP_CASES = {
                                               "remat": True}, (1, 4)),
 }
 TP_BATCH, TP_SEQ, TP_LR = 4, 16, 3e-3
+# the placed train step on batches the batch axes do not divide (the
+# reference's batch_pspec: over the axes that divide them, whole on the
+# ranks of the rest): name -> (SMOKE arch, config overrides, mesh (data,
+# model) or (pod, data, model), batch rows)
+TP_ROWS = {
+    "pimc_rows3": ("ras-pimc", {"tp": 2}, (2, 2), 3),   # whole on data
+    "phi_rows3": ("phi3.5-moe-42b-a6.6b", {"tp": 2}, (2, 2), 3),  # the aux
+    # microbatches of 3 rows; the residuals unconstrained (the reference's
+    # default act_pspec, the global batch's ("data",), would pin each
+    # microbatch's 3 rows over data 2, where JAX's GSPMD step gives wrong
+    # embedding gradients)
+    "qwen3_accum": ("qwen3-4b", {"tp": 2, "grad_accum": 2,
+                                 "act_pspec": (None, None, None)}, (2, 2), 6),
+    "pimc_pod": ("ras-pimc", {"tp": 2}, (2, 2, 1), 2),  # over pod alone
+}
 # leaves moved off their constant inits (zeros and ones), so they matter:
 # the SSM's per-head leaves differ between heads, so a channel reading
 # another head's dt, decay or D shows
@@ -447,9 +462,36 @@ TP_MOVED = ("bq", "bk", "bv", "q_norm", "k_norm", "ln1", "ln2",
             "conv_b_b", "conv_c_b", "conv_b", "gate_a_b", "gate_i_b", "lam")
 
 
+def tp_case(name: str) -> tuple:
+    """``(arch, overrides, mesh dims, batch rows)`` of a case of
+    :data:`TP_CASES` (``TP_BATCH`` rows), :data:`TP_ROWS` or
+    :data:`CROSSPOD` (``CROSSPOD_BATCH`` rows)."""
+    if name in TP_ROWS:
+        return TP_ROWS[name]
+    if name in CROSSPOD:
+        return CROSSPOD[name] + (CROSSPOD_BATCH,)
+    return TP_CASES[name] + (TP_BATCH,)
+
+
+def mesh_names(dims: tuple) -> tuple:
+    return ("pod", "data", "model")[-len(dims):]
+
+
+def case_mesh(dims: tuple, world: int):
+    """The ``DeviceMesh`` of a case's dims on ``world`` gloo ranks:
+    ``make_mesh_for``'s ``(data, model)``, or ``(pod, data, model)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import make_mesh_for
+    if len(dims) == 2:
+        dm = make_mesh_for(world, model_parallel=dims[1], device="cpu")
+        assert tuple(dm.shape) == tuple(dims), dm.shape
+        return dm
+    return init_device_mesh("cpu", dims, mesh_dim_names=mesh_names(dims))
+
+
 def tp_config(name: str):
     from repro_torch.configs.registry import get_smoke_config
-    arch, over, _ = TP_CASES[name]
+    arch, over = tp_case(name)[:2]
     return get_smoke_config(arch).with_(**over)
 
 
@@ -468,9 +510,42 @@ def tp_model(name: str):
     return model
 
 
+def flat_tree(tree, prefix: str, out: dict) -> None:
+    """A nested dict's leaves into ``out`` by ``prefix/<path>``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat_tree(v, f"{prefix}/{k}", out)
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def as_reference(name: str, res: dict) -> dict:
+    """The port's results of a case keyed as the reference's flattened
+    outputs (gradients and parameters by the reference's tree path)."""
+    from repro_torch.models.convert import to_reference
+    model = tp_model(name)
+    out = {}
+    for group in ("grads", "params"):
+        tensors = {k[len(group) + 1:]: v for k, v in res.items()
+                   if k.startswith(f"{group}/")}
+        flat_tree(to_reference(model, tensors, host=np.asarray), group, out)
+    for k, v in res.items():
+        if not k.startswith(("grads/", "params/", "shard/")):
+            out[k] = v
+    return out
+
+
+def close(got: np.ndarray, want: np.ndarray, what: str,
+          rel: float = 1e-5) -> None:
+    """``got`` within ``rel`` of ``want``'s largest entry."""
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0,
+        atol=rel * max(float(np.abs(want).max()), 1e-12), err_msg=what)
+
+
 def tp_batch(name: str, step: int) -> dict:
     from repro_torch.data.pipeline import train_batch
-    return train_batch(tp_config(name), TP_BATCH, TP_SEQ, step=step)
+    return train_batch(tp_config(name), tp_case(name)[3], TP_SEQ, step=step)
 
 
 def tp_outputs(model, name: str, device_mesh=None) -> dict:
@@ -515,13 +590,12 @@ def tp_outputs(model, name: str, device_mesh=None) -> dict:
         else:
             x, _ = model(pl.rows(tokens),
                          **{k: pl.rows(v) for k, v in mem.items()})
-            lg = model._logits(x)
+            b = tokens.shape[0]
+            lg = pl.whole_rows(model._logits(x), b)
             lg = pl.comm.all_gather(lg, "model", 2)
-            lg = pl.comm.all_gather(lg, "data", 0)
             for k, p in model.named_parameters():
                 res[f"shard/{k}"] = np.array(p.shape)
-            if pl.dp > 1:
-                ids = [pl.comm.all_gather(i, "data", 0) for i in ids]
+            ids = [pl.whole_rows(i, b) for i in ids]
     res["logits"] = _np(lg)
     if ids:
         res["ids"] = _np(torch.stack(ids))
@@ -686,8 +760,8 @@ def tp_prefills(name: str) -> bool:
 
 def tp_decode_suite(rank: int, world: int) -> dict:
     """Every case of :data:`TP_DECODE` placed on its geometry's ``(data,
-    model)`` mesh of ``world`` ranks (:func:`tp_decode_outputs`), and the
-    placed compress's refusal of a ``data`` axis over 1."""
+    model)`` mesh of ``world`` ranks (:func:`tp_decode_outputs`), and a
+    placed compress over a ``data`` axis of 2."""
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.parallel import sharding
     from repro_torch.serve import compress
@@ -701,8 +775,11 @@ def tp_decode_suite(rank: int, world: int) -> dict:
                                       meshes[dims]).items():
             res[f"{name}/{k}"] = v
     placed = sharding.place_model(tp_model("pimc_tp2"), meshes[2, 2])
-    res["refuse/data"] = _error(lambda: compress.lm_compress_chunked(
-        placed, lm_tokens()[:, :8], 4, device="cpu"))
+    st = compress.lm_compress_chunked(placed, lm_tokens()[:, :8], 4,
+                                      device="cpu")
+    _put(res, "data/enc", st.chunks)
+    _put(res, "data/dec", compress.lm_decompress_chunked(
+        placed, st.chunks, 8, 4, device="cpu"))
     return res
 
 
@@ -763,10 +840,225 @@ def tp_compress_suite(rank: int, world: int) -> dict:
     return res
 
 
+# the cross-pod step under the compute placement: name -> (SMOKE arch,
+# overrides, (pod, data, model) mesh); CROSSPOD_BATCH rows, each pod's half
+# over its data ranks
+CROSSPOD = {
+    "pod_model": ("ras-pimc", {"tp": 2, "grad_accum": 1}, (2, 1, 2)),
+    "pod_data": ("ras-pimc", {"tp": 2, "grad_accum": 1}, (2, 2, 1)),
+}
+CROSSPOD_BATCH = 4
+
+
+def crosspod_outputs(name: str, world: int) -> dict:
+    """The placed cross-pod step of a :data:`CROSSPOD` case: the pod's
+    gradients of batch 0 (whole: gathered over ``data`` and ``model``),
+    their int8 reduce (whole) and each leaf's scale (its whole leaf's
+    ``|max| / 127``), whether the step on batch 0 equals its composition
+    bitwise (the pod's placed gradients, the sharded-scale ring, the clip
+    over the pod's shards, lr, AdamW; the residuals and the loss too),
+    the losses and grad norms of two steps (batches 0 and 1) and the
+    parameters after the first (the warmup's zero learning rate)."""
+    import torch
+    from repro_torch.parallel import collectives as col, sharding
+    from repro_torch.train import optimizer, train_loop
+    dm = case_mesh(CROSSPOD[name][2], world)
+    pod = col.pod_mesh(group=dm.get_group("pod"), device="cpu")
+    cfg = tp_config(name)
+    whole = tp_model(name)
+    model, twin = (sharding.place_model(whole, dm) for _ in range(2))
+    pl = twin.placement
+
+    def back(tensors):
+        return sharding.unshard(tensors, pl.specs, dm)
+
+    res = {"pod": np.array(pod.rank)}
+    batch = tp_batch(name, 0)
+    r0, r1 = pod.slab(CROSSPOD_BATCH)
+    with train_loop.within_pod(twin):
+        loss, grads = train_loop.grads_fn(twin, {k: v[r0:r1] for k, v in
+                                                 batch.items()})
+    amax = pl.shard_max(torch.stack([g.to(torch.float32).abs().max()
+                                     for g in grads.values()]))
+    for (k, g), a in zip(back(grads).items(), amax):
+        res[f"grads/{k}"] = _np(g)
+        res[f"scale/{k}"] = _np(torch.clamp(a, min=1e-12) / 127.0)
+    red, err = col.compressed_psum_tree(grads, pod, col.init_error_tree(
+        grads), shard_max=pl.shard_max)
+    for k, g in back(red).items():
+        res[f"reduced/{k}"] = _np(g)
+    clipped, _ = optimizer.clip_by_global_norm(red, 1.0,
+                                               total=pl.sum_squares)
+    params = dict(twin.named_parameters())
+    st0 = train_loop.init_train_state(twin)
+    want, _ = optimizer.adamw_update(clipped, st0.opt, params,
+                                     optimizer.cosine_lr(st0.step,
+                                                         base_lr=TP_LR))
+    state = train_loop.init_train_state(model, with_error=True)
+    step = train_loop.make_train_step(cfg, base_lr=TP_LR,
+                                      compress_crosspod=True, mesh=pod,
+                                      device_mesh=dm)
+    state, m = step(state, batch)
+    got = dict(model.named_parameters())
+    res["composition_equal"] = np.array(
+        all(torch.equal(got[k], want[k]) for k in want)
+        and all(torch.equal(state.error[k], err[k]) for k in err)
+        and bool(m["loss"] == col.pmean(loss, pod)))
+    for k, p in back({k: p.detach() for k, p in got.items()}).items():
+        res[f"params/{k}"] = _np(p)
+    metrics = [m, step(state, tp_batch(name, 1))[1]]
+    for i, m in enumerate(metrics):
+        res[f"step{i}/loss"] = _np(m["loss"])
+        res[f"step{i}/grad_norm"] = _np(m["grad_norm"])
+    return res
+
+
+def data_train_suite(rank: int, world: int) -> dict:
+    """The placed train step of every case of :data:`TP_ROWS`
+    (:func:`tp_outputs`) and the placed cross-pod step of every case of
+    :data:`CROSSPOD` (:func:`crosspod_outputs`), on ``world`` ranks."""
+    res = {}
+    for name, (_, _, dims, _) in TP_ROWS.items():
+        for k, v in tp_outputs(tp_model(name), name,
+                               case_mesh(dims, world)).items():
+            res[f"{name}/{k}"] = v
+    for name in CROSSPOD:
+        for k, v in crosspod_outputs(name, world).items():
+            res[f"{name}/{k}"] = v
+    return res
+
+
+# the placed compress over data: name -> (SMOKE arch, overrides, (data,
+# model) mesh, lanes), TP_COMPRESS_T tokens of LM_LANES lanes or fewer,
+# chunk LM_CHUNK; 3 lanes do not divide over data 2 and lie whole on both
+# data ranks
+DATA_COMPRESS = {
+    "pimc_22": ("ras-pimc", {"tp": 2}, (2, 2), LM_LANES),
+    "pimc_41": ("ras-pimc", {"tp": 2}, (4, 1), LM_LANES),
+    "pimc_22_lanes3": ("ras-pimc", {"tp": 2}, (2, 2), 3),
+}
+# the placed engine: the SMOKE models it serves (slots of 2 lanes, so a
+# slot's lanes split over data 2), on a (1, world) mesh at 1 and 2 ranks
+# and a (2, 2) mesh at 4
+DATA_ENGINE = ("ras-pimc", "mamba2-130m")
+
+
+def _placed_smoke(arch: str, dm, over: dict | None = None):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+    whole = init_model(get_smoke_config(arch).with_(**(over or {})), seed=0,
+                       device="cpu")
+    return whole, sharding.place_model(whole, dm)
+
+
+def _engine_run(model) -> dict:
+    """``BatchEngine`` of 2 slots of 2 lanes serving
+    :func:`engine_tokens`' three compress requests (a ragged tail among
+    them), then the first blob's decompress: the blobs, the tokens and
+    per-lane probes."""
+    from repro_torch.serve.engine import BatchEngine
+    eng = BatchEngine(model, slots=2, lanes=2, chunk_size=8, max_len=24,
+                      step_backend="kernel", device="cpu")
+    rids = [eng.submit_compress(t, arrival=float(i))
+            for i, t in enumerate(engine_tokens())]
+    out = eng.run()
+    res = {f"blob{i}": np.frombuffer(out[r].blob, np.uint8)
+           for i, r in enumerate(rids)}
+    dec = eng.submit_decompress(out[rids[0]].blob)
+    got = eng.run()[dec]
+    res["tokens"], res["lane_probes"] = got.tokens, got.lane_probes
+    res["prefill_cycles"] = np.array(eng.prefill_cycles)
+    return res
+
+
+def data_serve_suite(rank: int, world: int) -> dict:
+    """Compress and the engine with a model placed over ``data``.  On 4
+    ranks: every case of :data:`DATA_COMPRESS` through
+    ``lm_compress_chunked``/``lm_decompress_chunked`` (coder and kernel
+    backends, and two-pass), the monolithic kernel pair, and whether the
+    container is the whole model's bytes; then the engine on a (2, 2)
+    mesh, and a placed decode state of 3 rows (whole on both data ranks)
+    through ``unplace_state``/``place_state``.  On 2 ranks the engine on
+    (1, 2), on 1 rank on (1, 1), beside
+    the unplaced engine there.  Each engine's blobs beside the placed
+    single-request ``lm_compress_chunked``'s of the same requests."""
+    import torch
+    from repro_torch.core import bitstream, coder
+    from repro_torch.serve import compress
+    res = {}
+    if world == 4:
+        for name, (arch, over, dims, lanes) in DATA_COMPRESS.items():
+            whole, model = _placed_smoke(arch, case_mesh(dims, world), over)
+            toks = lm_tokens()[:lanes, :TP_COMPRESS_T]
+            for be in ("coder", "kernel"):
+                st = compress.lm_compress_chunked(model, toks, LM_CHUNK,
+                                                  backend=be, device="cpu")
+                _put(res, f"{name}/{be}/enc", st.chunks)
+                _put(res, f"{name}/{be}/dec", compress.lm_decompress_chunked(
+                    model, st.chunks, TP_COMPRESS_T, LM_CHUNK, backend=be,
+                    lane_probes=True, device="cpu"))
+            _put(res, f"{name}/two_pass/dec", compress.lm_decompress_chunked(
+                model, st.chunks, TP_COMPRESS_T, LM_CHUNK,
+                backend="two_pass", lane_probes=True, device="cpu"))
+            _put(res, f"{name}/whole/enc", compress.lm_compress_chunked(
+                whole, toks, LM_CHUNK, backend="kernel",
+                device="cpu").chunks)
+            # the placed container read by the whole model
+            try:
+                sym = compress.lm_decompress_chunked(
+                    whole, st.chunks, TP_COMPRESS_T, LM_CHUNK,
+                    backend="kernel", device="cpu")[0]
+                res[f"{name}/whole/decodes"] = np.array(
+                    np.array_equal(_np(sym), toks))
+            except coder.StreamExhaustedError:
+                res[f"{name}/whole/decodes"] = np.array(False)
+            mono = compress.lm_compress(model, toks, backend="kernel",
+                                        device="cpu")
+            _put(res, f"{name}/mono/enc", mono.enc)
+            _put(res, f"{name}/mono/dec", compress.lm_decompress(
+                model, mono.enc, TP_COMPRESS_T, backend="kernel",
+                lane_probes=True, device="cpu"))
+    if world == 4:
+        # a decode state of 3 rows on (2, 2): whole on both data ranks
+        whole, model = _placed_smoke("ras-pimc", case_mesh((2, 2), world),
+                                     {"tp": 2})
+        pl = model.placement
+        states = [m.init_state(3, 8) for m in (whole, model)]
+        tok = torch.as_tensor(lm_tokens()[:3, :6])
+        for t in range(6):
+            for m, st in zip((whole, model), states):
+                m.decode_step(st, tok[:, t:t + 1], t)
+        back = pl.unplace_state(states[1], 3)
+        again = pl.place_state(back)
+        res["rows3/place_state_bitwise"] = np.array(all(
+            torch.equal(again.leaves()[k], v)
+            for k, v in states[1].leaves().items()))
+        for k, v in back.leaves().items():
+            res[f"rows3/state/{k}"] = _np(v)
+            res[f"rows3/whole/{k}"] = _np(states[0].leaves()[k])
+    dims = (2, 2) if world == 4 else (1, world)
+    for arch in DATA_ENGINE:
+        whole, model = _placed_smoke(arch, case_mesh(dims, world))
+        for k, v in _engine_run(model).items():
+            res[f"engine/{arch}/{k}"] = v
+        for i, t in enumerate(engine_tokens()):
+            st = compress.lm_compress_chunked(model, t, 8, backend="kernel",
+                                              device="cpu")
+            res[f"engine/{arch}/single{i}"] = np.frombuffer(
+                bitstream.pack_chunked(*st.chunks, chunk_size=8,
+                                       n_symbols=t.shape[1]), np.uint8)
+        if world == 1:
+            for k, v in _engine_run(whole).items():
+                res[f"engine/{arch}/unplaced/{k}"] = v
+    return res
+
+
 SUITES = {"chunked": chunked_suite, "lm": lm_suite,
           "collectives": collectives_suite, "train": train_suite,
           "mesh": mesh_suite, "tp": tp_suite, "tp_decode": tp_decode_suite,
-          "tp_compress": tp_compress_suite}
+          "tp_compress": tp_compress_suite, "data_train": data_train_suite,
+          "data_serve": data_serve_suite}
 
 
 # ---------------------------------------------------------------------------

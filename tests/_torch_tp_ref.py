@@ -1,25 +1,28 @@
-"""The reference's side of ``tests/test_torch_tensor_parallel.py``: JAX's
-GSPMD-placed steps on 4 forced CPU devices, in a process of their own.
+"""The reference's side of ``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_data_placement.py``: JAX's GSPMD-placed steps on 4
+forced CPU devices, in a process of their own.
 
     python tests/_torch_tp_ref.py <in.npz> <out.npz> [decode]
 
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` must be set before
 JAX starts, so the test runs this file as a subprocess (its own process
 keeps its single device).  ``<in.npz>`` holds, for each case of
-``_torch_ranks.TP_CASES`` that the reference runs, the seeded weights as
-the reference's tree (``<case>/w/<path>``) and the batches
-(``<case>/b<i>/<plane>``); this process places them by
+``_torch_ranks.TP_CASES`` or ``TP_ROWS`` that the reference runs, the
+seeded weights as the reference's tree (``<case>/w/<path>``) and the
+batches (``<case>/b<i>/<plane>``); this process places them by
 ``repro.parallel.sharding.param_shardings`` and ``batch_pspec`` (every
 plane of the batch: a ``vlm`` case's memory, an ``audio`` case's encoder
-inputs) on a
-``("data", "model")`` mesh of the case's shape, and writes to
+inputs; a batch the batch axes do not divide lies whole on the ranks of
+those it skips) on a ``("data", "model")`` or ``("pod", "data",
+"model")`` mesh of the case's shape, and writes to
 ``<out.npz>`` what one jitted function of the reference computes there:
 ``grads_fn``'s loss and gradients on batch 0, the prefill logits of batch
 0 (``forward`` then ``logits``), and two ``make_train_step`` steps on
 batches 1 and 2 (their losses and grad norms, and the parameters after
 them).  The residual stream is constrained by the case's ``act_pspec``,
-or by the reference's default ``(("data",), None, None)`` as its
-``launch/specs.build_cell`` sets it.
+or by the reference's default, the batch's ``batch_pspec`` axes, as its
+``launch/specs.build_cell`` sets it.  A case of ``_torch_ranks.CROSSPOD``
+runs the reference's cross-pod step instead (:func:`run_crosspod`).
 
 With ``decode``, ``<in.npz>`` holds for each case of
 ``_torch_ranks.TP_DECODE`` its geometry's weights (``<case>/w/<path>``),
@@ -78,32 +81,21 @@ def _flat(tree, prefix: str, out: dict) -> None:
 
 def run_case(name: str, inp: dict) -> dict:
     import jax
-    import jax.numpy as jnp
-    from jax.sharding import AxisType, NamedSharding
 
     from repro.configs import get_smoke_config
     from repro.models.layers import logits as j_logits
-    from repro.models.transformer import forward, make_model_defs
-    from repro.parallel.sharding import batch_pspec, param_shardings
+    from repro.models.transformer import forward
+    from repro.parallel.sharding import batch_pspec
     from repro.train import train_loop
 
-    arch, over, (dp, tp) = R.TP_CASES[name]
+    arch, over, dims, rows = R.tp_case(name)
     cfg = get_smoke_config(arch).with_(**over)
+    mesh = _mesh(dims)
     if cfg.act_pspec is None:
-        cfg = cfg.with_(act_pspec=(("data",), None, None))
-    mesh = jax.make_mesh((dp, tp), ("data", "model"),
-                         axis_types=(AxisType.Auto, AxisType.Auto))
-    params = jax.tree.map(jnp.asarray, _tree(
-        {k[len(name) + 3:]: v for k, v in inp.items()
-         if k.startswith(f"{name}/w/")}))
-    planes = sorted(k.split("/")[-1] for k in inp
-                    if k.startswith(f"{name}/b0/"))
-    batches = [{p: jnp.asarray(inp[f"{name}/b{i}/{p}"]) for p in planes}
-               for i in range(3)]
-    p_shard = param_shardings(cfg, mesh, make_model_defs(cfg))
-    b_shard = {p: NamedSharding(mesh, batch_pspec(mesh, R.TP_BATCH,
-                                                  batches[0][p].ndim))
-               for p in planes}
+        cfg = cfg.with_(act_pspec=(batch_pspec(mesh, rows, 1)[0], None,
+                                   None))
+    params, batches, p_shard, b_shard = _placed_inputs(name, inp, cfg, mesh,
+                                                       rows)
     step = train_loop.make_train_step(cfg, base_lr=R.TP_LR)
 
     def fn(params, b0, b1, b2):
@@ -128,6 +120,95 @@ def run_case(name: str, inp: dict) -> dict:
         res[f"step{i}/grad_norm"] = np.asarray(m["grad_norm"])
     _flat(grads, "grads", res)
     _flat(new, "params", res)
+    return res
+
+
+def _mesh(dims: tuple):
+    import jax
+    from jax.sharding import AxisType
+    return jax.make_mesh(tuple(dims), R.mesh_names(dims),
+                         axis_types=(AxisType.Auto,) * len(dims))
+
+
+def _placed_inputs(name: str, inp: dict, cfg, mesh, rows: int):
+    """A case's parameters, its three batches and their shardings
+    (``param_shardings``; every batch plane by ``batch_pspec``)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro.models.transformer import make_model_defs
+    from repro.parallel.sharding import batch_pspec, param_shardings
+
+    params = jax.tree.map(jnp.asarray, _tree(
+        {k[len(name) + 3:]: v for k, v in inp.items()
+         if k.startswith(f"{name}/w/")}))
+    planes = sorted(k.split("/")[-1] for k in inp
+                    if k.startswith(f"{name}/b0/"))
+    batches = [{p: jnp.asarray(inp[f"{name}/b{i}/{p}"]) for p in planes}
+               for i in range(3)]
+    p_shard = param_shardings(cfg, mesh, make_model_defs(cfg))
+    b_shard = {p: NamedSharding(mesh, batch_pspec(mesh, rows,
+                                                  batches[0][p].ndim))
+               for p in planes}
+    return params, batches, p_shard, b_shard
+
+
+def run_crosspod(name: str, inp: dict) -> dict:
+    """A case of ``_torch_ranks.CROSSPOD`` on the reference's own
+    cross-pod step, ``make_train_step(compress_crosspod=True, mesh)``
+    (its ``pod_step`` in a ``shard_map`` over ``pod``, ``data`` and
+    ``model`` left to GSPMD): two steps on batches 0 and 1 (their losses
+    and grad norms, the parameters after the first); and, by the same
+    ``shard_map`` over ``pod`` of the reference's ``grads_fn`` (with
+    ``inner_cfg``'s ``act_pspec``), each pod's gradients of batch 0
+    (``pod<p>/grads``), whose int8 reduce the test runs on the port's
+    leaves."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.parallel.sharding import batch_pspec
+    from repro.train import train_loop
+
+    arch, over, dims, rows = R.tp_case(name)
+    cfg = get_smoke_config(arch).with_(**over)
+    mesh = _mesh(dims)
+    cfg = cfg.with_(act_pspec=(batch_pspec(mesh, rows, 1)[0], None, None))
+    inner = cfg.with_(act_pspec=(("data",), None, None))
+    params, batches, p_shard, b_shard = _placed_inputs(name, inp, cfg, mesh,
+                                                       rows)
+    step = train_loop.make_train_step(cfg, base_lr=R.TP_LR,
+                                      compress_crosspod=True, mesh=mesh)
+
+    def pod_grads(params, batch):
+        _, grads = train_loop.grads_fn(params, batch, inner)
+        return jax.tree.map(lambda g: g[None], grads)
+
+    def fn(params, b0, b1):
+        grads = jax.shard_map(
+            pod_grads, mesh=mesh,
+            in_specs=(jax.tree.map(lambda x: P(), params),
+                      jax.tree.map(lambda x: P("pod"), b0)),
+            out_specs=jax.tree.map(lambda x: P("pod"), params),
+            axis_names=frozenset({"pod"}), check_vma=False)(params, b0)
+        state = train_loop.init_train_state(params, with_error=True)
+        state, m0 = step(state, b0)
+        after = state.params
+        _, m1 = step(state, b1)
+        return grads, after, [m0, m1]
+
+    with jax.set_mesh(mesh):
+        out = jax.jit(fn, in_shardings=(p_shard, b_shard, b_shard))(
+            params, *batches[:2])
+    grads, after, metrics = jax.device_get(out)
+    res = {}
+    for p in range(mesh.shape["pod"]):
+        _flat(jax.tree.map(lambda g: g[p], grads), f"pod{p}/grads", res)
+    _flat(after, "params", res)
+    for i, m in enumerate(metrics):
+        res[f"step{i}/loss"] = np.asarray(m["loss"])
+        res[f"step{i}/grad_norm"] = np.asarray(m["grad_norm"])
     return res
 
 
@@ -214,7 +295,6 @@ def _state_leaves(cfg, cache) -> dict:
 
 def main(argv: list[str]) -> int:
     src, dst, *mode = argv
-    run = run_decode if mode == ["decode"] else run_case
     import jax
     jax.config.update("jax_platforms", "cpu")
     cache = os.environ.get("TP_REF_JAX_CACHE")
@@ -230,6 +310,8 @@ def main(argv: list[str]) -> int:
     cases = sorted({k.split("/")[0] for k in inp})
     res = {}
     for name in cases:
+        run = (run_decode if mode == ["decode"] else
+               run_crosspod if name in R.CROSSPOD else run_case)
         for k, v in run(name, inp).items():
             res[f"{name}/{k}"] = v
     np.savez(dst, **res)

@@ -132,7 +132,8 @@ def test_merge_of_the_records():
                 "b2": dict(shape, bound_by="bytes")}
     slice_launches = _launches(rans_encode_lanes=1, rans_decode_step=600,
                                spc_quantize=601)
-    for key in ("image", "two_pass", "engine", "placement", "fig4c",
+    for key in ("image", "two_pass", "engine", "placement",
+                "placed_engine", "crosspod_placed", "fig4c",
                 "m2", "mx", "zoo", "tp", "phi", "trainer", "launcher",
                 "example", "lanes", "chunked", "dryrun"):
         r[f"{key}_launches"] = _launches(rans_decode_slab=1)

@@ -21,8 +21,8 @@ included; the frozen corpus ``tests/golden_vectors/*.ras`` decodes on the
 card and re-packs through B5 byte for byte; ``build_tables`` on the card
 equals the CPU's for every frequency; each call launches its kernel
 exactly once.  The batching engine's path: ``ops.rans_decode_step_rows``
-through B2 equals the coder pop; the engine's row groups are the
-single-request calls bitwise and ``prefill_chunk`` is the step path
+through B2 equals the coder pop; the engine's slots keep the
+single-request state bitwise and ``prefill_chunk`` is the step path
 bitwise on the card; a small mixed engine workload is byte-identical to
 the single-request kernel path with its B1, B2 and B6 launches counted and
 no host sync inside a cycle.  Training and bits-back: B2 at the stack's
@@ -789,50 +789,50 @@ def _small_model(dev):
 
 
 @pytest.mark.gpu
-def test_gpu_row_groups_are_row_count_invariant():
-    """The engine's model call (4 slots as row groups) equals each slot's
-    single-request call bitwise on the card, logits and cache, at per-row
-    positions; the int position equals a constant vector."""
-    from repro_torch.models import RowGroup, decode_step, init_state
+def test_gpu_engine_slots_keep_the_single_request_state():
+    """Four slots of 16 lanes (requests of 40, 23, 33 and 6 symbols in a
+    64-slot ring) through the step loop on the card: each slot's state
+    after the run is bitwise the single-request scan's after the same
+    tokens, at the request's own ring length."""
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
     dev = _cuda()
     model = _small_model(dev)
-    lanes, slots, steps = 16, 4, 6
-    toks = _t(token_stream(256, (lanes * slots, steps), seed=8)).to(dev)
-    groups = tuple(RowGroup(s * lanes, (s + 1) * lanes, steps)
-                   for s in range(slots))
-    big = init_state(model, lanes * slots, 64)
-    alone = [init_state(model, lanes, steps) for _ in range(slots)]
-    for t in range(steps):
-        lg = decode_step(model, big, toks[:, t:t + 1],
-                         torch.full((lanes * slots,), t, device=dev), groups)
-        for g, st in zip(groups, alone):
-            want = decode_step(model, st, toks[g.r0:g.r1, t:t + 1], t)
-            assert torch.equal(lg[g.r0:g.r1], want)
-    for g, st in zip(groups, alone):
-        assert torch.equal(big.k[:, g.r0:g.r1, :st.k.shape[2]], st.k)
-        assert torch.equal(big.v[:, g.r0:g.r1, :st.v.shape[2]], st.v)
+    lanes = 16
+    toks = [token_stream(256, (lanes, n), seed=70 + i)
+            for i, n in enumerate((40, 23, 33, 6))]
+    eng = BatchEngine(model, slots=4, lanes=lanes, chunk_size=16,
+                      max_len=64, prefill="off")
+    rids = [eng.submit_compress(t) for t in toks]
+    res = eng.run()
+    for rid, t in zip(rids, toks):
+        assert res[rid].ok
+        inputs = torch.cat([torch.full((lanes, 1), compress.BOS),
+                            _t(t[:, :-1]).long()], 1).to(dev)
+        alone = compress.teacher_forced_scan(model, inputs, t.shape[1],
+                                             lambda lg, i: None)
+        st = eng._states[res[rid].slot]
+        assert torch.equal(st.k, alone.k) and torch.equal(st.v, alone.v)
 
 
 @pytest.mark.gpu
 def test_gpu_prefill_chunk_bitwise_matches_steps():
-    from repro_torch.models import (RowGroup, decode_step, init_state,
-                                    prefill_chunk)
+    from repro_torch.models import decode_step, init_state, prefill_chunk
     dev = _cuda()
     model = _small_model(dev)
     b, s, warm = 32, 24, 5
     toks = _t(token_stream(256, (b, warm + s), seed=9)).to(dev)
-    groups = (RowGroup(0, 16, 40), RowGroup(16, 32, 40))
     step = init_state(model, b, 40)
     for t in range(warm):
-        decode_step(model, step, toks[:, t:t + 1], t, groups)
+        decode_step(model, step, toks[:, t:t + 1], t)
     pf = type(step)(step.k.clone(), step.v.clone(), step.length)
     nv = torch.full((b,), s, dtype=torch.int64, device=dev)
     nv[20:24] = 7                                    # one ragged slot's rows
     pos0 = torch.full((b,), warm, dtype=torch.int64, device=dev)
     ref = torch.stack([decode_step(model, step, toks[:, warm + t:warm + t + 1],
-                                   pos0 + torch.clamp(nv, max=t), groups)
+                                   pos0 + torch.clamp(nv, max=t))
                        for t in range(s)], 1)
-    lg = prefill_chunk(model, pf, toks[:, warm:], pos0, nv, groups)
+    lg = prefill_chunk(model, pf, toks[:, warm:], pos0, nv)
     live = (torch.arange(s, device=dev)[None] < nv[:, None])
     assert torch.equal(lg[live], ref[live])
     keep = torch.ones(pf.k.shape[2], dtype=torch.bool)
@@ -1665,3 +1665,45 @@ def test_gpu_lane_mesh_smoke_roundtrip(nccl1):
     with pytest.raises(ValueError, match="lanes"):
         compress.lm_decompress_chunked(model, st.chunks, 48, 16,
                                        backend="kernel", mesh=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("ras-pimc", "mamba2-130m"))
+def test_gpu_placed_engine_blobs(nccl1, arch):
+    """A SMOKE model placed for compute on ``make_mesh_for(1)`` served by
+    ``BatchEngine`` on the card (the kernel step backend): its blobs equal
+    the unplaced engine's and the placed single-request
+    ``lm_compress_chunked``'s, and the first decompresses exactly through
+    the placed engine."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_model
+    from repro_torch.parallel import sharding
+    from repro_torch.serve import compress
+    from repro_torch.serve.engine import BatchEngine
+    dev = nccl1
+    cfg = get_smoke_config(arch)
+    model = init_model(cfg, seed=0, device=dev)
+    placed = sharding.place_model(model, make_mesh_for(1, device=dev))
+    lanes, chunk = 4, 16
+    toks = [token_stream(cfg.vocab_size, (lanes, n), seed=70 + i)
+            for i, n in enumerate((40, 23, 33))]
+
+    def serve(m):
+        eng = BatchEngine(m, slots=2, lanes=lanes, chunk_size=chunk,
+                          max_len=48, step_backend="kernel")
+        rids = [eng.submit_compress(t, arrival=float(i))
+                for i, t in enumerate(toks)]
+        res = eng.run()
+        return eng, [res[r].blob for r in rids]
+
+    eng, blobs = serve(placed)
+    assert blobs == serve(model)[1]
+    for t, blob in zip(toks, blobs):
+        assert blob == bitstream.pack_chunked(*compress.lm_compress_chunked(
+            placed, t, chunk, backend="kernel").chunks, chunk_size=chunk,
+            n_symbols=t.shape[1])
+    rd = eng.submit_decompress(blobs[0])
+    got = eng.run()[rd]
+    assert got.ok
+    np.testing.assert_array_equal(got.tokens, toks[0])

@@ -359,7 +359,7 @@ def test_engine_on_lane_mesh(lm, unplaced):
     assert _ranks_equal(lm, "engine/s2/virtual/prefill_cycles") == \
         eng.prefill_cycles
     for r, res in enumerate(lm):
-        st = pc.state_rows(eng._state, 2 * r, 2 * r + 2)
+        st = eng._states[r]
         np.testing.assert_array_equal(res["engine/s2/virtual/state_k"],
                                       st.k.numpy())
         np.testing.assert_array_equal(res["engine/s2/virtual/state_v"],

@@ -7,8 +7,9 @@ reference (CPU).
   and in the port an int position gives logits and cache bitwise equal to
   a constant vector;
 * ``prefill_chunk`` matches JAX's within 1e-4, and is bitwise the port's
-  own sequential steps (``pos0 > 0``; ragged ``n_valid`` on the live
-  positions), also run as row groups;
+  own sequential steps (``pos0`` 0 and > 0; ragged ``n_valid`` on the
+  live positions); the batching engine keeps each slot's state bitwise
+  the single-request path's;
 * ``state_spec``/``ring_length``/``wrap_length``/``can_prefill`` equal
   JAX's; the registry's named errors;
 * ``rans_decode_step_rows`` is integer-identical to JAX's on both
@@ -37,8 +38,9 @@ from repro_torch import models
 from repro_torch.configs.ras_pimc import CONFIG, SMOKE
 from repro_torch.core import spc, u32
 from repro_torch.kernels import ops
-from repro_torch.models import RowGroup
 from repro_torch.models.convert import from_reference
+from repro_torch.serve import compress
+from repro_torch.serve.engine import BatchEngine
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -134,29 +136,26 @@ def test_prefill_chunk_matches_reference(converted):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("grouped", [False, True])
-def test_prefill_chunk_bitwise_matches_decode_steps(converted, grouped):
-    """One prefill chunk (pos0 > 0, ragged n_valid) == S steps at
+@pytest.mark.parametrize("warm", [0, 3])
+def test_prefill_chunk_bitwise_matches_decode_steps(converted, warm):
+    """One prefill chunk (pos0 = ``warm``, ragged n_valid) == S steps at
     positions ``pos0 + min(t, n_valid)``: bitwise on every live logit and
     on every ring slot but the frozen rows' clamped one (which the step
     path writes and the next chunk's first step overwrites)."""
     _, model = converted
-    b, s, warm, max_len = 6, 8, 3, 16
+    b, s, max_len = 6, 8, 16
     toks = torch.as_tensor(_toks(b, warm + s, 9))
     nv = torch.as_tensor([8, 8, 5, 1, 0, 8])
     pos0 = torch.full((b,), warm, dtype=torch.int64)
-    groups = ((RowGroup(0, 3, 12), RowGroup(3, 6, 16)) if grouped
-              else None)
     step = _warm(model, toks, warm, max_len)
     pf = _clone(step)
     ref = []
     for t in range(s):
         pos = pos0 + torch.clamp(nv, max=t)
         ref.append(models.decode_step(model, step,
-                                      toks[:, warm + t:warm + t + 1], pos,
-                                      groups))
+                                      toks[:, warm + t:warm + t + 1], pos))
     ref = torch.stack(ref, 1)
-    lg = models.prefill_chunk(model, pf, toks[:, warm:], pos0, nv, groups)
+    lg = models.prefill_chunk(model, pf, toks[:, warm:], pos0, nv)
     for r in range(b):
         n = int(nv[r])
         assert torch.equal(lg[r, :n], ref[r, :n]), r
@@ -167,22 +166,29 @@ def test_prefill_chunk_bitwise_matches_decode_steps(converted, grouped):
             assert torch.equal(a[:, r][:, keep], c[:, r][:, keep]), r
 
 
-def test_row_groups_are_the_single_request_calls(converted):
-    """Two slots of 3 rows in a 24-slot ring, each group at its request's
-    ring length, equal two separate single-request calls bitwise."""
+@pytest.mark.parametrize("prefill", ["off", "auto"])
+def test_engine_slots_keep_the_single_request_state(converted, prefill):
+    """Two slots of 3 lanes serving requests of 10 and 7 symbols in a
+    24-slot ring: each slot's state after the run is bitwise the
+    single-request path's after the same tokens (the same ring length),
+    through the step loop and through prefill chunks."""
     _, model = converted
-    toks = torch.as_tensor(_toks(6, 10, 23))
-    groups = (RowGroup(0, 3, 10), RowGroup(3, 6, 7))
-    big = model.init_state(6, 24)
-    alone = [model.init_state(3, 10), model.init_state(3, 7)]
-    for t in range(7):
-        lg = models.decode_step(model, big, toks[:, t:t + 1],
-                                torch.full((6,), t), groups)
-        for g, st in zip(groups, alone):
-            want = models.decode_step(model, st, toks[g.r0:g.r1, t:t + 1], t)
-            assert torch.equal(lg[g.r0:g.r1], want)
-    for g, st in zip(groups, alone):
-        assert torch.equal(big.k[:, g.r0:g.r1, :st.k.shape[2]], st.k)
+    lanes, lengths = 3, (10, 7)
+    eng = BatchEngine(model, slots=2, lanes=lanes, chunk_size=4, max_len=24,
+                      prefill=prefill, device="cpu")
+    toks = [_toks(lanes, n, 23 + n) for n in lengths]
+    rids = [eng.submit_compress(t) for t in toks]
+    res = eng.run()
+    assert eng.prefill_cycles == (0 if prefill == "off" else 3)
+    for rid, t in zip(rids, toks):
+        assert res[rid].ok
+        inputs = torch.cat([torch.full((lanes, 1), compress.BOS),
+                            torch.as_tensor(t[:, :-1]).long()], 1)
+        alone = compress.teacher_forced_scan(model, inputs, t.shape[1],
+                                             lambda lg, i: None)
+        st = eng._states[res[rid].slot]
+        assert st.length == alone.length == t.shape[1]
+        assert torch.equal(st.k, alone.k) and torch.equal(st.v, alone.v)
 
 
 @pytest.mark.parametrize("cfg_pair", [(CONFIG, J_CONFIG), (SMOKE, J_SMOKE)])

@@ -51,8 +51,7 @@ each rank's state shards; the placed ``prefill_chunk`` of an attention
 model bitwise the placed steps.  The
 placed compress (suite ``tp_compress``, 2 ranks, a ``(1, 2)`` mesh):
 the same container on both ranks, decoded exactly on the same
-placement; a ``data`` axis over 1 and ``mesh=`` beside a placed model
-refused by name.
+placement; ``mesh=`` beside a placed model refused by name.
 """
 
 import math
@@ -77,14 +76,14 @@ from repro_torch.models.convert import to_reference
 from repro_torch.models.layers import embed, logits, mlp, rmsnorm, xent_loss
 from repro_torch.models.attention import attn_cross, attn_forward
 from repro_torch.models.transformer import remat
-from repro_torch.parallel import sharding
+from repro_torch.parallel import Mesh, sharding
+from repro_torch.parallel.sharding import batch_spec
 from repro_torch.parallel.tensor import RecordingComm
 from repro_torch.serve.engine import BatchEngine
 from repro_torch.analysis import hlo
 from repro_torch.train import train_loop
 
 HERE = Path(__file__).resolve().parent
-REL = 1e-5
 # the reference's placed step gives one answer per config: a remat
 # variant is held against the same JAX run, where the plain case exists
 JAX_CASE = {name: name.removesuffix("_remat")
@@ -100,18 +99,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _flat(tree, prefix: str, out: dict) -> None:
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _flat(v, f"{prefix}/{k}", out)
-    else:
-        out[prefix] = np.asarray(tree)
-
-
 def _reference_inputs(path: Path) -> None:
     inp = {}
     for name in sorted(set(JAX_CASE.values())):
-        _flat(to_reference(R.tp_model(name)), f"{name}/w", inp)
+        R.flat_tree(to_reference(R.tp_model(name)), f"{name}/w", inp)
         for i in range(3):
             for plane, a in R.tp_batch(name, i).items():
                 inp[f"{name}/b{i}/{plane}"] = a
@@ -154,25 +145,7 @@ def runs(tmp_path_factory):
     return ranks, jax_out, one
 
 
-def _as_reference(name: str, res: dict) -> dict:
-    """The port's results of a case keyed as the reference's flattened
-    outputs (gradients and parameters by the reference's tree path)."""
-    model = R.tp_model(name)
-    out = {}
-    for group in ("grads", "params"):
-        tensors = {k[len(group) + 1:]: v for k, v in res.items()
-                   if k.startswith(f"{group}/")}
-        _flat(to_reference(model, tensors, host=np.asarray), group, out)
-    for k, v in res.items():
-        if not k.startswith(("grads/", "params/", "shard/")):
-            out[k] = v
-    return out
-
-
-def _close(got: np.ndarray, want: np.ndarray, what: str) -> None:
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0,
-        atol=REL * max(float(np.abs(want).max()), 1e-12), err_msg=what)
+_as_reference, _close = R.as_reference, R.close
 
 
 @pytest.mark.parametrize("name", list(R.TP_CASES))
@@ -290,15 +263,27 @@ def test_meshes_that_do_not_divide_raise_by_name(over, dims, dim):
 
 @pytest.mark.parametrize("arch,batch", [("qwen3-4b", 3),
                                         ("mamba2-130m", 1)])
-def test_placed_train_step_refuses_a_batch_the_data_axis_does_not_divide(
-        arch, batch):
-    """A decode state's rows replicate over data axes that do not divide
-    them (``long_500k``); a train step's batch does not."""
+def test_placed_rows_follow_batch_pspec(arch, batch):
+    """A batch the data axis does not divide (a train step's, or a decode
+    state's rows, ``long_500k``'s one) lies whole on every data rank, as
+    the reference's ``batch_pspec`` places it, and ``whole_rows`` moves
+    nothing back; one it divides, the rank's slab.  (The train step on
+    such batches is held against JAX in ``test_torch_data_placement``.)"""
     cfg = registry.get_smoke_config(arch).with_(tp=2)
     model = sharding.place_model(init_model(cfg, device="cpu"), _comm(2, 2))
-    tokens = torch.zeros((batch, 8), dtype=torch.int64)
-    with pytest.raises(ValueError, match=f"batch {batch} does not divide"):
-        train_loop.grads_fn(model, {"tokens": tokens, "labels": tokens})
+    pl = model.placement
+    for rows, axes in ((batch, ()), (2 * batch, ("data",))):
+        tokens = torch.arange(rows * 8).reshape(rows, 8)
+        assert pl._slab_axes(rows) == axes
+        assert tuple(pl.rows(tokens).shape) == (rows // 2 ** len(axes), 8)
+        assert batch_spec(MeshShape(("data", "model"), (2, 2)), rows)[0] \
+            == (axes or None)
+    tokens = torch.arange(batch * 8).reshape(batch, 8)
+    assert torch.equal(pl.whole_rows(pl.rows(tokens), batch), tokens)
+    with torch.device("meta"):
+        whole = param.meta_model(cfg).init_state(batch, 8)
+    for k, t in whole.leaves().items():
+        assert pl.state_shape(k, tuple(t.shape), 8)[1] == batch, k
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +293,7 @@ def test_placed_train_step_refuses_a_batch_the_data_axis_does_not_divide(
 def _decode_inputs(path: Path) -> None:
     inp = {}
     for name, (tp_name, rows, _, _) in R.TP_DECODE.items():
-        _flat(to_reference(R.tp_model(tp_name)), f"{name}/w", inp)
+        R.flat_tree(to_reference(R.tp_model(tp_name)), f"{name}/w", inp)
         tokens, pos, pos0, memory = R.tp_decode_inputs(name)
         inp[f"{name}/tokens"], inp[f"{name}/pos0"] = tokens, pos0
         if rows:
@@ -469,13 +454,18 @@ def test_placed_compress_round_trip(compress_runs, name):
                                   a[f"{name}/kernel/dec/lane_probes"])
 
 
-def test_placed_compress_refuses_data_axis_and_mesh(decode_runs,
+def test_placed_compress_over_data_and_mesh_refusal(decode_runs,
                                                     compress_runs):
-    """A placed model on a ``data`` axis of 2 raises a named
-    ``NotImplementedError`` (ROADMAP A); ``mesh=`` beside a placed model a
-    named ``ValueError``."""
-    err = str(decode_runs[0][0]["refuse/data"])
-    assert err.startswith("NotImplementedError") and "ROADMAP A" in err
+    """A placed model on a ``data`` axis of 2 compresses: every rank
+    writes the same container and decodes its tokens exactly (the cases
+    of ``test_torch_data_placement`` hold it further); ``mesh=`` beside a
+    placed model raises a named ``ValueError``."""
+    ranks = decode_runs[0]
+    toks = R.lm_tokens()[:, :8]
+    for res in ranks:
+        np.testing.assert_array_equal(res["data/dec/sym"], toks)
+        for k in ("data/enc/buf", "data/enc/length"):
+            np.testing.assert_array_equal(res[k], ranks[0][k])
     err = str(compress_runs[0]["refuse/mesh"])
     assert err.startswith("ValueError") and "mesh=" in err
 
@@ -510,8 +500,9 @@ def test_other_families_and_paths_refuse_by_name():
         assert torch.equal(placed.decode_step(state, tok, t),
                            whole.decode_step(wstate, tok, t)), t
     assert torch.equal(state.k, wstate.k) and torch.equal(state.v, wstate.v)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        BatchEngine(placed, slots=1, lanes=2, device="cpu")
+    lanes = Mesh("lanes", None, 1, 0, torch.device("cpu"))
+    with pytest.raises(ValueError, match="mesh= with a placed model"):
+        BatchEngine(placed, slots=1, lanes=2, device="cpu", mesh=lanes)
     batch = R.tp_batch("pimc_tp2", 0)
     with pytest.raises(ValueError, match="device_mesh"):
         train_loop.make_train_step(cfg)(train_loop.init_train_state(placed),
@@ -519,9 +510,9 @@ def test_other_families_and_paths_refuse_by_name():
     with pytest.raises(ValueError, match="device_mesh"):
         train_loop.make_train_step(cfg, device_mesh=_comm(1, 1))(
             train_loop.init_train_state(placed), batch)
-    with pytest.raises(NotImplementedError, match="compress_crosspod"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         train_loop.make_train_step(cfg, compress_crosspod=True,
-                                   mesh=SimpleNamespace(axis="pod"),
+                                   mesh=SimpleNamespace(axis="pod", size=1),
                                    device_mesh=_comm(1, 1))
 
 

@@ -45,8 +45,7 @@ from repro_torch.data.pipeline import token_stream
 from repro_torch.models import (PrefillUnsupportedError, can_prefill,
                                 has_recurrent_state, init_model, init_state,
                                 prefill_chunk, recurrent_state_tree,
-                                reset_rows, ring_length, state_spec,
-                                wrap_length)
+                                ring_length, state_spec, wrap_length)
 from repro_torch.launch import serve as launcher
 from repro_torch.serve import compress
 from repro_torch.serve.engine import BatchEngine
@@ -141,11 +140,6 @@ def test_state_leaves_rows_reset_and_recurrent_tree(zoo, arch):
     assert has_recurrent_state(st) == state_spec(model.cfg).recurrent
     assert {k for k, rec in tree.items() if not rec} == (
         {"k", "v"} if state_spec(model.cfg).ring else set())
-    for leaf in st.leaves().values():
-        leaf.fill_(1)
-    reset_rows(st, 1, 2)
-    for leaf in st.leaves().values():
-        assert not leaf[:, 1].any() and leaf[:, 0].all() and leaf[:, 2].all()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -212,7 +206,7 @@ def test_engine_frozen_rows_keep_recurrent_state(zoo, arch):
     assert any(tree.values())
     for name, rec in tree.items():
         if rec:
-            assert torch.equal(eng._state.leaves()[name][:, :lanes],
+            assert torch.equal(eng._states[0].leaves()[name],
                                alone.leaves()[name]), name
 
 

@@ -26,7 +26,9 @@ hashes what it puts out:
   inputs), torch on one thread; for an arch of another family than
   ``dense`` also the logits of 20 ``decode_step`` positions of 3 rows on
   a ring of 8 slots (against the batch's memory, or the memory encoded
-  from its encoder inputs) and the final state's leaves.
+  from its encoder inputs) and the final state's leaves;
+- on a world-1 gloo pod mesh, the int8 ``compressed_psum_tree`` of seeded
+  leaves with residuals and three cross-pod steps of ``ras-pimc`` SMOKE.
 
 It prints each checkout's digests and exits nonzero unless every one
 agrees.  Needs no card and no ``nvcc``.
@@ -115,7 +117,60 @@ def worker() -> None:
         tok = lg.argmax(-1, keepdim=True)
     out["wrapped-ring logits"] = _digest(*logits)
     out.update(train_digests())
+    out.update(crosspod_digests())
     print(json.dumps(out))
+
+
+def crosspod_digests() -> dict:
+    """The unplaced int8 reduce and cross-pod step on a world-1 gloo pod
+    mesh: ``compressed_psum_tree`` of seeded leaves with residuals, and
+    three steps of ``ras-pimc`` SMOKE from step 100 (metrics, parameters,
+    residuals)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import train_batch
+    from repro_torch.models import init_model
+    from repro_torch.parallel import collectives as col
+    from repro_torch.train import train_loop
+
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", store=dist.FileStore(f"{d}/s", 1),
+                                rank=0, world_size=1)
+        try:
+            pod = col.pod_mesh(device="cpu")
+            rng = np.random.default_rng(7)
+            tree = {k: torch.as_tensor(rng.normal(size=s).astype(
+                np.float32) * 10.0 ** -i) for i, (k, s) in enumerate(
+                    (("a", (5, 7)), ("b", (33,)), ("c", (2, 3, 4))))}
+            err = {k: torch.as_tensor(rng.normal(size=tuple(v.shape))
+                                      .astype(np.float32) * 1e-3)
+                   for k, v in tree.items()}
+            red, new = col.compressed_psum_tree(tree, pod, err)
+            out = {"int8 reduce": _digest(
+                *(t.numpy() for t in red.values()),
+                *(t.numpy() for t in new.values()))}
+            cfg = get_smoke_config("ras-pimc").with_(grad_accum=1)
+            model = init_model(cfg, seed=0, device="cpu")
+            state = train_loop.init_train_state(model, with_error=True)
+            state = state._replace(step=torch.full_like(state.step, 100))
+            step = train_loop.make_train_step(cfg, base_lr=3e-3,
+                                              compress_crosspod=True,
+                                              mesh=pod)
+            metrics = []
+            for i in range(3):
+                state, m = step(state, train_batch(cfg, 4, 16, step=i))
+                metrics += [m["loss"], m["grad_norm"]]
+            out["cross-pod step"] = _digest(
+                *(t.numpy() for t in metrics),
+                *(p.detach().numpy() for p in model.parameters()),
+                *(e.numpy() for e in state.error.values()))
+        finally:
+            dist.destroy_process_group()
+    return out
 
 
 def train_digests() -> dict:
