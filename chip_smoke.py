@@ -162,11 +162,12 @@ Phases (any failure raises and exits nonzero; the numbers name them,
    largest |dlogit| of a row at 64 rows
    against 128 over 64 positions); (5) phase 14's point through
    ``BatchEngine(mesh=lane_mesh())``, every blob equal; (6) 5 cross-pod
-   train steps of 16 x 128 at full width on a 1-rank pod mesh: residuals
-   ``x + e - dequant(quant(x + e))`` bitwise, the card's reduce equal to
-   the CPU's (a gloo group) bitwise, the loss falling; (7) that state with
-   its error tree checkpointed and ``remesh``-ed onto the CPU and back,
-   bitwise.
+   train steps of 16 x 128 at full width on a 1-rank pod mesh, one int8
+   scale per leaf of the reference's tree (counted): residuals ``x + e -
+   dequant(quant(x + e))`` with the group's scale bitwise, the card's
+   reduce equal to the CPU's (a gloo group) bitwise, the loss falling;
+   (7) that state with its error tree checkpointed and ``remesh``-ed onto
+   the CPU and back, bitwise.
 15b. the placed engine (``placed_engine_phase``), on a world-1 NCCL
    group: the slice's ``ras-pimc`` model placed for compute on
    ``make_mesh_for(1)`` served by ``BatchEngine`` at phase 15's point
@@ -405,11 +406,12 @@ zero-frequency cases of 5a.
    NCCL group: ``ras-pimc`` ``CONFIG`` in float32 placed on a ``(pod 1,
    data 1, model 1)`` device mesh, the int8 ring on its ``pod`` group, 6
    steps of 16 x 128 from step 100: the first bitwise its composition
-   (placed gradients, the ring with each whole leaf's scale, the clip,
-   AdamW, the residuals, the loss); against the unplaced cross-pod step
-   on the same pod mesh the gradients and losses within 1e-5 and the
-   reduces equal but for counted one-code differences at rounding
-   boundaries; step ms of both beside the card's name and power limit;
+   (placed gradients, the ring with one whole scale per leaf of the
+   reference's tree, counted against its leaves, the clip, AdamW, the
+   residuals, the loss); against the unplaced cross-pod step on the same
+   pod mesh the gradients and losses within 1e-5 and the reduces equal
+   but for counted one-code differences at rounding boundaries; step ms
+   of both beside the card's name and power limit;
 27. the launchers (``launchers_phase``): ``launch.train.main`` (10 steps,
    a checkpoint every 5) then ``launch.serve.main --ckpt --backend
    kernel`` in process: ``restored checkpoint step 10``, bit-exact,
@@ -5072,37 +5074,44 @@ def _crosspod(dev, pod, cpu_pod):
     state = state._replace(step=torch.full_like(state.step, 100))
     step = train_loop.make_train_step(cfg, base_lr=PLACE_LR,
                                       compress_crosspod=True, mesh=pod)
-    losses, residual_ok, reduce_ok = [], True, True
+    groups = train_loop.crosspod_groups(model)
+    n_scales, n_leaves = _scale_count(model, groups)
+    losses, residual_ok, flips = [], True, None
     for i in range(PLACE_STEPS):
         batch = train_batch(cfg, PLACE_BATCH, PLACE_SEQ, step=i)
         _, grads = train_loop.grads_fn(copy.deepcopy(state.model), batch)
         e0 = {k: v.clone() for k, v in state.error.items()}
         state, m = step(state, batch)
-        for k, g in grads.items():
-            x = g.to(torch.float32) + e0[k]
-            q, s = col.quantize_int8(x)
+        xs = {k: g.to(torch.float32) + e0[k] for k, g in grads.items()}
+        amax = _group_amax(groups, xs)
+        for k, x in xs.items():
+            q, s = col.quantize_int8(x, amax[k])
             residual_ok &= bool(torch.equal(
                 state.error[k], x - col.dequantize_int8(q, s)))
         if i == 0:
-            card, _ = col.compressed_psum_tree(grads, pod, e0)
+            card, _ = col.compressed_psum_tree(grads, pod, e0, groups=groups)
             host, _ = col.compressed_psum_tree(
                 {k: g.cpu() for k, g in grads.items()}, cpu_pod,
-                {k: e.cpu() for k, e in e0.items()})
-            reduce_ok = all(torch.equal(card[k].cpu(), host[k])
-                            for k in card)
+                {k: e.cpu() for k, e in e0.items()}, groups=groups)
+            flips = sum(int((card[k].cpu() != host[k]).sum()) for k in card)
         losses.append(float(m["loss"]))
+    _check(n_scales == n_leaves, f"placement: {n_scales} int8 scales for "
+           f"{n_leaves} reference leaves")
     _check(residual_ok, "placement: a residual is not x + e - "
-           "dequant(quant(x + e))")
-    _check(reduce_ok, "placement: the card's int8 reduce differs from the "
-           "CPU's")
+           "dequant(quant(x + e)) with its group's scale")
+    _check(flips == 0, f"placement: the card's int8 reduce differs from "
+           f"the CPU's in {flips} entries")
     _check(np.isfinite(losses).all() and losses[-1] < losses[0],
            f"placement: the cross-pod loss did not fall {losses}")
     print(f"placement (6): {cfg.name} at full width, {PLACE_STEPS} cross-pod "
           f"steps of {PLACE_BATCH} x {PLACE_SEQ} (lr {PLACE_LR}, from step "
-          f"100) over a pod mesh of {pod.size} rank: every residual equals "
-          f"x + e - dequant(quant(x + e)) bitwise, the card's reduce equals "
-          f"the CPU's bitwise, losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+          f"100) over a pod mesh of {pod.size} rank, {n_scales} int8 scales "
+          f"a step (one per reference leaf, {n_leaves}; "
+          f"{len(groups)} parameters): every residual equals "
+          f"x + e - dequant(quant(x + e)) with its group's scale bitwise, "
+          f"the card's reduce equals the CPU's bitwise ({flips} flipped "
+          f"codes), losses {', '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
     snap = {k: v.copy() for k, v in checkpoint._flatten(
         checkpoint._reference_tree(state))}
     with tempfile.TemporaryDirectory() as d:
@@ -5296,16 +5305,42 @@ def placed_engine_phase(dev, model, blobs):
     return _add(launches, more)
 
 
-def _code_flips(got: dict, want: dict, grads: dict, tol: float) -> int:
+def _group_amax(groups: dict, xs: dict) -> dict:
+    """Each name of ``xs`` -> the largest ``|x|`` of its group
+    (``train_loop.crosspod_groups``): the amax the cross-pod reduce
+    quantizes it with."""
+    import torch
+    maxima: dict = {}
+    for k, x in xs.items():
+        maxima.setdefault(groups[k], []).append(x.float().abs().max())
+    amax = {g: torch.stack(m).max() for g, m in maxima.items()}
+    return {k: amax[groups[k]] for k in xs}
+
+
+def _scale_count(model, groups: dict) -> tuple[int, int]:
+    """The cross-pod reduce's scales a step (its groups) and the leaves
+    of the model's reference tree (``convert.to_reference``)."""
+    from repro_torch.models.convert import to_reference
+
+    def leaves(tree):
+        return sum(leaves(v) if isinstance(v, dict) else 1
+                   for v in tree.values())
+
+    return len(set(groups.values())), leaves(to_reference(model))
+
+
+def _code_flips(got: dict, want: dict, grads: dict, amax: dict,
+                tol: float) -> int:
     """The entries where two one-rank int8 reduces (``q * scale``, by
-    leaf) differ in their code: each must be one code apart where the
+    leaf, ``scale`` from ``amax``: the leaf's group's largest ``|x|``)
+    differ in their code: each must be one code apart where the
     pre-quantization value of ``grads`` (``want``'s) lies within ``tol``
     codes of a rounding boundary.  Returns their count."""
     import torch
     from repro_torch.parallel import collectives as col
     flips = 0
     for k, g in grads.items():
-        _, scale = col.quantize_int8(g)
+        _, scale = col.quantize_int8(g, amax[k])
         q_got, q_want = (torch.round(t.float() / scale) for t in (got[k],
                                                                   want[k]))
         diff = q_got != q_want
@@ -5326,15 +5361,18 @@ def crosspod_placed_phase(dev):
     ring on its ``pod`` group: ``ras-pimc`` ``CONFIG`` (float32) at the
     trainer's 16 x 128, ``XP_STEPS`` steps from step 100 (a nonzero
     learning rate).  The first step equals its composition bitwise (the
-    placed gradients, ``compressed_psum_tree`` with each whole leaf's
-    scale, the clip over the shards, lr, AdamW; the residuals and the
-    loss too).  Against the unplaced cross-pod step on the same pod mesh
-    (whose int8 quantization runs too): the first step's gradients within
-    1e-5 of each leaf's largest entry, their reduces equal but for counted
-    one-code differences at rounding boundaries, every step's loss within
-    1e-5; the parameters' largest difference after the last step printed
-    (a code flipped at a boundary moves an Adam update by up to the
-    learning rate); step ms of both.  Launches no kernel (counted)."""
+    placed gradients, ``compressed_psum_tree`` in the groups of
+    ``train_loop.crosspod_groups``, one whole scale per leaf of the
+    reference's tree, the clip over the shards, lr, AdamW; the residuals
+    and the loss too); the scales a step are counted against the
+    reference tree's leaves.  Against the unplaced cross-pod step on the
+    same pod mesh (whose int8 quantization runs too): the first step's
+    gradients within 1e-5 of each leaf's largest entry, their reduces
+    equal but for counted one-code differences at rounding boundaries,
+    every step's loss within 1e-5; the parameters' largest difference
+    after the last step printed (a code flipped at a boundary moves an
+    Adam update by up to the learning rate); step ms of both.  Launches
+    no kernel (counted)."""
     import copy
     import statistics as st
     import torch
@@ -5365,18 +5403,27 @@ def crosspod_placed_phase(dev):
             s = train_loop.init_train_state(m, with_error=True)
             return s._replace(step=torch.full_like(s.step, 100))
 
-        # the first step's parts, placed (on the twin) and unplaced
+        # the first step's parts, placed (on the twin) and unplaced, in
+        # the groups of the reference's leaves
+        groups = train_loop.crosspod_groups(twin)
+        n_scales, n_leaves = _scale_count(model, groups)
+        _check(n_scales == n_leaves, f"placed cross-pod step: {n_scales} "
+               f"int8 scales for {n_leaves} reference leaves")
         with train_loop.within_pod(twin):
             loss, grads = train_loop.grads_fn(twin, batches[0])
         red, err = col.compressed_psum_tree(
-            grads, pod, col.init_error_tree(grads), shard_max=pl.shard_max)
+            grads, pod, col.init_error_tree(grads), shard_max=pl.shard_max,
+            groups=groups)
         _, plain_grads = train_loop.grads_fn(copy.deepcopy(model),
                                              batches[0])
         plain_red, _ = col.compressed_psum_tree(
-            plain_grads, pod, col.init_error_tree(plain_grads))
+            plain_grads, pod, col.init_error_tree(plain_grads),
+            groups=groups)
+        payload = sum(g.numel() for g in grads.values())   # int8 bytes
         g_worst = _tp_worst(grads, plain_grads,
                             "placed cross-pod step: gradients")
         flips = _code_flips(red, plain_red, plain_grads,
+                            _group_amax(groups, plain_grads),
                             127 * (g_worst + 1e-6))
         clipped, _ = optimizer.clip_by_global_norm(red, 1.0,
                                                    total=pl.sum_squares)
@@ -5425,10 +5472,13 @@ def crosspod_placed_phase(dev):
            f"{launches}")
     print(f"placed cross-pod step: {cfg.name} ({cfg.dtype}) on a (pod 1, "
           f"data 1, model 1) mesh, {XP_STEPS} steps of {PLACE_BATCH} x "
-          f"{PLACE_SEQ} from step 100: the first equal to its composition "
-          "bitwise (placed gradients, the int8 ring with each whole leaf's "
-          "scale, clip, AdamW, residuals, loss); against the unplaced "
-          f"cross-pod step: gradients within {g_worst:.3e}, the reduce "
+          f"{PLACE_SEQ} from step 100, {n_scales} int8 scales a step (one "
+          f"per reference leaf, {n_leaves}; a hop carries {payload} B of "
+          f"codes and {4 * n_scales} B of scales): the first equal to its "
+          "composition bitwise (placed gradients, the int8 ring with each "
+          "group's whole scale, clip, AdamW, residuals, loss); against the "
+          f"unplaced cross-pod step: gradients within {g_worst:.3e}, the "
+          f"reduce "
           f"equal but for {flips} one-code differences at rounding "
           f"boundaries, losses within {l_worst:.3e} (limit 1e-5), "
           f"parameters after {XP_STEPS} steps within {par:.3e} of each "

@@ -3,11 +3,14 @@
 Port of ``repro.parallel.collectives``.
 
 ``compressed_psum_tree`` is the int8 error-feedback gradient reduce of the
-cross-pod hop: each pod quantizes its gradients to int8 with a per-tensor
-f32 scale, the int8 payload crosses the wire as a ring of ``size - 1``
-point-to-point hops (``dist.batch_isend_irecv``) with the scales riding
-along, and each rank dequantizes the sum and keeps its quantization
-residual (error feedback), so the bias cancels over steps.  It is not an
+cross-pod hop: each pod quantizes its gradients to int8 with one f32 scale
+per group of leaves (``groups=``; the train step's groups are the
+reference's leaves, a stage's stack of blocks sharing one scale, as the
+reference's quantizer reads its stacked tree), the int8 payload crosses
+the wire as a ring of ``size - 1`` point-to-point hops
+(``dist.batch_isend_irecv``) with the groups' scales riding along, and
+each rank dequantizes the sum and keeps its quantization residual by leaf
+(error feedback), so the bias cancels over steps.  It is not an
 ``all_reduce`` of an upcast tensor: that would move four times the bytes
 (and sum the scales in another order).  Each rank sums the scales in the
 reference's hop order (its own, then its ring predecessors'), so the
@@ -45,9 +48,16 @@ def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None):
     xf = x.to(torch.float32)
     if amax is None:
         amax = xf.abs().max()
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    scale = _scale(amax)
+    return _codes(xf, scale), scale
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-12) / 127.0
+
+
+def _codes(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -97,38 +107,49 @@ def compressed_psum(x: torch.Tensor, mesh: Mesh, error: torch.Tensor):
 
 
 def compressed_psum_tree(tree: dict, mesh: Mesh, error_tree: dict,
-                         shard_max=None):
-    """:func:`compressed_psum` of every tensor of ``tree`` (a dict by name,
+                         shard_max=None, groups: dict | None = None):
+    """:func:`compressed_psum` of the tensors of ``tree`` (a dict by name,
     ``error_tree`` its residuals), each output cast back to its leaf's
-    dtype.  The leaves travel together: one ring of ``size - 1`` hops of
-    the concatenated int8 payload and the vector of scales, so each leaf's
-    sums are the per-leaf reduce's.
+    dtype.
+
+    ``groups`` maps each leaf's name to the key of its group (default:
+    every leaf its own group, as the reference's function reduces the
+    leaves of whatever tree it is given).  A group's members quantize
+    with one scale, the largest ``|x + e|`` over all of them / 127: the
+    reduce of the leaf that stacks them.  The leaves travel together: one
+    ring of ``size - 1`` hops of the concatenated int8 payload and the
+    vector of the groups' scales, and each member's mean takes its
+    group's sum of scales.  The residuals stay by leaf.
 
     ``shard_max``: where each leaf is this rank's shard of a placed
-    gradient, a function taking the vector of the leaves' local ``|x|``
-    maxima to the whole leaves' (a max all-reduce of the vector over the
+    gradient, a function taking the vector of the groups' local ``|x|``
+    maxima to the whole groups' (a max all-reduce of the vector over the
     pod's axes, ``Placement.shard_max``), so that each shard quantizes
-    with its whole leaf's scale, as the reference's quantizer of the whole
-    leaf does; the ring then runs on the shards, the residuals stay the
-    rank's."""
+    with its whole group's scale; the ring then runs on the shards, the
+    residuals stay the rank's."""
     names = list(tree)
     xf = {k: tree[k].to(torch.float32) + error_tree[k] for k in names}
-    amax = dict.fromkeys(names)
-    if shard_max is not None:
-        amax = dict(zip(names, shard_max(torch.stack(
-            [xf[k].abs().max() for k in names]))))
-    qs, scales, errs = [], [], {}
+    group = {k: k if groups is None else groups[k] for k in names}
+    members: dict = {}
     for k in names:
-        q, scale = quantize_int8(xf[k], amax[k])
+        members.setdefault(group[k], []).append(xf[k].abs().max())
+    gid = {g: i for i, g in enumerate(members)}
+    amax = torch.stack([torch.stack(m).max() for m in members.values()])
+    if shard_max is not None:
+        amax = shard_max(amax)
+    scales = _scale(amax)
+    qs, errs = [], {}
+    for k in names:
+        scale = scales[gid[group[k]]]
+        q = _codes(xf[k], scale)
         errs[k] = xf[k] - dequantize_int8(q, scale)
         qs.append(q.reshape(-1))
-        scales.append(scale.reshape(1))
-    acc, scale_sum = _ring_sum(mesh, torch.cat(qs), torch.cat(scales))
+    acc, scale_sum = _ring_sum(mesh, torch.cat(qs), scales)
     out, i = {}, 0
-    for j, k in enumerate(names):
+    for k in names:
         n = tree[k].numel()
-        out[k] = _mean(acc[i:i + n], scale_sum[j], mesh.size).reshape(
-            tree[k].shape).to(tree[k].dtype)
+        mean = _mean(acc[i:i + n], scale_sum[gid[group[k]]], mesh.size)
+        out[k] = mean.reshape(tree[k].shape).to(tree[k].dtype)
         i += n
     return out, errs
 

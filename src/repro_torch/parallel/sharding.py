@@ -41,7 +41,8 @@ bitwise the whole tensor).  What a rank computes depends on the family:
   ranks of the rest (the reference's ``batch_pspec``), in training and in
   serving alike.  The cross-pod step sees one pod's placement
   (:meth:`Placement.within_pod`) and quantizes each shard with its whole
-  leaf's scale (:meth:`Placement.shard_max`).
+  group's scale (:meth:`Placement.shard_max`; a group is a leaf of the
+  reference's tree, a stage's blocks stacked).
 * ``moe`` (:func:`place_model` too): the same placement of the
   attention, the vocabulary and the residuals, and the expert FFN by the
   reference's rule (:func:`logical_rules`): expert parallelism when
@@ -407,12 +408,12 @@ class Placement:
 
     def shard_max(self, t: torch.Tensor) -> torch.Tensor:
         """Each entry of ``t`` (the local maxima of this rank's gradient
-        shards, one a leaf) maxed over the ranks of its pod (every axis
-        but ``pod``): the whole leaves' maxima, as the reference's
-        quantizer reads the whole leaf.  A leaf replicated over an axis
-        holds the same bits on each of its ranks there, so the max over
-        every axis of the pod is each leaf's over the axes it is placed
-        on."""
+        shards, one a group of leaves) maxed over the ranks of its pod
+        (every axis but ``pod``): the whole groups' maxima, as the
+        reference's quantizer reads the whole stacked leaf.  A leaf
+        replicated over an axis holds the same bits on each of its ranks
+        there, so the max over every axis of the pod is each leaf's over
+        the axes it is placed on."""
         return tpc.all_reduce(t, self.comm, tuple(
             a for a in self.comm.axis_names if a != "pod"), "max")
 

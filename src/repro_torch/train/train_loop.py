@@ -11,9 +11,11 @@ parameters into the model in place.
 is the cross-pod step, SPMD over the pod ranks: every rank is called with
 the same global batch, computes its pod's gradients on its slab of the
 batch rows, and reduces them with the int8 error-feedback
-``compressed_psum_tree`` (the residuals ride in ``TrainState.error``); the
-loss is the ranks' mean.  Clip, learning rate and AdamW then run as in the
-plain step, on every rank alike.
+``compressed_psum_tree``, one scale per leaf of the reference's tree
+(:func:`crosspod_groups`: a stage's blocks at one place of its pattern
+share their stacked leaf's scale); the residuals ride by parameter in
+``TrainState.error``, and the loss is the ranks' mean.  Clip, learning
+rate and AdamW then run as in the plain step, on every rank alike.
 
 ``make_train_step(cfg, device_mesh=mesh)`` is the dense and MoE
 families' step under the compute placement (``parallel/sharding.
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import leaf_paths
 from repro_torch.models.transformer import LM, loss_fn
 from repro_torch.parallel.collectives import (compressed_psum_tree,
                                               init_error_tree, pmean)
@@ -151,6 +154,17 @@ def grads_fn(model: LM, batch: dict):
     return _grads(model, batch, model.cfg.grad_accum)
 
 
+def crosspod_groups(model: LM) -> dict:
+    """Each parameter name -> the key path of its leaf in the reference's
+    tree (``convert.leaf_paths``), the cross-pod reduce's groups: the
+    blocks of a stage at one place of its pattern (the encoder's blocks)
+    share the leaf that stacks them over the stage's repeats, and so one
+    int8 scale, as the reference's ``pod_step`` quantizes its tree's
+    leaves; ``embedding``, ``final_norm`` and an untied ``lm_head`` are
+    each a group of their own."""
+    return {k: path for k, (path, _) in leaf_paths(model).items()}
+
+
 def _check_step_cfg(cfg: ModelConfig, model_cfg: ModelConfig) -> None:
     """The step's config may differ from the model's only in
     ``grad_accum``: the model's config is what its forward reads."""
@@ -209,8 +223,10 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
     group's pod mesh: each pod computes its rows' gradients placed over
     its ``data`` and ``model`` ranks, reduced within the pod alone, then
     the int8 ring over ``pod`` reduces each rank's shards with the whole
-    leaves' scales (``Placement.shard_max``); the clip's norm counts each
-    entry of a pod once."""
+    groups' scales (``Placement.shard_max``); the clip's norm counts each
+    entry of a pod once.  Both cross-pod steps quantize in the groups of
+    :func:`crosspod_groups` of the state's model: one scale per leaf of
+    the reference's tree."""
     if compress_crosspod and (mesh is None or mesh.axis != "pod"):
         raise ValueError("compress_crosspod requires the multi-pod mesh: "
                          "pass mesh=parallel.collectives.pod_mesh()")
@@ -243,7 +259,8 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
                                      cfg.grad_accum)
             grads, error = compressed_psum_tree(
                 grads, mesh, state.error,
-                shard_max=None if pl is None else pl.shard_max)
+                shard_max=None if pl is None else pl.shard_max,
+                groups=crosspod_groups(state.model))
             loss = pmean(loss, mesh)
         else:
             loss, grads = _grads(state.model, batch, cfg.grad_accum)

@@ -251,8 +251,8 @@ def lm_suite(rank: int, world: int) -> dict:
 
 def collectives_suite(rank: int, world: int) -> dict:
     """``compressed_psum`` / ``compressed_psum_tree`` with this rank's
-    seeded inputs, ``pmean``, and (4 ranks) ``hierarchical_psum`` over
-    2 x 2 groups."""
+    seeded inputs (the tree's leaves alone and in groups), ``pmean``, and
+    (4 ranks) ``hierarchical_psum`` over 2 x 2 groups."""
     import torch
     import torch.distributed as dist
     from repro_torch.parallel import collectives as col, make_mesh
@@ -269,6 +269,13 @@ def collectives_suite(rank: int, world: int) -> dict:
         {k: torch.as_tensor(v) for k, v in etree.items()})
     for k in tree:
         res[f"tree/out/{k}"], res[f"tree/err/{k}"] = _np(out[k]), _np(
+            errs[k])
+    tree, etree, groups = group_inputs(rank)
+    out, errs = col.compressed_psum_tree(
+        {k: torch.as_tensor(v) for k, v in tree.items()}, pod,
+        {k: torch.as_tensor(v) for k, v in etree.items()}, groups=groups)
+    for k in tree:
+        res[f"groups/out/{k}"], res[f"groups/err/{k}"] = _np(out[k]), _np(
             errs[k])
     res["pmean"] = _np(col.pmean(torch.tensor(float(rank) + 0.5), pod))
     if world == 4:
@@ -297,12 +304,26 @@ def tree_inputs(rank: int):
     return tree, err
 
 
+def group_inputs(rank: int):
+    """Leaves in groups, as a stage's blocks lie in the port's tree:
+    ``s.0``, ``s.1``, ``s.2`` (the repeats of one stacked leaf ``s``, each
+    ten times the last, so the group's scale is the last one's) and ``u``
+    alone; their residuals and the groups."""
+    rng = np.random.default_rng(500 + rank)
+    tree = {f"s.{r}": (rng.normal(size=(4, 6)) * 10.0 ** (r - 2)).astype(
+        np.float32) for r in range(3)}
+    tree["u"] = rng.normal(size=(9,)).astype(np.float32)
+    err = {k: (rng.normal(size=v.shape) * 1e-3).astype(np.float32)
+           for k, v in tree.items()}
+    return tree, err, {k: k.split(".")[0] for k in tree}
+
+
 def train_suite(rank: int, world: int) -> dict:
     """The cross-pod train step on a pod mesh of ``world`` ranks: three
     steps of ras-pimc SMOKE; this rank's parameters, residuals and losses,
     its first step's pod gradients and their reduce, and whether the step
-    equals its composition (grads on the pod's rows, the reduce, clip,
-    lr, AdamW) bitwise."""
+    equals its composition (grads on the pod's rows, the reduce in the
+    reference's leaves' groups, clip, lr, AdamW) bitwise."""
     import torch
     from repro_torch.configs.ras_pimc import SMOKE
     from repro_torch.data.pipeline import train_batch
@@ -325,7 +346,8 @@ def train_suite(rank: int, world: int) -> dict:
     for k, g in grads.items():
         res[f"grads/{k}"] = _np(g)
     red, err = col.compressed_psum_tree(
-        grads, pod, col.init_error_tree(grads))
+        grads, pod, col.init_error_tree(grads),
+        groups=train_loop.crosspod_groups(ref))
     for k, g in red.items():
         res[f"reduced/{k}"] = _np(g)
     clipped, _ = optimizer.clip_by_global_norm(red, 1.0)
@@ -842,10 +864,13 @@ def tp_compress_suite(rank: int, world: int) -> dict:
 
 # the cross-pod step under the compute placement: name -> (SMOKE arch,
 # overrides, (pod, data, model) mesh); CROSSPOD_BATCH rows, each pod's half
-# over its data ranks
+# over its data ranks; pod_ep's experts lie over model (expert
+# parallelism), so a stacked expert leaf's scale spans both model ranks
 CROSSPOD = {
     "pod_model": ("ras-pimc", {"tp": 2, "grad_accum": 1}, (2, 1, 2)),
     "pod_data": ("ras-pimc", {"tp": 2, "grad_accum": 1}, (2, 2, 1)),
+    "pod_ep": ("phi3.5-moe-42b-a6.6b", {"tp": 2, "grad_accum": 1},
+               (2, 1, 2)),
 }
 CROSSPOD_BATCH = 4
 
@@ -853,11 +878,13 @@ CROSSPOD_BATCH = 4
 def crosspod_outputs(name: str, world: int) -> dict:
     """The placed cross-pod step of a :data:`CROSSPOD` case: the pod's
     gradients of batch 0 (whole: gathered over ``data`` and ``model``),
-    their int8 reduce (whole) and each leaf's scale (its whole leaf's
-    ``|max| / 127``), whether the step on batch 0 equals its composition
-    bitwise (the pod's placed gradients, the sharded-scale ring, the clip
-    over the pod's shards, lr, AdamW; the residuals and the loss too),
-    the losses and grad norms of two steps (batches 0 and 1) and the
+    their int8 reduce (whole), the scale of each group of
+    ``crosspod_groups`` (``scale/<the reference leaf's path>``: its whole
+    stacked leaf's ``|max| / 127``), whether the step on batch 0 equals
+    its composition bitwise (the pod's placed gradients, the grouped
+    sharded-scale ring, the clip over the pod's shards, lr, AdamW; the
+    residuals and the loss too), the step's residuals (whole), the
+    losses and grad norms of two steps (batches 0 and 1) and the
     parameters after the first (the warmup's zero learning rate)."""
     import torch
     from repro_torch.parallel import collectives as col, sharding
@@ -868,6 +895,7 @@ def crosspod_outputs(name: str, world: int) -> dict:
     whole = tp_model(name)
     model, twin = (sharding.place_model(whole, dm) for _ in range(2))
     pl = twin.placement
+    groups = train_loop.crosspod_groups(twin)
 
     def back(tensors):
         return sharding.unshard(tensors, pl.specs, dm)
@@ -878,13 +906,19 @@ def crosspod_outputs(name: str, world: int) -> dict:
     with train_loop.within_pod(twin):
         loss, grads = train_loop.grads_fn(twin, {k: v[r0:r1] for k, v in
                                                  batch.items()})
-    amax = pl.shard_max(torch.stack([g.to(torch.float32).abs().max()
-                                     for g in grads.values()]))
-    for (k, g), a in zip(back(grads).items(), amax):
+    for k, g in back(grads).items():
         res[f"grads/{k}"] = _np(g)
-        res[f"scale/{k}"] = _np(torch.clamp(a, min=1e-12) / 127.0)
+    maxima: dict = {}
+    for k, g in grads.items():
+        maxima.setdefault(groups[k], []).append(g.to(torch.float32).abs()
+                                                .max())
+    amax = pl.shard_max(torch.stack([torch.stack(m).max()
+                                     for m in maxima.values()]))
+    for path, a in zip(maxima, amax):
+        res["scale/" + "/".join(path)] = _np(torch.clamp(a, min=1e-12)
+                                             / 127.0)
     red, err = col.compressed_psum_tree(grads, pod, col.init_error_tree(
-        grads), shard_max=pl.shard_max)
+        grads), shard_max=pl.shard_max, groups=groups)
     for k, g in back(red).items():
         res[f"reduced/{k}"] = _np(g)
     clipped, _ = optimizer.clip_by_global_norm(red, 1.0,
@@ -906,6 +940,8 @@ def crosspod_outputs(name: str, world: int) -> dict:
         and bool(m["loss"] == col.pmean(loss, pod)))
     for k, p in back({k: p.detach() for k, p in got.items()}).items():
         res[f"params/{k}"] = _np(p)
+    for k, e in back(state.error).items():
+        res[f"error/{k}"] = _np(e)
     metrics = [m, step(state, tp_batch(name, 1))[1]]
     for i, m in enumerate(metrics):
         res[f"step{i}/loss"] = _np(m["loss"])

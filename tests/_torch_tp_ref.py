@@ -159,11 +159,12 @@ def run_crosspod(name: str, inp: dict) -> dict:
     cross-pod step, ``make_train_step(compress_crosspod=True, mesh)``
     (its ``pod_step`` in a ``shard_map`` over ``pod``, ``data`` and
     ``model`` left to GSPMD): two steps on batches 0 and 1 (their losses
-    and grad norms, the parameters after the first); and, by the same
-    ``shard_map`` over ``pod`` of the reference's ``grads_fn`` (with
-    ``inner_cfg``'s ``act_pspec``), each pod's gradients of batch 0
-    (``pod<p>/grads``), whose int8 reduce the test runs on the port's
-    leaves."""
+    and grad norms, the parameters after the first, and each pod's
+    residuals after the first, ``pod<p>/error``, by its stacked tree);
+    and, by the same ``shard_map`` over ``pod`` of the reference's
+    ``grads_fn`` (with ``inner_cfg``'s ``act_pspec``), each pod's
+    gradients of batch 0 (``pod<p>/grads``), whose int8 reduce the test
+    runs on the reference's stacked tree."""
     import jax
     from jax.sharding import PartitionSpec as P
 
@@ -194,22 +195,41 @@ def run_crosspod(name: str, inp: dict) -> dict:
             axis_names=frozenset({"pod"}), check_vma=False)(params, b0)
         state = train_loop.init_train_state(params, with_error=True)
         state, m0 = step(state, b0)
-        after = state.params
+        after, error = state.params, state.error
         _, m1 = step(state, b1)
-        return grads, after, [m0, m1]
+        return grads, after, error, [m0, m1]
 
     with jax.set_mesh(mesh):
-        out = jax.jit(fn, in_shardings=(p_shard, b_shard, b_shard))(
-            params, *batches[:2])
-    grads, after, metrics = jax.device_get(out)
+        grads, after, error, metrics = jax.jit(
+            fn, in_shardings=(p_shard, b_shard, b_shard))(params,
+                                                          *batches[:2])
     res = {}
     for p in range(mesh.shape["pod"]):
-        _flat(jax.tree.map(lambda g: g[p], grads), f"pod{p}/grads", res)
-    _flat(after, "params", res)
-    for i, m in enumerate(metrics):
+        _flat(jax.tree.map(lambda g: np.asarray(g)[p], grads),
+              f"pod{p}/grads", res)
+        _flat(jax.tree.map(lambda e: _pod_value(e, mesh, p), error),
+              f"pod{p}/error", res)
+    _flat(jax.device_get(after), "params", res)
+    for i, m in enumerate(jax.device_get(metrics)):
         res[f"step{i}/loss"] = np.asarray(m["loss"])
         res[f"step{i}/grad_norm"] = np.asarray(m["grad_norm"])
     return res
+
+
+def _pod_value(a, mesh, p: int) -> np.ndarray:
+    """What pod ``p``'s devices hold of ``a``: ``pod_step``'s residuals
+    leave its ``shard_map`` as if replicated over ``pod`` (its
+    ``out_specs`` name no ``pod``, ``check_vma=False``), but each pod's
+    devices keep their own pod's."""
+    devs = set(mesh.devices[p].flat)
+    out = np.zeros(a.shape, np.float32)
+    seen = np.zeros(a.shape, bool)
+    for sh in a.addressable_shards:
+        if sh.device in devs:
+            out[sh.index] = np.asarray(sh.data)
+            seen[sh.index] = True
+    assert seen.all(), f"pod {p} does not hold all of a leaf {a.shape}"
+    return out
 
 
 def run_decode(name: str, inp: dict) -> dict:

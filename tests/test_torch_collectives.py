@@ -14,16 +14,21 @@ operations as written).
 * ``compressed_psum`` and ``compressed_psum_tree`` on 1, 2 and 3 ranks:
   each rank's mean and residual bitwise equal to JAX's for that pod (the
   int8 payload moves as a ring of ``size - 1`` point-to-point hops, and
-  each rank sums the scales in the reference's hop order).
+  each rank sums the scales in the reference's hop order).  With
+  ``groups=``, each leaf bitwise the repeat of JAX's reduce of the tree
+  whose leaves stack each group's members.
 * The reference's identity and error-feedback tests
   (``tests/test_train_substrate.py``) on a world-1 pod mesh; ``pmean``;
   ``hierarchical_psum`` over 2 x 2 groups of 4 ranks.
 * The cross-pod train step (``make_train_step(compress_crosspod=True,
   mesh=pod_mesh())``) on 2 ranks, ``ras-pimc`` SMOKE, three steps: the
   replicas stay bitwise in step, the step equals its composition (pod
-  gradients on the rank's rows, the reduce, clip, lr, AdamW) bitwise, and
-  the reduce of the ranks' gradients equals JAX's ``compressed_psum_tree``
-  of them, per rank.  Its refusals.
+  gradients on the rank's rows, the reduce in the groups of
+  ``crosspod_groups``, clip, lr, AdamW) bitwise, and the reduce of the
+  ranks' gradients is, per rank, bitwise JAX's ``compressed_psum_tree``
+  of them in the reference's stacked tree (``to_reference``: a stage's
+  blocks one leaf, with one scale, as the reference's ``pod_step``
+  reduces them).  Its refusals.
 """
 
 from datetime import timedelta
@@ -39,6 +44,7 @@ import torch.distributed as dist
 
 import _torch_ranks as R
 from repro.parallel import collectives as jcol
+from repro_torch.models.convert import leaf_paths, to_reference
 from repro_torch.parallel import Mesh
 from repro_torch.parallel import collectives as col
 
@@ -131,6 +137,29 @@ def test_compressed_psum_tree_matches_jax_per_rank(ranks, world):
                                           np.asarray(err[k][r]))
 
 
+@pytest.mark.parametrize("world", (1, 2, 3))
+def test_compressed_psum_tree_groups_match_jax_stacked(ranks, world):
+    """``groups=``: each member of a group is bitwise its repeat of JAX's
+    reduce of the leaf that stacks the group (one scale for the stack),
+    its mean and its residual, on every rank."""
+    inputs = [R.group_inputs(r) for r in range(world)]
+    groups = inputs[0][2]
+
+    def stacked(tree):
+        return {g: np.stack([tree[k] for k in tree if groups[k] == g])
+                for g in dict.fromkeys(groups.values())}
+
+    out, err = _vmap_tree([stacked(t) for t, _, _ in inputs],
+                          [stacked(e) for _, e, _ in inputs], world)
+    for r, res in enumerate(ranks[world]):
+        for k, g in groups.items():
+            i = int(k.split(".")[1]) if "." in k else 0
+            np.testing.assert_array_equal(res[f"groups/out/{k}"],
+                                          np.asarray(out[g][r][i]))
+            np.testing.assert_array_equal(res[f"groups/err/{k}"],
+                                          np.asarray(err[g][r][i]))
+
+
 def test_pmean_and_hierarchical_psum(ranks):
     for w in (1, 2, 3, 4):
         assert [float(r["pmean"]) for r in ranks[w]] == [w / 2.0] * w
@@ -169,15 +198,27 @@ def test_crosspod_step_on_two_ranks(jobs):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert bool(a["composition_equal"]) and bool(b["composition_equal"])
     assert np.isfinite(a["losses"]).all()
+    model = R._smoke_model()
+    paths = leaf_paths(model)
     names = [k[6:] for k in a if k.startswith("grads/")]
-    trees = [{k: jnp.asarray(res[f"grads/{k}"]) for k in names}
-             for res in (a, b)]
-    zeros = [{k: jnp.zeros_like(v) for k, v in t.items()} for t in trees]
+    assert set(names) == set(paths)
+
+    def stacked(res):
+        tree = to_reference(model, {k: res[f"grads/{k}"] for k in names},
+                            host=np.asarray)
+        return jax.tree.map(jnp.asarray, tree)
+
+    trees = [stacked(res) for res in (a, b)]
+    zeros = [jax.tree.map(jnp.zeros_like, t) for t in trees]
     out, _ = _vmap_tree(trees, zeros, 2)
     for r, res in enumerate((a, b)):
         for k in names:
-            np.testing.assert_array_equal(res[f"reduced/{k}"],
-                                          np.asarray(out[k][r]),
+            path, i = paths[k]
+            leaf = out
+            for key in path:
+                leaf = leaf[key]
+            want = np.asarray(leaf[r] if i is None else leaf[r][i])
+            np.testing.assert_array_equal(res[f"reduced/{k}"], want,
                                           err_msg=f"rank {r} {k}")
     assert not np.array_equal(a[f"grads/{names[0]}"],
                               b[f"grads/{names[0]}"])

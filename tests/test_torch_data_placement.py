@@ -15,19 +15,21 @@ the JAX process (``tests/_torch_tp_ref.py`` on 4 forced CPU devices).
   Loss, gradients, logits, two steps and the parameters after them within
   1e-5 of each leaf's largest entry of JAX's GSPMD step and of the port's
   one-rank step.
-* The cross-pod step (``_torch_ranks.CROSSPOD``, ``(pod 2, data 1, model
-  2)`` and ``(2, 2, 1)``): bitwise its composition on every rank (the
-  pod's placed gradients, the int8 ring with each whole leaf's scale over
-  the rank's shards, the clip, AdamW); against the reference's own
-  ``make_train_step(compress_crosspod=True, mesh)`` (its ``pod_step``
-  runs on JAX 0.9 here): each pod's gradients within 1e-5, the scales
-  within 1e-6 relative of the reference's quantizer on JAX's pod
-  gradients, the reduce equal to the reference's ``compressed_psum_tree``
-  of JAX's pod gradients (under ``vmap`` over ``pod``, on the port's
-  leaves: the port quantizes each block's tensor, the reference's own step
-  each stage's stack of them) element for element but for counted
-  one-code differences at rounding boundaries, the step-0 parameters
-  unchanged and both losses within 1e-5.
+* The cross-pod step (``_torch_ranks.CROSSPOD``: ``ras-pimc`` on ``(pod
+  2, data 1, model 2)`` and ``(2, 2, 1)``, ``phi3.5-moe`` on ``(2, 1,
+  2)`` with its experts over model): bitwise its composition on every
+  rank (the pod's placed gradients, the int8 ring with one whole scale
+  per group of ``crosspod_groups`` over the rank's shards, the clip,
+  AdamW); against the reference's own ``make_train_step(
+  compress_crosspod=True, mesh)`` (its ``pod_step`` runs on JAX 0.9
+  here): each pod's gradients within 1e-5, one scale per leaf of the
+  reference's stacked tree (a stage's stack of blocks) within 1e-6
+  relative of the reference's quantizer on JAX's pod gradients, the
+  reduce equal to the reference's ``compressed_psum_tree`` of JAX's pod
+  gradients in that stacked tree and each pod's residuals the reference
+  step's own, element for element but for counted one-code differences
+  at rounding boundaries, the step-0 parameters unchanged, both losses
+  and the first grad norm within 1e-5.
 * Compress (``_torch_ranks.DATA_COMPRESS``) on ``(2, 2)`` and ``(4, 1)``,
   4 lanes and 3 (whole on both data ranks): every rank writes the same
   container on both backends and decodes it exactly on every backend and
@@ -168,9 +170,10 @@ def test_placed_step_on_indivisible_batch_matches_reference(runs, name):
 @pytest.mark.parametrize("name", list(R.CROSSPOD))
 def test_crosspod_placed_step_equals_its_composition(runs, name):
     """On every rank the step is bitwise the pod's placed gradients, the
-    sharded-scale int8 ring, the clip over the pod's shards, lr and
-    AdamW (the residuals and the pods' mean loss too); the ranks of
-    both pods hold the same parameters, reduced gradients and losses."""
+    int8 ring with each group's whole scale, the clip over the pod's
+    shards, lr and AdamW (the residuals and the pods' mean loss too); the
+    ranks of both pods hold the same parameters, reduced gradients and
+    losses, the ranks of a pod the same residuals."""
     ranks = runs[0]
     res = [_case(r, name) for r in ranks]
     assert sorted(int(r["pod"]) for r in res) == [0, 0, 1, 1]
@@ -180,6 +183,11 @@ def test_crosspod_placed_step_equals_its_composition(runs, name):
         if k.startswith(("params/", "reduced/", "step")):
             for r in res[1:]:
                 np.testing.assert_array_equal(r[k], res[0][k], err_msg=k)
+        if k.startswith("error/"):      # each pod's own
+            for r in res[1:]:
+                if r["pod"] == res[0]["pod"]:
+                    np.testing.assert_array_equal(r[k], res[0][k],
+                                                  err_msg=k)
 
 
 def _port_leaves(name: str, flat: dict, prefix: str) -> dict:
@@ -220,61 +228,95 @@ def _boundary_codes(got, want, pods, tol: float) -> int:
     return int(diff[0].size)
 
 
+def _stacked(name: str, res: dict, group: str) -> dict:
+    """A port result by parameter name (``<group>/<name>``) as the
+    reference's flattened stacked tree (``<path>`` -> the leaf stacking
+    its blocks' tensors over the stage's repeats)."""
+    tensors = {k[len(group) + 1:]: v for k, v in res.items()
+               if k.startswith(f"{group}/")}
+    out = {}
+    R.flat_tree(to_reference(R.tp_model(name), tensors, host=np.asarray),
+                group, out)
+    return {k[len(group) + 1:]: v for k, v in out.items()}
+
+
 @pytest.mark.parametrize("name", list(R.CROSSPOD))
 def test_crosspod_placed_step_matches_reference(runs, name):
-    """Against the reference's ``make_train_step(compress_crosspod=True,
-    mesh)`` on the same mesh: each pod's gradients within 1e-5 of each
-    leaf's largest entry; each leaf's scale within 1e-6 relative of the
-    reference's quantizer on JAX's pod gradient; the reduce equal to the
-    reference's ``compressed_psum_tree`` of JAX's pod gradients, element
-    for element, but where a pod's value lies within the gradients'
+    """Against the reference's own ``make_train_step(compress_crosspod=
+    True, mesh)`` on the same mesh (its ``pod_step``): each pod's
+    gradients within 1e-5 of each block's largest entry; one scale per
+    leaf of the reference's stacked tree, each within 1e-6 relative of
+    the reference's quantizer on JAX's pod gradient of that leaf; the
+    reduce equal to the reference's ``compressed_psum_tree`` of JAX's pod
+    gradients in the stacked tree, element for element, and each pod's
+    residuals after step 0 the reference step's own (within the
+    gradients' tolerance), but where a pod's value lies within that
     tolerance of a rounding boundary (one code apart there; counted and
-    printed); the step-0 parameters unchanged (``cosine_lr(0) = 0``) and
-    both steps' losses and the first grad norm within 1e-5."""
+    printed); the step-0 parameters unchanged (``cosine_lr(0) = 0``),
+    both steps' losses and the first grad norm within 1e-5 of the
+    reference step's."""
     ranks, jax_out, _, _ = runs
     res = {int(r[f"{name}/pod"]): _case(r, name) for r in ranks}
     want = _case(jax_out, name)
     n = len(res)
-    pods = [_port_leaves(name, want, f"pod{p}/grads") for p in range(n)]
-    trees = [{k: jnp.asarray(v) for k, v in t.items()} for t in pods]
-    zeros = [{k: jnp.zeros_like(v) for k, v in t.items()} for t in trees]
+    leaves = sorted({"/".join(path) for path, _ in
+                     leaf_paths(R.tp_model(name)).values()})
+    pods = [{k: want[f"pod{p}/grads/{k}"] for k in leaves} for p in range(n)]
+    stacked = {k: jnp.stack([jnp.asarray(t[k]) for t in pods])
+               for k in leaves}
     red, _ = jax.vmap(
         lambda t, e: jcol.compressed_psum_tree(t, "pod", e, n),
-        axis_name="pod")(jax.tree.map(lambda *a: jnp.stack(a), *trees),
-                         jax.tree.map(lambda *a: jnp.stack(a), *zeros))
-    # a gradient within 1e-5 of its leaf's largest entry is within
-    # 127e-5 codes, its scale within 1e-6 relative moves it 127e-6 more
-    tol = 127 * (1e-5 + 1e-6)
-    counts = {}
-    for k in pods[0]:
-        scales = [float(jcol.quantize_int8(t[k])[1]) for t in trees]
-        got_scales = [float(res[p][f"scale/{k}"]) for p in range(n)]
-        for p in range(n):
-            R.close(res[p][f"grads/{k}"], pods[p][k],
+        axis_name="pod")(stacked, jax.tree.map(jnp.zeros_like, stacked))
+    for p in range(n):
+        blocks = _port_leaves(name, want, f"pod{p}/grads")
+        for k, v in blocks.items():
+            R.close(res[p][f"grads/{k}"], v,
                     f"{name} pod {p} {k}: placed port vs JAX")
+    # a gradient within 1e-5 of its block's largest entry is within
+    # 127e-5 codes of its stacked leaf's scale, the scale's 1e-6 relative
+    # moves it 127e-6 more
+    tol = 127 * (1e-5 + 1e-6)
+    got_red = _stacked(name, res[0], "reduced")
+    got = [(_stacked(name, res[p], "grads"), _stacked(name, res[p], "error"))
+           for p in range(n)]
+    counts, residual_counts = {}, {}
+    for p in range(n):
+        assert sorted(k[6:] for k in res[p] if k.startswith("scale/")) \
+            == leaves, f"{name}: one scale per reference leaf"
+    for k in leaves:
+        scales = [float(jcol.quantize_int8(jnp.asarray(t[k]))[1])
+                  for t in pods]
+        got_scales = [float(res[p][f"scale/{k}"]) for p in range(n)]
         np.testing.assert_allclose(got_scales, scales, rtol=1e-6,
                                    err_msg=f"{name} {k}: scales")
         counts[k] = _boundary_codes(
-            _codes(res[0][f"reduced/{k}"], got_scales, n),
+            _codes(got_red[k], got_scales, n),
             _codes(np.asarray(red[k][0]), scales, n),
             [(g[k], s) for g, s in zip(pods, scales)], tol)
-    print(f"{name}: {sum(counts.values())} one-code differences at "
-          f"rounding boundaries of {sum(v.size for v in pods[0].values())} "
-          "reduced entries", {k: v for k, v in counts.items() if v})
+        for p in range(n):
+            (g, e), s = (got[p][0][k], got[p][1][k]), got_scales[p]
+            g_ref, e_ref = pods[p][k], want[f"pod{p}/error/{k}"]
+            q, q_ref = (np.rint((a - b) / c) for a, b, c in
+                        ((g, e, s), (g_ref, e_ref, scales[p])))
+            residual_counts[p, k] = _boundary_codes(
+                q, q_ref, [(g_ref, scales[p])], tol)
+            same = q == q_ref
+            np.testing.assert_allclose(
+                e[same], e_ref[same], rtol=0, atol=scales[p] * (tol + 1e-4),
+                err_msg=f"{name} pod {p} {k}: residuals")
+    print(f"{name}: {len(leaves)} scales; {sum(counts.values())} one-code "
+          f"differences at rounding boundaries of "
+          f"{sum(v.size for v in pods[0].values())} reduced entries",
+          {k: v for k, v in counts.items() if v},
+          f"; {sum(residual_counts.values())} in the pods' residuals")
     initial = {k: p.detach().numpy() for k, p in
                R.tp_model(name).named_parameters()}
     after = _port_leaves(name, want, "params")
     for k, v in initial.items():
         np.testing.assert_array_equal(res[0][f"params/{k}"], v, err_msg=k)
         np.testing.assert_array_equal(after[k], v, err_msg=k)
-    for key in ("step0/loss", "step1/loss"):
+    for key in ("step0/loss", "step1/loss", "step0/grad_norm"):
         R.close(res[0][key], want[key], f"{name} {key}")
-    # the norm of the reduce on the port's leaves (the reference's own
-    # step quantizes each stage's stack of blocks with one scale)
-    norm = np.sqrt(sum(float(np.sum(np.asarray(v[0], np.float64) ** 2))
-                       for v in red.values()))
-    R.close(res[0]["step0/grad_norm"], np.float32(norm),
-            f"{name} step0/grad_norm")
 
 
 # ---------------------------------------------------------------------------

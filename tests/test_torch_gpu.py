@@ -1608,29 +1608,46 @@ def test_gpu_two_rank_chunk_emulation():
     assert not bool(torch.cat([o[2] for o in outs]).any())
 
 
-@pytest.mark.gpu
-def test_gpu_int8_reduce_matches_cpu(nccl1):
-    """``compressed_psum_tree`` on the card's pod mesh equals the same
-    reduce on a gloo CPU group, bitwise (means and residuals)."""
+def _int8_reduce_card_and_host(dev, groups=None):
     import torch.distributed as dist
     from repro_torch.parallel import collectives as col
-    dev = nccl1
     rng = np.random.default_rng(12)
     grads = {k: torch.as_tensor((rng.normal(size=s) * 10.0 ** -i)
                                 .astype(np.float32))
              for i, (k, s) in enumerate((("a", (256, 64)), ("b", (1000,)),
-                                         ("c", (3, 5, 7))))}
+                                         ("c", (3, 5, 7)), ("d", (256, 64))))}
     errs = {k: torch.as_tensor((rng.normal(size=g.shape) * 1e-3)
                                .astype(np.float32)) for k, g in grads.items()}
     card = col.compressed_psum_tree(
         {k: g.to(dev) for k, g in grads.items()}, col.pod_mesh(device=dev),
-        {k: e.to(dev) for k, e in errs.items()})
+        {k: e.to(dev) for k, e in errs.items()}, groups=groups)
     host = col.compressed_psum_tree(
         grads, col.pod_mesh(dist.new_group(backend="gloo"), device="cpu"),
-        errs)
+        errs, groups=groups)
     for a, b in zip(card, host):
         for k in grads:
             assert torch.equal(a[k].cpu(), b[k]), k
+    return host
+
+
+@pytest.mark.gpu
+def test_gpu_int8_reduce_matches_cpu(nccl1):
+    """``compressed_psum_tree`` on the card's pod mesh equals the same
+    reduce on a gloo CPU group, bitwise (means and residuals)."""
+    _int8_reduce_card_and_host(nccl1)
+
+
+@pytest.mark.gpu
+def test_gpu_grouped_int8_reduce_matches_cpu(nccl1):
+    """With ``groups=`` (``a`` and ``d``, the repeats of one stacked leaf,
+    share a scale, ``d`` 1000x smaller): the card's reduce equals the
+    gloo CPU group's bitwise, and ``d`` quantizes with ``a``'s scale
+    (its codes are near zero)."""
+    out, _ = _int8_reduce_card_and_host(
+        nccl1, groups={"a": "ad", "b": "b", "c": "c", "d": "ad"})
+    alone, _ = _int8_reduce_card_and_host(nccl1)
+    assert not torch.equal(out["d"], alone["d"])
+    assert torch.equal(out["b"], alone["b"])
 
 
 @pytest.mark.gpu

@@ -31,11 +31,19 @@ hashes what it puts out:
   leaves with residuals and three cross-pod steps of ``ras-pimc`` SMOKE.
 
 It prints each checkout's digests and exits nonzero unless every one
-agrees.  Needs no card and no ``nvcc``.
+agrees.  ``--changed KEY`` (repeatable) names a digest that a change
+alters on purpose: it must differ, and every other must agree.  A change
+of the cross-pod step's quantization alters ``"cross-pod step"`` alone
+(``"int8 reduce"``, the reduce of leaves each their own group, stays):
+
+    python3 tools/parent_equal.py build/parent . --changed "cross-pod step"
+
+Needs no card and no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -227,10 +235,12 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--worker":
         worker()
         return 0
-    trees = [Path(p).resolve() for p in sys.argv[1:]]
-    if len(trees) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=(
+        argparse.RawDescriptionHelpFormatter))
+    ap.add_argument("trees", nargs=2, type=Path)
+    ap.add_argument("--changed", action="append", default=[])
+    args = ap.parse_args()
+    trees, changed = [p.resolve() for p in args.trees], set(args.changed)
     got = []
     for tree in trees:
         env = dict(os.environ, PYTHONPATH=str(tree / "src"))
@@ -242,12 +252,17 @@ def main() -> int:
             return 1
         got.append(json.loads(r.stdout.strip().splitlines()[-1]))
         print(f"{tree}: {json.dumps(got[-1])}")
-    same = got[0] == got[1]
+    if changed - set(got[0]):
+        ap.error(f"no such digest: {sorted(changed - set(got[0]))}")
+    ok = set(got[0]) == set(got[1])
     for key in got[0]:
-        mark = "equal" if got[0][key] == got[1].get(key) else "DIFFER"
-        print(f"  {key}: {mark}")
-    print("every output equal" if same else "outputs differ")
-    return 0 if same else 1
+        same = got[0][key] == got[1].get(key)
+        ok &= same != (key in changed)
+        mark = "equal" if same else "DIFFER"
+        print(f"  {key}: {mark}"
+              + (" (changed on purpose)" if key in changed else ""))
+    print("every output as expected" if ok else "outputs differ")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
