@@ -197,7 +197,8 @@ Each phase prints its seconds, its peak of reserved memory and its
 process's running total, on standard output and on standard error.  Every
 B2/B3/B4 launch is also held to the
 code path it must run (``rans_decode.last_branches``): B2's warp row path
-on the slice's rows, the slot-table path
+on the slice's rows and its read-ahead bisection on the zoo's rows of
+32,064 to 50,280 entries, the slot-table path
 on the static tables of phases 4, 5 and 10, the warp row search on the
 per-lane rows of phases 3 and 8, and the exact bisection on the
 zero-frequency cases of 5a.
@@ -565,6 +566,14 @@ def _branch(name: str, want: set, what: str) -> None:
     got = rans_decode.last_branches(name)
     _check(got == want, f"{what}: {name} ran {sorted(got)}, expected "
            f"{sorted(want)}")
+
+
+def _step_branches(freq) -> set:
+    """The code paths B2's plan names for a launch on ``freq`` rows: the
+    register row's warp row count, or the read-ahead bisection of a row
+    longer than the registers."""
+    from repro_torch.kernels import autotune
+    return autotune.decode_step_plan(freq.shape[-1], 1).branches()
 
 
 def _only(**counts) -> dict:
@@ -2426,7 +2435,8 @@ def _zoo_slice(model, tokens, chunk: int, bits: int, what: str):
            f"{what} launch counts {launches}")
     _check(not on_card, f"the plain SPC ran on the card {len(on_card)} times"
            f" on the {what} kernel path")
-    _branch("rans_decode_step", {"warp_rows"}, f"{what} B2, last position")
+    _branch("rans_decode_step", _step_branches(b2_pop["args"][3]),
+            f"{what} B2, last position")
     _check(np.array_equal(sym.cpu().numpy(), tokens),
            f"{what} round trip not exact")
     st_c = compress.lm_compress_chunked(model, tokens, chunk,
@@ -2452,8 +2462,9 @@ def _zoo_slice(model, tokens, chunk: int, bits: int, what: str):
 
 def _zoo_kernels(run, bits: int, what: str, wide=()):
     """B6 at a zoo slice's two shapes (and at each K of ``wide``), and B2
-    at its per-lane rows, each against its plain version on the card,
-    timed beside its bound; returns the two kernels' large-K records."""
+    at its per-lane rows (and on a shared, zero-frequency and mismatched
+    row), each against its plain version on the card, timed beside its
+    bound; returns the two kernels' large-K records."""
     import numpy as np
     import torch
     from repro_torch.core import spc
@@ -2499,15 +2510,39 @@ def _zoo_kernels(run, bits: int, what: str, wide=()):
     args = (buf, s, ptr, freq, cdf)
     err = _max_abs_err(rans_decode.rans_decode_step(*args, **kw),
                        rans_decode.rans_decode_step_plain(*args, **kw))
-    _branch("rans_decode_step", {"warp_rows"},
-            f"B2 at K = {freq.shape[-1]}")
+    want = _step_branches(freq)
+    _branch("rans_decode_step", want, f"B2 at K = {freq.shape[-1]}")
+    # the same pop on a shared row, on rows with zero frequencies (every
+    # third lane's symbols 3..6 moved to symbol 128) and on a freq that is
+    # not the cdf's differences, with and without the candidates
+    zf = freq.clone()
+    zf[::3, 128] += zf[::3, 3:7].sum(-1)
+    zf[::3, 3:7] = 0
+    zt = spc.build_tables(zf, bits)
+    bent = (freq + torch.randint(0, 3, freq.shape, device=freq.device,
+                                 dtype=freq.dtype,
+                                 generator=torch.Generator(
+                                     device=freq.device).manual_seed(2)))
+    for f_rows, c_rows in ((freq[0], cdf[0]), (zt.freq, zt.cdf),
+                           (bent, cdf)):
+        for kc in (kw, dict(kw, candidates=None)):
+            cargs = (buf, s, ptr, f_rows.contiguous(), c_rows.contiguous())
+            err = max(err, _max_abs_err(
+                rans_decode.rans_decode_step(*cargs, **kc),
+                rans_decode.rans_decode_step_plain(*cargs, **kc)))
+            _branch("rans_decode_step", want,
+                    f"B2 at K = {freq.shape[-1]} on a shared, zero-frequency"
+                    " or mismatched row")
     ms = _device_ms(lambda: rans_decode.rans_decode_step(*args, **kw), n=50)
     plain_ms = _median_ms(lambda: rans_decode.rans_decode_step_plain(
         *args, **kw), repeats=5)
     one = rans_decode.rans_decode_step_plain(*args, **kw)
     bound_ms, bound_by, moved, ops = _b2_bound(one, ptr, TOPK)
     print(f"{what}: B2 at {buf.shape[0]} lanes x K = {freq.shape[-1]} "
-          f"(per-lane rows, top-{TOPK}): kernel == plain; {ms:.4f} ms kernel"
+          f"(per-lane rows, top-{TOPK}; also a shared row, zero-frequency "
+          f"rows and a mismatched (freq, cdf) pair, each with and without "
+          f"the candidates; paths {sorted(want)}): kernel == plain; "
+          f"{ms:.4f} ms kernel"
           f" on the device, {plain_ms:.3f} ms plain, bound {bound_ms:.8f} ms"
           f" by {bound_by} ({moved} B moved, {ops} ops)", flush=True)
     out["b2"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

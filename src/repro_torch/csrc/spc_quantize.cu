@@ -33,31 +33,44 @@
 // Rows of K <= 16,384 (kRegMaxK) are owned by a block of 512 threads with
 // 32 entries each; the group reductions then go through shared memory.
 // Rows of 16,384 < K <= 65,536 (kMaxK, the SPC's ceiling at prob_bits 16;
-// mamba2-130m's K = 50,280) fit neither: 65,536 keys are 64 registers a
-// thread at 1,024 threads, and 256 KB of keys exceed a block's 227 KB of
-// shared memory.  There a block of 1,024 threads owns the row and keeps
-// only its BF16 bit patterns in shared memory (2 B an entry, <= 128 KB):
-// every radix pass re-derives each entry's f0 and key from them (steps
-// 1-5 are a few instructions), the counting passes read entries strided
-// over the block, and the last pass, which needs index order for the tie
-// ranks and the CDF, gives each warp a contiguous segment that its lanes
-// walk 32 entries at a time (warp scans, one cross-warp prefix), so every
-// load and store stays coalesced.
+// mamba2-130m's K = 50,280) are split over a thread-block cluster of
+// C = ceil(K / 8,192) blocks of 512 threads (kWideSeg; C <= kMaxCluster),
+// block c owning the c-th contiguous segment, kWideE consecutive entries a
+// thread, whose keys and f0 are derived once into 64 KB of shared memory
+// (three blocks an SM).  The blocks exchange the row's totals through
+// distributed shared memory after cluster barriers: the mass with the
+// least and largest key (the keys' common prefix is the boundary key's)
+// and the first kDigitBits-bit digit's bins (counts and caps, built while
+// the keys are derived); then, for each later digit below the common
+// prefix, every block's bins of the keys that match the boundary so far,
+// summed over the cluster by two warps of each block, so every block
+// takes the same digit; last, each segment's f0 sum, its keys above (or
+// caps below) the boundary and its tie weight, from which each block takes
+// its tie prefix and its CDF offset.  The frequencies and the CDF go out
+// through shared memory, coalesced.  The wide rows take prob_bits <= 16,
+// so a row's caps sum below 2**32.
 //
-// What bounds it on this card: instructions.  The selection is 32 group
-// counts per row (one per key bit), each E compares and adds per lane and
-// one warp reduction, against a byte bound of 6-8 B per entry (the O(K**2)
-// pairwise ranking it replaces was 65,536 compares per row at K = 256).  On an H100 (700 W) 128,000 BF16 rows of 256
-// take 0.31 ms against a byte bound of 0.059 ms (PERF.md).  The wide
-// layout re-derives K keys from shared memory on each of its 32 passes
-// (operations again; its times at the mamba2 slice's shapes are in
-// PERF.md).  Only the branch a row needs runs.
+// What bounds it on this card: instructions and barriers.  The selection
+// of the narrow layouts is 32 group counts per row (one per key bit), each
+// E compares and adds per lane and one warp reduction, against a byte
+// bound of 6-8 B per entry (the O(K**2) pairwise ranking it replaces was
+// 65,536 compares per row at K = 256).  On an H100 (700 W) 128,000 BF16
+// rows of 256 take 0.31 ms against a byte bound of 0.059 ms (PERF.md).
+// The cluster layout runs a chain of up to six cluster barriers and a
+// dozen block barriers a row, with serial warp steps between them: at 16
+// rows that chain, not the few dozen instructions an entry, sets the time
+// (11-14x the byte bound); on the batches, three blocks an SM overlap it
+// (5-8x; times, bounds and each phase's share in PERF.md, the phases from
+// tools/spc_wide_phases.py).  Only the branch a row needs runs.
 
 #include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 65536;        // MAX_K in kernels/spc_quantize.py
@@ -65,8 +78,20 @@ constexpr int kRegMaxK = 16384;     // the register layouts' largest K
 constexpr int kRowWarps = 4;        // warp-per-row blocks: four rows a block
 constexpr int kBlockWarps = 16;     // block-per-row: 512 threads ...
 constexpr int kBlockE = 32;         // ... of 32 entries (16,384 / 512)
-constexpr int kWideWarps = 32;      // wide rows: a block of 1,024 threads
+constexpr int kWideWarps = 16;      // wide rows: blocks of 512 threads ...
 constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideE = 16;          // ... with 16 entries each, so
+constexpr int kWideSeg = kWideThreads * kWideE;  // 8,192 entries a block
+constexpr int kMaxCluster = 8;      // blocks a row: a portable cluster
+constexpr int kDigitBits = 8;       // the radix select's digit ...
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kPasses = 32 / kDigitBits;   // ... in at most four passes
+constexpr int kWideBlocksPerSm = 3; // keys and f0 in 64 KB of shared memory
+constexpr int kWideSmem = 2 * kWideSeg * 4;
+static_assert(kMaxCluster * kWideSeg >= kMaxK, "a cluster holds a row");
+constexpr int kSelWarps = 2;        // warps that sum a pass's bins
+constexpr int kBinWords = (2 + kPasses - 1) * kBins;
+static_assert(kSelWarps * 32 * 4 == kBins, "four bins a selecting lane");
 
 // Input element types, read as 32-bit words: float32 (rounded to bf16
 // here) or bfloat16 bit patterns (two a word).
@@ -344,21 +369,7 @@ __device__ __forceinline__ void quantize_row(
   }
 }
 
-// ---- wide rows (16,384 < K <= 65,536) ------------------------------------
-
-struct WideEntry {
-  int f0;
-  uint32_t key;
-};
-
-// Steps 1-5 of one entry from its BF16 bit pattern (quantize_row's).
-__device__ __forceinline__ WideEntry wide_entry(uint16_t b, float scale) {
-  const float v = __uint_as_float(static_cast<uint32_t>(b) << 16);
-  const float p = (isfinite(v) && v > 0.0f) ? v : 0.0f;
-  const float scaled = p * scale;
-  const int f0 = max(1, __float2int_rn(scaled));
-  return {f0, order_key(scaled - static_cast<float>(f0))};
-}
+// ---- wide rows (16,384 < K <= 65,536): a row over a thread-block cluster --
 
 // Inclusive prefix over the warp's lanes.
 template <typename U>
@@ -372,143 +383,349 @@ __device__ __forceinline__ U warp_incl(U v) {
   return v;
 }
 
-// The sum of a warp-uniform `total` over the warps before this one.
-__device__ __forceinline__ unsigned long long warps_excl(
-    unsigned long long total, unsigned long long* scratch) {
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) scratch[warp] = total;
-  __syncthreads();
-  unsigned long long before = 0;
-  for (int w = 0; w < warp; ++w) before += scratch[w];
-  __syncthreads();
-  return before;
+template <typename U>
+__device__ __forceinline__ U warp_sum(U v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-template <typename In>
-__global__ void __launch_bounds__(kWideThreads) spc_wide_kernel(
-    const typename In::T* __restrict__ probs, int k, int prob_bits,
-    int32_t* __restrict__ freq, int32_t* __restrict__ cdf) {
-  extern __shared__ uint16_t row_bits[];    // the row's BF16 bit patterns
-  __shared__ unsigned long long scratch[kWideWarps];
-  const Group<kWideWarps> g{scratch};
-  const long long row = blockIdx.x;
-  const typename In::T* src = probs + row * k;
-  int32_t* frow = freq + row * k;
-  int32_t* crow = cdf ? cdf + row * (k + 1) : nullptr;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int total = 1 << prob_bits;
-  const float scale = static_cast<float>(total);
+// The cluster barrier in two halves: arrive once this block has read its
+// last remote word, wait before it leaves (no block may leave while
+// another can still read its shared memory).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
 
-  unsigned long long mass = 0;
-  for (int i = tid; i < k; i += kWideThreads) {
-    const uint16_t b = In::bits16(src + i);
-    row_bits[i] = b;
-    mass += wide_entry(b, scale).f0;
+// Entry e of a block's segment in a staging row of shared memory: a word
+// swizzle (the column xor the row's low four bits) under which both the
+// owners' writes (lane l, entry 16 l + j) and the coalesced reads (lane l,
+// entry 32 q + l) hit 32 distinct banks.
+__device__ __forceinline__ int swz(int e) {
+  return (e & ~31) | ((e & 31) ^ ((e >> 5) & 15));
+}
+
+struct alignas(16) WideShared {
+  // each pass's bins: pass 0's counts and caps, built before the row's
+  // mass says which one it needs, and later passes' counts or caps (at
+  // prob_bits <= 16 every cap is below 2**16: a block's caps sum below
+  // 2**29 and a row's below 2**32)
+  unsigned bins0[2][kBins];
+  unsigned bins[kPasses - 1][kBins];
+  unsigned long long warp3[kWideWarps][3];  // a warp's three totals
+  unsigned long long row[3];                // published: mass, kmin, kmax
+  unsigned long long seg[3];                // published: f0 sum, gt or lt, tie
+  unsigned pick[kSelWarps];                 // the selecting warps' totals
+  unsigned chosen[2];                       // a pass's digit and its rank
+};
+
+// Warp 0 folds the block's warp totals (`warp3`: a sum and, with
+// `minmax`, a min and a max, or three sums) into `out`.
+__device__ __forceinline__ void fold_warps(const WideShared& sh,
+                                           unsigned long long* out,
+                                           bool minmax) {
+  const int lane = threadIdx.x & 31;
+  const bool in = lane < kWideWarps;
+  unsigned long long a = in ? sh.warp3[lane][0] : 0ull;
+  unsigned long long b = in ? sh.warp3[lane][1] : (minmax ? ~0ull : 0ull);
+  unsigned long long c = in ? sh.warp3[lane][2] : 0ull;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(kFull, a, o);
+    const unsigned long long b2 = __shfl_xor_sync(kFull, b, o);
+    const unsigned long long c2 = __shfl_xor_sync(kFull, c, o);
+    b = minmax ? min(b, b2) : b + b2;
+    c = minmax ? max(c, c2) : c + c2;
   }
-  // (the group sum's barrier also publishes row_bits to the block)
-  const long long delta = total - static_cast<long long>(g.sum(mass));
+  if (lane == 0) {
+    out[0] = a;
+    out[1] = b;
+    out[2] = c;
+  }
+}
 
-  // Step 6 or 7's selection, counting passes strided over the block: the
-  // boundary key v and m, the top-up's count of keys equal to v that get
-  // one more, or the waterfill's need left at v.
+// A cluster of C blocks owns a row: block c the segment [c * seg, c * seg +
+// seg) of it, thread t of a block the kWideE consecutive entries from
+// 16 t, their keys and f0 derived once into shared memory (entry j of
+// thread t at j * kWideThreads + t: no bank conflicts).  Every row total
+// goes through the blocks' shared memory (distributed shared memory), read
+// after a cluster barrier by every block alike, so all of them take the
+// same decisions.
+template <typename In>
+__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSm)
+    spc_cluster_kernel(const typename In::T* __restrict__ probs, int k,
+                       int seg, int prob_bits, int32_t* __restrict__ freq,
+                       int32_t* __restrict__ cdf) {
+  __shared__ WideShared sh;
+  extern __shared__ uint32_t wide_smem[];
+  uint32_t* key_s = wide_smem;                        // [kWideE][threads]
+  int* f_s = reinterpret_cast<int*>(wide_smem + kWideSeg);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nblk = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long row = blockIdx.x / nblk;
+  const int s_lo = rank * seg, s_hi = min(k, s_lo + seg);
+  const int n_seg = max(s_hi - s_lo, 0);
+  const int i0 = s_lo + tid * kWideE;
+  const int n_in = min(max(s_hi - i0, 0), kWideE);   // this thread's entries
+  const int total = 1 << prob_bits;
+
+  for (int q = tid; q < kBinWords; q += kWideThreads) {
+    (&sh.bins0[0][0])[q] = 0u;              // bins0 and bins, contiguous
+  }
+  __syncthreads();
+  // Steps 1-5, once, and pass 0's bins (the top kDigitBits of the keys,
+  // counts and caps alike: no key prefix to match yet).
+  unsigned mass = 0;
+  uint32_t kmin = ~0u, kmax = 0u;
+  {
+    float pv[kWideE];
+    load_probs<kWideE, In>(probs + row * k, i0, s_hi, pv);
+    const float scale = static_cast<float>(total);
+#pragma unroll
+    for (int j = 0; j < kWideE; ++j) {
+      const float p = (isfinite(pv[j]) && pv[j] > 0.0f) ? pv[j] : 0.0f;
+      const float scaled = p * scale;
+      const int f0 = max(1, __float2int_rn(scaled));
+      const uint32_t key = order_key(scaled - static_cast<float>(f0));
+      key_s[j * kWideThreads + tid] = key;
+      f_s[j * kWideThreads + tid] = f0;
+      if (j < n_in) {
+        const unsigned d = key >> (32 - kDigitBits);
+        const unsigned cap = static_cast<unsigned>(f0 - 1);
+        atomicAdd(&sh.bins0[0][d], 1u);
+        if (cap) atomicAdd(&sh.bins0[1][d], cap);
+        mass += f0;
+        kmin = min(kmin, key);
+        kmax = max(kmax, key);
+      }
+    }
+  }
+  const unsigned warp_mass = warp_sum(mass);
+  kmin = __reduce_min_sync(kFull, kmin);
+  kmax = __reduce_max_sync(kFull, kmax);
+  if (lane == 0) {
+    sh.warp3[warp][0] = warp_mass;
+    sh.warp3[warp][1] = kmin;
+    sh.warp3[warp][2] = kmax;
+  }
+  __syncthreads();
+  if (warp == 0) fold_warps(sh, sh.row, true);
+  cluster.sync();
+  // the row's mass, least and largest key: lane c reads block c
+  unsigned long long rmass = 0, rmin = ~0ull, rmax = 0;
+  if (lane < nblk) {
+    const unsigned long long* r = cluster.map_shared_rank(sh.row, lane);
+    rmass = r[0];
+    rmin = r[1];
+    rmax = r[2];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    rmass += __shfl_xor_sync(kFull, rmass, o);
+    rmin = min(rmin, __shfl_xor_sync(kFull, rmin, o));
+    rmax = max(rmax, __shfl_xor_sync(kFull, rmax, o));
+  }
+  const long long delta = total - static_cast<long long>(rmass);
+
+  // Step 6 or 7's selection: the boundary key v, and m, the top-up's count
+  // of keys equal to v that get one more or the waterfill's need left at
+  // v.  The keys share the bits above the highest one where the least and
+  // largest differ, so v does too; each pass of kDigitBits below them
+  // takes the bin where the running total of the keys matching v so far
+  // (counts from the top down, or caps from the bottom up) reaches the
+  // rank or the need, from the cluster's sum of every block's bins.
   const bool topup = delta >= 0;
   const int base = topup ? static_cast<int>(delta / k) : 0;
   const int r = topup ? static_cast<int>(delta % k) : 0;
-  uint32_t v = 0;
-  long long m = 0;
-  if (topup && r > 0) {
-    for (int b = 31; b >= 0; --b) {
-      const uint32_t c = v | (1u << b);
-      unsigned n = 0;
-      for (int i = tid; i < k; i += kWideThreads) {
-        n += wide_entry(row_bits[i], scale).key >= c;
-      }
-      if (g.sum(n) >= static_cast<unsigned>(r)) v = c;
-    }
-    unsigned gt = 0;
-    for (int i = tid; i < k; i += kWideThreads) {
-      gt += wide_entry(row_bits[i], scale).key > v;
-    }
-    m = r - static_cast<long long>(g.sum(gt));
-  } else if (!topup) {
-    const unsigned long long need = static_cast<unsigned long long>(-delta);
-    for (int b = 31; b >= 0; --b) {
-      const uint32_t x = v | ((1u << b) - 1u);
-      unsigned long long w = 0;
-      for (int i = tid; i < k; i += kWideThreads) {
-        const WideEntry e = wide_entry(row_bits[i], scale);
-        w += e.key <= x ? static_cast<unsigned long long>(e.f0 - 1) : 0ull;
-      }
-      if (g.sum(w) < need) v |= 1u << b;
-    }
-    unsigned long long lt = 0;
-    for (int i = tid; i < k; i += kWideThreads) {
-      const WideEntry e = wide_entry(row_bits[i], scale);
-      lt += e.key < v ? static_cast<unsigned long long>(e.f0 - 1) : 0ull;
-    }
-    m = static_cast<long long>(need - g.sum(lt));
-  }
-
-  // The last pass in index order: warp w owns entries [w * seg, (w + 1) *
-  // seg), its lanes taking 32 consecutive entries a round.  The tie
-  // weights (1 a tie on the top-up, the cap on the waterfill) before each
-  // entry are the earlier warps' totals plus a running warp scan.
-  const bool ties = !topup || r > 0;        // block-uniform
-  const int seg = (k + kWideThreads - 1) / kWideThreads * 32;
-  const int lo = warp * seg, hi = min(k, lo + seg);
-  long long before = 0;
-  if (ties) {
-    unsigned long long mine = 0;
-    for (int i = lo + lane; i < hi; i += 32) {
-      const WideEntry e = wide_entry(row_bits[i], scale);
-      mine += e.key == v ? (topup ? 1ull : static_cast<unsigned long long>(
-                                               e.f0 - 1))
-                         : 0ull;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(kFull, mine, o);
-    before = static_cast<long long>(warps_excl(mine, scratch));
-  }
-  unsigned fsum = 0;
-  for (int j = 0; j < seg; j += 32) {
-    const int i = lo + j + lane;
-    const bool in = i < hi;
-    const WideEntry e = in ? wide_entry(row_bits[i], scale) : WideEntry{1, 0u};
-    const bool at = in && e.key == v;
-    const long long t = at ? (topup ? 1ll : e.f0 - 1ll) : 0ll;
-    long long excl = 0;
-    if (ties) {
-      const long long inc = warp_incl(t);
-      excl = before + inc - t;
-      before += __shfl_sync(kFull, inc, 31);
-    }
-    int f;
-    if (topup) {
-      f = e.f0 + base + (r > 0 && (e.key > v || (at && excl < m)));
+  const bool select = !topup || r > 0;      // row-uniform
+  const unsigned want =
+      topup ? static_cast<unsigned>(r) : static_cast<unsigned>(-delta);
+  const uint32_t lo_key = static_cast<uint32_t>(rmin);
+  const int nb = lo_key == static_cast<uint32_t>(rmax)
+                     ? 0
+                     : 32 - __clz(lo_key ^ static_cast<uint32_t>(rmax));
+  uint32_t v = nb == 32 ? 0u : lo_key & ~((1u << nb) - 1u);
+  unsigned acc = 0;               // #keys above v's prefix, or their caps
+  for (int pass = 0; select && pass < kPasses; ++pass) {
+    const int shift = 32 - kDigitBits * (pass + 1);
+    if (shift >= nb) continue;              // bits every key shares
+    const unsigned* bins;
+    if (pass == 0) {
+      bins = topup ? sh.bins0[0] : sh.bins0[1];
     } else {
-      const long long cap = e.f0 - 1;
-      const long long take =
-          e.key < v ? cap : (at ? min(max(m - excl, 0ll), cap) : 0ll);
-      f = e.f0 - static_cast<int>(take);
+      unsigned* h = sh.bins[pass - 1];
+      const int above = shift + kDigitBits;
+#pragma unroll 4
+      for (int j = 0; j < kWideE; ++j) {
+        const uint32_t key = key_s[j * kWideThreads + tid];
+        if (j < n_in && (key >> above) == (v >> above)) {
+          const unsigned d = (key >> shift) & (kBins - 1);
+          const unsigned w =
+              topup ? 1u
+                    : static_cast<unsigned>(f_s[j * kWideThreads + tid] - 1);
+          if (w) atomicAdd(&h[d], w);
+        }
+      }
+      bins = h;
+      cluster.sync();
     }
-    if (in) {
-      frow[i] = f;
-      fsum += f;
+    // kSelWarps warps sum the cluster's bins, four a lane, 16-byte loads
+    unsigned t[4] = {0, 0, 0, 0}, own = 0, inc = 0;
+    const int b0 = 4 * (32 * warp + lane);
+    if (warp < kSelWarps) {
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        if (c < nblk) {
+          const uint4 a = *reinterpret_cast<const uint4*>(
+              cluster.map_shared_rank(bins, c) + b0);
+          t[0] += a.x;
+          t[1] += a.y;
+          t[2] += a.z;
+          t[3] += a.w;
+        }
+      }
+      own = t[0] + t[1] + t[2] + t[3];
+      inc = warp_incl(own);
+      if (lane == 31) sh.pick[warp] = inc;
     }
+    __syncthreads();
+    if (warp < kSelWarps) {
+      unsigned below = inc - own, all = 0;
+#pragma unroll
+      for (int w = 0; w < kSelWarps; ++w) {
+        below += w < warp ? sh.pick[w] : 0u;
+        all += sh.pick[w];
+      }
+      // the one bin where the running total first reaches `want`
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned before = topup ? all - below - t[j] : below;
+        if (acc + before < want && want <= acc + before + t[j]) {
+          sh.chosen[0] = static_cast<unsigned>(b0 + j);
+          sh.chosen[1] = acc + before;
+        }
+        below += t[j];
+      }
+    }
+    __syncthreads();
+    v |= sh.chosen[0] << shift;
+    acc = sh.chosen[1];
   }
+  const long long m = static_cast<long long>(want - acc);
 
-  if (crow != nullptr) {                    // step 8, the same walk
-    unsigned run = static_cast<unsigned>(
-        warps_excl(__reduce_add_sync(kFull, fsum), scratch));
-    if (tid == 0) crow[0] = 0;
-    for (int j = 0; j < seg; j += 32) {
-      const int i = lo + j + lane;
-      const unsigned f = i < hi ? static_cast<unsigned>(frow[i]) : 0u;
-      const unsigned inc = warp_incl(f);
-      if (i < hi) crow[i + 1] = static_cast<int32_t>(run + inc);
-      run += __shfl_sync(kFull, inc, 31);
+  // The tie weights (1 a tie on the top-up, the cap on the waterfill) in
+  // index order: the earlier segments', the earlier warps', then the
+  // earlier lanes'.
+  unsigned tie = 0, gl = 0;
+#pragma unroll 4
+  for (int j = 0; j < kWideE; ++j) {
+    if (j < n_in) {
+      const uint32_t key = key_s[j * kWideThreads + tid];
+      const unsigned w =
+          topup ? 1u : static_cast<unsigned>(f_s[j * kWideThreads + tid] - 1);
+      tie += key == v ? w : 0u;
+      gl += (topup ? key > v : key < v) ? w : 0u;
     }
   }
+  const unsigned tie_inc = warp_incl(tie);
+  const unsigned gl_w = warp_sum(gl);
+  if (lane == 31) {
+    sh.warp3[warp][0] = warp_mass;
+    sh.warp3[warp][1] = gl_w;
+    sh.warp3[warp][2] = tie_inc;
+  }
+  __syncthreads();
+  if (warp == 0) fold_warps(sh, sh.seg, false);
+  cluster.sync();
+  // A segment's or a warp's final sum from its totals and the tie weights
+  // before it: the top-up gives min(max(m - before, 0), ties) more, the
+  // waterfill takes as much.
+  const auto final_sum = [&](unsigned long long s_f0, unsigned long long s_gl,
+                             unsigned long long s_tie, long long n,
+                             long long before) -> long long {
+    const long long at_v =
+        min(max(m - before, 0ll), static_cast<long long>(s_tie));
+    return topup ? static_cast<long long>(s_f0) + base * n +
+                       (r > 0 ? static_cast<long long>(s_gl) + at_v : 0)
+                 : static_cast<long long>(s_f0) -
+                       static_cast<long long>(s_gl) - at_v;
+  };
+  // lane c takes segment c, then lane w warp w of this block: the tie
+  // weights and the final sums before each, prefixes over the lanes
+  unsigned long long a0 = 0, a1 = 0, a2 = 0;
+  if (lane < nblk) {
+    const unsigned long long* q = cluster.map_shared_rank(sh.seg, lane);
+    a0 = q[0];
+    a1 = q[1];
+    a2 = q[2];
+  }
+  cluster_arrive();                         // the last remote read is done
+  long long tb = static_cast<long long>(warp_incl(a2) - a2);
+  long long n_l =
+      lane < nblk ? max(0, min(k, (lane + 1) * seg) - lane * seg) : 0;
+  long long fs = lane < nblk ? final_sum(a0, a1, a2, n_l, tb) : 0;
+  const long long seg_tie = __shfl_sync(kFull, tb, rank);
+  const long long seg_off = __shfl_sync(kFull, warp_incl(fs) - fs, rank);
+  const bool wl = lane < kWideWarps;
+  a0 = wl ? sh.warp3[lane][0] : 0ull;
+  a1 = wl ? sh.warp3[lane][1] : 0ull;
+  a2 = wl ? sh.warp3[lane][2] : 0ull;
+  tb = seg_tie + static_cast<long long>(warp_incl(a2) - a2);
+  n_l = wl ? min(max(n_seg - 32 * kWideE * lane, 0), 32 * kWideE) : 0;
+  fs = wl ? final_sum(a0, a1, a2, n_l, tb) : 0;
+  long long excl = __shfl_sync(kFull, tb, warp) +
+                   static_cast<long long>(tie_inc - tie);
+  const long long warp_off =
+      seg_off + __shfl_sync(kFull, warp_incl(fs) - fs, warp);
+
+  // the final frequencies, in index order
+  int f[kWideE];
+  unsigned run = 0;
+#pragma unroll
+  for (int j = 0; j < kWideE; ++j) {
+    const bool in = j < n_in;
+    const uint32_t key = key_s[j * kWideThreads + tid];
+    const int f0 = f_s[j * kWideThreads + tid];
+    const bool at = in && key == v;
+    if (topup) {
+      f[j] = f0 + base + (r > 0 && in && (key > v || (at && excl < m)));
+      excl += at;
+    } else {
+      const long long cap = f0 - 1;
+      const long long take =
+          !in ? 0ll
+              : (key < v ? cap : (at ? min(max(m - excl, 0ll), cap) : 0ll));
+      excl += at ? cap : 0;
+      f[j] = f0 - static_cast<int>(take);
+    }
+    run += in ? f[j] : 0;
+  }
+  // staged through shared memory (the keys are read), stored coalesced:
+  // the frequencies over key_s, step 8's CDF over f_s
+  unsigned c = static_cast<unsigned>(warp_off) + warp_incl(run) - run;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kWideE; ++j) {
+    const int e = kWideE * tid + j;
+    c += f[j];
+    key_s[swz(e)] = static_cast<uint32_t>(f[j]);
+    reinterpret_cast<uint32_t*>(f_s)[swz(e)] = c;
+  }
+  __syncthreads();
+  int32_t* frow = freq + row * k + s_lo;
+  int32_t* crow = cdf ? cdf + row * (k + 1) + s_lo + 1 : nullptr;
+  for (int e = tid; e < n_seg; e += kWideThreads) {
+    frow[e] = static_cast<int32_t>(key_s[swz(e)]);
+    if (crow) crow[e] = static_cast<int32_t>(
+        reinterpret_cast<uint32_t*>(f_s)[swz(e)]);
+  }
+  if (crow && rank == 0 && tid == 0) crow[-1] = 0;
+  cluster_wait();
 }
 
 template <int E, typename In>
@@ -547,18 +764,46 @@ void launch_warp(const void* probs, int b, int k, int prob_bits, void* freq,
 // The attribute holds per device, so it is set once on each (devices past
 // 63 set it on every launch).
 template <typename In>
-cudaError_t allow_wide_smem() {
+cudaError_t allow_cluster_smem() {
   static std::atomic<unsigned long long> set_on{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (bit & set_on.load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      spc_wide_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMaxK * sizeof(uint16_t)));
+  err = cudaFuncSetAttribute(spc_cluster_kernel<In>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWideSmem);
   if (err == cudaSuccess) set_on.fetch_or(bit, std::memory_order_release);
   return err;
+}
+
+// The wide layout: C blocks a row, each a cluster (cluster dims along x,
+// so the blocks of row i are C * i .. C * i + C - 1).  A launch the card
+// refuses returns its error.
+template <typename In>
+cudaError_t launch_cluster(const void* probs, int b, int k, int prob_bits,
+                           void* freq, void* cdf, cudaStream_t stream) {
+  const cudaError_t err = allow_cluster_smem<In>();
+  if (err != cudaSuccess) return err;
+  const int c = (k + kWideSeg - 1) / kWideSeg;
+  const int seg = ((k + c - 1) / c + 15) / 16 * 16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(b) * static_cast<unsigned>(c));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = kWideSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(c);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, spc_cluster_kernel<In>,
+                            static_cast<const typename In::T*>(probs), k,
+                            seg, prob_bits, static_cast<int32_t*>(freq),
+                            static_cast<int32_t*>(cdf));
 }
 
 template <typename In>
@@ -581,13 +826,7 @@ cudaError_t launch(const void* probs, int b, int k, int prob_bits,
         static_cast<const typename In::T*>(probs), k, prob_bits,
         static_cast<int32_t*>(freq), static_cast<int32_t*>(cdf));
   } else {
-    const cudaError_t err = allow_wide_smem<In>();
-    if (err != cudaSuccess) return err;
-    spc_wide_kernel<In>
-        <<<b, kWideThreads, static_cast<size_t>(k) * sizeof(uint16_t),
-           stream>>>(static_cast<const typename In::T*>(probs), k,
-                     prob_bits, static_cast<int32_t*>(freq),
-                     static_cast<int32_t*>(cdf));
+    return launch_cluster<In>(probs, b, k, prob_bits, freq, cdf, stream);
   }
   return cudaSuccess;
 }
@@ -595,12 +834,14 @@ cudaError_t launch(const void* probs, int b, int k, int prob_bits,
 }  // namespace
 
 // probs (B, K) float32 (bf16 = 0) or bfloat16 (bf16 = 1); freq (B, K)
-// int32; cdf (B, K + 1) int32 or null.
+// int32; cdf (B, K + 1) int32 or null.  Rows above 16,384 entries take
+// prob_bits <= 16 (the SPC's range; such a K needs 15 or 16).
 extern "C" int spc_quantize_launch(const void* probs, int bf16, int b, int k,
                                    int prob_bits, void* freq, void* cdf,
                                    void* stream) {
   if (b < 1 || k < 1 || k > kMaxK || prob_bits < 1 || prob_bits > 30 ||
-      k > (1 << prob_bits)) {
+      k > (1 << prob_bits) || b > 0x7fffffff / kMaxCluster ||
+      (k > kRegMaxK && prob_bits > 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -20,13 +20,15 @@ sources and holds them equal):
     thread) or the warp row count (one cell a warp, rows through a ring in
     shared memory).
   * B2 (``rans_decode_step.cu``): one warp a lane; rows of up to
-    ``STEP_REG_K`` entries are held in registers, longer rows are read
-    from device memory.
+    ``STEP_REG_K`` entries are held in registers, longer rows are
+    bisected in device memory, ``STEP_TREE_LEVELS`` levels read ahead a
+    round.
   * B6 (``spc_quantize.cu`` ``launch``): a warp a row for K up to 1,024
     (``E`` entries a lane), a block of ``SPC_BLOCK_WARPS`` warps a row up
-    to ``SPC_REG_MAX_K``, and the wide layout (a 1,024-thread block, the
-    row's BF16 bits in ``2 K`` bytes of shared memory) up to
-    ``SPC_MAX_K``.
+    to ``SPC_REG_MAX_K``, and above, up to ``SPC_MAX_K``, a thread-block
+    cluster a row (``ceil(K / SPC_WIDE_SEG)`` blocks of
+    ``SPC_WIDE_WARPS`` warps, ``SPC_WIDE_E`` entries a thread, a radix
+    select of ``SPC_DIGIT_BITS``-bit digits).
 
 B2, B3 and B4 report the code paths a launch ran
 (``rans_decode.last_branches``); :meth:`LaunchPlan.branches` is what the
@@ -64,16 +66,25 @@ DECODE_MAX_K = 1 << 24
 # B2, csrc/rans_decode_step.cu
 STEP_WARPS = 4                # kWarps: lanes a block
 STEP_REG_K = 4 * 32 * 3 - 4   # kRegK: 380
+STEP_TREE_LEVELS = 5          # kTreeLevels
 
 # B6, csrc/spc_quantize.cu
 SPC_MAX_K = 1 << 16           # kMaxK
 SPC_REG_MAX_K = 16384         # kRegMaxK
 SPC_ROW_WARPS = 4             # kRowWarps
 SPC_BLOCK_WARPS = 16          # kBlockWarps
-SPC_WIDE_WARPS = 32           # kWideWarps
+SPC_WIDE_WARPS = 16           # kWideWarps
+SPC_WIDE_E = 16               # kWideE
+SPC_WIDE_SEG = 32 * SPC_WIDE_WARPS * SPC_WIDE_E   # kWideSeg: 8,192
+SPC_MAX_CLUSTER = 8           # kMaxCluster
+SPC_DIGIT_BITS = 8            # kDigitBits
 
+# each path's search, and its exact bisection where a table has a zero
+# frequency (the read-ahead bisection is exact on any row)
 _BRANCH = {"slot_table": ("slot_table", "shared_bisect"),
-           "warp_rows": ("warp_rows", "warp_bisect")}
+           "warp_rows": ("warp_rows", "warp_bisect"),
+           "register_row": ("warp_rows", "warp_bisect"),
+           "tree_bisect": ("tree_bisect", "tree_bisect")}
 
 
 @dataclass(frozen=True)
@@ -83,13 +94,13 @@ class LaunchPlan:
     grid: int
     block: int
     smem: int          # dynamic shared memory, bytes
+    cluster: int = 1   # blocks a thread-block cluster
 
     def branches(self, zero_freq: bool = False) -> set:
         """The ``rans_decode.BRANCH_BITS`` names a B2/B3/B4 launch of this
         plan reports: its search, or its exact bisection where a table
         has a zero frequency."""
-        key = "warp_rows" if self.kernel == "rans_decode_step" else self.path
-        return {_BRANCH[key][1 if zero_freq else 0]}
+        return {_BRANCH[self.path][1 if zero_freq else 0]}
 
 
 def _align16(v: int) -> int:
@@ -145,9 +156,10 @@ def decode_plan(k: int, cells: int, layout: str, prob_bits: int,
 
 
 def decode_step_plan(k: int, lanes: int) -> LaunchPlan:
-    """B2: the row in registers up to ``STEP_REG_K`` entries."""
+    """B2: the row in registers up to ``STEP_REG_K`` entries, else the
+    read-ahead bisection of the row in device memory."""
     return LaunchPlan("rans_decode_step",
-                      "register_row" if k <= STEP_REG_K else "device_row",
+                      "register_row" if k <= STEP_REG_K else "tree_bisect",
                       -(-lanes // STEP_WARPS), 32 * STEP_WARPS, 0)
 
 
@@ -163,4 +175,7 @@ def spc_plan(b: int, k: int) -> LaunchPlan:
     if k <= SPC_REG_MAX_K:
         return LaunchPlan("spc_quantize", "block", b,
                           32 * SPC_BLOCK_WARPS, 0)
-    return LaunchPlan("spc_quantize", "wide", b, 32 * SPC_WIDE_WARPS, 2 * k)
+    c = -(-k // SPC_WIDE_SEG)
+    # kWideSmem: a segment's keys and f0, 4 bytes each
+    return LaunchPlan("spc_quantize", "cluster", b * c, 32 * SPC_WIDE_WARPS,
+                      8 * SPC_WIDE_SEG, cluster=c)

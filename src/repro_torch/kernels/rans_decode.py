@@ -13,14 +13,17 @@ Three TPU kernels of ``repro/kernels/rans_decode.py`` are ported here:
   ``(K+1,)`` or ``(lanes, K+1)`` int32 rows and optional ``(lanes, topk)``
   candidates, and returns ``(s', ptr', symbols, probes, under)``, all
   ``(lanes,)`` int32; ``under`` counts active refills outside the lane's
-  window.  Its kernel gives each lane a warp: the cdf row, the state and
-  the two refill bytes are two dependent load levels, a ballot count over
-  the row gives the symbol and the probes are replayed from it, so a step
-  costs about twice the launch floor of a graph node (0.0021 against
-  0.0011 ms on an H100, ``PERF.md``), and the wrapper's host work is ten
-  times that.  ``f`` comes from the ``freq`` row on every path, as in the
-  reference, so a pair whose ``freq`` is not the cdf's differences decodes
-  as the reference decodes it.
+  window.  Its kernel gives each lane a warp.  On rows of up to
+  ``autotune.STEP_REG_K`` (380) entries the cdf row, the state and the two
+  refill bytes are two dependent load levels, a ballot count over the row
+  gives the symbol and the probes are replayed from it, so a step costs
+  about twice the launch floor of a graph node (0.0021 against 0.0011 ms
+  on an H100, ``PERF.md``), and the wrapper's host work is ten times that.
+  Longer rows (the zoo's K = 32,064 to 50,280) run the reference's search
+  itself, the warp loading the next five bisection levels' mids at once.
+  ``f`` comes from the ``freq`` row on every path, as in the reference, so
+  a pair whose ``freq`` is not the cdf's differences decodes as the
+  reference decodes it.
 * **B3** :func:`rans_decode_lanes` (``csrc/rans_decode_lanes.cu``, replaces
   ``rans_decode_lanes``, body ``_decode_kernel``): the whole stream in one
   launch, monolithic ``(lanes, cap)`` or chunked ``(n_chunks, lanes,
@@ -43,7 +46,8 @@ so they are latency-bound (``PERF.md``).  Their kernel takes the symbol
 from a slot table (static tables) or a warp-wide row count (rows in device
 memory) and replays the probe count from it; a table with a zero frequency
 runs the exact bisection instead.  B2 runs the warp row count or, on a row
-with a zero frequency, the bisection.  Each launch of B2, B3 or B4 records
+with a zero frequency, the bisection, on rows in registers, and the
+read-ahead bisection on longer rows.  Each launch of B2, B3 or B4 records
 which of those code paths ran in ``repro_torch.kernels.BRANCHES``, read by
 :func:`last_branches`.
 """
@@ -65,11 +69,12 @@ from repro_torch.kernels import BRANCHES, LAUNCHES, autotune
 MAX_WINDOW = autotune.MAX_WINDOW
 MAX_K = autotune.DECODE_MAX_K
 # the Branch bits of csrc/rans_decode_lanes.cu (B2's rans_decode_step.cu
-# uses the last two): the slot-table path, the exact bisection on a static
-# table in shared memory, the warp row search and the warp path's exact
-# bisection of a row
+# uses the last two and one of its own): the slot-table path, the exact
+# bisection on a static table in shared memory, the warp row search, the
+# warp path's exact bisection of a row, and B2's bisection of a row too
+# long for its registers, read ahead by the warp
 BRANCH_BITS = {"slot_table": 1, "shared_bisect": 2, "warp_rows": 4,
-               "warp_bisect": 8}
+               "warp_bisect": 8, "tree_bisect": 16}
 
 _I64 = torch.int64
 _I32 = torch.int32

@@ -15,9 +15,9 @@ launch: the fused LM decode's per-position SPC.  The plain versions are
 It dispatches on the probabilities' device: a CPU tensor runs the plain
 version, a CUDA tensor launches ``csrc/spc_quantize.cu`` (one warp per row
 up to K = 1024, a block of 512 threads per row up to 16,384, and above, up
-to the SPC's ceiling of 65,536 at ``prob_bits=16``, a block of 1,024
-threads that keeps the row's BF16 bits in shared memory; built by
-``kernels/_build.py``) and counts the launch in
+to the SPC's ceiling of 65,536 at ``prob_bits=16``, a thread-block cluster
+per row that exchanges its totals through distributed shared memory;
+built by ``kernels/_build.py``) and counts the launch in
 ``repro_torch.kernels.LAUNCHES``.  There is no fallback between the two.
 
 The kernel replaces the reference's sort (and the TPU kernel's O(K**2)
@@ -38,7 +38,7 @@ from repro_torch.core import constants as C
 from repro_torch.core import spc
 from repro_torch.kernels import LAUNCHES, autotune
 
-# the wide layout's shared-memory row holds up to 65,536 BF16 entries
+# the cluster layout's eight blocks hold up to 65,536 entries
 # (kernels/autotune.py, the launch plan): every K that 2**prob_bits admits
 MAX_K = autotune.SPC_MAX_K
 

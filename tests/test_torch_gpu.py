@@ -31,12 +31,14 @@ candidates, popping past the stream end) and B6 on rows of 16 against
 their plain versions; one train step on the card against the same step on
 the CPU; a small ``bb_encode``/``bb_decode`` round trip on the card whose
 kernel and coder stacks are byte-identical, with one B2 launch per pop.
-The recurrent families: B6's wide layout (16,384 < K <= 65,536) on
-Dirichlet, near-uniform, tied and waterfill rows in BF16 and float32,
-with and without the CDF; B2 at mamba2-130m's (16 lanes, K = 50,280)
-per-lane rows; the mamba2-130m (smoke and full width) and
-recurrentgemma-2b (smoke) decode steps in float32 on the card against the
-CPU.  The MoE family: B6 and B2 also at mixtral-8x22b's K = 32,768; both
+The recurrent families: B6's cluster layout (16,384 < K <= 65,536) on
+Dirichlet, near-uniform, tied and waterfill rows in BF16 and float32, on
+1, 16 and 4,096 rows, with and without the CDF, each launch on its
+plan's cluster; B2's read-ahead bisection at K = 32,064, 32,768 and
+50,280 on per-lane, shared, zero-frequency and mismatched rows over 1, 16
+and 128 lanes, each launch on the path its plan names; the mamba2-130m
+(smoke and full width) and recurrentgemma-2b (smoke) decode steps in
+float32 on the card against the CPU.  The MoE family: B6 and B2 also at mixtral-8x22b's K = 32,768; both
 MoE SMOKE models round-trip on the card (kernel and coder containers
 byte-identical, one B2 and one B6 launch per decoded position), their
 steps match the CPU's and their prefill is their steps bitwise.
@@ -74,12 +76,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import bitstream, coder, predictors, spc, u32
+from repro_torch.core import (bitstream, coder, constants, predictors, spc,
+                              u32)
 from repro_torch.core.bitstream import EncodedLanes
 from repro_torch.data.pipeline import candidate_planes, token_stream
 from repro_torch.device import configure_cuda_numerics
-from repro_torch.kernels import (LAUNCHES, ops, rans_decode, rans_encode,
-                                 spc_quantize)
+from repro_torch.kernels import (LAUNCHES, autotune, ops, rans_decode,
+                                 rans_encode, spc_quantize)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_vectors")
 
@@ -214,8 +217,8 @@ def test_gpu_encode_alphabet_edges_match_plain(layout, k):
 @pytest.mark.parametrize("rows", ["shared", "lane"])
 def test_gpu_decode_step_mismatched_pair_matches_plain(rows, k, topk):
     """B2 on (freq, cdf) pairs whose freq is not the cdf's differences: f
-    comes from the freq row on every path (registers at K = 256, device
-    memory passes at K = 4096), as in the plain version."""
+    comes from the freq row on every path (registers at K = 256, the
+    read-ahead bisection at K = 4096), as in the plain version."""
     dev = _cuda()
     lanes, t = 64, 8
     tt, syms = _case("perpos" if rows == "shared" else "lane", seed=k + 1,
@@ -231,7 +234,8 @@ def test_gpu_decode_step_mismatched_pair_matches_plain(rows, k, topk):
         bent = (tt.freq[i] + bump[i]).contiguous()
         _step_pair(enc.buf, s, ptr, bent, tt.cdf[i],
                    None if cands is None else cands[i], dev)
-        assert rans_decode.last_branches("rans_decode_step") == {"warp_rows"}
+        assert rans_decode.last_branches("rans_decode_step") == \
+            autotune.decode_step_plan(k, lanes).branches()
         ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i],
                          None if cands is None else cands[i], dev)
         s, ptr = ref[0], ref[1]
@@ -285,14 +289,15 @@ def test_gpu_decode_step_shared_rows_without_candidates():
         s, ptr, gs, gp = ref[0], ref[1], got[0], got[1]
 
 
-def _step_pair(buf, s, ptr, freq, cdf, cands, dev):
+def _step_pair(buf, s, ptr, freq, cdf, cands, dev,
+               prob_bits=constants.PROB_BITS):
     """One B2 launch and its plain version on the same inputs (the plain
     one on the CPU); returns the plain outputs after checking equality."""
     ref = rans_decode.rans_decode_step_plain(buf, s, ptr, freq, cdf,
-                                             candidates=cands)
+                                             prob_bits, candidates=cands)
     got = _launched("rans_decode_step", lambda: rans_decode.rans_decode_step(
         buf.to(dev), s.to(dev), ptr.to(dev), freq.to(dev), cdf.to(dev),
-        candidates=None if cands is None else cands.to(dev)))
+        prob_bits, candidates=None if cands is None else cands.to(dev)))
     _assert_same(got, ref)
     return ref
 
@@ -302,8 +307,9 @@ def _step_pair(buf, s, ptr, freq, cdf, cands, dev):
 @pytest.mark.parametrize("k", [2, 255, 256, 4096])
 @pytest.mark.parametrize("rows", ["shared", "lane"])
 def test_gpu_decode_step_rows_match_plain(rows, k, topk):
-    """B2 on shared (K,) and per-lane (lanes, K) rows, registers (K <= 380)
-    and device-memory row passes (K = 4096): the warp row count path."""
+    """B2 on shared (K,) and per-lane (lanes, K) rows, registers (K <= 380:
+    the warp row count path) and device memory (K = 4096: the read-ahead
+    bisection), each launch on the path its plan names."""
     dev = _cuda()
     lanes, t = 64, 24
     tt, syms = _case("perpos" if rows == "shared" else "lane",
@@ -316,7 +322,8 @@ def test_gpu_decode_step_rows_match_plain(rows, k, topk):
     for i in range(t):
         ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i],
                          None if cands is None else cands[i], dev)
-        assert rans_decode.last_branches("rans_decode_step") == {"warp_rows"}
+        assert rans_decode.last_branches("rans_decode_step") == \
+            autotune.decode_step_plan(k, lanes).branches()
         assert torch.equal(ref[2], _t(syms[:, i]))
         s, ptr = ref[0], ref[1]
 
@@ -1048,51 +1055,90 @@ def _wide_rows(k: int, case: str) -> np.ndarray:
     return np.stack([tiny, np.full(k, 1 / 3), tiny[::-1]])   # waterfill
 
 
+def _wide_batch(k: int, case: str, rows: int, dtype: str, dev):
+    """``rows`` rows of K: the case's rows first (one row: its first), the
+    rest softmaxes of seeded logits drawn on the card, as a model's are."""
+    head = torch.as_tensor(_wide_rows(k, case)[:rows].astype(np.float32))
+    x = head.to(dev)
+    if rows > head.shape[0]:
+        gen = torch.Generator(device=dev).manual_seed(k + rows)
+        fill = torch.softmax(torch.randn((rows - head.shape[0], k),
+                                         generator=gen, device=dev) * 3.0, -1)
+        x = torch.cat([x, fill])
+    return x.to(getattr(torch, dtype))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 16, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["dirichlet", "near_uniform", "ties",
                                   "waterfill"])
 @pytest.mark.parametrize("k", [16385, 32064, 32768, 50280, 65536])
-def test_gpu_spc_wide_matches_plain(k, case, dtype):
-    """B6's wide layout (16,384 < K <= 65,536) at prob_bits 16, with and
-    without the CDF, against the sort-based plain SPC."""
+def test_gpu_spc_wide_matches_plain(k, case, dtype, rows):
+    """B6's cluster layout (16,384 < K <= 65,536) at prob_bits 16 on 1, 16
+    and 4,096 rows, with and without the CDF, against the sort-based plain
+    SPC (on the CPU up to 16 rows, on the card for the batch)."""
     dev = _cuda()
-    x = torch.as_tensor(_wide_rows(k, case).astype(np.float32)).to(
-        getattr(torch, dtype))
-    ref = spc.freq_cdf_from_probs(x, 16)
+    x = _wide_batch(k, case, rows, dtype, dev)
+    plan = autotune.spc_plan(rows, k)
+    assert (plan.path, plan.cluster, plan.grid) == (
+        "cluster", -(-k // autotune.SPC_WIDE_SEG), rows * plan.cluster)
+    ref = spc.freq_cdf_from_probs(x if rows > 16 else x.cpu(), 16)
     assert (ref[1][:, -1] == 1 << 16).all() and int(ref[0].min()) >= 1
-    got = _launched("spc_quantize", lambda: spc_quantize.spc_freq_cdf(
-        x.to(dev), 16))
+    got = _launched("spc_quantize", lambda: spc_quantize.spc_freq_cdf(x, 16))
     _assert_same(got, ref)
-    freq = _launched("spc_quantize", lambda: spc_quantize.spc_quantize(
-        x.to(dev), 16))
-    assert torch.equal(freq.cpu(), ref[0])
+    freq = _launched("spc_quantize", lambda: spc_quantize.spc_quantize(x, 16))
+    assert torch.equal(freq.cpu(), ref[0].cpu())
+
+
+def _wide_step_tables(tt, rows: str, seed: int):
+    """The wide B2 cases' tables: per-lane SPC rows, the first lane's rows
+    shared by every lane, zero frequencies in every third (position, lane)
+    row, or a freq that is not the cdf's differences (the cdf kept)."""
+    if rows == "shared":
+        return tt._replace(freq=tt.freq[:, 0], cdf=tt.cdf[:, 0])
+    if rows == "zero_freq":
+        return _zero_freq(tt, 16, every=3)
+    if rows == "mismatched":
+        gen = torch.Generator().manual_seed(seed)
+        bent = tt.freq + torch.randint(0, 3, tt.freq.shape, generator=gen,
+                                       dtype=tt.freq.dtype)
+        return tt._replace(freq=bent)
+    return tt
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 16, 128])
+@pytest.mark.parametrize("rows", ["lane", "shared", "zero_freq",
+                                  "mismatched"])
 @pytest.mark.parametrize("k", [32064, 32768, 50280])
-def test_gpu_decode_step_large_k_rows_match_plain(k):
-    """B2 at the phi, mixtral and mamba2 slices' shapes: 16 lanes of
-    per-lane rows of K = 32,064, 32,768 or 50,280 at prob_bits 16 with
-    top-4 candidates (the device-memory row pass)."""
+def test_gpu_decode_step_large_k_rows_match_plain(k, rows, lanes):
+    """B2 at the phi, mixtral and mamba2 slices' K = 32,064, 32,768 and
+    50,280 at prob_bits 16: per-lane rows (the slices' own), a shared row,
+    rows with zero frequencies and mismatched (freq, cdf) pairs, on 1, 16
+    and 128 lanes, with top-4 candidates (out-of-range and duplicate ids
+    among them) and without.  Every launch runs the read-ahead bisection
+    its plan names; all six output rows equal the plain pop's."""
     dev = _cuda()
-    lanes, t = 16, 6
+    t = 6
     tt, syms = _case("lane", seed=9, k=k, lanes=lanes, t=t, prob_bits=16)
     enc = coder.encode(_t(syms), tt)
+    tt = _wide_step_tables(tt, rows, seed=k + lanes)
     dec = coder.decoder_init(enc)
     s, ptr = u32.bits(dec.s), dec.ptr.to(torch.int32)
     cands = torch.as_tensor(candidate_planes(syms, k, 4, 0.5, seed=9))
+    cands[:, ::2, 1] = -5
+    cands[:, ::3, 2] = k + 3
+    cands[:, ::4, 3] = cands[:, ::4, 0]
+    want = autotune.decode_step_plan(k, lanes).branches()
+    assert want == {"tree_bisect"}
     for i in range(t):
-        ref = rans_decode.rans_decode_step_plain(
-            enc.buf, s, ptr, tt.freq[i], tt.cdf[i], prob_bits=16,
-            candidates=cands[i])
-        got = _launched("rans_decode_step", lambda: rans_decode.
-                        rans_decode_step(enc.buf.to(dev), s.to(dev),
-                                         ptr.to(dev), tt.freq[i].to(dev),
-                                         tt.cdf[i].to(dev), prob_bits=16,
-                                         candidates=cands[i].to(dev)))
-        _assert_same(got, ref)
-        assert torch.equal(ref[2], _t(syms[:, i]))
+        cand = cands[i] if i % 2 == 0 else None
+        ref = _step_pair(enc.buf, s, ptr, tt.freq[i], tt.cdf[i], cand, dev,
+                         prob_bits=16)
+        assert rans_decode.last_branches("rans_decode_step") == want
+        if rows == "lane":
+            assert torch.equal(ref[2], _t(syms[:, i]))
         s, ptr = ref[0], ref[1]
 
 

@@ -519,14 +519,21 @@ def test_launch_plan_constants_match_cuda_sources():
                 "kSlotBlock", "kWarpBlock", "kWinTab", "kRowRing",
                 "kRowWords"))
     step = _constexprs("rans_decode_step.cu")
-    assert (autotune.STEP_WARPS, autotune.STEP_REG_K) == (step["kWarps"],
-                                                          step["kRegK"])
+    assert (autotune.STEP_WARPS, autotune.STEP_REG_K,
+            autotune.STEP_TREE_LEVELS) == (step["kWarps"], step["kRegK"],
+                                           step["kTreeLevels"])
     b6 = _constexprs("spc_quantize.cu")
     assert (autotune.SPC_MAX_K, autotune.SPC_REG_MAX_K,
             autotune.SPC_ROW_WARPS, autotune.SPC_BLOCK_WARPS,
-            autotune.SPC_WIDE_WARPS) == tuple(b6[k] for k in (
+            autotune.SPC_WIDE_WARPS, autotune.SPC_WIDE_E,
+            autotune.SPC_WIDE_SEG, autotune.SPC_MAX_CLUSTER,
+            autotune.SPC_DIGIT_BITS) == tuple(b6[k] for k in (
                 "kMaxK", "kRegMaxK", "kRowWarps", "kBlockWarps",
-                "kWideWarps"))
+                "kWideWarps", "kWideE", "kWideSeg", "kMaxCluster",
+                "kDigitBits"))
+    # a row of SPC_MAX_K fits one portable cluster
+    assert autotune.SPC_MAX_CLUSTER * autotune.SPC_WIDE_SEG >= \
+        autotune.SPC_MAX_K
     # the wrappers and the roofline read the plan's one copy
     assert rans_decode.MAX_WINDOW is autotune.MAX_WINDOW
     assert rans_decode.MAX_K is autotune.DECODE_MAX_K
@@ -560,17 +567,31 @@ def test_launch_plans():
     for k in (2, 256, 1000, 4096):
         assert autotune.decode_plan(k, 1, "static", 16).smem <= \
             autotune.SMEM_BYTES
-    # B2: the register row up to K = 380; either way the warp row count
-    assert autotune.decode_step_plan(380, 128).path == "register_row"
-    p = autotune.decode_step_plan(381, 128)
-    assert (p.path, p.grid, p.branches()) == ("device_row", 32,
-                                              {"warp_rows"})
-    # B6: warp, block and wide layouts by K
+    # B2: the register row up to K = 380 (the warp row count, or the
+    # bisection on a zero frequency); longer rows the read-ahead bisection
+    # on any row
+    p = autotune.decode_step_plan(380, 128)
+    assert (p.path, p.branches(), p.branches(True)) == (
+        "register_row", {"warp_rows"}, {"warp_bisect"})
+    for k in (381, 32064, 50280):
+        p = autotune.decode_step_plan(k, 128)
+        assert (p.path, p.grid, p.branches(), p.branches(True)) == (
+            "tree_bisect", 32, {"tree_bisect"}, {"tree_bisect"})
+    assert set(rans_decode.BRANCH_BITS) >= {"tree_bisect"}
+    assert len(set(rans_decode.BRANCH_BITS.values())) == \
+        len(rans_decode.BRANCH_BITS)
+    # B6: warp, block and cluster layouts by K; a cluster of
+    # ceil(K / 8,192) blocks a row
     assert [autotune.spc_plan(8, k).path for k in (
         32, 33, 256, 1024, 1025, 16384, 16385, 65536)] == [
         "warp_e1", "warp_e2", "warp_e8", "warp_e32", "block", "block",
-        "wide", "wide"]
-    assert autotune.spc_plan(4, 50280).smem == 2 * 50280
+        "cluster", "cluster"]
+    assert [(autotune.spc_plan(16, k).cluster, autotune.spc_plan(16, k).grid)
+            for k in (16385, 32064, 32768, 50280, 65536)] == [
+        (3, 48), (4, 64), (4, 64), (7, 112), (8, 128)]
+    p = autotune.spc_plan(4096, 50280)
+    assert (p.block, p.smem, p.grid) == (512, 65536, 4096 * 7)
+    assert autotune.spc_plan(8, 16384).cluster == 1
     with pytest.raises(ValueError):
         autotune.spc_plan(1, 65537)
 

@@ -9,7 +9,13 @@ JAX package's ``find_symbol`` for every slot of SPC tables, with
 candidates (out-of-range and duplicate ids) and the windows of all three
 predictors; a table with a zero frequency breaks the identity.  The
 running-sum ``NeighborAverage`` mirror is held equal to the port's and the
-JAX package's ``predict``/``update`` across chunk resets.
+JAX package's ``predict``/``update`` across chunk resets.  The wide rows'
+search of ``csrc/rans_decode_step.cu`` (the candidates by ballot, then the
+bisection read ahead five levels a round from a 31-node subtree of mids
+loaded at once) is mirrored in numpy and held equal to JAX's
+``find_symbol``, symbol and probes, on every slot of K = 32,064, 32,768
+and 50,280 rows, SPC rows and rows with zero frequencies, with and
+without top-4 candidates.
 """
 
 import jax
@@ -181,3 +187,115 @@ def test_mean_reciprocal_is_exact_below_2_pow_28():
     sums = torch.as_tensor(sums, dtype=_I64)
     for n in range(2, 17):
         assert torch.equal((sums * predictors.mean_rcp(n)) >> 32, sums // n)
+
+
+# ---------------------------------------------------------------------------
+# B2's wide rows: the bisection read ahead by the warp
+# ---------------------------------------------------------------------------
+
+TREE_LEVELS = 5                     # kTreeLevels
+
+
+def _tree_nodes(cdf: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    """Each lane j < 31's load of a round from brackets [lo, hi): the cdf at
+    the mid of heap node j + 1 (its path from the root in the bits below
+    the top one), 0 where its bracket holds one entry.  (31, n)."""
+    out = np.zeros((31,) + lo.shape, np.int64)
+    for lane in range(31):
+        node = lane + 1
+        l, h = lo.copy(), hi.copy()
+        for d in range(node.bit_length() - 2, -1, -1):
+            mid = (l + h) >> 1
+            right = (node >> d) & 1
+            l, h = (mid, h) if right else (l, mid)
+        live = h - l > 1
+        out[lane] = np.where(live, cdf[np.where(live, (l + h) >> 1, 0)], 0)
+    return out
+
+
+def tree_search(cdf: np.ndarray, k: int, slot: np.ndarray,
+                cands: np.ndarray | None, n_iter: int):
+    """The wide rows' search of B2 for every slot: ``(x, probes, rounds)``.
+    Candidates first (the first clipped id whose interval holds the slot
+    wins; every one tried costs a probe), then the masked bisection of
+    ``n_iter`` iterations from [0, K), walked through each round's
+    preloaded subtree, one probe per active iteration, ``cdf[mid] == slot``
+    committing early."""
+    n = slot.shape[0]
+    probes = np.zeros(n, np.int64)
+    found = np.zeros(n, bool)
+    x = np.zeros(n, np.int64)
+    for c in ([] if cands is None else cands.T):
+        cc = np.clip(c, 0, k - 1)
+        ok = (cdf[cc] <= slot) & (slot < cdf[cc + 1]) & ~found
+        probes += ~found
+        x = np.where(ok, cc, x)
+        found |= ok
+    lo = np.where(found, x, 0)
+    hi = np.where(found, x + 1, k)
+    it = np.zeros(n, np.int64)
+    rounds = 0
+    while ((hi - lo > 1) & (it < n_iter)).any():
+        nodes = _tree_nodes(cdf, lo, hi)     # one level of independent loads
+        rounds += 1
+        node = np.ones(n, np.int64)
+        for _ in range(TREE_LEVELS):
+            act = (hi - lo > 1) & (it < n_iter)
+            mid = (lo + hi) >> 1
+            c = nodes[node - 1, np.arange(n)]
+            assert np.array_equal(c[act], cdf[mid[act]])
+            probes += act
+            it += act
+            go = act & (c <= slot)
+            lo = np.where(go, mid, lo)
+            hi = np.where(go & (c == slot), mid + 1,
+                          np.where(act & ~go, mid, hi))
+            node = np.where(go, 2 * node + 1, 2 * node)
+    return lo, probes, rounds
+
+
+def _wide_step_rows(k: int, seed: int):
+    """A K-entry SPC row at prob_bits 16 and the same row with frequencies
+    0 (their mass moved to symbol 128): cdf rows (K + 1,)."""
+    rng = np.random.default_rng(seed)
+    probs = rng.dirichlet(np.full(k, 0.3)).astype(np.float32)
+    freq = spc.tables_from_probs(torch.as_tensor(probs), 16).freq.numpy()
+    zf = freq.astype(np.int64).copy()
+    zeros = rng.choice(np.arange(200, k), 40, replace=False)
+    zf[128] += zf[zeros].sum() + zf[3:7].sum()
+    zf[zeros] = 0
+    zf[3:7] = 0
+    return {name: np.r_[0, np.cumsum(f)].astype(np.int64)
+            for name, f in (("spc", freq), ("zero_freq", zf))}
+
+
+@pytest.mark.parametrize("rows", ["spc", "zero_freq"])
+@pytest.mark.parametrize("k", [32064, 32768, 50280])
+def test_tree_search_equals_find_symbol(k, rows):
+    cdf = _wide_step_rows(k, seed=k)[rows]
+    assert cdf[-1] == 1 << 16
+    slots = np.arange(1 << 16, dtype=np.int64)
+    n = slots.size
+    rng = np.random.default_rng(k + 1)
+    x_true = np.searchsorted(cdf, slots, side="right") - 1
+    cands = rng.integers(-3, k + 3, (n, 4))
+    cands[:, 3] = cands[:, 1]                     # duplicate ids
+    hold = rng.random(n) < 0.25
+    cands[hold, rng.integers(0, 4, hold.sum())] = x_true[hold]
+    jcdf = jnp.asarray(cdf.astype(np.int32))
+    jslots = jnp.asarray(slots.astype(np.int32))
+    n_iter = search.ceil_log2(k)
+    for cd in (None, cands):
+        x, probes, rounds = tree_search(cdf, k, slots, cd, n_iter)
+        jx, jprobes = jsearch.find_symbol(
+            jcdf, k, jslots,
+            candidates=None if cd is None else jnp.asarray(
+                cd.astype(np.int32)))
+        tag = f"{rows}, candidates={cd is not None}"
+        assert np.array_equal(x, np.asarray(jx)), tag
+        assert np.array_equal(probes, np.asarray(jprobes)), tag
+        # n_iter levels (15 or 16) in rounds of at most five
+        assert rounds == -(-n_iter // TREE_LEVELS), tag
+    if rows == "zero_freq":                      # the search ends on an
+        empty = np.diff(cdf)[x] == 0             # empty interval somewhere
+        assert empty.any() and not np.array_equal(x, x_true)

@@ -16,11 +16,16 @@
   255, 256, 4096}, and a sort-based rule on residuals that hold both -0.0
   and +0.0.  ``spc_freq_cdf`` on the CPU equals JAX's
   ``freq_cdf_from_probs`` for float32 and bfloat16 input.
-* Above the register layouts (16,384 < K <= 65,536, the wide layout):
-  the same rule with the wide layout's index-order walk (each of 32 warps
-  a contiguous segment of ``ceil(K / 1024) * 32`` entries, 32 a round)
-  equals JAX's ``quantize_probs`` at K in {16,385, 50,280, 65,536},
-  ``prob_bits=16``, on Dirichlet, tied and near-uniform rows.
+* Above the register layouts (16,384 < K <= 65,536): the same rule with
+  a segmented index-order walk (each of 32 warps a contiguous segment of
+  ``ceil(K / 1024) * 32`` entries, 32 a round) equals JAX's
+  ``quantize_probs`` at K in {16,385, 50,280, 65,536}, ``prob_bits=16``,
+  on Dirichlet, tied and near-uniform rows; and the cluster layout of
+  ``spc_cluster_kernel`` (8-bit digit histograms over ``ceil(K / 8,192)``
+  segments below the keys' common prefix, the segments' and warps' tie
+  prefixes and CDF offsets from their totals) equals JAX's
+  ``freq_cdf_from_probs`` at K in {16,385, 32,064, 32,768, 50,280,
+  65,536}.
 
 Integer outputs compare exactly.
 """
@@ -293,9 +298,9 @@ def test_spc_freq_cdf_matches_jax(dtype):
 
 
 def wide_rule(resid, f0, delta) -> np.ndarray:
-    """:func:`select_rule` with the wide layout's last pass: the tie ranks
-    come from a walk of 32 warp segments in rounds of 32 entries, each
-    warp starting from the earlier warps' totals."""
+    """:func:`select_rule` with the tie ranks of a segmented walk: 32 warp
+    segments in rounds of 32 entries, each warp starting from the earlier
+    warps' totals (the one-block wide layout before the cluster layout)."""
     k = f0.size
     key = _key(resid).astype(np.int64)
     f = f0.astype(np.int64).copy()
@@ -372,3 +377,129 @@ def test_wide_selection_rule_matches_jax(k):
     np.testing.assert_array_equal(
         spc_quantize.spc_quantize_plain(torch.as_tensor(probs), 16).numpy(),
         want)
+
+
+# ---------------------------------------------------------------------------
+# the cluster layout (csrc/spc_quantize.cu, spc_cluster_kernel), in numpy
+# ---------------------------------------------------------------------------
+
+WIDE_SEG, DIGIT, PASSES = 8192, 8, 4     # kWideSeg, kDigitBits, kPasses
+WARP_ENTRIES = 32 * 16                   # a warp's entries: 32 lanes x kWideE
+
+
+def _final_sum(f0s, gl, tie, n, before, topup, base, r, m):
+    """A segment's or a warp's final sum from its totals and the tie weights
+    before it (the kernel's ``final_sum``)."""
+    at_v = np.minimum(np.maximum(m - before, 0), tie)
+    if topup:
+        return f0s + base * n + (gl + at_v if r > 0 else 0)
+    return f0s - gl - at_v
+
+
+def cluster_rule(probs_row: np.ndarray, prob_bits: int = 16):
+    """One row through the cluster layout: C = ceil(K / 8,192) segments of
+    a multiple of 16 entries; the mass and the least and largest key; 8-bit
+    digit passes below the keys' common prefix, each a histogram per
+    segment of the keys matching the boundary so far, summed, the digit
+    where the running total (counts from the top, caps from the bottom)
+    reaches the rank or the need; then the tie prefix and the CDF offsets
+    from the segments' and their warps' totals (never from summing f).
+    Returns ``(freq, cdf, passes run)``."""
+    k, total = probs_row.size, 1 << prob_bits
+    p = _bf16(probs_row)
+    p = np.where(np.isfinite(p) & (p > 0), p, np.float32(0))
+    scaled = (p * np.float32(total)).astype(np.float32)
+    f0 = np.maximum(1, np.rint(scaled)).astype(np.int64)
+    key = _key((scaled - f0.astype(np.float32)).astype(np.float32)).astype(
+        np.int64)
+    c = -(-k // WIDE_SEG)
+    seg = -(-(-(-k // c)) // 16) * 16
+    bounds = [(i * seg, min(k, (i + 1) * seg)) for i in range(c)]
+    assert all(lo < hi for lo, hi in bounds) and seg <= WIDE_SEG
+    delta = total - int(f0.sum())
+    topup = delta >= 0
+    base, r = (delta // k, delta % k) if topup else (0, 0)
+    want = r if topup else -delta
+    cap = f0 - 1
+    w = np.ones(k, np.int64) if topup else cap
+    kmin, kmax = int(key.min()), int(key.max())
+    nb = 0 if kmin == kmax else (kmin ^ kmax).bit_length()
+    v = kmin & ~((1 << nb) - 1)
+    acc, passes = 0, 0
+    for ps in range(PASSES if (not topup or r > 0) else 0):
+        shift = 32 - DIGIT * (ps + 1)
+        if shift >= nb:
+            continue                         # bits every key shares
+        above = shift + DIGIT
+        match = (key >> above) == (v >> above)
+        bins = np.zeros(1 << DIGIT, np.int64)
+        for lo, hi in bounds:                # every segment's own bins
+            d = (key[lo:hi] >> shift) & ((1 << DIGIT) - 1)
+            np.add.at(bins, d[match[lo:hi]], w[lo:hi][match[lo:hi]])
+        below = np.cumsum(bins) - bins
+        before = bins.sum() - below - bins if topup else below
+        hit = np.flatnonzero((acc + before < want)
+                             & (want <= acc + before + bins))
+        assert hit.size == 1
+        v |= int(hit[0]) << shift
+        acc += int(before[hit[0]])
+        passes += 1
+    m = want - acc
+    at = key == v
+    tw = np.where(at, w, 0)
+    gl = np.where(key > v if topup else key < v, w, 0)
+    # segment totals, then the warps' within each segment
+    freq = np.empty(k, np.int64)
+    cdf = np.zeros(k + 1, np.int64)
+    seg_tie = np.array([tw[lo:hi].sum() for lo, hi in bounds])
+    seg_tb = np.cumsum(seg_tie) - seg_tie
+    seg_f = np.array([_final_sum(f0[lo:hi].sum(), gl[lo:hi].sum(), t_, hi - lo,
+                                 tb, topup, base, r, m)
+                      for (lo, hi), t_, tb in zip(bounds, seg_tie, seg_tb)])
+    seg_off = np.cumsum(seg_f) - seg_f
+    for (lo, hi), tb0, off in zip(bounds, seg_tb, seg_off):
+        for wlo in range(lo, hi, WARP_ENTRIES):
+            whi = min(hi, wlo + WARP_ENTRIES)
+            wt = tw[wlo:whi]
+            excl = tb0 + np.cumsum(wt) - wt
+            ff = f0[wlo:whi].copy()
+            if topup:
+                ff += base + ((r > 0) & ((key[wlo:whi] > v)
+                                         | (at[wlo:whi] & (excl < m))))
+            else:
+                ff -= np.where(key[wlo:whi] < v, cap[wlo:whi],
+                               np.where(at[wlo:whi],
+                                        np.clip(m - excl, 0, cap[wlo:whi]),
+                                        0))
+            freq[wlo:whi] = ff
+            cdf[wlo + 1:whi + 1] = off + np.cumsum(ff)
+            fsum = _final_sum(f0[wlo:whi].sum(), gl[wlo:whi].sum(), wt.sum(),
+                              whi - wlo, tb0, topup, base, r, m)
+            assert fsum == ff.sum()          # the warp's offset from totals
+            tb0 += wt.sum()
+            off += fsum
+    return freq, cdf, passes
+
+
+@pytest.mark.parametrize("k", [16385, 32064, 32768, 50280, 65536])
+def test_cluster_selection_rule_matches_jax(k):
+    """The cluster layout's selection, tie prefix and CDF offsets in numpy
+    against JAX's ``freq_cdf_from_probs`` (16,385 and 50,280 split over 3
+    and 7 segments that do not divide them), with rows that need no pass
+    (no remainder, or every key tied), a row whose keys' common prefix cuts
+    a pass, and rows that take all four."""
+    probs = _wide_rows(k)
+    jf, jc = (np.asarray(a) for a in jspc.freq_cdf_from_probs(
+        jnp.asarray(probs), 16))
+    np.testing.assert_array_equal(jf, np.asarray(
+        jspc.quantize_probs(jnp.asarray(probs), 16)))
+    runs = [cluster_rule(row) for row in probs]
+    for i, (freq, cdf, _) in enumerate(runs):
+        np.testing.assert_array_equal(freq, jf[i])
+        np.testing.assert_array_equal(cdf, jc[i])
+    passes = [n for _, _, n in runs]
+    assert passes[1] == 0 and passes[5] == 0     # no selection, or one tie
+    assert max(passes) == PASSES
+    if k in (32064, 50280):                      # the common prefix cuts one
+        assert passes[2] == PASSES - 1
+    assert (jc[:, -1] == 1 << 16).all()
